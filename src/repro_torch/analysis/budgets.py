@@ -1,0 +1,36 @@
+"""The integer bit budgets, in one place (twin of ``repro.analysis.budgets``).
+
+  * ``INT32_MAX``      — the accumulator container every static check
+    proves against;
+  * ``MAX_ROWSUM_LEN`` — longest softmax row whose exact e16 sum stays
+    int32: ``rowlen * 2^15 <= 2^30``;
+  * ``MAX_SQ``         — speculative query rows one decode launch holds.
+"""
+from __future__ import annotations
+
+INT32_MAX = 2 ** 31 - 1
+
+MAX_ROWSUM_LEN = 1 << 15
+
+MAX_SQ = 8
+
+
+class BitBudgetError(ValueError):
+    """A worst-case integer range left its budget (a ``ValueError``)."""
+
+    def __init__(self, what: str, value: int, budget: int = INT32_MAX):
+        self.what = what
+        self.value = int(value)
+        self.budget = int(budget)
+        if budget == INT32_MAX:
+            msg = f"int32 overflow in {what}: worst case {value} > 2^31-1"
+        else:
+            msg = f"budget exceeded in {what}: {value} > {budget}"
+        super().__init__(msg)
+
+
+def static_check(val: int, what: str, budget: int = INT32_MAX) -> int:
+    """Design-time bound check; returns ``val`` so checks can inline."""
+    if val > budget:
+        raise BitBudgetError(what, val, budget)
+    return val

@@ -1,0 +1,76 @@
+"""The serving request contract.
+
+Copy of ``repro.analysis.contracts``'s ``check_request`` /
+``require_request``.  The reference's tiling predicates (``can_tile*``)
+are not copied: they state Pallas block constraints, and the port's
+kernels translate every position through the page table, so they take
+any page size or chunk length; each kernel wrapper raises for what its
+kernel cannot do instead.
+"""
+from __future__ import annotations
+
+
+class RequestInfeasible(ValueError):
+    """A serving request that can never complete on this cache geometry.
+    Fields: ``prompt_len``, ``max_new_tokens``, ``cache_len``,
+    ``reasons`` (every violated clause)."""
+
+    def __init__(self, prompt_len: int, max_new_tokens: int,
+                 cache_len: int, reasons):
+        self.prompt_len = prompt_len
+        self.max_new_tokens = max_new_tokens
+        self.cache_len = cache_len
+        self.reasons = tuple(reasons)
+        super().__init__(
+            f"infeasible request (prompt_len={prompt_len}, "
+            f"max_new_tokens={max_new_tokens}, cache_len={cache_len}): "
+            + "; ".join(self.reasons))
+
+
+def check_request(prompt_len: int, max_new_tokens: int, cache_len: int,
+                  window: int = 0, page_size: int = 0,
+                  num_pages: int = 0) -> tuple:
+    """Violated clauses of one request against a cache geometry (empty =
+    feasible).  Full-causal archs need ``prompt_len - 1 + max_new_tokens
+    <= cache_len``; a paged pool must be able to hold the prompt."""
+    reasons = []
+    if prompt_len < 1:
+        reasons.append("empty prompt: a request needs at least one token")
+    if max_new_tokens < 1:
+        reasons.append(f"max_new_tokens must be >= 1 (got "
+                       f"{max_new_tokens})")
+    L = min(cache_len, window) if window > 0 else cache_len
+    if window == 0 and prompt_len > L:
+        reasons.append(
+            f"prompt of {prompt_len} tokens exceeds the cache_len={L} "
+            "logical cache: prefill would write past the page table and "
+            "silently corrupt live positions")
+    elif window == 0 and prompt_len - 1 + max_new_tokens > cache_len:
+        reasons.append(
+            f"prompt_len + max_new_tokens exceeds the cache: the stream "
+            f"needs {prompt_len - 1 + max_new_tokens} K/V positions but "
+            f"cache_len={cache_len} — the request would silently retire "
+            f"after {cache_len - prompt_len + 1} token(s); shrink "
+            "max_new_tokens or raise cache_len")
+    if window == 0 and page_size > 0 and num_pages > 0:
+        span = min(max(prompt_len - 1, 0), L)
+        blocks = -(-span // page_size)
+        if blocks > num_pages - 1:
+            reasons.append(
+                f"prompt prefill needs {blocks} pages but the pool only "
+                f"has {num_pages - 1} allocatable (page 0 is the null "
+                "page): the admission can never succeed")
+    return tuple(reasons)
+
+
+def require_request(prompt_len: int, max_new_tokens: int, cache_len: int,
+                    window: int = 0, page_size: int = 0,
+                    num_pages: int = 0) -> None:
+    """Raise :class:`RequestInfeasible` if :func:`check_request` finds
+    any violated clause."""
+    reasons = check_request(prompt_len, max_new_tokens, cache_len,
+                            window=window, page_size=page_size,
+                            num_pages=num_pages)
+    if reasons:
+        raise RequestInfeasible(prompt_len, max_new_tokens, cache_len,
+                                reasons)

@@ -1,0 +1,8 @@
+"""llama3-8b [dense]: GQA, 128k vocab [arXiv:2407.21783]."""
+from repro_torch.models.common import ArchConfig
+
+CONFIG = ArchConfig(
+    name="llama3-8b", family="dense", num_layers=32, d_model=4096,
+    n_heads=32, n_kv_heads=8, d_ff=14336, vocab=128256, head_dim=128,
+    activation="swiglu", norm="rmsnorm", rope_theta=500000.0,
+)

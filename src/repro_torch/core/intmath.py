@@ -1,0 +1,99 @@
+"""Integer-only math primitives (SwiftTron §III-F/I; twin of
+``repro.core.intmath``): i-exp and the integer square root.
+
+Everything operates on int32 tensors with design-time constants.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.analysis.budgets import static_check
+
+# I-BERT second-order polynomial: exp(p) ~ a(p+b)^2+c on (-ln2, 0]
+EXP_A, EXP_B, EXP_C = 0.35815147, 1.353, 0.344
+LN2 = math.log(2.0)
+
+
+def int_einsum(eq: str, a, b):
+    """Exact int32 ``einsum`` of int8 operands.
+
+    Torch has no integer matmul on CUDA, so the plain contraction runs in
+    float64: every product of two int8 values and every partial sum of up
+    to 2^38 of them is an integer below 2^53, hence exact in any summation
+    order.  The int64 hop truncates to int32 as the reference's int32
+    accumulator would."""
+    out = torch.einsum(eq, a.to(torch.float64), b.to(torch.float64))
+    return out.to(torch.int64).to(torch.int32)
+
+
+def int_bit_length(n):
+    """Vectorised bit length of non-negative int32 ``n`` (integer-only)."""
+    b = torch.zeros_like(n)
+    v = n
+    for s in (16, 8, 4, 2, 1):
+        t = v >> s
+        go = t > 0
+        b = torch.where(go, b + s, b)
+        v = torch.where(go, t, v)
+    return b + (v > 0).to(n.dtype)
+
+
+def i_sqrt(n, iters: int = 16):
+    """Integer sqrt via the paper's §III-I Babylonian recursion: a fixed
+    ``iters`` Newton steps, the clamp at 46340 = floor(sqrt(2^31-1)) and
+    the final +-1 corrections.  Exact floor(sqrt(n)) for 0 <= n < 2^31;
+    0 for n <= 0."""
+    n = n.to(torch.int32)
+    bl = int_bit_length(n)
+    x = torch.clamp(torch.ones_like(n) << ((bl + 1) >> 1), min=1)
+    for _ in range(iters):
+        nx = (x + torch.div(n, x, rounding_mode="floor")) >> 1
+        # monotone envelope: once below the true sqrt it oscillates by <=1
+        x = torch.minimum(x, torch.clamp(nx, min=1))
+    x = torch.clamp(x, max=46340)      # keeps x*x in int32
+    for _ in range(2):                 # floor-division oscillation
+        x = torch.where(x * x > n, x - 1, x)
+    x = torch.where((x < 46340) & ((x + 1) * (x + 1) <= n), x + 1, x)
+    return torch.where(n <= 0, torch.zeros_like(x), x)
+
+
+class IExpPlan(NamedTuple):
+    """Design-time constants for i-exp at a fixed input scale."""
+    s_in: float
+    s_out: float
+    q_ln2: int
+    q_b: int
+    q_c: int
+    z_max: int
+
+    @property
+    def q_one(self) -> int:
+        """Integer representing 1.0 at the output scale (= exp(0))."""
+        return int(round(1.0 / self.s_out))
+
+
+def make_iexp(s_in: float, z_max: int = 30) -> IExpPlan:
+    q_ln2 = int(math.floor(LN2 / s_in))
+    if q_ln2 < 16:
+        raise ValueError(f"i-exp input scale too coarse: {s_in}")
+    q_b = int(math.floor(EXP_B / s_in))
+    s_out = EXP_A * s_in * s_in
+    q_c = int(math.floor(EXP_C / s_out))
+    static_check(q_b * q_b + q_c, "i-exp polynomial")
+    static_check(z_max * q_ln2, "i-exp range clip")
+    return IExpPlan(s_in, s_out, q_ln2, q_b, q_c, z_max)
+
+
+def i_exp(q, plan: IExpPlan):
+    """exp(x) for x = q * s_in <= 0, int32 at ``plan.s_out``:
+    x = p - z*ln2, exp(x) = exp(p) >> z with exp(p) ~ a(p+b)^2 + c."""
+    q = torch.clamp(q, max=0)
+    qn = torch.clamp(q, min=-plan.z_max * plan.q_ln2)
+    z = torch.div(-qn, plan.q_ln2, rounding_mode="floor")
+    q_p = qn + z * plan.q_ln2                      # in (-q_ln2, 0]
+    t = q_p + plan.q_b
+    q_l = t * t + plan.q_c
+    return q_l >> z                                # exp(p) * 2^-z

@@ -1,0 +1,209 @@
+// The exact three-sweep integer attention body shared by the paged decode
+// kernel (K3, int_decode_attention.cu) and the paged chunked-prefill kernel
+// (K4, int_paged_prefill.cu).
+//
+// Twin of repro/kernels/int_attention_fused.py::_streaming_attn_body:
+//
+//   sweep 0  row max   m = max_t score(r, t)                (atomicMax)
+//   sweep 1  row sum   s = sum_t e16(score(r, t) - m)       (atomicAdd)
+//   sweep 2  p8 = clip(rshift_round(e16 * (2^30 // s), 23), 0, 127);
+//            acc[r][d] += p8 * v8[t][d]
+//
+// then the RequantSpec epilogue.  Integer max and modular integer sums
+// are associative and commutative, so the parallel reductions give the
+// reference's bits exactly.  Q·Kᵀ is recomputed per sweep (three __dp4a
+// dot products per live position instead of a stored score row), so any
+// cache length up to the 2^15 row-sum budget fits the same shared memory.
+//
+// Both kernels attend query row i (of S rows) to the logical positions
+// t < valid_len - (S - 1 - i): the stepped mask.  For decode valid_len is
+// the per-slot occupancy; for a prefill chunk of C rows it is pos_end =
+// base_pos + C, and the same formula is the causal-over-history mask.
+// Only the live positions t < max_row_limit are visited (dead KV blocks
+// are skipped, per-step work is O(valid_len)); each position is translated
+// logical -> physical through the page table inside the block:
+//   page = pages[b, t / page_size], row = t % page_size.
+// GQA: query head h reads KV head h / (H / Hkv).
+#pragma once
+
+#include "int_common.cuh"
+
+namespace r8 {
+
+struct AttnArgs {
+  const int8_t* q;          // (B, S, H, D)
+  const int8_t* k_pool;     // (num_pages, page_size, Hkv, D)
+  const int8_t* v_pool;
+  const int* pages;         // (B, max_pages)
+  const int* vlen;          // (B,) valid_len / pos_end
+  const int* bvec;          // (H * D,) per-channel multipliers or null
+  void* out;                // (B, S, H, D) int8 or int32
+  int B, S, H, Hkv, D, page_size, max_pages, out_is_int8;
+  SoftmaxConsts sm;
+  Requant rq;
+};
+
+constexpr int ATTN_THREADS = 128;
+
+// dynamic shared memory of one block (bytes)
+__host__ __device__ constexpr int attn_smem_bytes(int BQ, int TK, int D) {
+  return (BQ * (D / 4 + 1) + TK * (D / 4 + 1)) * 4 + TK * D + BQ * TK * 4;
+}
+
+template <int BQ, int TK, int D>
+__global__ void __launch_bounds__(ATTN_THREADS)
+int_attention_kernel(AttnArgs a) {
+  constexpr int NT = ATTN_THREADS;
+  constexpr int D4 = D / 4;
+  constexpr int QS = D4 + 1;               // padded word stride (banks)
+  constexpr int ACC = (BQ * D + NT - 1) / NT;
+  extern __shared__ int smem[];
+  int* sQ = smem;                          // BQ x QS packed q words
+  int* sK = sQ + BQ * QS;                  // TK x QS packed k words
+  int8_t* sV = reinterpret_cast<int8_t*>(sK + TK * QS);   // TK x D
+  int* sP = reinterpret_cast<int*>(sV + TK * D);          // BQ x TK
+  __shared__ int sMax[BQ], sSum[BQ], sR[BQ], sLim[BQ];
+
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (a.H / a.Hkv);
+  const int L = a.max_pages * a.page_size;
+  const int nrows = min(BQ, a.S - q0);
+  const int vl = a.vlen[b];
+  const int* ptab = a.pages + (size_t)b * a.max_pages;
+
+  for (int i = tid; i < BQ * D4; i += NT) {
+    const int r = i / D4, w = i % D4;
+    int v = 0;
+    if (r < nrows) {
+      const size_t off = (((size_t)b * a.S + q0 + r) * a.H + h) * D;
+      v = reinterpret_cast<const int*>(a.q + off)[w];
+    }
+    sQ[r * QS + w] = v;
+  }
+  for (int r = tid; r < BQ; r += NT) {
+    // stepped mask limit of row r, clamped to the logical cache length
+    const int lim = vl - (a.S - 1 - (q0 + r));
+    sLim[r] = r < nrows ? min(max(lim, 0), L) : 0;
+    sMax[r] = -(1 << 30);
+    sSum[r] = 0;
+  }
+  __syncthreads();
+  // the last real row sees the most positions: everything past it is dead
+  const int n_live = sLim[nrows - 1];
+
+  int acc[ACC];
+#pragma unroll
+  for (int e = 0; e < ACC; ++e) acc[e] = 0;
+
+  for (int sweep = 0; sweep < 3; ++sweep) {
+    if (sweep == 2) {
+      for (int r = tid; r < BQ; r += NT)
+        // s >= 0 (sum of non-negative e16, <= 2^30): truncation == floor
+        sR[r] = (1 << 30) / max(sSum[r], 1);
+      __syncthreads();
+    }
+    for (int t0 = 0; t0 < n_live; t0 += TK) {
+      for (int i = tid; i < TK * D4; i += NT) {
+        const int j = i / D4, w = i % D4;
+        const int t = t0 + j;
+        int kv = 0, vv = 0;
+        if (t < n_live) {
+          const int page = ptab[t / a.page_size];
+          const size_t off =
+              (((size_t)page * a.page_size + t % a.page_size) * a.Hkv + hk) *
+              D;
+          kv = reinterpret_cast<const int*>(a.k_pool + off)[w];
+          if (sweep == 2) vv = reinterpret_cast<const int*>(a.v_pool + off)[w];
+        }
+        sK[j * QS + w] = kv;
+        if (sweep == 2) reinterpret_cast<int*>(sV)[j * D4 + w] = vv;
+      }
+      __syncthreads();
+      for (int p = tid; p < BQ * TK; p += NT) {
+        const int r = p / TK, j = p % TK;
+        const int t = t0 + j;
+        const bool live = t < sLim[r];
+        int score = 0;
+        if (live) {
+#pragma unroll 8
+          for (int w = 0; w < D4; ++w)
+            score = __dp4a(sQ[r * QS + w], sK[j * QS + w], score);
+        }
+        if (sweep == 0) {
+          if (live) atomicMax(&sMax[r], score);
+        } else if (sweep == 1) {
+          if (live) atomicAdd(&sSum[r], exp16(wsub(score, sMax[r]), a.sm));
+        } else {
+          int pr = 0;
+          if (live) {
+            const int e16 = exp16(wsub(score, sMax[r]), a.sm);
+            pr = clampi(rshift_round(wmul(e16, sR[r]), 23), 0, 127);
+          }
+          sP[r * TK + j] = pr;
+        }
+      }
+      __syncthreads();
+      if (sweep == 2) {
+#pragma unroll
+        for (int e = 0; e < ACC; ++e) {
+          const int idx = tid + e * NT;
+          if (idx < BQ * D) {
+            const int r = idx / D, d = idx % D;
+            int s = acc[e];
+            for (int j = 0; j < TK; ++j)
+              s += sP[r * TK + j] * (int)sV[j * D + d];
+            acc[e] = s;
+          }
+        }
+        __syncthreads();
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int e = 0; e < ACC; ++e) {
+    const int idx = tid + e * NT;
+    if (idx >= BQ * D) continue;
+    const int r = idx / D, d = idx % D;
+    if (r >= nrows) continue;
+    int v = acc[e];
+    if (a.rq.kind != RQ_RAW) {
+      const int bm = a.rq.kind == RQ_PER_CHANNEL ? a.bvec[h * D + d] : a.rq.b;
+      v = requant(v, a.rq, bm);
+    }
+    const size_t o = (((size_t)b * a.S + q0 + r) * a.H + h) * D + d;
+    if (a.out_is_int8)
+      reinterpret_cast<int8_t*>(a.out)[o] = (int8_t)v;
+    else
+      reinterpret_cast<int*>(a.out)[o] = v;
+  }
+}
+
+// launch one instantiation; D must be 32, 64 or 128
+template <int BQ, int TK>
+inline int launch_attention(const AttnArgs& a, cudaStream_t s) {
+  dim3 grid((a.S + BQ - 1) / BQ, a.H, a.B);
+  switch (a.D) {
+    case 32:
+      int_attention_kernel<BQ, TK, 32>
+          <<<grid, ATTN_THREADS, attn_smem_bytes(BQ, TK, 32), s>>>(a);
+      break;
+    case 64:
+      int_attention_kernel<BQ, TK, 64>
+          <<<grid, ATTN_THREADS, attn_smem_bytes(BQ, TK, 64), s>>>(a);
+      break;
+    case 128:
+      int_attention_kernel<BQ, TK, 128>
+          <<<grid, ATTN_THREADS, attn_smem_bytes(BQ, TK, 128), s>>>(a);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace r8

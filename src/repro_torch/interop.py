@@ -1,0 +1,74 @@
+"""Carry quantized weights and plans from the JAX package into the port.
+
+:func:`from_reference` turns the reference's ``(qparams, plans)`` into
+the port's: arrays (already numpy, e.g. after ``jax.tree.map(np.asarray,
+qparams)``) become torch tensors on ``device``, and plan objects are read
+by field name (``_fields`` / ``dataclasses.fields``) into the port's own
+types of the same name — so this module, like the rest of the port,
+imports nothing of the JAX package.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core.activations import ISiluPlan
+from repro_torch.core.attention import IAttnPlan
+from repro_torch.core.dyadic import Dyadic
+from repro_torch.core.intmath import IExpPlan
+from repro_torch.core.norms import INormPlan
+from repro_torch.core.softmax import ISoftmaxPlan
+from repro_torch.ops.spec import QuantLinearParams
+from repro_torch.quant.plans import (AttnPlan, EmbedPlan, FfnPlan, HeadPlan,
+                                     LayerPlans, LinearPlan)
+
+PLAN_TYPES = {t.__name__: t for t in (
+    Dyadic, IExpPlan, ISoftmaxPlan, IAttnPlan, INormPlan, ISiluPlan,
+    LinearPlan, AttnPlan, FfnPlan, EmbedPlan, HeadPlan, LayerPlans)}
+
+
+def plan_from_reference(obj):
+    """A reference plan (NamedTuple / frozen dataclass / scalar) as the
+    port's type of the same class name, field by field."""
+    if obj is None or isinstance(obj, (bool, int, float, str)):
+        return obj
+    name = type(obj).__name__
+    if name not in PLAN_TYPES:
+        raise NotImplementedError(f"plan type {name} is not ported yet")
+    if dataclasses.is_dataclass(obj):
+        fields = [f.name for f in dataclasses.fields(obj)]
+    else:
+        fields = list(obj._fields)
+    return PLAN_TYPES[name](**{f: plan_from_reference(getattr(obj, f))
+                               for f in fields})
+
+
+def _tensor(a, device):
+    return torch.as_tensor(np.array(a), device=device)
+
+
+def qparams_from_reference(tree, device="cpu"):
+    """numpy leaves -> tensors on ``device``; the reference's
+    ``QuantLinearParams`` (by name and fields) -> the port's dense one."""
+    if tree is None:
+        return None
+    if type(tree).__name__ == "QuantLinearParams":
+        if getattr(tree, "w_packed", None) is not None:
+            raise NotImplementedError("packed int4/MSR-4 weights are not "
+                                      "ported yet")
+        return QuantLinearParams(*[qparams_from_reference(
+            getattr(tree, f), device) for f in QuantLinearParams._fields])
+    if isinstance(tree, dict):
+        return {k: qparams_from_reference(v, device)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [qparams_from_reference(v, device) for v in tree]
+    return _tensor(tree, device)
+
+
+def from_reference(qparams, plans, device="cpu"):
+    """``(qparams, plans)`` of the JAX package -> the port's."""
+    return (qparams_from_reference(qparams, device),
+            plan_from_reference(plans))

@@ -1,0 +1,26 @@
+"""Hand-written Hopper kernels of the serving main path, and their oracles.
+
+  * K1 ``int8_matmul.int8_matmul``                     (csrc/int8_matmul.cu)
+  * K2 ``int_layernorm.int_layernorm``                 (csrc/int_layernorm.cu)
+  * K3 ``int_decode_attention.int_decode_attention_fused``
+                                                 (csrc/int_decode_attention.cu)
+  * K4 ``int_attention_fused.int_paged_prefill_fused``
+                                                 (csrc/int_paged_prefill.cu)
+
+Each wrapper takes its plain PyTorch version (beside it, in the same
+module) for a tensor on the CPU, and launches its CUDA kernel — or raises
+— for a tensor on the card.  ``LAUNCHES`` counts kernel launches per
+wrapper: a wrapper adds one exactly where it launches its kernel, so a
+run can show that the main path went through the kernels.
+"""
+from __future__ import annotations
+
+KERNELS = ("int8_matmul", "int_layernorm", "int_decode_attention",
+           "int_paged_prefill")
+
+LAUNCHES = dict.fromkeys(KERNELS, 0)
+
+
+def reset_launches() -> None:
+    for name in KERNELS:
+        LAUNCHES[name] = 0

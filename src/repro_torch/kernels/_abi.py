@@ -1,0 +1,116 @@
+"""The C interface of the kernel library: ``ctypes`` mirrors of the
+structs in ``csrc/*.cu*``, every entry point's ``argtypes``/``restype``,
+and the host-side packing of plans and RequantSpecs into those structs."""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.ops.spec import PER_CHANNEL, PER_TENSOR
+
+_I = ctypes.c_int
+_P = ctypes.c_void_p
+
+RQ_RAW, RQ_PER_TENSOR, RQ_PER_CHANNEL = 0, 1, 2
+
+
+class Requant(ctypes.Structure):
+    _fields_ = [(n, _I) for n in ("kind", "b", "c", "pre", "lo", "hi")]
+
+
+class SoftmaxConsts(ctypes.Structure):
+    _fields_ = [(n, _I) for n in ("q_band", "in_b", "in_c", "in_pre",
+                                  "q_ln2", "q_b", "q_c", "neg_zq",
+                                  "e_b", "e_c", "e_pre")]
+
+
+class NormConsts(ctypes.Structure):
+    _fields_ = [(n, _I) for n in ("d", "subtract_mean", "mean_b", "mean_c",
+                                  "mean_pre", "var_b", "var_c", "var_pre",
+                                  "pre_shift", "recip_bits", "out_b",
+                                  "out_c", "out_pre", "lo", "hi")]
+
+
+class AttnArgs(ctypes.Structure):
+    _fields_ = ([(n, _P) for n in ("q", "k_pool", "v_pool", "pages",
+                                   "vlen", "bvec", "out")]
+                + [(n, _I) for n in ("B", "S", "H", "Hkv", "D", "page_size",
+                                     "max_pages", "out_is_int8")]
+                + [("sm", SoftmaxConsts), ("rq", Requant)])
+
+
+def declare(lib: ctypes.CDLL) -> None:
+    lib.r8_int8_matmul.argtypes = [
+        _P, _P, _P, _P, ctypes.POINTER(Requant), _P, _I, _I, _I, _I, _I,
+        _I, _I, _P, _P, _I, _I, _P]
+    lib.r8_int8_matmul.restype = _I
+    lib.r8_int_layernorm.argtypes = [_P, _P, _P, ctypes.POINTER(NormConsts),
+                                     _P, _I, _P]
+    lib.r8_int_layernorm.restype = _I
+    lib.r8_int_decode_attention.argtypes = [ctypes.POINTER(AttnArgs), _P]
+    lib.r8_int_decode_attention.restype = _I
+    lib.r8_int_paged_prefill.argtypes = [ctypes.POINTER(AttnArgs), _P]
+    lib.r8_int_paged_prefill.restype = _I
+    lib.r8_error_string.argtypes = [_I]
+    lib.r8_error_string.restype = ctypes.c_char_p
+
+
+def check(lib, rc: int, what: str) -> None:
+    """Raise on a non-zero ``cudaGetLastError()`` returned by a launch."""
+    if rc != 0:
+        msg = lib.r8_error_string(rc).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _shifts_ok(b: int, c: int, pre: int) -> None:
+    if not (0 <= pre <= 31 and -31 <= c - pre <= 31 and -2**31 <= b < 2**31):
+        raise ValueError(f"dyadic (b={b}, c={c}, pre={pre}) outside the "
+                         "kernels' int32 shift range")
+
+
+def requant_struct(spec) -> Requant:
+    """Pack a RequantSpec (per-channel multipliers travel separately)."""
+    if spec.is_raw:
+        return Requant(RQ_RAW, 0, 0, 0, 0, 0)
+    lo, hi = -(1 << (spec.out_bits - 1)), (1 << (spec.out_bits - 1)) - 1
+    if spec.kind == PER_TENSOR:
+        dn = spec.dn
+        _shifts_ok(dn.b, dn.c, dn.pre)
+        return Requant(RQ_PER_TENSOR, dn.b, dn.c, dn.pre, lo, hi)
+    assert spec.kind == PER_CHANNEL
+    _shifts_ok(0, spec.c, spec.pre)
+    return Requant(RQ_PER_CHANNEL, 0, spec.c, spec.pre, lo, hi)
+
+
+def softmax_consts(sm) -> SoftmaxConsts:
+    """Pack an ISoftmaxPlan's Shiftmax constants."""
+    for dn in (sm.dn_in, sm.dn_e16):
+        _shifts_ok(dn.b, dn.c, dn.pre)
+    ie = sm.iexp
+    return SoftmaxConsts(sm.q_band, sm.dn_in.b, sm.dn_in.c, sm.dn_in.pre,
+                         ie.q_ln2, ie.q_b, ie.q_c, -ie.z_max * ie.q_ln2,
+                         sm.dn_e16.b, sm.dn_e16.c, sm.dn_e16.pre)
+
+
+def norm_consts(plan, out_bits: int) -> NormConsts:
+    """Pack an INormPlan."""
+    for dn in (plan.dn_mean, plan.dn_var, plan.dn_out):
+        _shifts_ok(dn.b, dn.c, dn.pre)
+    if not 0 <= 2 * plan.pre_shift <= 31 or \
+            plan.recip_bits + plan.pre_shift > 30:
+        raise ValueError("norm shifts outside the kernel's int32 range")
+    lo, hi = -(1 << (out_bits - 1)), (1 << (out_bits - 1)) - 1
+    return NormConsts(plan.d, int(plan.subtract_mean), plan.dn_mean.b,
+                      plan.dn_mean.c, plan.dn_mean.pre, plan.dn_var.b,
+                      plan.dn_var.c, plan.dn_var.pre, plan.pre_shift,
+                      plan.recip_bits, plan.dn_out.b, plan.dn_out.c,
+                      plan.dn_out.pre, lo, hi)

@@ -1,0 +1,1 @@
+"""Drivers of the port (``python -m repro_torch.launch.serve``)."""

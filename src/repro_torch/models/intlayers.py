@@ -1,0 +1,210 @@
+"""Integer-path transformer layers of the serving main path (the dense
+subset of ``repro.models.intlayers``).
+
+Every function consumes int8/int32 tensors and the design-time plans of
+``repro_torch.quant.plans``.  Residual stream: int32 at ``cfg.s_res``
+clipped to ``cfg.qmax_res``; matmul operands int8.  KV caches are paged
+pools ``(num_pages, page_size, Hkv, hd)`` that these functions update
+**in place** (the reference returns new arrays; the bytes are the same).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core import activations as iact
+from repro_torch.core import norms
+from repro_torch.core.dyadic import clip_to_bits, rshift_round
+from repro_torch.models.common import ArchConfig
+from repro_torch.ops import QuantLinearParams, RequantSpec, resolve_ops
+from repro_torch.quant import plans as qplans
+
+
+# ------------------------------------------------------------- linear -----
+
+def int_linear(x8, qw, plan: qplans.LinearPlan, ops=None):
+    """x8 (..., K) int8 -> (..., N): int8 when the plan requantizes to
+    <= 8 bits, else the int32 (clipped or raw) accumulator."""
+    ops = resolve_ops(ops)
+    qw = QuantLinearParams.of(qw)
+    lead = x8.shape[:-1]
+    spec = RequantSpec.for_linear(plan)
+    out = ops.int8_matmul(x8.reshape(-1, x8.shape[-1]), qw.w8, spec,
+                          bias32=qw.bias32, b_vec=qw.b_mult)
+    out = out.reshape(*lead, qw.n_dim)
+    if not spec.is_raw and plan.out_bits <= 8:
+        out = out.to(torch.int8)
+    return out
+
+
+def int_norm(qnorm, q32, plan: norms.INormPlan, ops=None):
+    """q32 (..., D) int32 at s_res -> int8 at s_act8."""
+    ops = resolve_ops(ops)
+    out = ops.int_layernorm(q32, qnorm["gamma_q"], qnorm.get("beta_q"),
+                            plan, out_bits=8)
+    return out.to(torch.int8)
+
+
+# ------------------------------------------------------------- rope -------
+
+ROPE_FRAC = 14
+
+
+def build_rope_table(max_seq: int, hd: int, theta: float, device="cpu"):
+    """Design-time cos/sin tables at 2^-14 (integer RoPE), int32
+    ``(max_seq, hd/2)`` each, computed in float64 exactly as the
+    reference does."""
+    pos = np.arange(max_seq, dtype=np.float64)[:, None]
+    freqs = 1.0 / (theta ** (np.arange(0, hd, 2, dtype=np.float64) / hd))
+    ang = pos * freqs[None, :]
+    cos = np.round(np.cos(ang) * (1 << ROPE_FRAC)).astype(np.int32)
+    sin = np.round(np.sin(ang) * (1 << ROPE_FRAC)).astype(np.int32)
+    return (torch.as_tensor(cos, device=device),
+            torch.as_tensor(sin, device=device))
+
+
+def rope_gather(rope_tab, positions):
+    """cos/sin rows for ``positions`` ((B,S) or (S,)), shaped to broadcast
+    over (B, S, H, hd/2).  The reference's ``jnp.take`` would clamp an
+    out-of-range position; here one is an error."""
+    cos_t, sin_t = rope_tab
+    positions = positions.to(device=cos_t.device, dtype=torch.long)
+    if positions.numel() and (int(positions.min()) < 0
+                              or int(positions.max()) >= cos_t.shape[0]):
+        raise IndexError(f"RoPE position outside the table's "
+                         f"{cos_t.shape[0]} rows")
+    cos, sin = cos_t[positions], sin_t[positions]
+    if cos.dim() == 2:
+        cos, sin = cos[None], sin[None]
+    return cos[:, :, None, :], sin[:, :, None, :]
+
+
+def rope_rotate(q8, cos, sin):
+    """Integer rotation of (B,S,H,hd) int8 by gathered cos/sin rows."""
+    q = q8.to(torch.int32)
+    q1, q2 = torch.chunk(q, 2, dim=-1)
+    r1 = rshift_round(q1 * cos - q2 * sin, ROPE_FRAC)
+    r2 = rshift_round(q1 * sin + q2 * cos, ROPE_FRAC)
+    out = torch.cat([r1, r2], dim=-1)
+    return torch.clamp(out, -127, 127).to(torch.int8)
+
+
+def apply_int_rope(q8, positions, rope_tab):
+    """q8: (B,S,H,hd) int8; positions: (B,S) or (S,) int."""
+    cos, sin = rope_gather(rope_tab, positions)
+    return rope_rotate(q8, cos, sin)
+
+
+# --------------------------------------------------------- attention ------
+
+def _qkv(qp, x8, plans: qplans.AttnPlan, cfg: ArchConfig, ops):
+    b, s, _ = x8.shape
+    q8 = int_linear(x8, qp["wq"], plans.qkv, ops) \
+        .reshape(b, s, cfg.n_heads, cfg.hd)
+    k8 = int_linear(x8, qp["wk"], plans.qkv, ops) \
+        .reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    v8 = int_linear(x8, qp["wv"], plans.qkv, ops) \
+        .reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    return q8, k8, v8
+
+
+def int_attn_decode(qp, x8, cache, pos, plans: qplans.AttnPlan,
+                    cfg: ArchConfig, rope_tab=None, ops=None, pages=None,
+                    page_size: int = 0, max_len: int = 0,
+                    fold_wo: bool = False, rope=None):
+    """One-token decode over a paged pool.  x8: (B,1,D); cache
+    ``{"k8","v8"}``; ``pos``: (B,) write position of each lane, which
+    lands at ``(pages[b, pos // page_size], pos % page_size)`` — unmapped
+    lanes write into the reserved null page 0.  ``max_len`` bounds the
+    logical occupancy (default: the page-table span).  ``rope``: cos/sin
+    already gathered for ``pos`` (:func:`rope_gather`), else gathered
+    here from ``rope_tab``.  Returns (out32 (B,1,D), cache) — the pools
+    are written in place."""
+    ops = resolve_ops(ops)
+    if pages is None:
+        raise NotImplementedError("the contiguous KV cache is not ported "
+                                  "yet (ROADMAP §1 item 5)")
+    b = x8.shape[0]
+    L = max_len or pages.shape[1] * page_size
+    q8, k8, v8 = _qkv(qp, x8, plans, cfg, ops)
+    if rope is None and rope_tab is not None:
+        rope = rope_gather(rope_tab, pos[:, None])
+    if rope is not None:
+        q8 = rope_rotate(q8, *rope)
+        k8 = rope_rotate(k8, *rope)
+    pos_l = pos.to(torch.long)
+    page = pages.to(torch.long)[torch.arange(b, device=pages.device),
+                                pos_l // page_size]
+    off = pos_l % page_size
+    cache["k8"].index_put_((page, off), k8[:, 0])
+    cache["v8"].index_put_((page, off), v8[:, 0])
+    valid = torch.clamp(pos + 1, max=L).to(torch.int32)
+    requant = RequantSpec.per_tensor(plans.attn.dn_out)
+    if fold_wo:
+        out32 = ops.int_decode_attention(
+            q8, cache["k8"], cache["v8"], plans.attn, valid, pages=pages,
+            page_size=page_size, requant=requant,
+            wo=QuantLinearParams.of(qp["wo"]),
+            wo_spec=RequantSpec.for_linear(plans.out))
+    else:
+        o8 = ops.int_decode_attention(
+            q8, cache["k8"], cache["v8"], plans.attn, valid, pages=pages,
+            page_size=page_size, requant=requant)
+        o8 = o8.to(torch.int8).reshape(b, 1, cfg.n_heads * cfg.hd)
+        out32 = int_linear(o8, qp["wo"], plans.out, ops)
+    return out32, cache
+
+
+def int_attn_prefill_chunk(qp, x8, cache, base_pos, plans: qplans.AttnPlan,
+                           cfg: ArchConfig, rope_tab=None, ops=None,
+                           pages=None, page_size: int = 0,
+                           fold_wo: bool = False, rope=None):
+    """Chunked prefill attention over a paged pool.  x8: (B, C, D), lane
+    ``b`` covering logical positions ``[base_pos[b], base_pos[b] + C)``.
+    Writes the chunk's K/V through the table (in place) and runs causal
+    attention over history + chunk.  ``rope``: cos/sin already gathered
+    for those positions.  Returns (out32 (B, C, D), cache)."""
+    if cfg.window:
+        raise NotImplementedError("chunked prefill needs full causal "
+                                  "attention")
+    ops = resolve_ops(ops)
+    b, c, _ = x8.shape
+    q8, k8, v8 = _qkv(qp, x8, plans, cfg, ops)
+    if rope is None and rope_tab is not None:
+        positions = base_pos[:, None] + torch.arange(
+            c, dtype=base_pos.dtype, device=base_pos.device)
+        rope = rope_gather(rope_tab, positions)
+    if rope is not None:
+        q8 = rope_rotate(q8, *rope)
+        k8 = rope_rotate(k8, *rope)
+    requant = RequantSpec.per_tensor(plans.attn.dn_out)
+    if fold_wo:
+        out32, k_pool, v_pool = ops.int_paged_prefill(
+            q8, k8, v8, cache["k8"], cache["v8"], plans.attn, base_pos,
+            pages, page_size, requant=requant,
+            wo=QuantLinearParams.of(qp["wo"]),
+            wo_spec=RequantSpec.for_linear(plans.out))
+    else:
+        o8, k_pool, v_pool = ops.int_paged_prefill(
+            q8, k8, v8, cache["k8"], cache["v8"], plans.attn, base_pos,
+            pages, page_size, requant=requant)
+        o8 = o8.to(torch.int8).reshape(b, c, cfg.n_heads * cfg.hd)
+        out32 = int_linear(o8, qp["wo"], plans.out, ops)
+    return out32, {"k8": k_pool, "v8": v_pool}
+
+
+# --------------------------------------------------------------- ffn ------
+
+def int_ffn_fwd(qp, x8, plans: qplans.FfnPlan, cfg: ArchConfig, ops=None):
+    """SwiGLU FFN.  x8 (B,S,D) int8 -> int32 at s_res.  The i-SiLU gate
+    and the gate product are plain tensor code."""
+    if cfg.activation != "swiglu":
+        raise NotImplementedError("GELU FFNs are not ported yet "
+                                  "(ROADMAP §1 item 8)")
+    ops = resolve_ops(ops)
+    h1 = int_linear(x8, qp["w1"], plans.up, ops)            # 11-bit int32
+    h3 = int_linear(x8, qp["w3"], plans.up, ops)
+    a8 = iact.i_silu(h1, plans.act_silu, out_bits=8)
+    prod = a8 * h3                                          # s8 * s10
+    h = clip_to_bits(plans.dn_gate(prod), 8).to(torch.int8)
+    return int_linear(h, qp["w2"], plans.down, ops)

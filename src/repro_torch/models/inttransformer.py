@@ -1,0 +1,148 @@
+"""Integer serving datapath of a dense decoder (the main-path subset of
+``repro.models.inttransformer``): embedding, chunked prefill, decode,
+logits.
+
+Everything from the embedding lookup to the last requant is SwiftTron
+integer arithmetic; only the final logits are dequantized (the host-side
+sampling boundary).  Where the reference scans over the stacked layers
+with ``lax.scan``, this is a Python loop over views of the stacks.  The
+paged KV pools are written in place.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List
+
+import torch
+
+from repro_torch.models import intlayers as il
+from repro_torch.models.common import ArchConfig
+from repro_torch.models.transformer import layer_group_spec
+from repro_torch.ops import QuantLinearParams, resolve_ops
+from repro_torch.quant import plans as qplans
+
+Pytree = Any
+
+
+def _residual_add(x32, delta32, cfg: ArchConfig):
+    return torch.clamp(x32 + delta32, -cfg.qmax_res, cfg.qmax_res)
+
+
+def _layer(tree, g: int):
+    """Layer ``g``'s views of layer-stacked params (no copies)."""
+    if isinstance(tree, QuantLinearParams):
+        return QuantLinearParams(*[None if t is None else t[g]
+                                   for t in tree])
+    if isinstance(tree, dict):
+        return {k: _layer(v, g) for k, v in tree.items()}
+    return tree[g]
+
+
+def chunked_prefill_supported(cfg: ArchConfig) -> bool:
+    """Full (non-windowed) causal attention + dense FFN sublayers only."""
+    _, _, kinds = layer_group_spec(cfg)
+    return cfg.window == 0 and all(kind == ("attn", "ffn", False)
+                                   for kind in kinds)
+
+
+def embed_int(qparams, tokens, plans: qplans.LayerPlans, cfg: ArchConfig):
+    e8 = qparams["embed_w8"][tokens.to(torch.long)].to(torch.int32)
+    return plans.embed.dn_res(e8)
+
+
+def logits_int(qparams, x32, plans: qplans.LayerPlans, cfg: ArchConfig,
+               ops=None):
+    """Final norm + the raw int32 head (K1, raw epilogue) + the float
+    dequant ``(acc * head_scale) * s_act8`` in float32, in the reference's
+    order, so argmax ties break identically."""
+    ops = resolve_ops(ops)
+    h8 = il.int_norm(qparams["final_norm"], x32, plans.final_norm, ops)
+    head_plan = qplans.LinearPlan(cfg.s_act8, 0.0, 32, 0, 0, cfg.d_model)
+    acc = il.int_linear(h8, qparams["head"], head_plan, ops)
+    return acc.to(torch.float32) * qparams["head_scale"][None] * cfg.s_act8
+
+
+def init_decode_cache(cfg: ArchConfig, layout, device="cpu") -> List[Dict]:
+    """Per-sublayer-position paged int8 pools ``(ng, num_pages, page_size,
+    Hkv, hd)`` for ``layout`` (a ``serving.kvcache.CacheLayout``)."""
+    if layout.kv_dtype != "int8":
+        raise NotImplementedError("int4 KV pages are not ported yet "
+                                  "(ROADMAP §1 item 5)")
+    _, ng, kinds = layer_group_spec(cfg)
+    shape = (ng, layout.num_pages, layout.page_size, cfg.n_kv_heads,
+             cfg.hd)
+    return [{"k8": torch.zeros(shape, dtype=torch.int8, device=device),
+             "v8": torch.zeros(shape, dtype=torch.int8, device=device)}
+            for _ in kinds]
+
+
+def _sublayers(qparams, caches, cfg: ArchConfig):
+    """(layer params, layer cache) views in architectural order."""
+    _, ng, kinds = layer_group_spec(cfg)
+    for g in range(ng):
+        for j in range(len(kinds)):
+            cache = caches[j]
+            yield (_layer(qparams["layers"][j], g),
+                   {"k8": cache["k8"][g], "v8": cache["v8"][g]})
+
+
+def int_decode_step(qparams, caches, tokens, pos, plans, cfg: ArchConfig,
+                    rope_tab=None, ops=None, pages=None, page_size: int = 0,
+                    max_len: int = 0, fold_wo: bool = False):
+    """tokens (B,) int, pos (B,) int32 -> (logits (B, V) float32, caches).
+
+    ``pages``/``page_size``/``max_len``: the paged KV operands (page table
+    int32 (B, max_pages)).  ``fold_wo`` folds each o-projection into the
+    attention call (bit-exact either way)."""
+    ops = resolve_ops(ops)
+    x32 = embed_int(qparams, tokens[:, None], plans, cfg)
+    rope = il.rope_gather(rope_tab, pos[:, None]) \
+        if rope_tab is not None else None
+    for qp, cache in _sublayers(qparams, caches, cfg):
+        h8 = il.int_norm(qp["norm1"], x32, plans.norm, ops)
+        a32, _ = il.int_attn_decode(qp["attn"], h8, cache, pos, plans.attn,
+                                    cfg, ops=ops, pages=pages,
+                                    page_size=page_size, max_len=max_len,
+                                    fold_wo=fold_wo, rope=rope)
+        x32 = _residual_add(x32, a32, cfg)
+        h8 = il.int_norm(qp["norm2"], x32, plans.norm, ops)
+        x32 = _residual_add(x32, il.int_ffn_fwd(qp["ffn"], h8, plans.ffn,
+                                                cfg, ops), cfg)
+    logits = logits_int(qparams, x32, plans, cfg, ops)[:, 0]
+    return logits, caches
+
+
+def int_prefill_chunk_step(qparams, caches, tokens, base_pos, plans,
+                           cfg: ArchConfig, rope_tab=None, ops=None,
+                           pages=None, page_size: int = 0,
+                           fold_wo: bool = False):
+    """Advance every prefilling lane by one C-token prompt chunk, writing
+    K/V straight into the paged pools (in place).
+
+    ``tokens``: (B, C) chunk tokens (pads are 0); ``base_pos``: (B,)
+    first logical position of each lane's chunk; ``pages``: the *prefill
+    view* of the page table — rows of lanes not being prefilled must be
+    nulled, so their discarded writes land on the null page.  Returns the
+    caches; the chunk's hidden states are discarded (the engine feeds the
+    prompt's last token through the decode step)."""
+    ops = resolve_ops(ops)
+    if not chunked_prefill_supported(cfg):
+        raise ValueError("chunked prefill unsupported for arch "
+                         f"{cfg.name!r} (needs window == 0 and "
+                         "attention+ffn sublayers only)")
+    c = tokens.shape[1]
+    x32 = embed_int(qparams, tokens, plans, cfg)
+    rope = None
+    if rope_tab is not None:
+        positions = base_pos[:, None] + torch.arange(
+            c, dtype=base_pos.dtype, device=base_pos.device)
+        rope = il.rope_gather(rope_tab, positions)
+    for qp, cache in _sublayers(qparams, caches, cfg):
+        h8 = il.int_norm(qp["norm1"], x32, plans.norm, ops)
+        a32, _ = il.int_attn_prefill_chunk(
+            qp["attn"], h8, cache, base_pos, plans.attn, cfg, ops=ops,
+            pages=pages, page_size=page_size, fold_wo=fold_wo, rope=rope)
+        x32 = _residual_add(x32, a32, cfg)
+        h8 = il.int_norm(qp["norm2"], x32, plans.norm, ops)
+        x32 = _residual_add(x32, il.int_ffn_fwd(qp["ffn"], h8, plans.ffn,
+                                                cfg, ops), cfg)
+    return caches

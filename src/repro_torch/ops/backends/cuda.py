@@ -1,0 +1,56 @@
+"""``cuda`` backend: the hand-written Hopper kernels (the counterpart of
+the JAX package's ``pallas_fused`` backend, and the port's default).
+
+A thin shim over the kernel wrappers of ``repro_torch.kernels``: K1 for
+all matmuls (the raw logits head included), K2 for the norms, K3 for
+paged decode attention, K4 for paged chunked prefill, the last two with
+the o-projection folded in.  There is no fallback: on CPU tensors each
+wrapper runs its plain version; on CUDA tensors it launches its kernel
+or raises for a shape the kernel cannot take.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels.int8_matmul import int8_matmul
+from repro_torch.kernels.int_attention_fused import int_paged_prefill_fused
+from repro_torch.kernels.int_decode_attention import \
+    int_decode_attention_fused
+from repro_torch.kernels.int_layernorm import int_layernorm
+from repro_torch.ops.paged import scatter_chunk
+
+
+class CudaBackend:
+    name = "cuda"
+    paged_decode = True       # consumes page-table KV pools directly
+    decode_wo_fold = True     # the o-projection rides in the decode call
+    paged_prefill = True      # chunked prefill straight over the page table
+    prefill_wo_fold = True    # ... with the o-projection folded in too
+
+    def int8_matmul(self, x8, w8, spec, *, bias32=None, b_vec=None):
+        return int8_matmul(x8, w8, spec, bias32=bias32, b_vec=b_vec)
+
+    def int_layernorm(self, q, q_gamma, q_beta, plan, out_bits: int = 8):
+        return int_layernorm(q, q_gamma, q_beta, plan, out_bits)
+
+    def int_decode_attention(self, q8, k8_cache, v8_cache, plan, valid_len,
+                             requant=None, b_vec=None, pages=None,
+                             page_size: int = 0, wo=None, wo_spec=None):
+        if pages is None:
+            raise NotImplementedError("the cuda backend reads paged KV "
+                                      "pools only; the contiguous cache is "
+                                      "not ported yet (ROADMAP §1 item 5)")
+        return int_decode_attention_fused(
+            q8, k8_cache, v8_cache, plan, valid_len, pages, page_size,
+            requant=requant, b_vec=b_vec, wo=wo, wo_spec=wo_spec)
+
+    def int_paged_prefill(self, q8, k8_new, v8_new, k_pool, v_pool, plan,
+                          base_pos, pages, page_size: int, requant=None,
+                          b_vec=None, wo=None, wo_spec=None):
+        """Scatter the chunk's K/V into the pools (in place), then the
+        paged prefill kernel over the page table."""
+        k_pool = scatter_chunk(k_pool, k8_new, base_pos, pages, page_size)
+        v_pool = scatter_chunk(v_pool, v8_new, base_pos, pages, page_size)
+        o = int_paged_prefill_fused(q8, k_pool, v_pool, plan,
+                                    base_pos + q8.shape[1], pages, page_size,
+                                    requant=requant, b_vec=b_vec, wo=wo,
+                                    wo_spec=wo_spec)
+        return o, k_pool, v_pool

@@ -1,0 +1,41 @@
+"""``torch_ref`` backend: the plain oracles of ``repro_torch.kernels.ref``
+(the counterpart of the JAX package's ``ref`` backend).
+
+It advertises no paged or folded capability, so the OpSet lowers the page
+table, the chunk scatter and the o-projection exactly before dispatching
+here — the same lowering the reference's ``ref`` backend takes.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import ref as _ref
+from repro_torch.ops.spec import PER_TENSOR
+
+
+class TorchRefBackend:
+    name = "torch_ref"
+    paged_decode = False
+    decode_wo_fold = False
+    paged_prefill = False
+    prefill_wo_fold = False
+
+    def int8_matmul(self, x8, w8, spec, *, bias32=None, b_vec=None):
+        if spec.is_raw:
+            return _ref.ref_int8_matmul_raw(x8, w8, bias32)
+        if spec.kind == PER_TENSOR:
+            return _ref.ref_int8_matmul(x8, w8, bias32, spec.dn,
+                                        spec.out_bits)
+        if b_vec is None:
+            raise ValueError("per-channel RequantSpec needs the b_vec "
+                             "multiplier vector (QuantLinearParams.b_mult)")
+        return _ref.ref_int8_matmul_perchannel(x8, w8, bias32, b_vec,
+                                               spec.c, spec.pre,
+                                               spec.out_bits)
+
+    def int_layernorm(self, q, q_gamma, q_beta, plan, out_bits: int = 8):
+        return _ref.ref_int_layernorm(q, q_gamma, q_beta, plan, out_bits)
+
+    def int_decode_attention(self, q8, k8_cache, v8_cache, plan, valid_len,
+                             requant=None, b_vec=None):
+        return _ref.ref_int_decode_attention(q8, k8_cache, v8_cache, plan,
+                                             valid_len, requant=requant,
+                                             b_vec=b_vec)

@@ -1,0 +1,121 @@
+"""Design-time quantization plans (SwiftTron §III-A; the dense subset of
+``repro.quant.plans``).
+
+A *plan* is the frozen set of integer constants one layer kind needs:
+dyadic requant pairs, i-exp constants, reciprocal widths — plain
+NamedTuples of Python ints/floats, shared across the layers of a kind.
+Per-channel weight scales live in the quantized params as int32
+multiplier vectors with a plan-level shared shift.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+from repro_torch.core import activations as iact
+from repro_torch.core import attention as iattn
+from repro_torch.core import norms
+from repro_torch.core.dyadic import Dyadic, fit_dyadic
+from repro_torch.models.common import ArchConfig
+from repro_torch.models.transformer import require_dense
+
+
+class LinearPlan(NamedTuple):
+    """INT8 matmul + per-channel dyadic requant epilogue."""
+    s_in: float
+    s_out: float            # 0.0 -> keep int32 accumulator (no requant)
+    out_bits: int
+    c: int                  # shared shift for the per-channel multipliers
+    pre: int
+    k_dim: int              # contraction size (accumulator bound)
+
+    @property
+    def acc_qmax(self) -> int:
+        return self.k_dim * 127 * 127
+
+
+def make_linear_plan(s_in: float, s_w_max: float, s_out: float, k_dim: int,
+                     out_bits: int = 8) -> LinearPlan:
+    """Size the shared (c, pre) for the worst-case channel ratio."""
+    acc_qmax = k_dim * 127 * 127
+    if s_out == 0.0:
+        return LinearPlan(s_in, 0.0, 32, 0, 0, k_dim)
+    dn = fit_dyadic(s_in * s_w_max / s_out, acc_qmax)
+    return LinearPlan(s_in, s_out, out_bits, dn.c, dn.pre, k_dim)
+
+
+class AttnPlan(NamedTuple):
+    qkv: LinearPlan
+    attn: iattn.IAttnPlan
+    out: LinearPlan          # o-proj: s_act8 -> s_res
+
+
+class FfnPlan(NamedTuple):
+    up: LinearPlan           # w1 (and w3): s_act8 -> s_act10
+    act_gelu: Optional[object]   # GELU FFNs are not ported yet (None)
+    act_silu: Optional[iact.ISiluPlan]
+    dn_gate: Optional[Dyadic]    # silu(h1)*h3 product -> s_act8
+    down: LinearPlan         # w2: s_act8 -> s_res
+
+
+class EmbedPlan(NamedTuple):
+    s_emb: float             # int8 embedding table scale
+    dn_res: Dyadic           # s_emb -> s_res
+
+
+class HeadPlan(NamedTuple):
+    s_in: float              # logits stay int32 at s_in * s_w
+
+
+class LayerPlans(NamedTuple):
+    """Everything the integer path of one architecture needs (the
+    reference's field set; the families not ported yet stay None)."""
+    cfg_name: str
+    embed: EmbedPlan
+    norm: norms.INormPlan
+    attn: Optional[AttnPlan]
+    ffn: Optional[FfnPlan]
+    moe: Optional[object]
+    mamba: Optional[object]
+    cross: Optional[AttnPlan]
+    head: HeadPlan
+    final_norm: norms.INormPlan
+
+
+S_W8 = 2.0 / 127.0          # nominal per-channel weight scale bound
+
+
+def _ffn_plan(cfg: ArchConfig, d_in: int, d_ff: int) -> FfnPlan:
+    if cfg.activation != "swiglu":
+        raise NotImplementedError("GELU FFNs are not ported yet "
+                                  "(ROADMAP §1 item 8)")
+    s8, s10 = cfg.s_act8, cfg.s_act10
+    up = make_linear_plan(s8, S_W8, s10, d_in, out_bits=11)
+    silu = iact.make_isilu(s10, 1024, s_out=s8)
+    # gate: silu_out(int8, s8) * h3(10bit, s10) -> requant to s8
+    dn_gate = fit_dyadic(s8 * s10 / s8, 127 * 1024)
+    down = make_linear_plan(s8, S_W8, cfg.s_res, d_ff, out_bits=14)
+    return FfnPlan(up, None, silu, dn_gate, down)
+
+
+def build_layer_plans(cfg: ArchConfig, calib: Optional[dict] = None
+                      ) -> LayerPlans:
+    """``calib``: measured per-tensor scales from ``quant.convert`` (a
+    dense decoder reads ``s_emb`` only; the default is the design
+    nominal)."""
+    require_dense(cfg)
+    calib = dict(calib or {})
+    s8 = cfg.s_act8
+    d = cfg.d_model
+    norm_plan = norms.make_inorm(d, cfg.s_res, cfg.qmax_res,
+                                 s_gamma=2.0 / 127.0, s_out=s8,
+                                 subtract_mean=(cfg.norm == "layernorm"))
+    s_emb = calib.get("s_emb", s8)
+    embed = EmbedPlan(s_emb, fit_dyadic(s_emb / cfg.s_res, 127))
+    qkv = make_linear_plan(s8, S_W8, s8, d)
+    ia = iattn.make_iattention(cfg.hd, s8, s8, s8, s8)
+    out = make_linear_plan(s8, S_W8, cfg.s_res, cfg.n_heads * cfg.hd,
+                           out_bits=14)
+    attn = AttnPlan(qkv, ia, out)
+    ffn = _ffn_plan(cfg, d, cfg.d_ff)
+    return LayerPlans(cfg.name, embed, norm_plan, attn, ffn, None, None,
+                      None, HeadPlan(s8), norm_plan)

@@ -1,0 +1,564 @@
+"""Batched integer serving engine over a paged KV cache (the port of
+``repro.serving.engine.ServingEngine`` for dense decoders).
+
+A continuous-batching scheduler: requests are admitted into fixed batch
+*lanes*, prompts prefill through the paged KV pool, every step decodes
+one token for every lane whose prompt is in, and finished lanes retire.
+
+  * **Chunked prefill** (default): prompts advance ``prefill_chunk``
+    tokens at a time through one batched
+    ``inttransformer.int_prefill_chunk_step`` (K4 on the ``cuda``
+    backend), writing K/V straight into physical pages through the page
+    table; ``prefill_budget`` caps prompt tokens per engine step so
+    decoding lanes keep emitting a token every step.
+    ``prefill_chunk=0`` streams prompt tokens through the decode step.
+  * **Decode**: one ``inttransformer.int_decode_step`` per engine step
+    (K3 with the o-projection folded in when ``fold_wo``).
+  * **Prefix sharing** (``prefix_cache``): a prompt whose prefix was
+    prefilled before maps the same physical pages (allocator refcounts);
+    the first write into a shared page copies it (copy-on-write).
+  * ``evict`` frees a session's lane and pages; ``preempt`` frees the
+    lane but keeps the pages, and the session resumes bit-exactly.
+
+Token streams are bit-identical to the JAX engine's for the same
+weights and schedule.  Not ported yet (each raises
+``NotImplementedError`` naming its ROADMAP item): ``tp > 1``,
+``spec_k > 0``, ``kv_dtype="int4"``, ``cache_mode="contiguous"``, and
+archs without chunked prefill (sliding window, SSM, MoE, cross).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.analysis import contracts
+from repro_torch.device import resolve_device
+from repro_torch.models import intlayers as il
+from repro_torch.models import inttransformer as it
+from repro_torch.models.common import ArchConfig
+from repro_torch.ops import OP_NAMES, QuantLinearParams, resolve_ops
+from repro_torch.quant import plans as qplans
+from repro_torch.serving.kvcache import (NULL_PAGE, CacheLayout,
+                                         PagePoolExhausted, PagedKVCache,
+                                         PrefixIndex, Session)
+
+
+class EngineStalled(RuntimeError):
+    """``run_until_done`` exhausted its step budget with sessions still
+    queued or on lanes.  Carries ``max_steps``, ``queue_depth`` and the
+    per-lane ``slots`` dicts (uid / state / pos / prefill_pos)."""
+
+    def __init__(self, max_steps: int, slots, queue_depth: int):
+        self.max_steps = max_steps
+        self.slots = slots
+        self.queue_depth = queue_depth
+        lanes = ", ".join(
+            "lane %d: uid=%s %s pos=%s prefill_pos=%s" % (
+                i, s["uid"], s["state"], s["pos"], s["prefill_pos"])
+            for i, s in enumerate(slots) if s is not None) or "all idle"
+        super().__init__(
+            f"engine stalled: {max_steps} steps exhausted with "
+            f"{queue_depth} queued session(s) and unfinished lanes "
+            f"({lanes}); raise max_steps, relieve pool pressure, or "
+            "evict a session")
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: List[int]
+    max_new_tokens: int = 32
+    temperature: float = 0.0
+    out_tokens: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+def _to_device(tree, dev):
+    if isinstance(tree, QuantLinearParams):
+        return QuantLinearParams(*[None if t is None else t.to(dev)
+                                   for t in tree])
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+class ServingEngine:
+    def __init__(self, qparams, plans: qplans.LayerPlans, cfg: ArchConfig,
+                 batch_size: int = 8, cache_len: int = 512, ops=None,
+                 seed: int = 0, cache_mode: str = "paged",
+                 page_size: int = 16, num_pages: Optional[int] = None,
+                 kv_dtype: str = "int8", fold_wo: bool = True,
+                 prefill_chunk: Optional[int] = None,
+                 prefill_budget: Optional[int] = None,
+                 prefix_cache: bool = True, tp: int = 1, spec_k: int = 0,
+                 device="cuda"):
+        if tp != 1:
+            raise NotImplementedError(
+                "tensor-parallel serving is not ported yet (ROADMAP §1 "
+                "item 9)")
+        if spec_k:
+            raise NotImplementedError(
+                "speculative decoding is not ported yet (ROADMAP §1 "
+                "item 6, serving/speculate.py)")
+        if kv_dtype != "int8":
+            raise NotImplementedError(
+                "int4 KV pages are not ported yet (ROADMAP §1 item 5)")
+        if cache_mode != "paged":
+            raise NotImplementedError(
+                "the contiguous KV cache is not ported yet (ROADMAP §1 "
+                "items 5-6); use cache_mode='paged'")
+        if not it.chunked_prefill_supported(cfg):
+            raise NotImplementedError(
+                f"arch {cfg.name!r} needs token-streaming-only serving "
+                "(sliding window / SSM / MoE / cross attention), which is "
+                "not ported yet (ROADMAP §1 item 8)")
+        if prefill_budget is not None and prefill_budget < 1:
+            raise ValueError("prefill_budget must be >= 1 token/step, "
+                             f"got {prefill_budget}")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.plans = plans
+        self.qparams = _to_device(qparams, self.device)
+        self.batch = batch_size
+        self.cache_len = cache_len
+        self.fold_wo = fold_wo
+        self.ops = resolve_ops(ops)
+        self.rng = np.random.default_rng(seed)
+        self.L = cache_len
+        self.layout = CacheLayout.fit(batch_size, self.L, page_size,
+                                      num_pages, kv_dtype=kv_dtype)
+        self.kv = PagedKVCache(self.layout)
+        self.caches = it.init_decode_cache(cfg, self.layout, self.device)
+        self.prefill_chunk = self._resolve_prefill_chunk(prefill_chunk)
+        self._use_chunked = self.prefill_chunk > 0
+        self.prefill_budget = prefill_budget
+        # a chunk may start anywhere below the prompt end and run C past
+        # it, so the RoPE table spans every position a chunk can touch
+        # (the reference clamps its gather instead; positions past the
+        # cache only ever write the null page or dead tail slots)
+        self.rope_tab = il.build_rope_table(
+            max(cache_len, self.layout.logical_len) + self.prefill_chunk + 1,
+            cfg.hd, cfg.rope_theta, device=self.device) \
+            if cfg.pos == "rope" else None
+        if prefix_cache:
+            self.prefix: Optional[PrefixIndex] = PrefixIndex(
+                self.kv.allocator, self.layout.page_size)
+            self.kv.allocator.reclaim = self._reclaim_prefix
+        else:
+            self.prefix = None
+        self._cow_copies = 0
+        self.pos = np.zeros(batch_size, np.int32)
+        self.slots: List[Optional[Session]] = [None] * batch_size
+        self.queue: List[Session] = []
+        self._finished: List[Request] = []
+        self._uid = 0
+
+    def _resolve_prefill_chunk(self, prefill_chunk: Optional[int]) -> int:
+        """Validate/auto-size the prefill chunk: 0 streams, None picks
+        ~32 page-compatible tokens."""
+        ps = self.layout.page_size
+        if prefill_chunk is None:
+            return min(ps * max(1, 32 // ps), self.layout.logical_len)
+        if prefill_chunk == 0:
+            return 0
+        if prefill_chunk < 0:
+            raise ValueError("prefill_chunk must be >= 0, got "
+                             f"{prefill_chunk}")
+        if prefill_chunk % ps and ps % prefill_chunk:
+            raise ValueError(
+                f"prefill_chunk={prefill_chunk} must divide or be a "
+                f"multiple of page_size={ps} so chunk writes tile "
+                "physical pages")
+        return min(prefill_chunk, self.layout.logical_len)
+
+    # ------------------------------------------------------ device steps --
+
+    def _tensor(self, a: np.ndarray):
+        """A copy of host state on the device (never a view of it: the
+        engine mutates ``pos`` and the page table in place)."""
+        return torch.tensor(a, device=self.device)
+
+    def _run_decode(self, toks):
+        return it.int_decode_step(
+            self.qparams, self.caches, self._tensor(toks),
+            self._tensor(self.pos), self.plans, self.cfg, self.rope_tab,
+            ops=self.ops, pages=self._tensor(self.kv.page_table.snapshot()),
+            page_size=self.layout.page_size, max_len=self.L,
+            fold_wo=self.fold_wo)
+
+    # ------------------------------------------------------ scheduling ---
+
+    def submit(self, req: Request) -> Session:
+        """Queue a request; returns the Session that owns its cache pages.
+        Impossible requests (prompt longer than the cache, prompt +
+        max_new_tokens overrunning it) raise ``RequestInfeasible`` here."""
+        contracts.require_request(len(req.prompt), req.max_new_tokens,
+                                  self.cache_len, window=self.cfg.window)
+        sess = Session(uid=self._uid, request=req)
+        self._uid += 1
+        self.queue.append(sess)
+        return sess
+
+    def _admit(self):
+        for slot in range(self.batch):
+            if self.slots[slot] is None and self.queue:
+                sess = self.queue[0]
+                if sess.state == "preempted":
+                    self.queue.pop(0)
+                    self._rebind(sess, slot)
+                    continue
+                if not self._try_bind_new(sess, slot):
+                    break           # pool pressure: retry next step
+
+    @staticmethod
+    def _n_pre(sess: Session) -> int:
+        return len(sess.request.prompt) - 1
+
+    def _try_bind_new(self, sess: Session, slot: int) -> bool:
+        """Longest-prefix lookup, all-or-nothing page reservation for the
+        rest of the prompt, lane binding.  False under transient pool
+        pressure; :class:`PagePoolExhausted` when the prompt never fits."""
+        n_pre = self._n_pre(sess)
+        shared: List[int] = []
+        if self.prefix is not None and n_pre > 0:
+            hit = self.prefix.lookup(sess.request.prompt, n_pre)
+            if hit is not None:
+                shared = list(hit.pages)    # retained for this session
+                sess.prefill_pos = hit.count
+        try:
+            reserved = self._reserve_prefill(sess, n_pre, shared)
+        except PagePoolExhausted:
+            for page in shared:
+                self.kv.allocator.release(page)
+            sess.prefill_pos = 0
+            raise
+        if not reserved:
+            for page in shared:
+                self.kv.allocator.release(page)
+            sess.prefill_pos = 0
+            return False
+        self.queue.pop(0)
+        self.slots[slot] = sess
+        self.pos[slot] = sess.prefill_pos
+        sess.pos = sess.prefill_pos
+        self.kv.bind(sess, slot)
+        sess.state = "prefilling"
+        if sess.prefill_pos >= n_pre:
+            self._finish_prefill(slot, sess)
+        return True
+
+    def _reserve_prefill(self, sess: Session, n_pre: int,
+                         shared: List[int]) -> bool:
+        span = min(n_pre, self.L)
+        blocks = -(-span // self.layout.page_size) if span > 0 else 0
+        need = blocks - len(shared)
+        if blocks > self.layout.num_pages - 1:
+            raise PagePoolExhausted(
+                f"prompt needs {blocks} pages, pool only has "
+                f"{self.layout.num_pages - 1}")
+        acquired: List[int] = []
+        try:
+            while len(acquired) < need:
+                acquired.append(self.kv.allocator.alloc())
+        except PagePoolExhausted:
+            for page in acquired:
+                self.kv.allocator.release(page)
+            return False
+        sess.pages = shared + acquired
+        return True
+
+    def _rebind(self, sess: Session, slot: int):
+        """Resume a preempted session on a free lane (pages untouched)."""
+        self.slots[slot] = sess
+        self.pos[slot] = sess.pos
+        self.kv.bind(sess, slot)
+        if sess.last_token is None:
+            sess.state = "prefilling"   # preempted mid-prefill
+
+    def _finish_prefill(self, slot: int, sess: Session):
+        n_pre = self._n_pre(sess)
+        sess.prefill_pos = n_pre
+        sess.state = "active"
+        self.pos[slot] = n_pre
+        sess.pos = n_pre
+        sess.last_token = sess.request.prompt[-1]
+        if self.prefix is not None and n_pre > 0:
+            self.prefix.register(sess.request.prompt, n_pre, sess.pages)
+
+    # --------------------------------------------------------- prefill ---
+
+    def _advance_prefill(self):
+        """Advance prefilling lanes, at most ``prefill_budget`` prompt
+        tokens per engine step (chunk granularity, one chunk minimum)."""
+        budget = math.inf if self.prefill_budget is None \
+            else self.prefill_budget
+        while budget > 0:
+            lanes = [i for i, s in enumerate(self.slots)
+                     if s is not None and s.state == "prefilling"]
+            if not lanes:
+                return
+            if self._use_chunked:
+                budget -= self._prefill_chunk_round(lanes, budget)
+            else:
+                budget -= self._prefill_stream_round(lanes, budget)
+
+    def _prefill_stream_round(self, lanes: List[int], budget) -> int:
+        spent = 0
+        for i in lanes:
+            sess = self.slots[i]
+            prompt = sess.request.prompt
+            n_pre = self._n_pre(sess)
+            while sess.prefill_pos < n_pre and spent < budget:
+                self._step_one(i, prompt[sess.prefill_pos])
+                sess.prefill_pos += 1
+                spent += 1
+            if sess.prefill_pos >= n_pre:
+                self._finish_prefill(i, sess)
+        return max(spent, 1)
+
+    def _prefill_chunk_round(self, lanes: List[int], budget) -> int:
+        """One batched chunk round through a single prefill step; lanes
+        join while the budget allows (one lane minimum).  Returns the real
+        prompt tokens advanced."""
+        C = self.prefill_chunk
+        ps = self.layout.page_size
+        logical = self.layout.logical_len
+        toks = np.zeros((self.batch, C), np.int32)
+        base = np.zeros(self.batch, np.int32)
+        spent = 0
+        included: List[int] = []
+        for i in lanes:
+            if included and spent >= budget:
+                break
+            sess = self.slots[i]
+            prompt = sess.request.prompt
+            b0 = sess.prefill_pos
+            base[i] = b0
+            real = min(C, self._n_pre(sess) - b0)
+            toks[i, :real] = prompt[b0:b0 + real]
+            spent += real
+            included.append(i)
+            # copy-on-write any shared page this chunk will write into
+            blk_hi = (min(b0 + C, logical) - 1) // ps
+            for blk in range(b0 // ps, min(blk_hi + 1, len(sess.pages))):
+                if self.kv.allocator.refcount[sess.pages[blk]] > 1:
+                    self._cow(sess, blk)
+        # the prefill view of the page table: lanes outside this round
+        # write their discarded chunk rows into the null page
+        view = self.kv.page_table.snapshot()
+        for slot in range(self.batch):
+            if slot not in included:
+                view[slot] = NULL_PAGE
+        it.int_prefill_chunk_step(
+            self.qparams, self.caches, self._tensor(toks),
+            self._tensor(base), self.plans, self.cfg, self.rope_tab,
+            ops=self.ops, pages=self._tensor(view), page_size=ps,
+            fold_wo=self.fold_wo)
+        for i in included:
+            sess = self.slots[i]
+            n_pre = self._n_pre(sess)
+            sess.prefill_pos = min(sess.prefill_pos + C, n_pre)
+            self.pos[i] = sess.prefill_pos
+            sess.pos = sess.prefill_pos
+            if sess.prefill_pos >= n_pre:
+                self._finish_prefill(i, sess)
+        return max(spent, 1)
+
+    # --------------------------------------------------- paged bookkeeping
+
+    def _reclaim_prefix(self):
+        """Allocator pressure hook: evict prefix entries LRU-first."""
+        while self.kv.allocator.free_pages == 0 and self.prefix is not None \
+                and self.prefix.evict_lru():
+            pass
+
+    def _cow(self, sess: Session, blk: int):
+        """Copy-on-write: a private copy of a shared page before a write
+        lands on it."""
+        old = sess.pages[blk]
+        try:
+            new = self.kv.allocator.alloc()
+        except PagePoolExhausted:
+            if self.kv.allocator.refcount[old] == 1:
+                return
+            raise
+        for c in self.caches:
+            for key in ("k8", "v8"):
+                c[key][:, new] = c[key][:, old]
+        self.kv.allocator.release(old)
+        sess.pages[blk] = new
+        if sess.slot is not None:
+            self.kv.page_table.table[sess.slot, blk] = new
+        self._cow_copies += 1
+
+    def _ensure_write_pages(self):
+        """Before a decode step, make the page under every occupied
+        lane's write position resident and exclusively owned."""
+        for slot, sess in enumerate(self.slots):
+            if sess is None:
+                continue
+            wslot = min(int(self.pos[slot]), self.L - 1)
+            self.kv.ensure(sess, wslot)
+            blk = wslot // self.layout.page_size
+            if self.kv.allocator.refcount[sess.pages[blk]] > 1:
+                self._cow(sess, blk)
+
+    def evict(self, sess: Session):
+        """Cancel a session: free its lane and release its pages."""
+        if sess in self.queue:
+            self.queue.remove(sess)
+        if sess.slot is not None:
+            self.pos[sess.slot] = 0
+            self.slots[sess.slot] = None
+        self.kv.release(sess)
+
+    def preempt(self, sess: Session):
+        """Take a live session off its lane but keep its pages; it goes
+        back to the queue head and resumes bit-exactly."""
+        if sess.state not in ("active", "prefilling") or sess.slot is None:
+            raise ValueError("cannot preempt session in state "
+                             f"{sess.state!r}")
+        slot = sess.slot
+        sess.pos = int(self.pos[slot])
+        self.kv.unbind(sess)
+        self.slots[slot] = None
+        self.pos[slot] = 0
+        self.queue.insert(0, sess)
+
+    def _retire(self, slot: int):
+        sess = self.slots[slot]
+        sess.request.done = True
+        self.slots[slot] = None
+        self.pos[slot] = 0
+        self.kv.release(sess)
+        self._finished.append(sess.request)
+
+    # ---------------------------------------------------------- decode ---
+
+    def _step_one(self, slot: int, token: int):
+        toks = np.zeros(self.batch, np.int32)
+        toks[slot] = token
+        self._ensure_write_pages()
+        self._run_decode(toks)
+        self.pos[slot] += 1
+        self.slots[slot].pos = int(self.pos[slot])
+
+    def _at_cache_end(self, slot: int) -> bool:
+        """The lane's next token would need a K/V slot past the cache."""
+        return self.pos[slot] >= self.cache_len
+
+    def step(self) -> int:
+        """One engine step: admit, advance prefill (budgeted), one batched
+        decode for lanes whose prompt is in, retire finished lanes.
+        Returns the number of occupied lanes."""
+        self._admit()
+        self._advance_prefill()
+        occupied = sum(s is not None for s in self.slots)
+        live = [i for i, s in enumerate(self.slots)
+                if s is not None and s.state == "active"]
+        if not live:
+            return occupied
+        toks = np.zeros(self.batch, np.int32)
+        for i in live:
+            toks[i] = self.slots[i].last_token
+        self._ensure_write_pages()
+        logits, _ = self._run_decode(toks)
+        logits = logits.cpu().numpy()
+        for i in live:
+            sess = self.slots[i]
+            req = sess.request
+            self.pos[i] += 1
+            sess.pos = int(self.pos[i])
+            nxt = self._sample(req, logits[i][:self.cfg.vocab])
+            req.out_tokens.append(nxt)
+            sess.last_token = nxt
+            if len(req.out_tokens) >= req.max_new_tokens \
+                    or self._at_cache_end(i):
+                self._retire(i)
+        return occupied
+
+    def _sample(self, req: Request, row: np.ndarray) -> int:
+        """Greedy argmax for ``temperature <= 0``; otherwise a float64
+        softmax sample of the dequantized logits from the engine's seeded
+        generator (the reference's rule, so equal logits and schedules
+        give equal streams)."""
+        if req.temperature <= 0:
+            return int(np.argmax(row))
+        z = row.astype(np.float64)
+        p = np.exp((z - z.max()) / req.temperature)
+        p /= p.sum()
+        return int(self.rng.choice(len(p), p=p))
+
+    # ------------------------------------------------------ introspection --
+
+    def describe(self) -> dict:
+        """Structured engine signature: backends, prefill mode, cache
+        geometry and live page-pool / prefix-cache stats."""
+        cache = dict(mode="paged", kv_pack=self.layout.kv_dtype,
+                     **self.kv.stats())
+        cache["live_tokens"] = int(sum(
+            s.live_tokens for s in self.slots if s is not None)
+            + sum(s.live_tokens for s in self.queue))
+        cache["shared_pages"] = int(
+            (self.kv.allocator.refcount[1:] > 1).sum())
+        cache["cow_copies"] = self._cow_copies
+        cache["prefix"] = self.prefix.stats() \
+            if self.prefix is not None else None
+        cache["kv_bytes"] = int(sum(
+            c[key].numel() * c[key].element_size()
+            for c in self.caches for key in ("k8", "v8")))
+        return {
+            "ops": self.ops.name,
+            "backends": {op: self.ops.backend_for(op).name
+                         for op in OP_NAMES},
+            "device": str(self.device),
+            "prefill": {
+                "mode": "chunked" if self._use_chunked else "streaming",
+                "chunk": self.prefill_chunk,
+                "budget": self.prefill_budget,
+            },
+            "fold_wo": self.fold_wo,
+            "batch": self.batch,
+            "cache_len": self.cache_len,
+            "cache": cache,
+        }
+
+    def describe_str(self) -> str:
+        d = self.describe()
+        c = d["cache"]
+        pf = d["prefill"]
+        prefill = f"chunked:{pf['chunk']}" if pf["mode"] == "chunked" \
+            else "streaming"
+        if c["prefix"] is not None:
+            prefill += f"+prefix[{c['prefix']['entries']}]"
+        return (f"ops={d['ops']} device={d['device']} prefill={prefill} "
+                f"fold_wo={str(d['fold_wo']).lower()} "
+                f"cache=paged[{c['page_size']}tok x {c['num_pages']}pg, "
+                f"{c['pages_used']}/{c['num_pages'] - 1} used] "
+                f"batch={d['batch']} cache_len={d['cache_len']}")
+
+    def run_until_done(self, max_steps: int = 10000) -> List[Request]:
+        """Step until queue and lanes drain; returns the requests that
+        retired since the last call.  Raises :class:`EngineStalled` if
+        ``max_steps`` elapse first."""
+        for _ in range(max_steps):
+            if not self.queue and all(s is None for s in self.slots):
+                break
+            self.step()
+        else:
+            if self.queue or any(s is not None for s in self.slots):
+                slots = [
+                    None if s is None else {
+                        "uid": s.request.uid, "state": s.state,
+                        "pos": int(self.pos[i]),
+                        "prefill_pos": s.prefill_pos}
+                    for i, s in enumerate(self.slots)]
+                raise EngineStalled(max_steps, slots, len(self.queue))
+        finished, self._finished = self._finished, []
+        return finished

@@ -1,0 +1,168 @@
+"""The CUDA kernels on the card: each wrapper launches (its counter moves)
+and returns its plain version's integers exactly.
+
+Marked ``gpu``: a CUDA kernel has no CPU mode, so these skip without a
+card (the decision is made inside a fixture, never at import).  The file
+imports only torch, numpy and the port, so it also runs on a machine
+without JAX:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import kernels
+from repro_torch.core import attention as iattn
+from repro_torch.core import norms as inorms
+from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_plain
+from repro_torch.kernels.int_attention_fused import (
+    int_paged_prefill_fused, int_paged_prefill_plain)
+from repro_torch.kernels.int_decode_attention import (
+    int_decode_attention_fused, int_decode_attention_plain)
+from repro_torch.kernels.int_layernorm import (int_layernorm,
+                                               int_layernorm_plain)
+from repro_torch.ops.spec import QuantLinearParams, RequantSpec
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _i8(rng, shape, dev):
+    return torch.as_tensor(rng.integers(-127, 128, shape).astype(np.int8),
+                           device=dev)
+
+
+def _i32(rng, lo, hi, shape, dev):
+    return torch.as_tensor(rng.integers(lo, hi, shape).astype(np.int32),
+                           device=dev)
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 200, 48), (12, 300, 260),
+                                   (33, 200, 100), (1, 7, 7),
+                                   (130, 4096, 96)])
+def test_int8_matmul_kernel(dev, m, k, n):
+    """Ragged M, N and K (masked in-kernel), both tiles, split-K, all
+    three epilogue forms."""
+    rng = np.random.default_rng(m + k + n)
+    x8, w8 = _i8(rng, (m, k), dev), _i8(rng, (k, n), dev)
+    bvec = _i32(rng, 256, 4096, (n,), dev)
+    bias = _i32(rng, -5000, 5000, (n,), dev)
+    from repro_torch.core.dyadic import fit_dyadic
+    for spec in (RequantSpec.raw(), RequantSpec.per_channel(24, 10, 11),
+                 RequantSpec.per_tensor(fit_dyadic(1 / 3000.0, 1 << 26))):
+        before = kernels.LAUNCHES["int8_matmul"]
+        got = int8_matmul(x8, w8, spec, bias32=bias, b_vec=bvec)
+        assert kernels.LAUNCHES["int8_matmul"] == before + 1
+        assert torch.equal(got, int8_matmul_plain(x8, w8, spec, bias, bvec))
+
+
+@pytest.mark.parametrize("subtract_mean", [False, True])
+def test_int_layernorm_kernel(dev, subtract_mean):
+    rng = np.random.default_rng(40)
+    d = 384
+    plan = inorms.make_inorm(d, 2.0 ** -9, 8192, 2 / 127, 8 / 127,
+                             subtract_mean)
+    q = _i32(rng, -8192, 8193, (5, d), dev)
+    q[0] = 17                                      # sigma == 0 row
+    g = _i32(rng, -127, 128, (d,), dev)
+    b = _i32(rng, -9000, 9000, (d,), dev) if subtract_mean else None
+    before = kernels.LAUNCHES["int_layernorm"]
+    got = int_layernorm(q, g, b, plan)
+    assert kernels.LAUNCHES["int_layernorm"] == before + 1
+    assert torch.equal(got, int_layernorm_plain(q, g, b, plan))
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("fold", [False, True])
+def test_attention_kernels(dev, hd, fold):
+    """K3 (Sq 1 and 3) and K4 over a permuted page table with ragged
+    lengths, per-tensor and per-channel epilogues, wo fold on/off."""
+    rng = np.random.default_rng(hd + fold)
+    b, h, hkv, ps, maxp = 3, 4, 2, 16, 4
+    num_pages = b * maxp + 1
+    plan = iattn.make_iattention(hd, 8 / 127, 8 / 127, 4 / 127, 4 / 127)
+    kp = _i8(rng, (num_pages, ps, hkv, hd), dev)
+    vp = _i8(rng, (num_pages, ps, hkv, hd), dev)
+    pages = torch.as_tensor(rng.permutation(np.arange(1, num_pages))
+                            .reshape(b, maxp).astype(np.int32), device=dev)
+    kw = {}
+    if fold:
+        kw = dict(wo=QuantLinearParams(_i8(rng, (h * hd, 40), dev),
+                                       _i32(rng, 1000, 30000, (40,), dev),
+                                       _i32(rng, -500, 500, (40,), dev)),
+                  wo_spec=RequantSpec.per_channel(28, 7, 14))
+    bvec = _i32(rng, 1000, 20000, (h * hd,), dev)
+    vl = torch.tensor([1, 37, 64], dtype=torch.int32, device=dev)
+    requants = [RequantSpec.per_tensor(plan.dn_out)]
+    if not fold:
+        requants += [RequantSpec.per_channel(22, 8), RequantSpec.raw()]
+    for rq in requants:
+        for sq, fused, plain, name, lens in (
+                (1, int_decode_attention_fused, int_decode_attention_plain,
+                 "int_decode_attention", vl),
+                (3, int_decode_attention_fused, int_decode_attention_plain,
+                 "int_decode_attention", vl + 2),
+                (32, int_paged_prefill_fused, int_paged_prefill_plain,
+                 "int_paged_prefill", torch.clamp(vl + 32, max=64))):
+            q8 = _i8(rng, (b, sq, h, hd), dev)
+            before = kernels.LAUNCHES[name]
+            got = fused(q8, kp, vp, plan, lens, pages, ps, requant=rq,
+                        b_vec=bvec, **kw)
+            assert kernels.LAUNCHES[name] == before + 1
+            want = plain(q8, kp, vp, plan, lens, pages, ps, requant=rq,
+                         b_vec=bvec, **kw)
+            assert torch.equal(got, want), (name, sq, rq.kind)
+
+
+def test_attention_kernels_refuse_overlong_page_tables(dev):
+    """A page table spanning more than MAX_ROWSUM_LEN positions would
+    leave the exact int32 row sum: the wrappers raise before launching."""
+    from repro_torch.analysis.budgets import MAX_ROWSUM_LEN
+    rng = np.random.default_rng(7)
+    plan = iattn.make_iattention(32, 8 / 127, 8 / 127, 4 / 127, 4 / 127)
+    kp = _i8(rng, (3, 16, 2, 32), dev)
+    pages = torch.ones((1, MAX_ROWSUM_LEN // 16 + 1), dtype=torch.int32,
+                       device=dev)
+    vl = torch.tensor([5], dtype=torch.int32, device=dev)
+    for fused, sq in ((int_decode_attention_fused, 1),
+                      (int_paged_prefill_fused, 16)):
+        q8 = _i8(rng, (1, sq, 4, 32), dev)
+        with pytest.raises(ValueError, match="row sum"):
+            fused(q8, kp, kp, plan, vl + sq, pages, 16)
+
+
+@pytest.mark.parametrize("geometry", [dict(), dict(page_size=8,
+                                                   prefill_chunk=8)],
+                         ids=["ps16", "ps8-chunk8"])
+def test_engine_cuda_matches_torch_ref(dev, geometry):
+    """A reduced engine on the card: the kernels' token streams equal the
+    plain backend's, and every kernel of the path launched — small pages
+    and chunks included (the kernels take any page size or chunk)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M
+    from repro_torch.quant import convert
+    from repro_torch.serving import Request, ServingEngine
+    cfg = M.reduce_config(get_config("llama3-8b"), dtype="float32")
+    qp, plans = convert.init_quantized(cfg, seed=0, device=dev)
+    streams = {}
+    for backend in ("cuda", "torch_ref"):
+        eng = ServingEngine(qp, plans, cfg, batch_size=2, cache_len=64,
+                            ops=backend, device=dev, **geometry)
+        reqs = [Request(uid=i, prompt=[1 + i] * (5 + 9 * i),
+                        max_new_tokens=4) for i in range(3)]
+        for r in reqs:
+            eng.submit(r)
+        kernels.reset_launches()
+        eng.run_until_done()
+        if backend == "cuda":
+            assert all(n > 0 for n in kernels.LAUNCHES.values())
+        streams[backend] = [r.out_tokens for r in reqs]
+    assert streams["cuda"] == streams["torch_ref"]
