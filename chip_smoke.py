@@ -5,19 +5,26 @@ Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py                 # every phase, one card
 
-Phases (each prints one JSON line; any mismatch or error exits non-zero
-before the last line):
+Phases (each prints one JSON line per case; any mismatch or error exits
+non-zero before the last line):
 
-  build    compile ``src/repro_torch/csrc/*.cu`` with nvcc (sm_90a);
-  kernels  each kernel K1-K4 against its plain PyTorch version on seeded
-           inputs at the serving main path's full-width llama3-8b shapes
-           (max |diff| must be 0), with kernel / plain / library times and
-           the roofline bound;
+  build    compile ``src/repro_torch/csrc/*.cu`` with nvcc (sm_90a), one
+           nvcc per source, all started together;
+  kernels  each kernel K1-K6 against its plain PyTorch version on seeded
+           inputs (max |diff| must be 0), with kernel / plain / library
+           times and the roofline bound: K1-K4 at the serving path's
+           full-width llama3-8b shapes, K1, K2 (LayerNorm), K5 and K6 at
+           the encoder path's full-width roberta-base shapes;
   parity   full-width llama3-8b cut to 2 layers: ServingEngine token
            streams on the ``cuda`` backend must equal ``torch_ref``'s;
   serve    full llama3-8b (32 layers) on the ``cuda`` backend: throughput,
-           step times, peak memory and per-kernel launch counts (each must
-           be > 0).
+           step times, peak memory and per-kernel launch counts (each
+           serving kernel must be > 0), then a profiled decode window;
+  encode   full-width roberta-base (12 layers, tied embeddings) through
+           ``launch.steps.make_prefill_step``: logits of ``cuda`` and
+           ``torch_ref`` identical on 8 x 512 tokens, then timed passes
+           at 32 x 512 with launches per pass (K1, K2, K5, K6 must be
+           > 0) and one profiled pass.
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit,
 and the final ``{"ok": true, "device": {...}}`` line.  The script imports
@@ -43,13 +50,34 @@ TPU_KERNELS = {
     "int_layernorm": "src/repro/kernels/int_layernorm.py:73",
     "int_decode_attention": "src/repro/kernels/int_decode_attention.py:183",
     "int_paged_prefill": "src/repro/kernels/int_attention_fused.py:398",
+    "int_attention_fused": "src/repro/kernels/int_attention_fused.py:215",
+    "int_gelu": "src/repro/kernels/int_gelu.py:41",
 }
 SOURCES = {
     "int8_matmul": "src/repro_torch/csrc/int8_matmul.cu",
     "int_layernorm": "src/repro_torch/csrc/int_layernorm.cu",
     "int_decode_attention": "src/repro_torch/csrc/int_decode_attention.cu",
     "int_paged_prefill": "src/repro_torch/csrc/int_paged_prefill.cu",
+    "int_attention_fused": "src/repro_torch/csrc/int_attention_fused.cu",
+    "int_gelu": "src/repro_torch/csrc/int_gelu.cu",
 }
+# the kernels each driven path must launch
+PATH_KERNELS = {
+    "serve": ("int8_matmul", "int_layernorm", "int_decode_attention",
+              "int_paged_prefill"),
+    "encode": ("int8_matmul", "int_layernorm", "int_attention_fused",
+               "int_gelu"),
+}
+# the encode path's traffic: RoBERTa's longest sequence at a GLUE
+# inference batch; the cuda == torch_ref parity batch
+ENCODE_BATCH, ENCODE_SEQ, PARITY_BATCH = 32, 512, 8
+
+
+def encode_launches_per_pass(layers: int) -> dict:
+    """K1: q, k, v, o, w1, w2 per layer + the head; K2: two norms per
+    layer + the final norm; K5, K6: one per layer."""
+    return {"int8_matmul": 6 * layers + 1, "int_layernorm": 2 * layers + 1,
+            "int_attention_fused": layers, "int_gelu": layers}
 
 
 def emit(obj) -> None:
@@ -112,10 +140,44 @@ def _randint(gen, lo, hi, shape, dtype):
                          dtype=dtype)
 
 
+def record(rows, name, case, got, want, kernel, plain, nbytes, ops,
+           lib_ms=None, rep=False, iters=20, plain_iters=3):
+    """Exactness first, then times: ``ms`` / ``plain_ms`` are device time
+    per call (profiler), ``call_ms`` the kernel wrapper's wall time per
+    call on the device timeline (CUDA events, host issue gaps included).
+    ``rep``: this case is the kernel's row in the summary line."""
+    err = max_abs_diff(got, want)
+    b_ms, b_by = bound_ms(nbytes, ops)
+    call = time_ms(kernel, iters)
+    row = {"name": name, "case": case, "max_abs_err": err,
+           "ms": device_ms(kernel, iters) or call,
+           "plain_ms": (device_ms(plain, plain_iters)
+                        or time_ms(plain, plain_iters)),
+           "call_ms": call,
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+    emit({"phase": "kernels", **row})
+    if err != 0:
+        raise AssertionError(f"{name} {case}: kernel != plain "
+                             f"(max |diff| {err})")
+    if rep:
+        rows[name] = row
+
+
+def int_mm_ms(x8, w8):
+    """torch._int_mm (cuBLAS) on the same operands, where it accepts
+    them: the library yardstick of a raw int8 product."""
+    import torch
+    try:
+        torch._int_mm(x8, w8)
+    except RuntimeError:
+        return None
+    return device_ms(lambda: torch._int_mm(x8, w8), 20)
+
+
 def check_kernels(cfg, plans):
-    """K1-K4 vs their plain versions at the main path's shapes.  Returns
-    the representative measurement of each kernel (the main path's
-    dominant call) for the summary line."""
+    """K1-K4 vs their plain versions at the serving path's shapes.
+    Returns the representative measurement of each kernel (the main
+    path's dominant call) for the summary line."""
     import torch
     from repro_torch.core.dyadic import fit_dyadic
     from repro_torch.kernels.int8_matmul import (int8_matmul,
@@ -132,36 +194,6 @@ def check_kernels(cfg, plans):
     rows = {}
     d, f, v = cfg.d_model, cfg.d_ff, cfg.padded_vocab()
     hd, h, hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-
-    def record(name, case, got, want, kernel, plain, nbytes, ops,
-               lib_ms=None, rep=False, iters=20):
-        """Exactness first, then times: ``ms`` / ``plain_ms`` are device
-        time per call (profiler), ``call_ms`` the kernel wrapper's wall
-        time per call on the device timeline (CUDA events, host issue
-        gaps included)."""
-        err = max_abs_diff(got, want)
-        b_ms, b_by = bound_ms(nbytes, ops)
-        call = time_ms(kernel, iters)
-        row = {"name": name, "case": case, "max_abs_err": err,
-               "ms": device_ms(kernel, iters) or call,
-               "plain_ms": device_ms(plain, 3) or time_ms(plain, 3),
-               "call_ms": call,
-               "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
-        emit({"phase": "kernels", **row})
-        if err != 0:
-            raise AssertionError(f"{name} {case}: kernel != plain "
-                                 f"(max |diff| {err})")
-        if rep:
-            rows[name] = row
-
-    def int_mm_ms(x8, w8):
-        """torch._int_mm (cuBLAS) on the same operands, where it accepts
-        them: the library yardstick of a raw int8 product."""
-        try:
-            torch._int_mm(x8, w8)
-        except RuntimeError:
-            return None
-        return device_ms(lambda: torch._int_mm(x8, w8), 20)
 
     # K1: every projection of a layer, at decode (M=4) and chunk (M=128)
     mm_cases = [("wq", d, h * hd, plans.attn.qkv),
@@ -180,8 +212,8 @@ def check_kernels(cfg, plans):
             got = int8_matmul(x8, w8, spec, b_vec=b_vec)
             want = int8_matmul_plain(x8, w8, spec, b_vec=b_vec)
             out_b = 1 if spec.out_bits <= 8 else 4
-            record("int8_matmul", f"{tag} M={m} K={k} N={n} per-channel "
-                   f"out_bits={spec.out_bits}", got, want,
+            record(rows, "int8_matmul", f"{tag} M={m} K={k} N={n} "
+                   f"per-channel out_bits={spec.out_bits}", got, want,
                    lambda: int8_matmul(x8, w8, spec, b_vec=b_vec),
                    lambda: int8_matmul_plain(x8, w8, spec, b_vec=b_vec),
                    m * k + k * n + 4 * n + out_b * m * n, 2 * m * k * n)
@@ -194,8 +226,8 @@ def check_kernels(cfg, plans):
                                       out_bits=8)
         got = int8_matmul(x8, w8, spec, bias32=bias)
         want = int8_matmul_plain(x8, w8, spec, bias32=bias)
-        record("int8_matmul", f"per-tensor+bias M={m} K={d} N={d}", got,
-               want, lambda: int8_matmul(x8, w8, spec, bias32=bias),
+        record(rows, "int8_matmul", f"per-tensor+bias M={m} K={d} N={d}",
+               got, want, lambda: int8_matmul(x8, w8, spec, bias32=bias),
                lambda: int8_matmul_plain(x8, w8, spec, bias32=bias),
                m * d + d * d + 4 * d + m * d, 2 * m * d * d)
         # the raw logits head
@@ -203,8 +235,8 @@ def check_kernels(cfg, plans):
         raw = RequantSpec.raw()
         got = int8_matmul(x8, w8, raw)
         want = int8_matmul_plain(x8, w8, raw)
-        record("int8_matmul", f"head raw M={m} K={d} N={v}", got, want,
-               lambda: int8_matmul(x8, w8, raw),
+        record(rows, "int8_matmul", f"head raw M={m} K={d} N={v}", got,
+               want, lambda: int8_matmul(x8, w8, raw),
                lambda: int8_matmul_plain(x8, w8, raw),
                m * d + d * v + 4 * m * v, 2 * m * d * v,
                lib_ms=int_mm_ms(x8, w8), rep=(m == 4), iters=10)
@@ -219,8 +251,8 @@ def check_kernels(cfg, plans):
         got = int_layernorm(q, gamma, None, npl)
         want = int_layernorm_plain(q, gamma, None, npl)
         # per element ~40 int32 ops, far below the bytes at any rate
-        record("int_layernorm", f"rmsnorm rows={r} d={d}", got, want,
-               lambda: int_layernorm(q, gamma, None, npl),
+        record(rows, "int_layernorm", f"rmsnorm rows={r} d={d}", got,
+               want, lambda: int_layernorm(q, gamma, None, npl),
                lambda: int_layernorm_plain(q, gamma, None, npl),
                8 * r * d + 4 * d, 0, rep=(r == 4), iters=50)
 
@@ -260,15 +292,152 @@ def check_kernels(cfg, plans):
             if fold:
                 io += fold_bytes + 4 * b * sq * d - b * sq * h * hd
                 ops += 2 * b * sq * h * hd * d
-            record(name, f"B={b} S={sq} H={h} Hkv={hkv} D={hd} ps={ps} "
-                   f"pages/lane={maxp} valid={lens} fold_wo={fold}", got,
-                   want,
+            record(rows, name, f"B={b} S={sq} H={h} Hkv={hkv} D={hd} "
+                   f"ps={ps} pages/lane={maxp} valid={lens} fold_wo={fold}",
+                   got, want,
                    lambda: fused(q8, k_pool, v_pool, aplan, vl, pages, ps,
                                  requant=requant, **kw),
                    lambda: plain(q8, k_pool, v_pool, aplan, vl, pages, ps,
                                  requant=requant, **kw),
                    io, ops, rep=fold)
     return rows
+
+
+def _live_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """(query, key) pairs a full-sequence mask leaves live, per (b, h)."""
+    if not causal and window <= 0:
+        return sq * skv
+    return sum(max(min(i + 1, skv) - max(i - window + 1 if window > 0
+                                         else 0, 0), 0)
+               for i in range(sq))
+
+
+def check_encoder_kernels(cfg, plans, rows) -> None:
+    """K1 and K2 (LayerNorm) at the encoder path's shapes, K5 and K6 vs
+    their plain versions.  Adds K5's and K6's representative rows (the
+    encode pass's own launches) to ``rows``."""
+    import torch
+    from repro_torch.kernels.int8_matmul import (int8_matmul,
+                                                 int8_matmul_plain)
+    from repro_torch.kernels.int_attention_fused import (
+        int_attention_fused, int_attention_fused_plain)
+    from repro_torch.kernels.int_gelu import int_gelu, int_gelu_plain
+    from repro_torch.kernels.int_layernorm import (int_layernorm,
+                                                   int_layernorm_plain)
+    from repro_torch.ops.spec import RequantSpec
+
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.padded_vocab()
+    tokens = ENCODE_BATCH * ENCODE_SEQ
+
+    # K1: the encoder's projections over every token of a 32 x 512 pass,
+    # and the raw tied head over the last positions
+    x_cache = {}
+    for tag, k, n, lp in (("wq", d, d, plans.attn.qkv),
+                          ("w1", d, f, plans.ffn.up),
+                          ("w2", f, d, plans.ffn.down)):
+        x8 = x_cache.setdefault(k, _randint(gen, -127, 128, (tokens, k),
+                                            torch.int8))
+        w8 = _randint(gen, -127, 128, (k, n), torch.int8)
+        b_vec = _randint(gen, 256, 4096, (n,), torch.int32)
+        bias = _randint(gen, -5000, 5000, (n,), torch.int32)
+        spec = RequantSpec.for_linear(lp)
+        got = int8_matmul(x8, w8, spec, bias32=bias, b_vec=b_vec)
+        want = int8_matmul_plain(x8, w8, spec, bias32=bias, b_vec=b_vec)
+        out_b = 1 if spec.out_bits <= 8 else 4
+        record(rows, "int8_matmul", f"encoder {tag} M={tokens} K={k} N={n} "
+               f"per-channel+bias out_bits={spec.out_bits}", got, want,
+               lambda: int8_matmul(x8, w8, spec, bias32=bias, b_vec=b_vec),
+               lambda: int8_matmul_plain(x8, w8, spec, bias32=bias,
+                                         b_vec=b_vec),
+               tokens * k + k * n + 8 * n + out_b * tokens * n,
+               2 * tokens * k * n, iters=10)
+    del x_cache
+    x8 = _randint(gen, -127, 128, (ENCODE_BATCH, d), torch.int8)
+    w8 = _randint(gen, -127, 128, (d, v), torch.int8)
+    raw = RequantSpec.raw()
+    record(rows, "int8_matmul", f"encoder tied head raw M={ENCODE_BATCH} "
+           f"K={d} N={v}", int8_matmul(x8, w8, raw),
+           int8_matmul_plain(x8, w8, raw),
+           lambda: int8_matmul(x8, w8, raw),
+           lambda: int8_matmul_plain(x8, w8, raw),
+           ENCODE_BATCH * d + d * v + 4 * ENCODE_BATCH * v,
+           2 * ENCODE_BATCH * d * v, lib_ms=int_mm_ms(x8, w8), iters=10)
+    del w8
+
+    # K2 in LayerNorm mode (mean subtracted, beta added)
+    npl = plans.norm
+    gamma = _randint(gen, 40, 128, (d,), torch.int32)
+    beta = _randint(gen, -9000, 9000, (d,), torch.int32)
+    for r in (tokens, ENCODE_BATCH):
+        q = _randint(gen, -cfg.qmax_res, cfg.qmax_res + 1, (r, d),
+                     torch.int32)
+        record(rows, "int_layernorm", f"layernorm+beta rows={r} d={d}",
+               int_layernorm(q, gamma, beta, npl),
+               int_layernorm_plain(q, gamma, beta, npl),
+               lambda: int_layernorm(q, gamma, beta, npl),
+               lambda: int_layernorm_plain(q, gamma, beta, npl),
+               8 * r * d + 8 * d, 0, iters=20)
+
+    # K5: the encoder's launch, then GQA causal / windowed, the other
+    # epilogues and a cross-shaped launch
+    aplan = plans.attn.attn
+    per_tensor = RequantSpec.per_tensor(aplan.dn_out)
+    h, hd = cfg.n_heads, cfg.hd
+    k5_cases = [
+        # (B, Sq, Skv, H, Hkv, D, causal, window, requant, rep)
+        (ENCODE_BATCH, ENCODE_SEQ, ENCODE_SEQ, h, h, hd, False, 0,
+         per_tensor, True),
+        (4, 512, 512, 32, 8, 128, True, 0, per_tensor, False),
+        (4, 512, 512, 32, 8, 128, True, 128, per_tensor, False),
+        (8, ENCODE_SEQ, ENCODE_SEQ, h, h, hd, False, 0,
+         RequantSpec.per_channel(22, 8), False),
+        (8, ENCODE_SEQ, ENCODE_SEQ, h, h, hd, False, 0, RequantSpec.raw(),
+         False),
+        (ENCODE_BATCH, 64, ENCODE_SEQ, h, h, hd, False, 0, per_tensor,
+         False),
+    ]
+    for b, sq, skv, hq, hkv, dd, causal, window, rq, rep in k5_cases:
+        q8 = _randint(gen, -127, 128, (b, sq, hq, dd), torch.int8)
+        k8 = _randint(gen, -127, 128, (b, skv, hkv, dd), torch.int8)
+        v8 = _randint(gen, -127, 128, (b, skv, hkv, dd), torch.int8)
+        bvec = _randint(gen, 1000, 20000, (hq * dd,), torch.int32)
+        out_b = 1 if (not rq.is_raw and rq.out_bits <= 8) else 4
+        nbytes = (b * sq * hq * dd + 2 * b * skv * hkv * dd
+                  + out_b * b * sq * hq * dd)
+        ops = 4 * b * hq * dd * _live_pairs(sq, skv, causal, window)
+        record(rows, "int_attention_fused",
+               f"B={b} Sq={sq} Skv={skv} H={hq} Hkv={hkv} D={dd} "
+               f"causal={causal} window={window} {rq.kind}",
+               int_attention_fused(q8, k8, v8, aplan, rq, bvec, causal,
+                                   window),
+               int_attention_fused_plain(q8, k8, v8, aplan, rq, bvec,
+                                         causal, window),
+               lambda: int_attention_fused(q8, k8, v8, aplan, rq, bvec,
+                                           causal, window),
+               lambda: int_attention_fused_plain(q8, k8, v8, aplan, rq,
+                                                 bvec, causal, window),
+               nbytes, ops, rep=rep, iters=5, plain_iters=2)
+        del q8, k8, v8
+
+    # K6: every 16-bit input, seeded int32 over the whole range (wrap),
+    # then the FFN's 11-bit activations at the path shape (timed)
+    gp = plans.ffn.act_gelu
+    cases = [("all q in [-2^15, 2^15)",
+              torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32,
+                           device="cuda"), False),
+             ("1e6 seeded int32", _randint(gen, -2 ** 31, 2 ** 31 - 1,
+                                           (10 ** 6,), torch.int32), False),
+             (f"FFN {tokens}x{f} 11-bit", _randint(gen, -1024, 1024,
+                                                    (tokens, f),
+                                                    torch.int32), True)]
+    for case, q, rep in cases:
+        record(rows, "int_gelu", case,
+               int_gelu(q, gp.gelu, gp.dn_out), int_gelu_plain(
+                   q, gp.gelu, gp.dn_out),
+               lambda: int_gelu(q, gp.gelu, gp.dn_out),
+               lambda: int_gelu_plain(q, gp.gelu, gp.dn_out),
+               8 * q.numel(), 0, rep=rep, iters=20)
 
 
 # --------------------------------------------------------- engine runs ---
@@ -398,9 +567,126 @@ def phase_serve(cfg):
     vocab_ok = all(0 <= t < cfg.vocab for r in reqs for t in r.out_tokens)
     if not vocab_ok:
         raise AssertionError("token outside the vocabulary")
-    missing = [k for k, n in launches.items() if n <= 0]
+    missing = [k for k in PATH_KERNELS["serve"] if launches[k] <= 0]
     if missing:
-        raise AssertionError(f"main path never launched {missing}")
+        raise AssertionError(f"serve path never launched {missing}")
+    return launches
+
+
+def encoder_config():
+    """Full-width roberta-base with the tied head its integer path needs
+    (an encoder has no lm_head)."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    return dataclasses.replace(get_config("roberta-base"),
+                               tie_embeddings=True)
+
+
+def phase_encode(cfg):
+    """The encoder path through ``make_prefill_step`` at full width:
+    cuda == torch_ref, then timed passes with launch counts, then one
+    profiled pass.  Returns the launches of the timed run."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import intlayers as il
+    from repro_torch.models import inttransformer as it
+    from repro_torch.quant import convert
+    gc.collect()                  # an earlier phase's model, if any
+    t0 = time.perf_counter()
+    qp, plans = convert.init_quantized(
+        cfg, seed=0, device="cuda",
+        embed_scale=convert.unit_embed_scale(cfg))
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    rng = np.random.default_rng(21)
+
+    # parity at full width, and the final LayerNorm rows of the cuda run
+    toks = rng.integers(0, cfg.vocab, (PARITY_BATCH, ENCODE_SEQ))
+    finals = []
+    orig = it.logits_int
+
+    def spy(qparams, x32, *a, **k):
+        finals.append(x32)
+        return orig(qparams, x32, *a, **k)
+
+    logits = {}
+    it.logits_int = spy
+    try:
+        for backend in ("cuda", "torch_ref"):
+            step = make_prefill_step(cfg, plans, ops=backend, device="cuda")
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits[backend] = step(qp, {"tokens": toks})
+            torch.cuda.synchronize()
+            logits[backend + "_s"] = time.perf_counter() - t1
+    finally:
+        it.logits_int = orig
+    h8 = il.int_norm(qp["final_norm"], finals[0], plans.final_norm,
+                     ops="torch_ref")
+    same = torch.equal(logits["cuda"], logits["torch_ref"])
+    argmax = logits["cuda"].argmax(dim=-1)
+    emit({"phase": "encode-parity", "arch": cfg.name,
+          "layers": cfg.num_layers, "batch": PARITY_BATCH,
+          "seq": ENCODE_SEQ, "identical": same,
+          "distinct_argmax": len(set(argmax.tolist())),
+          "final_norm_nonzero_rows": int((h8 != 0).any(dim=-1).sum()),
+          "cuda_s": logits["cuda_s"], "torch_ref_s": logits["torch_ref_s"],
+          "quantize_s": quant_s})
+    if not same:
+        raise AssertionError("encode: cuda and torch_ref logits differ")
+    if not bool((h8 != 0).any()):
+        raise AssertionError("encode: every final LayerNorm row is 0")
+
+    # timed passes at the full batch
+    step = make_prefill_step(cfg, plans, ops="cuda", device="cuda")
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab, (ENCODE_BATCH, ENCODE_SEQ)),
+        device="cuda")}
+    for _ in range(2):
+        step(qp, batch)
+    n_pass = 5
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t1 = time.perf_counter()
+    start.record()
+    for _ in range(n_pass):
+        out = step(qp, batch)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = dict(kernels.LAUNCHES)
+    pass_ms = start.elapsed_time(end) / n_pass
+    per_pass = {n: c / n_pass for n, c in launches.items()}
+    expect = encode_launches_per_pass(cfg.num_layers)
+    emit({"phase": "encode", "arch": cfg.name, "layers": cfg.num_layers,
+          "batch": ENCODE_BATCH, "seq": ENCODE_SEQ, "passes": n_pass,
+          "ms_per_pass": pass_ms, "wall_s": wall,
+          "tokens_per_s": ENCODE_BATCH * ENCODE_SEQ / (pass_ms / 1e3),
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "launches_per_pass": per_pass, "expected_per_pass": expect,
+          "logits_shape": list(out.shape),
+          "finite": bool(torch.isfinite(out).all())})
+    if tuple(out.shape) != (ENCODE_BATCH, cfg.padded_vocab()) \
+            or not bool(torch.isfinite(out).all()):
+        raise AssertionError("encode: logits not finite (B, V)")
+    missing = [k for k in PATH_KERNELS["encode"] if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"encode path never launched {missing}")
+    if any(per_pass[n] != c for n, c in expect.items()) or \
+            per_pass["int_decode_attention"] or per_pass["int_paged_prefill"]:
+        raise AssertionError(f"encode: launches per pass {per_pass} != "
+                             f"{expect}")
+    profile_window("encode-profile",
+                   f"1 pass, {ENCODE_BATCH} x {ENCODE_SEQ}",
+                   lambda: step(qp, batch))
+    del qp
     return launches
 
 
@@ -412,8 +698,6 @@ def _mean_counts(deltas):
 def profile_decode(eng, cfg):
     """torch.profiler over a short decode-heavy window of the serve
     engine: the device's busy share and the device time by kernel."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving import Request
     prompts = _prompts(9, 4, 8, 8, cfg.vocab)
     reqs = [Request(uid=100 + i, prompt=p, max_new_tokens=8)
@@ -421,16 +705,27 @@ def profile_decode(eng, cfg):
     for r in reqs:
         eng.submit(r)
     eng.step()                       # admit + prefill + first decode
+
+    def window():
+        for _ in range(4):
+            eng.step()
+    profile_window("profile", "4 decode steps, batch 4", window)
+    eng.run_until_done()
+
+
+def profile_window(phase, what, fn):
+    """torch.profiler over ``fn``: the device's busy share of the wall
+    time and the device time by kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(4):
-            eng.step()
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    eng.run_until_done()
-    from torch.autograd import DeviceType
     rows = []
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
@@ -442,8 +737,7 @@ def profile_decode(eng, cfg):
             rows.append((ev.key, dev_us, ev.count))
     busy_ms = sum(r[1] for r in rows) / 1e3
     rows.sort(key=lambda r: -r[1])
-    emit({"phase": "profile", "window": "4 decode steps, batch 4",
-          "wall_ms": wall_ms,
+    emit({"phase": phase, "window": what, "wall_ms": wall_ms,
           "device_busy_ms": busy_ms if rows else None,
           "device_busy_share": busy_ms / wall_ms if rows else None,
           "top": [{"kernel": k[:90], "device_ms": us / 1e3, "calls": n}
@@ -463,7 +757,7 @@ def _leaves(tree):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernels,parity,serve")
+    ap.add_argument("--phases", default="build,kernels,parity,serve,encode")
     ap.add_argument("--verbose-build", action="store_true",
                     help="print nvcc -Xptxas -v (registers, spills)")
     args = ap.parse_args(argv)
@@ -495,18 +789,28 @@ def main(argv=None) -> int:
 
     cfg = get_config("llama3-8b")
     plans = qplans.build_layer_plans(cfg)
+    ecfg = encoder_config()
     rows, launches = {}, {}
     if "kernels" in phases:
         rows = check_kernels(cfg, plans)
+        check_encoder_kernels(ecfg, qplans.build_layer_plans(ecfg), rows)
     if "parity" in phases:
         phase_parity(cfg)
     if "serve" in phases:
-        launches = phase_serve(cfg)
+        launches["serve"] = phase_serve(cfg)
+    if "encode" in phases:
+        launches["encode"] = phase_encode(ecfg)
     if rows:
+        # each kernel's launches come from the path it was ported for
+        # (K1/K2: serve, the first path); every path's counts are listed
+        home = {n: next(p for p in PATH_KERNELS if n in PATH_KERNELS[p])
+                for n in rows}
         emit({"kernels": [
             {"name": name, "route": "cuda", "source": SOURCES[name],
              "replaces": TPU_KERNELS[name],
-             "launches": launches.get(name, 0),
+             "launches": launches.get(home[name], {}).get(name, 0),
+             "launches_by_path": {p: c.get(name, 0)
+                                  for p, c in launches.items()},
              "max_abs_err": r["max_abs_err"], "ms": r["ms"],
              "plain_ms": r["plain_ms"], "call_ms": r["call_ms"],
              "bound_ms": r["bound_ms"],

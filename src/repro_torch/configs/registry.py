@@ -1,11 +1,12 @@
-"""--arch <id> registry of the configs the port serves so far.
+"""--arch <id> registry of the configs the port runs so far.
 
-The JAX package's registry holds 13 architectures; the port's first
-slice serves the dense GQA decoder only (ROADMAP §1 lists the rest).
+The JAX package's registry holds 13 architectures; the port runs the
+dense GQA decoder (serving and full-sequence prefill) and the encoder
+(full-sequence forward); ROADMAP §1 lists the rest.
 """
-from repro_torch.configs import llama3_8b
+from repro_torch.configs import llama3_8b, roberta_base
 
-ARCHS = {m.CONFIG.name: m.CONFIG for m in (llama3_8b,)}
+ARCHS = {m.CONFIG.name: m.CONFIG for m in (llama3_8b, roberta_base)}
 
 
 def get_config(name: str):

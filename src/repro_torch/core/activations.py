@@ -1,8 +1,10 @@
-"""Integer i-SiLU for SwiGLU FFNs (twin of ``repro.core.activations``).
+"""Integer activations (twin of ``repro.core.activations``): the paper's
+i-GELU unit (§III-H) with its output requant, and i-SiLU for SwiGLU FFNs.
 
-sigma(x) = e / (1 + e) with e = i_exp(-|x|), one integer division per
-element; SiLU = x * sigma(x), requantized.  Plain tensor code, not a
-kernel.
+i-SiLU: sigma(x) = e / (1 + e) with e = i_exp(-|x|), one integer division
+per element; SiLU = x * sigma(x), requantized.  Plain tensor code, not a
+kernel.  The i-GELU of an FFN runs as kernel K6 (``kernels.int_gelu``);
+:func:`i_gelu_act` is the arithmetic it is held against.
 """
 from __future__ import annotations
 
@@ -15,6 +17,24 @@ from repro_torch.core.dyadic import Dyadic, bits_for, clip_to_bits, fit_dyadic
 
 SIG_FRAC = 15                     # sigmoid as a 16-bit fraction
 RECIP_BITS = 30
+
+
+class IGeluActPlan(NamedTuple):
+    gelu: intmath.IGeluPlan
+    dn_out: Dyadic
+    s_in: float
+    s_out: float
+
+
+def make_igelu_act(s_in: float, qmax_in: int, s_out: float) -> IGeluActPlan:
+    g = intmath.make_igelu(s_in, qmax_in)
+    dn_out = fit_dyadic(g.s_out / s_out, qmax_in * (2 * g.q_one))
+    return IGeluActPlan(g, dn_out, s_in, s_out)
+
+
+def i_gelu_act(q, plan: IGeluActPlan, out_bits: int = 8):
+    out = intmath.i_gelu(q.to(torch.int32), plan.gelu)
+    return clip_to_bits(plan.dn_out(out), out_bits)
 
 
 class ISiluPlan(NamedTuple):

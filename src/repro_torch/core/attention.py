@@ -8,6 +8,8 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import torch
+
 from repro_torch.core import softmax as ism
 from repro_torch.core.dyadic import Dyadic, clip_to_bits, fit_dyadic
 from repro_torch.core.intmath import int_einsum
@@ -46,3 +48,16 @@ def i_attention_full(q8, k8, v8, plan: IAttnPlan, mask=None,
                      out_bits: int = 8):
     out = i_attention_acc(q8, k8, v8, plan, mask=mask)
     return clip_to_bits(plan.dn_out(out), out_bits)
+
+
+def causal_mask(sq: int, sk: int, q_offset: int = 0, window: int = 0,
+                device="cpu"):
+    """(Sq, Sk) bool, True = attend: ``ki <= qi`` with ``qi = i +
+    q_offset``; ``window`` > 0 adds sliding-window banding ``ki > qi -
+    window``."""
+    qi = torch.arange(sq, device=device)[:, None] + q_offset
+    ki = torch.arange(sk, device=device)[None, :]
+    m = ki <= qi
+    if window > 0:
+        m = m & (ki > qi - window)
+    return m

@@ -1,5 +1,6 @@
-"""Integer-only math primitives (SwiftTron §III-F/I; twin of
-``repro.core.intmath``): i-exp and the integer square root.
+"""Integer-only math primitives (SwiftTron §III-F/H/I; twin of
+``repro.core.intmath``): i-exp, i-erf / i-GELU and the integer square
+root.
 
 Everything operates on int32 tensors with design-time constants.
 """
@@ -12,9 +13,17 @@ import torch
 
 from repro_torch.analysis.budgets import static_check
 
-# I-BERT second-order polynomial: exp(p) ~ a(p+b)^2+c on (-ln2, 0]
+# I-BERT second-order polynomials a(p+b)^2+c: exp(p) on (-ln2, 0], erf(p)
+# on [0, -b].
 EXP_A, EXP_B, EXP_C = 0.35815147, 1.353, 0.344
+ERF_A, ERF_B, ERF_C = -0.2888, -1.769, 1.0
 LN2 = math.log(2.0)
+
+
+def _static_check(val: int, what: str):
+    """Design-time bound check (the central budget's typed
+    ``BitBudgetError``, a ``ValueError``)."""
+    static_check(val, what)
 
 
 def int_einsum(eq: str, a, b):
@@ -82,8 +91,8 @@ def make_iexp(s_in: float, z_max: int = 30) -> IExpPlan:
     q_b = int(math.floor(EXP_B / s_in))
     s_out = EXP_A * s_in * s_in
     q_c = int(math.floor(EXP_C / s_out))
-    static_check(q_b * q_b + q_c, "i-exp polynomial")
-    static_check(z_max * q_ln2, "i-exp range clip")
+    _static_check(q_b * q_b + q_c, "i-exp polynomial")
+    _static_check(z_max * q_ln2, "i-exp range clip")
     return IExpPlan(s_in, s_out, q_ln2, q_b, q_c, z_max)
 
 
@@ -97,3 +106,52 @@ def i_exp(q, plan: IExpPlan):
     t = q_p + plan.q_b
     q_l = t * t + plan.q_c
     return q_l >> z                                # exp(p) * 2^-z
+
+
+class IErfPlan(NamedTuple):
+    s_in: float
+    s_out: float
+    q_clip: int
+    q_bneg: int
+    q_c: int
+
+
+def make_ierf(s_in: float) -> IErfPlan:
+    q_clip = int(math.floor(-ERF_B / s_in))
+    q_bneg = int(math.floor(ERF_B / s_in))
+    s_poly = ERF_A * s_in * s_in                    # negative
+    q_c = int(math.floor(ERF_C / s_poly))           # negative
+    _static_check(q_clip * q_clip + abs(q_c), "i-erf polynomial")
+    return IErfPlan(s_in, -s_poly, q_clip, q_bneg, q_c)
+
+
+def i_erf(q, plan: IErfPlan):
+    """erf(x) for x = q * s_in, int32 at ``plan.s_out`` (> 0).  ``sign(0)``
+    is 0, and ``abs`` wraps at -2^31, as in the reference."""
+    sgn = torch.sign(q).to(torch.int32)
+    q_abs = torch.clamp(torch.abs(q), max=plan.q_clip)
+    t = q_abs + plan.q_bneg                         # in [q_bneg, 0]
+    bracket = t * t + plan.q_c                      # <= 0
+    return sgn * (-bracket)
+
+
+class IGeluPlan(NamedTuple):
+    s_in: float
+    s_out: float
+    erf: IErfPlan
+    q_one: int
+    qmax_in: int
+
+
+def make_igelu(s_in: float, qmax_in: int) -> IGeluPlan:
+    erf = make_ierf(s_in / math.sqrt(2.0))
+    q_one = int(math.floor(1.0 / erf.s_out))
+    _static_check(qmax_in * (2 * q_one), "i-gelu product")
+    s_out = s_in * erf.s_out / 2.0
+    return IGeluPlan(s_in, s_out, erf, q_one, qmax_in)
+
+
+def i_gelu(q, plan: IGeluPlan):
+    """GELU(x) = x * 0.5 * (1 + erf(x/sqrt(2))) — paper §III-H / Fig. 14."""
+    q_erf = i_erf(q, plan.erf)
+    return q * (q_erf + plan.q_one)

@@ -24,5 +24,5 @@
 
 extern "C" int r8_int_paged_prefill(const r8::AttnArgs* a, void* stream) {
   const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  return r8::launch_attention<16, 64>(*a, s);
+  return r8::launch_attention<16, 64, true, false>(*a, s);
 }

@@ -14,10 +14,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.activations import ISiluPlan
+from repro_torch.core.activations import IGeluActPlan, ISiluPlan
 from repro_torch.core.attention import IAttnPlan
 from repro_torch.core.dyadic import Dyadic
-from repro_torch.core.intmath import IExpPlan
+from repro_torch.core.intmath import IErfPlan, IExpPlan, IGeluPlan
 from repro_torch.core.norms import INormPlan
 from repro_torch.core.softmax import ISoftmaxPlan
 from repro_torch.ops.spec import QuantLinearParams
@@ -25,8 +25,9 @@ from repro_torch.quant.plans import (AttnPlan, EmbedPlan, FfnPlan, HeadPlan,
                                      LayerPlans, LinearPlan)
 
 PLAN_TYPES = {t.__name__: t for t in (
-    Dyadic, IExpPlan, ISoftmaxPlan, IAttnPlan, INormPlan, ISiluPlan,
-    LinearPlan, AttnPlan, FfnPlan, EmbedPlan, HeadPlan, LayerPlans)}
+    Dyadic, IExpPlan, IErfPlan, IGeluPlan, IGeluActPlan, ISoftmaxPlan,
+    IAttnPlan, INormPlan, ISiluPlan, LinearPlan, AttnPlan, FfnPlan,
+    EmbedPlan, HeadPlan, LayerPlans)}
 
 
 def plan_from_reference(obj):

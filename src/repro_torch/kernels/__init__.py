@@ -1,4 +1,5 @@
-"""Hand-written Hopper kernels of the serving main path, and their oracles.
+"""Hand-written Hopper kernels of the serving and encoder paths, and their
+oracles.
 
   * K1 ``int8_matmul.int8_matmul``                     (csrc/int8_matmul.cu)
   * K2 ``int_layernorm.int_layernorm``                 (csrc/int_layernorm.cu)
@@ -6,6 +7,9 @@
                                                  (csrc/int_decode_attention.cu)
   * K4 ``int_attention_fused.int_paged_prefill_fused``
                                                  (csrc/int_paged_prefill.cu)
+  * K5 ``int_attention_fused.int_attention_fused``
+                                                 (csrc/int_attention_fused.cu)
+  * K6 ``int_gelu.int_gelu``                           (csrc/int_gelu.cu)
 
 Each wrapper takes its plain PyTorch version (beside it, in the same
 module) for a tensor on the CPU, and launches its CUDA kernel — or raises
@@ -16,7 +20,7 @@ run can show that the main path went through the kernels.
 from __future__ import annotations
 
 KERNELS = ("int8_matmul", "int_layernorm", "int_decode_attention",
-           "int_paged_prefill")
+           "int_paged_prefill", "int_attention_fused", "int_gelu")
 
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 

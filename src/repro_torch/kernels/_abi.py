@@ -32,11 +32,21 @@ class NormConsts(ctypes.Structure):
                                   "out_c", "out_pre", "lo", "hi")]
 
 
+class GeluConsts(ctypes.Structure):
+    _fields_ = [(n, _I) for n in ("q_clip", "q_bneg", "q_c", "q_one",
+                                  "out_b", "out_c", "out_pre", "lo", "hi")]
+
+
+#: AttnArgs.mask: which live range each query row gets (int_attention.cuh)
+MASK_STEPPED, MASK_NONE, MASK_CAUSAL = 0, 1, 2
+
+
 class AttnArgs(ctypes.Structure):
-    _fields_ = ([(n, _P) for n in ("q", "k_pool", "v_pool", "pages",
-                                   "vlen", "bvec", "out")]
+    _fields_ = ([(n, _P) for n in ("q", "k", "v", "pages", "vlen", "bvec",
+                                   "out")]
                 + [(n, _I) for n in ("B", "S", "H", "Hkv", "D", "page_size",
-                                     "max_pages", "out_is_int8")]
+                                     "max_pages", "Skv", "mask", "window",
+                                     "out_is_int8")]
                 + [("sm", SoftmaxConsts), ("rq", Requant)])
 
 
@@ -52,6 +62,11 @@ def declare(lib: ctypes.CDLL) -> None:
     lib.r8_int_decode_attention.restype = _I
     lib.r8_int_paged_prefill.argtypes = [ctypes.POINTER(AttnArgs), _P]
     lib.r8_int_paged_prefill.restype = _I
+    lib.r8_int_attention_fused.argtypes = [ctypes.POINTER(AttnArgs), _P]
+    lib.r8_int_attention_fused.restype = _I
+    lib.r8_int_gelu.argtypes = [_P, _P, ctypes.c_longlong,
+                                ctypes.POINTER(GeluConsts), _I, _P]
+    lib.r8_int_gelu.restype = _I
     lib.r8_error_string.argtypes = [_I]
     lib.r8_error_string.restype = ctypes.c_char_p
 
@@ -114,3 +129,15 @@ def norm_consts(plan, out_bits: int) -> NormConsts:
                       plan.dn_var.c, plan.dn_var.pre, plan.pre_shift,
                       plan.recip_bits, plan.dn_out.b, plan.dn_out.c,
                       plan.dn_out.pre, lo, hi)
+
+
+def gelu_consts(plan, dn_out, out_bits: int) -> GeluConsts:
+    """Pack an IGeluPlan (its IErfPlan) and the output Dyadic."""
+    _shifts_ok(dn_out.b, dn_out.c, dn_out.pre)
+    erf = plan.erf
+    for v in (erf.q_clip, erf.q_bneg, erf.q_c, plan.q_one):
+        if not -2**31 <= v < 2**31:
+            raise ValueError(f"i-GELU constant {v} outside int32")
+    lo, hi = -(1 << (out_bits - 1)), (1 << (out_bits - 1)) - 1
+    return GeluConsts(erf.q_clip, erf.q_bneg, erf.q_c, plan.q_one, dn_out.b,
+                      dn_out.c, dn_out.pre, lo, hi)

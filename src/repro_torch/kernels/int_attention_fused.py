@@ -1,9 +1,12 @@
-"""K4: paged chunked-prefill integer attention (+ the shared launch path).
+"""K5 full-sequence and K4 paged chunked-prefill integer attention (+ the
+launch path they share with K3).
 
-The port of ``repro/kernels/int_attention_fused.py::int_paged_prefill_fused``;
-the CUDA kernel is ``csrc/int_paged_prefill.cu`` (its three-sweep body,
-``csrc/int_attention.cuh``, is shared with K3).
-:func:`int_paged_prefill_plain` is the plain PyTorch version.
+The ports of ``repro/kernels/int_attention_fused.py``'s
+``int_attention_fused`` (CUDA kernel ``csrc/int_attention_fused.cu``) and
+``int_paged_prefill_fused`` (``csrc/int_paged_prefill.cu``); their
+three-sweep body, ``csrc/int_attention.cuh``, is shared with K3.
+:func:`int_attention_fused_plain` and :func:`int_paged_prefill_plain` are
+the plain PyTorch versions.
 """
 from __future__ import annotations
 
@@ -45,40 +48,27 @@ def apply_wo_cuda(o8, wo, wo_spec):
     return out.reshape(b, s, -1)
 
 
-def launch_attention(entry: str, q8, k_pool, v_pool, plan, vlen, pages,
-                     page_size: int, requant, b_vec):
-    """Validate the operands and launch one of the two paged attention
-    entry points of the kernel library; returns ``(B, S, H, D)``."""
+def _check_int8(dev, **tensors):
+    for name, t in tensors.items():
+        if t.device != dev or t.dtype != torch.int8 \
+                or not t.is_contiguous() or t.data_ptr() % 4:
+            raise ValueError(f"attention: {name} must be a contiguous, "
+                             f"4-byte aligned int8 tensor on {dev}")
+
+
+def _launch(entry: str, counter: str, q8, k, v, plan, requant, b_vec,
+            pages=None, vlen=None, page_size: int = 0, skv: int = 0,
+            mask: int = 0, window: int = 0):
+    """Pack :class:`~repro_torch.kernels._abi.AttnArgs`, launch one
+    attention entry point of the kernel library and count it under
+    ``LAUNCHES[counter]``; returns ``(B, S, H, D)``."""
     from repro_torch.kernels import _abi
     from repro_torch.kernels._build import library
     b, s, h, d = q8.shape
     dev = q8.device
-    if k_pool.shape != v_pool.shape or k_pool.dim() != 4:
-        raise ValueError("paged attention: k/v pools must both be "
-                         "(num_pages, page_size, Hkv, D)")
-    ps, hkv = k_pool.shape[1], k_pool.shape[2]
-    if ps != page_size or k_pool.shape[3] != d or h % hkv:
-        raise ValueError(f"paged attention: pool {tuple(k_pool.shape)} vs "
-                         f"q {tuple(q8.shape)}, page_size={page_size}")
     if d not in HEAD_DIMS:
-        raise ValueError(f"paged attention kernel supports head dims "
+        raise ValueError(f"attention kernels support head dims "
                          f"{HEAD_DIMS}, got {d}")
-    for name, t in (("q8", q8), ("k_pool", k_pool), ("v_pool", v_pool)):
-        if t.device != dev or t.dtype != torch.int8 \
-                or not t.is_contiguous() or t.data_ptr() % 4:
-            raise ValueError(f"paged attention: {name} must be a contiguous"
-                             f", 4-byte aligned int8 tensor on {dev}")
-    pages = torch.as_tensor(pages, dtype=torch.int32,
-                            device=dev).contiguous()
-    vlen = torch.as_tensor(vlen, dtype=torch.int32, device=dev).contiguous()
-    if pages.dim() != 2 or pages.shape[0] != b or tuple(vlen.shape) != (b,):
-        raise ValueError("paged attention: pages must be (B, max_pages) "
-                         "and valid_len (B,)")
-    if pages.shape[1] * page_size > MAX_ROWSUM_LEN:
-        raise ValueError(f"paged attention: a {pages.shape[1]} x "
-                         f"{page_size} page table spans more than the "
-                         f"{MAX_ROWSUM_LEN} positions an exact int32 row "
-                         "sum allows")
     bvec = None
     if requant.kind == PER_CHANNEL:
         if b_vec is None:
@@ -92,16 +82,105 @@ def launch_attention(entry: str, q8, k_pool, v_pool, plan, vlen, pages,
     if b == 0 or s == 0:
         return out
     args = _abi.AttnArgs(
-        q8.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        pages.data_ptr(), vlen.data_ptr(), _abi.ptr(bvec), out.data_ptr(),
-        b, s, h, hkv, d, page_size, pages.shape[1],
+        q8.data_ptr(), k.data_ptr(), v.data_ptr(), _abi.ptr(pages),
+        _abi.ptr(vlen), _abi.ptr(bvec), out.data_ptr(), b, s, h,
+        k.shape[2], d, page_size,
+        0 if pages is None else pages.shape[1], skv, mask, window,
         int(out_dtype == torch.int8), _abi.softmax_consts(plan.sm),
         _abi.requant_struct(requant))
     lib = library()
     rc = getattr(lib, entry)(ctypes.byref(args), _abi.stream_of(q8))
+    LAUNCHES[counter] += 1
     _abi.check(lib, rc, entry)
     return out
 
+
+def launch_attention(entry: str, counter: str, q8, k_pool, v_pool, plan,
+                     vlen, pages, page_size: int, requant, b_vec):
+    """Validate the operands and launch one of the two paged attention
+    entry points (K3, K4: stepped mask over a page table); returns
+    ``(B, S, H, D)``."""
+    from repro_torch.kernels import _abi
+    b, s, h, d = q8.shape
+    dev = q8.device
+    if k_pool.shape != v_pool.shape or k_pool.dim() != 4:
+        raise ValueError("paged attention: k/v pools must both be "
+                         "(num_pages, page_size, Hkv, D)")
+    ps, hkv = k_pool.shape[1], k_pool.shape[2]
+    if ps != page_size or k_pool.shape[3] != d or h % hkv:
+        raise ValueError(f"paged attention: pool {tuple(k_pool.shape)} vs "
+                         f"q {tuple(q8.shape)}, page_size={page_size}")
+    _check_int8(dev, q8=q8, k_pool=k_pool, v_pool=v_pool)
+    pages = torch.as_tensor(pages, dtype=torch.int32,
+                            device=dev).contiguous()
+    vlen = torch.as_tensor(vlen, dtype=torch.int32, device=dev).contiguous()
+    if pages.dim() != 2 or pages.shape[0] != b or tuple(vlen.shape) != (b,):
+        raise ValueError("paged attention: pages must be (B, max_pages) "
+                         "and valid_len (B,)")
+    if pages.shape[1] * page_size > MAX_ROWSUM_LEN:
+        raise ValueError(f"paged attention: a {pages.shape[1]} x "
+                         f"{page_size} page table spans more than the "
+                         f"{MAX_ROWSUM_LEN} positions an exact int32 row "
+                         "sum allows")
+    return _launch(entry, counter, q8, k_pool, v_pool, plan, requant, b_vec,
+                   pages=pages, vlen=vlen, page_size=page_size,
+                   mask=_abi.MASK_STEPPED)
+
+
+# ------------------------------------------------------------------ K5 ----
+
+def int_attention_fused_plain(q8, k8, v8, plan, requant=None, b_vec=None,
+                              causal: bool = True, window: int = 0,
+                              out_bits: int = 8):
+    """The plain version of K5: the full-matrix oracle with the kernel's
+    default epilogue (the plan's per-tensor ``dn_out`` at ``out_bits``)
+    and output dtype."""
+    if requant is None:
+        requant = RequantSpec.per_tensor(plan.dn_out, out_bits)
+    return _ref.ref_int_attention(q8, k8, v8, plan, causal, window,
+                                  out_bits, requant=requant, b_vec=b_vec)
+
+
+def int_attention_fused(q8, k8, v8, plan, requant=None, b_vec=None,
+                        causal: bool = True, window: int = 0,
+                        out_bits: int = 8):
+    """q8 (B, Sq, H, D) int8; k8/v8 (B, Skv, Hkv, D) int8 (GQA: Hkv | H).
+
+    Mask: none, or causal (``ki <= qi``) and, with ``window`` > 0,
+    ``ki > qi - window`` (a window implies causality, as in
+    ``core.attention.causal_mask``).  ``requant``/``b_vec``: the epilogue
+    (default: the plan's per-tensor ``dn_out`` at ``out_bits``).  Returns
+    (B, Sq, H, D): int8 when the epilogue clips to <= 8 bits, int32
+    otherwise.  Any Sq and Skv up to ``MAX_ROWSUM_LEN``; Sq != Skv is a
+    cross-shaped launch.  CPU tensors take the plain version; CUDA tensors
+    launch the kernel or raise."""
+    if not q8.is_cuda:
+        return int_attention_fused_plain(q8, k8, v8, plan, requant, b_vec,
+                                         causal, window, out_bits)
+    from repro_torch.kernels import _abi
+    if requant is None:
+        requant = RequantSpec.per_tensor(plan.dn_out, out_bits)
+    b, sq, h, d = q8.shape
+    if k8.shape != v8.shape or k8.dim() != 4 or k8.shape[0] != b \
+            or k8.shape[3] != d or h % k8.shape[2]:
+        raise ValueError(f"int_attention_fused: k/v {tuple(k8.shape)} vs "
+                         f"q {tuple(q8.shape)}")
+    skv = k8.shape[1]
+    if skv > MAX_ROWSUM_LEN:
+        raise ValueError(f"int_attention_fused: Skv={skv} exceeds the "
+                         f"{MAX_ROWSUM_LEN} positions an exact int32 row "
+                         "sum allows")
+    _check_int8(q8.device, q8=q8, k8=k8, v8=v8)
+    if causal or window > 0:
+        mask = _abi.MASK_CAUSAL
+    else:
+        mask = _abi.MASK_NONE
+    return _launch("r8_int_attention_fused", "int_attention_fused", q8, k8,
+                   v8, plan, requant, b_vec, skv=skv, mask=mask,
+                   window=max(window, 0))
+
+
+# ------------------------------------------------------------------ K4 ----
 
 def int_paged_prefill_plain(q8, k_pool, v_pool, plan, pos_end, pages,
                             page_size: int, requant=None, b_vec=None,
@@ -133,9 +212,9 @@ def int_paged_prefill_fused(q8, k_pool, v_pool, plan, pos_end, pages,
                                        pages, page_size, requant, b_vec, wo,
                                        wo_spec)
     requant, wo = epilogue_setup(requant, plan, wo, wo_spec)
-    o = launch_attention("r8_int_paged_prefill", q8, k_pool, v_pool, plan,
-                         pos_end, pages, page_size, requant, b_vec)
-    LAUNCHES["int_paged_prefill"] += 1
+    o = launch_attention("r8_int_paged_prefill", "int_paged_prefill", q8,
+                         k_pool, v_pool, plan, pos_end, pages, page_size,
+                         requant, b_vec)
     if wo is None:
         return o
     return apply_wo_cuda(o, wo, wo_spec)

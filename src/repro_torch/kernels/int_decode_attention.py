@@ -8,7 +8,6 @@ the plain PyTorch version.
 from __future__ import annotations
 
 from repro_torch.analysis.budgets import MAX_SQ
-from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.int_attention_fused import (apply_wo_cuda,
                                                      epilogue_setup,
                                                      int_paged_prefill_plain,
@@ -44,9 +43,9 @@ def int_decode_attention_fused(q8, k_pool, v_pool, plan, valid_len, pages,
         raise ValueError(f"decode attention takes at most {MAX_SQ} query "
                          f"rows, got {q8.shape[1]}")
     requant, wo = epilogue_setup(requant, plan, wo, wo_spec)
-    o = launch_attention("r8_int_decode_attention", q8, k_pool, v_pool,
-                         plan, valid_len, pages, page_size, requant, b_vec)
-    LAUNCHES["int_decode_attention"] += 1
+    o = launch_attention("r8_int_decode_attention", "int_decode_attention",
+                         q8, k_pool, v_pool, plan, valid_len, pages,
+                         page_size, requant, b_vec)
     if wo is None:
         return o
     return apply_wo_cuda(o, wo, wo_spec)

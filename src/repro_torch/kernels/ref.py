@@ -13,7 +13,7 @@ from repro_torch.core import attention as iattn
 from repro_torch.core import norms as inorms
 from repro_torch.core.dyadic import (apply_dyadic, apply_dyadic_perchannel,
                                      clip_to_bits)
-from repro_torch.core.intmath import int_einsum
+from repro_torch.core.intmath import i_gelu, int_einsum
 from repro_torch.ops.paged import gather_pages, scatter_chunk
 from repro_torch.ops.spec import PER_TENSOR, QuantLinearParams
 
@@ -149,3 +149,33 @@ def apply_attn_requant(acc, requant, b_vec=None):
             requant.c, requant.pre, axis=-1).reshape(b, sq, h, d)
     out = clip_to_bits(out, requant.out_bits)
     return out.to(torch.int8) if requant.out_bits <= 8 else out
+
+
+def ref_int_gelu(q, plan, dn_out, out_bits: int = 8):
+    """i-GELU of int32 ``q`` (any shape), the output dyadic, clip."""
+    return clip_to_bits(apply_dyadic(i_gelu(q.to(torch.int32), plan),
+                                     dn_out), out_bits)
+
+
+def ref_int_attention(q8, k8, v8, plan: iattn.IAttnPlan, causal: bool = True,
+                      window: int = 0, out_bits: int = 8, requant=None,
+                      b_vec=None):
+    """Full-matrix integer attention of ``(B, Sq, H, D)`` queries against
+    ``(B, Skv, Hkv, D)`` keys/values (GQA: ``Hkv | H``), causal and
+    sliding-window masks as ``core.attention.causal_mask`` with offset 0.
+    ``requant``: a RequantSpec epilogue on the int32 P·V accumulator
+    (``None``: the plan's per-tensor ``dn_out`` clipped to ``out_bits``,
+    int32 as in the reference)."""
+    sq, sk = q8.shape[1], k8.shape[1]
+    mask = iattn.causal_mask(sq, sk, window=window, device=q8.device
+                             )[None, None] if (causal or window > 0) else None
+    h, hkv = q8.shape[2], k8.shape[2]
+    if hkv != h:
+        rep = h // hkv
+        k8 = k8.repeat_interleave(rep, dim=2)
+        v8 = v8.repeat_interleave(rep, dim=2)
+    if requant is None:
+        return iattn.i_attention_full(q8, k8, v8, plan, mask=mask,
+                                      out_bits=out_bits)
+    acc = iattn.i_attention_acc(q8, k8, v8, plan, mask=mask)
+    return apply_attn_requant(acc, requant, b_vec)

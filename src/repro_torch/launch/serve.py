@@ -35,7 +35,9 @@ from repro_torch.serving import Request, ServingEngine
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
-    ap.add_argument("--arch", default="llama3-8b", choices=sorted(ARCHS))
+    ap.add_argument("--arch", default="llama3-8b",
+                    choices=sorted(n for n, c in ARCHS.items()
+                                   if c.is_causal))
     ap.add_argument("--reduced", action="store_true",
                     help="smoke-test size (2 layers, d=128, vocab 1024)")
     ap.add_argument("--requests", type=int, default=8)

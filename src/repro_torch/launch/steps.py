@@ -1,0 +1,40 @@
+"""Step builders (twin of the inference half of ``repro.launch.steps``).
+
+``make_prefill_step`` closes over the config, the plans and the op set
+and returns the full-sequence integer forward: the paper's encoder path
+(RoBERTa-base) and the full-sequence prefill of every ported decoder.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import inttransformer as it
+from repro_torch.models.common import ArchConfig
+from repro_torch.ops import resolve_ops
+from repro_torch.quant import plans as qplans
+
+
+def make_prefill_step(cfg: ArchConfig, plans: qplans.LayerPlans, ops=None,
+                      device="cuda"):
+    """Returns ``prefill(qparams, batch[, rope_tab]) -> (B, V)`` float32
+    last-position logits.  ``batch["tokens"]``: (B, S) token ids, moved
+    to ``device`` (default the card; raises without one unless given
+    ``device="cpu"``).  With ``cfg.pos == "rope"`` the integer RoPE
+    tables are an argument, as in the reference."""
+    ops = resolve_ops(ops)
+    dev = resolve_device(device)
+
+    def _batch(batch):
+        return {**batch, "tokens": torch.as_tensor(batch["tokens"],
+                                                   device=dev)}
+
+    if cfg.pos == "rope":
+        def prefill(qparams, batch, rope_tab):
+            return it.int_prefill(qparams, _batch(batch), plans, cfg,
+                                  ops=ops, rope_tab=rope_tab)
+    else:
+        def prefill(qparams, batch):
+            return it.int_prefill(qparams, _batch(batch), plans, cfg,
+                                  ops=ops)
+    return prefill

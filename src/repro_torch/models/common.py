@@ -77,6 +77,10 @@ class ArchConfig:
         return self.d_model // self.n_heads if self.n_heads else 0
 
     @property
+    def is_causal(self) -> bool:
+        return self.family != "encoder"
+
+    @property
     def q_group(self) -> int:
         return self.n_heads // max(self.n_kv_heads, 1)
 

@@ -1,5 +1,6 @@
-"""Integer-path transformer layers of the serving main path (the dense
-subset of ``repro.models.intlayers``).
+"""Integer-path transformer layers of the serving path and the
+full-sequence forward (the dense-decoder and encoder subset of
+``repro.models.intlayers``).
 
 Every function consumes int8/int32 tensors and the design-time plans of
 ``repro_torch.quant.plans``.  Residual stream: int32 at ``cfg.s_res``
@@ -108,6 +109,46 @@ def _qkv(qp, x8, plans: qplans.AttnPlan, cfg: ArchConfig, ops):
     return q8, k8, v8
 
 
+#: the reference's threshold (``intlayers.int_attn_fwd``) above which a
+#: backend without a fused attention kernel streams the two-pass chunked
+#: attention instead of the full-matrix oracle
+FULL_MATRIX_MAX = (4096 * 4096) // 4
+
+
+def int_attn_fwd(qp, x8, plans: qplans.AttnPlan, cfg: ArchConfig,
+                 rope_tab=None, positions=None, causal=True, window: int = 0,
+                 memory8=None, ops=None):
+    """Full-sequence self-attention.  x8: (B,S,D) int8 -> (B,S,D) int32 at
+    s_res.  ``rope_tab``: integer RoPE tables (rotated at ``positions``,
+    default ``0..S-1``); ``causal``/``window``: the mask.  A backend with
+    a fused attention kernel takes every length; the full-matrix oracle
+    is called up to the reference's chunking threshold."""
+    if memory8 is not None:
+        raise NotImplementedError("cross attention over an encoder/image "
+                                  "memory is not ported yet (ROADMAP §1 "
+                                  "item 8)")
+    ops = resolve_ops(ops)
+    b, s, _ = x8.shape
+    q8, k8, v8 = _qkv(qp, x8, plans, cfg, ops)
+    if rope_tab is not None:
+        pos = positions if positions is not None else torch.arange(
+            s, device=x8.device)
+        q8 = apply_int_rope(q8, pos, rope_tab)
+        k8 = apply_int_rope(k8, pos, rope_tab)
+    if not ops.backend_for("int_attention").fused_attention \
+            and s * s > FULL_MATRIX_MAX:
+        raise NotImplementedError(
+            "the two-pass chunked attention (core.attention."
+            "i_attention_chunked) a non-fused backend takes above "
+            f"S*Skv = {FULL_MATRIX_MAX} is not ported yet (ROADMAP §1 "
+            "item 8)")
+    o8 = ops.int_attention(q8, k8, v8, plans.attn, causal=causal,
+                           window=window,
+                           requant=RequantSpec.per_tensor(plans.attn.dn_out))
+    return int_linear(o8.to(torch.int8).reshape(b, s, cfg.n_heads * cfg.hd),
+                      qp["wo"], plans.out, ops)
+
+
 def int_attn_decode(qp, x8, cache, pos, plans: qplans.AttnPlan,
                     cfg: ArchConfig, rope_tab=None, ops=None, pages=None,
                     page_size: int = 0, max_len: int = 0,
@@ -196,15 +237,18 @@ def int_attn_prefill_chunk(qp, x8, cache, base_pos, plans: qplans.AttnPlan,
 # --------------------------------------------------------------- ffn ------
 
 def int_ffn_fwd(qp, x8, plans: qplans.FfnPlan, cfg: ArchConfig, ops=None):
-    """SwiGLU FFN.  x8 (B,S,D) int8 -> int32 at s_res.  The i-SiLU gate
-    and the gate product are plain tensor code."""
-    if cfg.activation != "swiglu":
-        raise NotImplementedError("GELU FFNs are not ported yet "
-                                  "(ROADMAP §1 item 8)")
+    """SwiGLU or GELU FFN.  x8 (B,S,D) int8 -> int32 at s_res.  The i-SiLU
+    gate and the gate product are plain tensor code; i-GELU is the
+    ``int_gelu`` op (K6 on the ``cuda`` backend)."""
     ops = resolve_ops(ops)
     h1 = int_linear(x8, qp["w1"], plans.up, ops)            # 11-bit int32
-    h3 = int_linear(x8, qp["w3"], plans.up, ops)
-    a8 = iact.i_silu(h1, plans.act_silu, out_bits=8)
-    prod = a8 * h3                                          # s8 * s10
-    h = clip_to_bits(plans.dn_gate(prod), 8).to(torch.int8)
+    if cfg.activation == "swiglu":
+        h3 = int_linear(x8, qp["w3"], plans.up, ops)
+        a8 = iact.i_silu(h1, plans.act_silu, out_bits=8)
+        prod = a8 * h3                                      # s8 * s10
+        h = clip_to_bits(plans.dn_gate(prod), 8).to(torch.int8)
+    else:
+        a = ops.int_gelu(h1, plans.act_gelu.gelu, plans.act_gelu.dn_out,
+                         out_bits=8)
+        h = a.to(torch.int8)
     return int_linear(h, qp["w2"], plans.down, ops)

@@ -1,6 +1,6 @@
-"""Integer serving datapath of a dense decoder (the main-path subset of
-``repro.models.inttransformer``): embedding, chunked prefill, decode,
-logits.
+"""Integer datapath of dense decoders and encoders (the ported subset of
+``repro.models.inttransformer``): embedding, the full-sequence forward
+(``int_prefill``), chunked prefill, decode, logits.
 
 Everything from the embedding lookup to the last requant is SwiftTron
 integer arithmetic; only the final logits are dequantized (the host-side
@@ -40,8 +40,26 @@ def _layer(tree, g: int):
 def chunked_prefill_supported(cfg: ArchConfig) -> bool:
     """Full (non-windowed) causal attention + dense FFN sublayers only."""
     _, _, kinds = layer_group_spec(cfg)
-    return cfg.window == 0 and all(kind == ("attn", "ffn", False)
-                                   for kind in kinds)
+    return cfg.is_causal and cfg.window == 0 and all(
+        kind == ("attn", "ffn", False) for kind in kinds)
+
+
+def _int_sublayer_fwd(qp, x32, plans: qplans.LayerPlans, cfg: ArchConfig,
+                      kind, rope_tab, positions, causal, ops):
+    """Pre-norm integer sublayer of kind ``("attn", "ffn", False)``.  x32:
+    (B,S,D) int32 at s_res.  The reference's integer path is pre-norm
+    whatever ``cfg.post_norm`` says, and so is this."""
+    if kind != ("attn", "ffn", False):
+        raise NotImplementedError(f"sublayer {kind} is not ported yet "
+                                  "(ROADMAP §1 item 8)")
+    h8 = il.int_norm(qp["norm1"], x32, plans.norm, ops)
+    a32 = il.int_attn_fwd(qp["attn"], h8, plans.attn, cfg, rope_tab,
+                          positions, causal=causal, window=cfg.window,
+                          ops=ops)
+    x32 = _residual_add(x32, a32, cfg)
+    h8 = il.int_norm(qp["norm2"], x32, plans.norm, ops)
+    return _residual_add(x32, il.int_ffn_fwd(qp["ffn"], h8, plans.ffn, cfg,
+                                             ops), cfg)
 
 
 def embed_int(qparams, tokens, plans: qplans.LayerPlans, cfg: ArchConfig):
@@ -59,6 +77,45 @@ def logits_int(qparams, x32, plans: qplans.LayerPlans, cfg: ArchConfig,
     head_plan = qplans.LinearPlan(cfg.s_act8, 0.0, 32, 0, 0, cfg.d_model)
     acc = il.int_linear(h8, qparams["head"], head_plan, ops)
     return acc.to(torch.float32) * qparams["head_scale"][None] * cfg.s_act8
+
+
+def int_prefill(qparams, batch, plans: qplans.LayerPlans, cfg: ArchConfig,
+                ops=None, return_cache=False, cache_len: int = 0,
+                rope_tab=None):
+    """Full-sequence integer forward of ``batch["tokens"]`` (B, S);
+    returns the last position's float32 logits (B, V).
+
+    ``rope_tab``: the int32 (cos, sin) tables (built here for ``pos ==
+    "rope"`` when not given).  Causal per ``cfg.is_causal``, windowed per
+    ``cfg.window``; an encoder adds no position embedding, as in the
+    reference's integer path.  The encoder-decoder / VLM memory and
+    ``return_cache`` are not ported yet."""
+    if return_cache:
+        raise NotImplementedError("int_prefill(return_cache=True) builds "
+                                  "the contiguous KV cache, which is not "
+                                  "ported yet (ROADMAP §1 item 5)")
+    if cfg.family in ("encdec", "vlm"):
+        raise NotImplementedError(f"the {cfg.family} memory (encoder / "
+                                  "image tokens) is not ported yet "
+                                  "(ROADMAP §1 item 8)")
+    ops = resolve_ops(ops)
+    _, ng, kinds = layer_group_spec(cfg)
+    tokens = batch["tokens"]
+    s = tokens.shape[1]
+    dev = qparams["embed_w8"].device
+    if rope_tab is None and cfg.pos == "rope":
+        rope_tab = il.build_rope_table(max(s, cache_len) + 1, cfg.hd,
+                                       cfg.rope_theta, device=dev)
+    positions = torch.arange(s, device=dev)
+    x32 = embed_int(qparams, tokens, plans, cfg)
+    for g in range(ng):
+        for j, kind in enumerate(kinds):
+            x32 = _int_sublayer_fwd(_layer(qparams["layers"][j], g), x32,
+                                    plans, cfg, kind, rope_tab, positions,
+                                    cfg.is_causal, ops)
+    # the kernels take contiguous operands: copy out the last position
+    last = x32[:, -1:, :].contiguous()
+    return logits_int(qparams, last, plans, cfg, ops)[:, 0]
 
 
 def init_decode_cache(cfg: ArchConfig, layout, device="cpu") -> List[Dict]:

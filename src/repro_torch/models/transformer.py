@@ -1,5 +1,5 @@
-"""Layer grouping and the dense float init (twin of the matching parts of
-``repro.models.transformer``)."""
+"""Layer grouping and the float init of dense decoders and encoders (twin
+of the matching parts of ``repro.models.transformer``)."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -40,17 +40,23 @@ def layer_group_spec(cfg: ArchConfig):
     return gl, n // gl, kinds
 
 
+PORTED_FAMILIES = ("dense", "encoder")
+
+
 def require_dense(cfg: ArchConfig) -> None:
-    """The port serves dense attention+FFN decoders only so far."""
+    """The port runs attention+FFN stacks only so far: dense decoders and
+    encoders."""
     _, _, kinds = layer_group_spec(cfg)
-    if cfg.family != "dense" or kinds != [("attn", "ffn", False)]:
+    if cfg.family not in PORTED_FAMILIES \
+            or kinds != [("attn", "ffn", False)]:
         raise NotImplementedError(
             f"arch {cfg.name!r} ({cfg.family}) is not ported yet: the port "
-            "serves dense attention+FFN decoders (ROADMAP §1 item 8)")
+            "runs dense attention+FFN decoders and encoders (ROADMAP §1 "
+            "item 8)")
 
 
 def init_layer(gen: torch.Generator, cfg: ArchConfig, dtype) -> Pytree:
-    """One dense sublayer's float params (unstacked)."""
+    """One attention+FFN sublayer's float params (unstacked)."""
     dev = gen.device
     return {"norm1": fl.init_norm(cfg, dtype, dev),
             "attn": fl.init_attn(gen, cfg, dtype),
@@ -67,11 +73,13 @@ def _stack(trees):
 
 def init_params(cfg: ArchConfig, seed: int = 0,
                 device="cuda") -> Pytree:
-    """Random float params of a dense decoder in the reference layout:
-    ``embed`` (V, D), ``final_norm``, ``lm_head`` (D, V) and ``layers`` —
-    one dict whose leaves carry a leading layer axis.  Holds the whole
-    float model at once; ``quant.convert.init_quantized`` draws and
-    quantizes layer by layer instead."""
+    """Random float params in the reference layout: ``embed`` (V, D),
+    ``final_norm``, ``lm_head`` (D, V; absent for an encoder or tied
+    embeddings), ``layers`` — one dict whose leaves carry a leading layer
+    axis — and, for ``pos="learned"``, ``pos_embed`` (65536, D), which the
+    integer path does not read (drawn last, so the other draws equal
+    ``quant.convert.init_quantized``'s).  Holds the whole float model at
+    once; ``init_quantized`` draws and quantizes layer by layer instead."""
     require_dense(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -81,9 +89,11 @@ def init_params(cfg: ArchConfig, seed: int = 0,
         "embed": fl._init(gen, (v, cfg.d_model), dtype, scale=1.0),
         "final_norm": fl.init_norm(cfg, dtype, dev),
     }
-    if not cfg.tie_embeddings:
+    if not cfg.tie_embeddings and cfg.family != "encoder":
         params["lm_head"] = fl._init(gen, (cfg.d_model, v), dtype)
     _, ng, _ = layer_group_spec(cfg)
     params["layers"] = [_stack([init_layer(gen, cfg, dtype)
                                 for _ in range(ng)])]
+    if cfg.pos == "learned":
+        params["pos_embed"] = fl._init(gen, (65536, cfg.d_model), dtype)
     return params

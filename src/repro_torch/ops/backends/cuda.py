@@ -4,22 +4,27 @@ the JAX package's ``pallas_fused`` backend, and the port's default).
 A thin shim over the kernel wrappers of ``repro_torch.kernels``: K1 for
 all matmuls (the raw logits head included), K2 for the norms, K3 for
 paged decode attention, K4 for paged chunked prefill, the last two with
-the o-projection folded in.  There is no fallback: on CPU tensors each
+the o-projection folded in, K5 for full-sequence attention and K6 for
+i-GELU.  There is no fallback and no tiling predicate: on CPU tensors each
 wrapper runs its plain version; on CUDA tensors it launches its kernel
-or raises for a shape the kernel cannot take.
+or raises for a shape the kernel cannot take (K5: Skv above
+``MAX_ROWSUM_LEN``).
 """
 from __future__ import annotations
 
 from repro_torch.kernels.int8_matmul import int8_matmul
-from repro_torch.kernels.int_attention_fused import int_paged_prefill_fused
+from repro_torch.kernels.int_attention_fused import (int_attention_fused,
+                                                     int_paged_prefill_fused)
 from repro_torch.kernels.int_decode_attention import \
     int_decode_attention_fused
+from repro_torch.kernels.int_gelu import int_gelu
 from repro_torch.kernels.int_layernorm import int_layernorm
 from repro_torch.ops.paged import scatter_chunk
 
 
 class CudaBackend:
     name = "cuda"
+    fused_attention = True    # K5 streams any length up to 2^15 keys
     paged_decode = True       # consumes page-table KV pools directly
     decode_wo_fold = True     # the o-projection rides in the decode call
     paged_prefill = True      # chunked prefill straight over the page table
@@ -30,6 +35,16 @@ class CudaBackend:
 
     def int_layernorm(self, q, q_gamma, q_beta, plan, out_bits: int = 8):
         return int_layernorm(q, q_gamma, q_beta, plan, out_bits)
+
+    def int_gelu(self, q, plan, dn_out, out_bits: int = 8):
+        return int_gelu(q, plan, dn_out, out_bits)
+
+    def int_attention(self, q8, k8, v8, plan, causal: bool = True,
+                      window: int = 0, out_bits: int = 8, requant=None,
+                      b_vec=None):
+        return int_attention_fused(q8, k8, v8, plan, requant=requant,
+                                   b_vec=b_vec, causal=causal,
+                                   window=window, out_bits=out_bits)
 
     def int_decode_attention(self, q8, k8_cache, v8_cache, plan, valid_len,
                              requant=None, b_vec=None, pages=None,

@@ -13,6 +13,7 @@ from repro_torch.ops.spec import PER_TENSOR
 
 class TorchRefBackend:
     name = "torch_ref"
+    fused_attention = False   # the full-matrix oracle
     paged_decode = False
     decode_wo_fold = False
     paged_prefill = False
@@ -33,6 +34,15 @@ class TorchRefBackend:
 
     def int_layernorm(self, q, q_gamma, q_beta, plan, out_bits: int = 8):
         return _ref.ref_int_layernorm(q, q_gamma, q_beta, plan, out_bits)
+
+    def int_gelu(self, q, plan, dn_out, out_bits: int = 8):
+        return _ref.ref_int_gelu(q, plan, dn_out, out_bits)
+
+    def int_attention(self, q8, k8, v8, plan, causal: bool = True,
+                      window: int = 0, out_bits: int = 8, requant=None,
+                      b_vec=None):
+        return _ref.ref_int_attention(q8, k8, v8, plan, causal, window,
+                                      out_bits, requant=requant, b_vec=b_vec)
 
     def int_decode_attention(self, q8, k8_cache, v8_cache, plan, valid_len,
                              requant=None, b_vec=None):

@@ -5,11 +5,14 @@ Models receive one resolved :class:`OpSet` and every integer op dispatches
 through it.  Two backends exist:
 
   * ``"cuda"`` (the default) — the counterpart of the JAX package's
-    ``pallas_fused``: the hand-written kernels K1–K4;
+    ``pallas_fused``: the hand-written kernels K1–K6;
   * ``"torch_ref"`` — the counterpart of ``ref``: the plain oracles.
 
-Optional capabilities are negotiated exactly as in the reference: a
-backend advertising ``paged_decode`` / ``decode_wo_fold`` /
+``fused_attention`` says whether a backend's ``int_attention`` is one
+streaming kernel (the model layer then calls it at any length) or the
+full-matrix oracle (which the layer calls only up to the reference's
+chunking threshold).  Optional capabilities are negotiated exactly as in
+the reference: a backend advertising ``paged_decode`` / ``decode_wo_fold`` /
 ``paged_prefill`` / ``prefill_wo_fold`` gets the page table and the
 folded o-projection verbatim; for the rest this layer lowers them exactly
 (gather pages, decode-then-matmul, scatter + stepped-mask paged decode),
@@ -26,8 +29,8 @@ from repro_torch.ops.spec import QuantLinearParams
 
 DEFAULT_BACKEND = "cuda"
 
-OP_NAMES = ("int8_matmul", "int_layernorm", "int_decode_attention",
-            "int_paged_prefill")
+OP_NAMES = ("int8_matmul", "int_layernorm", "int_gelu", "int_attention",
+            "int_decode_attention", "int_paged_prefill")
 
 _REGISTRY: Dict[str, object] = {}
 
@@ -86,6 +89,19 @@ class OpSet:
     def int_layernorm(self, q, q_gamma, q_beta, plan, out_bits: int = 8):
         return self.backend_for("int_layernorm").int_layernorm(
             q, q_gamma, q_beta, plan, out_bits=out_bits)
+
+    def int_gelu(self, q, plan, dn_out, out_bits: int = 8):
+        return self.backend_for("int_gelu").int_gelu(q, plan, dn_out,
+                                                     out_bits=out_bits)
+
+    def int_attention(self, q8, k8, v8, plan, causal: bool = True,
+                      window: int = 0, out_bits: int = 8, requant=None,
+                      b_vec=None):
+        """Full-sequence attention, (B, Sq, H, D) queries against (B, Skv,
+        Hkv, D) keys/values; ``requant``/``b_vec`` as the decode op."""
+        return self.backend_for("int_attention").int_attention(
+            q8, k8, v8, plan, causal=causal, window=window,
+            out_bits=out_bits, requant=requant, b_vec=b_vec)
 
     def _compose_wo(self, be, o8, wo, wo_spec):
         """Exact unfolded composition: attention output -> o-projection."""

@@ -1,5 +1,5 @@
-"""Float params -> SwiftTron integer parameters (the dense subset of
-``repro.quant.convert``).
+"""Float params -> SwiftTron integer parameters (the dense-decoder and
+encoder subset of ``repro.quant.convert``).
 
 Every weight becomes int8 with per-out-channel scales folded into int32
 dyadic multiplier vectors; norm gammas become the i-norm unit's integer
@@ -65,9 +65,11 @@ def _q_attn(p, plans: qplans.AttnPlan):
 
 
 def _q_ffn(p, plans: qplans.FfnPlan):
-    return {"w1": _q_linear(p["w1"], plans.up, bias=p.get("b1")),
-            "w3": _q_linear(p["w3"], plans.up),
-            "w2": _q_linear(p["w2"], plans.down, bias=p.get("b2"))}
+    out = {"w1": _q_linear(p["w1"], plans.up, bias=p.get("b1"))}
+    if "w3" in p:                                   # SwiGLU gate
+        out["w3"] = _q_linear(p["w3"], plans.up)
+    out["w2"] = _q_linear(p["w2"], plans.down, bias=p.get("b2"))
+    return out
 
 
 def _q_sublayer(p, plans: qplans.LayerPlans):
@@ -88,12 +90,27 @@ def _q_embed(emb, cfg: ArchConfig):
     return w8, plans
 
 
+def _head_weight(params, cfg: ArchConfig):
+    """The logits head's float (D, V): ``embed.T`` when tied.  An encoder
+    has no ``lm_head`` (the reference's ``quantize_params`` fails on one
+    with ``KeyError: 'lm_head'``); it runs with ``tie_embeddings=True``."""
+    if cfg.tie_embeddings:
+        return params["embed"].T
+    if "lm_head" not in params:
+        raise ValueError(f"arch {cfg.name!r} has no lm_head; quantize it "
+                         "with tie_embeddings=True (the head shares the "
+                         "word embedding)")
+    return params["lm_head"]
+
+
 def _q_head(head_w):
-    """Per-vocab-column int8 head + its float32 dequant scales."""
+    """Per-vocab-column int8 head + its float32 dequant scales (a tied
+    head gets its own scales over ``embed.T``'s columns)."""
     head_w = head_w.to(torch.float64)
     s_head = torch.clamp(head_w.abs().amax(dim=0), min=1e-8) / 127.0
+    # a tied head is embed.T: store it (K, N)-contiguous for the kernel
     w8 = torch.clamp(torch.round(head_w / s_head[None, :]), -127, 127
-                     ).to(torch.int8)
+                     ).to(torch.int8).contiguous()
     return QuantLinearParams(w8), s_head.to(torch.float32)
 
 
@@ -104,8 +121,7 @@ def quantize_params(params: Pytree, cfg: ArchConfig
     on the same floats."""
     require_dense(cfg)
     embed_w8, plans = _q_embed(params["embed"], cfg)
-    head_w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    head, head_scale = _q_head(head_w)
+    head, head_scale = _q_head(_head_weight(params, cfg))
     qparams = {
         "embed_w8": embed_w8,
         "final_norm": _q_norm(params["final_norm"], plans.final_norm),
@@ -125,7 +141,7 @@ def unit_embed_scale(cfg: ArchConfig) -> float:
 def init_quantized(cfg: ArchConfig, seed: int = 0, device="cuda",
                    embed_scale: float = 1.0
                    ) -> Tuple[Pytree, qplans.LayerPlans]:
-    """Draw a random float dense model and quantize it **layer by layer**,
+    """Draw a random float model and quantize it **layer by layer**,
     so the float copy of the whole model never exists at once (llama3-8b:
     ~32 GB in float32) — only one layer's floats and one weight's float64
     temporaries at a time.  Per-channel scales are per layer either way,
@@ -143,11 +159,14 @@ def init_quantized(cfg: ArchConfig, seed: int = 0, device="cuda",
     v = cfg.padded_vocab()
     embed = fl._init(gen, (v, cfg.d_model), dtype, scale=embed_scale)
     embed_w8, plans = _q_embed(embed, cfg)
-    del embed
     final_norm = _q_norm(fl.init_norm(cfg, dtype, dev), plans.final_norm)
-    if cfg.tie_embeddings:
-        raise NotImplementedError("tied embeddings are not ported yet")
-    head, head_scale = _q_head(fl._init(gen, (cfg.d_model, v), dtype))
+    if not cfg.tie_embeddings and cfg.family != "encoder":
+        head_w = fl._init(gen, (cfg.d_model, v), dtype)
+    else:
+        head_w = _head_weight({"embed": embed}, cfg)
+    del embed
+    head, head_scale = _q_head(head_w)
+    del head_w
     _, ng, _ = layer_group_spec(cfg)
     layers = [_q_sublayer(init_layer(gen, cfg, dtype), plans)
               for _ in range(ng)]

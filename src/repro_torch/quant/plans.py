@@ -1,5 +1,5 @@
-"""Design-time quantization plans (SwiftTron §III-A; the dense subset of
-``repro.quant.plans``).
+"""Design-time quantization plans (SwiftTron §III-A; the dense-decoder and
+encoder subset of ``repro.quant.plans``).
 
 A *plan* is the frozen set of integer constants one layer kind needs:
 dyadic requant pairs, i-exp constants, reciprocal widths — plain
@@ -51,8 +51,8 @@ class AttnPlan(NamedTuple):
 
 class FfnPlan(NamedTuple):
     up: LinearPlan           # w1 (and w3): s_act8 -> s_act10
-    act_gelu: Optional[object]   # GELU FFNs are not ported yet (None)
-    act_silu: Optional[iact.ISiluPlan]
+    act_gelu: Optional[iact.IGeluActPlan]   # GELU FFNs
+    act_silu: Optional[iact.ISiluPlan]      # SwiGLU FFNs
     dn_gate: Optional[Dyadic]    # silu(h1)*h3 product -> s_act8
     down: LinearPlan         # w2: s_act8 -> s_res
 
@@ -85,23 +85,25 @@ S_W8 = 2.0 / 127.0          # nominal per-channel weight scale bound
 
 
 def _ffn_plan(cfg: ArchConfig, d_in: int, d_ff: int) -> FfnPlan:
-    if cfg.activation != "swiglu":
-        raise NotImplementedError("GELU FFNs are not ported yet "
-                                  "(ROADMAP §1 item 8)")
     s8, s10 = cfg.s_act8, cfg.s_act10
     up = make_linear_plan(s8, S_W8, s10, d_in, out_bits=11)
-    silu = iact.make_isilu(s10, 1024, s_out=s8)
-    # gate: silu_out(int8, s8) * h3(10bit, s10) -> requant to s8
-    dn_gate = fit_dyadic(s8 * s10 / s8, 127 * 1024)
+    if cfg.activation == "swiglu":
+        silu = iact.make_isilu(s10, 1024, s_out=s8)
+        # gate: silu_out(int8, s8) * h3(10bit, s10) -> requant to s8
+        dn_gate = fit_dyadic(s8 * s10 / s8, 127 * 1024)
+        gelu = None
+    else:
+        gelu = iact.make_igelu_act(s10, 1024, s_out=s8)
+        silu, dn_gate = None, None
     down = make_linear_plan(s8, S_W8, cfg.s_res, d_ff, out_bits=14)
-    return FfnPlan(up, None, silu, dn_gate, down)
+    return FfnPlan(up, gelu, silu, dn_gate, down)
 
 
 def build_layer_plans(cfg: ArchConfig, calib: Optional[dict] = None
                       ) -> LayerPlans:
     """``calib``: measured per-tensor scales from ``quant.convert`` (a
-    dense decoder reads ``s_emb`` only; the default is the design
-    nominal)."""
+    dense decoder or an encoder reads ``s_emb`` only; the default is the
+    design nominal)."""
     require_dense(cfg)
     calib = dict(calib or {})
     s8 = cfg.s_act8

@@ -113,6 +113,10 @@ class ServingEngine:
             raise NotImplementedError(
                 "the contiguous KV cache is not ported yet (ROADMAP §1 "
                 "items 5-6); use cache_mode='paged'")
+        if not cfg.is_causal:
+            raise ValueError(
+                f"arch {cfg.name!r} is an encoder: it has no autoregressive "
+                "serving; run it through launch.steps.make_prefill_step")
         if not it.chunked_prefill_supported(cfg):
             raise NotImplementedError(
                 f"arch {cfg.name!r} needs token-streaming-only serving "

@@ -14,13 +14,16 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import kernels
+from repro_torch.core import activations as iact
 from repro_torch.core import attention as iattn
 from repro_torch.core import norms as inorms
 from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_plain
 from repro_torch.kernels.int_attention_fused import (
-    int_paged_prefill_fused, int_paged_prefill_plain)
+    int_attention_fused, int_attention_fused_plain, int_paged_prefill_fused,
+    int_paged_prefill_plain)
 from repro_torch.kernels.int_decode_attention import (
     int_decode_attention_fused, int_decode_attention_plain)
+from repro_torch.kernels.int_gelu import int_gelu, int_gelu_plain
 from repro_torch.kernels.int_layernorm import (int_layernorm,
                                                int_layernorm_plain)
 from repro_torch.ops.spec import QuantLinearParams, RequantSpec
@@ -163,6 +166,88 @@ def test_engine_cuda_matches_torch_ref(dev, geometry):
         kernels.reset_launches()
         eng.run_until_done()
         if backend == "cuda":
-            assert all(n > 0 for n in kernels.LAUNCHES.values())
+            for name in ("int8_matmul", "int_layernorm",
+                         "int_decode_attention", "int_paged_prefill"):
+                assert kernels.LAUNCHES[name] > 0, name
         streams[backend] = [r.out_tokens for r in reqs]
     assert streams["cuda"] == streams["torch_ref"]
+
+
+@pytest.mark.parametrize("b,sq,skv,h,hkv,d,causal,window", [
+    (2, 64, 64, 4, 4, 64, False, 0), (2, 37, 37, 4, 2, 32, True, 0),
+    (1, 100, 100, 4, 1, 128, True, 16), (2, 24, 80, 4, 2, 64, False, 0),
+    (1, 80, 24, 2, 2, 32, True, 8)])
+def test_full_sequence_attention_kernel(dev, b, sq, skv, h, hkv, d, causal,
+                                        window):
+    """K5: ragged lengths (no block divides 37 or 100), GQA, the three
+    masks, Sq != Skv both ways (Sq > Skv with a window leaves rows with no
+    live key), all three epilogues."""
+    rng = np.random.default_rng(sq + skv + d + window)
+    plan = iattn.make_iattention(d, 8 / 127, 8 / 127, 4 / 127, 4 / 127)
+    q8 = _i8(rng, (b, sq, h, d), dev)
+    k8, v8 = _i8(rng, (b, skv, hkv, d), dev), _i8(rng, (b, skv, hkv, d), dev)
+    bvec = _i32(rng, 1000, 20000, (h * d,), dev)
+    for rq in (None, RequantSpec.per_channel(22, 8),
+               RequantSpec.per_channel(20, 6, out_bits=16),
+               RequantSpec.raw()):
+        before = kernels.LAUNCHES["int_attention_fused"]
+        got = int_attention_fused(q8, k8, v8, plan, rq, bvec, causal, window)
+        assert kernels.LAUNCHES["int_attention_fused"] == before + 1
+        want = int_attention_fused_plain(q8, k8, v8, plan, rq, bvec, causal,
+                                         window)
+        assert torch.equal(got, want), (rq, causal, window)
+
+
+def test_full_sequence_attention_refuses_overlong_keys(dev):
+    from repro_torch.analysis.budgets import MAX_ROWSUM_LEN
+    plan = iattn.make_iattention(32, 8 / 127, 8 / 127, 4 / 127, 4 / 127)
+    q8 = torch.zeros((1, 1, 1, 32), dtype=torch.int8, device=dev)
+    kv = torch.zeros((1, MAX_ROWSUM_LEN + 1, 1, 32), dtype=torch.int8,
+                     device=dev)
+    with pytest.raises(ValueError, match="row sum"):
+        int_attention_fused(q8, kv, kv, plan, causal=False)
+
+
+def test_int_gelu_kernel(dev):
+    """K6 on the whole 16-bit range, seeded int32 over the full range
+    (int32 wrap-around) and a ragged tail."""
+    rng = np.random.default_rng(8)
+    plan = iact.make_igelu_act(16 / 1024, 1024, 8 / 127)
+    qs = [torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32, device=dev),
+          torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, 100_003)
+                          .astype(np.int32), device=dev)]
+    for q in qs:
+        for out_bits in (8, 16):
+            before = kernels.LAUNCHES["int_gelu"]
+            got = int_gelu(q, plan.gelu, plan.dn_out, out_bits)
+            assert kernels.LAUNCHES["int_gelu"] == before + 1
+            assert torch.equal(got, int_gelu_plain(q, plan.gelu,
+                                                   plan.dn_out, out_bits))
+
+
+def test_encoder_prefill_cuda_matches_torch_ref(dev):
+    """Reduced roberta-base (tied) through make_prefill_step on the card:
+    the kernels' logits equal the plain backend's, and K1, K2, K5 and K6
+    all launched."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import model as M
+    from repro_torch.quant import convert
+    cfg = dataclasses.replace(M.reduce_config(get_config("roberta-base"),
+                                              dtype="float32"),
+                              tie_embeddings=True)
+    qp, plans = convert.init_quantized(cfg, seed=0, device=dev,
+                                       embed_scale=convert.unit_embed_scale(
+                                           cfg))
+    toks = np.random.default_rng(3).integers(0, cfg.vocab, (3, 45))
+    logits = {}
+    for backend in ("cuda", "torch_ref"):
+        kernels.reset_launches()
+        logits[backend] = make_prefill_step(cfg, plans, ops=backend,
+                                            device=dev)(qp, {"tokens": toks})
+        if backend == "cuda":
+            for name in ("int8_matmul", "int_layernorm",
+                         "int_attention_fused", "int_gelu"):
+                assert kernels.LAUNCHES[name] > 0, name
+    assert torch.equal(logits["cuda"], logits["torch_ref"])
