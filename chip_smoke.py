@@ -10,11 +10,13 @@ non-zero before the last line):
 
   build    compile ``src/repro_torch/csrc/*.cu`` with nvcc (sm_90a), one
            nvcc per source, all started together;
-  kernels  each kernel K1-K6 against its plain PyTorch version on seeded
+  kernels  each kernel K1-K8 against its plain PyTorch version on seeded
            inputs (max |diff| must be 0), with kernel / plain / library
            times and the roofline bound: K1-K4 at the serving path's
            full-width llama3-8b shapes, K1, K2 (LayerNorm), K5 and K6 at
-           the encoder path's full-width roberta-base shapes;
+           the encoder path's full-width roberta-base shapes, K7 and K8
+           at the ``pallas`` backend's (the full score matrix, the
+           encoder's attention at the reference's logical blocks);
   parity   full-width llama3-8b cut to 2 layers: ServingEngine token
            streams on the ``cuda`` backend must equal ``torch_ref``'s;
   serve    full llama3-8b (32 layers) on the ``cuda`` backend: throughput,
@@ -24,7 +26,17 @@ non-zero before the last line):
            ``launch.steps.make_prefill_step``: logits of ``cuda`` and
            ``torch_ref`` identical on 8 x 512 tokens, then timed passes
            at 32 x 512 with launches per pass (K1, K2, K5, K6 must be
-           > 0) and one profiled pass.
+           > 0) and one profiled pass;
+  encode-online  the same model through ``make_prefill_step(ops=
+           "cuda_online")`` (K8, the one-pass online attention, at the
+           reference's 128 x 128 logical blocks): logits identical to the
+           same routing in plain PyTorch on the card at 8 x 512 (and, for
+           information, how many differ from the exact ``cuda`` path),
+           timed passes at 32 x 512 with launches per pass (K8 12, K5 0)
+           and one profiled pass;
+  ops      ``repro_torch.ops.int_softmax``, the module-level entry point,
+           under ``use_backend("cuda_online")`` on the full score matrix of
+           a roberta-base batch (K7 must launch).
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit,
 and the final ``{"ok": true, "device": {...}}`` line.  The script imports
@@ -52,6 +64,8 @@ TPU_KERNELS = {
     "int_paged_prefill": "src/repro/kernels/int_attention_fused.py:398",
     "int_attention_fused": "src/repro/kernels/int_attention_fused.py:215",
     "int_gelu": "src/repro/kernels/int_gelu.py:41",
+    "int_softmax": "src/repro/kernels/int_softmax.py:66",
+    "int_attention_online": "src/repro/kernels/int_attention.py:107",
 }
 SOURCES = {
     "int8_matmul": "src/repro_torch/csrc/int8_matmul.cu",
@@ -60,6 +74,8 @@ SOURCES = {
     "int_paged_prefill": "src/repro_torch/csrc/int_paged_prefill.cu",
     "int_attention_fused": "src/repro_torch/csrc/int_attention_fused.cu",
     "int_gelu": "src/repro_torch/csrc/int_gelu.cu",
+    "int_softmax": "src/repro_torch/csrc/int_softmax.cu",
+    "int_attention_online": "src/repro_torch/csrc/int_attention_online.cu",
 }
 # the kernels each driven path must launch
 PATH_KERNELS = {
@@ -67,17 +83,25 @@ PATH_KERNELS = {
               "int_paged_prefill"),
     "encode": ("int8_matmul", "int_layernorm", "int_attention_fused",
                "int_gelu"),
+    "encode-online": ("int8_matmul", "int_layernorm",
+                      "int_attention_online", "int_gelu"),
+    "ops": ("int_softmax",),
 }
 # the encode path's traffic: RoBERTa's longest sequence at a GLUE
 # inference batch; the cuda == torch_ref parity batch
 ENCODE_BATCH, ENCODE_SEQ, PARITY_BATCH = 32, 512, 8
 
 
-def encode_launches_per_pass(layers: int) -> dict:
+def encode_launches_per_pass(layers: int,
+                             attention: str = "int_attention_fused") -> dict:
     """K1: q, k, v, o, w1, w2 per layer + the head; K2: two norms per
-    layer + the final norm; K5, K6: one per layer."""
-    return {"int8_matmul": 6 * layers + 1, "int_layernorm": 2 * layers + 1,
-            "int_attention_fused": layers, "int_gelu": layers}
+    layer + the final norm; the attention kernel (K5, or K8 online) and
+    K6: one per layer; every other kernel: none."""
+    per = dict.fromkeys(TPU_KERNELS, 0)
+    per.update({"int8_matmul": 6 * layers + 1,
+                "int_layernorm": 2 * layers + 1, attention: layers,
+                "int_gelu": layers})
+    return per
 
 
 def emit(obj) -> None:
@@ -440,6 +464,96 @@ def check_encoder_kernels(cfg, plans, rows) -> None:
                8 * q.numel(), 0, rep=rep, iters=20)
 
 
+def online_spread(q8, k8, v8, aplan) -> None:
+    """K8 is not exact attention: how far its integers sit from the exact
+    kernel's (K5, the reference oracle's integers) on the encoder's
+    inputs, unmasked and causal, and how much they move with the logical
+    blocks (``bq`` matters only through the causal block skip)."""
+    import torch
+    from repro_torch.kernels.int_attention import int_attention_online
+    from repro_torch.kernels.int_attention_fused import int_attention_fused
+
+    def cmp(a, b):
+        d = (a.to(torch.int32) - b.to(torch.int32)).abs()
+        return {"differ": int((d > 0).sum()), "max_abs": int(d.max())}
+
+    for causal in (False, True):
+        exact = int_attention_fused(q8, k8, v8, aplan, causal=causal)
+        out = {f"{bq}x{bkv}": int_attention_online(q8, k8, v8, aplan,
+                                                   causal, 0, bq, bkv)
+               for bq, bkv in ((128, 128), (128, 64), (64, 64), (256, 256))}
+        emit({"phase": "online-spread", "shape": list(q8.shape),
+              "causal": causal, "outputs": q8.numel(),
+              "vs_exact": {k: cmp(o, exact) for k, o in out.items()},
+              "between_blocks": {f"{x} vs {y}": cmp(out[x], out[y])
+                                 for x, y in (("128x128", "128x64"),
+                                              ("128x64", "64x64"),
+                                              ("128x128", "256x256"))}})
+
+
+def check_online_kernels(cfg, plans, rows) -> None:
+    """K8 (one-pass online attention) and K7 (row softmax) against their
+    plain versions at the ``pallas`` backend's shapes; adds their
+    representative rows (the encoder's attention at 128 x 128 logical
+    blocks, the full score matrix) to ``rows``."""
+    import torch
+    from repro_torch.kernels.int_attention import (
+        int_attention_online, int_attention_online_plain)
+    from repro_torch.kernels.int_softmax import (int_softmax,
+                                                 int_softmax_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    aplan = plans.attn.attn
+    h, hd = cfg.n_heads, cfg.hd
+    eb, es = ENCODE_BATCH, ENCODE_SEQ
+    k8_cases = [
+        # (B, Sq, Skv, H, Hkv, D, causal, window, bq, bkv, rep)
+        (eb, es, es, h, h, hd, False, 0, 128, 128, True),
+        (4, 512, 512, 32, 8, 128, True, 0, 128, 128, False),
+        (4, 512, 512, 32, 8, 128, True, 128, 128, 128, False),
+        (eb, es, es, h, h, hd, False, 0, 256, 256, False),   # pallas_tuned
+        (4, 136, 136, h, h, hd, True, 0, 68, 68, False),
+        (1, 131, 131, 4, 4, hd, True, 0, 1, 1, False),
+        (eb, 64, es, h, h, hd, False, 0, 64, 128, False),    # cross
+    ]
+    for b, sq, skv, hq, hkv, dd, causal, window, bq, bkv, rep in k8_cases:
+        q8 = _randint(gen, -127, 128, (b, sq, hq, dd), torch.int8)
+        k8 = _randint(gen, -127, 128, (b, skv, hkv, dd), torch.int8)
+        v8 = _randint(gen, -127, 128, (b, skv, hkv, dd), torch.int8)
+        if rep:
+            online_spread(q8, k8, v8, aplan)
+        nbytes = 2 * b * sq * hq * dd + 2 * b * skv * hkv * dd
+        ops = 4 * b * hq * dd * _live_pairs(sq, skv, causal, window)
+        args = (q8, k8, v8, aplan, causal, window, bq, bkv)
+        record(rows, "int_attention_online",
+               f"B={b} Sq={sq} Skv={skv} H={hq} Hkv={hkv} D={dd} "
+               f"causal={causal} window={window} bq={bq} bkv={bkv}",
+               int_attention_online(*args), int_attention_online_plain(*args),
+               lambda: int_attention_online(*args),
+               lambda: int_attention_online_plain(*args),
+               nbytes, ops, rep=rep, iters=5, plain_iters=2)
+        del q8, k8, v8, args
+
+    # K7: the encoder's whole score matrix (B x H x S rows of S), padded
+    # and not, bench_kernels.py's 256 x 1024, and 2^15-long rows
+    sm = aplan.sm
+    k7_cases = [((eb, h, es, es), -1, True), ((eb, h, es, es), 300, False),
+                ((256, 1024), -1, False), ((4, 1 << 15), -1, False)]
+    for shape, vl, rep in k7_cases:
+        x = _randint(gen, -100000, 100000, shape, torch.int32)
+        n, length = x.numel(), shape[-1]
+        # the kernel reads only the first valid_len scores of a row and
+        # writes every probability
+        read = n if vl < 0 else n // length * min(vl, length)
+        record(rows, "int_softmax", f"{'x'.join(map(str, shape))} "
+               f"valid_len={vl}", int_softmax(x, sm, vl),
+               int_softmax_plain(x, sm, vl),
+               lambda: int_softmax(x, sm, vl),
+               lambda: int_softmax_plain(x, sm, vl),
+               4 * read + n, 0, rep=rep, iters=10, plain_iters=2)
+        del x
+
+
 # --------------------------------------------------------- engine runs ---
 
 def _prompts(seed: int, n: int, lo: int, hi: int, vocab: int):
@@ -582,18 +696,13 @@ def encoder_config():
                                tie_embeddings=True)
 
 
-def phase_encode(cfg):
-    """The encoder path through ``make_prefill_step`` at full width:
-    cuda == torch_ref, then timed passes with launch counts, then one
-    profiled pass.  Returns the launches of the timed run."""
+def encoder_model(cfg):
+    """Full-width quantized roberta-base on the card (random weights from
+    seed 0, embedding at unit std), shared by the two encoder phases.
+    Returns ``(qparams, plans, seconds to quantize)``."""
     import gc
 
-    import numpy as np
     import torch
-    from repro_torch import kernels
-    from repro_torch.launch.steps import make_prefill_step
-    from repro_torch.models import intlayers as il
-    from repro_torch.models import inttransformer as it
     from repro_torch.quant import convert
     gc.collect()                  # an earlier phase's model, if any
     t0 = time.perf_counter()
@@ -601,48 +710,42 @@ def phase_encode(cfg):
         cfg, seed=0, device="cuda",
         embed_scale=convert.unit_embed_scale(cfg))
     torch.cuda.synchronize()
-    quant_s = time.perf_counter() - t0
-    rng = np.random.default_rng(21)
+    return qp, plans, time.perf_counter() - t0
 
-    # parity at full width, and the final LayerNorm rows of the cuda run
-    toks = rng.integers(0, cfg.vocab, (PARITY_BATCH, ENCODE_SEQ))
-    finals = []
+
+def _prefill(cfg, plans, ops, qp, toks, finals=None):
+    """One ``make_prefill_step`` pass; returns (logits, seconds).
+    ``finals``: a list that receives the final LayerNorm's input rows."""
+    import torch
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import inttransformer as it
     orig = it.logits_int
 
     def spy(qparams, x32, *a, **k):
         finals.append(x32)
         return orig(qparams, x32, *a, **k)
 
-    logits = {}
-    it.logits_int = spy
+    if finals is not None:
+        it.logits_int = spy
     try:
-        for backend in ("cuda", "torch_ref"):
-            step = make_prefill_step(cfg, plans, ops=backend, device="cuda")
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            logits[backend] = step(qp, {"tokens": toks})
-            torch.cuda.synchronize()
-            logits[backend + "_s"] = time.perf_counter() - t1
+        step = make_prefill_step(cfg, plans, ops=ops, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(qp, {"tokens": toks})
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
     finally:
         it.logits_int = orig
-    h8 = il.int_norm(qp["final_norm"], finals[0], plans.final_norm,
-                     ops="torch_ref")
-    same = torch.equal(logits["cuda"], logits["torch_ref"])
-    argmax = logits["cuda"].argmax(dim=-1)
-    emit({"phase": "encode-parity", "arch": cfg.name,
-          "layers": cfg.num_layers, "batch": PARITY_BATCH,
-          "seq": ENCODE_SEQ, "identical": same,
-          "distinct_argmax": len(set(argmax.tolist())),
-          "final_norm_nonzero_rows": int((h8 != 0).any(dim=-1).sum()),
-          "cuda_s": logits["cuda_s"], "torch_ref_s": logits["torch_ref_s"],
-          "quantize_s": quant_s})
-    if not same:
-        raise AssertionError("encode: cuda and torch_ref logits differ")
-    if not bool((h8 != 0).any()):
-        raise AssertionError("encode: every final LayerNorm row is 0")
 
-    # timed passes at the full batch
-    step = make_prefill_step(cfg, plans, ops="cuda", device="cuda")
+
+def _encode_timed(phase, cfg, plans, qp, ops, attention, rng):
+    """Timed passes at the full batch (launches per pass must be exactly
+    ``encode_launches_per_pass``), then one profiled pass.  Returns the
+    launches of the timed run."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch.steps import make_prefill_step
+    step = make_prefill_step(cfg, plans, ops=ops, device="cuda")
     batch = {"tokens": torch.as_tensor(
         rng.integers(0, cfg.vocab, (ENCODE_BATCH, ENCODE_SEQ)),
         device="cuda")}
@@ -664,10 +767,11 @@ def phase_encode(cfg):
     launches = dict(kernels.LAUNCHES)
     pass_ms = start.elapsed_time(end) / n_pass
     per_pass = {n: c / n_pass for n, c in launches.items()}
-    expect = encode_launches_per_pass(cfg.num_layers)
-    emit({"phase": "encode", "arch": cfg.name, "layers": cfg.num_layers,
-          "batch": ENCODE_BATCH, "seq": ENCODE_SEQ, "passes": n_pass,
-          "ms_per_pass": pass_ms, "wall_s": wall,
+    expect = encode_launches_per_pass(cfg.num_layers, attention)
+    emit({"phase": phase, "arch": cfg.name, "layers": cfg.num_layers,
+          "ops": ops, "batch": ENCODE_BATCH,
+          "seq": ENCODE_SEQ, "passes": n_pass, "ms_per_pass": pass_ms,
+          "wall_s": wall,
           "tokens_per_s": ENCODE_BATCH * ENCODE_SEQ / (pass_ms / 1e3),
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "launches_per_pass": per_pass, "expected_per_pass": expect,
@@ -675,18 +779,135 @@ def phase_encode(cfg):
           "finite": bool(torch.isfinite(out).all())})
     if tuple(out.shape) != (ENCODE_BATCH, cfg.padded_vocab()) \
             or not bool(torch.isfinite(out).all()):
-        raise AssertionError("encode: logits not finite (B, V)")
-    missing = [k for k in PATH_KERNELS["encode"] if launches[k] <= 0]
+        raise AssertionError(f"{phase}: logits not finite (B, V)")
+    missing = [k for k in PATH_KERNELS[phase] if launches[k] <= 0]
     if missing:
-        raise AssertionError(f"encode path never launched {missing}")
-    if any(per_pass[n] != c for n, c in expect.items()) or \
-            per_pass["int_decode_attention"] or per_pass["int_paged_prefill"]:
-        raise AssertionError(f"encode: launches per pass {per_pass} != "
+        raise AssertionError(f"{phase} path never launched {missing}")
+    if any(per_pass.get(n, 0) != c for n, c in expect.items()):
+        raise AssertionError(f"{phase}: launches per pass {per_pass} != "
                              f"{expect}")
-    profile_window("encode-profile",
+    profile_window(f"{phase}-profile",
                    f"1 pass, {ENCODE_BATCH} x {ENCODE_SEQ}",
                    lambda: step(qp, batch))
-    del qp
+    return launches
+
+
+def phase_encode(cfg, model):
+    """The encoder path through ``make_prefill_step`` at full width:
+    cuda == torch_ref, then timed passes with launch counts, then one
+    profiled pass.  Returns the launches of the timed run."""
+    import numpy as np
+    import torch
+    from repro_torch.models import intlayers as il
+    qp, plans, quant_s = model
+    rng = np.random.default_rng(21)
+
+    # parity at full width, and the final LayerNorm rows of the cuda run
+    toks = rng.integers(0, cfg.vocab, (PARITY_BATCH, ENCODE_SEQ))
+    finals = []
+    logits, secs = {}, {}
+    for backend in ("cuda", "torch_ref"):
+        logits[backend], secs[backend] = _prefill(cfg, plans, backend, qp,
+                                                  toks, finals)
+    h8 = il.int_norm(qp["final_norm"], finals[0], plans.final_norm,
+                     ops="torch_ref")
+    same = torch.equal(logits["cuda"], logits["torch_ref"])
+    argmax = logits["cuda"].argmax(dim=-1)
+    emit({"phase": "encode-parity", "arch": cfg.name,
+          "layers": cfg.num_layers, "batch": PARITY_BATCH,
+          "seq": ENCODE_SEQ, "identical": same,
+          "distinct_argmax": len(set(argmax.tolist())),
+          "final_norm_nonzero_rows": int((h8 != 0).any(dim=-1).sum()),
+          "cuda_s": secs["cuda"], "torch_ref_s": secs["torch_ref"],
+          "quantize_s": quant_s})
+    if not same:
+        raise AssertionError("encode: cuda and torch_ref logits differ")
+    if not bool((h8 != 0).any()):
+        raise AssertionError("encode: every final LayerNorm row is 0")
+    return _encode_timed("encode", cfg, plans, qp, "cuda",
+                         "int_attention_fused", rng)
+
+
+def phase_encode_online(cfg, model):
+    """The ``pallas`` backend's path at full width: ``cuda_online`` logits
+    identical to the same routing in plain PyTorch; how many differ from
+    the exact ``cuda`` path (information only: K8 is not exact); timed
+    passes and one profiled pass.  Returns the launches of the timed
+    run."""
+    import numpy as np
+    import torch
+    from repro_torch.ops.backends.cuda_online import (_fit_block,
+                                                      plain_online_opset)
+    qp, plans, _ = model
+    rng = np.random.default_rng(22)
+    toks = rng.integers(0, cfg.vocab, (PARITY_BATCH, ENCODE_SEQ))
+    logits, secs = {}, {}
+    for name, ops in (("cuda_online", "cuda_online"),
+                      ("plain", plain_online_opset()), ("cuda", "cuda")):
+        logits[name], secs[name] = _prefill(cfg, plans, ops, qp, toks)
+    same = torch.equal(logits["cuda_online"], logits["plain"])
+    vs_exact = logits["cuda_online"] != logits["cuda"]
+    emit({"phase": "encode-online-parity", "arch": cfg.name,
+          "layers": cfg.num_layers, "batch": PARITY_BATCH,
+          "seq": ENCODE_SEQ, "blocks": [_fit_block(128, ENCODE_SEQ)] * 2,
+          "identical": same,
+          "distinct_argmax": len(set(
+              logits["cuda_online"].argmax(dim=-1).tolist())),
+          "logits_differing_from_exact": int(vs_exact.sum()),
+          "logits": vs_exact.numel(),
+          "argmax_differing_from_exact": int(
+              (logits["cuda_online"].argmax(dim=-1)
+               != logits["cuda"].argmax(dim=-1)).sum()),
+          "cuda_online_s": secs["cuda_online"], "plain_s": secs["plain"],
+          "cuda_s": secs["cuda"]})
+    if not same:
+        raise AssertionError("encode-online: cuda_online and its plain "
+                             "routing give different logits")
+    return _encode_timed("encode-online", cfg, plans, qp, "cuda_online",
+                         "int_attention_online", rng)
+
+
+def phase_ops(cfg, plans):
+    """K7 through the operator API's module-level entry point, under
+    ``use_backend("cuda_online")``: the softmax of a roberta-base batch's
+    full Q·Kᵀ score matrix, padded to 300 keys.  Returns the launches."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch import ops as rops
+    from repro_torch.core.intmath import int_einsum
+    from repro_torch.kernels.int_softmax import int_softmax_plain
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    shape = (ENCODE_BATCH, ENCODE_SEQ, cfg.n_heads, cfg.hd)
+    q8 = _randint(gen, -127, 128, shape, torch.int8)
+    k8 = _randint(gen, -127, 128, shape, torch.int8)
+    scores = int_einsum("bqhd,bkhd->bhqk", q8, k8)
+    del q8, k8
+    sm = plans.attn.attn.sm
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with rops.use_backend("cuda_online") as ops:
+        start.record()
+        p8 = rops.int_softmax(scores, sm, valid_len=300)
+        end.record()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    want = int_softmax_plain(scores, sm, 300)
+    err = max_abs_diff(p8, want)
+    row_sums = p8.to(torch.int32).sum(dim=-1)
+    emit({"phase": "ops", "op": "int_softmax", "ops": ops.name,
+          "shape": list(scores.shape), "valid_len": 300,
+          "call_ms": start.elapsed_time(end), "launches": launches,
+          "max_abs_err": err,
+          "row_sum_min": int(row_sums.min()), "row_sum_max": int(row_sums.max()),
+          "masked_nonzero": int(p8[..., 300:].ne(0).sum())})
+    if err != 0 or p8[..., 300:].any():
+        raise AssertionError("ops: int_softmax differs from its plain "
+                             "version or leaks past valid_len")
+    if launches["int_softmax"] != 1:
+        raise AssertionError(f"ops: int_softmax launched K7 "
+                             f"{launches['int_softmax']} times, not once")
     return launches
 
 
@@ -757,7 +978,8 @@ def _leaves(tree):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernels,parity,serve,encode")
+    ap.add_argument("--phases", default="build,kernels,parity,serve,encode,"
+                    "encode-online,ops")
     ap.add_argument("--verbose-build", action="store_true",
                     help="print nvcc -Xptxas -v (registers, spills)")
     args = ap.parse_args(argv)
@@ -793,13 +1015,22 @@ def main(argv=None) -> int:
     rows, launches = {}, {}
     if "kernels" in phases:
         rows = check_kernels(cfg, plans)
-        check_encoder_kernels(ecfg, qplans.build_layer_plans(ecfg), rows)
+        eplans = qplans.build_layer_plans(ecfg)
+        check_encoder_kernels(ecfg, eplans, rows)
+        check_online_kernels(ecfg, eplans, rows)
     if "parity" in phases:
         phase_parity(cfg)
     if "serve" in phases:
         launches["serve"] = phase_serve(cfg)
-    if "encode" in phases:
-        launches["encode"] = phase_encode(ecfg)
+    if phases & {"encode", "encode-online"}:
+        model = encoder_model(ecfg)
+        if "encode" in phases:
+            launches["encode"] = phase_encode(ecfg, model)
+        if "encode-online" in phases:
+            launches["encode-online"] = phase_encode_online(ecfg, model)
+        del model
+    if "ops" in phases:
+        launches["ops"] = phase_ops(ecfg, qplans.build_layer_plans(ecfg))
     if rows:
         # each kernel's launches come from the path it was ported for
         # (K1/K2: serve, the first path); every path's counts are listed

@@ -4,6 +4,9 @@
     proves against;
   * ``MAX_ROWSUM_LEN`` — longest softmax row whose exact e16 sum stays
     int32: ``rowlen * 2^15 <= 2^30``;
+  * ``MAX_SKV_ONLINE`` — longest key row of the one-pass online attention
+    (K8): its unnormalised int8 weights bound ``acc <= (sum_e16 >> 8) *
+    127 <= L * 2^14``, int32-safe up to ``L = 2^16``;
   * ``MAX_SQ``         — speculative query rows one decode launch holds.
 """
 from __future__ import annotations
@@ -11,6 +14,8 @@ from __future__ import annotations
 INT32_MAX = 2 ** 31 - 1
 
 MAX_ROWSUM_LEN = 1 << 15
+
+MAX_SKV_ONLINE = 1 << 16
 
 MAX_SQ = 8
 

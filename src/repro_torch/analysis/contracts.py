@@ -1,13 +1,62 @@
-"""The serving request contract.
+"""The serving request contract and the online attention's launch
+contract.
 
-Copy of ``repro.analysis.contracts``'s ``check_request`` /
-``require_request``.  The reference's tiling predicates (``can_tile*``)
-are not copied: they state Pallas block constraints, and the port's
-kernels translate every position through the page table, so they take
-any page size or chunk length; each kernel wrapper raises for what its
-kernel cannot do instead.
+``check_request`` / ``require_request`` copy ``repro.analysis.contracts``.
+The reference's tiling predicates (``can_tile*``) are not copied: they
+state Pallas block constraints, and the port's exact kernels translate
+every position through the page table, so they take any page size or
+chunk length; each kernel wrapper raises for what its kernel cannot do
+instead.
+
+``check_online_launch`` is the online (one-pass) attention kernel's
+contract (K8; the reference's ``check_launch("int_attention", ...,
+online=True)``) as far as its plain version shares it: the logical blocks
+must divide the sequence lengths (they *are* the integers, see
+``kernels/int_attention.py``) and keys are bounded by ``MAX_SKV_ONLINE``.
+The card's own limits (compiled head dims, shared memory per block) are
+the CUDA library's: the kernel wrapper asks it and raises
+:class:`KernelContractError` with its answer.
 """
 from __future__ import annotations
+
+from repro_torch.analysis.budgets import MAX_SKV_ONLINE
+
+
+class KernelContractError(ValueError):
+    """A kernel launch precondition is violated.  Fields: ``op`` (kernel
+    name), ``reasons`` (every violated clause)."""
+
+    def __init__(self, op: str, reasons):
+        self.op = op
+        self.reasons = tuple(reasons)
+        super().__init__(
+            f"{op} launch contract violated: " + "; ".join(self.reasons))
+
+
+def check_online_launch(sq: int, skv: int, h: int, hkv: int, bq: int,
+                        bkv: int) -> tuple:
+    """Violated clauses of one online-attention launch (empty = ok).
+    ``bq``/``bkv`` are the logical blocks after the wrapper's clamping to
+    ``(Sq, Skv)``."""
+    reasons = []
+    if hkv < 1 or h % hkv:
+        reasons.append(f"GQA requires Hkv | H: got H={h}, Hkv={hkv}")
+    if skv > MAX_SKV_ONLINE:
+        reasons.append(f"row-sum int32 budget: Skv <= {MAX_SKV_ONLINE} "
+                       f"(got {skv})")
+    if bq < 1 or bkv < 1 or sq % bq or skv % bkv:
+        reasons.append(f"blocks must divide (Sq,Skv)=({sq},{skv}): "
+                       f"(bq,bkv)=({bq},{bkv})")
+    return tuple(reasons)
+
+
+def require_online_launch(sq: int, skv: int, h: int, hkv: int, bq: int,
+                          bkv: int) -> None:
+    """Raise :class:`KernelContractError` if :func:`check_online_launch`
+    finds any violated clause."""
+    reasons = check_online_launch(sq, skv, h, hkv, bq, bkv)
+    if reasons:
+        raise KernelContractError("int_attention_online", reasons)
 
 
 class RequestInfeasible(ValueError):

@@ -70,3 +70,41 @@ def i_softmax(q_scores, plan: ISoftmaxPlan, where=None):
                   torch.clamp(s, min=1), rounding_mode="floor")
     p = rshift_round(e16 * r, RECIP_BITS - PROB_SHIFT)
     return torch.clamp(p, 0, 127).to(torch.int8)
+
+
+def i_softmax_stats(q_scores, plan: ISoftmaxPlan, where=None):
+    """Chunk-local stats for two-pass / online attention: ``(e16,
+    chunk_max_raw, chunk_sum)`` along the last axis.  The chunk max stays
+    in the exact raw score scale so running maxima combine losslessly;
+    sums rescale across chunks with :func:`combine_correction`."""
+    q = q_scores.to(torch.int32)
+    if where is not None:
+        q = torch.where(where, q, torch.full_like(q, NEG))
+    q_max = q.amax(dim=-1, keepdim=True)
+    e16 = _exp16(q - q_max, plan)
+    if where is not None:
+        e16 = torch.where(where, e16, torch.zeros_like(e16))
+    return e16, q_max, e16.sum(dim=-1, keepdim=True, dtype=torch.int32)
+
+
+def combine_correction(old_max_raw, new_max_raw, plan: ISoftmaxPlan):
+    """int32 multiplier (scale 2^-15) rescaling old-chunk stats to the new
+    running max: ``exp(old_max - new_max)``, maxes in the raw scale."""
+    return _exp16(old_max_raw - new_max_raw, plan)
+
+
+def rescale_sum(s, corr16):
+    """``(s * corr16) >> 15`` through a hi/lo split so no int32 product
+    overflows for ``|s|`` up to 2^30: arithmetic ``>> 15`` of a possibly
+    negative ``s``, plus the rounded low 15 bits (the online attention
+    kernel's ``_rescale32``)."""
+    return (s >> 15) * corr16 + rshift_round((s & 0x7FFF) * corr16, 15)
+
+
+def finalize_probs(e16, s):
+    """Normalise e16 values (against the global max) by the global sum ->
+    int8 probabilities."""
+    r = torch.div(torch.full_like(s, 1 << RECIP_BITS),
+                  torch.clamp(s, min=1), rounding_mode="floor")
+    p = rshift_round(e16 * r, RECIP_BITS - PROB_SHIFT)
+    return torch.clamp(p, 0, 127).to(torch.int8)

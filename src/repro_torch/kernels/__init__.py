@@ -1,5 +1,5 @@
-"""Hand-written Hopper kernels of the serving and encoder paths, and their
-oracles.
+"""Hand-written Hopper kernels of the serving, encoder and ``pallas``-backend
+paths, and their oracles.
 
   * K1 ``int8_matmul.int8_matmul``                     (csrc/int8_matmul.cu)
   * K2 ``int_layernorm.int_layernorm``                 (csrc/int_layernorm.cu)
@@ -10,6 +10,9 @@ oracles.
   * K5 ``int_attention_fused.int_attention_fused``
                                                  (csrc/int_attention_fused.cu)
   * K6 ``int_gelu.int_gelu``                           (csrc/int_gelu.cu)
+  * K7 ``int_softmax.int_softmax``                     (csrc/int_softmax.cu)
+  * K8 ``int_attention.int_attention_online``
+                                              (csrc/int_attention_online.cu)
 
 Each wrapper takes its plain PyTorch version (beside it, in the same
 module) for a tensor on the CPU, and launches its CUDA kernel — or raises
@@ -20,7 +23,8 @@ run can show that the main path went through the kernels.
 from __future__ import annotations
 
 KERNELS = ("int8_matmul", "int_layernorm", "int_decode_attention",
-           "int_paged_prefill", "int_attention_fused", "int_gelu")
+           "int_paged_prefill", "int_attention_fused", "int_gelu",
+           "int_softmax", "int_attention_online")
 
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 

@@ -50,6 +50,15 @@ class AttnArgs(ctypes.Structure):
                 + [("sm", SoftmaxConsts), ("rq", Requant)])
 
 
+class OnlineArgs(ctypes.Structure):
+    """``csrc/int_attention_online.cu``'s launch arguments (K8)."""
+    _fields_ = ([(n, _P) for n in ("q", "k", "v", "out")]
+                + [(n, _I) for n in ("B", "Sq", "Skv", "H", "Hkv", "D", "bq",
+                                     "bkv", "causal", "window", "dn_b",
+                                     "dn_c", "dn_pre", "lo", "hi")]
+                + [("sm", SoftmaxConsts)])
+
+
 def declare(lib: ctypes.CDLL) -> None:
     lib.r8_int8_matmul.argtypes = [
         _P, _P, _P, _P, ctypes.POINTER(Requant), _P, _I, _I, _I, _I, _I,
@@ -67,6 +76,15 @@ def declare(lib: ctypes.CDLL) -> None:
     lib.r8_int_gelu.argtypes = [_P, _P, ctypes.c_longlong,
                                 ctypes.POINTER(GeluConsts), _I, _P]
     lib.r8_int_gelu.restype = _I
+    lib.r8_int_softmax.argtypes = [_P, _P, ctypes.c_longlong, _I, _I, _I,
+                                   ctypes.POINTER(SoftmaxConsts), _P]
+    lib.r8_int_softmax.restype = _I
+    lib.r8_int_attention_online.argtypes = [ctypes.POINTER(OnlineArgs), _P]
+    lib.r8_int_attention_online.restype = _I
+    lib.r8_online_smem_bytes.argtypes = [_I, _I]
+    lib.r8_online_smem_bytes.restype = ctypes.c_longlong
+    lib.r8_online_smem_limit.argtypes = []
+    lib.r8_online_smem_limit.restype = ctypes.c_longlong
     lib.r8_error_string.argtypes = [_I]
     lib.r8_error_string.restype = ctypes.c_char_p
 

@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.core import attention as iattn
 from repro_torch.core import norms as inorms
+from repro_torch.core import softmax as ism
 from repro_torch.core.dyadic import (apply_dyadic, apply_dyadic_perchannel,
                                      clip_to_bits)
 from repro_torch.core.intmath import i_gelu, int_einsum
@@ -179,3 +180,9 @@ def ref_int_attention(q8, k8, v8, plan: iattn.IAttnPlan, causal: bool = True,
                                       out_bits=out_bits)
     acc = iattn.i_attention_acc(q8, k8, v8, plan, mask=mask)
     return apply_attn_requant(acc, requant, b_vec)
+
+
+def ref_int_softmax(q_scores, plan, where=None):
+    """Shiftmax of int32 scores along the last axis -> int8 probabilities
+    at 2^-7; ``where`` (True = attend) masks as ``core.softmax.i_softmax``."""
+    return ism.i_softmax(q_scores, plan, where=where)

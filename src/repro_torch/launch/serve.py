@@ -58,7 +58,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "calls (numerics identical)")
     ap.add_argument("--backend", default=None,
                     help=f"op backend, one of {available_backends()} "
-                         "(default: cuda)")
+                         "or a JAX backend name (ref, pallas_fused, "
+                         "pallas, pallas_tuned: their twins here); "
+                         "default: REPRO_BACKEND, else cuda")
     ap.add_argument("--device", default="cuda")
     return ap
 
@@ -67,7 +69,7 @@ def main(argv=None):
     ap = build_parser()
     args = ap.parse_args(argv)
     cfg = get_config(args.arch)
-    ops = resolve_ops(args.backend)
+    ops = resolve_ops(args.backend, cfg)
     if args.prefill_chunk is not None and args.prefill_chunk > 0 \
             and args.prefill_chunk % args.page_size \
             and args.page_size % args.prefill_chunk:

@@ -21,8 +21,10 @@ def make_prefill_step(cfg: ArchConfig, plans: qplans.LayerPlans, ops=None,
     last-position logits.  ``batch["tokens"]``: (B, S) token ids, moved
     to ``device`` (default the card; raises without one unless given
     ``device="cpu"``).  With ``cfg.pos == "rope"`` the integer RoPE
-    tables are an argument, as in the reference."""
-    ops = resolve_ops(ops)
+    tables are an argument, as in the reference.  ``ops``: as
+    ``ops.resolve_ops(ops, cfg)`` (e.g. ``"cuda_online"`` for the online
+    attention)."""
+    ops = resolve_ops(ops, cfg)
     dev = resolve_device(device)
 
     def _batch(batch):

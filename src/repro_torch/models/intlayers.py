@@ -17,7 +17,8 @@ from repro_torch.core import activations as iact
 from repro_torch.core import norms
 from repro_torch.core.dyadic import clip_to_bits, rshift_round
 from repro_torch.models.common import ArchConfig
-from repro_torch.ops import QuantLinearParams, RequantSpec, resolve_ops
+from repro_torch.ops import (QuantLinearParams, RequantSpec, get_backend,
+                             resolve_ops)
 from repro_torch.quant import plans as qplans
 
 
@@ -117,17 +118,20 @@ FULL_MATRIX_MAX = (4096 * 4096) // 4
 
 def int_attn_fwd(qp, x8, plans: qplans.AttnPlan, cfg: ArchConfig,
                  rope_tab=None, positions=None, causal=True, window: int = 0,
-                 memory8=None, ops=None):
+                 memory8=None, ops=None, fuse_attention: bool = True):
     """Full-sequence self-attention.  x8: (B,S,D) int8 -> (B,S,D) int32 at
     s_res.  ``rope_tab``: integer RoPE tables (rotated at ``positions``,
     default ``0..S-1``); ``causal``/``window``: the mask.  A backend with
     a fused attention kernel takes every length; the full-matrix oracle
-    is called up to the reference's chunking threshold."""
+    is called up to the reference's chunking threshold.
+    ``fuse_attention=False`` asks for the exact two-pass integers: a fused
+    backend is then not re-entered, and the exact path runs instead (on
+    ``cuda`` K5, the integers of the reference's oracle)."""
     if memory8 is not None:
         raise NotImplementedError("cross attention over an encoder/image "
                                   "memory is not ported yet (ROADMAP §1 "
                                   "item 8)")
-    ops = resolve_ops(ops)
+    ops = resolve_ops(ops, cfg)
     b, s, _ = x8.shape
     q8, k8, v8 = _qkv(qp, x8, plans, cfg, ops)
     if rope_tab is not None:
@@ -135,16 +139,24 @@ def int_attn_fwd(qp, x8, plans: qplans.AttnPlan, cfg: ArchConfig,
             s, device=x8.device)
         q8 = apply_int_rope(q8, pos, rope_tab)
         k8 = apply_int_rope(k8, pos, rope_tab)
-    if not ops.backend_for("int_attention").fused_attention \
-            and s * s > FULL_MATRIX_MAX:
+    attn_backend = ops.backend_for("int_attention")
+    fused = fuse_attention and attn_backend.fused_attention
+    if not fused and s * s > FULL_MATRIX_MAX:
         raise NotImplementedError(
             "the two-pass chunked attention (core.attention."
-            "i_attention_chunked) a non-fused backend takes above "
+            "i_attention_chunked) the exact path takes above "
             f"S*Skv = {FULL_MATRIX_MAX} is not ported yet (ROADMAP §1 "
             "item 8)")
-    o8 = ops.int_attention(q8, k8, v8, plans.attn, causal=causal,
-                           window=window,
-                           requant=RequantSpec.per_tensor(plans.attn.dn_out))
+    requant = RequantSpec.per_tensor(plans.attn.dn_out)
+    if fused:
+        o8 = ops.int_attention(q8, k8, v8, plans.attn, causal=causal,
+                               window=window, requant=requant)
+    else:
+        # exact numerics: never re-enter a fused (possibly online) kernel
+        be = get_backend("cuda") if attn_backend.fused_attention \
+            else attn_backend
+        o8 = be.int_attention(q8, k8, v8, plans.attn, causal=causal,
+                              window=window, requant=requant)
     return int_linear(o8.to(torch.int8).reshape(b, s, cfg.n_heads * cfg.hd),
                       qp["wo"], plans.out, ops)
 

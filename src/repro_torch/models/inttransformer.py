@@ -98,7 +98,7 @@ def int_prefill(qparams, batch, plans: qplans.LayerPlans, cfg: ArchConfig,
         raise NotImplementedError(f"the {cfg.family} memory (encoder / "
                                   "image tokens) is not ported yet "
                                   "(ROADMAP §1 item 8)")
-    ops = resolve_ops(ops)
+    ops = resolve_ops(ops, cfg)
     _, ng, kinds = layer_group_spec(cfg)
     tokens = batch["tokens"]
     s = tokens.shape[1]

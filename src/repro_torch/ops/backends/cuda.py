@@ -4,8 +4,9 @@ the JAX package's ``pallas_fused`` backend, and the port's default).
 A thin shim over the kernel wrappers of ``repro_torch.kernels``: K1 for
 all matmuls (the raw logits head included), K2 for the norms, K3 for
 paged decode attention, K4 for paged chunked prefill, the last two with
-the o-projection folded in, K5 for full-sequence attention and K6 for
-i-GELU.  There is no fallback and no tiling predicate: on CPU tensors each
+the o-projection folded in, K5 for full-sequence attention, K6 for
+i-GELU and K7 for the row softmax (as the reference's ``pallas_fused``
+inherits ``pallas``'s softmax kernel).  There is no fallback and no tiling predicate: on CPU tensors each
 wrapper runs its plain version; on CUDA tensors it launches its kernel
 or raises for a shape the kernel cannot take (K5: Skv above
 ``MAX_ROWSUM_LEN``).
@@ -19,6 +20,7 @@ from repro_torch.kernels.int_decode_attention import \
     int_decode_attention_fused
 from repro_torch.kernels.int_gelu import int_gelu
 from repro_torch.kernels.int_layernorm import int_layernorm
+from repro_torch.kernels.int_softmax import int_softmax
 from repro_torch.ops.paged import scatter_chunk
 
 
@@ -32,6 +34,17 @@ class CudaBackend:
 
     def int8_matmul(self, x8, w8, spec, *, bias32=None, b_vec=None):
         return int8_matmul(x8, w8, spec, bias32=bias32, b_vec=b_vec)
+
+    def int_softmax(self, scores, plan, valid_len: int = -1,
+                    block_rows: int = 8, where=None):
+        """K7.  The kernel masks a static ``valid_len`` only: ``where``
+        (an arbitrary mask, oracle only) raises instead of being dropped
+        as the reference's kernel backends drop it."""
+        if where is not None:
+            raise ValueError(f"{self.name!r} int_softmax takes a static "
+                             "valid_len mask only, not where=; use the "
+                             "'torch_ref' backend for an arbitrary mask")
+        return int_softmax(scores, plan, valid_len, block_rows)
 
     def int_layernorm(self, q, q_gamma, q_beta, plan, out_bits: int = 8):
         return int_layernorm(q, q_gamma, q_beta, plan, out_bits)

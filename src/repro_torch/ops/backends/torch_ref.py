@@ -8,6 +8,7 @@ here — the same lowering the reference's ``ref`` backend takes.
 from __future__ import annotations
 
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.int_softmax import int_softmax_plain
 from repro_torch.ops.spec import PER_TENSOR
 
 
@@ -31,6 +32,13 @@ class TorchRefBackend:
         return _ref.ref_int8_matmul_perchannel(x8, w8, bias32, b_vec,
                                                spec.c, spec.pre,
                                                spec.out_bits)
+
+    def int_softmax(self, scores, plan, valid_len: int = -1,
+                    block_rows: int = 8, where=None):
+        """K7's plain version: honours ``valid_len`` (which the
+        reference's ``ref`` backend ignores) and ``where`` (which its
+        ``pallas`` backend drops)."""
+        return int_softmax_plain(scores, plan, valid_len, where=where)
 
     def int_layernorm(self, q, q_gamma, q_beta, plan, out_bits: int = 8):
         return _ref.ref_int_layernorm(q, q_gamma, q_beta, plan, out_bits)

@@ -1,12 +1,33 @@
-"""Backends and the OpSet dispatch handle (twin of ``repro.ops.registry``,
-trimmed to the serving main path).
+"""Backends, the OpSet dispatch handle and backend resolution (twin of
+``repro.ops.registry``, trimmed to the ported paths).
 
 Models receive one resolved :class:`OpSet` and every integer op dispatches
-through it.  Two backends exist:
+through it, to one default backend or, per op, to an override.  Four
+backends exist:
 
   * ``"cuda"`` (the default) — the counterpart of the JAX package's
-    ``pallas_fused``: the hand-written kernels K1–K6;
+    ``pallas_fused``: the hand-written kernels K1–K7, with K5 the exact
+    full-sequence attention;
+  * ``"cuda_online"`` / ``"cuda_online_tuned"`` — the counterparts of
+    ``pallas`` / ``pallas_tuned``: K8, the one-pass online attention, at
+    the reference's logical blocks (``ops.backends.cuda_online``);
   * ``"torch_ref"`` — the counterpart of ``ref``: the plain oracles.
+
+Resolution order for ``resolve_ops(spec, cfg)``, as in the reference:
+
+  1. an explicit ``spec`` argument (OpSet / backend / name);
+  2. the innermost active :func:`use_backend` context;
+  3. the ``REPRO_BACKEND`` environment variable;
+  4. ``cfg.kernel_backend`` when an ArchConfig is supplied;
+  5. ``"cuda"``.
+
+Every name passes through one twin table, :data:`TWINS`, so the JAX
+package's backend names select their counterparts here: ``ref`` and
+``pallas_fused`` give ``cuda`` (the same integers as ``ref``), ``pallas``
+gives ``cuda_online``.  ``ArchConfig.kernel_backend`` defaults to
+``"ref"``, which therefore never makes the card run the plain versions:
+``torch_ref`` runs only when named.  One ``REPRO_BACKEND`` selects the
+twin paths in both packages.
 
 ``fused_attention`` says whether a backend's ``int_attention`` is one
 streaming kernel (the model layer then calls it at any length) or the
@@ -20,17 +41,25 @@ so every backend returns identical integers.
 """
 from __future__ import annotations
 
-from typing import Dict
+import contextlib
+import os
+import threading
+from typing import Dict, Optional
 
 import torch
 
 from repro_torch.ops.paged import gather_pages, scatter_chunk
 from repro_torch.ops.spec import QuantLinearParams
 
+ENV_VAR = "REPRO_BACKEND"
 DEFAULT_BACKEND = "cuda"
 
-OP_NAMES = ("int8_matmul", "int_layernorm", "int_gelu", "int_attention",
-            "int_decode_attention", "int_paged_prefill")
+#: the JAX package's backend names -> their counterparts in the port
+TWINS = {"ref": "cuda", "pallas_fused": "cuda", "pallas": "cuda_online",
+         "pallas_tuned": "cuda_online_tuned"}
+
+OP_NAMES = ("int8_matmul", "int_softmax", "int_layernorm", "int_gelu",
+            "int_attention", "int_decode_attention", "int_paged_prefill")
 
 _REGISTRY: Dict[str, object] = {}
 
@@ -39,12 +68,18 @@ def register_backend(name: str, backend) -> None:
     _REGISTRY[name] = backend
 
 
+def twin_backend(name: str) -> str:
+    """The port's backend for ``name`` (a JAX backend name maps to its
+    twin; a port name maps to itself)."""
+    return TWINS.get(name, name)
+
+
 def get_backend(name: str):
     if not _REGISTRY:
         from repro_torch.ops.backends import register_builtin
         register_builtin()
     try:
-        return _REGISTRY[name]
+        return _REGISTRY[twin_backend(name)]
     except KeyError:
         raise KeyError(f"unknown backend {name!r}; registered: "
                        f"{sorted(_REGISTRY)}") from None
@@ -60,22 +95,38 @@ def _as_backend(spec):
 
 
 class OpSet:
-    """A resolved operator bundle: every integer op dispatches to one
-    backend (the reference's per-op overrides are not ported)."""
+    """A resolved operator bundle: one default backend + per-op overrides
+    (e.g. the online attention on ``cuda_online`` with everything else on
+    ``torch_ref``)."""
 
-    __slots__ = ("default",)
+    __slots__ = ("default", "overrides")
 
-    def __init__(self, default):
+    def __init__(self, default, overrides: Optional[Dict[str, object]] = None):
         self.default = _as_backend(default)
+        ov = {}
+        for op, b in (overrides or {}).items():
+            if op not in OP_NAMES:
+                raise KeyError(f"unknown op {op!r}; valid ops: {OP_NAMES}")
+            ov[op] = _as_backend(b)
+        self.overrides = ov
 
     @property
     def name(self) -> str:
-        return self.default.name
+        if not self.overrides:
+            return self.default.name
+        ov = ",".join(f"{op}={b.name}"
+                      for op, b in sorted(self.overrides.items()))
+        return f"{self.default.name}[{ov}]"
 
     def backend_for(self, op: str):
         if op not in OP_NAMES:
             raise KeyError(f"unknown op {op!r}; valid ops: {OP_NAMES}")
-        return self.default
+        return self.overrides.get(op, self.default)
+
+    def with_overrides(self, **per_op) -> "OpSet":
+        merged = dict(self.overrides)
+        merged.update(per_op)
+        return OpSet(self.default, merged)
 
     def __repr__(self):
         return f"OpSet({self.name})"
@@ -85,6 +136,13 @@ class OpSet:
     def int8_matmul(self, x8, w8, spec, *, bias32=None, b_vec=None):
         return self.backend_for("int8_matmul").int8_matmul(
             x8, w8, spec, bias32=bias32, b_vec=b_vec)
+
+    def int_softmax(self, scores, plan, **opts):
+        """Row Shiftmax of int32 scores -> int8 probabilities; ``opts``:
+        ``valid_len`` (a static padding mask), ``block_rows``, ``where``
+        (oracle only: the kernel backends raise for it)."""
+        return self.backend_for("int_softmax").int_softmax(scores, plan,
+                                                           **opts)
 
     def int_layernorm(self, q, q_gamma, q_beta, plan, out_bits: int = 8):
         return self.backend_for("int_layernorm").int_layernorm(
@@ -183,8 +241,56 @@ def _validate_wo(wo, wo_spec, requant):
     return wo
 
 
-def resolve_ops(spec=None) -> OpSet:
-    """Resolve ``spec`` (OpSet / backend / name / None -> ``"cuda"``)."""
+# ------------------------------------------------------------ resolution --
+
+_TLS = threading.local()
+
+
+def _stack():
+    stack = getattr(_TLS, "stack", None)
+    if stack is None:
+        stack = _TLS.stack = []
+    return stack
+
+
+def current_opset() -> Optional[OpSet]:
+    """The innermost active :func:`use_backend` OpSet, if any."""
+    stack = _stack()
+    return stack[-1] if stack else None
+
+
+@contextlib.contextmanager
+def use_backend(spec, **per_op):
+    """Scope a backend choice: ``with use_backend("cuda_online"): ...``;
+    ``per_op`` overrides route single ops elsewhere, e.g.
+    ``use_backend("torch_ref", int_attention="cuda_online")``."""
+    if isinstance(spec, OpSet):
+        ops = spec.with_overrides(**per_op) if per_op else spec
+    else:
+        ops = OpSet(spec, per_op or None)
+    stack = _stack()
+    stack.append(ops)
+    try:
+        yield ops
+    finally:
+        stack.pop()
+
+
+def resolve_ops(spec=None, cfg=None) -> OpSet:
+    """Resolve ``spec`` (OpSet / backend / name / None) to an OpSet: an
+    explicit spec, else the active :func:`use_backend`, else
+    ``REPRO_BACKEND``, else ``cfg.kernel_backend``, else ``"cuda"`` (names
+    through :data:`TWINS`)."""
     if isinstance(spec, OpSet):
         return spec
-    return OpSet(_as_backend(spec if spec is not None else DEFAULT_BACKEND))
+    if spec is not None:
+        return OpSet(spec)
+    active = current_opset()
+    if active is not None:
+        return active
+    env = os.environ.get(ENV_VAR)
+    if env:
+        return OpSet(env)
+    if cfg is not None and getattr(cfg, "kernel_backend", None):
+        return OpSet(cfg.kernel_backend)
+    return OpSet(DEFAULT_BACKEND)

@@ -132,7 +132,7 @@ class ServingEngine:
         self.batch = batch_size
         self.cache_len = cache_len
         self.fold_wo = fold_wo
-        self.ops = resolve_ops(ops)
+        self.ops = resolve_ops(ops, cfg)
         self.rng = np.random.default_rng(seed)
         self.L = cache_len
         self.layout = CacheLayout.fit(batch_size, self.L, page_size,

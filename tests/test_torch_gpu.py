@@ -1,5 +1,5 @@
-"""The CUDA kernels on the card: each wrapper launches (its counter moves)
-and returns its plain version's integers exactly.
+"""The CUDA kernels on the card (K1-K8): each wrapper launches (its
+counter moves) and returns its plain version's integers exactly.
 
 Marked ``gpu``: a CUDA kernel has no CPU mode, so these skip without a
 card (the decision is made inside a fixture, never at import).  The file
@@ -23,9 +23,12 @@ from repro_torch.kernels.int_attention_fused import (
     int_paged_prefill_plain)
 from repro_torch.kernels.int_decode_attention import (
     int_decode_attention_fused, int_decode_attention_plain)
+from repro_torch.kernels.int_attention import (int_attention_online,
+                                               int_attention_online_plain)
 from repro_torch.kernels.int_gelu import int_gelu, int_gelu_plain
 from repro_torch.kernels.int_layernorm import (int_layernorm,
                                                int_layernorm_plain)
+from repro_torch.kernels.int_softmax import int_softmax, int_softmax_plain
 from repro_torch.ops.spec import QuantLinearParams, RequantSpec
 
 pytestmark = pytest.mark.gpu
@@ -146,9 +149,11 @@ def test_attention_kernels_refuse_overlong_page_tables(dev):
                                                    prefill_chunk=8)],
                          ids=["ps16", "ps8-chunk8"])
 def test_engine_cuda_matches_torch_ref(dev, geometry):
-    """A reduced engine on the card: the kernels' token streams equal the
-    plain backend's, and every kernel of the path launched — small pages
-    and chunks included (the kernels take any page size or chunk)."""
+    """A reduced engine on the card: the kernels' token streams (on
+    ``cuda`` and on ``cuda_online``, which serves through the same K3/K4)
+    equal the plain backend's, and every kernel of the path launched —
+    small pages and chunks included (the kernels take any page size or
+    chunk)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models import model as M
     from repro_torch.quant import convert
@@ -156,7 +161,7 @@ def test_engine_cuda_matches_torch_ref(dev, geometry):
     cfg = M.reduce_config(get_config("llama3-8b"), dtype="float32")
     qp, plans = convert.init_quantized(cfg, seed=0, device=dev)
     streams = {}
-    for backend in ("cuda", "torch_ref"):
+    for backend in ("cuda", "cuda_online", "torch_ref"):
         eng = ServingEngine(qp, plans, cfg, batch_size=2, cache_len=64,
                             ops=backend, device=dev, **geometry)
         reqs = [Request(uid=i, prompt=[1 + i] * (5 + 9 * i),
@@ -170,7 +175,7 @@ def test_engine_cuda_matches_torch_ref(dev, geometry):
                          "int_decode_attention", "int_paged_prefill"):
                 assert kernels.LAUNCHES[name] > 0, name
         streams[backend] = [r.out_tokens for r in reqs]
-    assert streams["cuda"] == streams["torch_ref"]
+    assert streams["cuda"] == streams["cuda_online"] == streams["torch_ref"]
 
 
 @pytest.mark.parametrize("b,sq,skv,h,hkv,d,causal,window", [
@@ -251,3 +256,91 @@ def test_encoder_prefill_cuda_matches_torch_ref(dev):
                          "int_attention_fused", "int_gelu"):
                 assert kernels.LAUNCHES[name] > 0, name
     assert torch.equal(logits["cuda"], logits["torch_ref"])
+
+
+@pytest.mark.parametrize("L", [1, 40, 512, 1000, 1025, 4096, 1 << 15])
+def test_int_softmax_kernel(dev, L):
+    """K7 on both of its paths (a warp per row in registers up to 1024,
+    a block per row beyond), with and without the padding mask (0 and
+    past the end included); block_rows never changes the integers."""
+    rng = np.random.default_rng(L)
+    plan = iattn.make_iattention(64, 8 / 127, 8 / 127, 4 / 127, 4 / 127).sm
+    rows = 3 if L == 1 << 15 else 37
+    x = _i32(rng, -90000, 90000, (rows, L), dev)
+    for vl in (-1, 0, L // 3, L + 2):
+        want = int_softmax_plain(x, plan, vl)
+        for br in (1, 8, 16):
+            before = kernels.LAUNCHES["int_softmax"]
+            got = int_softmax(x, plan, vl, block_rows=br)
+            assert kernels.LAUNCHES["int_softmax"] == before + 1
+            assert torch.equal(got, want), (vl, br)
+
+
+@pytest.mark.parametrize("b,sq,skv,h,hkv,d,causal,window,bq,bkv,bits", [
+    (2, 64, 64, 4, 4, 64, False, 0, 16, 16, 8),
+    (1, 64, 64, 4, 2, 32, True, 0, 32, 16, 8),
+    (1, 64, 64, 2, 1, 128, True, 16, 16, 32, 8),
+    (2, 48, 80, 4, 2, 64, False, 0, 16, 16, 8),
+    (1, 80, 48, 2, 2, 32, True, 8, 16, 16, 8),
+    (1, 64, 64, 2, 2, 32, False, 8, 32, 16, 16),
+    (1, 131, 131, 2, 2, 64, True, 0, 1, 1, 8),
+    (1, 136, 136, 2, 2, 64, True, 0, 68, 68, 8),
+    (1, 256, 256, 2, 1, 128, False, 0, 256, 256, 8),
+    (1, 512, 512, 2, 2, 64, True, 0, 128, 128, 8)])
+def test_online_attention_kernel(dev, b, sq, skv, h, hkv, d, causal, window,
+                                 bq, bkv, bits):
+    """K8 at the reference's logical blocks: tiles spanning several
+    logical query blocks (bq 16 in a 32-row tile), blocks of 1 and 68,
+    the tuned 256 x 256, GQA, Sq != Skv both ways, a window with and
+    without causality, a 16-bit clip stored as int8."""
+    rng = np.random.default_rng(sq + skv + d + bq + bkv)
+    plan = iattn.make_iattention(d, 8 / 127, 8 / 127, 4 / 127, 4 / 127)
+    q8 = _i8(rng, (b, sq, h, d), dev)
+    k8, v8 = _i8(rng, (b, skv, hkv, d), dev), _i8(rng, (b, skv, hkv, d), dev)
+    before = kernels.LAUNCHES["int_attention_online"]
+    got = int_attention_online(q8, k8, v8, plan, causal, window, bq, bkv,
+                               bits)
+    assert kernels.LAUNCHES["int_attention_online"] == before + 1
+    want = int_attention_online_plain(q8, k8, v8, plan, causal, window, bq,
+                                      bkv, bits)
+    assert torch.equal(got, want)
+
+
+def test_online_attention_refuses_what_it_cannot_take(dev):
+    from repro_torch.analysis.contracts import KernelContractError
+    plan = iattn.make_iattention(48, 8 / 127, 8 / 127, 4 / 127, 4 / 127)
+    q = torch.zeros((1, 32, 2, 48), dtype=torch.int8, device=dev)
+    with pytest.raises(KernelContractError, match="head dim"):
+        int_attention_online(q, q, q, plan, bq=32, bkv=32)
+    plan = iattn.make_iattention(128, 8 / 127, 8 / 127, 4 / 127, 4 / 127)
+    q = torch.zeros((1, 1024, 1, 128), dtype=torch.int8, device=dev)
+    with pytest.raises(KernelContractError, match="shared memory"):
+        int_attention_online(q, q, q, plan, bq=1024, bkv=1024)
+
+
+def test_encoder_prefill_cuda_online_matches_plain(dev):
+    """Reduced roberta-base through make_prefill_step(ops="cuda_online") on
+    the card equals the same routing in plain PyTorch (K8's and K5's plain
+    versions, ``torch_ref`` for the rest); K8 launched, K5 did not."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import model as M
+    from repro_torch.ops.backends.cuda_online import plain_online_opset
+    from repro_torch.quant import convert
+
+    cfg = dataclasses.replace(M.reduce_config(get_config("roberta-base"),
+                                              dtype="float32"),
+                              tie_embeddings=True)
+    qp, plans = convert.init_quantized(cfg, seed=0, device=dev,
+                                       embed_scale=convert.unit_embed_scale(
+                                           cfg))
+    toks = np.random.default_rng(4).integers(0, cfg.vocab, (3, 48))
+    kernels.reset_launches()
+    got = make_prefill_step(cfg, plans, ops="cuda_online",
+                            device=dev)(qp, {"tokens": toks})
+    assert kernels.LAUNCHES["int_attention_online"] == cfg.num_layers
+    assert kernels.LAUNCHES["int_attention_fused"] == 0
+    want = make_prefill_step(cfg, plans, ops=plain_online_opset(),
+                             device=dev)(qp, {"tokens": toks})
+    assert torch.equal(got, want)
