@@ -165,11 +165,12 @@ def _randint(gen, lo, hi, shape, dtype):
 
 
 def record(rows, name, case, got, want, kernel, plain, nbytes, ops,
-           lib_ms=None, rep=False, iters=20, plain_iters=3):
+           lib_ms=None, rep=False, iters=20, plain_iters=3, plan=None):
     """Exactness first, then times: ``ms`` / ``plain_ms`` are device time
     per call (profiler), ``call_ms`` the kernel wrapper's wall time per
     call on the device timeline (CUDA events, host issue gaps included).
-    ``rep``: this case is the kernel's row in the summary line."""
+    ``rep``: this case is the kernel's row in the summary line; ``plan``:
+    the launch the wrapper chose, printed with the case."""
     err = max_abs_diff(got, want)
     b_ms, b_by = bound_ms(nbytes, ops)
     call = time_ms(kernel, iters)
@@ -179,12 +180,23 @@ def record(rows, name, case, got, want, kernel, plain, nbytes, ops,
                         or time_ms(plain, plain_iters)),
            "call_ms": call,
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
-    emit({"phase": "kernels", **row})
+    emit({"phase": "kernels", **row, **({"plan": plan} if plan else {})})
     if err != 0:
         raise AssertionError(f"{name} {case}: kernel != plain "
                              f"(max |diff| {err})")
     if rep:
         rows[name] = row
+
+
+def k1_plan(m: int, n: int, k: int) -> str:
+    """K1's launch for an (m, k) x (k, n) product on this card."""
+    import torch
+    from repro_torch.kernels.int8_matmul import TILES, launch_plan
+    p = launch_plan(m, n, k,
+                    torch.cuda.get_device_properties(0).multi_processor_count)
+    bm, bn, _ = TILES[p.tile]
+    return (f"{'dp4a' if p.tile == 0 else 'mma'} {bm}x{bn} "
+            f"splits={p.grid[2]}")
 
 
 def int_mm_ms(x8, w8):
@@ -240,7 +252,8 @@ def check_kernels(cfg, plans):
                    f"per-channel out_bits={spec.out_bits}", got, want,
                    lambda: int8_matmul(x8, w8, spec, b_vec=b_vec),
                    lambda: int8_matmul_plain(x8, w8, spec, b_vec=b_vec),
-                   m * k + k * n + 4 * n + out_b * m * n, 2 * m * k * n)
+                   m * k + k * n + 4 * n + out_b * m * n, 2 * m * k * n,
+                   plan=k1_plan(m, n, k))
         # per-tensor epilogue with a bias (not on the llama path; the
         # epilogue form the kernel must still get exactly right)
         x8 = x_cache[d]
@@ -253,7 +266,8 @@ def check_kernels(cfg, plans):
         record(rows, "int8_matmul", f"per-tensor+bias M={m} K={d} N={d}",
                got, want, lambda: int8_matmul(x8, w8, spec, bias32=bias),
                lambda: int8_matmul_plain(x8, w8, spec, bias32=bias),
-               m * d + d * d + 4 * d + m * d, 2 * m * d * d)
+               m * d + d * d + 4 * d + m * d, 2 * m * d * d,
+               plan=k1_plan(m, d, d))
         # the raw logits head
         w8 = _randint(gen, -127, 128, (d, v), torch.int8)
         raw = RequantSpec.raw()
@@ -263,7 +277,8 @@ def check_kernels(cfg, plans):
                want, lambda: int8_matmul(x8, w8, raw),
                lambda: int8_matmul_plain(x8, w8, raw),
                m * d + d * v + 4 * m * v, 2 * m * d * v,
-               lib_ms=int_mm_ms(x8, w8), rep=(m == 4), iters=10)
+               lib_ms=int_mm_ms(x8, w8), rep=(m == 4), iters=10,
+               plan=k1_plan(m, v, d))
         del w8
 
     # K2: RMSNorm rows of the residual stream
@@ -375,7 +390,7 @@ def check_encoder_kernels(cfg, plans, rows) -> None:
                lambda: int8_matmul_plain(x8, w8, spec, bias32=bias,
                                          b_vec=b_vec),
                tokens * k + k * n + 8 * n + out_b * tokens * n,
-               2 * tokens * k * n, iters=10)
+               2 * tokens * k * n, iters=10, plan=k1_plan(tokens, n, k))
     del x_cache
     x8 = _randint(gen, -127, 128, (ENCODE_BATCH, d), torch.int8)
     w8 = _randint(gen, -127, 128, (d, v), torch.int8)
@@ -386,7 +401,8 @@ def check_encoder_kernels(cfg, plans, rows) -> None:
            lambda: int8_matmul(x8, w8, raw),
            lambda: int8_matmul_plain(x8, w8, raw),
            ENCODE_BATCH * d + d * v + 4 * ENCODE_BATCH * v,
-           2 * ENCODE_BATCH * d * v, lib_ms=int_mm_ms(x8, w8), iters=10)
+           2 * ENCODE_BATCH * d * v, lib_ms=int_mm_ms(x8, w8), iters=10,
+           plan=k1_plan(ENCODE_BATCH, v, d))
     del w8
 
     # K2 in LayerNorm mode (mean subtracted, beta added)

@@ -7,6 +7,7 @@ the plain PyTorch version with the same arithmetic.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -14,9 +15,9 @@ from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels import ref as _ref
 from repro_torch.ops.spec import PER_TENSOR
 
-#: (BM, BN, BK) of the two tiles compiled into csrc/int8_matmul.cu
-SMALL_TILE = (4, 256, 64)
-LARGE_TILE = (64, 64, 64)
+#: (BM, BN, BK) of the tiles compiled into csrc/int8_matmul.cu, by id:
+#: 0 the __dp4a tile of M <= SMALL_M_MAX, 1 and 2 the tensor-core tiles
+TILES = {0: (4, 256, 64), 1: (64, 128, 64), 2: (128, 128, 64)}
 SMALL_M_MAX = 16
 
 
@@ -45,6 +46,35 @@ def _split_k(tiles: int, k: int, bk: int, sms: int):
     k_per = -(-k // splits)
     k_per = -(-k_per // bk) * bk
     return -(-k // k_per), k_per
+
+
+class LaunchPlan(NamedTuple):
+    """One K1 launch: the tile (a key of :data:`TILES`), the grid
+    ``(N tiles, M tiles, splits)``, the K range of each split, and the
+    alignment (bytes) that K or N and the operand's address need for the
+    kernel's vector copies of x and w (else it takes scalar masked
+    loads)."""
+    tile: int
+    grid: tuple
+    k_per_split: int
+    x_align: int
+    w_align: int
+
+
+def launch_plan(m: int, n: int, k: int, sms: int) -> LaunchPlan:
+    """The launch of an (m, k) x (k, n) product on a card of ``sms`` SMs:
+    the __dp4a tile for m <= SMALL_M_MAX, else the tensor cores, in
+    128 x 128 tiles where m > 64 and they fill the card, else 64 x 128."""
+    if m <= SMALL_M_MAX:
+        tile = 0
+    else:
+        full = -(-m // 128) * -(-n // 128)
+        tile = 2 if m > 64 and full >= sms else 1
+    bm, bn, bk = TILES[tile]
+    gx, gy = -(-n // bn), -(-m // bm)
+    splits, k_per = _split_k(gx * gy, k, bk, sms)
+    x_align, w_align = (4, 4) if tile == 0 else (16, 8)
+    return LaunchPlan(tile, (gx, gy, splits), k_per, x_align, w_align)
 
 
 def int8_matmul(x8, w8, spec, bias32=None, b_vec=None):
@@ -84,25 +114,23 @@ def int8_matmul(x8, w8, spec, bias32=None, b_vec=None):
         return out
     if k == 0:
         raise ValueError("int8_matmul: empty contraction (K == 0)")
-    large = m > SMALL_M_MAX
-    bm, bn, bk = LARGE_TILE if large else SMALL_TILE
-    tiles = -(-m // bm) * -(-n // bn)
     sms = torch.cuda.get_device_properties(x8.device).multi_processor_count
-    splits, k_per = _split_k(tiles, k, bk, sms)
+    plan = launch_plan(m, n, k, sms)
+    gx, gy, splits = plan.grid
     ws = cnt = None
     if splits > 1:
         ws = torch.zeros((m, n), dtype=torch.int32, device=x8.device)
-        cnt = torch.zeros((tiles,), dtype=torch.int32, device=x8.device)
+        cnt = torch.zeros((gx * gy,), dtype=torch.int32, device=x8.device)
     rq = _abi.requant_struct(spec)
     lib = library()
-    vec_x = int(k % 4 == 0 and x8.data_ptr() % 4 == 0)
-    vec_w = int(n % 4 == 0 and w8.data_ptr() % 4 == 0)
+    vec_x = int(k % plan.x_align == 0 and x8.data_ptr() % plan.x_align == 0)
+    vec_w = int(n % plan.w_align == 0 and w8.data_ptr() % plan.w_align == 0)
     rc = lib.r8_int8_matmul(
         x8.data_ptr(), w8.data_ptr(), _abi.ptr(bias32),
         _abi.ptr(b_vec if spec.kind != PER_TENSOR else None),
         ctypes.byref(rq),
-        out.data_ptr(), int(dt == torch.int8), m, n, k, int(large), splits,
-        k_per, _abi.ptr(ws), _abi.ptr(cnt), vec_x, vec_w,
+        out.data_ptr(), int(dt == torch.int8), m, n, k, plan.tile, splits,
+        plan.k_per_split, _abi.ptr(ws), _abi.ptr(cnt), vec_x, vec_w,
         _abi.stream_of(x8))
     LAUNCHES["int8_matmul"] += 1
     _abi.check(lib, rc, "int8_matmul")

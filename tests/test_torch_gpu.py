@@ -51,17 +51,43 @@ def _i32(rng, lo, hi, shape, dev):
                            device=dev)
 
 
-@pytest.mark.parametrize("m,k,n", [(4, 200, 48), (12, 300, 260),
-                                   (33, 200, 100), (1, 7, 7),
-                                   (130, 4096, 96)])
-def test_int8_matmul_kernel(dev, m, k, n):
-    """Ragged M, N and K (masked in-kernel), both tiles, split-K, all
-    three epilogue forms."""
+# the tensor-core path (M > 16): ragged M around both tiles, K not a
+# multiple of 16 (scalar x loads), N not a multiple of 8 (scalar w loads)
+_MMA_SHAPES = [(m, k, n) for m in (17, 32, 64, 127, 128, 129, 1000)
+               for n in (96, 260, 3072) for k in (200, 300, 768, 4096)]
+
+
+@pytest.mark.parametrize("m,k,n,operands", [
+    (4, 200, 48, "random"), (12, 300, 260, "random"),
+    (33, 200, 100, "random"), (1, 7, 7, "random"),
+    (130, 4096, 96, "random")]
+    + [(m, k, n, "random") for m, k, n in _MMA_SHAPES]
+    + [(1000, 300, 2100, "random"),            # 128-row tile, ragged N
+       (128, 4096, 512, "random"),             # split-K
+       (33, 301, 96, "misaligned"), (200, 301, 3072, "misaligned"),
+       (4, 14336, 96, "min"), (4, 14336, 96, "max"),
+       (130, 14336, 300, "min"), (130, 14336, 300, "max")])
+def test_int8_matmul_kernel(dev, m, k, n, operands):
+    """Ragged M, N and K (masked in-kernel), every tile, split-K, all
+    three epilogue forms; ``misaligned``: x8 a view one row (of odd K)
+    into its storage; ``min`` / ``max``: every operand -128 / +127, the
+    largest sums at the FFN-down depth."""
+    from repro_torch.kernels.int8_matmul import launch_plan
     rng = np.random.default_rng(m + k + n)
-    x8, w8 = _i8(rng, (m, k), dev), _i8(rng, (k, n), dev)
+    if operands in ("min", "max"):
+        fill = -128 if operands == "min" else 127
+        x8 = torch.full((m, k), fill, dtype=torch.int8, device=dev)
+        w8 = torch.full((k, n), fill, dtype=torch.int8, device=dev)
+    else:
+        x8, w8 = _i8(rng, (m, k), dev), _i8(rng, (k, n), dev)
+    if operands == "misaligned":
+        x8 = torch.cat([_i8(rng, (1, k), dev), x8])[1:]
+        assert x8.is_contiguous() and x8.data_ptr() % 2 == 1
     bvec = _i32(rng, 256, 4096, (n,), dev)
     bias = _i32(rng, -5000, 5000, (n,), dev)
     from repro_torch.core.dyadic import fit_dyadic
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert (launch_plan(m, n, k, sms).tile == 0) == (m <= 16)
     for spec in (RequantSpec.raw(), RequantSpec.per_channel(24, 10, 11),
                  RequantSpec.per_tensor(fit_dyadic(1 / 3000.0, 1 << 26))):
         before = kernels.LAUNCHES["int8_matmul"]

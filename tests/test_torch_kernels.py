@@ -254,3 +254,31 @@ def test_int8_matmul_split_k_covers_k_exactly(k):
             splits, k_per = _split_k(tiles, k, bk, 132)
             assert k_per % bk == 0 and splits >= 1
             assert (splits - 1) * k_per < k <= splits * k_per
+
+
+@pytest.mark.parametrize("m,n,k", [
+    (1, 7, 7), (4, 14336, 4096), (16, 128256, 4096), (17, 96, 200),
+    (32, 50272, 768), (64, 3072, 300), (65, 96, 4096), (128, 14336, 4096),
+    (128, 1024, 4096), (128, 4096, 14336), (128, 128256, 4096),
+    (129, 260, 768), (1000, 2100, 300), (16384, 768, 768),
+    (16384, 3072, 768), (16384, 768, 3072)])
+def test_int8_matmul_launch_plan(m, n, k):
+    """K1's launch plan from the shape alone: the __dp4a tile up to
+    SMALL_M_MAX rows and the tensor cores beyond; every split non-empty,
+    a whole number of K-steps, together covering K; the grid covering
+    M and N; vector alignment as each kernel's copies need."""
+    from repro_torch.kernels.int8_matmul import (SMALL_M_MAX, TILES,
+                                                 launch_plan)
+    for sms in (132, 114):
+        p = launch_plan(m, n, k, sms)
+        assert (p.tile == 0) == (m <= SMALL_M_MAX)
+        bm, bn, bk = TILES[p.tile]
+        gx, gy, splits = p.grid
+        if p.tile == 2:
+            assert m > 64 and gx * gy >= sms
+        assert gx * bn >= n > (gx - 1) * bn
+        assert gy * bm >= m > (gy - 1) * bm
+        assert splits >= 1 and p.k_per_split % bk == 0
+        assert splits * p.k_per_split >= k > (splits - 1) * p.k_per_split
+        want = (4, 4) if p.tile == 0 else (16, 8)
+        assert (p.x_align, p.w_align) == want
