@@ -199,6 +199,30 @@ def k1_plan(m: int, n: int, k: int) -> str:
             f"splits={p.grid[2]}")
 
 
+def k5_plan(q8, k8, causal: bool, window: int, plan) -> str:
+    """K5's launch for these operands (kernels/int_attention_fused.py::
+    k5_launch_plan)."""
+    from repro_torch.kernels.int_attention_fused import (
+        e16_fits_16_bits, k5_launch_plan)
+    b, sq, h, d = q8.shape
+    p = k5_launch_plan(b, sq, k8.shape[1], h, k8.shape[2], d, causal,
+                       window, k8.data_ptr(), e16_fits_16_bits(plan.sm))
+    return (f"mma grid={list(p.grid)} tiles={p.tiles} smem={p.smem} "
+            f"e16_store={p.store_e16} k_copies={16 if p.vec_k else 4}B")
+
+
+def _offset_view(x, off: int):
+    """A contiguous copy of ``x`` starting ``off`` bytes past a 16-byte
+    boundary."""
+    import torch
+    flat = torch.empty(x.numel() + 16, dtype=x.dtype, device=x.device)
+    y = flat[off:off + x.numel()].view(x.shape)
+    y.copy_(x)
+    if y.data_ptr() % 16 != off:
+        raise AssertionError("offset view is not where it was asked")
+    return y
+
+
 def int_mm_ms(x8, w8):
     """torch._int_mm (cuBLAS) on the same operands, where it accepts
     them: the library yardstick of a raw int8 product."""
@@ -359,7 +383,8 @@ def check_encoder_kernels(cfg, plans, rows) -> None:
     from repro_torch.kernels.int8_matmul import (int8_matmul,
                                                  int8_matmul_plain)
     from repro_torch.kernels.int_attention_fused import (
-        int_attention_fused, int_attention_fused_plain)
+        int_attention_fused, int_attention_fused_plain,
+        k5_division_mismatches)
     from repro_torch.kernels.int_gelu import int_gelu, int_gelu_plain
     from repro_torch.kernels.int_layernorm import (int_layernorm,
                                                    int_layernorm_plain)
@@ -420,27 +445,60 @@ def check_encoder_kernels(cfg, plans, rows) -> None:
                8 * r * d + 8 * d, 0, iters=20)
 
     # K5: the encoder's launch, then GQA causal / windowed, the other
-    # epilogues and a cross-shaped launch
+    # epilogues and a cross-shaped launch; then the edge cases of the
+    # tensor-core kernel (head dims 32 / 64 / 128 at ragged lengths, one
+    # key, -128 / +127 operands, operands 4 bytes off 16-byte alignment, a
+    # window wider than S, rows with no live key, key ranges too long for
+    # the e16 store), the epilogues taken in turn
     aplan = plans.attn.attn
     per_tensor = RequantSpec.per_tensor(aplan.dn_out)
+    epilogues = [per_tensor, RequantSpec.per_channel(22, 8),
+                 RequantSpec.per_channel(20, 6, out_bits=16),
+                 RequantSpec.raw()]
     h, hd = cfg.n_heads, cfg.hd
     k5_cases = [
-        # (B, Sq, Skv, H, Hkv, D, causal, window, requant, rep)
+        # (B, Sq, Skv, H, Hkv, D, causal, window, requant, operands, rep)
         (ENCODE_BATCH, ENCODE_SEQ, ENCODE_SEQ, h, h, hd, False, 0,
-         per_tensor, True),
-        (4, 512, 512, 32, 8, 128, True, 0, per_tensor, False),
-        (4, 512, 512, 32, 8, 128, True, 128, per_tensor, False),
+         per_tensor, "random", True),
+        (4, 512, 512, 32, 8, 128, True, 0, per_tensor, "random", False),
+        (4, 512, 512, 32, 8, 128, True, 128, per_tensor, "random", False),
         (8, ENCODE_SEQ, ENCODE_SEQ, h, h, hd, False, 0,
-         RequantSpec.per_channel(22, 8), False),
+         RequantSpec.per_channel(22, 8), "random", False),
         (8, ENCODE_SEQ, ENCODE_SEQ, h, h, hd, False, 0, RequantSpec.raw(),
-         False),
+         "random", False),
         (ENCODE_BATCH, 64, ENCODE_SEQ, h, h, hd, False, 0, per_tensor,
-         False),
+         "random", False),
     ]
-    for b, sq, skv, hq, hkv, dd, causal, window, rq, rep in k5_cases:
-        q8 = _randint(gen, -127, 128, (b, sq, hq, dd), torch.int8)
-        k8 = _randint(gen, -127, 128, (b, skv, hkv, dd), torch.int8)
-        v8 = _randint(gen, -127, 128, (b, skv, hkv, dd), torch.int8)
+    edges = [(1, s_, s_, 4, 2, dd, causal, window, "random")
+             for dd in (32, 64, 128)
+             for s_, causal, window in ((1, False, 0), (37, True, 0),
+                                        (100, True, 16), (1000, dd != 32,
+                                                          100 if dd == 128
+                                                          else 0))]
+    edges += [(2, 37, 1, 4, 2, 64, True, 0, "random"),
+              (2, 100, 100, 4, 2, 64, False, 0, "min"),
+              (2, 100, 100, 4, 2, 128, True, 0, "max"),
+              (2, 100, 70, 4, 1, 128, True, 8, "misaligned"),
+              (1, 100, 100, 4, 4, 64, True, 300, "random"),
+              (2, 200, 60, 4, 2, 32, True, 16, "random"),
+              (1, 4096, 4096, 2, 1, 128, True, 0, "random"),
+              (1, 64, 3000, 2, 2, 128, False, 0, "random")]
+    k5_cases += [(*e[:8], epilogues[i % 4], e[8], False)
+                 for i, e in enumerate(edges)]
+    for (b, sq, skv, hq, hkv, dd, causal, window, rq, operands,
+         rep) in k5_cases:
+        if operands in ("min", "max"):
+            fill = -128 if operands == "min" else 127
+            q8, k8, v8 = (torch.full(shape, fill, dtype=torch.int8,
+                                     device="cuda")
+                          for shape in ((b, sq, hq, dd), (b, skv, hkv, dd),
+                                        (b, skv, hkv, dd)))
+        else:
+            q8 = _randint(gen, -127, 128, (b, sq, hq, dd), torch.int8)
+            k8 = _randint(gen, -127, 128, (b, skv, hkv, dd), torch.int8)
+            v8 = _randint(gen, -127, 128, (b, skv, hkv, dd), torch.int8)
+        if operands == "misaligned":
+            q8, k8, v8 = (_offset_view(x, 4) for x in (q8, k8, v8))
         bvec = _randint(gen, 1000, 20000, (hq * dd,), torch.int32)
         out_b = 1 if (not rq.is_raw and rq.out_bits <= 8) else 4
         nbytes = (b * sq * hq * dd + 2 * b * skv * hkv * dd
@@ -448,7 +506,8 @@ def check_encoder_kernels(cfg, plans, rows) -> None:
         ops = 4 * b * hq * dd * _live_pairs(sq, skv, causal, window)
         record(rows, "int_attention_fused",
                f"B={b} Sq={sq} Skv={skv} H={hq} Hkv={hkv} D={dd} "
-               f"causal={causal} window={window} {rq.kind}",
+               f"causal={causal} window={window} {rq.kind}"
+               f"{'' if rq.is_raw else f' {rq.out_bits}b'} {operands}",
                int_attention_fused(q8, k8, v8, aplan, rq, bvec, causal,
                                    window),
                int_attention_fused_plain(q8, k8, v8, aplan, rq, bvec,
@@ -457,8 +516,20 @@ def check_encoder_kernels(cfg, plans, rows) -> None:
                                            causal, window),
                lambda: int_attention_fused_plain(q8, k8, v8, aplan, rq,
                                                  bvec, causal, window),
-               nbytes, ops, rep=rep, iters=5, plain_iters=2)
+               nbytes, ops, rep=rep, iters=5, plain_iters=2,
+               plan=k5_plan(q8, k8, causal, window, aplan))
         del q8, k8, v8
+
+    # K5's exp16 division (a multiply-high) against `/` on its whole
+    # domain (every K5 case above runs the encoder's plan)
+    ie = aplan.sm.iexp
+    bad = k5_division_mismatches(ie)
+    emit({"phase": "kernels", "name": "int_attention_fused",
+          "case": f"exp16 division, every n in [0, {ie.z_max * ie.q_ln2}]"
+          f", q_ln2={ie.q_ln2}", "mismatches": bad})
+    if bad:
+        raise AssertionError(f"K5's exp16 division differs from / on {bad}"
+                             " values")
 
     # K6: every 16-bit input, seeded int32 over the whole range (wrap),
     # then the FFN's 11-bit activations at the path shape (timed)
@@ -981,6 +1052,28 @@ def profile_window(phase, what, fn):
                   for k, us, n in rows[:12]]})
 
 
+def sass_summary(so: str) -> None:
+    """Per kernel of the built library, the count of the SASS
+    instructions that say how it computes: ``IMMA`` (int8 tensor cores),
+    ``IDP`` (__dp4a), ``LDL`` / ``STL`` (local-memory spills)."""
+    import re
+    from repro_torch.kernels import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", so], capture_output=True,
+                         text=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = dict.fromkeys(("IMMA", "IDP", "LDL", "STL"), 0)
+        elif name is not None:
+            for op in counts[name]:
+                if re.search(rf"\b{op}\b", line):
+                    counts[name][op] += 1
+    emit({"phase": "sass", "kernels": counts})
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -997,7 +1090,8 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default="build,kernels,parity,serve,encode,"
                     "encode-online,ops")
     ap.add_argument("--verbose-build", action="store_true",
-                    help="print nvcc -Xptxas -v (registers, spills)")
+                    help="print nvcc -Xptxas -v (registers, spills) and "
+                    "each kernel's IMMA / IDP / LDL / STL count")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -1024,6 +1118,8 @@ def main(argv=None) -> int:
     _build.library()
     emit({"phase": "build", "nvcc_s": nvcc_s, "library": os.path.relpath(
         so, ROOT)})
+    if args.verbose_build:
+        sass_summary(str(so))
 
     cfg = get_config("llama3-8b")
     plans = qplans.build_layer_plans(cfg)

@@ -85,6 +85,7 @@
 // per-channel b_vec[n] with shared c, pre), clipped to out_bits, stored
 // as int8 or int32.
 #include "int_common.cuh"
+#include "int_mma.cuh"
 
 namespace r8 {
 
@@ -251,37 +252,6 @@ constexpr int WTN = BN / WN;       // 32 columns a warp
 constexpr int NT = WTN / 8;        // m16n8 products along N a warp
 static_assert(THREADS == BK4 * (BN / 8), "one W load unit per thread");
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes global -> shared; bytes past `valid` (0..16) are zero-filled
-__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
-                                           int valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// c += a (16 x 32, row) * b (32 x 8, col), s8 x s8 -> s32, wrapping
-__device__ __forceinline__ void mma_s8(int (&c)[4], const int (&a)[4],
-                                       int b0, int b1) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // one X stage: BM rows x BK bytes from k0 into sx (row stride SX words)
 template <int BM>
 __device__ __forceinline__ void load_x_stage(int* sx,
@@ -336,19 +306,6 @@ __device__ __forceinline__ void load_w_regs(uint2 (&r)[4],
 #pragma unroll
   for (int j = 0; j < 4; ++j)
     r[j] = load_w8(w, N, kend, k0 + 4 * kk + j, n0 + 8 * nn, vec);
-}
-
-// 4x4 byte transpose: word j holds rows r0..r3's byte j (column j)
-__device__ __forceinline__ int4 transpose4(unsigned r0, unsigned r1,
-                                           unsigned r2, unsigned r3) {
-  const unsigned lo01 = __byte_perm(r0, r1, 0x5140);
-  const unsigned lo23 = __byte_perm(r2, r3, 0x5140);
-  const unsigned hi01 = __byte_perm(r0, r1, 0x7362);
-  const unsigned hi23 = __byte_perm(r2, r3, 0x7362);
-  return make_int4((int)__byte_perm(lo01, lo23, 0x5410),
-                   (int)__byte_perm(lo01, lo23, 0x7632),
-                   (int)__byte_perm(hi01, hi23, 0x5410),
-                   (int)__byte_perm(hi01, hi23, 0x7632));
 }
 
 // the unit as "4 K values of one column" words into sw

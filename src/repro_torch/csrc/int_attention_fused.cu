@@ -9,31 +9,61 @@
 // H = 12, D = 64) the card's own bound is device-memory bytes, barely:
 // q, k and v read once and the int8 output written once are 50 MB, 15 us
 // at 3.35 TB/s, while one Q·Kᵀ and one P·V are 26 G operations, 13 us at
-// the int8 tensor-core peak.  This kernel runs on the CUDA cores instead
-// (__dp4a for Q·Kᵀ, scalar int32 multiply-adds for P·V) and recomputes
-// Q·Kᵀ in each of its three sweeps, so in practice it is bound by integer
-// instruction throughput and shared-memory bandwidth, far above 15 us.
+// the int8 tensor-core peak.  Both products run on the tensor cores here
+// (int_attention_mma.cuh), so what is left is the elementwise Shiftmax on
+// the CUDA cores: exp16, some 25-30 int32 instructions with its division
+// as a multiply-high, once per live (row, key) pair with the e16 store,
+// twice without, over 100.7 M live pairs at the encoder's shape.
 //
-// Design: one block per (16-row query block, head, sequence), so the
-// encoder launch has 32 x 12 x 32 = 12 288 blocks.  K/V are read in
-// their contiguous (B, Skv, Hkv, D) layout (no page table, no copy), in
-// 64-key tiles through shared memory.  The mask is a per-row live range
-// [lo_i, hi_i) computed in the block: none, causal (hi_i = i + 1) or
-// causal with a sliding window (lo_i = i - window + 1); key tiles outside
-// the block's rows' ranges are never loaded, so a causal launch does
-// about half the work of a full one.  The three exact sweeps (row max,
-// row sum of e16, normalised P·V) and the per-tensor / per-channel / raw
-// epilogue are the body shared with K3 and K4 in int_attention.cuh.  The
-// TPU kernel's grid walked the KV blocks in order, three times, carrying
-// the row max and sum in scratch; here one block owns its rows for all
-// three sweeps, so the carried state is shared memory and no pass over
-// device memory is added.
-#include "int_attention.cuh"
+// Design (int_attention_mma.cuh): one block of 4 warps per (64 query rows,
+// head, sequence); Q fragments in registers for the whole launch; K tiles
+// of 64 keys by cp.async into a double buffer; row max and row sum in
+// registers; e16 kept in shared memory where the block's key range fits,
+// so sweep 2 reads no K; p8 packed straight from the score accumulators
+// into A fragments against a Vᵀ staged with the same key permutation.
+// The TPU kernel's grid walked the KV blocks in order, three times,
+// carrying the row max and sum in scratch; here one block owns its rows
+// for all three sweeps.
+#include "int_attention_mma.cuh"
 
-extern "C" int r8_int_attention_fused(const r8::AttnArgs* a, void* stream) {
+// the dynamic shared memory of a K5 block (head dim D, `tiles` key tiles
+// of e16 store when `store`), or -1 for a head dim the kernel is not
+// compiled for; kernels/int_attention_fused.py::k5_smem_bytes is the same
+extern "C" long long r8_k5_smem_bytes(int D, int tiles, int store) {
+  if (D != 32 && D != 64 && D != 128) return -1;
+  return r8::k5::smem_bytes(D, tiles, store != 0);
+}
+
+extern "C" int r8_int_attention_fused(const r8::k5::Args* a, void* stream) {
+  // the launch plan must be the one this library computes for the shape
+  if (a->B <= 0 || a->Sq <= 0 || a->Skv < 0 || a->Hkv <= 0 ||
+      a->H % a->Hkv || a->ex.z_shift < 0 || a->ex.z_shift > 31 ||
+      a->tiles != r8::k5::max_tiles(a->Sq, a->Skv, a->causal, a->window) ||
+      a->smem != r8_k5_smem_bytes(a->D, a->tiles, a->store_e16) ||
+      a->smem > r8::k5::SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (a->mask == r8::MASK_STEPPED) return (int)cudaErrorInvalidValue;
-  if (a->window > 0 && a->mask == r8::MASK_CAUSAL)
-    return r8::launch_attention<16, 64, false, true>(*a, s);
-  return r8::launch_attention<16, 64, false, false>(*a, s);
+  switch (a->D) {
+    case 32:
+      return r8::k5::launch_d<32>(*a, s);
+    case 64:
+      return r8::k5::launch_d<64>(*a, s);
+    case 128:
+      return r8::k5::launch_d<128>(*a, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// exp16's multiply-high division against `/` on every n in [0, n_max];
+// *bad (zeroed by the caller) receives the count of differences
+extern "C" int r8_k5_div_check(int n_max, int q_ln2, unsigned magic,
+                               int shift, int* bad, void* stream) {
+  if (q_ln2 <= 0 || n_max < 0 || shift < 0 || shift > 31)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const int blocks = n_max / 256 + 1;
+  r8::k5::div_check_kernel<<<blocks < 4096 ? blocks : 4096, 256, 0, s>>>(
+      n_max, q_ln2, magic, shift, bad);
+  return (int)cudaGetLastError();
 }

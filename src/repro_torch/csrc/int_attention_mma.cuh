@@ -1,0 +1,503 @@
+// K5's kernel: exact full-sequence integer attention on the int8 tensor
+// cores (mma.sync.m16n8k32 s8 x s8 -> s32), bit-exact.
+//
+// Twin of repro/kernels/int_attention_fused.py::_streaming_attn_body, the
+// same three exact sweeps as int_attention.cuh (which K3 and K4 keep):
+//
+//   sweep 0  row max   m = max_t score(r, t)
+//   sweep 1  row sum   s = sum_t e16(score(r, t) - m)
+//   sweep 2  p8 = clip(rshift_round(e16 * (2^30 // s), 23), 0, 127);
+//            acc[r][d] += p8 * v8[t][d]
+//
+// then the RequantSpec epilogue.  Why the integers stay exact: Q·Kᵀ in
+// s8 x s8 -> s32 is exact (|score| <= 128 * 128 * D <= 2^21), an integer
+// max does not depend on order, e16 is elementwise, row sums stay within
+// 2^30 (MAX_ROWSUM_LEN), and p8 lies in [0, 127], a valid s8 operand whose
+// products with v8 sum in s32 in any order.
+//
+// Block: 64 query rows of one (sequence, head), 4 warps of 16 rows.  Each
+// warp keeps its Q A-fragments in registers for the whole launch (D / 32
+// k-steps), so the block reads Q once.  Keys come in tiles of 64 over the
+// block's key range [t_lo, t_hi) (the union of its rows' live ranges;
+// tiles outside it are never loaded, and a warp skips the work of a tile
+// outside its own rows' range); partial tiles are masked per element, and
+// keys past t_hi are zero-filled and never live.
+//
+//   K tiles: cp.async into a double buffer, row-major (key, D bytes) with
+//   a row stride of SK words.  A row-major K tile is already mma's .col B
+//   operand of Q·Kᵀ.  16-byte copies where K is 16-byte aligned, else
+//   4-byte copies (the wrapper takes any 4-byte aligned operand).
+//
+//   Q·Kᵀ k order: the product sums over the D bytes, so A and B may take
+//   them in any common order.  For k-step s the thread (g, t) feeds words
+//   8s + 2t and 8s + 2t + 1 of its rows (a0/a1 and a2/a3) and of key
+//   n0 + g (b0, b1): one 8-byte shared load per B fragment.  SK = D/4 or
+//   D/4 + 8 is 8 mod 16 words, so a half-warp's 8-byte loads (g = 0..3)
+//   hit 32 distinct banks.
+//
+//   Row max and row sum live in registers: each thread owns rows g and
+//   g + 8 of its warp and reduces over its own keys, then over the quad
+//   (__shfl_xor 1, 2).  No atomics.
+//
+//   e16 store (STORE): sweep 1 keeps e16 (0..32755 for every plan; the
+//   wrapper checks the plan's range fits 16 bits) as 16-bit pairs in
+//   shared memory, one word per (tile, n-tile, row half, lane), so sweep 2
+//   neither recomputes Q·Kᵀ nor exp16 and reads no K.  It needs 8 KB a
+//   key tile; the launch plan takes it where the widest block's range
+//   fits the 227 KB a block may have (kernels/int_attention_fused.py::
+//   k5_launch_plan), else sweep 2 recomputes.
+//
+//   P·V without shuffles: the s32 C layout of Q·Kᵀ gives thread (g, t)
+//   keys 8j + 2t, 8j + 2t + 1 of rows g and g + 8 for n-tile j.  For the
+//   32-key chunk s (n-tiles 4s..4s+3) it packs, per row, keys
+//   {2t, 2t+1, 8+2t, 9+2t} into one word (a0 / a1) and
+//   {16+2t, 17+2t, 24+2t, 25+2t} into another (a2 / a3).  The sum over
+//   keys does not care about their order, so Vᵀ is staged with the same
+//   key permutation: key k of a chunk (k = 8q + 2u + e, q, u in 0..3,
+//   e in 0..1) sits in byte 2(q & 1) + e of word 2u + (q >> 1) of its
+//   column's chunk, and b0, b1 are words 2t, 2t + 1: one 8-byte load.
+//   V is read from device memory one tile ahead into registers, a unit of
+//   keys (k0, k0+1, k0+8, k0+9) x 4 columns a thread, and transposed
+//   with transpose4 into exactly those words.  Vᵀ rows are 16 words (8
+//   pairs of words); pair p of column d is stored at p ^ vswz(d), which
+//   keeps the fragment loads conflict-free and spreads the stores.
+//   tests/test_torch_k5_plan.py models this layout in numpy.
+//
+//   exp16 (exp16_mma) is int_common.cuh's with no branch per pair: the
+//   host resolves each dyadic shift, a launch constant, into a multiply,
+//   a rounding add and a right shift, which the kernel reads from its
+//   parameters; the division (-qn) / q_ln2 is an exact multiply-high:
+//   the wrapper finds (magic, shift) with
+//   __umulhi(n, magic) >> shift == n / q_ln2 and checks it on every n of
+//   the domain [0, -neg_zq]; chip_smoke.py checks the same on the card
+//   (r8_k5_div_check).
+//
+// A row with no live key keeps max -2^30, sum 0 and acc 0, so it writes
+// requant(0), as the reference's all-masked row does.  GQA: head h reads
+// KV head h / (H / Hkv).
+#pragma once
+
+#include "int_common.cuh"
+#include "int_mma.cuh"
+
+namespace r8 {
+namespace k5 {
+
+constexpr int THREADS = 128;            // 4 warps
+constexpr int ROWS = 64;                // query rows a block, 16 a warp
+constexpr int KEYS = 64;                // keys a tile
+constexpr int NEG = -(1 << 30);         // row max before any live key
+constexpr int SMEM_LIMIT = 232448;      // dynamic shared memory a block
+
+// K row stride in words: 8 mod 16, for conflict-free 8-byte loads
+__host__ __device__ constexpr int sk_words(int D) {
+  return (D / 4) % 16 == 8 ? D / 4 : D / 4 + 8;
+}
+
+// dynamic shared memory of one block: the K double buffer, one Vᵀ tile
+// and, with the e16 store, 2 KB a warp a key tile
+__host__ __device__ constexpr long long smem_bytes(int D, int tiles,
+                                                   bool store) {
+  return 4LL * (2 * KEYS * sk_words(D) + D * (KEYS / 4)) +
+         (store ? 4LL * (THREADS / 32) * tiles * (KEYS / 8) * 2 * 32 : 0);
+}
+
+// [lo, hi) of query row i (empty past Sq), clamped to [0, Skv]
+__host__ __device__ inline void row_range(int Sq, int Skv, int causal,
+                                          int window, int i, int& lo,
+                                          int& hi) {
+  lo = 0;
+  hi = Skv;
+  if (i >= Sq) {
+    hi = 0;
+  } else if (causal) {
+    hi = i + 1;
+    if (window > 0) lo = i - window + 1;
+  }
+  hi = hi < 0 ? 0 : (hi > Skv ? Skv : hi);
+  lo = lo < 0 ? 0 : (lo > hi ? hi : lo);
+}
+
+// key tiles of the widest block's range (kernels/int_attention_fused.py::
+// k5_tiles computes the same)
+inline int max_tiles(int Sq, int Skv, int causal, int window) {
+  int most = 0;
+  for (int q0 = 0; q0 < Sq; q0 += ROWS) {
+    int lo, hi, l2, h2;
+    row_range(Sq, Skv, causal, window, q0, lo, hi);
+    row_range(Sq, Skv, causal, window, (q0 + ROWS < Sq ? q0 + ROWS : Sq) - 1,
+              l2, h2);
+    const int n = h2 > lo ? (h2 - lo + KEYS - 1) / KEYS : 0;
+    most = n > most ? n : most;
+  }
+  return most;
+}
+
+__device__ __forceinline__ int div_ln2(int n, unsigned magic, int shift) {
+  return (int)(__umulhi((unsigned)n, magic) >> shift);
+}
+
+// core.dyadic.rshift_round by a launch-constant s, without branches:
+// x * 2^max(-s, 0) + 2^(s-1) (s > 0), wrapping, then >> max(s, 0)
+struct Shift {
+  unsigned mul;
+  unsigned half;
+  int rs;
+};
+
+__device__ __forceinline__ int rshift(int x, const Shift& sh) {
+  return (int)((unsigned)x * sh.mul + sh.half) >> sh.rs;
+}
+
+// the Shiftmax constants with every shift resolved for the launch (by the
+// host: kernels/_abi.py::exp16_consts), read from the kernel's parameters
+struct Exp16 {
+  int q_band, in_b, neg_zq, q_ln2, q_b, q_c, e_b;
+  Shift in_pre, in_post, e_pre, e_post;
+  unsigned magic;           // n / q_ln2 == __umulhi(n, magic) >> z_shift
+  int z_shift;              //   on [0, -neg_zq]
+};
+
+struct Args {
+  const int8_t* q;          // (B, Sq, H, D)
+  const int8_t* k;          // (B, Skv, Hkv, D)
+  const int8_t* v;          // (B, Skv, Hkv, D)
+  const int* bvec;          // (H * D,) per-channel multipliers or null
+  void* out;                // (B, Sq, H, D) int8 or int32
+  int B, Sq, Skv, H, Hkv, D;
+  int causal, window;       // hi_i = i + 1; with window, lo_i = i - w + 1
+  int out_is_int8;
+  int tiles;                // key tiles of the widest block's range
+  int store_e16;
+  int vec_k;                // 16-byte copies of K, else 4-byte
+  int smem;                 // dynamic shared memory (smem_bytes)
+  Exp16 ex;
+  Requant rq;
+};
+
+// core.softmax._exp16, as exp16 in int_common.cuh, with the dyadic
+// shifts resolved per launch and the division by q_ln2 a multiply-high
+__device__ __forceinline__ int exp16_mma(int q_sub, const Exp16& p) {
+  int q = max(q_sub, -p.q_band);
+  q = rshift(wmul(rshift(q, p.in_pre), p.in_b), p.in_post);
+  q = min(q, 0);
+  const int qn = max(q, p.neg_zq);
+  const int z = div_ln2(-qn, p.magic, p.z_shift);
+  const int q_p = wadd(qn, wmul(z, p.q_ln2));
+  const int t = wadd(q_p, p.q_b);
+  const int q_l = wadd(wmul(t, t), p.q_c);
+  const int e = q_l >> z;
+  return rshift(wmul(rshift(e, p.e_pre), p.e_b), p.e_post);
+}
+
+// Vᵀ pair swizzle of column d (see the note)
+__device__ __forceinline__ int vswz(int d) {
+  return (((d >> 1) & 1) << 2) ^ ((d >> 2) & 7);
+}
+
+// LO: rows may start past key 0 (a window); STORE: sweep 1 keeps e16
+template <int D, bool LO, bool STORE>
+__global__ void __launch_bounds__(THREADS)
+int_attention_mma_kernel(Args a) {
+  constexpr int KS = D / 32;                 // k-steps of Q·Kᵀ
+  constexpr int SK = sk_words(D);
+  constexpr int SV = KEYS / 4;               // words of a Vᵀ row
+  constexpr int NJ = KEYS / 8;               // score n-tiles of a tile
+  constexpr int ND = D / 8;                  // output n-tiles
+  constexpr int DW = D / 4;                  // words of a K / V row
+  constexpr int VU = (KEYS / 4) * DW / THREADS;   // V units a thread
+  static_assert(VU * THREADS == (KEYS / 4) * DW, "whole V units");
+  extern __shared__ __align__(16) int smem[];
+  int* sK = smem;                            // 2 x KEYS x SK
+  int* sVt = sK + 2 * KEYS * SK;             // D x SV
+  unsigned* sE = reinterpret_cast<unsigned*>(sVt + D * SV);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (a.H / a.Hkv);
+  const size_t kvstride = (size_t)a.Hkv * D;
+  const int8_t* kbase = a.k + (size_t)b * a.Skv * kvstride + (size_t)hk * D;
+  const int8_t* vbase = a.v + (size_t)b * a.Skv * kvstride + (size_t)hk * D;
+
+  // the block's key range, this warp's, and this thread's two rows'
+  int t_lo, t_hi, x0, x1;
+  row_range(a.Sq, a.Skv, a.causal, a.window, q0, t_lo, x0);
+  row_range(a.Sq, a.Skv, a.causal, a.window, min(q0 + ROWS, a.Sq) - 1, x1,
+            t_hi);
+  const int wr0 = q0 + 16 * warp;
+  int w_lo, w_hi;
+  row_range(a.Sq, a.Skv, a.causal, a.window, wr0, w_lo, x0);
+  row_range(a.Sq, a.Skv, a.causal, a.window, min(wr0 + 15, a.Sq - 1), x1,
+            w_hi);
+  if (wr0 >= a.Sq) w_lo = w_hi = 0;
+  int lo[2], hi[2];
+  row_range(a.Sq, a.Skv, a.causal, a.window, wr0 + g, lo[0], hi[0]);
+  row_range(a.Sq, a.Skv, a.causal, a.window, wr0 + g + 8, lo[1], hi[1]);
+  const int nt = t_hi > t_lo ? (t_hi - t_lo + KEYS - 1) / KEYS : 0;
+
+  // Q fragments: rows g, g+8 x words 8s + 2t, 8s + 2t + 1
+  int qa[KS][4];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = wr0 + g + 8 * hf;
+    const int* qr = reinterpret_cast<const int*>(
+        a.q + (((size_t)b * a.Sq + r) * a.H + h) * D);
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      qa[s][hf] = r < a.Sq ? qr[8 * s + 2 * t] : 0;
+      qa[s][2 + hf] = r < a.Sq ? qr[8 * s + 2 * t + 1] : 0;
+    }
+  }
+
+  auto load_k = [&](int t0, int buf) {
+    int* dst = sK + buf * KEYS * SK;
+    if (a.vec_k) {
+      constexpr int CH = D / 16;             // 16-byte chunks of a key
+#pragma unroll
+      for (int i = tid; i < KEYS * CH; i += THREADS) {
+        const int j = i / CH, c = i % CH, key = t0 + j;
+        const bool ok = key < t_hi;
+        tc::cp_async16(tc::smem_addr(dst + j * SK + 4 * c),
+                       ok ? kbase + key * kvstride + 16 * c : a.k,
+                       ok ? 16 : 0);
+      }
+    } else {
+#pragma unroll 4
+      for (int i = tid; i < KEYS * DW; i += THREADS) {
+        const int j = i / DW, w = i % DW, key = t0 + j;
+        const bool ok = key < t_hi;
+        tc::cp_async4(tc::smem_addr(dst + j * SK + w),
+                      ok ? kbase + key * kvstride + 4 * w : a.k, ok ? 4 : 0);
+      }
+    }
+  };
+
+  // V unit i: columns 4 dw..4 dw+3 of keys k0, k0+1, k0+8, k0+9, where
+  // gi = i / DW names chunk c = gi / 8 and word 2 u + hw of its rows
+  unsigned vr[VU][4];
+  auto load_v = [&](int t0) {
+#pragma unroll
+    for (int n = 0; n < VU; ++n) {
+      const int i = tid + n * THREADS, dw = i % DW, gi = i / DW;
+      const int k0 = t0 + 32 * (gi >> 3) + 16 * ((gi >> 2) & 1) + 2 * (gi & 3);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int key = k0 + (jj & 1) + 8 * (jj >> 1);
+        vr[n][jj] = key < t_hi ? reinterpret_cast<const unsigned*>(
+                                     vbase + key * kvstride)[dw]
+                               : 0u;
+      }
+    }
+  };
+  auto store_v = [&]() {
+#pragma unroll
+    for (int n = 0; n < VU; ++n) {
+      const int i = tid + n * THREADS, dw = i % DW, gi = i / DW;
+      const int pair = 4 * (gi >> 3) + (gi & 3), hw = (gi >> 2) & 1;
+      const int4 w4 = tc::transpose4(vr[n][0], vr[n][1], vr[n][2], vr[n][3]);
+      const int col[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int d = 4 * dw + jj;
+        sVt[d * SV + 2 * (pair ^ vswz(d)) + hw] = col[jj];
+      }
+    }
+  };
+
+  // every tile of the block's range once; body(ti, t0, K tile) runs only
+  // where the tile meets this warp's rows
+  auto sweep = [&](bool use_k, bool use_v, auto&& body) {
+    if (nt > 0) {
+      if (use_k) load_k(t_lo, 0);
+      if (use_v) load_v(t_lo);
+    }
+    tc::cp_commit();
+    for (int ti = 0; ti < nt; ++ti) {
+      const int t0 = t_lo + ti * KEYS;
+      if (use_v) store_v();
+      if (ti + 1 < nt) {
+        if (use_k) load_k(t0 + KEYS, (ti + 1) & 1);
+        if (use_v) load_v(t0 + KEYS);
+      }
+      tc::cp_commit();
+      tc::cp_wait<1>();
+      __syncthreads();
+      if (t0 < w_hi && t0 + KEYS > w_lo)
+        body(ti, t0, sK + (ti & 1) * KEYS * SK);
+      __syncthreads();
+    }
+  };
+
+  // scores of n-tile j: c0, c1 row g keys 8j+2t, +1; c2, c3 row g + 8
+  auto scores = [&](const int* sKb, int j, int (&c)[4]) {
+    c[0] = c[1] = c[2] = c[3] = 0;
+    const int* kr = sKb + (8 * j + g) * SK + 2 * t;
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      const int2 bw = *reinterpret_cast<const int2*>(kr + 8 * s);
+      tc::mma_s8(c, qa[s], bw.x, bw.y);
+    }
+  };
+  auto live = [&](int col, int hf, int t0) {
+    const int key = t0 + col;
+    return (!LO || key >= lo[hf]) && key < hi[hf];
+  };
+
+  // sweep 0: row max
+  int m[2] = {NEG, NEG};
+  sweep(true, false, [&](int, int t0, const int* sKb) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      int c[4];
+      scores(sKb, j, c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hf = e >> 1, col = 8 * j + 2 * t + (e & 1);
+        if (live(col, hf, t0)) m[hf] = max(m[hf], c[e]);
+      }
+    }
+  });
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    m[hf] = max(m[hf], __shfl_xor_sync(0xffffffffu, m[hf], 1));
+    m[hf] = max(m[hf], __shfl_xor_sync(0xffffffffu, m[hf], 2));
+  }
+
+  // e16 of n-tile j's four scores (0 where not live)
+  auto e16_of = [&](const int* sKb, int j, int t0, int (&e16)[4]) {
+    int c[4];
+    scores(sKb, j, c);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int hf = e >> 1, col = 8 * j + 2 * t + (e & 1);
+      const int x = exp16_mma(wsub(c[e], m[hf]), a.ex);
+      e16[e] = live(col, hf, t0) ? x : 0;
+    }
+  };
+  auto e16_slot = [&](int ti, int j, int hf) {
+    return sE + (((warp * a.tiles + ti) * NJ + j) * 2 + hf) * 32 + lane;
+  };
+
+  // sweep 1: row sum (and the e16 store)
+  int sum[2] = {0, 0};
+  sweep(true, false, [&](int ti, int t0, const int* sKb) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      int e16[4];
+      e16_of(sKb, j, t0, e16);
+      sum[0] += e16[0] + e16[1];
+      sum[1] += e16[2] + e16[3];
+      if (STORE) {
+        *e16_slot(ti, j, 0) = (unsigned)e16[0] | ((unsigned)e16[1] << 16);
+        *e16_slot(ti, j, 1) = (unsigned)e16[2] | ((unsigned)e16[3] << 16);
+      }
+    }
+  });
+  int rcp[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    sum[hf] += __shfl_xor_sync(0xffffffffu, sum[hf], 1);
+    sum[hf] += __shfl_xor_sync(0xffffffffu, sum[hf], 2);
+    // s >= 0 (sum of non-negative e16, <= 2^30): truncation == floor
+    rcp[hf] = (1 << 30) / max(sum[hf], 1);
+  }
+
+  // sweep 2: p8 packed into A fragments, P·V on the tensor cores
+  int acc[ND][4];
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+    acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0;
+  sweep(!STORE, true, [&](int ti, int t0, const int* sKb) {
+#pragma unroll
+    for (int s = 0; s < KEYS / 32; ++s) {
+      unsigned pa[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = 4 * s + jj;
+        int e16[4];
+        if (STORE) {
+          const unsigned w0 = *e16_slot(ti, j, 0), w1 = *e16_slot(ti, j, 1);
+          e16[0] = (int)(w0 & 0xFFFFu);
+          e16[1] = (int)(w0 >> 16);
+          e16[2] = (int)(w1 & 0xFFFFu);
+          e16[3] = (int)(w1 >> 16);
+        } else {
+          e16_of(sKb, j, t0, e16);
+        }
+        unsigned p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          p[e] = (unsigned)clampi(rshift_round(wmul(e16[e], rcp[e >> 1]), 23),
+                                  0, 127);
+        // n-tiles 4s, 4s+1 -> a0 (row g) / a1 (row g+8); 4s+2, 4s+3 -> a2/a3
+        const int sh = 16 * (jj & 1), ai = jj >> 1;
+        pa[2 * ai] |= (p[0] | (p[1] << 8)) << sh;
+        pa[2 * ai + 1] |= (p[2] | (p[3] << 8)) << sh;
+      }
+      const int afr[4] = {(int)pa[0], (int)pa[1], (int)pa[2], (int)pa[3]};
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd) {
+        const int d = 8 * nd + g;
+        const int2 bw = *reinterpret_cast<const int2*>(
+            sVt + d * SV + 2 * ((4 * s + t) ^ vswz(d)));
+        tc::mma_s8(acc[nd], afr, bw.x, bw.y);
+      }
+    }
+  });
+
+  // epilogue: rows g, g + 8, columns 8 nd + 2t, +1
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = wr0 + g + 8 * hf;
+    if (r >= a.Sq) continue;
+    const size_t row = (((size_t)b * a.Sq + r) * a.H + h) * D;
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd) {
+      const int d = 8 * nd + 2 * t;
+      int v0 = acc[nd][2 * hf], v1 = acc[nd][2 * hf + 1];
+      if (a.rq.kind != RQ_RAW) {
+        const bool pc = a.rq.kind == RQ_PER_CHANNEL;
+        v0 = requant(v0, a.rq, pc ? a.bvec[h * D + d] : a.rq.b);
+        v1 = requant(v1, a.rq, pc ? a.bvec[h * D + d + 1] : a.rq.b);
+      }
+      if (a.out_is_int8)
+        *reinterpret_cast<char2*>(reinterpret_cast<int8_t*>(a.out) + row + d) =
+            make_char2((char)v0, (char)v1);
+      else
+        *reinterpret_cast<int2*>(reinterpret_cast<int*>(a.out) + row + d) =
+            make_int2(v0, v1);
+    }
+  }
+}
+
+template <int D, bool LO, bool STORE>
+inline int launch(const Args& a, cudaStream_t s) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      int_attention_mma_kernel<D, LO, STORE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((a.Sq + ROWS - 1) / ROWS, a.H, a.B);
+  int_attention_mma_kernel<D, LO, STORE><<<grid, THREADS, a.smem, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+inline int launch_d(const Args& a, cudaStream_t s) {
+  const bool lo = a.causal && a.window > 0;
+  if (a.store_e16)
+    return lo ? launch<D, true, true>(a, s) : launch<D, false, true>(a, s);
+  return lo ? launch<D, true, false>(a, s) : launch<D, false, false>(a, s);
+}
+
+// exp16's division on every n in [0, n_max]: bad counts the n where the
+// multiply-high and `/` differ
+__global__ void div_check_kernel(int n_max, int q_ln2, unsigned magic,
+                                 int shift, int* bad) {
+  for (int n = blockIdx.x * blockDim.x + threadIdx.x; n <= n_max;
+       n += gridDim.x * blockDim.x)
+    if (div_ln2(n, magic, shift) != n / q_ln2) atomicAdd(bad, 1);
+}
+
+}  // namespace k5
+}  // namespace r8

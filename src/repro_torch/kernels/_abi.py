@@ -37,8 +37,9 @@ class GeluConsts(ctypes.Structure):
                                   "out_b", "out_c", "out_pre", "lo", "hi")]
 
 
-#: AttnArgs.mask: which live range each query row gets (int_attention.cuh)
-MASK_STEPPED, MASK_NONE, MASK_CAUSAL = 0, 1, 2
+#: AttnArgs.mask of the paged kernels (K3, K4): the stepped live range
+#: (int_attention.cuh's MASK_STEPPED)
+MASK_STEPPED = 0
 
 
 class AttnArgs(ctypes.Structure):
@@ -48,6 +49,30 @@ class AttnArgs(ctypes.Structure):
                                      "max_pages", "Skv", "mask", "window",
                                      "out_is_int8")]
                 + [("sm", SoftmaxConsts), ("rq", Requant)])
+
+
+class Shift(ctypes.Structure):
+    """``k5::Shift``: core.dyadic.rshift_round by a fixed s as
+    ``(x * mul + half) >> rs`` in wrapping uint32."""
+    _fields_ = [("mul", ctypes.c_uint), ("half", ctypes.c_uint), ("rs", _I)]
+
+
+class Exp16(ctypes.Structure):
+    """``k5::Exp16``: the Shiftmax constants with every shift resolved."""
+    _fields_ = ([(n, _I) for n in ("q_band", "in_b", "neg_zq", "q_ln2",
+                                   "q_b", "q_c", "e_b")]
+                + [(n, Shift) for n in ("in_pre", "in_post", "e_pre",
+                                        "e_post")]
+                + [("magic", ctypes.c_uint), ("z_shift", _I)])
+
+
+class K5Args(ctypes.Structure):
+    """``csrc/int_attention_mma.cuh``'s ``k5::Args`` (K5)."""
+    _fields_ = ([(n, _P) for n in ("q", "k", "v", "bvec", "out")]
+                + [(n, _I) for n in ("B", "Sq", "Skv", "H", "Hkv", "D",
+                                     "causal", "window", "out_is_int8",
+                                     "tiles", "store_e16", "vec_k", "smem")]
+                + [("ex", Exp16), ("rq", Requant)])
 
 
 class OnlineArgs(ctypes.Structure):
@@ -71,8 +96,12 @@ def declare(lib: ctypes.CDLL) -> None:
     lib.r8_int_decode_attention.restype = _I
     lib.r8_int_paged_prefill.argtypes = [ctypes.POINTER(AttnArgs), _P]
     lib.r8_int_paged_prefill.restype = _I
-    lib.r8_int_attention_fused.argtypes = [ctypes.POINTER(AttnArgs), _P]
+    lib.r8_int_attention_fused.argtypes = [ctypes.POINTER(K5Args), _P]
     lib.r8_int_attention_fused.restype = _I
+    lib.r8_k5_smem_bytes.argtypes = [_I, _I, _I]
+    lib.r8_k5_smem_bytes.restype = ctypes.c_longlong
+    lib.r8_k5_div_check.argtypes = [_I, _I, ctypes.c_uint, _I, _P, _P]
+    lib.r8_k5_div_check.restype = _I
     lib.r8_int_gelu.argtypes = [_P, _P, ctypes.c_longlong,
                                 ctypes.POINTER(GeluConsts), _I, _P]
     lib.r8_int_gelu.restype = _I
@@ -132,6 +161,24 @@ def softmax_consts(sm) -> SoftmaxConsts:
     return SoftmaxConsts(sm.q_band, sm.dn_in.b, sm.dn_in.c, sm.dn_in.pre,
                          ie.q_ln2, ie.q_b, ie.q_c, -ie.z_max * ie.q_ln2,
                          sm.dn_e16.b, sm.dn_e16.c, sm.dn_e16.pre)
+
+
+def shift_struct(s: int) -> Shift:
+    """rshift_round by ``s`` (-31..31) without a branch: a left shift as a
+    multiply, then the rounding half and the right shift."""
+    return Shift(1, 1 << (s - 1), s) if s > 0 else Shift(1 << -s, 0, 0)
+
+
+def exp16_consts(sm, magic: int, z_shift: int) -> Exp16:
+    """Pack an ISoftmaxPlan for K5's branch-free exp16, with ``(magic,
+    z_shift)`` its division by q_ln2 as a multiply-high."""
+    for dn in (sm.dn_in, sm.dn_e16):
+        _shifts_ok(dn.b, dn.c, dn.pre)
+    ie, din, de = sm.iexp, sm.dn_in, sm.dn_e16
+    return Exp16(sm.q_band, din.b, -ie.z_max * ie.q_ln2, ie.q_ln2, ie.q_b,
+                 ie.q_c, de.b, shift_struct(din.pre),
+                 shift_struct(din.c - din.pre), shift_struct(de.pre),
+                 shift_struct(de.c - de.pre), magic, z_shift)
 
 
 def norm_consts(plan, out_bits: int) -> NormConsts:

@@ -2,19 +2,25 @@
 launch path they share with K3).
 
 The ports of ``repro/kernels/int_attention_fused.py``'s
-``int_attention_fused`` (CUDA kernel ``csrc/int_attention_fused.cu``) and
-``int_paged_prefill_fused`` (``csrc/int_paged_prefill.cu``); their
-three-sweep body, ``csrc/int_attention.cuh``, is shared with K3.
+``int_attention_fused`` (CUDA kernel ``csrc/int_attention_fused.cu`` over
+the tensor-core body ``csrc/int_attention_mma.cuh``, launched as
+:func:`k5_launch_plan` says) and ``int_paged_prefill_fused``
+(``csrc/int_paged_prefill.cu``, whose three-sweep body
+``csrc/int_attention.cuh`` is shared with K3).
 :func:`int_attention_fused_plain` and :func:`int_paged_prefill_plain` are
 the plain PyTorch versions.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.analysis.budgets import MAX_ROWSUM_LEN
+from repro_torch.core.softmax import _exp16
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels import ref as _ref
 from repro_torch.ops.spec import PER_CHANNEL, QuantLinearParams, RequantSpec
@@ -56,14 +62,10 @@ def _check_int8(dev, **tensors):
                              f"4-byte aligned int8 tensor on {dev}")
 
 
-def _launch(entry: str, counter: str, q8, k, v, plan, requant, b_vec,
-            pages=None, vlen=None, page_size: int = 0, skv: int = 0,
-            mask: int = 0, window: int = 0):
-    """Pack :class:`~repro_torch.kernels._abi.AttnArgs`, launch one
-    attention entry point of the kernel library and count it under
-    ``LAUNCHES[counter]``; returns ``(B, S, H, D)``."""
-    from repro_torch.kernels import _abi
-    from repro_torch.kernels._build import library
+def _epilogue_operands(q8, requant, b_vec):
+    """The per-channel multiplier vector (or None) and the output tensor
+    ``(B, S, H, D)`` of an attention launch: int8 when the epilogue clips
+    to <= 8 bits, int32 otherwise."""
     b, s, h, d = q8.shape
     dev = q8.device
     if d not in HEAD_DIMS:
@@ -78,15 +80,25 @@ def _launch(entry: str, counter: str, q8, k, v, plan, requant, b_vec,
                                device=dev).reshape(h * d).contiguous()
     out_dtype = torch.int8 if (not requant.is_raw
                                and requant.out_bits <= 8) else torch.int32
-    out = torch.empty((b, s, h, d), dtype=out_dtype, device=dev)
+    return bvec, torch.empty((b, s, h, d), dtype=out_dtype, device=dev)
+
+
+def _launch(entry: str, counter: str, q8, k, v, plan, requant, b_vec,
+            pages, vlen, page_size: int):
+    """Pack :class:`~repro_torch.kernels._abi.AttnArgs`, launch one paged
+    attention entry point of the kernel library and count it under
+    ``LAUNCHES[counter]``; returns ``(B, S, H, D)``."""
+    from repro_torch.kernels import _abi
+    from repro_torch.kernels._build import library
+    b, s, h, d = q8.shape
+    bvec, out = _epilogue_operands(q8, requant, b_vec)
     if b == 0 or s == 0:
         return out
     args = _abi.AttnArgs(
         q8.data_ptr(), k.data_ptr(), v.data_ptr(), _abi.ptr(pages),
         _abi.ptr(vlen), _abi.ptr(bvec), out.data_ptr(), b, s, h,
-        k.shape[2], d, page_size,
-        0 if pages is None else pages.shape[1], skv, mask, window,
-        int(out_dtype == torch.int8), _abi.softmax_consts(plan.sm),
+        k.shape[2], d, page_size, pages.shape[1], 0, _abi.MASK_STEPPED, 0,
+        int(out.dtype == torch.int8), _abi.softmax_consts(plan.sm),
         _abi.requant_struct(requant))
     lib = library()
     rc = getattr(lib, entry)(ctypes.byref(args), _abi.stream_of(q8))
@@ -100,7 +112,6 @@ def launch_attention(entry: str, counter: str, q8, k_pool, v_pool, plan,
     """Validate the operands and launch one of the two paged attention
     entry points (K3, K4: stepped mask over a page table); returns
     ``(B, S, H, D)``."""
-    from repro_torch.kernels import _abi
     b, s, h, d = q8.shape
     dev = q8.device
     if k_pool.shape != v_pool.shape or k_pool.dim() != 4:
@@ -123,8 +134,7 @@ def launch_attention(entry: str, counter: str, q8, k_pool, v_pool, plan,
                          f"{MAX_ROWSUM_LEN} positions an exact int32 row "
                          "sum allows")
     return _launch(entry, counter, q8, k_pool, v_pool, plan, requant, b_vec,
-                   pages=pages, vlen=vlen, page_size=page_size,
-                   mask=_abi.MASK_STEPPED)
+                   pages, vlen, page_size)
 
 
 # ------------------------------------------------------------------ K5 ----
@@ -141,6 +151,114 @@ def int_attention_fused_plain(q8, k8, v8, plan, requant=None, b_vec=None,
                                   out_bits, requant=requant, b_vec=b_vec)
 
 
+#: K5's block (csrc/int_attention_mma.cuh): query rows, keys a tile,
+#: threads; and the dynamic shared memory a block may have on the H100
+K5_ROWS, K5_KEYS, K5_THREADS = 64, 64, 128
+K5_SMEM_LIMIT = 232448
+
+
+class K5Plan(NamedTuple):
+    """One K5 launch: the grid ``(query blocks, H, B)``, the key tiles of
+    the widest block's range, the dynamic shared memory in bytes, whether
+    sweep 1 keeps e16 in shared memory (sweep 2 then skips Q·Kᵀ and
+    exp16), and whether K is copied 16 bytes at a time (else 4)."""
+    grid: tuple
+    tiles: int
+    smem: int
+    store_e16: bool
+    vec_k: bool
+
+
+def _row_range(sq: int, skv: int, causal: bool, window: int, i: int):
+    """[lo, hi) of query row ``i`` (empty past ``sq``), as the kernel's
+    ``k5::row_range``."""
+    lo, hi = 0, skv
+    if i >= sq:
+        hi = 0
+    elif causal:
+        hi = i + 1
+        if window > 0:
+            lo = i - window + 1
+    hi = min(max(hi, 0), skv)
+    return min(max(lo, 0), hi), hi
+
+
+@functools.lru_cache(maxsize=256)
+def k5_tiles(sq: int, skv: int, causal: bool, window: int) -> int:
+    """Key tiles of the widest block's key range (the union of its rows'
+    live ranges), as the kernel library's ``k5::max_tiles``."""
+    most = 0
+    for q0 in range(0, sq, K5_ROWS):
+        lo, _ = _row_range(sq, skv, causal, window, q0)
+        _, hi = _row_range(sq, skv, causal, window, min(q0 + K5_ROWS, sq) - 1)
+        most = max(most, -(-(hi - lo) // K5_KEYS) if hi > lo else 0)
+    return most
+
+
+def k5_smem_bytes(d: int, tiles: int, store_e16: bool) -> int:
+    """A K5 block's dynamic shared memory, as ``r8_k5_smem_bytes``: two K
+    tiles (row stride 8 mod 16 words), one Vᵀ tile and, with the e16
+    store, 2 KB a warp a key tile."""
+    dw = d // 4
+    sk = dw if dw % 16 == 8 else dw + 8
+    store = 4 * (K5_THREADS // 32) * tiles * (K5_KEYS // 8) * 2 * 32
+    return 4 * (2 * K5_KEYS * sk + d * (K5_KEYS // 4)) + (
+        store if store_e16 else 0)
+
+
+def k5_launch_plan(b: int, sq: int, skv: int, h: int, hkv: int, d: int,
+                   causal: bool, window: int, k_addr: int,
+                   e16_fits: bool = True) -> K5Plan:
+    """The K5 launch of a (B, Sq, H, D) x (B, Skv, Hkv, D) attention with
+    the wrapper's mask (a window implies causality), K at address
+    ``k_addr``: 16-byte copies of K iff it is 16-byte aligned; the e16
+    store iff e16 fits 16 bits (``e16_fits``) and the widest block's range
+    fits the shared memory a block may have.  Raises for a head dim the
+    kernel is not compiled for."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"int_attention_fused: head dim {d} is not one of "
+                         f"the compiled {HEAD_DIMS}")
+    if hkv <= 0 or h % hkv:
+        raise ValueError(f"int_attention_fused: H={h} is not a multiple of "
+                         f"Hkv={hkv}")
+    causal = bool(causal) or window > 0
+    tiles = k5_tiles(sq, skv, causal, max(window, 0))
+    store = e16_fits and k5_smem_bytes(d, tiles, True) <= K5_SMEM_LIMIT
+    return K5Plan((-(-sq // K5_ROWS), h, b), tiles,
+                  k5_smem_bytes(d, tiles, store), store, k_addr % 16 == 0)
+
+
+@functools.lru_cache(maxsize=16)
+def exp16_divisor(q_ln2: int, n_max: int) -> tuple[int, int]:
+    """``(magic, shift)`` with ``(n * magic) >> (32 + shift) == n //
+    q_ln2`` for every ``0 <= n <= n_max`` (K5's exp16 division as a
+    multiply-high), checked on all of them.  The rounded-up reciprocal
+    ``magic = ceil(2^k / q_ln2)`` is exact there when ``n_max * (magic *
+    q_ln2 - 2^k) < 2^k``; the largest ``k`` whose magic fits 32 bits is
+    taken."""
+    if q_ln2 < 2 or not 0 <= n_max < 1 << 31:
+        raise ValueError(f"exp16 division: q_ln2={q_ln2}, n_max={n_max} "
+                         "outside what K5 takes")
+    for shift in range(31, -1, -1):
+        k = 32 + shift
+        magic = -(-(1 << k) // q_ln2)
+        if magic < 1 << 32 and n_max * (magic * q_ln2 - (1 << k)) < 1 << k:
+            n = np.arange(n_max + 1, dtype=np.uint64)
+            if np.array_equal((n * np.uint64(magic)) >> np.uint64(k),
+                              n // np.uint64(q_ln2)):
+                return magic, shift
+    raise ValueError(f"exp16 division: no exact multiply-high for "
+                     f"q_ln2={q_ln2} on [0, {n_max}]")
+
+
+@functools.lru_cache(maxsize=16)
+def e16_fits_16_bits(sm) -> bool:
+    """Whether every e16 of the plan (exp16 over its whole clipped domain
+    [-q_band, 0]) lies in [0, 2^16), so K5 may keep it as 16 bits."""
+    e16 = _exp16(torch.arange(-sm.q_band, 1, dtype=torch.int32), sm)
+    return int(e16.min()) >= 0 and int(e16.max()) < 1 << 16
+
+
 def int_attention_fused(q8, k8, v8, plan, requant=None, b_vec=None,
                         causal: bool = True, window: int = 0,
                         out_bits: int = 8):
@@ -153,11 +271,12 @@ def int_attention_fused(q8, k8, v8, plan, requant=None, b_vec=None,
     (B, Sq, H, D): int8 when the epilogue clips to <= 8 bits, int32
     otherwise.  Any Sq and Skv up to ``MAX_ROWSUM_LEN``; Sq != Skv is a
     cross-shaped launch.  CPU tensors take the plain version; CUDA tensors
-    launch the kernel or raise."""
+    launch the tensor-core kernel (:func:`k5_launch_plan`) or raise."""
     if not q8.is_cuda:
         return int_attention_fused_plain(q8, k8, v8, plan, requant, b_vec,
                                          causal, window, out_bits)
     from repro_torch.kernels import _abi
+    from repro_torch.kernels._build import library
     if requant is None:
         requant = RequantSpec.per_tensor(plan.dn_out, out_bits)
     b, sq, h, d = q8.shape
@@ -165,19 +284,47 @@ def int_attention_fused(q8, k8, v8, plan, requant=None, b_vec=None,
             or k8.shape[3] != d or h % k8.shape[2]:
         raise ValueError(f"int_attention_fused: k/v {tuple(k8.shape)} vs "
                          f"q {tuple(q8.shape)}")
-    skv = k8.shape[1]
+    skv, hkv = k8.shape[1], k8.shape[2]
     if skv > MAX_ROWSUM_LEN:
         raise ValueError(f"int_attention_fused: Skv={skv} exceeds the "
                          f"{MAX_ROWSUM_LEN} positions an exact int32 row "
                          "sum allows")
     _check_int8(q8.device, q8=q8, k8=k8, v8=v8)
-    if causal or window > 0:
-        mask = _abi.MASK_CAUSAL
-    else:
-        mask = _abi.MASK_NONE
-    return _launch("r8_int_attention_fused", "int_attention_fused", q8, k8,
-                   v8, plan, requant, b_vec, skv=skv, mask=mask,
-                   window=max(window, 0))
+    bvec, out = _epilogue_operands(q8, requant, b_vec)
+    if b == 0 or sq == 0:
+        return out
+    sm, ie = plan.sm, plan.sm.iexp
+    causal, window = bool(causal) or window > 0, max(window, 0)
+    kp = k5_launch_plan(b, sq, skv, h, hkv, d, causal, window,
+                        k8.data_ptr(), e16_fits_16_bits(sm))
+    magic, shift = exp16_divisor(ie.q_ln2, ie.z_max * ie.q_ln2)
+    args = _abi.K5Args(
+        q8.data_ptr(), k8.data_ptr(), v8.data_ptr(), _abi.ptr(bvec),
+        out.data_ptr(), b, sq, skv, h, hkv, d, int(causal), window,
+        int(out.dtype == torch.int8), kp.tiles, int(kp.store_e16),
+        int(kp.vec_k), kp.smem, _abi.exp16_consts(sm, magic, shift),
+        _abi.requant_struct(requant))
+    lib = library()
+    rc = lib.r8_int_attention_fused(ctypes.byref(args), _abi.stream_of(q8))
+    LAUNCHES["int_attention_fused"] += 1
+    _abi.check(lib, rc, "int_attention_fused")
+    return out
+
+
+def k5_division_mismatches(ie, device="cuda") -> int:
+    """On the card: how many n of exp16's whole division domain [0,
+    z_max * q_ln2] (of the i-exp plan ``ie``) K5's multiply-high divides
+    differently from ``/``."""
+    from repro_torch.kernels import _abi
+    from repro_torch.kernels._build import library
+    n_max = ie.z_max * ie.q_ln2
+    magic, shift = exp16_divisor(ie.q_ln2, n_max)
+    bad = torch.zeros(1, dtype=torch.int32, device=device)
+    lib = library()
+    rc = lib.r8_k5_div_check(n_max, ie.q_ln2, magic, shift, bad.data_ptr(),
+                             _abi.stream_of(bad))
+    _abi.check(lib, rc, "k5 division check")
+    return int(bad.item())
 
 
 # ------------------------------------------------------------------ K4 ----

@@ -204,19 +204,62 @@ def test_engine_cuda_matches_torch_ref(dev, geometry):
     assert streams["cuda"] == streams["cuda_online"] == streams["torch_ref"]
 
 
-@pytest.mark.parametrize("b,sq,skv,h,hkv,d,causal,window", [
-    (2, 64, 64, 4, 4, 64, False, 0), (2, 37, 37, 4, 2, 32, True, 0),
-    (1, 100, 100, 4, 1, 128, True, 16), (2, 24, 80, 4, 2, 64, False, 0),
-    (1, 80, 24, 2, 2, 32, True, 8)])
+# K5's edge cases: D = 32 / 64 / 128 at S = 1, 37, 100 and 1000, one key,
+# every operand -128 or +127, q/k/v 4 bytes off 16-byte alignment, a
+# window wider than S, Sq > Skv with rows that see no key, and key ranges
+# too long for the e16 store (causal 4096, a 3000-key cross launch)
+_K5_EDGES = [(1, s, s, 4, 2, d, causal, window, "random")
+             for d in (32, 64, 128)
+             for s, causal, window in ((1, False, 0), (37, True, 0),
+                                       (100, True, 16), (1000, d != 32,
+                                                         100 if d == 128
+                                                         else 0))] + [
+    (2, 37, 1, 4, 2, 64, False, 0, "random"),
+    (2, 37, 1, 4, 2, 64, True, 0, "random"),
+    (2, 100, 100, 4, 2, 64, False, 0, "min"),
+    (2, 100, 100, 4, 2, 128, True, 0, "max"),
+    (2, 100, 100, 4, 2, 32, False, 0, "misaligned"),
+    (2, 100, 70, 4, 1, 128, True, 8, "misaligned"),
+    (1, 100, 100, 4, 4, 64, True, 300, "random"),
+    (2, 200, 60, 4, 2, 32, True, 16, "random"),
+    (1, 4096, 4096, 2, 1, 128, True, 0, "random"),
+    (1, 64, 3000, 2, 2, 128, False, 0, "random")]
+
+
+def _offset_view(x, off):
+    """A contiguous copy of ``x`` whose data starts ``off`` bytes past a
+    16-byte boundary."""
+    flat = torch.empty(x.numel() + 16, dtype=x.dtype, device=x.device)
+    y = flat[off:off + x.numel()].view(x.shape)
+    y.copy_(x)
+    assert y.is_contiguous() and y.data_ptr() % 16 == off
+    return y
+
+
+@pytest.mark.parametrize("b,sq,skv,h,hkv,d,causal,window,operands", [
+    (2, 64, 64, 4, 4, 64, False, 0, "random"),
+    (2, 37, 37, 4, 2, 32, True, 0, "random"),
+    (1, 100, 100, 4, 1, 128, True, 16, "random"),
+    (2, 24, 80, 4, 2, 64, False, 0, "random"),
+    (1, 80, 24, 2, 2, 32, True, 8, "random")] + _K5_EDGES)
 def test_full_sequence_attention_kernel(dev, b, sq, skv, h, hkv, d, causal,
-                                        window):
+                                        window, operands):
     """K5: ragged lengths (no block divides 37 or 100), GQA, the three
     masks, Sq != Skv both ways (Sq > Skv with a window leaves rows with no
-    live key), all three epilogues."""
+    live key), the e16 store and its recompute, all four epilogues."""
     rng = np.random.default_rng(sq + skv + d + window)
     plan = iattn.make_iattention(d, 8 / 127, 8 / 127, 4 / 127, 4 / 127)
-    q8 = _i8(rng, (b, sq, h, d), dev)
-    k8, v8 = _i8(rng, (b, skv, hkv, d), dev), _i8(rng, (b, skv, hkv, d), dev)
+    if operands in ("min", "max"):
+        fill = -128 if operands == "min" else 127
+        q8 = torch.full((b, sq, h, d), fill, dtype=torch.int8, device=dev)
+        k8 = torch.full((b, skv, hkv, d), fill, dtype=torch.int8, device=dev)
+        v8 = torch.full((b, skv, hkv, d), fill, dtype=torch.int8, device=dev)
+    else:
+        q8 = _i8(rng, (b, sq, h, d), dev)
+        k8 = _i8(rng, (b, skv, hkv, d), dev)
+        v8 = _i8(rng, (b, skv, hkv, d), dev)
+    if operands == "misaligned":
+        q8, k8, v8 = (_offset_view(x, 4) for x in (q8, k8, v8))
     bvec = _i32(rng, 1000, 20000, (h * d,), dev)
     for rq in (None, RequantSpec.per_channel(22, 8),
                RequantSpec.per_channel(20, 6, out_bits=16),
@@ -227,6 +270,35 @@ def test_full_sequence_attention_kernel(dev, b, sq, skv, h, hkv, d, causal,
         want = int_attention_fused_plain(q8, k8, v8, plan, rq, bvec, causal,
                                          window)
         assert torch.equal(got, want), (rq, causal, window)
+
+
+def test_full_sequence_attention_plan_matches_the_library(dev):
+    """The wrapper's shared-memory formula is the kernel library's, and
+    exp16's multiply-high division equals ``/`` on its whole domain on
+    the card."""
+    from repro_torch.kernels._build import library
+    from repro_torch.kernels.int_attention_fused import (
+        k5_division_mismatches, k5_smem_bytes)
+    lib = library()
+    for d in (32, 64, 128):
+        for tiles in (0, 1, 8, 27):
+            for store in (False, True):
+                assert lib.r8_k5_smem_bytes(d, tiles, int(store)) \
+                    == k5_smem_bytes(d, tiles, store)
+    assert lib.r8_k5_smem_bytes(48, 1, 1) == -1
+    for d in (32, 64, 128):
+        ie = iattn.make_iattention(d, 8 / 127, 8 / 127, 4 / 127,
+                                   4 / 127).sm.iexp
+        assert k5_division_mismatches(ie) == 0
+
+
+def test_full_sequence_attention_refuses_other_head_dims(dev):
+    plan = iattn.make_iattention(48, 8 / 127, 8 / 127, 4 / 127, 4 / 127)
+    q8 = torch.zeros((1, 8, 2, 48), dtype=torch.int8, device=dev)
+    before = kernels.LAUNCHES["int_attention_fused"]
+    with pytest.raises(ValueError, match="head dim"):
+        int_attention_fused(q8, q8, q8, plan, causal=False)
+    assert kernels.LAUNCHES["int_attention_fused"] == before
 
 
 def test_full_sequence_attention_refuses_overlong_keys(dev):
