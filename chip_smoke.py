@@ -16,7 +16,9 @@ non-zero before the last line):
            full-width llama3-8b shapes, K1, K2 (LayerNorm), K5 and K6 at
            the encoder path's full-width roberta-base shapes, K7 and K8
            at the ``pallas`` backend's (the full score matrix, the
-           encoder's attention at the reference's logical blocks);
+           encoder's attention at the reference's logical blocks), then
+           the edge cases of the tensor-core K5 and K8 and exp16's
+           division on its whole domain;
   parity   full-width llama3-8b cut to 2 layers: ServingEngine token
            streams on the ``cuda`` backend must equal ``torch_ref``'s;
   serve    full llama3-8b (32 layers) on the ``cuda`` backend: throughput,
@@ -37,6 +39,11 @@ non-zero before the last line):
   ops      ``repro_torch.ops.int_softmax``, the module-level entry point,
            under ``use_backend("cuda_online")`` on the full score matrix of
            a roberta-base batch (K7 must launch).
+
+``--verbose-build`` also prints ptxas's registers and spills and a
+``sass`` line (per kernel ``IMMA`` / ``IDP`` / ``LDL`` / ``STL``), and
+fails unless every K5 and K8 instantiation shows ``IMMA`` and none of the
+other three.
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit,
 and the final ``{"ok": true, "device": {...}}`` line.  The script imports
@@ -211,6 +218,31 @@ def k5_plan(q8, k8, causal: bool, window: int, plan) -> str:
             f"e16_store={p.store_e16} k_copies={16 if p.vec_k else 4}B")
 
 
+def k8_plan(q8, bkv: int) -> str:
+    """K8's launch for these operands (kernels/int_attention.py::
+    k8_launch_plan)."""
+    from repro_torch.kernels.int_attention import k8_launch_plan
+    b, sq, h, d = q8.shape
+    p = k8_launch_plan(b, sq, h, d, bkv)
+    return f"mma grid={list(p.grid)} tiles={p.tiles} smem={p.smem}"
+
+
+def division_check(name: str, aplan) -> None:
+    """exp16's multiply-high division (K5's and K8's) against `/` on its
+    whole domain for the plan ``aplan`` the kernel ``name`` launches
+    with."""
+    from repro_torch.kernels.int_attention_fused import (
+        exp16_division_mismatches)
+    ie = aplan.sm.iexp
+    bad = exp16_division_mismatches(ie)
+    emit({"phase": "kernels", "name": name,
+          "case": f"exp16 division, every n in [0, {ie.z_max * ie.q_ln2}]"
+          f", q_ln2={ie.q_ln2}", "mismatches": bad})
+    if bad:
+        raise AssertionError(f"{name}: exp16's division differs from / on "
+                             f"{bad} values")
+
+
 def _offset_view(x, off: int):
     """A contiguous copy of ``x`` starting ``off`` bytes past a 16-byte
     boundary."""
@@ -221,6 +253,23 @@ def _offset_view(x, off: int):
     if y.data_ptr() % 16 != off:
         raise AssertionError("offset view is not where it was asked")
     return y
+
+
+def _qkv(gen, operands: str, b, sq, skv, hq, hkv, dd):
+    """Attention operands q8 (B, Sq, H, D), k8 and v8 (B, Skv, Hkv, D) on
+    the card: seeded (``random``), every value -128 (``min``) or +127
+    (``max``), or seeded and 4 bytes off 16-byte alignment
+    (``misaligned``)."""
+    import torch
+    shapes = ((b, sq, hq, dd), (b, skv, hkv, dd), (b, skv, hkv, dd))
+    if operands in ("min", "max"):
+        fill = -128 if operands == "min" else 127
+        return tuple(torch.full(s, fill, dtype=torch.int8, device="cuda")
+                     for s in shapes)
+    qkv = tuple(_randint(gen, -127, 128, s, torch.int8) for s in shapes)
+    if operands == "misaligned":
+        qkv = tuple(_offset_view(x, 4) for x in qkv)
+    return qkv
 
 
 def int_mm_ms(x8, w8):
@@ -370,8 +419,8 @@ def _live_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
     """(query, key) pairs a full-sequence mask leaves live, per (b, h)."""
     if not causal and window <= 0:
         return sq * skv
-    return sum(max(min(i + 1, skv) - max(i - window + 1 if window > 0
-                                         else 0, 0), 0)
+    return sum(max((min(i + 1, skv) if causal else skv)
+                   - max(i - window + 1 if window > 0 else 0, 0), 0)
                for i in range(sq))
 
 
@@ -383,8 +432,7 @@ def check_encoder_kernels(cfg, plans, rows) -> None:
     from repro_torch.kernels.int8_matmul import (int8_matmul,
                                                  int8_matmul_plain)
     from repro_torch.kernels.int_attention_fused import (
-        int_attention_fused, int_attention_fused_plain,
-        k5_division_mismatches)
+        int_attention_fused, int_attention_fused_plain)
     from repro_torch.kernels.int_gelu import int_gelu, int_gelu_plain
     from repro_torch.kernels.int_layernorm import (int_layernorm,
                                                    int_layernorm_plain)
@@ -487,18 +535,7 @@ def check_encoder_kernels(cfg, plans, rows) -> None:
                  for i, e in enumerate(edges)]
     for (b, sq, skv, hq, hkv, dd, causal, window, rq, operands,
          rep) in k5_cases:
-        if operands in ("min", "max"):
-            fill = -128 if operands == "min" else 127
-            q8, k8, v8 = (torch.full(shape, fill, dtype=torch.int8,
-                                     device="cuda")
-                          for shape in ((b, sq, hq, dd), (b, skv, hkv, dd),
-                                        (b, skv, hkv, dd)))
-        else:
-            q8 = _randint(gen, -127, 128, (b, sq, hq, dd), torch.int8)
-            k8 = _randint(gen, -127, 128, (b, skv, hkv, dd), torch.int8)
-            v8 = _randint(gen, -127, 128, (b, skv, hkv, dd), torch.int8)
-        if operands == "misaligned":
-            q8, k8, v8 = (_offset_view(x, 4) for x in (q8, k8, v8))
+        q8, k8, v8 = _qkv(gen, operands, b, sq, skv, hq, hkv, dd)
         bvec = _randint(gen, 1000, 20000, (hq * dd,), torch.int32)
         out_b = 1 if (not rq.is_raw and rq.out_bits <= 8) else 4
         nbytes = (b * sq * hq * dd + 2 * b * skv * hkv * dd
@@ -522,14 +559,7 @@ def check_encoder_kernels(cfg, plans, rows) -> None:
 
     # K5's exp16 division (a multiply-high) against `/` on its whole
     # domain (every K5 case above runs the encoder's plan)
-    ie = aplan.sm.iexp
-    bad = k5_division_mismatches(ie)
-    emit({"phase": "kernels", "name": "int_attention_fused",
-          "case": f"exp16 division, every n in [0, {ie.z_max * ie.q_ln2}]"
-          f", q_ln2={ie.q_ln2}", "mismatches": bad})
-    if bad:
-        raise AssertionError(f"K5's exp16 division differs from / on {bad}"
-                             " values")
+    division_check("int_attention_fused", aplan)
 
     # K6: every 16-bit input, seeded int32 over the whole range (wrap),
     # then the FFN's 11-bit activations at the path shape (timed)
@@ -594,19 +624,42 @@ def check_online_kernels(cfg, plans, rows) -> None:
     h, hd = cfg.n_heads, cfg.hd
     eb, es = ENCODE_BATCH, ENCODE_SEQ
     k8_cases = [
-        # (B, Sq, Skv, H, Hkv, D, causal, window, bq, bkv, rep)
-        (eb, es, es, h, h, hd, False, 0, 128, 128, True),
-        (4, 512, 512, 32, 8, 128, True, 0, 128, 128, False),
-        (4, 512, 512, 32, 8, 128, True, 128, 128, 128, False),
-        (eb, es, es, h, h, hd, False, 0, 256, 256, False),   # pallas_tuned
-        (4, 136, 136, h, h, hd, True, 0, 68, 68, False),
-        (1, 131, 131, 4, 4, hd, True, 0, 1, 1, False),
-        (eb, 64, es, h, h, hd, False, 0, 64, 128, False),    # cross
+        # (B, Sq, Skv, H, Hkv, D, causal, window, bq, bkv, operands, rep)
+        (eb, es, es, h, h, hd, False, 0, 128, 128, "random", True),
+        (4, 512, 512, 32, 8, 128, True, 0, 128, 128, "random", False),
+        (4, 512, 512, 32, 8, 128, True, 128, 128, 128, "random", False),
+        (eb, es, es, h, h, hd, False, 0, 256, 256, "random",
+         False),                                             # pallas_tuned
+        (4, 136, 136, h, h, hd, True, 0, 68, 68, "random", False),
+        (1, 131, 131, 4, 4, hd, True, 0, 1, 1, "random", False),
+        (eb, 64, es, h, h, hd, False, 0, 64, 128, "random", False),  # cross
     ]
-    for b, sq, skv, hq, hkv, dd, causal, window, bq, bkv, rep in k8_cases:
-        q8 = _randint(gen, -127, 128, (b, sq, hq, dd), torch.int8)
-        k8 = _randint(gen, -127, 128, (b, skv, hkv, dd), torch.int8)
-        v8 = _randint(gen, -127, 128, (b, skv, hkv, dd), torch.int8)
+    # the edge cases of the tensor-core kernel, at the blocks cuda_online
+    # would fit: D 32 / 64 / 128 at S 1, 37 and 1000, one key, -128 /
+    # +127 operands, Sq > Skv with a window and no causal mask (rows with
+    # no live key), bq 4 under bkv 128, causal 4096, Skv = 2^16 (the bit
+    # budget's edge; as one block of +127 keys, the largest row sum)
+    k8_cases += [(1, s_, s_, 4, 2, dd, causal, window, bl, bl, "random",
+                  False)
+                 for dd in (32, 64, 128)
+                 for s_, bl, causal, window in ((1, 1, False, 0),
+                                                (37, 37, True, 0),
+                                                (1000, 125, dd != 32,
+                                                 100 if dd == 128 else 0))]
+    k8_cases += [(2, 37, 1, 4, 2, 64, True, 0, 37, 1, "random", False),
+                 (2, 100, 100, 4, 2, 64, False, 0, 100, 100, "min", False),
+                 (2, 100, 100, 4, 2, 128, True, 0, 100, 100, "max", False),
+                 (2, 200, 60, 4, 2, 32, False, 16, 100, 60, "random", False),
+                 (1, 512, 512, 4, 2, 64, True, 0, 4, 128, "random", False),
+                 (1, 4096, 4096, 2, 1, 128, True, 0, 128, 128, "random",
+                  False),
+                 (1, 64, 65536, 2, 1, 32, False, 0, 64, 128, "random",
+                  False),
+                 (1, 64, 65536, 1, 1, 64, False, 0, 64, 65536, "max",
+                  False)]
+    for (b, sq, skv, hq, hkv, dd, causal, window, bq, bkv, operands,
+         rep) in k8_cases:
+        q8, k8, v8 = _qkv(gen, operands, b, sq, skv, hq, hkv, dd)
         if rep:
             online_spread(q8, k8, v8, aplan)
         nbytes = 2 * b * sq * hq * dd + 2 * b * skv * hkv * dd
@@ -614,12 +667,17 @@ def check_online_kernels(cfg, plans, rows) -> None:
         args = (q8, k8, v8, aplan, causal, window, bq, bkv)
         record(rows, "int_attention_online",
                f"B={b} Sq={sq} Skv={skv} H={hq} Hkv={hkv} D={dd} "
-               f"causal={causal} window={window} bq={bq} bkv={bkv}",
+               f"causal={causal} window={window} bq={bq} bkv={bkv} "
+               f"{operands}",
                int_attention_online(*args), int_attention_online_plain(*args),
                lambda: int_attention_online(*args),
                lambda: int_attention_online_plain(*args),
-               nbytes, ops, rep=rep, iters=5, plain_iters=2)
+               nbytes, ops, rep=rep, iters=5, plain_iters=2,
+               plan=k8_plan(q8, min(bkv, skv)))
         del q8, k8, v8, args
+    # K8's exp16 division on its whole domain, for the plan every K8 case
+    # above launches with
+    division_check("int_attention_online", aplan)
 
     # K7: the encoder's whole score matrix (B x H x S rows of S), padded
     # and not, bench_kernels.py's 256 x 1024, and 2^15-long rows
@@ -1052,10 +1110,18 @@ def profile_window(phase, what, fn):
                   for k, us, n in rows[:12]]})
 
 
+# the kernels that must run on the int8 tensor cores with no spill: every
+# instantiation of K5's and K8's
+TENSOR_CORE_KERNELS = ("int_attention_mma_kernel",
+                       "int_attention_online_kernel")
+
+
 def sass_summary(so: str) -> None:
     """Per kernel of the built library, the count of the SASS
     instructions that say how it computes: ``IMMA`` (int8 tensor cores),
-    ``IDP`` (__dp4a), ``LDL`` / ``STL`` (local-memory spills)."""
+    ``IDP`` (__dp4a), ``LDL`` / ``STL`` (local-memory spills).  Every
+    instantiation of ``TENSOR_CORE_KERNELS`` must show ``IMMA`` and none
+    of the other three."""
     import re
     from repro_torch.kernels import _build
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -1072,6 +1138,14 @@ def sass_summary(so: str) -> None:
                 if re.search(rf"\b{op}\b", line):
                     counts[name][op] += 1
     emit({"phase": "sass", "kernels": counts})
+    tc = {n: c for n, c in counts.items()
+          if any(k in n for k in TENSOR_CORE_KERNELS)}
+    missing = [k for k in TENSOR_CORE_KERNELS if not any(k in n for n in tc)]
+    bad = [n for n, c in tc.items()
+           if c["IMMA"] == 0 or c["IDP"] or c["LDL"] or c["STL"]]
+    if missing or bad:
+        raise AssertionError(f"sass: no instantiation of {missing}; without "
+                             f"IMMA or with IDP / LDL / STL: {bad}")
 
 
 def _leaves(tree):

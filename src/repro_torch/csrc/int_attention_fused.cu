@@ -55,10 +55,11 @@ extern "C" int r8_int_attention_fused(const r8::k5::Args* a, void* stream) {
   }
 }
 
-// exp16's multiply-high division against `/` on every n in [0, n_max];
-// *bad (zeroed by the caller) receives the count of differences
-extern "C" int r8_k5_div_check(int n_max, int q_ln2, unsigned magic,
-                               int shift, int* bad, void* stream) {
+// exp16's multiply-high division (K5's and K8's) against `/` on every n
+// in [0, n_max]; *bad (zeroed by the caller) receives the count of
+// differences
+extern "C" int r8_exp16_div_check(int n_max, int q_ln2, unsigned magic,
+                                  int shift, int* bad, void* stream) {
   if (q_ln2 <= 0 || n_max < 0 || shift < 0 || shift > 31)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);

@@ -24,16 +24,9 @@
 // keys past t_hi are zero-filled and never live.
 //
 //   K tiles: cp.async into a double buffer, row-major (key, D bytes) with
-//   a row stride of SK words.  A row-major K tile is already mma's .col B
-//   operand of Q·Kᵀ.  16-byte copies where K is 16-byte aligned, else
-//   4-byte copies (the wrapper takes any 4-byte aligned operand).
-//
-//   Q·Kᵀ k order: the product sums over the D bytes, so A and B may take
-//   them in any common order.  For k-step s the thread (g, t) feeds words
-//   8s + 2t and 8s + 2t + 1 of its rows (a0/a1 and a2/a3) and of key
-//   n0 + g (b0, b1): one 8-byte shared load per B fragment.  SK = D/4 or
-//   D/4 + 8 is 8 mod 16 words, so a half-warp's 8-byte loads (g = 0..3)
-//   hit 32 distinct banks.
+//   a row stride of tc::sk_words(D) words.  16-byte copies where K is
+//   16-byte aligned, else 4-byte copies (the wrapper takes any 4-byte
+//   aligned operand).
 //
 //   Row max and row sum live in registers: each thread owns rows g and
 //   g + 8 of its warp and reduces over its own keys, then over the quad
@@ -47,38 +40,17 @@
 //   fits the 227 KB a block may have (kernels/int_attention_fused.py::
 //   k5_launch_plan), else sweep 2 recomputes.
 //
-//   P·V without shuffles: the s32 C layout of Q·Kᵀ gives thread (g, t)
-//   keys 8j + 2t, 8j + 2t + 1 of rows g and g + 8 for n-tile j.  For the
-//   32-key chunk s (n-tiles 4s..4s+3) it packs, per row, keys
-//   {2t, 2t+1, 8+2t, 9+2t} into one word (a0 / a1) and
-//   {16+2t, 17+2t, 24+2t, 25+2t} into another (a2 / a3).  The sum over
-//   keys does not care about their order, so Vᵀ is staged with the same
-//   key permutation: key k of a chunk (k = 8q + 2u + e, q, u in 0..3,
-//   e in 0..1) sits in byte 2(q & 1) + e of word 2u + (q >> 1) of its
-//   column's chunk, and b0, b1 are words 2t, 2t + 1: one 8-byte load.
-//   V is read from device memory one tile ahead into registers, a unit of
-//   keys (k0, k0+1, k0+8, k0+9) x 4 columns a thread, and transposed
-//   with transpose4 into exactly those words.  Vᵀ rows are 16 words (8
-//   pairs of words); pair p of column d is stored at p ^ vswz(d), which
-//   keeps the fragment loads conflict-free and spreads the stores.
-//   tests/test_torch_k5_plan.py models this layout in numpy.
-//
-//   exp16 (exp16_mma) is int_common.cuh's with no branch per pair: the
-//   host resolves each dyadic shift, a launch constant, into a multiply,
-//   a rounding add and a right shift, which the kernel reads from its
-//   parameters; the division (-qn) / q_ln2 is an exact multiply-high:
-//   the wrapper finds (magic, shift) with
-//   __umulhi(n, magic) >> shift == n / q_ln2 and checks it on every n of
-//   the domain [0, -neg_zq]; chip_smoke.py checks the same on the card
-//   (r8_k5_div_check).
+//   Q·Kᵀ's k order, P·V without shuffles (p8 packed from the score
+//   accumulators into A fragments against a key-permuted, swizzled Vᵀ
+//   read one tile ahead) and the branch-free exp16 are the shared pieces
+//   of int_attention_tc.cuh, whose note says how they work.
 //
 // A row with no live key keeps max -2^30, sum 0 and acc 0, so it writes
 // requant(0), as the reference's all-masked row does.  GQA: head h reads
 // KV head h / (H / Hkv).
 #pragma once
 
-#include "int_common.cuh"
-#include "int_mma.cuh"
+#include "int_attention_tc.cuh"
 
 namespace r8 {
 namespace k5 {
@@ -89,16 +61,11 @@ constexpr int KEYS = 64;                // keys a tile
 constexpr int NEG = -(1 << 30);         // row max before any live key
 constexpr int SMEM_LIMIT = 232448;      // dynamic shared memory a block
 
-// K row stride in words: 8 mod 16, for conflict-free 8-byte loads
-__host__ __device__ constexpr int sk_words(int D) {
-  return (D / 4) % 16 == 8 ? D / 4 : D / 4 + 8;
-}
-
 // dynamic shared memory of one block: the K double buffer, one Vᵀ tile
 // and, with the e16 store, 2 KB a warp a key tile
 __host__ __device__ constexpr long long smem_bytes(int D, int tiles,
                                                    bool store) {
-  return 4LL * (2 * KEYS * sk_words(D) + D * (KEYS / 4)) +
+  return 4LL * (2 * KEYS * tc::sk_words(D) + D * (KEYS / 4)) +
          (store ? 4LL * (THREADS / 32) * tiles * (KEYS / 8) * 2 * 32 : 0);
 }
 
@@ -133,31 +100,6 @@ inline int max_tiles(int Sq, int Skv, int causal, int window) {
   return most;
 }
 
-__device__ __forceinline__ int div_ln2(int n, unsigned magic, int shift) {
-  return (int)(__umulhi((unsigned)n, magic) >> shift);
-}
-
-// core.dyadic.rshift_round by a launch-constant s, without branches:
-// x * 2^max(-s, 0) + 2^(s-1) (s > 0), wrapping, then >> max(s, 0)
-struct Shift {
-  unsigned mul;
-  unsigned half;
-  int rs;
-};
-
-__device__ __forceinline__ int rshift(int x, const Shift& sh) {
-  return (int)((unsigned)x * sh.mul + sh.half) >> sh.rs;
-}
-
-// the Shiftmax constants with every shift resolved for the launch (by the
-// host: kernels/_abi.py::exp16_consts), read from the kernel's parameters
-struct Exp16 {
-  int q_band, in_b, neg_zq, q_ln2, q_b, q_c, e_b;
-  Shift in_pre, in_post, e_pre, e_post;
-  unsigned magic;           // n / q_ln2 == __umulhi(n, magic) >> z_shift
-  int z_shift;              //   on [0, -neg_zq]
-};
-
 struct Args {
   const int8_t* q;          // (B, Sq, H, D)
   const int8_t* k;          // (B, Skv, Hkv, D)
@@ -171,41 +113,21 @@ struct Args {
   int store_e16;
   int vec_k;                // 16-byte copies of K, else 4-byte
   int smem;                 // dynamic shared memory (smem_bytes)
-  Exp16 ex;
+  tc::Exp16 ex;
   Requant rq;
 };
-
-// core.softmax._exp16, as exp16 in int_common.cuh, with the dyadic
-// shifts resolved per launch and the division by q_ln2 a multiply-high
-__device__ __forceinline__ int exp16_mma(int q_sub, const Exp16& p) {
-  int q = max(q_sub, -p.q_band);
-  q = rshift(wmul(rshift(q, p.in_pre), p.in_b), p.in_post);
-  q = min(q, 0);
-  const int qn = max(q, p.neg_zq);
-  const int z = div_ln2(-qn, p.magic, p.z_shift);
-  const int q_p = wadd(qn, wmul(z, p.q_ln2));
-  const int t = wadd(q_p, p.q_b);
-  const int q_l = wadd(wmul(t, t), p.q_c);
-  const int e = q_l >> z;
-  return rshift(wmul(rshift(e, p.e_pre), p.e_b), p.e_post);
-}
-
-// Vᵀ pair swizzle of column d (see the note)
-__device__ __forceinline__ int vswz(int d) {
-  return (((d >> 1) & 1) << 2) ^ ((d >> 2) & 7);
-}
 
 // LO: rows may start past key 0 (a window); STORE: sweep 1 keeps e16
 template <int D, bool LO, bool STORE>
 __global__ void __launch_bounds__(THREADS)
 int_attention_mma_kernel(Args a) {
   constexpr int KS = D / 32;                 // k-steps of Q·Kᵀ
-  constexpr int SK = sk_words(D);
+  constexpr int SK = tc::sk_words(D);
   constexpr int SV = KEYS / 4;               // words of a Vᵀ row
   constexpr int NJ = KEYS / 8;               // score n-tiles of a tile
   constexpr int ND = D / 8;                  // output n-tiles
   constexpr int DW = D / 4;                  // words of a K / V row
-  constexpr int VU = (KEYS / 4) * DW / THREADS;   // V units a thread
+  constexpr int VU = tc::v_units<D, KEYS, THREADS>();
   static_assert(VU * THREADS == (KEYS / 4) * DW, "whole V units");
   extern __shared__ __align__(16) int smem[];
   int* sK = smem;                            // 2 x KEYS x SK
@@ -253,15 +175,8 @@ int_attention_mma_kernel(Args a) {
   auto load_k = [&](int t0, int buf) {
     int* dst = sK + buf * KEYS * SK;
     if (a.vec_k) {
-      constexpr int CH = D / 16;             // 16-byte chunks of a key
-#pragma unroll
-      for (int i = tid; i < KEYS * CH; i += THREADS) {
-        const int j = i / CH, c = i % CH, key = t0 + j;
-        const bool ok = key < t_hi;
-        tc::cp_async16(tc::smem_addr(dst + j * SK + 4 * c),
-                       ok ? kbase + key * kvstride + 16 * c : a.k,
-                       ok ? 16 : 0);
-      }
+      tc::load_k16<D, KEYS, THREADS>(dst, kbase, kvstride, t0, t_hi, tid,
+                                     a.k);
     } else {
 #pragma unroll 4
       for (int i = tid; i < KEYS * DW; i += THREADS) {
@@ -273,37 +188,11 @@ int_attention_mma_kernel(Args a) {
     }
   };
 
-  // V unit i: columns 4 dw..4 dw+3 of keys k0, k0+1, k0+8, k0+9, where
-  // gi = i / DW names chunk c = gi / 8 and word 2 u + hw of its rows
   unsigned vr[VU][4];
   auto load_v = [&](int t0) {
-#pragma unroll
-    for (int n = 0; n < VU; ++n) {
-      const int i = tid + n * THREADS, dw = i % DW, gi = i / DW;
-      const int k0 = t0 + 32 * (gi >> 3) + 16 * ((gi >> 2) & 1) + 2 * (gi & 3);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int key = k0 + (jj & 1) + 8 * (jj >> 1);
-        vr[n][jj] = key < t_hi ? reinterpret_cast<const unsigned*>(
-                                     vbase + key * kvstride)[dw]
-                               : 0u;
-      }
-    }
+    tc::load_v<D, KEYS, THREADS>(vr, vbase, kvstride, t0, t_hi, tid);
   };
-  auto store_v = [&]() {
-#pragma unroll
-    for (int n = 0; n < VU; ++n) {
-      const int i = tid + n * THREADS, dw = i % DW, gi = i / DW;
-      const int pair = 4 * (gi >> 3) + (gi & 3), hw = (gi >> 2) & 1;
-      const int4 w4 = tc::transpose4(vr[n][0], vr[n][1], vr[n][2], vr[n][3]);
-      const int col[4] = {w4.x, w4.y, w4.z, w4.w};
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int d = 4 * dw + jj;
-        sVt[d * SV + 2 * (pair ^ vswz(d)) + hw] = col[jj];
-      }
-    }
-  };
+  auto store_v = [&]() { tc::store_v<D, KEYS, THREADS>(sVt, vr, tid); };
 
   // every tile of the block's range once; body(ti, t0, K tile) runs only
   // where the tile meets this warp's rows
@@ -329,15 +218,8 @@ int_attention_mma_kernel(Args a) {
     }
   };
 
-  // scores of n-tile j: c0, c1 row g keys 8j+2t, +1; c2, c3 row g + 8
   auto scores = [&](const int* sKb, int j, int (&c)[4]) {
-    c[0] = c[1] = c[2] = c[3] = 0;
-    const int* kr = sKb + (8 * j + g) * SK + 2 * t;
-#pragma unroll
-    for (int s = 0; s < KS; ++s) {
-      const int2 bw = *reinterpret_cast<const int2*>(kr + 8 * s);
-      tc::mma_s8(c, qa[s], bw.x, bw.y);
-    }
+    tc::qk_ntile<D>(sKb, j, qa, g, t, c);
   };
   auto live = [&](int col, int hf, int t0) {
     const int key = t0 + col;
@@ -371,7 +253,7 @@ int_attention_mma_kernel(Args a) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int hf = e >> 1, col = 8 * j + 2 * t + (e & 1);
-      const int x = exp16_mma(wsub(c[e], m[hf]), a.ex);
+      const int x = tc::exp16_mma(wsub(c[e], m[hf]), a.ex);
       e16[e] = live(col, hf, t0) ? x : 0;
     }
   };
@@ -430,19 +312,10 @@ int_attention_mma_kernel(Args a) {
         for (int e = 0; e < 4; ++e)
           p[e] = (unsigned)clampi(rshift_round(wmul(e16[e], rcp[e >> 1]), 23),
                                   0, 127);
-        // n-tiles 4s, 4s+1 -> a0 (row g) / a1 (row g+8); 4s+2, 4s+3 -> a2/a3
-        const int sh = 16 * (jj & 1), ai = jj >> 1;
-        pa[2 * ai] |= (p[0] | (p[1] << 8)) << sh;
-        pa[2 * ai + 1] |= (p[2] | (p[3] << 8)) << sh;
+        tc::pack_p(pa, jj, p);
       }
       const int afr[4] = {(int)pa[0], (int)pa[1], (int)pa[2], (int)pa[3]};
-#pragma unroll
-      for (int nd = 0; nd < ND; ++nd) {
-        const int d = 8 * nd + g;
-        const int2 bw = *reinterpret_cast<const int2*>(
-            sVt + d * SV + 2 * ((4 * s + t) ^ vswz(d)));
-        tc::mma_s8(acc[nd], afr, bw.x, bw.y);
-      }
+      tc::pv_chunk<D, KEYS>(acc, afr, sVt, s, g, t);
     }
   });
 
@@ -496,7 +369,7 @@ __global__ void div_check_kernel(int n_max, int q_ln2, unsigned magic,
                                  int shift, int* bad) {
   for (int n = blockIdx.x * blockDim.x + threadIdx.x; n <= n_max;
        n += gridDim.x * blockDim.x)
-    if (div_ln2(n, magic, shift) != n / q_ln2) atomicAdd(bad, 1);
+    if (tc::div_ln2(n, magic, shift) != n / q_ln2) atomicAdd(bad, 1);
 }
 
 }  // namespace k5

@@ -1,0 +1,205 @@
+// Pieces of integer attention on the int8 tensor cores shared by K5
+// (int_attention_mma.cuh, exact) and K8 (int_attention_online.cu, one
+// pass): the branch-free exp16, the K tile copy, the Q·Kᵀ n-tile, and the
+// key-permuted, swizzled Vᵀ tile with the P·V chunk that reads it.
+//
+// Tiles of KEYS keys are processed by THREADS threads in warps of 16
+// query rows; thread (g, t) = (lane / 4, lane % 4) of a warp owns rows g
+// and g + 8 (int_mma.cuh has the fragment layouts).
+//
+//   K tile: row-major (key, D bytes) at a row stride of sk_words(D)
+//   words, 8 mod 16, so a half-warp's 8-byte B-fragment loads hit 32
+//   distinct banks.  A row-major K tile is mma's .col B operand of Q·Kᵀ;
+//   for k-step s thread (g, t) feeds words 8s + 2t, 8s + 2t + 1 of its
+//   query rows and of key n0 + g.
+//
+//   P·V without shuffles: the s32 C layout of Q·Kᵀ gives thread (g, t)
+//   keys 8j + 2t, 8j + 2t + 1 of rows g and g + 8 for n-tile j.  For the
+//   32-key chunk s (n-tiles 4s..4s+3) pack_p puts, per row, keys
+//   {2t, 2t+1, 8+2t, 9+2t} into one word (a0 / a1) and
+//   {16+2t, 17+2t, 24+2t, 25+2t} into another (a2 / a3).  The sum over
+//   keys does not care about their order, so Vᵀ is staged with the same
+//   key permutation: key k of a chunk (k = 8q + 2u + e, q, u in 0..3,
+//   e in 0..1) sits in byte 2(q & 1) + e of word 2u + (q >> 1) of its
+//   column's chunk, and b0, b1 are words 2t, 2t + 1: one 8-byte load.
+//   V is read from device memory one tile ahead into registers
+//   (load_v), a unit of keys (k0, k0+1, k0+8, k0+9) x 4 columns a
+//   thread, and transposed with transpose4 into exactly those words
+//   (store_v).  Vᵀ rows are KEYS / 4 words; pair p of column d is stored
+//   at p ^ vswz(d), which keeps the fragment loads conflict-free and
+//   spreads the stores.  tests/test_torch_k5_plan.py models this layout
+//   in numpy.
+//
+//   exp16 (exp16_mma) is int_common.cuh's with no branch per pair: the
+//   host resolves each dyadic shift, a launch constant, into a multiply,
+//   a rounding add and a right shift (kernels/_abi.py::exp16_consts),
+//   which the kernel reads from its parameters; the division (-qn) /
+//   q_ln2 is an exact multiply-high: the wrapper finds (magic, shift)
+//   with __umulhi(n, magic) >> shift == n / q_ln2 and checks it on every
+//   n of the domain [0, -neg_zq]; chip_smoke.py checks the same on the
+//   card (r8_exp16_div_check).
+#pragma once
+
+#include "int_common.cuh"
+#include "int_mma.cuh"
+
+namespace r8 {
+namespace tc {
+
+// K row stride in words: 8 mod 16, for conflict-free 8-byte loads
+__host__ __device__ constexpr int sk_words(int D) {
+  return (D / 4) % 16 == 8 ? D / 4 : D / 4 + 8;
+}
+
+__device__ __forceinline__ int div_ln2(int n, unsigned magic, int shift) {
+  return (int)(__umulhi((unsigned)n, magic) >> shift);
+}
+
+// core.dyadic.rshift_round by a launch-constant s, without branches:
+// x * 2^max(-s, 0) + 2^(s-1) (s > 0), wrapping, then >> max(s, 0)
+struct Shift {
+  unsigned mul;
+  unsigned half;
+  int rs;
+};
+
+__device__ __forceinline__ int rshift(int x, const Shift& sh) {
+  return (int)((unsigned)x * sh.mul + sh.half) >> sh.rs;
+}
+
+// the Shiftmax constants with every shift resolved for the launch (by the
+// host: kernels/_abi.py::exp16_consts), read from the kernel's parameters
+struct Exp16 {
+  int q_band, in_b, neg_zq, q_ln2, q_b, q_c, e_b;
+  Shift in_pre, in_post, e_pre, e_post;
+  unsigned magic;           // n / q_ln2 == __umulhi(n, magic) >> z_shift
+  int z_shift;              //   on [0, -neg_zq]
+};
+
+// core.softmax._exp16, as exp16 in int_common.cuh, with the dyadic
+// shifts resolved per launch and the division by q_ln2 a multiply-high
+__device__ __forceinline__ int exp16_mma(int q_sub, const Exp16& p) {
+  int q = max(q_sub, -p.q_band);
+  q = rshift(wmul(rshift(q, p.in_pre), p.in_b), p.in_post);
+  q = min(q, 0);
+  const int qn = max(q, p.neg_zq);
+  const int z = div_ln2(-qn, p.magic, p.z_shift);
+  const int q_p = wadd(qn, wmul(z, p.q_ln2));
+  const int t = wadd(q_p, p.q_b);
+  const int q_l = wadd(wmul(t, t), p.q_c);
+  const int e = q_l >> z;
+  return rshift(wmul(rshift(e, p.e_pre), p.e_b), p.e_post);
+}
+
+// Vᵀ pair swizzle of column d (see the note)
+__device__ __forceinline__ int vswz(int d) {
+  return (((d >> 1) & 1) << 2) ^ ((d >> 2) & 7);
+}
+
+// K rows t0 .. t0 + KEYS - 1 into dst by 16-byte cp.async; keys at or
+// past t_hi are zero-filled (`any` is a valid address for their source)
+template <int D, int KEYS, int THREADS>
+__device__ __forceinline__ void load_k16(int* dst, const int8_t* kbase,
+                                         size_t kvstride, int t0, int t_hi,
+                                         int tid, const int8_t* any) {
+  constexpr int CH = D / 16;                 // 16-byte chunks of a key
+  constexpr int SK = sk_words(D);
+#pragma unroll
+  for (int i = tid; i < KEYS * CH; i += THREADS) {
+    const int j = i / CH, c = i % CH, key = t0 + j;
+    const bool ok = key < t_hi;
+    cp_async16(smem_addr(dst + j * SK + 4 * c),
+               ok ? kbase + key * kvstride + 16 * c : any, ok ? 16 : 0);
+  }
+}
+
+// Q·Kᵀ of n-tile j (keys 8j..8j+7 of the K tile sKb) from the Q
+// A-fragments qa: c0, c1 row g keys 8j+2t, +1; c2, c3 row g + 8
+template <int D>
+__device__ __forceinline__ void qk_ntile(const int* sKb, int j,
+                                         const int (&qa)[D / 32][4], int g,
+                                         int t, int (&c)[4]) {
+  c[0] = c[1] = c[2] = c[3] = 0;
+  const int* kr = sKb + (8 * j + g) * sk_words(D) + 2 * t;
+#pragma unroll
+  for (int s = 0; s < D / 32; ++s) {
+    const int2 bw = *reinterpret_cast<const int2*>(kr + 8 * s);
+    mma_s8(c, qa[s], bw.x, bw.y);
+  }
+}
+
+// V units a thread stages per tile
+template <int D, int KEYS, int THREADS>
+__host__ __device__ constexpr int v_units() {
+  return (KEYS / 4) * (D / 4) / THREADS;
+}
+
+// V unit i: columns 4 dw..4 dw+3 of keys k0, k0+1, k0+8, k0+9, where
+// gi = i / DW names chunk c = gi / 8 and word 2 u + hw of its rows; keys
+// at or past t_hi read as 0
+template <int D, int KEYS, int THREADS>
+__device__ __forceinline__ void load_v(
+    unsigned (&vr)[v_units<D, KEYS, THREADS>()][4], const int8_t* vbase,
+    size_t kvstride, int t0, int t_hi, int tid) {
+  constexpr int DW = D / 4;
+#pragma unroll
+  for (int n = 0; n < v_units<D, KEYS, THREADS>(); ++n) {
+    const int i = tid + n * THREADS, dw = i % DW, gi = i / DW;
+    const int k0 = t0 + 32 * (gi >> 3) + 16 * ((gi >> 2) & 1) + 2 * (gi & 3);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int key = k0 + (jj & 1) + 8 * (jj >> 1);
+      vr[n][jj] = key < t_hi ? reinterpret_cast<const unsigned*>(
+                                   vbase + key * kvstride)[dw]
+                             : 0u;
+    }
+  }
+}
+
+// the units of load_v as Vᵀ (D rows of KEYS / 4 words)
+template <int D, int KEYS, int THREADS>
+__device__ __forceinline__ void store_v(
+    int* sVt, const unsigned (&vr)[v_units<D, KEYS, THREADS>()][4],
+    int tid) {
+  constexpr int DW = D / 4, SV = KEYS / 4;
+#pragma unroll
+  for (int n = 0; n < v_units<D, KEYS, THREADS>(); ++n) {
+    const int i = tid + n * THREADS, dw = i % DW, gi = i / DW;
+    const int pair = 4 * (gi >> 3) + (gi & 3), hw = (gi >> 2) & 1;
+    const int4 w4 = transpose4(vr[n][0], vr[n][1], vr[n][2], vr[n][3]);
+    const int col[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int d = 4 * dw + jj;
+      sVt[d * SV + 2 * (pair ^ vswz(d)) + hw] = col[jj];
+    }
+  }
+}
+
+// the four s8 weights p[] (n-tile 4s + jj of a chunk, C layout) into the
+// chunk's A fragment pa: n-tiles 4s, 4s+1 -> a0 (row g) / a1 (row g+8);
+// 4s+2, 4s+3 -> a2 / a3
+__device__ __forceinline__ void pack_p(unsigned (&pa)[4], int jj,
+                                       const unsigned (&p)[4]) {
+  const int sh = 16 * (jj & 1), ai = jj >> 1;
+  pa[2 * ai] |= (p[0] | (p[1] << 8)) << sh;
+  pa[2 * ai + 1] |= (p[2] | (p[3] << 8)) << sh;
+}
+
+// acc += P (chunk s of the tile, A fragment afr) x V (the staged Vᵀ)
+template <int D, int KEYS>
+__device__ __forceinline__ void pv_chunk(int (&acc)[D / 8][4],
+                                         const int (&afr)[4], const int* sVt,
+                                         int s, int g, int t) {
+  constexpr int SV = KEYS / 4;
+#pragma unroll
+  for (int nd = 0; nd < D / 8; ++nd) {
+    const int d = 8 * nd + g;
+    const int2 bw = *reinterpret_cast<const int2*>(
+        sVt + d * SV + 2 * ((4 * s + t) ^ vswz(d)));
+    mma_s8(acc[nd], afr, bw.x, bw.y);
+  }
+}
+
+}  // namespace tc
+}  // namespace r8

@@ -2,10 +2,12 @@
 
 :func:`from_reference` turns the reference's ``(qparams, plans)`` into
 the port's: arrays (already numpy, e.g. after ``jax.tree.map(np.asarray,
-qparams)``) become torch tensors on ``device``, and plan objects are read
-by field name (``_fields`` / ``dataclasses.fields``) into the port's own
-types of the same name — so this module, like the rest of the port,
-imports nothing of the JAX package.
+qparams)``) become torch tensors on ``device`` (the card unless the
+caller passes ``device="cpu"``, as at every entry point of the port),
+and plan objects are read by field name (``_fields`` /
+``dataclasses.fields``) into the port's own types of the same name — so
+this module, like the rest of the port, imports nothing of the JAX
+package.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from repro_torch.core.dyadic import Dyadic
 from repro_torch.core.intmath import IErfPlan, IExpPlan, IGeluPlan
 from repro_torch.core.norms import INormPlan
 from repro_torch.core.softmax import ISoftmaxPlan
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.ops.spec import QuantLinearParams
 from repro_torch.quant.plans import (AttnPlan, EmbedPlan, FfnPlan, HeadPlan,
                                      LayerPlans, LinearPlan)
@@ -50,9 +53,11 @@ def _tensor(a, device):
     return torch.as_tensor(np.array(a), device=device)
 
 
-def qparams_from_reference(tree, device="cpu"):
-    """numpy leaves -> tensors on ``device``; the reference's
-    ``QuantLinearParams`` (by name and fields) -> the port's dense one."""
+def qparams_from_reference(tree, device=DEFAULT_DEVICE):
+    """numpy leaves -> tensors on ``device`` (default the card; raises
+    without one); the reference's ``QuantLinearParams`` (by name and
+    fields) -> the port's dense one."""
+    device = resolve_device(device)
     if tree is None:
         return None
     if type(tree).__name__ == "QuantLinearParams":
@@ -69,7 +74,7 @@ def qparams_from_reference(tree, device="cpu"):
     return _tensor(tree, device)
 
 
-def from_reference(qparams, plans, device="cpu"):
+def from_reference(qparams, plans, device=DEFAULT_DEVICE):
     """``(qparams, plans)`` of the JAX package -> the port's."""
     return (qparams_from_reference(qparams, device),
             plan_from_reference(plans))

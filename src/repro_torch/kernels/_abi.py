@@ -52,13 +52,14 @@ class AttnArgs(ctypes.Structure):
 
 
 class Shift(ctypes.Structure):
-    """``k5::Shift``: core.dyadic.rshift_round by a fixed s as
+    """``tc::Shift``: core.dyadic.rshift_round by a fixed s as
     ``(x * mul + half) >> rs`` in wrapping uint32."""
     _fields_ = [("mul", ctypes.c_uint), ("half", ctypes.c_uint), ("rs", _I)]
 
 
 class Exp16(ctypes.Structure):
-    """``k5::Exp16``: the Shiftmax constants with every shift resolved."""
+    """``tc::Exp16`` (``csrc/int_attention_tc.cuh``, K5 and K8): the
+    Shiftmax constants with every shift resolved."""
     _fields_ = ([(n, _I) for n in ("q_band", "in_b", "neg_zq", "q_ln2",
                                    "q_b", "q_c", "e_b")]
                 + [(n, Shift) for n in ("in_pre", "in_post", "e_pre",
@@ -76,12 +77,13 @@ class K5Args(ctypes.Structure):
 
 
 class OnlineArgs(ctypes.Structure):
-    """``csrc/int_attention_online.cu``'s launch arguments (K8)."""
+    """``csrc/int_attention_online.cu``'s ``k8::Args`` (K8)."""
     _fields_ = ([(n, _P) for n in ("q", "k", "v", "out")]
                 + [(n, _I) for n in ("B", "Sq", "Skv", "H", "Hkv", "D", "bq",
-                                     "bkv", "causal", "window", "dn_b",
-                                     "dn_c", "dn_pre", "lo", "hi")]
-                + [("sm", SoftmaxConsts)])
+                                     "bkv", "causal", "window", "tiles",
+                                     "smem", "dn_b", "dn_c", "dn_pre", "lo",
+                                     "hi")]
+                + [("ex", Exp16)])
 
 
 def declare(lib: ctypes.CDLL) -> None:
@@ -100,8 +102,8 @@ def declare(lib: ctypes.CDLL) -> None:
     lib.r8_int_attention_fused.restype = _I
     lib.r8_k5_smem_bytes.argtypes = [_I, _I, _I]
     lib.r8_k5_smem_bytes.restype = ctypes.c_longlong
-    lib.r8_k5_div_check.argtypes = [_I, _I, ctypes.c_uint, _I, _P, _P]
-    lib.r8_k5_div_check.restype = _I
+    lib.r8_exp16_div_check.argtypes = [_I, _I, ctypes.c_uint, _I, _P, _P]
+    lib.r8_exp16_div_check.restype = _I
     lib.r8_int_gelu.argtypes = [_P, _P, ctypes.c_longlong,
                                 ctypes.POINTER(GeluConsts), _I, _P]
     lib.r8_int_gelu.restype = _I
@@ -110,10 +112,8 @@ def declare(lib: ctypes.CDLL) -> None:
     lib.r8_int_softmax.restype = _I
     lib.r8_int_attention_online.argtypes = [ctypes.POINTER(OnlineArgs), _P]
     lib.r8_int_attention_online.restype = _I
-    lib.r8_online_smem_bytes.argtypes = [_I, _I]
+    lib.r8_online_smem_bytes.argtypes = [_I]
     lib.r8_online_smem_bytes.restype = ctypes.c_longlong
-    lib.r8_online_smem_limit.argtypes = []
-    lib.r8_online_smem_limit.restype = ctypes.c_longlong
     lib.r8_error_string.argtypes = [_I]
     lib.r8_error_string.restype = ctypes.c_char_p
 
@@ -170,8 +170,8 @@ def shift_struct(s: int) -> Shift:
 
 
 def exp16_consts(sm, magic: int, z_shift: int) -> Exp16:
-    """Pack an ISoftmaxPlan for K5's branch-free exp16, with ``(magic,
-    z_shift)`` its division by q_ln2 as a multiply-high."""
+    """Pack an ISoftmaxPlan for K5's and K8's branch-free exp16, with
+    ``(magic, z_shift)`` its division by q_ln2 as a multiply-high."""
     for dn in (sm.dn_in, sm.dn_e16):
         _shifts_ok(dn.b, dn.c, dn.pre)
     ie, din, de = sm.iexp, sm.dn_in, sm.dn_e16

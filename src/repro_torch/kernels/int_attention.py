@@ -2,7 +2,9 @@
 attention).
 
 The port of ``repro/kernels/int_attention.py::int_attention_pallas``; the
-CUDA kernel is ``csrc/int_attention_online.cu``.
+CUDA kernel is ``csrc/int_attention_online.cu``
+(``r8::k8::int_attention_online_kernel<D>``, on the int8 tensor cores),
+launched as :func:`k8_launch_plan` says.
 :func:`int_attention_online_plain` is the plain PyTorch version, new here:
 the reference's only form of this function is the Pallas kernel itself.
 
@@ -19,6 +21,7 @@ kernel and its plain version.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -29,6 +32,7 @@ from repro_torch.core.intmath import int_einsum
 from repro_torch.core.softmax import (NEG, _exp16, combine_correction,
                                       rescale_sum)
 from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels.int_attention_fused import HEAD_DIMS, exp16_args
 
 
 def _blocks(q8, k8, bq: int, bkv: int):
@@ -42,17 +46,39 @@ def _blocks(q8, k8, bq: int, bkv: int):
     return bq, bkv
 
 
-def _require_card_tile(lib, bkv: int, d: int) -> None:
-    """The kernel's own limits, as its library states them: a head dim it
-    is compiled for, K/V tiles of ``bkv`` keys within shared memory."""
-    need, limit = lib.r8_online_smem_bytes(bkv, d), lib.r8_online_smem_limit()
-    if need < 0:
+#: K8's block (csrc/int_attention_online.cu): query rows, keys a tile
+K8_ROWS, K8_KEYS = 64, 64
+
+
+class K8Plan(NamedTuple):
+    """One K8 launch: the grid ``(query blocks, H, B)``, the key tiles of
+    one logical KV block (each starts at the block's first key; a block
+    of one tile takes one pipeline step, a longer one a max pass and an
+    e16 pass over its tiles), and the dynamic shared memory in bytes."""
+    grid: tuple
+    tiles: int
+    smem: int
+
+
+def k8_smem_bytes(d: int) -> int:
+    """A K8 block's dynamic shared memory, as ``r8_online_smem_bytes``:
+    two K tiles (row stride 8 mod 16 words) and one Vᵀ tile, whatever the
+    logical blocks."""
+    dw = d // 4
+    sk = dw if dw % 16 == 8 else dw + 8
+    return 4 * (2 * K8_KEYS * sk + d * (K8_KEYS // 4))
+
+
+def k8_launch_plan(b: int, sq: int, h: int, d: int, bkv: int) -> K8Plan:
+    """The K8 launch of a (B, Sq, H, D) query at logical KV blocks of
+    ``bkv`` keys (after the wrapper's clamping).  Raises for a head dim
+    the kernel is not compiled for."""
+    if d not in HEAD_DIMS:
         raise KernelContractError("int_attention_online", [
-            f"head dim {d} is not one the kernel is compiled for"])
-    if need > limit:
-        raise KernelContractError("int_attention_online", [
-            f"bkv={bkv} K/V tiles need {need} bytes of shared memory > "
-            f"{limit}"])
+            f"head dim {d} is not one the kernel is compiled for "
+            f"{HEAD_DIMS}"])
+    return K8Plan((-(-sq // K8_ROWS), h, b), -(-bkv // K8_KEYS),
+                  k8_smem_bytes(d))
 
 
 def int_attention_online_plain(q8, k8, v8, plan, causal: bool = True,
@@ -122,17 +148,15 @@ def int_attention_online(q8, k8, v8, plan, causal: bool = True,
     required to divide them).  The epilogue is the plan's per-tensor
     ``dn_out`` clipped to ``out_bits``; the result is int8 (B, Sq, H, D)
     as in the reference, whose int8 store wraps a wider clip.  CPU
-    tensors take the plain version; CUDA tensors launch the kernel or
-    raise (Skv > 2^16, a head dim outside 32/64/128, K/V tiles of ``bkv``
-    keys beyond shared memory)."""
+    tensors take the plain version; CUDA tensors launch the tensor-core
+    kernel (:func:`k8_launch_plan`) or raise (Skv > 2^16, a head dim
+    outside 32/64/128)."""
     if not q8.is_cuda:
         return int_attention_online_plain(q8, k8, v8, plan, causal, window,
                                           bq, bkv, out_bits)
     from repro_torch.kernels import _abi
     from repro_torch.kernels._build import library
     bq, bkv = _blocks(q8, k8, bq, bkv)
-    lib = library()
-    _require_card_tile(lib, bkv, q8.shape[3])
     if k8.shape != v8.shape:
         raise ValueError("int_attention_online: k and v shapes differ")
     for name, t in (("q8", q8), ("k8", k8), ("v8", v8)):
@@ -142,6 +166,7 @@ def int_attention_online(q8, k8, v8, plan, causal: bool = True,
                              "contiguous, 16-byte aligned int8 tensor on "
                              f"{q8.device}")
     b, sq, h, d = q8.shape
+    kp = k8_launch_plan(b, sq, h, d, bkv)
     out = torch.empty((b, sq, h, d), dtype=torch.int8, device=q8.device)
     if b == 0 or sq == 0:
         return out
@@ -150,8 +175,10 @@ def int_attention_online(q8, k8, v8, plan, causal: bool = True,
     args = _abi.OnlineArgs(
         q8.data_ptr(), k8.data_ptr(), v8.data_ptr(), out.data_ptr(), b, sq,
         k8.shape[1], h, k8.shape[2], d, bq, bkv, int(bool(causal)),
-        max(window, 0), dn.b, dn.c, dn.pre, -(1 << (out_bits - 1)),
-        (1 << (out_bits - 1)) - 1, _abi.softmax_consts(plan.sm))
+        max(window, 0), kp.tiles, kp.smem, dn.b, dn.c, dn.pre,
+        -(1 << (out_bits - 1)), (1 << (out_bits - 1)) - 1,
+        exp16_args(plan.sm))
+    lib = library()
     rc = lib.r8_int_attention_online(ctypes.byref(args), _abi.stream_of(q8))
     LAUNCHES["int_attention_online"] += 1
     _abi.check(lib, rc, "int_attention_online")

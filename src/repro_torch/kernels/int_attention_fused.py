@@ -231,14 +231,14 @@ def k5_launch_plan(b: int, sq: int, skv: int, h: int, hkv: int, d: int,
 @functools.lru_cache(maxsize=16)
 def exp16_divisor(q_ln2: int, n_max: int) -> tuple[int, int]:
     """``(magic, shift)`` with ``(n * magic) >> (32 + shift) == n //
-    q_ln2`` for every ``0 <= n <= n_max`` (K5's exp16 division as a
-    multiply-high), checked on all of them.  The rounded-up reciprocal
+    q_ln2`` for every ``0 <= n <= n_max`` (K5's and K8's exp16 division
+    as a multiply-high), checked on all of them.  The rounded-up reciprocal
     ``magic = ceil(2^k / q_ln2)`` is exact there when ``n_max * (magic *
     q_ln2 - 2^k) < 2^k``; the largest ``k`` whose magic fits 32 bits is
     taken."""
     if q_ln2 < 2 or not 0 <= n_max < 1 << 31:
         raise ValueError(f"exp16 division: q_ln2={q_ln2}, n_max={n_max} "
-                         "outside what K5 takes")
+                         "outside what K5 and K8 take")
     for shift in range(31, -1, -1):
         k = 32 + shift
         magic = -(-(1 << k) // q_ln2)
@@ -249,6 +249,17 @@ def exp16_divisor(q_ln2: int, n_max: int) -> tuple[int, int]:
                 return magic, shift
     raise ValueError(f"exp16 division: no exact multiply-high for "
                      f"q_ln2={q_ln2} on [0, {n_max}]")
+
+
+@functools.lru_cache(maxsize=16)
+def exp16_args(sm):
+    """The plan ``sm``'s constants for K5's and K8's branch-free exp16
+    (``_abi.exp16_consts`` with its multiply-high division), packed once
+    per plan."""
+    from repro_torch.kernels import _abi
+    ie = sm.iexp
+    return _abi.exp16_consts(sm, *exp16_divisor(ie.q_ln2,
+                                                 ie.z_max * ie.q_ln2))
 
 
 @functools.lru_cache(maxsize=16)
@@ -293,17 +304,15 @@ def int_attention_fused(q8, k8, v8, plan, requant=None, b_vec=None,
     bvec, out = _epilogue_operands(q8, requant, b_vec)
     if b == 0 or sq == 0:
         return out
-    sm, ie = plan.sm, plan.sm.iexp
+    sm = plan.sm
     causal, window = bool(causal) or window > 0, max(window, 0)
     kp = k5_launch_plan(b, sq, skv, h, hkv, d, causal, window,
                         k8.data_ptr(), e16_fits_16_bits(sm))
-    magic, shift = exp16_divisor(ie.q_ln2, ie.z_max * ie.q_ln2)
     args = _abi.K5Args(
         q8.data_ptr(), k8.data_ptr(), v8.data_ptr(), _abi.ptr(bvec),
         out.data_ptr(), b, sq, skv, h, hkv, d, int(causal), window,
         int(out.dtype == torch.int8), kp.tiles, int(kp.store_e16),
-        int(kp.vec_k), kp.smem, _abi.exp16_consts(sm, magic, shift),
-        _abi.requant_struct(requant))
+        int(kp.vec_k), kp.smem, exp16_args(sm), _abi.requant_struct(requant))
     lib = library()
     rc = lib.r8_int_attention_fused(ctypes.byref(args), _abi.stream_of(q8))
     LAUNCHES["int_attention_fused"] += 1
@@ -311,19 +320,19 @@ def int_attention_fused(q8, k8, v8, plan, requant=None, b_vec=None,
     return out
 
 
-def k5_division_mismatches(ie, device="cuda") -> int:
+def exp16_division_mismatches(ie, device="cuda") -> int:
     """On the card: how many n of exp16's whole division domain [0,
-    z_max * q_ln2] (of the i-exp plan ``ie``) K5's multiply-high divides
-    differently from ``/``."""
+    z_max * q_ln2] (of the i-exp plan ``ie``) the multiply-high of K5 and
+    K8 divides differently from ``/``."""
     from repro_torch.kernels import _abi
     from repro_torch.kernels._build import library
     n_max = ie.z_max * ie.q_ln2
     magic, shift = exp16_divisor(ie.q_ln2, n_max)
     bad = torch.zeros(1, dtype=torch.int32, device=device)
     lib = library()
-    rc = lib.r8_k5_div_check(n_max, ie.q_ln2, magic, shift, bad.data_ptr(),
-                             _abi.stream_of(bad))
-    _abi.check(lib, rc, "k5 division check")
+    rc = lib.r8_exp16_div_check(n_max, ie.q_ln2, magic, shift,
+                                bad.data_ptr(), _abi.stream_of(bad))
+    _abi.check(lib, rc, "exp16 division check")
     return int(bad.item())
 
 

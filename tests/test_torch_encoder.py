@@ -235,7 +235,7 @@ def encoder_setup():
     jc, tc = _encoder_cfgs(dtype="float32")
     params = jtf.init_params(jax.random.key(0), jc)
     jq, jp = j_convert.quantize_params(params, jc)
-    tq, tp = from_reference(jax.tree.map(np.array, jq), jp)
+    tq, tp = from_reference(jax.tree.map(np.array, jq), jp, device="cpu")
     return jc, tc, params, jq, jp, tq, tp
 
 
@@ -298,7 +298,7 @@ def decoder_setup():
     tc = TM.reduce_config(t_get_config("llama3-8b"), dtype="float32")
     params = jtf.init_params(jax.random.key(1), jc)
     jq, jp = j_convert.quantize_params(params, jc)
-    tq, tp = from_reference(jax.tree.map(np.array, jq), jp)
+    tq, tp = from_reference(jax.tree.map(np.array, jq), jp, device="cpu")
     return jc, tc, jq, jp, tq, tp
 
 

@@ -278,7 +278,7 @@ def test_full_sequence_attention_plan_matches_the_library(dev):
     the card."""
     from repro_torch.kernels._build import library
     from repro_torch.kernels.int_attention_fused import (
-        k5_division_mismatches, k5_smem_bytes)
+        exp16_division_mismatches, k5_smem_bytes)
     lib = library()
     for d in (32, 64, 128):
         for tiles in (0, 1, 8, 27):
@@ -289,7 +289,7 @@ def test_full_sequence_attention_plan_matches_the_library(dev):
     for d in (32, 64, 128):
         ie = iattn.make_iattention(d, 8 / 127, 8 / 127, 4 / 127,
                                    4 / 127).sm.iexp
-        assert k5_division_mismatches(ie) == 0
+        assert exp16_division_mismatches(ie) == 0
 
 
 def test_full_sequence_attention_refuses_other_head_dims(dev):
@@ -374,27 +374,60 @@ def test_int_softmax_kernel(dev, L):
             assert torch.equal(got, want), (vl, br)
 
 
-@pytest.mark.parametrize("b,sq,skv,h,hkv,d,causal,window,bq,bkv,bits", [
-    (2, 64, 64, 4, 4, 64, False, 0, 16, 16, 8),
-    (1, 64, 64, 4, 2, 32, True, 0, 32, 16, 8),
-    (1, 64, 64, 2, 1, 128, True, 16, 16, 32, 8),
-    (2, 48, 80, 4, 2, 64, False, 0, 16, 16, 8),
-    (1, 80, 48, 2, 2, 32, True, 8, 16, 16, 8),
-    (1, 64, 64, 2, 2, 32, False, 8, 32, 16, 16),
-    (1, 131, 131, 2, 2, 64, True, 0, 1, 1, 8),
-    (1, 136, 136, 2, 2, 64, True, 0, 68, 68, 8),
-    (1, 256, 256, 2, 1, 128, False, 0, 256, 256, 8),
-    (1, 512, 512, 2, 2, 64, True, 0, 128, 128, 8)])
+# K8's edge cases, at the blocks the cuda_online backend would fit
+# (_fit_block(128, S)): D = 32 / 64 / 128 at S = 1, 37 and 1000, one key,
+# every operand -128 or +127, Sq > Skv with a window and no causal mask
+# (rows with no live key), bq = 4 under bkv = 128, causal 4096, the bit
+# budget's edge (Skv = 65 536, also as one logical block of +127 keys,
+# the largest row sum), and 1024 x 1024 blocks
+_K8_EDGES = [(1, s, s, 4, 2, d, causal, window, bl, bl, 8, "random")
+             for d in (32, 64, 128)
+             for s, bl, causal, window in ((1, 1, False, 0),
+                                           (37, 37, True, 0),
+                                           (1000, 125, d != 32,
+                                            100 if d == 128 else 0))] + [
+    (2, 37, 1, 4, 2, 64, False, 0, 37, 1, 8, "random"),
+    (2, 37, 1, 4, 2, 64, True, 0, 37, 1, 8, "random"),
+    (2, 100, 100, 4, 2, 64, False, 0, 100, 100, 8, "min"),
+    (2, 100, 100, 4, 2, 128, True, 0, 100, 100, 8, "max"),
+    (2, 200, 60, 4, 2, 32, False, 16, 100, 60, 8, "random"),
+    (1, 512, 512, 4, 2, 64, True, 0, 4, 128, 8, "random"),
+    (1, 4096, 4096, 2, 1, 128, True, 0, 128, 128, 8, "random"),
+    (1, 64, 65536, 2, 1, 32, False, 0, 64, 128, 8, "random"),
+    (1, 64, 65536, 1, 1, 64, False, 0, 64, 65536, 8, "max"),
+    (1, 1024, 1024, 1, 1, 128, False, 0, 1024, 1024, 8, "random")]
+
+
+@pytest.mark.parametrize(
+    "b,sq,skv,h,hkv,d,causal,window,bq,bkv,bits,operands", [
+        (2, 64, 64, 4, 4, 64, False, 0, 16, 16, 8, "random"),
+        (1, 64, 64, 4, 2, 32, True, 0, 32, 16, 8, "random"),
+        (1, 64, 64, 2, 1, 128, True, 16, 16, 32, 8, "random"),
+        (2, 48, 80, 4, 2, 64, False, 0, 16, 16, 8, "random"),
+        (1, 80, 48, 2, 2, 32, True, 8, 16, 16, 8, "random"),
+        (1, 64, 64, 2, 2, 32, False, 8, 32, 16, 16, "random"),
+        (1, 131, 131, 2, 2, 64, True, 0, 1, 1, 8, "random"),
+        (1, 136, 136, 2, 2, 64, True, 0, 68, 68, 8, "random"),
+        (1, 256, 256, 2, 1, 128, False, 0, 256, 256, 8, "random"),
+        (1, 512, 512, 2, 2, 64, True, 0, 128, 128, 8, "random")]
+    + _K8_EDGES)
 def test_online_attention_kernel(dev, b, sq, skv, h, hkv, d, causal, window,
-                                 bq, bkv, bits):
-    """K8 at the reference's logical blocks: tiles spanning several
-    logical query blocks (bq 16 in a 32-row tile), blocks of 1 and 68,
-    the tuned 256 x 256, GQA, Sq != Skv both ways, a window with and
-    without causality, a 16-bit clip stored as int8."""
+                                 bq, bkv, bits, operands):
+    """K8 at the reference's logical blocks: several logical query blocks
+    in one warp (bq < 16), blocks of 1 and 68, the tuned 256 x 256, GQA,
+    Sq != Skv both ways, a window with and without causality, a 16-bit
+    clip stored as int8, and the edge cases above."""
     rng = np.random.default_rng(sq + skv + d + bq + bkv)
     plan = iattn.make_iattention(d, 8 / 127, 8 / 127, 4 / 127, 4 / 127)
-    q8 = _i8(rng, (b, sq, h, d), dev)
-    k8, v8 = _i8(rng, (b, skv, hkv, d), dev), _i8(rng, (b, skv, hkv, d), dev)
+    if operands in ("min", "max"):
+        fill = -128 if operands == "min" else 127
+        q8 = torch.full((b, sq, h, d), fill, dtype=torch.int8, device=dev)
+        k8 = torch.full((b, skv, hkv, d), fill, dtype=torch.int8, device=dev)
+        v8 = torch.full((b, skv, hkv, d), fill, dtype=torch.int8, device=dev)
+    else:
+        q8 = _i8(rng, (b, sq, h, d), dev)
+        k8 = _i8(rng, (b, skv, hkv, d), dev)
+        v8 = _i8(rng, (b, skv, hkv, d), dev)
     before = kernels.LAUNCHES["int_attention_online"]
     got = int_attention_online(q8, k8, v8, plan, causal, window, bq, bkv,
                                bits)
@@ -404,16 +437,32 @@ def test_online_attention_kernel(dev, b, sq, skv, h, hkv, d, causal, window,
     assert torch.equal(got, want)
 
 
+def test_online_attention_plan_matches_the_library(dev):
+    """The wrapper's shared-memory formula is the kernel library's."""
+    from repro_torch.kernels._build import library
+    from repro_torch.kernels.int_attention import k8_smem_bytes
+    lib = library()
+    for d in (32, 64, 128):
+        assert lib.r8_online_smem_bytes(d) == k8_smem_bytes(d)
+    assert lib.r8_online_smem_bytes(48) == -1
+
+
 def test_online_attention_refuses_what_it_cannot_take(dev):
+    """A head dim the kernel is not compiled for, and keys past the row
+    sum's int32 budget.  (Logical blocks of any length are taken: the
+    kernel's shared memory no longer grows with bkv.)"""
     from repro_torch.analysis.contracts import KernelContractError
     plan = iattn.make_iattention(48, 8 / 127, 8 / 127, 4 / 127, 4 / 127)
     q = torch.zeros((1, 32, 2, 48), dtype=torch.int8, device=dev)
+    before = kernels.LAUNCHES["int_attention_online"]
     with pytest.raises(KernelContractError, match="head dim"):
         int_attention_online(q, q, q, plan, bq=32, bkv=32)
-    plan = iattn.make_iattention(128, 8 / 127, 8 / 127, 4 / 127, 4 / 127)
-    q = torch.zeros((1, 1024, 1, 128), dtype=torch.int8, device=dev)
-    with pytest.raises(KernelContractError, match="shared memory"):
-        int_attention_online(q, q, q, plan, bq=1024, bkv=1024)
+    plan = iattn.make_iattention(32, 8 / 127, 8 / 127, 4 / 127, 4 / 127)
+    q = torch.zeros((1, 16, 1, 32), dtype=torch.int8, device=dev)
+    kv = torch.zeros((1, 2 ** 16 + 16, 1, 32), dtype=torch.int8, device=dev)
+    with pytest.raises(KernelContractError, match="row-sum"):
+        int_attention_online(q, kv, kv, plan, bq=16, bkv=16)
+    assert kernels.LAUNCHES["int_attention_online"] == before
 
 
 def test_encoder_prefill_cuda_online_matches_plain(dev):

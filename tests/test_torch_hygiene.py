@@ -94,6 +94,21 @@ def test_entry_points_default_to_the_card(no_gpu):
     assert all(len(r.out_tokens) == 3 for r in reqs)
 
 
+def test_interop_defaults_to_the_card(no_gpu):
+    """Weights carried over from the reference land on the card unless the
+    caller asks for the CPU, as at every other entry point."""
+    import numpy as np
+    from repro_torch.interop import from_reference, qparams_from_reference
+    tree = {"w": np.ones((2, 3), dtype=np.int8), "b": [np.zeros(3)]}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        qparams_from_reference(tree)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        from_reference(tree, None)
+    qp, plans = from_reference(tree, None, device="cpu")
+    assert qp["w"].device.type == "cpu" and qp["b"][0].device.type == "cpu"
+    assert plans is None
+
+
 def test_default_backend_is_cuda():
     from repro_torch.ops import resolve_ops
     assert resolve_ops().name == "cuda"

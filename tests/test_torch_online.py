@@ -336,7 +336,7 @@ def models():
             tc = dataclasses.replace(tc, tie_embeddings=True)
         params = jtf.init_params(jax.random.key(key), jc)
         jq, jp = j_convert.quantize_params(params, jc)
-        tq, tp = from_reference(jax.tree.map(np.array, jq), jp)
+        tq, tp = from_reference(jax.tree.map(np.array, jq), jp, device="cpu")
         out[arch] = (jc, tc, jq, jp, tq, tp)
     return out
 

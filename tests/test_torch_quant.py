@@ -78,7 +78,8 @@ def float_params():
 def test_quantize_params_match(float_params):
     jc, tc, params = float_params
     jq, jp = j_convert.quantize_params(params, jc)
-    want_q, want_p = from_reference(jax.tree.map(np.asarray, jq), jp)
+    want_q, want_p = from_reference(jax.tree.map(np.asarray, jq), jp,
+                                    device="cpu")
     tparams = jax.tree.map(lambda a: torch.as_tensor(np.array(a)),
                            params)
     got_q, got_p = t_convert.quantize_params(tparams, tc)

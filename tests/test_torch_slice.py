@@ -55,7 +55,7 @@ def setup():
     tcfg = TM.reduce_config(t_get_config("llama3-8b"), **over)
     params = jtf.init_params(jax.random.key(0), jcfg)
     jq, jp = j_convert.quantize_params(params, jcfg)
-    tq, tp = from_reference(jax.tree.map(np.array, jq), jp)
+    tq, tp = from_reference(jax.tree.map(np.array, jq), jp, device="cpu")
     return jcfg, tcfg, jq, jp, tq, tp
 
 
