@@ -17,13 +17,15 @@ non-zero before the last line):
            the encoder path's full-width roberta-base shapes, K7 and K8
            at the ``pallas`` backend's (the full score matrix, the
            encoder's attention at the reference's logical blocks), then
-           the edge cases of the tensor-core K5 and K8 and exp16's
+           the edge cases of the tensor-core K4, K5 and K8 and exp16's
            division on its whole domain;
   parity   full-width llama3-8b cut to 2 layers: ServingEngine token
            streams on the ``cuda`` backend must equal ``torch_ref``'s;
   serve    full llama3-8b (32 layers) on the ``cuda`` backend: throughput,
            step times, peak memory and per-kernel launch counts (each
-           serving kernel must be > 0), then a profiled decode window;
+           serving kernel must be > 0), then a profiled decode window
+           and a profiled window of prefill chunks (device ms a chunk,
+           K4's share);
   encode   full-width roberta-base (12 layers, tied embeddings) through
            ``launch.steps.make_prefill_step``: logits of ``cuda`` and
            ``torch_ref`` identical on 8 x 512 tokens, then timed passes
@@ -42,8 +44,8 @@ non-zero before the last line):
 
 ``--verbose-build`` also prints ptxas's registers and spills and a
 ``sass`` line (per kernel ``IMMA`` / ``IDP`` / ``LDL`` / ``STL``), and
-fails unless every K5 and K8 instantiation shows ``IMMA`` and none of the
-other three.
+fails unless every K4, K5 and K8 instantiation shows ``IMMA`` and none of
+the other three.
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit,
 and the final ``{"ok": true, "device": {...}}`` line.  The script imports
@@ -214,6 +216,19 @@ def k5_plan(q8, k8, causal: bool, window: int, plan) -> str:
     b, sq, h, d = q8.shape
     p = k5_launch_plan(b, sq, k8.shape[1], h, k8.shape[2], d, causal,
                        window, k8.data_ptr(), e16_fits_16_bits(plan.sm))
+    return (f"mma grid={list(p.grid)} tiles={p.tiles} smem={p.smem} "
+            f"e16_store={p.store_e16} k_copies={16 if p.vec_k else 4}B")
+
+
+def k4_plan(q8, k_pool, pages, page_size: int, plan) -> str:
+    """K4's launch for these operands (kernels/int_attention_fused.py::
+    k4_launch_plan)."""
+    from repro_torch.kernels.int_attention_fused import (
+        e16_fits_16_bits, k4_launch_plan)
+    b, c, h, d = q8.shape
+    p = k4_launch_plan(b, c, h, k_pool.shape[2], d, pages.shape[1],
+                       page_size, k_pool.data_ptr(),
+                       e16_fits_16_bits(plan.sm))
     return (f"mma grid={list(p.grid)} tiles={p.tiles} smem={p.smem} "
             f"e16_store={p.store_e16} k_copies={16 if p.vec_k else 4}B")
 
@@ -393,6 +408,7 @@ def check_kernels(cfg, plans):
         # causal work: row i of lane b sees lens[b] - (sq - 1 - i) keys
         pairs = sum(max(n - (sq - 1 - i), 0) for n in lens
                     for i in range(sq))
+        k4 = name == "int_paged_prefill"
         for fold in (False, True):
             kw = dict(wo=wo, wo_spec=wo_spec) if fold else {}
             got = fused(q8, k_pool, v_pool, aplan, vl, pages, ps,
@@ -411,8 +427,91 @@ def check_kernels(cfg, plans):
                                  requant=requant, **kw),
                    lambda: plain(q8, k_pool, v_pool, aplan, vl, pages, ps,
                                  requant=requant, **kw),
-                   io, ops, rep=fold)
+                   io, ops, rep=fold,
+                   plan=k4_plan(q8, k_pool, pages, ps, aplan) if k4 else None)
+    check_k4_edges(gen, plans, rows)
     return rows
+
+
+def k4_bound(lens, c: int, h: int, hkv: int, d: int, table_ints: int,
+             out_b: int):
+    """K4's bytes and operations for chunk ``c`` at these pos_end: q read
+    and the tile written once (``out_b`` bytes an element), each live K /
+    V row and the table read once; 4 x D operations a live (row, key)
+    pair and head (Q·Kᵀ and P·V)."""
+    pairs = sum(max(n - (c - 1 - i), 0) for n in lens for i in range(c))
+    nbytes = (len(lens) * c * h * d * (1 + out_b) + sum(lens) * hkv * d * 2
+              + 4 * (table_ints + len(lens)))
+    return nbytes, 4 * pairs * h * d
+
+
+def check_k4_edges(gen, plans, rows) -> None:
+    """The tensor-core K4 against its plain version at its edges: head
+    dims 32 / 64 / 128, chunks of 1, 7, 64 and 96 rows, 1-, 8- and
+    64-row pages, lanes whose pos_end is below the chunk, a lane whose
+    table is all the null page, every operand -128 / +127, pools and q 4
+    bytes off 16-byte alignment, and a table spanning MAX_ROWSUM_LEN
+    positions (sweep 2 recomputes), the epilogues taken in turn."""
+    import torch
+    from repro_torch.analysis.budgets import MAX_ROWSUM_LEN
+    from repro_torch.kernels.int_attention_fused import (
+        int_paged_prefill_fused, int_paged_prefill_plain)
+    from repro_torch.ops.spec import RequantSpec
+    aplan = plans.attn.attn
+    epilogues = [RequantSpec.per_tensor(aplan.dn_out),
+                 RequantSpec.per_channel(22, 8),
+                 RequantSpec.per_channel(20, 6, out_bits=16),
+                 RequantSpec.raw()]
+    # (B, C, H, Hkv, D, page_size, max_pages, pos_end, operands)
+    cases = [(4, 32, 8, 2, dd, 16, 32, [32, 132, 282, 512], "random")
+             for dd in (32, 64, 128)]
+    cases += [(4, c, 32, 8, 128, 16, 32, [c, 100 + c, 250 + c, 512],
+               "random") for c in (1, 7, 64, 96)]
+    cases += [(4, 32, 32, 8, 128, p, 512 // p, [32, 132, 282, 512],
+               "random") for p in (1, 8, 64)]
+    cases += [(4, 32, 32, 8, 128, 16, 32, [5, 32, 0, 300], "null_lane"),
+              (2, 32, 8, 2, 128, 16, 8, [20, 128], "min"),
+              (2, 32, 8, 2, 64, 16, 8, [20, 128], "max"),
+              (4, 32, 32, 8, 128, 16, 32, [32, 132, 282, 512], "misaligned"),
+              (2, 32, 4, 1, 128, 16, MAX_ROWSUM_LEN // 16,
+               [MAX_ROWSUM_LEN, 20000], "random")]
+    for i, (b, c, h, hkv, d, ps, maxp, lens, operands) in enumerate(cases):
+        rq = epilogues[i % 4]
+        num_pages = b * maxp + 1
+        shape = (num_pages, ps, hkv, d)
+        if operands in ("min", "max"):
+            fill = -128 if operands == "min" else 127
+            q8 = torch.full((b, c, h, d), fill, dtype=torch.int8,
+                            device="cuda")
+            kp = torch.full(shape, fill, dtype=torch.int8, device="cuda")
+            vp = torch.full(shape, fill, dtype=torch.int8, device="cuda")
+        else:
+            q8 = _randint(gen, -127, 128, (b, c, h, d), torch.int8)
+            kp = _randint(gen, -127, 128, shape, torch.int8)
+            vp = _randint(gen, -127, 128, shape, torch.int8)
+        if operands == "misaligned":
+            q8, kp, vp = (_offset_view(x, 4) for x in (q8, kp, vp))
+        pages = (torch.randperm(num_pages - 1, generator=gen, device="cuda")
+                 + 1).to(torch.int32).reshape(b, maxp)
+        if operands == "null_lane":
+            pages[1] = 0
+        vl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        bvec = _randint(gen, 1000, 20000, (h * d,), torch.int32)
+        out_b = 1 if (not rq.is_raw and rq.out_bits <= 8) else 4
+        nbytes, ops = k4_bound(lens, c, h, hkv, d, b * maxp, out_b)
+        args = (q8, kp, vp, aplan, vl, pages, ps)
+        kw = dict(requant=rq, b_vec=bvec)
+        record(rows, "int_paged_prefill",
+               f"B={b} C={c} H={h} Hkv={hkv} D={d} ps={ps} "
+               f"pages/lane={maxp} pos_end={lens} {rq.kind}"
+               f"{'' if rq.is_raw else f' {rq.out_bits}b'} {operands}",
+               int_paged_prefill_fused(*args, **kw),
+               int_paged_prefill_plain(*args, **kw),
+               lambda: int_paged_prefill_fused(*args, **kw),
+               lambda: int_paged_prefill_plain(*args, **kw),
+               nbytes, ops, iters=5, plain_iters=2,
+               plan=k4_plan(q8, kp, pages, ps, aplan))
+        del q8, kp, vp, args
 
 
 def _live_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
@@ -821,6 +920,7 @@ def phase_serve(cfg):
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "launches": launches})
     profile_decode(eng, cfg)
+    profile_prefill(eng, cfg)
     if not all(len(r.out_tokens) == 32 for r in reqs):
         raise AssertionError("a request came back short")
     vocab_ok = all(0 <= t < cfg.vocab for r in reqs for t in r.out_tokens)
@@ -1079,9 +1179,48 @@ def profile_decode(eng, cfg):
     eng.run_until_done()
 
 
-def profile_window(phase, what, fn):
+# every kernel name K4 has had on the card: the tensor-core kernel, and
+# before it the __dp4a body's 16-row instantiation (K3's are 1 and 8 rows)
+K4_KERNEL_NAMES = ("int_paged_prefill_mma_kernel",
+                   "int_attention_kernel<16, 64,")
+
+
+def profile_prefill(eng, cfg):
+    """torch.profiler over the prefill chunks of four 256-token prompts
+    admitted together (8 chunk rounds of 32 tokens, pos_end 32 .. 256, in
+    every lane): the device ms a chunk and K4's share of it.  The window
+    is the engine's admission and prefill alone, without the decode step
+    that ``step()`` would add, so its device time is the chunks'.  Chunks
+    are K4's launches in the window over the layers (one a layer)."""
+    from repro_torch import kernels
+    from repro_torch.serving import Request
+    prompts = _prompts(13, 4, 256, 256, cfg.vocab)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(uid=200 + i, prompt=p, max_new_tokens=2))
+    before = kernels.LAUNCHES["int_paged_prefill"]
+
+    def k4_launches():
+        return kernels.LAUNCHES["int_paged_prefill"] - before
+
+    def window():
+        eng._admit()
+        eng._advance_prefill()
+
+    profile_window("prefill-profile", "prefill chunks of 4 x 256 "
+                   "tokens, chunk 32", window,
+                   lambda: k4_launches() // cfg.num_layers,
+                   (K4_KERNEL_NAMES, k4_launches))
+    eng.run_until_done()
+
+
+def profile_window(phase, what, fn, units=None, focus=None):
     """torch.profiler over ``fn``: the device's busy share of the wall
-    time and the device time by kernel."""
+    time and the device time by kernel.  ``units``: a callable giving the
+    count of steps the window ran (device and wall ms a step are added);
+    ``focus``: ``(names, launches)``, the kernel-name fragments of one
+    kernel and a callable giving its launches in the window; its device
+    ms, its calls as the profiler saw them and its launches are added,
+    and the window fails if it launched but no call matched the names."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1103,16 +1242,37 @@ def profile_window(phase, what, fn):
             rows.append((ev.key, dev_us, ev.count))
     busy_ms = sum(r[1] for r in rows) / 1e3
     rows.sort(key=lambda r: -r[1])
+    extra = {}
+    if units is not None:
+        n = units()
+        extra = {"steps": n, "wall_ms_per_step": wall_ms / max(n, 1),
+                 "device_ms_per_step": busy_ms / max(n, 1) if rows
+                 else None}
+    mismatch = None
+    if focus is not None and rows:
+        names, launched = focus
+        mine = [r for r in rows if any(f in r[0] for f in names)]
+        f_ms = sum(r[1] for r in mine) / 1e3
+        calls, n_launch = sum(r[2] for r in mine), launched()
+        extra.update({"focus": [r[0][:90] for r in mine],
+                      "focus_device_ms": f_ms, "focus_share": f_ms / busy_ms,
+                      "focus_calls": calls, "focus_launches": n_launch})
+        if n_launch and not calls:
+            mismatch = (f"{phase}: no kernel named like {names} among the "
+                        f"profiler's rows, {n_launch} launches")
     emit({"phase": phase, "window": what, "wall_ms": wall_ms,
           "device_busy_ms": busy_ms if rows else None,
-          "device_busy_share": busy_ms / wall_ms if rows else None,
+          "device_busy_share": busy_ms / wall_ms if rows else None, **extra,
           "top": [{"kernel": k[:90], "device_ms": us / 1e3, "calls": n}
                   for k, us, n in rows[:12]]})
+    if mismatch:
+        raise AssertionError(mismatch)
 
 
 # the kernels that must run on the int8 tensor cores with no spill: every
-# instantiation of K5's and K8's
+# instantiation of K5's, K4's and K8's
 TENSOR_CORE_KERNELS = ("int_attention_mma_kernel",
+                       "int_paged_prefill_mma_kernel",
                        "int_attention_online_kernel")
 
 

@@ -1,7 +1,6 @@
-// The exact three-sweep integer attention body shared by the paged decode
-// kernel (K3, int_decode_attention.cu), the paged chunked-prefill kernel
-// (K4, int_paged_prefill.cu) and the full-sequence kernel (K5,
-// int_attention_fused.cu).
+// K3's body (paged decode attention, int_decode_attention.cu): the exact
+// three-sweep integer attention on the CUDA cores (__dp4a).  K4 and K5
+// compute the same sweeps on the int8 tensor cores (int_attention_mma.cuh).
 //
 // Twin of repro/kernels/int_attention_fused.py::_streaming_attn_body:
 //
@@ -16,65 +15,41 @@
 // dot products per live position instead of a stored score row), so any
 // key length up to the 2^15 row-sum budget fits the same shared memory.
 //
-// Per-row limits.  Query row i (of S rows) attends to the positions
-// [lo_i, hi_i), clamped to the key length L:
-//   MASK_STEPPED (K3/K4)  lo_i = 0, hi_i = valid_len - (S - 1 - i): for
-//                         decode valid_len is the per-slot occupancy; for
-//                         a prefill chunk of C rows it is pos_end =
-//                         base_pos + C, and the same formula is the
-//                         causal-over-history mask;
-//   MASK_NONE (K5)        [0, Skv);
-//   MASK_CAUSAL (K5)      hi_i = i + 1 (core.attention.causal_mask with
-//                         q_offset 0), and with window > 0
-//                         lo_i = i - window + 1.
-// In every mode lo_i and hi_i never decrease with i, so a block of rows
-// visits [lo of its first row, hi of its last row) and skips every key
-// block outside it.  A row whose range is empty keeps max -2^30, sum 0
-// and a zero accumulator, as the reference's all-masked row does.
+// Per-row limits: query row i (of S rows) attends to the positions
+// [0, hi_i), hi_i = valid_len - (S - 1 - i), clamped to the key length
+// L = max_pages * page_size (valid_len is the lane's occupancy).  hi_i
+// never decreases with i, so a block of rows visits [0, hi of its last
+// row) and no key block past it.  A row whose range is empty keeps max
+// -2^30, sum 0 and a zero accumulator, as the reference's all-masked row
+// does.
 //
-// Addressing.  With a page table (K3/K4) the pools are (num_pages,
-// page_size, Hkv, D) and position t of lane b lives at page
-// pages[b, t / page_size], row t % page_size.  Without one (K5) K/V are
-// contiguous (B, Skv, Hkv, D).  GQA: query head h reads KV head
-// h / (H / Hkv).
+// Addressing: the pools are (num_pages, page_size, Hkv, D) and position t
+// of lane b lives at page pages[b, t / page_size], row t % page_size.
+// GQA: query head h reads KV head h / (H / Hkv).
 #pragma once
 
 #include "int_common.cuh"
 
 namespace r8 {
 
-enum { MASK_STEPPED = 0, MASK_NONE = 1, MASK_CAUSAL = 2 };
-
 struct AttnArgs {
   const int8_t* q;          // (B, S, H, D)
-  const int8_t* k;          // paged (num_pages, page_size, Hkv, D), or
-  const int8_t* v;          //   contiguous (B, Skv, Hkv, D) if !pages
-  const int* pages;         // (B, max_pages) or null
-  const int* vlen;          // (B,) valid_len / pos_end (MASK_STEPPED)
+  const int8_t* k;          // (num_pages, page_size, Hkv, D)
+  const int8_t* v;          // (num_pages, page_size, Hkv, D)
+  const int* pages;         // (B, max_pages)
+  const int* vlen;          // (B,) valid_len
   const int* bvec;          // (H * D,) per-channel multipliers or null
   void* out;                // (B, S, H, D) int8 or int32
   int B, S, H, Hkv, D, page_size, max_pages;
-  int Skv;                  // contiguous key length
-  int mask, window;
   int out_is_int8;
   SoftmaxConsts sm;
   Requant rq;
 };
 
-// [lo, hi) of query row i, clamped to [0, L]; an empty range has lo == hi
-__device__ __forceinline__ void row_range(const AttnArgs& a, int vl, int L,
-                                          int i, int& lo, int& hi) {
-  lo = 0;
-  if (a.mask == MASK_STEPPED) {
-    hi = vl - (a.S - 1 - i);
-  } else if (a.mask == MASK_NONE) {
-    hi = L;
-  } else {
-    hi = i + 1;
-    if (a.window > 0) lo = i - a.window + 1;
-  }
-  hi = min(max(hi, 0), L);
-  lo = min(max(lo, 0), hi);
+// hi of query row i (its keys are [0, hi)), clamped to [0, L]
+__device__ __forceinline__ int row_hi(const AttnArgs& a, int vl, int L,
+                                      int i) {
+  return min(max(vl - (a.S - 1 - i), 0), L);
 }
 
 constexpr int ATTN_THREADS = 128;
@@ -84,11 +59,8 @@ __host__ __device__ constexpr int attn_smem_bytes(int BQ, int TK, int D) {
   return (BQ * (D / 4 + 1) + TK * (D / 4 + 1)) * 4 + TK * D + BQ * TK * 4;
 }
 
-// PAGED: K/V through the page table (K3/K4), else contiguous (K5).  LO:
-// rows may start past key 0 (a sliding window); only then does the live
-// test read lo_i.  Both are compile-time so that K3/K4 compile to the
-// same per-pair work as before K5 shared this body.
-template <int BQ, int TK, int D, bool PAGED, bool LO>
+// BQ query rows a block, key tiles of TK
+template <int BQ, int TK, int D>
 __global__ void __launch_bounds__(ATTN_THREADS)
 int_attention_kernel(AttnArgs a) {
   constexpr int NT = ATTN_THREADS;
@@ -100,17 +72,17 @@ int_attention_kernel(AttnArgs a) {
   int* sK = sQ + BQ * QS;                  // TK x QS packed k words
   int8_t* sV = reinterpret_cast<int8_t*>(sK + TK * QS);   // TK x D
   int* sP = reinterpret_cast<int*>(sV + TK * D);          // BQ x TK
-  __shared__ int sMax[BQ], sSum[BQ], sR[BQ], sLo[BQ], sHi[BQ];
+  __shared__ int sMax[BQ], sSum[BQ], sR[BQ], sHi[BQ];
 
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (a.H / a.Hkv);
-  const int L = PAGED ? a.max_pages * a.page_size : a.Skv;
+  const int L = a.max_pages * a.page_size;
   const int nrows = min(BQ, a.S - q0);
-  const int vl = a.mask == MASK_STEPPED ? a.vlen[b] : 0;
-  const int* ptab = PAGED ? a.pages + (size_t)b * a.max_pages : nullptr;
+  const int vl = a.vlen[b];
+  const int* ptab = a.pages + (size_t)b * a.max_pages;
 
   for (int i = tid; i < BQ * D4; i += NT) {
     const int r = i / D4, w = i % D4;
@@ -122,16 +94,12 @@ int_attention_kernel(AttnArgs a) {
     sQ[r * QS + w] = v;
   }
   for (int r = tid; r < BQ; r += NT) {
-    int lo = 0, hi = 0;
-    if (r < nrows) row_range(a, vl, L, q0 + r, lo, hi);
-    sLo[r] = lo;
-    sHi[r] = hi;
+    sHi[r] = r < nrows ? row_hi(a, vl, L, q0 + r) : 0;
     sMax[r] = -(1 << 30);
     sSum[r] = 0;
   }
   __syncthreads();
-  // ranges never shrink down the rows: the block's keys are [t_lo, t_hi)
-  const int t_lo = LO ? sLo[0] : 0;
+  // ranges never shrink down the rows: the block's keys are [0, t_hi)
   const int t_hi = sHi[nrows - 1];
 
   int acc[ACC];
@@ -145,16 +113,14 @@ int_attention_kernel(AttnArgs a) {
         sR[r] = (1 << 30) / max(sSum[r], 1);
       __syncthreads();
     }
-    for (int t0 = t_lo; t0 < t_hi; t0 += TK) {
+    for (int t0 = 0; t0 < t_hi; t0 += TK) {
       for (int i = tid; i < TK * D4; i += NT) {
         const int j = i / D4, w = i % D4;
         const int t = t0 + j;
         int kv = 0, vv = 0;
         if (t < t_hi) {
           const size_t row =
-              PAGED ? (size_t)ptab[t / a.page_size] * a.page_size +
-                          t % a.page_size
-                    : (size_t)b * a.Skv + t;
+              (size_t)ptab[t / a.page_size] * a.page_size + t % a.page_size;
           const size_t off = (row * a.Hkv + hk) * D;
           kv = reinterpret_cast<const int*>(a.k + off)[w];
           if (sweep == 2) vv = reinterpret_cast<const int*>(a.v + off)[w];
@@ -166,7 +132,7 @@ int_attention_kernel(AttnArgs a) {
       for (int p = tid; p < BQ * TK; p += NT) {
         const int r = p / TK, j = p % TK;
         const int t = t0 + j;
-        const bool live = (!LO || t >= sLo[r]) && t < sHi[r];
+        const bool live = t < sHi[r];
         int score = 0;
         if (live) {
 #pragma unroll 8
@@ -224,25 +190,22 @@ int_attention_kernel(AttnArgs a) {
   }
 }
 
-// launch one instantiation; D must be 32, 64 or 128; PAGED must be true
-// iff there is a page table, LO iff the mask is causal with a window
-template <int BQ, int TK, bool PAGED, bool LO>
+// launch one instantiation; D must be 32, 64 or 128
+template <int BQ, int TK>
 inline int launch_attention(const AttnArgs& a, cudaStream_t s) {
-  if (PAGED != (a.pages != nullptr) ||
-      LO != (a.mask == MASK_CAUSAL && a.window > 0))
-    return (int)cudaErrorInvalidValue;
+  if (!a.pages || !a.vlen) return (int)cudaErrorInvalidValue;
   dim3 grid((a.S + BQ - 1) / BQ, a.H, a.B);
   switch (a.D) {
     case 32:
-      int_attention_kernel<BQ, TK, 32, PAGED, LO>
+      int_attention_kernel<BQ, TK, 32>
           <<<grid, ATTN_THREADS, attn_smem_bytes(BQ, TK, 32), s>>>(a);
       break;
     case 64:
-      int_attention_kernel<BQ, TK, 64, PAGED, LO>
+      int_attention_kernel<BQ, TK, 64>
           <<<grid, ATTN_THREADS, attn_smem_bytes(BQ, TK, 64), s>>>(a);
       break;
     case 128:
-      int_attention_kernel<BQ, TK, 128, PAGED, LO>
+      int_attention_kernel<BQ, TK, 128>
           <<<grid, ATTN_THREADS, attn_smem_bytes(BQ, TK, 128), s>>>(a);
       break;
     default:

@@ -55,6 +55,21 @@ extern "C" int r8_int_attention_fused(const r8::k5::Args* a, void* stream) {
   }
 }
 
+namespace r8 {
+namespace k5 {
+
+// exp16's division on every n in [0, n_max]: bad counts the n where the
+// multiply-high and `/` differ
+__global__ void div_check_kernel(int n_max, int q_ln2, unsigned magic,
+                                 int shift, int* bad) {
+  for (int n = blockIdx.x * blockDim.x + threadIdx.x; n <= n_max;
+       n += gridDim.x * blockDim.x)
+    if (tc::div_ln2(n, magic, shift) != n / q_ln2) atomicAdd(bad, 1);
+}
+
+}  // namespace k5
+}  // namespace r8
+
 // exp16's multiply-high division (K5's and K8's) against `/` on every n
 // in [0, n_max]; *bad (zeroed by the caller) receives the count of
 // differences

@@ -1,8 +1,9 @@
-// K5's kernel: exact full-sequence integer attention on the int8 tensor
+// The body of K5 (exact full-sequence attention) and K4 (paged
+// chunked-prefill attention): exact integer attention on the int8 tensor
 // cores (mma.sync.m16n8k32 s8 x s8 -> s32), bit-exact.
 //
 // Twin of repro/kernels/int_attention_fused.py::_streaming_attn_body, the
-// same three exact sweeps as int_attention.cuh (which K3 and K4 keep):
+// same three exact sweeps as int_attention.cuh (which K3 keeps):
 //
 //   sweep 0  row max   m = max_t score(r, t)
 //   sweep 1  row sum   s = sum_t e16(score(r, t) - m)
@@ -15,18 +16,21 @@
 // 2^30 (MAX_ROWSUM_LEN), and p8 lies in [0, 127], a valid s8 operand whose
 // products with v8 sum in s32 in any order.
 //
-// Block: 64 query rows of one (sequence, head), 4 warps of 16 rows.  Each
-// warp keeps its Q A-fragments in registers for the whole launch (D / 32
-// k-steps), so the block reads Q once.  Keys come in tiles of 64 over the
-// block's key range [t_lo, t_hi) (the union of its rows' live ranges;
-// tiles outside it are never loaded, and a warp skips the work of a tile
-// outside its own rows' range); partial tiles are masked per element, and
-// keys past t_hi are zero-filled and never live.
+// Block: 64 query rows of one (sequence, head), 4 warps of 16 rows, for
+// K5 and K4 alike.  Each warp keeps its Q A-fragments in registers for
+// the whole launch (D / 32 k-steps), so the block reads Q once.  Keys come
+// in tiles of 64 over the block's key range [t_lo, t_hi) (the union of its
+// rows' live ranges; tiles outside it are never loaded, and a warp skips
+// the work of a tile outside its own rows' range); partial tiles are
+// masked per element, and keys past t_hi are zero-filled and never live.
 //
 //   K tiles: cp.async into a double buffer, row-major (key, D bytes) with
 //   a row stride of tc::sk_words(D) words.  16-byte copies where K is
 //   16-byte aligned, else 4-byte copies (the wrapper takes any 4-byte
-//   aligned operand).
+//   aligned operand).  Key t of lane b is row b * Skv + t of K (K5), or
+//   (PAGED) row pages[b, t / page_size] * page_size + t % page_size of
+//   the pool: each key's D bytes are contiguous, so a tile gathers its
+//   rows from up to ceil(64 / page_size) + 1 pages with the same copies.
 //
 //   Row max and row sum live in registers: each thread owns rows g and
 //   g + 8 of its warp and reduces over its own keys, then over the quad
@@ -38,16 +42,20 @@
 //   neither recomputes Q·Kᵀ nor exp16 and reads no K.  It needs 8 KB a
 //   key tile; the launch plan takes it where the widest block's range
 //   fits the 227 KB a block may have (kernels/int_attention_fused.py::
-//   k5_launch_plan), else sweep 2 recomputes.
+//   k5_launch_plan, k4_launch_plan: K4 sizes it for the page table's
+//   whole span, max_pages * page_size, since the host never reads
+//   pos_end), else sweep 2 recomputes.
 //
 //   Q·Kᵀ's k order, P·V without shuffles (p8 packed from the score
 //   accumulators into A fragments against a key-permuted, swizzled Vᵀ
 //   read one tile ahead) and the branch-free exp16 are the shared pieces
 //   of int_attention_tc.cuh, whose note says how they work.
 //
-// A row with no live key keeps max -2^30, sum 0 and acc 0, so it writes
-// requant(0), as the reference's all-masked row does.  GQA: head h reads
-// KV head h / (H / Hkv).
+// Masks (row_range): K5 none, or causal with an optional window; K4 the
+// stepped mask hi_i = pos_end[b] - (Sq - 1 - i), lo_i = 0, read from
+// pos_end by the kernel itself.  A row with no live key keeps max -2^30,
+// sum 0 and acc 0, so it writes requant(0), as the reference's
+// all-masked row does.  GQA: head h reads KV head h / (H / Hkv).
 #pragma once
 
 #include "int_attention_tc.cuh"
@@ -69,14 +77,18 @@ __host__ __device__ constexpr long long smem_bytes(int D, int tiles,
          (store ? 4LL * (THREADS / 32) * tiles * (KEYS / 8) * 2 * 32 : 0);
 }
 
-// [lo, hi) of query row i (empty past Sq), clamped to [0, Skv]
+// [lo, hi) of query row i (empty past Sq), clamped to [0, Skv]: K5's
+// masks, or STEPPED (K4) hi = vl - (Sq - 1 - i) with vl the lane's pos_end
+template <bool STEPPED = false>
 __host__ __device__ inline void row_range(int Sq, int Skv, int causal,
-                                          int window, int i, int& lo,
-                                          int& hi) {
+                                          int window, int vl, int i,
+                                          int& lo, int& hi) {
   lo = 0;
   hi = Skv;
   if (i >= Sq) {
     hi = 0;
+  } else if (STEPPED) {
+    hi = vl - (Sq - 1 - i);
   } else if (causal) {
     hi = i + 1;
     if (window > 0) lo = i - window + 1;
@@ -91,23 +103,24 @@ inline int max_tiles(int Sq, int Skv, int causal, int window) {
   int most = 0;
   for (int q0 = 0; q0 < Sq; q0 += ROWS) {
     int lo, hi, l2, h2;
-    row_range(Sq, Skv, causal, window, q0, lo, hi);
-    row_range(Sq, Skv, causal, window, (q0 + ROWS < Sq ? q0 + ROWS : Sq) - 1,
-              l2, h2);
+    row_range(Sq, Skv, causal, window, 0, q0, lo, hi);
+    row_range(Sq, Skv, causal, window, 0,
+              (q0 + ROWS < Sq ? q0 + ROWS : Sq) - 1, l2, h2);
     const int n = h2 > lo ? (h2 - lo + KEYS - 1) / KEYS : 0;
     most = n > most ? n : most;
   }
   return most;
 }
 
+// the arguments of a K5 or K4 launch
 struct Args {
   const int8_t* q;          // (B, Sq, H, D)
-  const int8_t* k;          // (B, Skv, Hkv, D)
-  const int8_t* v;          // (B, Skv, Hkv, D)
+  const int8_t* k;          // K5 (B, Skv, Hkv, D); K4 (num_pages,
+  const int8_t* v;          //   page_size, Hkv, D) pools
   const int* bvec;          // (H * D,) per-channel multipliers or null
   void* out;                // (B, Sq, H, D) int8 or int32
-  int B, Sq, Skv, H, Hkv, D;
-  int causal, window;       // hi_i = i + 1; with window, lo_i = i - w + 1
+  int B, Sq, Skv, H, Hkv, D;  // K4: Sq = C, Skv = max_pages * page_size
+  int causal, window;       // K5: hi_i = i + 1; with window, lo_i = i-w+1
   int out_is_int8;
   int tiles;                // key tiles of the widest block's range
   int store_e16;
@@ -115,12 +128,31 @@ struct Args {
   int smem;                 // dynamic shared memory (smem_bytes)
   tc::Exp16 ex;
   Requant rq;
+  const int* pages;         // K4: (B, max_pages) page table (K5: null)
+  const int* pos_end;       // K4: (B,) (K5: null)
+  int page_size, max_pages;   // K4
 };
 
-// LO: rows may start past key 0 (a window); STORE: sweep 1 keeps e16
-template <int D, bool LO, bool STORE>
-__global__ void __launch_bounds__(THREADS)
-int_attention_mma_kernel(Args a) {
+// the address of key `key`'s D bytes in K or V: `base` is the tensor at
+// the block's KV head (and, contiguous, its lane); PAGED, the key sits at
+// row key % ps of page ptab[key / ps] of the pool
+template <bool PAGED>
+struct KeyRows {
+  const int8_t* base;
+  size_t stride;            // bytes from one key row to the next (Hkv * D)
+  const int* ptab;          // the lane's page table (PAGED)
+  int ps;
+  __device__ __forceinline__ const int8_t* operator()(int key) const {
+    if (!PAGED) return base + (size_t)key * stride;
+    return base + ((size_t)ptab[(unsigned)key / ps] * ps +
+                   (unsigned)key % ps) * stride;
+  }
+};
+
+// LO: rows may start past key 0 (a window); STORE: sweep 1 keeps e16;
+// PAGED: K4 (keys through the page table, the stepped mask), else K5
+template <int D, bool LO, bool STORE, bool PAGED>
+__device__ __forceinline__ void attend(const Args& a) {
   constexpr int KS = D / 32;                 // k-steps of Q·Kᵀ
   constexpr int SK = tc::sk_words(D);
   constexpr int SV = KEYS / 4;               // words of a Vᵀ row
@@ -139,23 +171,30 @@ int_attention_mma_kernel(Args a) {
   const int q0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (a.H / a.Hkv);
   const size_t kvstride = (size_t)a.Hkv * D;
-  const int8_t* kbase = a.k + (size_t)b * a.Skv * kvstride + (size_t)hk * D;
-  const int8_t* vbase = a.v + (size_t)b * a.Skv * kvstride + (size_t)hk * D;
+  const size_t lane_off = PAGED ? 0 : (size_t)b * a.Skv * kvstride;
+  const int* ptab = PAGED ? a.pages + (size_t)b * a.max_pages : nullptr;
+  // key rows of K and V (read only for keys of the block's range)
+  const KeyRows<PAGED> k_at{a.k + lane_off + (size_t)hk * D, kvstride, ptab,
+                            a.page_size};
+  const KeyRows<PAGED> v_at{a.v + lane_off + (size_t)hk * D, kvstride, ptab,
+                            a.page_size};
+  const int vl = PAGED ? a.pos_end[b] : 0;
+  auto range = [&](int i, int& lo, int& hi) {
+    row_range<PAGED>(a.Sq, a.Skv, a.causal, a.window, vl, i, lo, hi);
+  };
 
   // the block's key range, this warp's, and this thread's two rows'
   int t_lo, t_hi, x0, x1;
-  row_range(a.Sq, a.Skv, a.causal, a.window, q0, t_lo, x0);
-  row_range(a.Sq, a.Skv, a.causal, a.window, min(q0 + ROWS, a.Sq) - 1, x1,
-            t_hi);
+  range(q0, t_lo, x0);
+  range(min(q0 + ROWS, a.Sq) - 1, x1, t_hi);
   const int wr0 = q0 + 16 * warp;
   int w_lo, w_hi;
-  row_range(a.Sq, a.Skv, a.causal, a.window, wr0, w_lo, x0);
-  row_range(a.Sq, a.Skv, a.causal, a.window, min(wr0 + 15, a.Sq - 1), x1,
-            w_hi);
+  range(wr0, w_lo, x0);
+  range(min(wr0 + 15, a.Sq - 1), x1, w_hi);
   if (wr0 >= a.Sq) w_lo = w_hi = 0;
   int lo[2], hi[2];
-  row_range(a.Sq, a.Skv, a.causal, a.window, wr0 + g, lo[0], hi[0]);
-  row_range(a.Sq, a.Skv, a.causal, a.window, wr0 + g + 8, lo[1], hi[1]);
+  range(wr0 + g, lo[0], hi[0]);
+  range(wr0 + g + 8, lo[1], hi[1]);
   const int nt = t_hi > t_lo ? (t_hi - t_lo + KEYS - 1) / KEYS : 0;
 
   // Q fragments: rows g, g+8 x words 8s + 2t, 8s + 2t + 1
@@ -175,22 +214,21 @@ int_attention_mma_kernel(Args a) {
   auto load_k = [&](int t0, int buf) {
     int* dst = sK + buf * KEYS * SK;
     if (a.vec_k) {
-      tc::load_k16<D, KEYS, THREADS>(dst, kbase, kvstride, t0, t_hi, tid,
-                                     a.k);
+      tc::load_k16<D, KEYS, THREADS>(dst, k_at, t0, t_hi, tid, a.k);
     } else {
 #pragma unroll 4
       for (int i = tid; i < KEYS * DW; i += THREADS) {
         const int j = i / DW, w = i % DW, key = t0 + j;
         const bool ok = key < t_hi;
         tc::cp_async4(tc::smem_addr(dst + j * SK + w),
-                      ok ? kbase + key * kvstride + 4 * w : a.k, ok ? 4 : 0);
+                      ok ? k_at(key) + 4 * w : a.k, ok ? 4 : 0);
       }
     }
   };
 
   unsigned vr[VU][4];
   auto load_v = [&](int t0) {
-    tc::load_v<D, KEYS, THREADS>(vr, vbase, kvstride, t0, t_hi, tid);
+    tc::load_v<D, KEYS, THREADS>(vr, v_at, t0, t_hi, tid);
   };
   auto store_v = [&]() { tc::store_v<D, KEYS, THREADS>(sVt, vr, tid); };
 
@@ -344,6 +382,13 @@ int_attention_mma_kernel(Args a) {
   }
 }
 
+// K5's kernel: 64 query rows of one (sequence, head) a block
+template <int D, bool LO, bool STORE>
+__global__ void __launch_bounds__(THREADS)
+int_attention_mma_kernel(Args a) {
+  attend<D, LO, STORE, false>(a);
+}
+
 template <int D, bool LO, bool STORE>
 inline int launch(const Args& a, cudaStream_t s) {
   const cudaError_t e = cudaFuncSetAttribute(
@@ -361,15 +406,6 @@ inline int launch_d(const Args& a, cudaStream_t s) {
   if (a.store_e16)
     return lo ? launch<D, true, true>(a, s) : launch<D, false, true>(a, s);
   return lo ? launch<D, true, false>(a, s) : launch<D, false, false>(a, s);
-}
-
-// exp16's division on every n in [0, n_max]: bad counts the n where the
-// multiply-high and `/` differ
-__global__ void div_check_kernel(int n_max, int q_ln2, unsigned magic,
-                                 int shift, int* bad) {
-  for (int n = blockIdx.x * blockDim.x + threadIdx.x; n <= n_max;
-       n += gridDim.x * blockDim.x)
-    if (tc::div_ln2(n, magic, shift) != n / q_ln2) atomicAdd(bad, 1);
 }
 
 }  // namespace k5

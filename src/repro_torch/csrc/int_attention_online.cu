@@ -136,6 +136,8 @@ int_attention_online_kernel(Args a) {
   const size_t kvstride = (size_t)a.Hkv * D;
   const int8_t* kbase = a.k + (size_t)b * a.Skv * kvstride + (size_t)hk * D;
   const int8_t* vbase = a.v + (size_t)b * a.Skv * kvstride + (size_t)hk * D;
+  auto k_at = [&](int key) { return kbase + key * kvstride; };
+  auto v_at = [&](int key) { return vbase + key * kvstride; };
   const int bkv = a.bkv, T = a.tiles;
 
   // this thread's rows g and g + 8; the warp's rows are in order, so its
@@ -190,9 +192,9 @@ int_attention_online_kernel(Args a) {
   auto issue = [&](int st) {
     int j, pass, k0, k1;
     step(st, j, pass, k0, k1);
-    tc::load_k16<D, KEYS, THREADS>(sK + (st & 1) * KEYS * SK, kbase,
-                                   kvstride, k0, k1, tid, a.k);
-    if (pass) tc::load_v<D, KEYS, THREADS>(vr, vbase, kvstride, k0, k1, tid);
+    tc::load_k16<D, KEYS, THREADS>(sK + (st & 1) * KEYS * SK, k_at, k0, k1,
+                                   tid, a.k);
+    if (pass) tc::load_v<D, KEYS, THREADS>(vr, v_at, k0, k1, tid);
   };
 
   int m[2] = {NEG, NEG}, s[2] = {0, 0};

@@ -1,7 +1,10 @@
-// Pieces of integer attention on the int8 tensor cores shared by K5
-// (int_attention_mma.cuh, exact) and K8 (int_attention_online.cu, one
+// Pieces of integer attention on the int8 tensor cores shared by K5 and
+// K4 (int_attention_mma.cuh, exact) and K8 (int_attention_online.cu, one
 // pass): the branch-free exp16, the K tile copy, the Q·Kᵀ n-tile, and the
-// key-permuted, swizzled Vᵀ tile with the P·V chunk that reads it.
+// key-permuted, swizzled Vᵀ tile with the P·V chunk that reads it.  The
+// copies take each key's row address from a functor, so one tile may
+// gather its keys from contiguous K/V (K5, K8) or through a page table
+// (K4).
 //
 // Tiles of KEYS keys are processed by THREADS threads in warps of 16
 // query rows; thread (g, t) = (lane / 4, lane % 4) of a warp owns rows g
@@ -96,20 +99,22 @@ __device__ __forceinline__ int vswz(int d) {
   return (((d >> 1) & 1) << 2) ^ ((d >> 2) & 7);
 }
 
-// K rows t0 .. t0 + KEYS - 1 into dst by 16-byte cp.async; keys at or
-// past t_hi are zero-filled (`any` is a valid address for their source)
-template <int D, int KEYS, int THREADS>
-__device__ __forceinline__ void load_k16(int* dst, const int8_t* kbase,
-                                         size_t kvstride, int t0, int t_hi,
-                                         int tid, const int8_t* any) {
+// K rows t0 .. t0 + KEYS - 1 into dst by 16-byte cp.async; row(key) is
+// the address of key's D bytes (contiguous, or through a page table), read
+// only for keys before t_hi; later keys are zero-filled (`any` is a valid
+// address for their source)
+template <int D, int KEYS, int THREADS, class Row>
+__device__ __forceinline__ void load_k16(int* dst, Row&& row, int t0,
+                                         int t_hi, int tid,
+                                         const int8_t* any) {
   constexpr int CH = D / 16;                 // 16-byte chunks of a key
   constexpr int SK = sk_words(D);
 #pragma unroll
   for (int i = tid; i < KEYS * CH; i += THREADS) {
     const int j = i / CH, c = i % CH, key = t0 + j;
     const bool ok = key < t_hi;
-    cp_async16(smem_addr(dst + j * SK + 4 * c),
-               ok ? kbase + key * kvstride + 16 * c : any, ok ? 16 : 0);
+    cp_async16(smem_addr(dst + j * SK + 4 * c), ok ? row(key) + 16 * c : any,
+               ok ? 16 : 0);
   }
 }
 
@@ -135,12 +140,12 @@ __host__ __device__ constexpr int v_units() {
 }
 
 // V unit i: columns 4 dw..4 dw+3 of keys k0, k0+1, k0+8, k0+9, where
-// gi = i / DW names chunk c = gi / 8 and word 2 u + hw of its rows; keys
-// at or past t_hi read as 0
-template <int D, int KEYS, int THREADS>
+// gi = i / DW names chunk c = gi / 8 and word 2 u + hw of its rows; row(key)
+// as in load_k16; keys at or past t_hi read as 0
+template <int D, int KEYS, int THREADS, class Row>
 __device__ __forceinline__ void load_v(
-    unsigned (&vr)[v_units<D, KEYS, THREADS>()][4], const int8_t* vbase,
-    size_t kvstride, int t0, int t_hi, int tid) {
+    unsigned (&vr)[v_units<D, KEYS, THREADS>()][4], Row&& row, int t0,
+    int t_hi, int tid) {
   constexpr int DW = D / 4;
 #pragma unroll
   for (int n = 0; n < v_units<D, KEYS, THREADS>(); ++n) {
@@ -149,9 +154,8 @@ __device__ __forceinline__ void load_v(
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
       const int key = k0 + (jj & 1) + 8 * (jj >> 1);
-      vr[n][jj] = key < t_hi ? reinterpret_cast<const unsigned*>(
-                                   vbase + key * kvstride)[dw]
-                             : 0u;
+      vr[n][jj] =
+          key < t_hi ? reinterpret_cast<const unsigned*>(row(key))[dw] : 0u;
     }
   }
 }

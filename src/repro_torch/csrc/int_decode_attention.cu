@@ -27,7 +27,7 @@
 
 extern "C" int r8_int_decode_attention(const r8::AttnArgs* a, void* stream) {
   const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (a->S == 1) return r8::launch_attention<1, 128, true, false>(*a, s);
-  if (a->S <= 8) return r8::launch_attention<8, 128, true, false>(*a, s);
+  if (a->S == 1) return r8::launch_attention<1, 128>(*a, s);
+  if (a->S <= 8) return r8::launch_attention<8, 128>(*a, s);
   return (int)cudaErrorInvalidValue;
 }

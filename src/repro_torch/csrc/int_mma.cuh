@@ -1,6 +1,6 @@
 // Tensor-core and async-copy helpers shared by the int8 kernels on
-// mma.sync: K1's M > 16 tiles (int8_matmul.cu) and K5
-// (int_attention_mma.cuh).
+// mma.sync: K1's M > 16 tiles (int8_matmul.cu), K5 and K4
+// (int_attention_mma.cuh) and K8 (int_attention_online.cu).
 //
 // mma.sync.m16n8k32 .s8 fragments (PTX ISA; g = lane / 4, t = lane % 4):
 // a0 holds A[g][4t..4t+3], a1 A[g+8][4t..4t+3], a2 A[g][16+4t..16+4t+3],

@@ -6,9 +6,9 @@ paths, and their oracles.
   * K3 ``int_decode_attention.int_decode_attention_fused``
                                                  (csrc/int_decode_attention.cu)
   * K4 ``int_attention_fused.int_paged_prefill_fused``
-                                                 (csrc/int_paged_prefill.cu)
+                     (csrc/int_paged_prefill.cu over int_attention_mma.cuh)
   * K5 ``int_attention_fused.int_attention_fused``
-                                                 (csrc/int_attention_fused.cu)
+                     (csrc/int_attention_fused.cu over int_attention_mma.cuh)
   * K6 ``int_gelu.int_gelu``                           (csrc/int_gelu.cu)
   * K7 ``int_softmax.int_softmax``                     (csrc/int_softmax.cu)
   * K8 ``int_attention.int_attention_online``

@@ -37,17 +37,12 @@ class GeluConsts(ctypes.Structure):
                                   "out_b", "out_c", "out_pre", "lo", "hi")]
 
 
-#: AttnArgs.mask of the paged kernels (K3, K4): the stepped live range
-#: (int_attention.cuh's MASK_STEPPED)
-MASK_STEPPED = 0
-
-
 class AttnArgs(ctypes.Structure):
+    """``csrc/int_attention.cuh``'s ``AttnArgs`` (K3)."""
     _fields_ = ([(n, _P) for n in ("q", "k", "v", "pages", "vlen", "bvec",
                                    "out")]
                 + [(n, _I) for n in ("B", "S", "H", "Hkv", "D", "page_size",
-                                     "max_pages", "Skv", "mask", "window",
-                                     "out_is_int8")]
+                                     "max_pages", "out_is_int8")]
                 + [("sm", SoftmaxConsts), ("rq", Requant)])
 
 
@@ -67,13 +62,15 @@ class Exp16(ctypes.Structure):
                 + [("magic", ctypes.c_uint), ("z_shift", _I)])
 
 
-class K5Args(ctypes.Structure):
-    """``csrc/int_attention_mma.cuh``'s ``k5::Args`` (K5)."""
+class MmaAttnArgs(ctypes.Structure):
+    """``csrc/int_attention_mma.cuh``'s ``k5::Args`` (K5 and K4)."""
     _fields_ = ([(n, _P) for n in ("q", "k", "v", "bvec", "out")]
                 + [(n, _I) for n in ("B", "Sq", "Skv", "H", "Hkv", "D",
                                      "causal", "window", "out_is_int8",
                                      "tiles", "store_e16", "vec_k", "smem")]
-                + [("ex", Exp16), ("rq", Requant)])
+                + [("ex", Exp16), ("rq", Requant)]
+                + [(n, _P) for n in ("pages", "pos_end")]
+                + [(n, _I) for n in ("page_size", "max_pages")])
 
 
 class OnlineArgs(ctypes.Structure):
@@ -96,9 +93,10 @@ def declare(lib: ctypes.CDLL) -> None:
     lib.r8_int_layernorm.restype = _I
     lib.r8_int_decode_attention.argtypes = [ctypes.POINTER(AttnArgs), _P]
     lib.r8_int_decode_attention.restype = _I
-    lib.r8_int_paged_prefill.argtypes = [ctypes.POINTER(AttnArgs), _P]
+    lib.r8_int_paged_prefill.argtypes = [ctypes.POINTER(MmaAttnArgs), _P]
     lib.r8_int_paged_prefill.restype = _I
-    lib.r8_int_attention_fused.argtypes = [ctypes.POINTER(K5Args), _P]
+    lib.r8_int_attention_fused.argtypes = [ctypes.POINTER(MmaAttnArgs),
+                                           _P]
     lib.r8_int_attention_fused.restype = _I
     lib.r8_k5_smem_bytes.argtypes = [_I, _I, _I]
     lib.r8_k5_smem_bytes.restype = ctypes.c_longlong

@@ -1,12 +1,11 @@
 """K5 full-sequence and K4 paged chunked-prefill integer attention (+ the
-launch path they share with K3).
+operand checks of the paged kernels, K4 and K3).
 
 The ports of ``repro/kernels/int_attention_fused.py``'s
-``int_attention_fused`` (CUDA kernel ``csrc/int_attention_fused.cu`` over
-the tensor-core body ``csrc/int_attention_mma.cuh``, launched as
-:func:`k5_launch_plan` says) and ``int_paged_prefill_fused``
-(``csrc/int_paged_prefill.cu``, whose three-sweep body
-``csrc/int_attention.cuh`` is shared with K3).
+``int_attention_fused`` (CUDA kernel ``csrc/int_attention_fused.cu``) and
+``int_paged_prefill_fused`` (``csrc/int_paged_prefill.cu``): one
+tensor-core body, ``csrc/int_attention_mma.cuh``, launched as
+:func:`k5_launch_plan` and :func:`k4_launch_plan` say.
 :func:`int_attention_fused_plain` and :func:`int_paged_prefill_plain` are
 the plain PyTorch versions.
 """
@@ -83,35 +82,10 @@ def _epilogue_operands(q8, requant, b_vec):
     return bvec, torch.empty((b, s, h, d), dtype=out_dtype, device=dev)
 
 
-def _launch(entry: str, counter: str, q8, k, v, plan, requant, b_vec,
-            pages, vlen, page_size: int):
-    """Pack :class:`~repro_torch.kernels._abi.AttnArgs`, launch one paged
-    attention entry point of the kernel library and count it under
-    ``LAUNCHES[counter]``; returns ``(B, S, H, D)``."""
-    from repro_torch.kernels import _abi
-    from repro_torch.kernels._build import library
-    b, s, h, d = q8.shape
-    bvec, out = _epilogue_operands(q8, requant, b_vec)
-    if b == 0 or s == 0:
-        return out
-    args = _abi.AttnArgs(
-        q8.data_ptr(), k.data_ptr(), v.data_ptr(), _abi.ptr(pages),
-        _abi.ptr(vlen), _abi.ptr(bvec), out.data_ptr(), b, s, h,
-        k.shape[2], d, page_size, pages.shape[1], 0, _abi.MASK_STEPPED, 0,
-        int(out.dtype == torch.int8), _abi.softmax_consts(plan.sm),
-        _abi.requant_struct(requant))
-    lib = library()
-    rc = getattr(lib, entry)(ctypes.byref(args), _abi.stream_of(q8))
-    LAUNCHES[counter] += 1
-    _abi.check(lib, rc, entry)
-    return out
-
-
-def launch_attention(entry: str, counter: str, q8, k_pool, v_pool, plan,
-                     vlen, pages, page_size: int, requant, b_vec):
-    """Validate the operands and launch one of the two paged attention
-    entry points (K3, K4: stepped mask over a page table); returns
-    ``(B, S, H, D)``."""
+def paged_operands(q8, k_pool, v_pool, pos_end, pages, page_size: int):
+    """Check the operands of a paged attention launch (K3, K4) on the
+    card; returns ``(pages, pos_end)`` as contiguous int32 tensors on the
+    card (converted there: nothing is read back to the host)."""
     b, s, h, d = q8.shape
     dev = q8.device
     if k_pool.shape != v_pool.shape or k_pool.dim() != 4:
@@ -124,8 +98,10 @@ def launch_attention(entry: str, counter: str, q8, k_pool, v_pool, plan,
     _check_int8(dev, q8=q8, k_pool=k_pool, v_pool=v_pool)
     pages = torch.as_tensor(pages, dtype=torch.int32,
                             device=dev).contiguous()
-    vlen = torch.as_tensor(vlen, dtype=torch.int32, device=dev).contiguous()
-    if pages.dim() != 2 or pages.shape[0] != b or tuple(vlen.shape) != (b,):
+    pos_end = torch.as_tensor(pos_end, dtype=torch.int32,
+                              device=dev).contiguous()
+    if pages.dim() != 2 or pages.shape[0] != b \
+            or tuple(pos_end.shape) != (b,):
         raise ValueError("paged attention: pages must be (B, max_pages) "
                          "and valid_len (B,)")
     if pages.shape[1] * page_size > MAX_ROWSUM_LEN:
@@ -133,8 +109,7 @@ def launch_attention(entry: str, counter: str, q8, k_pool, v_pool, plan,
                          f"{page_size} page table spans more than the "
                          f"{MAX_ROWSUM_LEN} positions an exact int32 row "
                          "sum allows")
-    return _launch(entry, counter, q8, k_pool, v_pool, plan, requant, b_vec,
-                   pages, vlen, page_size)
+    return pages, pos_end
 
 
 # ------------------------------------------------------------------ K5 ----
@@ -158,8 +133,8 @@ K5_SMEM_LIMIT = 232448
 
 
 class K5Plan(NamedTuple):
-    """One K5 launch: the grid ``(query blocks, H, B)``, the key tiles of
-    the widest block's range, the dynamic shared memory in bytes, whether
+    """One K5 or K4 launch: the grid ``(query blocks, H, B)`` of 64-row
+    blocks, the key tiles of the widest block's range, the dynamic shared memory in bytes, whether
     sweep 1 keeps e16 in shared memory (sweep 2 then skips Q·Kᵀ and
     exp16), and whether K is copied 16 bytes at a time (else 4)."""
     grid: tuple
@@ -308,11 +283,12 @@ def int_attention_fused(q8, k8, v8, plan, requant=None, b_vec=None,
     causal, window = bool(causal) or window > 0, max(window, 0)
     kp = k5_launch_plan(b, sq, skv, h, hkv, d, causal, window,
                         k8.data_ptr(), e16_fits_16_bits(sm))
-    args = _abi.K5Args(
+    args = _abi.MmaAttnArgs(
         q8.data_ptr(), k8.data_ptr(), v8.data_ptr(), _abi.ptr(bvec),
         out.data_ptr(), b, sq, skv, h, hkv, d, int(causal), window,
         int(out.dtype == torch.int8), kp.tiles, int(kp.store_e16),
-        int(kp.vec_k), kp.smem, exp16_args(sm), _abi.requant_struct(requant))
+        int(kp.vec_k), kp.smem, exp16_args(sm), _abi.requant_struct(requant),
+        None, None, 0, 0)
     lib = library()
     rc = lib.r8_int_attention_fused(ctypes.byref(args), _abi.stream_of(q8))
     LAUNCHES["int_attention_fused"] += 1
@@ -349,6 +325,72 @@ def int_paged_prefill_plain(q8, k_pool, v_pool, plan, pos_end, pages,
         requant=requant, b_vec=b_vec, wo=wo, wo_spec=wo_spec)
 
 
+def k4_launch_plan(b: int, c: int, h: int, hkv: int, d: int,
+                   max_pages: int, page_size: int, k_addr: int,
+                   e16_fits: bool = True) -> K5Plan:
+    """The K4 launch (K5's blocks) of a ``(B, C, H, D)`` chunk over pools of ``Hkv`` KV
+    heads and a ``(B, max_pages)`` table of ``page_size``-row pages, K at
+    address ``k_addr``: from shapes only, never from ``pos_end``, which
+    lives on the card (the kernel reads it and walks only its rows' live
+    tiles).  Tiles and the e16 store are sized for the table's whole span
+    ``max_pages * page_size``; the store iff e16 fits 16 bits
+    (``e16_fits``) and the span fits a block's shared memory; 16-byte
+    copies of K iff it is 16-byte aligned.  Raises for a head dim the
+    kernel is not compiled for or a ragged GQA group."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"int_paged_prefill: head dim {d} is not one of "
+                         f"the compiled {HEAD_DIMS}")
+    if hkv <= 0 or h % hkv:
+        raise ValueError(f"int_paged_prefill: H={h} is not a multiple of "
+                         f"Hkv={hkv}")
+    tiles = -(-(max_pages * page_size) // K5_KEYS)
+    store = e16_fits and k5_smem_bytes(d, tiles, True) <= K5_SMEM_LIMIT
+    return K5Plan((-(-c // K5_ROWS), h, b), tiles,
+                  k5_smem_bytes(d, tiles, store), store, k_addr % 16 == 0)
+
+
+def k4_args(q8, k_pool, v_pool, plan, pos_end, pages, page_size: int,
+            requant, b_vec):
+    """Check the operands and pack one K4 launch, on the host alone:
+    ``(args, out, K5Plan)``.  ``pos_end`` and ``pages`` travel as device
+    pointers and are never read here."""
+    from repro_torch.kernels import _abi
+    pages, pos_end = paged_operands(q8, k_pool, v_pool, pos_end, pages,
+                                    page_size)
+    b, c, h, d = q8.shape
+    hkv, maxp = k_pool.shape[2], pages.shape[1]
+    bvec, out = _epilogue_operands(q8, requant, b_vec)
+    sm = plan.sm
+    kp = k4_launch_plan(b, c, h, hkv, d, maxp, page_size, k_pool.data_ptr(),
+                        e16_fits_16_bits(sm))
+    args = _abi.MmaAttnArgs(
+        q8.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), _abi.ptr(bvec),
+        out.data_ptr(), b, c, maxp * page_size, h, hkv, d, 0, 0,
+        int(out.dtype == torch.int8), kp.tiles, int(kp.store_e16),
+        int(kp.vec_k), kp.smem, exp16_args(sm), _abi.requant_struct(requant),
+        pages.data_ptr(), pos_end.data_ptr(), page_size, maxp)
+    # the pointers must outlive the launch
+    args._keep = (pages, pos_end, bvec)
+    return args, out, kp
+
+
+def k4_launch(q8, k_pool, v_pool, plan, pos_end, pages, page_size: int,
+              requant, b_vec):
+    """One K4 launch on the card (counted in ``LAUNCHES``); returns the
+    ``(B, C, H, D)`` attention tile."""
+    from repro_torch.kernels import _abi
+    from repro_torch.kernels._build import library
+    args, out, _ = k4_args(q8, k_pool, v_pool, plan, pos_end, pages,
+                           page_size, requant, b_vec)
+    if out.numel() == 0:
+        return out
+    lib = library()
+    rc = lib.r8_int_paged_prefill(ctypes.byref(args), _abi.stream_of(q8))
+    LAUNCHES["int_paged_prefill"] += 1
+    _abi.check(lib, rc, "int_paged_prefill")
+    return out
+
+
 def int_paged_prefill_fused(q8, k_pool, v_pool, plan, pos_end, pages,
                             page_size: int, requant=None, b_vec=None,
                             wo=None, wo_spec=None):
@@ -361,16 +403,16 @@ def int_paged_prefill_fused(q8, k_pool, v_pool, plan, pos_end, pages,
     ``requant``/``b_vec``: the attention epilogue (default: the plan's
     per-tensor ``dn_out``).  ``wo``/``wo_spec``: fold the o-projection in;
     the return becomes ``(B, C, N)``.  Returns (B, C, H, D) otherwise.
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (and, folded, one K1 launch) or raise."""
+    CPU tensors take the plain version; CUDA tensors launch the
+    tensor-core kernel (:func:`k4_launch_plan`; and, folded, one K1
+    launch) or raise."""
     if not q8.is_cuda:
         return int_paged_prefill_plain(q8, k_pool, v_pool, plan, pos_end,
                                        pages, page_size, requant, b_vec, wo,
                                        wo_spec)
     requant, wo = epilogue_setup(requant, plan, wo, wo_spec)
-    o = launch_attention("r8_int_paged_prefill", "int_paged_prefill", q8,
-                         k_pool, v_pool, plan, pos_end, pages, page_size,
-                         requant, b_vec)
+    o = k4_launch(q8, k_pool, v_pool, plan, pos_end, pages, page_size,
+                  requant, b_vec)
     if wo is None:
         return o
     return apply_wo_cuda(o, wo, wo_spec)

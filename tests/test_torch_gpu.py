@@ -115,16 +115,12 @@ def test_int_layernorm_kernel(dev, subtract_mean):
 @pytest.mark.parametrize("hd", [32, 64, 128])
 @pytest.mark.parametrize("fold", [False, True])
 def test_attention_kernels(dev, hd, fold):
-    """K3 (Sq 1 and 3) and K4 over a permuted page table with ragged
-    lengths, per-tensor and per-channel epilogues, wo fold on/off."""
+    """K3 (Sq 1 and 3) and K4 (chunks of 1, 7, 32 and 64 rows) over a
+    permuted page table of 8-, 16- and 64-row pages with ragged lengths,
+    per-tensor, per-channel and raw epilogues, wo fold on/off."""
     rng = np.random.default_rng(hd + fold)
-    b, h, hkv, ps, maxp = 3, 4, 2, 16, 4
-    num_pages = b * maxp + 1
+    b, h, hkv = 3, 4, 2
     plan = iattn.make_iattention(hd, 8 / 127, 8 / 127, 4 / 127, 4 / 127)
-    kp = _i8(rng, (num_pages, ps, hkv, hd), dev)
-    vp = _i8(rng, (num_pages, ps, hkv, hd), dev)
-    pages = torch.as_tensor(rng.permutation(np.arange(1, num_pages))
-                            .reshape(b, maxp).astype(np.int32), device=dev)
     kw = {}
     if fold:
         kw = dict(wo=QuantLinearParams(_i8(rng, (h * hd, 40), dev),
@@ -136,22 +132,93 @@ def test_attention_kernels(dev, hd, fold):
     requants = [RequantSpec.per_tensor(plan.dn_out)]
     if not fold:
         requants += [RequantSpec.per_channel(22, 8), RequantSpec.raw()]
-    for rq in requants:
-        for sq, fused, plain, name, lens in (
-                (1, int_decode_attention_fused, int_decode_attention_plain,
-                 "int_decode_attention", vl),
-                (3, int_decode_attention_fused, int_decode_attention_plain,
-                 "int_decode_attention", vl + 2),
-                (32, int_paged_prefill_fused, int_paged_prefill_plain,
-                 "int_paged_prefill", torch.clamp(vl + 32, max=64))):
-            q8 = _i8(rng, (b, sq, h, hd), dev)
-            before = kernels.LAUNCHES[name]
-            got = fused(q8, kp, vp, plan, lens, pages, ps, requant=rq,
-                        b_vec=bvec, **kw)
-            assert kernels.LAUNCHES[name] == before + 1
-            want = plain(q8, kp, vp, plan, lens, pages, ps, requant=rq,
-                         b_vec=bvec, **kw)
-            assert torch.equal(got, want), (name, sq, rq.kind)
+    for ps in (16, 8, 64):
+        maxp = -(-160 // ps)                  # spans >= vl + 64 positions
+        num_pages = b * maxp + 1
+        kp = _i8(rng, (num_pages, ps, hkv, hd), dev)
+        vp = _i8(rng, (num_pages, ps, hkv, hd), dev)
+        pages = torch.as_tensor(rng.permutation(np.arange(1, num_pages))
+                                .reshape(b, maxp).astype(np.int32),
+                                device=dev)
+        launches = [(sq, int_decode_attention_fused,
+                     int_decode_attention_plain, "int_decode_attention",
+                     vl + sq - 1) for sq in (1, 3)]
+        launches += [(c, int_paged_prefill_fused, int_paged_prefill_plain,
+                      "int_paged_prefill", vl + c) for c in (1, 7, 32, 64)]
+        for rq in requants:
+            for sq, fused, plain, name, lens in launches:
+                q8 = _i8(rng, (b, sq, h, hd), dev)
+                before = kernels.LAUNCHES[name]
+                got = fused(q8, kp, vp, plan, lens, pages, ps, requant=rq,
+                            b_vec=bvec, **kw)
+                assert kernels.LAUNCHES[name] == before + 1
+                want = plain(q8, kp, vp, plan, lens, pages, ps, requant=rq,
+                             b_vec=bvec, **kw)
+                assert torch.equal(got, want), (name, sq, ps, rq.kind)
+
+
+def _k4_setup(rng, dev, b, ps, maxp, hkv, d):
+    num_pages = b * maxp + 1
+    kp = _i8(rng, (num_pages, ps, hkv, d), dev)
+    vp = _i8(rng, (num_pages, ps, hkv, d), dev)
+    pages = rng.permutation(np.arange(1, num_pages)).reshape(b, maxp)
+    return kp, vp, pages.astype(np.int32)
+
+
+@pytest.mark.parametrize("c", [1, 7, 32, 96])
+def test_paged_prefill_empty_rows_and_null_page(dev, c):
+    """K4 where a lane's pos_end < C (its first C - pos_end rows see no
+    key and write requant(0)), a lane whose table is all the null page
+    (as the engine gives lanes outside a prefill round), a lane with no
+    live key at all, at a KV group of 4: the plain version's integers,
+    in one launch."""
+    rng = np.random.default_rng(c)
+    b, h, hkv, d, ps, maxp = 4, 8, 2, 64, 16, 8
+    plan = iattn.make_iattention(d, 8 / 127, 8 / 127, 4 / 127, 4 / 127)
+    kp, vp, pages = _k4_setup(rng, dev, b, ps, maxp, hkv, d)
+    pages[1] = 0                                       # the null page
+    pages = torch.as_tensor(pages, device=dev)
+    pos_end = torch.tensor([max(c // 2, 1), c, 0, 100 + c],
+                           dtype=torch.int32, device=dev)
+    q8 = _i8(rng, (b, c, h, d), dev)
+    rq = RequantSpec.per_tensor(plan.dn_out)
+    want = int_paged_prefill_plain(q8, kp, vp, plan, pos_end, pages, ps,
+                                   requant=rq)
+    before = kernels.LAUNCHES["int_paged_prefill"]
+    got = int_paged_prefill_fused(q8, kp, vp, plan, pos_end, pages, ps,
+                                  requant=rq)
+    assert kernels.LAUNCHES["int_paged_prefill"] == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("ps,maxp,d", [(16, 8, 128), (1, 300, 32),
+                                       (64, 40, 64)])
+def test_paged_prefill_pools_off_alignment(dev, ps, maxp, d):
+    """K4 with q8 and both pools 4 or 8 bytes past a 16-byte boundary (K
+    then travels in 4-byte copies), one-row pages, and a span too long
+    for the e16 store (2560 positions: sweep 2 recomputes)."""
+    from repro_torch.kernels.int_attention_fused import k4_launch_plan
+    rng = np.random.default_rng(ps + maxp)
+    b, c, h, hkv = 2, 32, 4, 1
+    plan = iattn.make_iattention(d, 8 / 127, 8 / 127, 4 / 127, 4 / 127)
+    kp, vp, pages = _k4_setup(rng, dev, b, ps, maxp, hkv, d)
+    pages = torch.as_tensor(pages, device=dev)
+    q8 = _offset_view(_i8(rng, (b, c, h, d), dev), 4)
+    kp, vp = _offset_view(kp, 4), _offset_view(vp, 8)
+    kplan = k4_launch_plan(b, c, h, hkv, d, maxp, ps, kp.data_ptr())
+    assert not kplan.vec_k
+    assert kplan.store_e16 == (maxp * ps <= 1536)
+    pos_end = torch.tensor([c + 5, maxp * ps], dtype=torch.int32,
+                           device=dev)
+    bvec = _i32(rng, 1000, 20000, (h * d,), dev)
+    for rq in (RequantSpec.per_channel(22, 8), RequantSpec.raw()):
+        before = kernels.LAUNCHES["int_paged_prefill"]
+        got = int_paged_prefill_fused(q8, kp, vp, plan, pos_end, pages, ps,
+                                      requant=rq, b_vec=bvec)
+        assert kernels.LAUNCHES["int_paged_prefill"] == before + 1
+        want = int_paged_prefill_plain(q8, kp, vp, plan, pos_end, pages,
+                                       ps, requant=rq, b_vec=bvec)
+        assert torch.equal(got, want), rq.kind
 
 
 def test_attention_kernels_refuse_overlong_page_tables(dev):
