@@ -18,7 +18,9 @@ non-zero before the last line):
            at the ``pallas`` backend's (the full score matrix, the
            encoder's attention at the reference's logical blocks), then
            the edge cases of the tensor-core K4, K5 and K8 and exp16's
-           division on its whole domain;
+           division on its whole domain, then K1, K2, K3 (contiguous and
+           paged) and K5 at h2o-danube-3-4b's shapes, head dim 120 (and
+           one K4 and two K8 rows there);
   parity   full-width llama3-8b cut to 2 layers: ServingEngine token
            streams on the ``cuda`` backend must equal ``torch_ref``'s;
   serve    full llama3-8b (32 layers) on the ``cuda`` backend: throughput,
@@ -40,7 +42,21 @@ non-zero before the last line):
            and one profiled pass;
   ops      ``repro_torch.ops.int_softmax``, the module-level entry point,
            under ``use_backend("cuda_online")`` on the full score matrix of
-           a roberta-base batch (K7 must launch).
+           a roberta-base batch (K7 must launch);
+  window-parity  h2o-danube-3-4b (the reference serve driver's default:
+           sliding window 4096, head dim 120) at full widths cut to 2
+           layers: ServingEngine streams on ``cuda`` equal ``torch_ref``'s
+           in both cache modes (paged folded, contiguous unfolded), then
+           through the rolling window's wrap (window cut to 64, cache_len
+           160, 150 new tokens a lane);
+  window-serve   full h2o-danube-3-4b (24 layers) on ``cuda``, once per
+           cache mode, token-streaming prefill: throughput, step times,
+           peak memory, launches per decode step (K1, K2, K3; no K4) and a
+           profiled decode window;
+  window-prefill full h2o-danube-3-4b through ``make_prefill_step`` and
+           ``int_prefill(return_cache=True)`` at 4 x 256 tokens: logits and
+           the built contiguous caches of ``cuda`` equal ``torch_ref``'s;
+           the pass time and its launches (K5 at D = 120, windowed).
 
 ``--verbose-build`` also prints ptxas's registers and spills and a
 ``sass`` line (per kernel ``IMMA`` / ``IDP`` / ``LDL`` / ``STL``), and
@@ -95,7 +111,17 @@ PATH_KERNELS = {
     "encode-online": ("int8_matmul", "int_layernorm",
                       "int_attention_online", "int_gelu"),
     "ops": ("int_softmax",),
+    "window-serve-paged": ("int8_matmul", "int_layernorm",
+                           "int_decode_attention"),
+    "window-serve-contiguous": ("int8_matmul", "int_layernorm",
+                                "int_decode_attention"),
+    "window-prefill": ("int8_matmul", "int_layernorm",
+                       "int_attention_fused"),
 }
+# the window-serve traffic (token-streaming prefill): prompts of 16-64
+# tokens from seed 5, 16 new tokens each, batch 4, cache_len 512
+WINDOW_SERVE = dict(requests=8, lo=16, hi=64, max_new=16, batch=4,
+                    cache_len=512)
 # the encode path's traffic: RoBERTa's longest sequence at a GLUE
 # inference batch; the cuda == torch_ref parity batch
 ENCODE_BATCH, ENCODE_SEQ, PARITY_BATCH = 32, 512, 8
@@ -212,25 +238,27 @@ def k5_plan(q8, k8, causal: bool, window: int, plan) -> str:
     """K5's launch for these operands (kernels/int_attention_fused.py::
     k5_launch_plan)."""
     from repro_torch.kernels.int_attention_fused import (
-        e16_fits_16_bits, k5_launch_plan)
+        e16_fits_16_bits, k5_launch_plan, k_copy_bytes)
     b, sq, h, d = q8.shape
     p = k5_launch_plan(b, sq, k8.shape[1], h, k8.shape[2], d, causal,
                        window, k8.data_ptr(), e16_fits_16_bits(plan.sm))
     return (f"mma grid={list(p.grid)} tiles={p.tiles} smem={p.smem} "
-            f"e16_store={p.store_e16} k_copies={16 if p.vec_k else 4}B")
+            f"e16_store={p.store_e16} "
+            f"k_copies={k_copy_bytes(d, k8.data_ptr())}B")
 
 
 def k4_plan(q8, k_pool, pages, page_size: int, plan) -> str:
     """K4's launch for these operands (kernels/int_attention_fused.py::
     k4_launch_plan)."""
     from repro_torch.kernels.int_attention_fused import (
-        e16_fits_16_bits, k4_launch_plan)
+        e16_fits_16_bits, k4_launch_plan, k_copy_bytes)
     b, c, h, d = q8.shape
     p = k4_launch_plan(b, c, h, k_pool.shape[2], d, pages.shape[1],
                        page_size, k_pool.data_ptr(),
                        e16_fits_16_bits(plan.sm))
     return (f"mma grid={list(p.grid)} tiles={p.tiles} smem={p.smem} "
-            f"e16_store={p.store_e16} k_copies={16 if p.vec_k else 4}B")
+            f"e16_store={p.store_e16} "
+            f"k_copies={k_copy_bytes(d, k_pool.data_ptr())}B")
 
 
 def k8_plan(q8, bkv: int) -> str:
@@ -273,8 +301,8 @@ def _offset_view(x, off: int):
 def _qkv(gen, operands: str, b, sq, skv, hq, hkv, dd):
     """Attention operands q8 (B, Sq, H, D), k8 and v8 (B, Skv, Hkv, D) on
     the card: seeded (``random``), every value -128 (``min``) or +127
-    (``max``), or seeded and 4 bytes off 16-byte alignment
-    (``misaligned``)."""
+    (``max``), or seeded and 4 (``misaligned``) or 8 (``misaligned8``)
+    bytes off 16-byte alignment."""
     import torch
     shapes = ((b, sq, hq, dd), (b, skv, hkv, dd), (b, skv, hkv, dd))
     if operands in ("min", "max"):
@@ -282,8 +310,9 @@ def _qkv(gen, operands: str, b, sq, skv, hq, hkv, dd):
         return tuple(torch.full(s, fill, dtype=torch.int8, device="cuda")
                      for s in shapes)
     qkv = tuple(_randint(gen, -127, 128, s, torch.int8) for s in shapes)
-    if operands == "misaligned":
-        qkv = tuple(_offset_view(x, 4) for x in qkv)
+    if operands in ("misaligned", "misaligned8"):
+        off = 8 if operands == "misaligned8" else 4
+        qkv = tuple(_offset_view(x, off) for x in qkv)
     return qkv
 
 
@@ -435,10 +464,11 @@ def check_kernels(cfg, plans):
 
 def k4_bound(lens, c: int, h: int, hkv: int, d: int, table_ints: int,
              out_b: int):
-    """K4's bytes and operations for chunk ``c`` at these pos_end: q read
-    and the tile written once (``out_b`` bytes an element), each live K /
-    V row and the table read once; 4 x D operations a live (row, key)
-    pair and head (Q·Kᵀ and P·V)."""
+    """K4's bytes and operations for chunk ``c`` at these pos_end (and
+    K3's for ``c`` query rows at these valid lengths: the same stepped
+    mask): q read and the tile written once (``out_b`` bytes an element),
+    each live K / V row and the table read once; 4 x D operations a live
+    (row, key) pair and head (Q·Kᵀ and P·V)."""
     pairs = sum(max(n - (c - 1 - i), 0) for n in lens for i in range(c))
     nbytes = (len(lens) * c * h * d * (1 + out_b) + sum(lens) * hkv * d * 2
               + 4 * (table_ints + len(lens)))
@@ -798,6 +828,216 @@ def check_online_kernels(cfg, plans, rows) -> None:
         del x
 
 
+def window_config():
+    """Full-width h2o-danube-3-4b, the reference serve driver's default:
+    sliding window 4096, head dim 120, GQA 32 / 8, no bias."""
+    from repro_torch.configs.registry import get_config
+    return get_config("h2o-danube-3-4b")
+
+
+def check_window_kernels(cfg, plans, rows) -> None:
+    """The window path's kernels against their plain versions at
+    h2o-danube-3-4b's full widths: K1 at every projection's shape (M = 4
+    and 128) and the raw head, K2's RMSNorm over d = 3840, K3 at D = 120
+    on the contiguous cache (L 512 and the full 4096-position window,
+    folded and not, Sq = 8, 4 bytes off alignment) and on pools, K5 at
+    D = 120 (windowed causal, window 128, no mask, cross, S = 1, -128 /
+    +127, operands 4 and 8 bytes off 16-byte alignment), and K4 and K8 at
+    D = 120 (one row each: their bodies share K5's D = 120 pieces)."""
+    import torch
+    from repro_torch.kernels.int8_matmul import (int8_matmul,
+                                                 int8_matmul_plain)
+    from repro_torch.kernels.int_attention import (
+        int_attention_online, int_attention_online_plain)
+    from repro_torch.kernels.int_attention_fused import (
+        int_attention_fused, int_attention_fused_plain,
+        int_paged_prefill_fused, int_paged_prefill_plain)
+    from repro_torch.kernels.int_decode_attention import (
+        int_decode_attention_fused, int_decode_attention_plain)
+    from repro_torch.kernels.int_layernorm import (int_layernorm,
+                                                   int_layernorm_plain)
+    from repro_torch.ops.spec import QuantLinearParams, RequantSpec
+
+    gen = torch.Generator(device="cuda").manual_seed(5678)
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.padded_vocab()
+    hd, h, hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+
+    # K1: every projection of a layer at decode (M = 4) and M = 128
+    mm_cases = [("wq", d, h * hd, plans.attn.qkv),
+                ("wk", d, hkv * hd, plans.attn.qkv),
+                ("w1", d, f, plans.ffn.up),
+                ("w2", f, d, plans.ffn.down),
+                ("wo", h * hd, d, plans.attn.out)]
+    raw = RequantSpec.raw()
+    for m in (4, 128):
+        x_cache = {}
+        for tag, k, n, lp in mm_cases:
+            x8 = x_cache.setdefault(k, _randint(gen, -127, 128, (m, k),
+                                                torch.int8))
+            w8 = _randint(gen, -127, 128, (k, n), torch.int8)
+            b_vec = _randint(gen, 256, 4096, (n,), torch.int32)
+            spec = RequantSpec.for_linear(lp)
+            out_b = 1 if spec.out_bits <= 8 else 4
+            record(rows, "int8_matmul", f"h2o {tag} M={m} K={k} N={n} "
+                   f"per-channel out_bits={spec.out_bits}",
+                   int8_matmul(x8, w8, spec, b_vec=b_vec),
+                   int8_matmul_plain(x8, w8, spec, b_vec=b_vec),
+                   lambda: int8_matmul(x8, w8, spec, b_vec=b_vec),
+                   lambda: int8_matmul_plain(x8, w8, spec, b_vec=b_vec),
+                   m * k + k * n + 4 * n + out_b * m * n, 2 * m * k * n,
+                   plan=k1_plan(m, n, k))
+        x8 = x_cache[d]
+        w8 = _randint(gen, -127, 128, (d, v), torch.int8)
+        record(rows, "int8_matmul", f"h2o head raw M={m} K={d} N={v}",
+               int8_matmul(x8, w8, raw), int8_matmul_plain(x8, w8, raw),
+               lambda: int8_matmul(x8, w8, raw),
+               lambda: int8_matmul_plain(x8, w8, raw),
+               m * d + d * v + 4 * m * v, 2 * m * d * v,
+               lib_ms=int_mm_ms(x8, w8), iters=10, plan=k1_plan(m, v, d))
+        del w8, x_cache
+
+    # K2: RMSNorm rows of the residual stream
+    npl = plans.norm
+    gamma = _randint(gen, 40, 128, (d,), torch.int32)
+    q = _randint(gen, -cfg.qmax_res, cfg.qmax_res + 1, (4, d), torch.int32)
+    record(rows, "int_layernorm", f"h2o rmsnorm rows=4 d={d}",
+           int_layernorm(q, gamma, None, npl),
+           int_layernorm_plain(q, gamma, None, npl),
+           lambda: int_layernorm(q, gamma, None, npl),
+           lambda: int_layernorm_plain(q, gamma, None, npl),
+           8 * 4 * d + 4 * d, 0, iters=50)
+
+    # K3 at D = 120: contiguous caches and pools
+    aplan = plans.attn.attn
+    requant = RequantSpec.per_tensor(aplan.dn_out)
+    wo = QuantLinearParams(_randint(gen, -127, 128, (h * hd, d), torch.int8),
+                           _randint(gen, 256, 4096, (d,), torch.int32))
+    wo_spec = RequantSpec.for_linear(plans.attn.out)
+    b = 4
+    # (Sq, L, valid lengths, fold, layout, operands)
+    k3_cases = [(1, 512, [1, 137, 300, 512], False, "contiguous", "random"),
+                (1, 512, [1, 137, 300, 512], True, "contiguous", "random"),
+                (1, 4096, [4096] * 4, False, "contiguous", "random"),
+                (1, 4096, [4096] * 4, True, "contiguous", "random"),
+                (1, 512, [1, 137, 300, 512], True, "paged", "random"),
+                (1, 512, [0, 137, 300, 512], False, "contiguous",
+                 "misaligned"),
+                (8, 512, [8, 137, 300, 512], False, "contiguous", "random")]
+    for sq, L, lens, fold, layout, operands in k3_cases:
+        q8 = _randint(gen, -127, 128, (b, sq, h, hd), torch.int8)
+        table = {}
+        if layout == "paged":
+            ps, maxp = 16, L // 16
+            num_pages = b * maxp + 1
+            k8 = _randint(gen, -127, 128, (num_pages, ps, hkv, hd),
+                          torch.int8)
+            v8 = _randint(gen, -127, 128, (num_pages, ps, hkv, hd),
+                          torch.int8)
+            pages = (torch.randperm(num_pages - 1, generator=gen,
+                                    device="cuda") + 1).to(
+                torch.int32).reshape(b, maxp)
+            table = dict(pages=pages, page_size=ps)
+        else:
+            k8 = _randint(gen, -127, 128, (b, L, hkv, hd), torch.int8)
+            v8 = _randint(gen, -127, 128, (b, L, hkv, hd), torch.int8)
+        if operands == "misaligned":
+            q8, k8, v8 = (_offset_view(x, 4) for x in (q8, k8, v8))
+        vl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        kw = dict(requant=requant, **table)
+        if fold:
+            kw.update(wo=wo, wo_spec=wo_spec)
+        nbytes, ops = k4_bound(lens, sq, h, hkv, hd,
+                               b * L // 16 if table else 0, 1)
+        if fold:
+            nbytes += h * hd * d + 4 * d + 4 * b * sq * d - b * sq * h * hd
+            ops += 2 * b * sq * h * hd * d
+        args = (q8, k8, v8, aplan, vl)
+        record(rows, "int_decode_attention",
+               f"h2o B={b} Sq={sq} H={h} Hkv={hkv} D={hd} {layout} L={L}"
+               f"{' ps=16' if table else ''} valid={lens} fold_wo={fold} "
+               f"{operands}",
+               int_decode_attention_fused(*args, **kw),
+               int_decode_attention_plain(*args, **kw),
+               lambda: int_decode_attention_fused(*args, **kw),
+               lambda: int_decode_attention_plain(*args, **kw),
+               nbytes, ops, iters=10, plain_iters=2)
+        del q8, k8, v8, args
+
+    # K5 at D = 120: the window-prefill launch (causal, window 4096), a
+    # window that bites, no mask, cross, S = 1, -128 / +127, and operands
+    # 4 bytes (word copies) and 8 bytes (8-byte copies) off alignment
+    epilogues = [requant, RequantSpec.per_channel(22, 8),
+                 RequantSpec.per_channel(20, 6, out_bits=16),
+                 RequantSpec.raw()]
+    k5_cases = [(4, 512, 512, True, cfg.window, "random"),
+                (4, 512, 512, True, 128, "random"),
+                (4, 512, 512, False, 0, "random"),
+                (4, 64, 512, False, 0, "random"),
+                (4, 1, 1, True, cfg.window, "random"),
+                (2, 100, 100, True, 0, "min"),
+                (2, 100, 100, False, 0, "max"),
+                (2, 100, 70, True, 8, "misaligned"),
+                (2, 100, 100, True, 16, "misaligned8")]
+    for i, (bb, sq, skv, causal, window, operands) in enumerate(k5_cases):
+        rq = epilogues[i % 4] if i >= 2 else requant
+        q8, k8, v8 = _qkv(gen, operands, bb, sq, skv, h, hkv, hd)
+        bvec = _randint(gen, 1000, 20000, (h * hd,), torch.int32)
+        out_b = 1 if (not rq.is_raw and rq.out_bits <= 8) else 4
+        nbytes = (bb * sq * h * hd + 2 * bb * skv * hkv * hd
+                  + out_b * bb * sq * h * hd)
+        ops = 4 * bb * h * hd * _live_pairs(sq, skv, causal, window)
+        args = (q8, k8, v8, aplan, rq, bvec, causal, window)
+        record(rows, "int_attention_fused",
+               f"h2o B={bb} Sq={sq} Skv={skv} H={h} Hkv={hkv} D={hd} "
+               f"causal={causal} window={window} {rq.kind}"
+               f"{'' if rq.is_raw else f' {rq.out_bits}b'} {operands}",
+               int_attention_fused(*args), int_attention_fused_plain(*args),
+               lambda: int_attention_fused(*args),
+               lambda: int_attention_fused_plain(*args),
+               nbytes, ops, iters=5, plain_iters=2,
+               plan=k5_plan(q8, k8, causal, window, aplan))
+        del q8, k8, v8, args
+
+    # K4 at D = 120 (K5's body, keys through the page table)
+    lens, c, ps, maxp = [32, 132, 282, 512], 32, 16, 32
+    num_pages = b * maxp + 1
+    q8 = _randint(gen, -127, 128, (b, c, h, hd), torch.int8)
+    kp = _randint(gen, -127, 128, (num_pages, ps, hkv, hd), torch.int8)
+    vp = _randint(gen, -127, 128, (num_pages, ps, hkv, hd), torch.int8)
+    pages = (torch.randperm(num_pages - 1, generator=gen, device="cuda")
+             + 1).to(torch.int32).reshape(b, maxp)
+    vl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    nbytes, ops = k4_bound(lens, c, h, hkv, hd, b * maxp, 1)
+    args = (q8, kp, vp, aplan, vl, pages, ps)
+    record(rows, "int_paged_prefill",
+           f"h2o B={b} C={c} H={h} Hkv={hkv} D={hd} ps={ps} "
+           f"pages/lane={maxp} pos_end={lens}",
+           int_paged_prefill_fused(*args, requant=requant),
+           int_paged_prefill_plain(*args, requant=requant),
+           lambda: int_paged_prefill_fused(*args, requant=requant),
+           lambda: int_paged_prefill_plain(*args, requant=requant),
+           nbytes, ops, iters=5, plain_iters=2,
+           plan=k4_plan(q8, kp, pages, ps, aplan))
+    del q8, kp, vp, args
+
+    # K8 at D = 120 (K5's pieces, the online schedule), at the reference's
+    # 128 x 128 blocks and at blocks of 125 with a window
+    for bb, s_, causal, window, blk in ((4, 512, True, 0, 128),
+                                        (1, 1000, True, 100, 125)):
+        q8, k8, v8 = _qkv(gen, "random", bb, s_, s_, h, hkv, hd)
+        args = (q8, k8, v8, aplan, causal, window, blk, blk)
+        record(rows, "int_attention_online",
+               f"h2o B={bb} Sq={s_} Skv={s_} H={h} Hkv={hkv} D={hd} "
+               f"causal={causal} window={window} bq={blk} bkv={blk}",
+               int_attention_online(*args), int_attention_online_plain(*args),
+               lambda: int_attention_online(*args),
+               lambda: int_attention_online_plain(*args),
+               2 * bb * s_ * h * hd + 2 * bb * s_ * hkv * hd,
+               4 * bb * h * hd * _live_pairs(s_, s_, causal, window),
+               iters=5, plain_iters=2, plan=k8_plan(q8, blk))
+        del q8, k8, v8, args
+
+
 # --------------------------------------------------------- engine runs ---
 
 def _prompts(seed: int, n: int, lo: int, hi: int, vocab: int):
@@ -929,6 +1169,258 @@ def phase_serve(cfg):
     missing = [k for k in PATH_KERNELS["serve"] if launches[k] <= 0]
     if missing:
         raise AssertionError(f"serve path never launched {missing}")
+    return launches
+
+
+def window_decode_launches(layers: int) -> dict:
+    """Launches of one h2o-danube-3-4b decode step: K1 q, k, v, the
+    folded wo, w1, w3, w2 a layer + the head; K2 two norms a layer + the
+    final norm; K3 one a layer; nothing else."""
+    per = dict.fromkeys(TPU_KERNELS, 0)
+    per.update({"int8_matmul": 7 * layers + 1,
+                "int_layernorm": 2 * layers + 1,
+                "int_decode_attention": layers})
+    return per
+
+
+def _window_streams(qp, plans, cfg, prompts, max_new, backend, **kw):
+    """Drain one engine; returns (token streams, seconds)."""
+    import torch
+    eng, reqs = run_engine(qp, plans, cfg, prompts, max_new, backend, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run_until_done()
+    torch.cuda.synchronize()
+    return [r.out_tokens for r in reqs], time.perf_counter() - t0
+
+
+def phase_window_parity(cfg_full):
+    """h2o-danube-3-4b at full widths cut to 2 layers: ServingEngine
+    streams on ``cuda`` equal ``torch_ref``'s in both cache modes (paged
+    with wo folded, contiguous without), then through the rolling
+    window's wrap: the window cut to 64 positions, cache_len 160, two
+    lanes decoding 150 tokens each (slot = pos % 64 wraps twice)."""
+    import dataclasses
+    from repro_torch.quant import convert
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(cfg_full, num_layers=2)
+    qp, plans = convert.init_quantized(
+        cfg, seed=0, device="cuda",
+        embed_scale=convert.unit_embed_scale(cfg))
+    cases = [("full window", cfg, _prompts(11, 4, 20, 80, cfg.vocab), 16,
+              dict(batch_size=4, cache_len=512)),
+             ("wrap", dataclasses.replace(cfg, window=64),
+              _prompts(12, 2, 3, 3, cfg.vocab), 150,
+              dict(batch_size=2, cache_len=160))]
+    for what, c, prompts, max_new, kw in cases:
+        for mode, fold in (("paged", True), ("contiguous", False)):
+            streams, secs = {}, {}
+            for backend in ("cuda", "torch_ref"):
+                streams[backend], secs[backend] = _window_streams(
+                    qp, plans, c, prompts, max_new, backend,
+                    cache_mode=mode, fold_wo=fold, **kw)
+            same = streams["cuda"] == streams["torch_ref"]
+            distinct = len({t for st in streams["cuda"] for t in st})
+            emit({"phase": "window-parity", "case": what,
+                  "layers": c.num_layers, "window": c.window,
+                  "reduced": ([] if c.window == cfg_full.window else
+                              [f"window {cfg_full.window} -> {c.window}"])
+                  + [f"layers {cfg_full.num_layers} -> {c.num_layers}"],
+                  "cache_mode": mode, "fold_wo": fold,
+                  "cache_len": kw["cache_len"], "batch": kw["batch_size"],
+                  "prompt_lens": [len(p) for p in prompts],
+                  "max_new": max_new, "identical": same,
+                  "distinct_tokens": distinct,
+                  "wrapped": max(len(p) for p in prompts) + max_new - 1
+                  > c.window,
+                  "cuda_s": secs["cuda"], "torch_ref_s": secs["torch_ref"],
+                  "first_stream": streams["cuda"][0][:24]})
+            if not same:
+                raise AssertionError(f"window-parity {what} {mode}: cuda "
+                                     "and torch_ref token streams differ")
+            if distinct < 2:
+                raise AssertionError("window-parity: degenerate streams")
+    del qp
+    emit({"phase": "window-parity", "seconds":
+          time.perf_counter() - t_phase})
+
+
+def phase_window_serve(cfg):
+    """Full h2o-danube-3-4b (24 layers) on ``cuda``, once per cache mode,
+    token-streaming prefill: throughput, step times, peak memory and the
+    launches of each decode step (K1, K2, K3 and nothing else), then a
+    profiled decode window.  Returns the launches of each mode's run."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.models import inttransformer as it
+    from repro_torch.quant import convert
+    t_phase = time.perf_counter()
+    gc.collect()
+    t0 = time.perf_counter()
+    qp, plans = convert.init_quantized(
+        cfg, seed=0, device="cuda",
+        embed_scale=convert.unit_embed_scale(cfg))
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(qp))
+    w = WINDOW_SERVE
+    prompts = _prompts(5, w["requests"], w["lo"], w["hi"], cfg.vocab)
+    expect = window_decode_launches(cfg.num_layers)
+    out = {}
+    for mode in ("paged", "contiguous"):
+        eng, reqs = run_engine(qp, plans, cfg, prompts, w["max_new"], "cuda",
+                               batch_size=w["batch"],
+                               cache_len=w["cache_len"], cache_mode=mode,
+                               prefill_chunk=0, fold_wo=True)
+        events, per_step = [], []
+        orig = it.int_decode_step
+
+        def timed(*a, **k):
+            before = dict(kernels.LAUNCHES)
+            s_ev = torch.cuda.Event(enable_timing=True)
+            e_ev = torch.cuda.Event(enable_timing=True)
+            s_ev.record()
+            res = orig(*a, **k)
+            e_ev.record()
+            events.append((s_ev, e_ev))
+            per_step.append({n: kernels.LAUNCHES[n] - before[n]
+                             for n in before})
+            return res
+
+        it.int_decode_step = timed
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            eng.run_until_done()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+        finally:
+            it.int_decode_step = orig
+        n_tok = sum(len(r.out_tokens) for r in reqs)
+        step_ms = [s_ev.elapsed_time(e_ev) for s_ev, e_ev in events]
+        per = _mean_counts(per_step)
+        emit({"phase": "window-serve", "arch": cfg.name,
+              "layers": cfg.num_layers, "cache_mode": mode,
+              "describe": eng.describe_str(), "requests": len(reqs),
+              "prompt_lens": [len(p) for p in prompts],
+              "max_new": w["max_new"], "batch": w["batch"],
+              "cache_len": w["cache_len"], "window": cfg.window,
+              "prefill": "streaming", "tokens": n_tok,
+              "distinct_tokens": len({t for r in reqs
+                                      for t in r.out_tokens}),
+              "wall_s": wall, "tokens_per_s": n_tok / wall,
+              "steps": len(step_ms),
+              "step_ms_mean": float(np.mean(step_ms)),
+              "launches_per_decode_step": per,
+              "expected_per_decode_step": expect,
+              "launches_as_expected": all(per.get(n, 0) == c
+                                          for n, c in expect.items()),
+              "quantize_s": quant_s, "weight_bytes": weight_bytes,
+              "kv_bytes": eng.describe()["cache"]["kv_bytes"],
+              "max_memory_allocated": torch.cuda.max_memory_allocated(),
+              "launches": launches})
+        profile_decode(eng, cfg, f"window-serve-profile-{mode}")
+        if not all(len(r.out_tokens) == w["max_new"] for r in reqs):
+            raise AssertionError("window-serve: a request came back short")
+        if not all(0 <= t < cfg.vocab for r in reqs for t in r.out_tokens):
+            raise AssertionError("window-serve: token outside the "
+                                 "vocabulary")
+        path = f"window-serve-{mode}"
+        missing = [k for k in PATH_KERNELS[path] if launches[k] <= 0]
+        if missing or launches["int_paged_prefill"]:
+            raise AssertionError(f"{path}: never launched {missing}, or "
+                                 "launched K4")
+        out[path] = launches
+        del eng
+    del qp
+    emit({"phase": "window-serve", "seconds": time.perf_counter() - t_phase})
+    return out
+
+
+def phase_window_prefill(cfg):
+    """Full h2o-danube-3-4b through ``launch.steps.make_prefill_step`` and
+    ``int_prefill(return_cache=True)`` at 4 x 256 tokens (seed 23): the
+    logits of both and the contiguous caches ``cuda`` builds equal
+    ``torch_ref``'s; the timed pass's launches (K5 one a layer), then one
+    profiled pass.  Returns the launches of the timed passes."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import intlayers as il
+    from repro_torch.models import inttransformer as it
+    from repro_torch.quant import convert
+    t_phase = time.perf_counter()
+    gc.collect()
+    qp, plans = convert.init_quantized(
+        cfg, seed=0, device="cuda",
+        embed_scale=convert.unit_embed_scale(cfg))
+    b, s = 4, 256
+    toks = torch.as_tensor(np.random.default_rng(23).integers(
+        0, cfg.vocab, (b, s)), device="cuda")
+    rope = il.build_rope_table(s + 1, cfg.hd, cfg.rope_theta, device="cuda")
+    logits, caches, secs = {}, {}, {}
+    for backend in ("cuda", "torch_ref"):
+        step = make_prefill_step(cfg, plans, ops=backend, device="cuda")
+        logits[backend] = step(qp, {"tokens": toks}, rope)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, caches[backend] = it.int_prefill(qp, {"tokens": toks}, plans,
+                                             cfg, ops=backend,
+                                             return_cache=True)
+        torch.cuda.synchronize()
+        secs[backend] = time.perf_counter() - t0
+        if not torch.equal(lg, logits[backend]):
+            raise AssertionError(f"window-prefill {backend}: int_prefill "
+                                 "and make_prefill_step logits differ")
+    same_logits = torch.equal(logits["cuda"], logits["torch_ref"])
+    same_cache = all(torch.equal(a[k], c[k])
+                     for a, c in zip(caches["cuda"], caches["torch_ref"])
+                     for k in ("k8", "v8"))
+    step = make_prefill_step(cfg, plans, ops="cuda", device="cuda")
+    n_pass = 3
+    step(qp, {"tokens": toks}, rope)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n_pass):
+        out = step(qp, {"tokens": toks}, rope)
+    end.record()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    per_pass = {n: c / n_pass for n, c in launches.items()}
+    emit({"phase": "window-prefill", "arch": cfg.name,
+          "layers": cfg.num_layers, "batch": b, "seq": s,
+          "window": cfg.window, "logits_identical": same_logits,
+          "caches_identical": same_cache,
+          "cache_shape": list(caches["cuda"][0]["k8"].shape),
+          "distinct_argmax": len(set(logits["cuda"].argmax(-1).tolist())),
+          "finite": bool(torch.isfinite(out).all()),
+          "pass_ms": start.elapsed_time(end) / n_pass,
+          "launches_per_pass": per_pass,
+          "return_cache_s": secs, "seconds": time.perf_counter() - t_phase})
+    profile_window("window-prefill-profile", f"1 pass, {b} x {s}",
+                   lambda: step(qp, {"tokens": toks}, rope))
+    if not (same_logits and same_cache):
+        raise AssertionError("window-prefill: cuda and torch_ref logits or "
+                             "caches differ")
+    if tuple(out.shape) != (b, cfg.padded_vocab()) \
+            or not bool(torch.isfinite(out).all()):
+        raise AssertionError("window-prefill: logits not finite (B, V)")
+    missing = [k for k in PATH_KERNELS["window-prefill"] if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"window-prefill never launched {missing}")
+    del qp
     return launches
 
 
@@ -1161,7 +1653,7 @@ def _mean_counts(deltas):
             for n in (deltas[0] if deltas else {})}
 
 
-def profile_decode(eng, cfg):
+def profile_decode(eng, cfg, phase="profile"):
     """torch.profiler over a short decode-heavy window of the serve
     engine: the device's busy share and the device time by kernel."""
     from repro_torch.serving import Request
@@ -1175,7 +1667,7 @@ def profile_decode(eng, cfg):
     def window():
         for _ in range(4):
             eng.step()
-    profile_window("profile", "4 decode steps, batch 4", window)
+    profile_window(phase, "4 decode steps, batch 4", window, lambda: 4)
     eng.run_until_done()
 
 
@@ -1322,7 +1814,8 @@ def _leaves(tree):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,kernels,parity,serve,encode,"
-                    "encode-online,ops")
+                    "encode-online,ops,window-parity,window-serve,"
+                    "window-prefill")
     ap.add_argument("--verbose-build", action="store_true",
                     help="print nvcc -Xptxas -v (registers, spills) and "
                     "each kernel's IMMA / IDP / LDL / STL count")
@@ -1364,6 +1857,8 @@ def main(argv=None) -> int:
         eplans = qplans.build_layer_plans(ecfg)
         check_encoder_kernels(ecfg, eplans, rows)
         check_online_kernels(ecfg, eplans, rows)
+        wcfg = window_config()
+        check_window_kernels(wcfg, qplans.build_layer_plans(wcfg), rows)
     if "parity" in phases:
         phase_parity(cfg)
     if "serve" in phases:
@@ -1377,11 +1872,19 @@ def main(argv=None) -> int:
         del model
     if "ops" in phases:
         launches["ops"] = phase_ops(ecfg, qplans.build_layer_plans(ecfg))
+    if "window-parity" in phases:
+        phase_window_parity(window_config())
+    if "window-serve" in phases:
+        launches.update(phase_window_serve(window_config()))
+    if "window-prefill" in phases:
+        launches["window-prefill"] = phase_window_prefill(window_config())
     if rows:
-        # each kernel's launches come from the path it was ported for
-        # (K1/K2: serve, the first path); every path's counts are listed
-        home = {n: next(p for p in PATH_KERNELS if n in PATH_KERNELS[p])
-                for n in rows}
+        # each kernel's launches come from the first path of this run
+        # that drives it (K1/K2: serve, the first path); every path's
+        # counts are listed
+        home = {n: next((p for p in PATH_KERNELS
+                         if n in PATH_KERNELS[p] and p in launches),
+                        None) for n in rows}
         emit({"kernels": [
             {"name": name, "route": "cuda", "source": SOURCES[name],
              "replaces": TPU_KERNELS[name],

@@ -1,5 +1,6 @@
-// K3's body (paged decode attention, int_decode_attention.cu): the exact
-// three-sweep integer attention on the CUDA cores (__dp4a).  K4 and K5
+// K3's body (decode attention over a paged or contiguous cache,
+// int_decode_attention.cu): the exact three-sweep integer attention on the
+// CUDA cores (__dp4a).  K4 and K5
 // compute the same sweeps on the int8 tensor cores (int_attention_mma.cuh).
 //
 // Twin of repro/kernels/int_attention_fused.py::_streaming_attn_body:
@@ -17,15 +18,20 @@
 //
 // Per-row limits: query row i (of S rows) attends to the positions
 // [0, hi_i), hi_i = valid_len - (S - 1 - i), clamped to the key length
-// L = max_pages * page_size (valid_len is the lane's occupancy).  hi_i
+// L = max_pages * page_size (valid_len is the lane's occupancy).  A
+// sliding window's rolling buffer holds its positions in any order; the
+// max and the sums do not depend on the order, so it needs nothing more.  hi_i
 // never decreases with i, so a block of rows visits [0, hi of its last
 // row) and no key block past it.  A row whose range is empty keeps max
 // -2^30, sum 0 and a zero accumulator, as the reference's all-masked row
 // does.
 //
-// Addressing: the pools are (num_pages, page_size, Hkv, D) and position t
-// of lane b lives at page pages[b, t / page_size], row t % page_size.
-// GQA: query head h reads KV head h / (H / Hkv).
+// Addressing: paged, the pools are (num_pages, page_size, Hkv, D) and
+// position t of lane b lives at page pages[b, t / page_size], row
+// t % page_size; contiguous (pages null), the cache is (B, L, Hkv, D),
+// passed as one page of L rows a lane, and position t of lane b is row
+// b * L + t.  D is any multiple of 4 (rows are read as words).  GQA:
+// query head h reads KV head h / (H / Hkv).
 #pragma once
 
 #include "int_common.cuh"
@@ -34,13 +40,13 @@ namespace r8 {
 
 struct AttnArgs {
   const int8_t* q;          // (B, S, H, D)
-  const int8_t* k;          // (num_pages, page_size, Hkv, D)
-  const int8_t* v;          // (num_pages, page_size, Hkv, D)
-  const int* pages;         // (B, max_pages)
+  const int8_t* k;          // (num_pages, page_size, Hkv, D) or
+  const int8_t* v;          //   contiguous (B, L, Hkv, D)
+  const int* pages;         // (B, max_pages), or null: contiguous
   const int* vlen;          // (B,) valid_len
   const int* bvec;          // (H * D,) per-channel multipliers or null
   void* out;                // (B, S, H, D) int8 or int32
-  int B, S, H, Hkv, D, page_size, max_pages;
+  int B, S, H, Hkv, D, page_size, max_pages;  // contiguous: L, 1
   int out_is_int8;
   SoftmaxConsts sm;
   Requant rq;
@@ -59,8 +65,9 @@ __host__ __device__ constexpr int attn_smem_bytes(int BQ, int TK, int D) {
   return (BQ * (D / 4 + 1) + TK * (D / 4 + 1)) * 4 + TK * D + BQ * TK * 4;
 }
 
-// BQ query rows a block, key tiles of TK
-template <int BQ, int TK, int D>
+// BQ query rows a block, key tiles of TK; PAGED: keys through the page
+// table, else the contiguous cache
+template <int BQ, int TK, int D, bool PAGED>
 __global__ void __launch_bounds__(ATTN_THREADS)
 int_attention_kernel(AttnArgs a) {
   constexpr int NT = ATTN_THREADS;
@@ -82,7 +89,7 @@ int_attention_kernel(AttnArgs a) {
   const int L = a.max_pages * a.page_size;
   const int nrows = min(BQ, a.S - q0);
   const int vl = a.vlen[b];
-  const int* ptab = a.pages + (size_t)b * a.max_pages;
+  const int* ptab = PAGED ? a.pages + (size_t)b * a.max_pages : nullptr;
 
   for (int i = tid; i < BQ * D4; i += NT) {
     const int r = i / D4, w = i % D4;
@@ -120,7 +127,9 @@ int_attention_kernel(AttnArgs a) {
         int kv = 0, vv = 0;
         if (t < t_hi) {
           const size_t row =
-              (size_t)ptab[t / a.page_size] * a.page_size + t % a.page_size;
+              PAGED ? (size_t)ptab[t / a.page_size] * a.page_size +
+                          t % a.page_size
+                    : (size_t)b * L + t;
           const size_t off = (row * a.Hkv + hk) * D;
           kv = reinterpret_cast<const int*>(a.k + off)[w];
           if (sweep == 2) vv = reinterpret_cast<const int*>(a.v + off)[w];
@@ -190,23 +199,33 @@ int_attention_kernel(AttnArgs a) {
   }
 }
 
-// launch one instantiation; D must be 32, 64 or 128
+template <int BQ, int TK, int D>
+inline void launch_layout(const AttnArgs& a, dim3 grid, cudaStream_t s) {
+  constexpr int smem = attn_smem_bytes(BQ, TK, D);
+  if (a.pages)
+    int_attention_kernel<BQ, TK, D, true><<<grid, ATTN_THREADS, smem, s>>>(a);
+  else
+    int_attention_kernel<BQ, TK, D, false><<<grid, ATTN_THREADS, smem, s>>>(a);
+}
+
+// launch one instantiation; D must be 32, 64, 120 or 128
 template <int BQ, int TK>
 inline int launch_attention(const AttnArgs& a, cudaStream_t s) {
-  if (!a.pages || !a.vlen) return (int)cudaErrorInvalidValue;
+  if (!a.vlen || (!a.pages && a.max_pages != 1))
+    return (int)cudaErrorInvalidValue;
   dim3 grid((a.S + BQ - 1) / BQ, a.H, a.B);
   switch (a.D) {
     case 32:
-      int_attention_kernel<BQ, TK, 32>
-          <<<grid, ATTN_THREADS, attn_smem_bytes(BQ, TK, 32), s>>>(a);
+      launch_layout<BQ, TK, 32>(a, grid, s);
       break;
     case 64:
-      int_attention_kernel<BQ, TK, 64>
-          <<<grid, ATTN_THREADS, attn_smem_bytes(BQ, TK, 64), s>>>(a);
+      launch_layout<BQ, TK, 64>(a, grid, s);
+      break;
+    case 120:
+      launch_layout<BQ, TK, 120>(a, grid, s);
       break;
     case 128:
-      int_attention_kernel<BQ, TK, 128>
-          <<<grid, ATTN_THREADS, attn_smem_bytes(BQ, TK, 128), s>>>(a);
+      launch_layout<BQ, TK, 128>(a, grid, s);
       break;
     default:
       return (int)cudaErrorInvalidValue;

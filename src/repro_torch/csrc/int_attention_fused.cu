@@ -23,14 +23,17 @@
 // into A fragments against a Vᵀ staged with the same key permutation.
 // The TPU kernel's grid walked the KV blocks in order, three times,
 // carrying the row max and sum in scratch; here one block owns its rows
-// for all three sweeps.
+// for all three sweeps.  Head dims 32, 64, 120 and 128; at D = 120 (h2o-
+// danube-3-4b) Q·Kᵀ takes four k-steps over rows padded to 128 bytes (Q
+// zero past D, in registers), K tiles come in 8-byte granules (a head's
+// row is 120 bytes, 8-byte aligned), and P·V keeps 15 output n-tiles.
 #include "int_attention_mma.cuh"
 
 // the dynamic shared memory of a K5 block (head dim D, `tiles` key tiles
 // of e16 store when `store`), or -1 for a head dim the kernel is not
 // compiled for; kernels/int_attention_fused.py::k5_smem_bytes is the same
 extern "C" long long r8_k5_smem_bytes(int D, int tiles, int store) {
-  if (D != 32 && D != 64 && D != 128) return -1;
+  if (D != 32 && D != 64 && D != 120 && D != 128) return -1;
   return r8::k5::smem_bytes(D, tiles, store != 0);
 }
 
@@ -48,6 +51,8 @@ extern "C" int r8_int_attention_fused(const r8::k5::Args* a, void* stream) {
       return r8::k5::launch_d<32>(*a, s);
     case 64:
       return r8::k5::launch_d<64>(*a, s);
+    case 120:
+      return r8::k5::launch_d<120>(*a, s);
     case 128:
       return r8::k5::launch_d<128>(*a, s);
     default:

@@ -18,16 +18,17 @@
 //
 // Block: 64 query rows of one (sequence, head), 4 warps of 16 rows, for
 // K5 and K4 alike.  Each warp keeps its Q A-fragments in registers for
-// the whole launch (D / 32 k-steps), so the block reads Q once.  Keys come
+// the whole launch (ceil(D / 32) k-steps, zero past D), so the block reads
+// Q once.  D is any multiple of 8: 32, 64, 120 and 128 are instantiated.  Keys come
 // in tiles of 64 over the block's key range [t_lo, t_hi) (the union of its
 // rows' live ranges; tiles outside it are never loaded, and a warp skips
 // the work of a tile outside its own rows' range); partial tiles are
 // masked per element, and keys past t_hi are zero-filled and never live.
 //
 //   K tiles: cp.async into a double buffer, row-major (key, D bytes) with
-//   a row stride of tc::sk_words(D) words.  16-byte copies where K is
-//   16-byte aligned, else 4-byte copies (the wrapper takes any 4-byte
-//   aligned operand).  Key t of lane b is row b * Skv + t of K (K5), or
+//   a row stride of tc::sk_words(D) words.  Wide copies (16 bytes, 8 at a
+//   D that is not a multiple of 16) where K is aligned to them, else
+//   4-byte copies (the wrapper takes any 4-byte aligned operand).  Key t of lane b is row b * Skv + t of K (K5), or
 //   (PAGED) row pages[b, t / page_size] * page_size + t % page_size of
 //   the pool: each key's D bytes are contiguous, so a tile gathers its
 //   rows from up to ceil(64 / page_size) + 1 pages with the same copies.
@@ -46,7 +47,8 @@
 //   whole span, max_pages * page_size, since the host never reads
 //   pos_end), else sweep 2 recomputes.
 //
-//   Q·Kᵀ's k order, P·V without shuffles (p8 packed from the score
+//   Q·Kᵀ's k order, the padding of a D that is not a multiple of 32, P·V
+//   without shuffles (p8 packed from the score
 //   accumulators into A fragments against a key-permuted, swizzled Vᵀ
 //   read one tile ahead) and the branch-free exp16 are the shared pieces
 //   of int_attention_tc.cuh, whose note says how they work.
@@ -73,7 +75,7 @@ constexpr int SMEM_LIMIT = 232448;      // dynamic shared memory a block
 // and, with the e16 store, 2 KB a warp a key tile
 __host__ __device__ constexpr long long smem_bytes(int D, int tiles,
                                                    bool store) {
-  return 4LL * (2 * KEYS * tc::sk_words(D) + D * (KEYS / 4)) +
+  return 4LL * (2 * KEYS * tc::sk_words(D) + tc::v_cols(D) * (KEYS / 4)) +
          (store ? 4LL * (THREADS / 32) * tiles * (KEYS / 8) * 2 * 32 : 0);
 }
 
@@ -153,18 +155,18 @@ struct KeyRows {
 // PAGED: K4 (keys through the page table, the stepped mask), else K5
 template <int D, bool LO, bool STORE, bool PAGED>
 __device__ __forceinline__ void attend(const Args& a) {
-  constexpr int KS = D / 32;                 // k-steps of Q·Kᵀ
+  constexpr int KS = tc::ksteps(D);          // k-steps of Q·Kᵀ
   constexpr int SK = tc::sk_words(D);
   constexpr int SV = KEYS / 4;               // words of a Vᵀ row
   constexpr int NJ = KEYS / 8;               // score n-tiles of a tile
   constexpr int ND = D / 8;                  // output n-tiles
   constexpr int DW = D / 4;                  // words of a K / V row
   constexpr int VU = tc::v_units<D, KEYS, THREADS>();
-  static_assert(VU * THREADS == (KEYS / 4) * DW, "whole V units");
+  static_assert(D % 8 == 0, "output n-tiles of 8 columns");
   extern __shared__ __align__(16) int smem[];
   int* sK = smem;                            // 2 x KEYS x SK
-  int* sVt = sK + 2 * KEYS * SK;             // D x SV
-  unsigned* sE = reinterpret_cast<unsigned*>(sVt + D * SV);
+  int* sVt = sK + 2 * KEYS * SK;             // v_cols(D) x SV
+  unsigned* sE = reinterpret_cast<unsigned*>(sVt + tc::v_cols(D) * SV);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -197,7 +199,7 @@ __device__ __forceinline__ void attend(const Args& a) {
   range(wr0 + g + 8, lo[1], hi[1]);
   const int nt = t_hi > t_lo ? (t_hi - t_lo + KEYS - 1) / KEYS : 0;
 
-  // Q fragments: rows g, g+8 x words 8s + 2t, 8s + 2t + 1
+  // Q fragments: rows g, g+8 x words 8s + 2t, 8s + 2t + 1, zero past D
   int qa[KS][4];
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
@@ -206,15 +208,17 @@ __device__ __forceinline__ void attend(const Args& a) {
         a.q + (((size_t)b * a.Sq + r) * a.H + h) * D);
 #pragma unroll
     for (int s = 0; s < KS; ++s) {
-      qa[s][hf] = r < a.Sq ? qr[8 * s + 2 * t] : 0;
-      qa[s][2 + hf] = r < a.Sq ? qr[8 * s + 2 * t + 1] : 0;
+      // the word index is even, so word + 1 < DW too
+      const bool in = r < a.Sq && (D % 32 == 0 || 8 * s + 2 * t < DW);
+      qa[s][hf] = in ? qr[8 * s + 2 * t] : 0;
+      qa[s][2 + hf] = in ? qr[8 * s + 2 * t + 1] : 0;
     }
   }
 
   auto load_k = [&](int t0, int buf) {
     int* dst = sK + buf * KEYS * SK;
     if (a.vec_k) {
-      tc::load_k16<D, KEYS, THREADS>(dst, k_at, t0, t_hi, tid, a.k);
+      tc::load_k_wide<D, KEYS, THREADS>(dst, k_at, t0, t_hi, tid, a.k);
     } else {
 #pragma unroll 4
       for (int i = tid; i < KEYS * DW; i += THREADS) {

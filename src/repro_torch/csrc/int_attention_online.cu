@@ -54,7 +54,9 @@
 // would be 0 and its block max is NEG), and the block's leading blocks
 // where no row has a live key yet are not visited: there s = acc = 0 and
 // m = NEG, which such a block leaves as it is.  GQA: head h reads KV head
-// h / (H / Hkv).
+// h / (H / Hkv).  Head dims 32, 64, 120 and 128: a D that is not a
+// multiple of 32 takes K5's zero-padded k-steps and 8-byte K copies
+// (int_attention_tc.cuh).
 #include "int_attention_tc.cuh"
 
 namespace r8 {
@@ -82,7 +84,7 @@ struct Args {
 
 // dynamic shared memory of one block: the K double buffer and one Vᵀ tile
 __host__ __device__ constexpr long long smem_bytes(int D) {
-  return 4LL * (2 * KEYS * tc::sk_words(D) + D * (KEYS / 4));
+  return 4LL * (2 * KEYS * tc::sk_words(D) + tc::v_cols(D) * (KEYS / 4));
 }
 
 // row i's live keys [live_lo, live_hi), and the last query row of its
@@ -120,14 +122,14 @@ __device__ __forceinline__ int finalize(int acc, int s8, const Args& a) {
 template <int D>
 __global__ void __launch_bounds__(THREADS)
 int_attention_online_kernel(Args a) {
-  constexpr int KS = D / 32;                 // k-steps of Q·Kᵀ
+  constexpr int KS = tc::ksteps(D);          // k-steps of Q·Kᵀ
   constexpr int SK = tc::sk_words(D);
   constexpr int NJ = KEYS / 8;               // score n-tiles of a tile
   constexpr int ND = D / 8;                  // output n-tiles
   constexpr int VU = tc::v_units<D, KEYS, THREADS>();
   extern __shared__ __align__(16) int smem[];
   int* sK = smem;                            // 2 x KEYS x SK
-  int* sVt = sK + 2 * KEYS * SK;             // D x KEYS / 4
+  int* sVt = sK + 2 * KEYS * SK;             // v_cols(D) x KEYS / 4
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -167,7 +169,7 @@ int_attention_online_kernel(Args a) {
   const int per = T == 1 ? 1 : 2 * T;        // steps a logical block
   const int nsteps = j1 > j0 ? (j1 - j0) * per : 0;
 
-  // Q fragments: rows g, g+8 x words 8s + 2t, 8s + 2t + 1
+  // Q fragments: rows g, g+8 x words 8s + 2t, 8s + 2t + 1, zero past D
   int qa[KS][4];
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
@@ -175,8 +177,10 @@ int_attention_online_kernel(Args a) {
         a.q + (((size_t)b * a.Sq + row[hf]) * a.H + h) * D);
 #pragma unroll
     for (int s = 0; s < KS; ++s) {
-      qa[s][hf] = row[hf] < a.Sq ? qr[8 * s + 2 * t] : 0;
-      qa[s][2 + hf] = row[hf] < a.Sq ? qr[8 * s + 2 * t + 1] : 0;
+      const bool in =
+          row[hf] < a.Sq && (D % 32 == 0 || 8 * s + 2 * t < D / 4);
+      qa[s][hf] = in ? qr[8 * s + 2 * t] : 0;
+      qa[s][2 + hf] = in ? qr[8 * s + 2 * t + 1] : 0;
     }
   }
 
@@ -192,8 +196,8 @@ int_attention_online_kernel(Args a) {
   auto issue = [&](int st) {
     int j, pass, k0, k1;
     step(st, j, pass, k0, k1);
-    tc::load_k16<D, KEYS, THREADS>(sK + (st & 1) * KEYS * SK, k_at, k0, k1,
-                                   tid, a.k);
+    tc::load_k_wide<D, KEYS, THREADS>(sK + (st & 1) * KEYS * SK, k_at, k0,
+                                      k1, tid, a.k);
     if (pass) tc::load_v<D, KEYS, THREADS>(vr, v_at, k0, k1, tid);
   };
 
@@ -339,7 +343,7 @@ inline int launch(const Args& a, cudaStream_t s) {
 // dim the kernel is not compiled for; kernels/int_attention.py::
 // k8_smem_bytes is the same
 extern "C" long long r8_online_smem_bytes(int D) {
-  if (D != 32 && D != 64 && D != 128) return -1;
+  if (D != 32 && D != 64 && D != 120 && D != 128) return -1;
   return r8::k8::smem_bytes(D);
 }
 
@@ -358,6 +362,8 @@ extern "C" int r8_int_attention_online(const r8::k8::Args* a, void* stream) {
       return r8::k8::launch<32>(*a, s);
     case 64:
       return r8::k8::launch<64>(*a, s);
+    case 120:
+      return r8::k8::launch<120>(*a, s);
     case 128:
       return r8::k8::launch<128>(*a, s);
     default:

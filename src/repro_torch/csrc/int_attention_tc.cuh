@@ -14,7 +14,17 @@
 //   words, 8 mod 16, so a half-warp's 8-byte B-fragment loads hit 32
 //   distinct banks.  A row-major K tile is mma's .col B operand of Q·Kᵀ;
 //   for k-step s thread (g, t) feeds words 8s + 2t, 8s + 2t + 1 of its
-//   query rows and of key n0 + g.
+//   query rows and of key n0 + g.  A D that is not a multiple of 32
+//   (D = 120: three k-steps and 24 bytes) takes ksteps(D) k-steps over
+//   rows padded to the next multiple of 32 bytes: the kernels load their
+//   Q fragments as zeros past D, so whatever the K tile's pad words hold
+//   (they are never written) multiplies zero and the product is exact.
+//   The tile copies move K rows in 16-byte granules, 8 where D is not a
+//   multiple of 16 (a head's row h * D bytes in is then only 8-byte
+//   aligned), or 4 where K itself is not aligned to those.  Vᵀ is staged
+//   with v_cols(D) rows, D padded the same way, so a tile's V units divide
+//   evenly among the threads; the pad columns load as zeros and P·V never
+//   reads them (D / 8 output n-tiles).
 //
 //   P·V without shuffles: the s32 C layout of Q·Kᵀ gives thread (g, t)
 //   keys 8j + 2t, 8j + 2t + 1 of rows g and g + 8 for n-tile j.  For the
@@ -49,9 +59,16 @@
 namespace r8 {
 namespace tc {
 
-// K row stride in words: 8 mod 16, for conflict-free 8-byte loads
+// k-steps of Q·Kᵀ: D padded to a multiple of 32 bytes
+__host__ __device__ constexpr int ksteps(int D) { return (D + 31) / 32; }
+
+// Vᵀ rows: D padded to a multiple of 32
+__host__ __device__ constexpr int v_cols(int D) { return 32 * ksteps(D); }
+
+// K row stride in words: the padded row, then 8 mod 16 for conflict-free
+// 8-byte loads
 __host__ __device__ constexpr int sk_words(int D) {
-  return (D / 4) % 16 == 8 ? D / 4 : D / 4 + 8;
+  return (8 * ksteps(D)) % 16 == 8 ? 8 * ksteps(D) : 8 * ksteps(D) + 8;
 }
 
 __device__ __forceinline__ int div_ln2(int n, unsigned magic, int shift) {
@@ -99,22 +116,28 @@ __device__ __forceinline__ int vswz(int d) {
   return (((d >> 1) & 1) << 2) ^ ((d >> 2) & 7);
 }
 
-// K rows t0 .. t0 + KEYS - 1 into dst by 16-byte cp.async; row(key) is
-// the address of key's D bytes (contiguous, or through a page table), read
-// only for keys before t_hi; later keys are zero-filled (`any` is a valid
-// address for their source)
+// K rows t0 .. t0 + KEYS - 1 into dst by cp.async in wide granules: 16
+// bytes, or 8 where D is not a multiple of 16; row(key) is the address of
+// key's D bytes (contiguous, or through a page table), aligned to the
+// granule, read only for keys before t_hi; later keys are zero-filled
+// (`any` is a valid address for their source)
 template <int D, int KEYS, int THREADS, class Row>
-__device__ __forceinline__ void load_k16(int* dst, Row&& row, int t0,
-                                         int t_hi, int tid,
-                                         const int8_t* any) {
-  constexpr int CH = D / 16;                 // 16-byte chunks of a key
+__device__ __forceinline__ void load_k_wide(int* dst, Row&& row, int t0,
+                                            int t_hi, int tid,
+                                            const int8_t* any) {
+  constexpr int G = D % 16 == 0 ? 16 : 8;    // bytes a copy
+  constexpr int CH = D / G;                  // copies a key
   constexpr int SK = sk_words(D);
+  static_assert(D % 8 == 0, "K rows copy in 8- or 16-byte granules");
 #pragma unroll
   for (int i = tid; i < KEYS * CH; i += THREADS) {
     const int j = i / CH, c = i % CH, key = t0 + j;
     const bool ok = key < t_hi;
-    cp_async16(smem_addr(dst + j * SK + 4 * c), ok ? row(key) + 16 * c : any,
-               ok ? 16 : 0);
+    const unsigned dst_c = smem_addr(dst + j * SK + (G / 4) * c);
+    if (G == 16)
+      cp_async16(dst_c, ok ? row(key) + G * c : any, ok ? G : 0);
+    else
+      cp_async8(dst_c, ok ? row(key) + G * c : any, ok ? G : 0);
   }
 }
 
@@ -122,50 +145,54 @@ __device__ __forceinline__ void load_k16(int* dst, Row&& row, int t0,
 // A-fragments qa: c0, c1 row g keys 8j+2t, +1; c2, c3 row g + 8
 template <int D>
 __device__ __forceinline__ void qk_ntile(const int* sKb, int j,
-                                         const int (&qa)[D / 32][4], int g,
-                                         int t, int (&c)[4]) {
+                                         const int (&qa)[ksteps(D)][4],
+                                         int g, int t, int (&c)[4]) {
   c[0] = c[1] = c[2] = c[3] = 0;
   const int* kr = sKb + (8 * j + g) * sk_words(D) + 2 * t;
 #pragma unroll
-  for (int s = 0; s < D / 32; ++s) {
+  for (int s = 0; s < ksteps(D); ++s) {
     const int2 bw = *reinterpret_cast<const int2*>(kr + 8 * s);
     mma_s8(c, qa[s], bw.x, bw.y);
   }
 }
 
-// V units a thread stages per tile
+// V units a thread stages per tile (over the v_cols(D) padded columns)
 template <int D, int KEYS, int THREADS>
 __host__ __device__ constexpr int v_units() {
-  return (KEYS / 4) * (D / 4) / THREADS;
+  return (KEYS / 4) * (v_cols(D) / 4) / THREADS;
 }
 
 // V unit i: columns 4 dw..4 dw+3 of keys k0, k0+1, k0+8, k0+9, where
 // gi = i / DW names chunk c = gi / 8 and word 2 u + hw of its rows; row(key)
-// as in load_k16; keys at or past t_hi read as 0
+// as in load_k_wide; keys at or past t_hi and columns past D read as 0
 template <int D, int KEYS, int THREADS, class Row>
 __device__ __forceinline__ void load_v(
     unsigned (&vr)[v_units<D, KEYS, THREADS>()][4], Row&& row, int t0,
     int t_hi, int tid) {
-  constexpr int DW = D / 4;
+  constexpr int DW = v_cols(D) / 4;
+  static_assert(v_units<D, KEYS, THREADS>() * THREADS == (KEYS / 4) * DW,
+                "whole V units");
 #pragma unroll
   for (int n = 0; n < v_units<D, KEYS, THREADS>(); ++n) {
     const int i = tid + n * THREADS, dw = i % DW, gi = i / DW;
     const int k0 = t0 + 32 * (gi >> 3) + 16 * ((gi >> 2) & 1) + 2 * (gi & 3);
+    const bool col = D % 32 == 0 || dw < D / 4;
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
       const int key = k0 + (jj & 1) + 8 * (jj >> 1);
-      vr[n][jj] =
-          key < t_hi ? reinterpret_cast<const unsigned*>(row(key))[dw] : 0u;
+      vr[n][jj] = col && key < t_hi
+                      ? reinterpret_cast<const unsigned*>(row(key))[dw]
+                      : 0u;
     }
   }
 }
 
-// the units of load_v as Vᵀ (D rows of KEYS / 4 words)
+// the units of load_v as Vᵀ (v_cols(D) rows of KEYS / 4 words)
 template <int D, int KEYS, int THREADS>
 __device__ __forceinline__ void store_v(
     int* sVt, const unsigned (&vr)[v_units<D, KEYS, THREADS>()][4],
     int tid) {
-  constexpr int DW = D / 4, SV = KEYS / 4;
+  constexpr int DW = v_cols(D) / 4, SV = KEYS / 4;
 #pragma unroll
   for (int n = 0; n < v_units<D, KEYS, THREADS>(); ++n) {
     const int i = tid + n * THREADS, dw = i % DW, gi = i / DW;

@@ -28,6 +28,16 @@ __device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
                : "memory");
 }
 
+// 8 bytes global -> shared (K rows of a head dim that is not a multiple
+// of 16: at D = 120 a head's row starts 8-byte aligned); zero-filled where
+// `valid` is 0
+__device__ __forceinline__ void cp_async8(unsigned dst, const void* src,
+                                          int valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid)
+               : "memory");
+}
+
 // 4 bytes global -> shared (word copies of operands that are not 16-byte
 // aligned); zero-filled where `valid` is 0
 __device__ __forceinline__ void cp_async4(unsigned dst, const void* src,

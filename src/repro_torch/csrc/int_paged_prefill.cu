@@ -84,6 +84,8 @@ extern "C" int r8_int_paged_prefill(const r8::k5::Args* a, void* stream) {
       return r8::k4::launch_d<32>(*a, s);
     case 64:
       return r8::k4::launch_d<64>(*a, s);
+    case 120:
+      return r8::k4::launch_d<120>(*a, s);
     case 128:
       return r8::k4::launch_d<128>(*a, s);
     default:

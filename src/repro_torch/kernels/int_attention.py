@@ -32,7 +32,8 @@ from repro_torch.core.intmath import int_einsum
 from repro_torch.core.softmax import (NEG, _exp16, combine_correction,
                                       rescale_sum)
 from repro_torch.kernels import LAUNCHES
-from repro_torch.kernels.int_attention_fused import HEAD_DIMS, exp16_args
+from repro_torch.kernels.int_attention_fused import (HEAD_DIMS, exp16_args,
+                                                     sk_words, v_cols)
 
 
 def _blocks(q8, k8, bq: int, bkv: int):
@@ -62,21 +63,20 @@ class K8Plan(NamedTuple):
 
 def k8_smem_bytes(d: int) -> int:
     """A K8 block's dynamic shared memory, as ``r8_online_smem_bytes``:
-    two K tiles (row stride 8 mod 16 words) and one Vᵀ tile, whatever the
-    logical blocks."""
-    dw = d // 4
-    sk = dw if dw % 16 == 8 else dw + 8
-    return 4 * (2 * K8_KEYS * sk + d * (K8_KEYS // 4))
+    two K tiles (row stride ``sk_words(d)``) and one Vᵀ tile (``v_cols(d)``
+    rows), whatever the logical blocks."""
+    return 4 * (2 * K8_KEYS * sk_words(d) + v_cols(d) * (K8_KEYS // 4))
 
 
 def k8_launch_plan(b: int, sq: int, h: int, d: int, bkv: int) -> K8Plan:
     """The K8 launch of a (B, Sq, H, D) query at logical KV blocks of
     ``bkv`` keys (after the wrapper's clamping).  Raises for a head dim
     the kernel is not compiled for."""
-    if d not in HEAD_DIMS:
+    dims = HEAD_DIMS["int_attention_online"]
+    if d not in dims:
         raise KernelContractError("int_attention_online", [
-            f"head dim {d} is not one the kernel is compiled for "
-            f"{HEAD_DIMS}"])
+            f"head dim {d} is not one the kernel is compiled for {dims} "
+            "(ROADMAP §2 item 4)"])
     return K8Plan((-(-sq // K8_ROWS), h, b), -(-bkv // K8_KEYS),
                   k8_smem_bytes(d))
 
@@ -150,7 +150,7 @@ def int_attention_online(q8, k8, v8, plan, causal: bool = True,
     as in the reference, whose int8 store wraps a wider clip.  CPU
     tensors take the plain version; CUDA tensors launch the tensor-core
     kernel (:func:`k8_launch_plan`) or raise (Skv > 2^16, a head dim
-    outside 32/64/128)."""
+    outside ``HEAD_DIMS``)."""
     if not q8.is_cuda:
         return int_attention_online_plain(q8, k8, v8, plan, causal, window,
                                           bq, bkv, out_bits)

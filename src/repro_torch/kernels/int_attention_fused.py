@@ -1,5 +1,5 @@
 """K5 full-sequence and K4 paged chunked-prefill integer attention (+ the
-operand checks of the paged kernels, K4 and K3).
+operand checks and head dims of the attention kernels K3, K4, K5, K8).
 
 The ports of ``repro/kernels/int_attention_fused.py``'s
 ``int_attention_fused`` (CUDA kernel ``csrc/int_attention_fused.cu``) and
@@ -24,7 +24,48 @@ from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels import ref as _ref
 from repro_torch.ops.spec import PER_CHANNEL, QuantLinearParams, RequantSpec
 
-HEAD_DIMS = (32, 64, 128)     # the head dims compiled into the kernels
+#: the head dims each attention kernel is compiled for.  K3 takes any D
+#: that is a multiple of 4 in its body; K4, K5 and K8 (the tensor-core
+#: body) any multiple of 8, a D that is not a multiple of 32 padded to the
+#: next one inside the kernel.  The reference takes every even D (ROADMAP
+#: §2 item 4 lists the rest).
+HEAD_DIMS = {"int_decode_attention": (32, 64, 120, 128),
+             "int_attention_fused": (32, 64, 120, 128),
+             "int_paged_prefill": (32, 64, 120, 128),
+             "int_attention_online": (32, 64, 120, 128)}
+
+
+def require_head_dim(kernel: str, d: int) -> None:
+    """Raise ``ValueError`` for a head dim ``kernel`` is not compiled
+    for."""
+    if d not in HEAD_DIMS[kernel]:
+        raise ValueError(f"{kernel}: head dim {d} is not one the kernel is "
+                         f"compiled for {HEAD_DIMS[kernel]} (ROADMAP §2 "
+                         "item 4)")
+
+
+def k_copy_bytes(d: int, k_addr: int) -> int:
+    """The granule of the tensor-core kernels' K tile copies (K4, K5, K8):
+    16 bytes where D is a multiple of 16, else 8 (D = 120: a head's row
+    starts 8-byte aligned, ``h * 120`` bytes in), when K's address is
+    aligned to it; else 4.  Every key row of every head then starts on a
+    granule: its offset is a multiple of D."""
+    wide = 16 if d % 16 == 0 else 8
+    return wide if k_addr % wide == 0 else 4
+
+
+def v_cols(d: int) -> int:
+    """D padded to a multiple of 32 (``tc::v_cols``): the bytes of a K row
+    the k-steps of Q·Kᵀ read, and the rows of the staged Vᵀ tile."""
+    return -(-d // 32) * 32
+
+
+def sk_words(d: int) -> int:
+    """The K tile's row stride in words (``tc::sk_words``): the padded row
+    (:func:`v_cols`), then 8 mod 16 words so a half-warp's 8-byte fragment
+    loads hit 32 distinct banks."""
+    dp = v_cols(d) // 4
+    return dp if dp % 16 == 8 else dp + 8
 
 
 def epilogue_setup(requant, plan, wo, wo_spec):
@@ -67,9 +108,6 @@ def _epilogue_operands(q8, requant, b_vec):
     to <= 8 bits, int32 otherwise."""
     b, s, h, d = q8.shape
     dev = q8.device
-    if d not in HEAD_DIMS:
-        raise ValueError(f"attention kernels support head dims "
-                         f"{HEAD_DIMS}, got {d}")
     bvec = None
     if requant.kind == PER_CHANNEL:
         if b_vec is None:
@@ -136,7 +174,8 @@ class K5Plan(NamedTuple):
     """One K5 or K4 launch: the grid ``(query blocks, H, B)`` of 64-row
     blocks, the key tiles of the widest block's range, the dynamic shared memory in bytes, whether
     sweep 1 keeps e16 in shared memory (sweep 2 then skips Q·Kᵀ and
-    exp16), and whether K is copied 16 bytes at a time (else 4)."""
+    exp16), and whether K is copied in wide granules (16 bytes, or 8 at a
+    D that is not a multiple of 16: :func:`k_copy_bytes`), else 4."""
     grid: tuple
     tiles: int
     smem: int
@@ -172,12 +211,10 @@ def k5_tiles(sq: int, skv: int, causal: bool, window: int) -> int:
 
 def k5_smem_bytes(d: int, tiles: int, store_e16: bool) -> int:
     """A K5 block's dynamic shared memory, as ``r8_k5_smem_bytes``: two K
-    tiles (row stride 8 mod 16 words), one Vᵀ tile and, with the e16
-    store, 2 KB a warp a key tile."""
-    dw = d // 4
-    sk = dw if dw % 16 == 8 else dw + 8
+    tiles (row stride :func:`sk_words`), one Vᵀ tile (:func:`v_cols` rows)
+    and, with the e16 store, 2 KB a warp a key tile."""
     store = 4 * (K5_THREADS // 32) * tiles * (K5_KEYS // 8) * 2 * 32
-    return 4 * (2 * K5_KEYS * sk + d * (K5_KEYS // 4)) + (
+    return 4 * (2 * K5_KEYS * sk_words(d) + v_cols(d) * (K5_KEYS // 4)) + (
         store if store_e16 else 0)
 
 
@@ -186,13 +223,12 @@ def k5_launch_plan(b: int, sq: int, skv: int, h: int, hkv: int, d: int,
                    e16_fits: bool = True) -> K5Plan:
     """The K5 launch of a (B, Sq, H, D) x (B, Skv, Hkv, D) attention with
     the wrapper's mask (a window implies causality), K at address
-    ``k_addr``: 16-byte copies of K iff it is 16-byte aligned; the e16
-    store iff e16 fits 16 bits (``e16_fits``) and the widest block's range
-    fits the shared memory a block may have.  Raises for a head dim the
+    ``k_addr``: wide copies of K iff it is aligned to them
+    (:func:`k_copy_bytes`); the e16 store iff e16 fits 16 bits
+    (``e16_fits``) and the widest block's range fits the shared memory a
+    block may have.  Raises for a head dim the
     kernel is not compiled for."""
-    if d not in HEAD_DIMS:
-        raise ValueError(f"int_attention_fused: head dim {d} is not one of "
-                         f"the compiled {HEAD_DIMS}")
+    require_head_dim("int_attention_fused", d)
     if hkv <= 0 or h % hkv:
         raise ValueError(f"int_attention_fused: H={h} is not a multiple of "
                          f"Hkv={hkv}")
@@ -200,7 +236,8 @@ def k5_launch_plan(b: int, sq: int, skv: int, h: int, hkv: int, d: int,
     tiles = k5_tiles(sq, skv, causal, max(window, 0))
     store = e16_fits and k5_smem_bytes(d, tiles, True) <= K5_SMEM_LIMIT
     return K5Plan((-(-sq // K5_ROWS), h, b), tiles,
-                  k5_smem_bytes(d, tiles, store), store, k_addr % 16 == 0)
+                  k5_smem_bytes(d, tiles, store), store,
+                  k_copy_bytes(d, k_addr) > 4)
 
 
 @functools.lru_cache(maxsize=16)
@@ -334,19 +371,18 @@ def k4_launch_plan(b: int, c: int, h: int, hkv: int, d: int,
     lives on the card (the kernel reads it and walks only its rows' live
     tiles).  Tiles and the e16 store are sized for the table's whole span
     ``max_pages * page_size``; the store iff e16 fits 16 bits
-    (``e16_fits``) and the span fits a block's shared memory; 16-byte
-    copies of K iff it is 16-byte aligned.  Raises for a head dim the
+    (``e16_fits``) and the span fits a block's shared memory; wide copies
+    of K iff it is aligned to them (:func:`k_copy_bytes`).  Raises for a head dim the
     kernel is not compiled for or a ragged GQA group."""
-    if d not in HEAD_DIMS:
-        raise ValueError(f"int_paged_prefill: head dim {d} is not one of "
-                         f"the compiled {HEAD_DIMS}")
+    require_head_dim("int_paged_prefill", d)
     if hkv <= 0 or h % hkv:
         raise ValueError(f"int_paged_prefill: H={h} is not a multiple of "
                          f"Hkv={hkv}")
     tiles = -(-(max_pages * page_size) // K5_KEYS)
     store = e16_fits and k5_smem_bytes(d, tiles, True) <= K5_SMEM_LIMIT
     return K5Plan((-(-c // K5_ROWS), h, b), tiles,
-                  k5_smem_bytes(d, tiles, store), store, k_addr % 16 == 0)
+                  k5_smem_bytes(d, tiles, store), store,
+                  k_copy_bytes(d, k_addr) > 4)
 
 
 def k4_args(q8, k_pool, v_pool, plan, pos_end, pages, page_size: int,

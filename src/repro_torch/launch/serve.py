@@ -2,8 +2,12 @@
 batched INT8 engine on the card, drained with ``run_until_done``.
 
 Usage:
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
-      [--reduced] --requests 8 --max-new 16 [--device cuda]
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      [--arch h2o-danube-3-4b] [--reduced] [--cache-mode contiguous] \
+      --requests 8 --max-new 16 [--device cuda]
+
+The default arch is the reference driver's, sliding-window
+h2o-danube-3-4b, which prefills by token streaming in either cache mode.
 
 The model is drawn from a seed and quantized layer by layer on the
 device (no weights are downloaded), with the embedding at unit std: the
@@ -13,7 +17,7 @@ The kernels are built (or loaded) before the timed drain.
 ``--device`` defaults to ``cuda``
 and fails without a GPU unless ``--device cpu`` is given (the plain
 versions of every kernel run there).  The asyncio front end of the
-reference driver is not ported yet (ROADMAP §1 item 6).
+reference driver is not ported yet (ROADMAP §1 item 3).
 """
 from __future__ import annotations
 
@@ -35,7 +39,7 @@ from repro_torch.serving import Request, ServingEngine
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
-    ap.add_argument("--arch", default="llama3-8b",
+    ap.add_argument("--arch", default="h2o-danube-3-4b",
                     choices=sorted(n for n, c in ARCHS.items()
                                    if c.is_causal))
     ap.add_argument("--reduced", action="store_true",
@@ -44,12 +48,18 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--cache-len", type=int, default=128)
+    ap.add_argument("--cache-mode", default="paged",
+                    choices=["paged", "contiguous"],
+                    help="KV layout: paged pool (memory O(live tokens)) "
+                         "or one contiguous slab per lane")
     ap.add_argument("--page-size", type=int, default=16,
-                    help="tokens per physical KV page")
+                    help="tokens per physical KV page (paged mode)")
     ap.add_argument("--prefill-chunk", type=int, default=None,
-                    help="prompt tokens per batched prefill step (must "
-                         "divide or be a multiple of --page-size; 0 = "
-                         "token-streaming prefill; default ~32)")
+                    help="prompt tokens per batched prefill step (paged "
+                         "mode, full-causal archs; must divide or be a "
+                         "multiple of --page-size; 0 = token-streaming "
+                         "prefill; default: ~32 where the engine can "
+                         "chunk, else streaming)")
     ap.add_argument("--prefill-budget", type=int, default=None,
                     help="max prompt tokens prefilled per engine step "
                          "(default: unbounded)")
@@ -93,7 +103,7 @@ def main(argv=None):
         embed_scale=convert.unit_embed_scale(cfg))
     eng = ServingEngine(qp, plans, cfg, batch_size=args.batch,
                         cache_len=args.cache_len, ops=ops,
-                        page_size=args.page_size,
+                        cache_mode=args.cache_mode, page_size=args.page_size,
                         fold_wo=not args.no_fold_wo,
                         prefill_chunk=args.prefill_chunk,
                         prefill_budget=args.prefill_budget, device=dev)

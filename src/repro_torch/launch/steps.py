@@ -3,6 +3,8 @@
 ``make_prefill_step`` closes over the config, the plans and the op set
 and returns the full-sequence integer forward: the paper's encoder path
 (RoBERTa-base) and the full-sequence prefill of every ported decoder.
+``make_decode_step`` returns one decode step over contiguous caches
+(``inttransformer.init_decode_cache`` without a layout).
 """
 from __future__ import annotations
 
@@ -40,3 +42,31 @@ def make_prefill_step(cfg: ArchConfig, plans: qplans.LayerPlans, ops=None,
             return it.int_prefill(qparams, _batch(batch), plans, cfg,
                                   ops=ops)
     return prefill
+
+
+def make_decode_step(cfg: ArchConfig, plans: qplans.LayerPlans,
+                     cache_len: int, ops=None, device="cuda"):
+    """Returns ``decode(qparams, caches, tokens, pos[, rope_tab]) ->
+    (logits (B, V) float32, caches)``: one token a lane over contiguous
+    caches of ``cache_len`` positions (a sliding window rolls within
+    ``min(cache_len, cfg.window)``), written in place.  ``tokens`` and
+    ``pos`` (B,) are moved to ``device`` (default the card; raises
+    without one unless given ``device="cpu"``).  With ``cfg.pos ==
+    "rope"`` the integer RoPE tables are an argument, as in the
+    reference."""
+    ops = resolve_ops(ops, cfg)
+    dev = resolve_device(device)
+
+    def _on(tokens, pos):
+        return (torch.as_tensor(tokens, device=dev),
+                torch.as_tensor(pos, dtype=torch.int32, device=dev))
+
+    if cfg.pos == "rope":
+        def decode(qparams, caches, tokens, pos, rope_tab):
+            return it.int_decode_step(qparams, caches, *_on(tokens, pos),
+                                      plans, cfg, rope_tab, ops=ops)
+    else:
+        def decode(qparams, caches, tokens, pos):
+            return it.int_decode_step(qparams, caches, *_on(tokens, pos),
+                                      plans, cfg, None, ops=ops)
+    return decode

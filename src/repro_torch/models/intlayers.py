@@ -4,9 +4,10 @@ full-sequence forward (the dense-decoder and encoder subset of
 
 Every function consumes int8/int32 tensors and the design-time plans of
 ``repro_torch.quant.plans``.  Residual stream: int32 at ``cfg.s_res``
-clipped to ``cfg.qmax_res``; matmul operands int8.  KV caches are paged
-pools ``(num_pages, page_size, Hkv, hd)`` that these functions update
-**in place** (the reference returns new arrays; the bytes are the same).
+clipped to ``cfg.qmax_res``; matmul operands int8.  KV caches, contiguous
+``(B, L, Hkv, hd)`` or paged pools ``(num_pages, page_size, Hkv, hd)``,
+are updated **in place** (the reference returns new arrays; the bytes are
+the same).
 """
 from __future__ import annotations
 
@@ -146,7 +147,7 @@ def int_attn_fwd(qp, x8, plans: qplans.AttnPlan, cfg: ArchConfig,
             "the two-pass chunked attention (core.attention."
             "i_attention_chunked) the exact path takes above "
             f"S*Skv = {FULL_MATRIX_MAX} is not ported yet (ROADMAP §1 "
-            "item 8)")
+            "item 5)")
     requant = RequantSpec.per_tensor(plans.attn.dn_out)
     if fused:
         o8 = ops.int_attention(q8, k8, v8, plans.attn, causal=causal,
@@ -162,47 +163,60 @@ def int_attn_fwd(qp, x8, plans: qplans.AttnPlan, cfg: ArchConfig,
 
 
 def int_attn_decode(qp, x8, cache, pos, plans: qplans.AttnPlan,
-                    cfg: ArchConfig, rope_tab=None, ops=None, pages=None,
-                    page_size: int = 0, max_len: int = 0,
-                    fold_wo: bool = False, rope=None):
-    """One-token decode over a paged pool.  x8: (B,1,D); cache
-    ``{"k8","v8"}``; ``pos``: (B,) write position of each lane, which
-    lands at ``(pages[b, pos // page_size], pos % page_size)`` — unmapped
-    lanes write into the reserved null page 0.  ``max_len`` bounds the
-    logical occupancy (default: the page-table span).  ``rope``: cos/sin
-    already gathered for ``pos`` (:func:`rope_gather`), else gathered
-    here from ``rope_tab``.  Returns (out32 (B,1,D), cache) — the pools
-    are written in place."""
+                    cfg: ArchConfig, rope_tab=None, window: int = 0,
+                    ops=None, pages=None, page_size: int = 0,
+                    max_len: int = 0, fold_wo: bool = False, rope=None):
+    """One-token decode.  x8: (B,1,D); cache ``{"k8","v8"}``, written in
+    place; ``pos``: (B,) position of each lane's token, written at
+    logical slot ``pos``, or ``pos % window`` for a sliding window (the
+    rolling buffer).
+
+    Cache layouts: contiguous ``(B, L, Hkv, hd)`` by default, slot ``s``
+    of lane ``b`` at ``cache[b, s]``; with ``pages`` (int32 ``(B,
+    max_pages)``) a physical pool ``(num_pages, page_size, Hkv, hd)``,
+    slot ``s`` at ``(pages[b, s // page_size], s % page_size)`` —
+    unmapped lanes write into the reserved null page 0.  ``max_len``
+    bounds the paged occupancy (default: the page-table span).  Live
+    positions: ``min(pos + 1, L)`` when windowed or paged, else ``pos +
+    1``.  ``rope``: cos/sin already gathered for ``pos``
+    (:func:`rope_gather`), else gathered here from ``rope_tab``.
+    Returns (out32 (B,1,D), cache)."""
     ops = resolve_ops(ops)
-    if pages is None:
-        raise NotImplementedError("the contiguous KV cache is not ported "
-                                  "yet (ROADMAP §1 item 5)")
     b = x8.shape[0]
-    L = max_len or pages.shape[1] * page_size
+    paged = pages is not None
+    L = (max_len or pages.shape[1] * page_size) if paged \
+        else cache["k8"].shape[1]
     q8, k8, v8 = _qkv(qp, x8, plans, cfg, ops)
     if rope is None and rope_tab is not None:
         rope = rope_gather(rope_tab, pos[:, None])
     if rope is not None:
         q8 = rope_rotate(q8, *rope)
         k8 = rope_rotate(k8, *rope)
-    pos_l = pos.to(torch.long)
-    page = pages.to(torch.long)[torch.arange(b, device=pages.device),
-                                pos_l // page_size]
-    off = pos_l % page_size
-    cache["k8"].index_put_((page, off), k8[:, 0])
-    cache["v8"].index_put_((page, off), v8[:, 0])
-    valid = torch.clamp(pos + 1, max=L).to(torch.int32)
+    slot = pos.to(torch.long)
+    if window > 0:
+        slot = slot % window
+    if paged:
+        page = pages.to(torch.long)[torch.arange(b, device=pages.device),
+                                    slot // page_size]
+        where = (page, slot % page_size)
+    else:
+        where = (torch.arange(b, device=slot.device), slot)
+    cache["k8"].index_put_(where, k8[:, 0])
+    cache["v8"].index_put_(where, v8[:, 0])
+    valid = torch.clamp(pos + 1, max=L) if (window > 0 or paged) \
+        else pos + 1
+    valid = valid.to(torch.int32)
+    kv = dict(pages=pages, page_size=page_size) if paged else {}
     requant = RequantSpec.per_tensor(plans.attn.dn_out)
     if fold_wo:
         out32 = ops.int_decode_attention(
-            q8, cache["k8"], cache["v8"], plans.attn, valid, pages=pages,
-            page_size=page_size, requant=requant,
-            wo=QuantLinearParams.of(qp["wo"]),
-            wo_spec=RequantSpec.for_linear(plans.out))
+            q8, cache["k8"], cache["v8"], plans.attn, valid,
+            requant=requant, wo=QuantLinearParams.of(qp["wo"]),
+            wo_spec=RequantSpec.for_linear(plans.out), **kv)
     else:
         o8 = ops.int_decode_attention(
-            q8, cache["k8"], cache["v8"], plans.attn, valid, pages=pages,
-            page_size=page_size, requant=requant)
+            q8, cache["k8"], cache["v8"], plans.attn, valid,
+            requant=requant, **kv)
         o8 = o8.to(torch.int8).reshape(b, 1, cfg.n_heads * cfg.hd)
         out32 = int_linear(o8, qp["wo"], plans.out, ops)
     return out32, cache

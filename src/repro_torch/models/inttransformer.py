@@ -1,12 +1,13 @@
 """Integer datapath of dense decoders and encoders (the ported subset of
 ``repro.models.inttransformer``): embedding, the full-sequence forward
-(``int_prefill``), chunked prefill, decode, logits.
+(``int_prefill``, which can also build the decode cache), chunked
+prefill, decode over a contiguous or paged cache, logits.
 
 Everything from the embedding lookup to the last requant is SwiftTron
 integer arithmetic; only the final logits are dequantized (the host-side
 sampling boundary).  Where the reference scans over the stacked layers
 with ``lax.scan``, this is a Python loop over views of the stacks.  The
-paged KV pools are written in place.
+KV caches are written in place.
 """
 from __future__ import annotations
 
@@ -51,7 +52,7 @@ def _int_sublayer_fwd(qp, x32, plans: qplans.LayerPlans, cfg: ArchConfig,
     whatever ``cfg.post_norm`` says, and so is this."""
     if kind != ("attn", "ffn", False):
         raise NotImplementedError(f"sublayer {kind} is not ported yet "
-                                  "(ROADMAP §1 item 8)")
+                                  "(ROADMAP §1 items 6-8)")
     h8 = il.int_norm(qp["norm1"], x32, plans.norm, ops)
     a32 = il.int_attn_fwd(qp["attn"], h8, plans.attn, cfg, rope_tab,
                           positions, causal=causal, window=cfg.window,
@@ -83,17 +84,16 @@ def int_prefill(qparams, batch, plans: qplans.LayerPlans, cfg: ArchConfig,
                 ops=None, return_cache=False, cache_len: int = 0,
                 rope_tab=None):
     """Full-sequence integer forward of ``batch["tokens"]`` (B, S);
-    returns the last position's float32 logits (B, V).
+    returns the last position's float32 logits (B, V), and with
+    ``return_cache`` also the contiguous decode caches of the prompt
+    (:func:`build_cache_from_prefill`, ``cache_len`` positions, default
+    S).
 
     ``rope_tab``: the int32 (cos, sin) tables (built here for ``pos ==
     "rope"`` when not given).  Causal per ``cfg.is_causal``, windowed per
     ``cfg.window``; an encoder adds no position embedding, as in the
-    reference's integer path.  The encoder-decoder / VLM memory and
-    ``return_cache`` are not ported yet."""
-    if return_cache:
-        raise NotImplementedError("int_prefill(return_cache=True) builds "
-                                  "the contiguous KV cache, which is not "
-                                  "ported yet (ROADMAP §1 item 5)")
+    reference's integer path.  The encoder-decoder / VLM memory is not
+    ported yet."""
     if cfg.family in ("encdec", "vlm"):
         raise NotImplementedError(f"the {cfg.family} memory (encoder / "
                                   "image tokens) is not ported yet "
@@ -115,18 +115,30 @@ def int_prefill(qparams, batch, plans: qplans.LayerPlans, cfg: ArchConfig,
                                     cfg.is_causal, ops)
     # the kernels take contiguous operands: copy out the last position
     last = x32[:, -1:, :].contiguous()
-    return logits_int(qparams, last, plans, cfg, ops)[:, 0]
+    logits = logits_int(qparams, last, plans, cfg, ops)[:, 0]
+    if not return_cache:
+        return logits
+    return logits, build_cache_from_prefill(qparams, batch, plans, cfg, ops,
+                                            cache_len or s)
 
 
-def init_decode_cache(cfg: ArchConfig, layout, device="cpu") -> List[Dict]:
-    """Per-sublayer-position paged int8 pools ``(ng, num_pages, page_size,
-    Hkv, hd)`` for ``layout`` (a ``serving.kvcache.CacheLayout``)."""
-    if layout.kv_dtype != "int8":
-        raise NotImplementedError("int4 KV pages are not ported yet "
-                                  "(ROADMAP §1 item 5)")
+def init_decode_cache(cfg: ArchConfig, layout=None, device="cpu", *,
+                      batch: int = 0, cache_len: int = 0) -> List[Dict]:
+    """Per-sublayer-position int8 K/V caches, zeroed: paged pools ``(ng,
+    num_pages, page_size, Hkv, hd)`` for ``layout`` (a
+    ``serving.kvcache.CacheLayout``), else contiguous ``(ng, batch, L,
+    Hkv, hd)`` with ``L = min(cache_len, cfg.window)`` for a sliding
+    window (the rolling buffer), ``cache_len`` otherwise."""
     _, ng, kinds = layer_group_spec(cfg)
-    shape = (ng, layout.num_pages, layout.page_size, cfg.n_kv_heads,
-             cfg.hd)
+    if layout is not None:
+        if layout.kv_dtype != "int8":
+            raise NotImplementedError("int4 KV pages are not ported yet "
+                                      "(ROADMAP §1 item 4)")
+        shape = (ng, layout.num_pages, layout.page_size, cfg.n_kv_heads,
+                 cfg.hd)
+    else:
+        L = min(cache_len, cfg.window) if cfg.window > 0 else cache_len
+        shape = (ng, batch, L, cfg.n_kv_heads, cfg.hd)
     return [{"k8": torch.zeros(shape, dtype=torch.int8, device=device),
              "v8": torch.zeros(shape, dtype=torch.int8, device=device)}
             for _ in kinds]
@@ -147,8 +159,10 @@ def int_decode_step(qparams, caches, tokens, pos, plans, cfg: ArchConfig,
                     max_len: int = 0, fold_wo: bool = False):
     """tokens (B,) int, pos (B,) int32 -> (logits (B, V) float32, caches).
 
-    ``pages``/``page_size``/``max_len``: the paged KV operands (page table
-    int32 (B, max_pages)).  ``fold_wo`` folds each o-projection into the
+    ``caches``: contiguous (:func:`init_decode_cache` without a layout),
+    or paged pools with ``pages``/``page_size``/``max_len`` (page table
+    int32 (B, max_pages)); a sliding window writes its rolling slot ``pos
+    % cfg.window``.  ``fold_wo`` folds each o-projection into the
     attention call (bit-exact either way)."""
     ops = resolve_ops(ops)
     x32 = embed_int(qparams, tokens[:, None], plans, cfg)
@@ -157,15 +171,37 @@ def int_decode_step(qparams, caches, tokens, pos, plans, cfg: ArchConfig,
     for qp, cache in _sublayers(qparams, caches, cfg):
         h8 = il.int_norm(qp["norm1"], x32, plans.norm, ops)
         a32, _ = il.int_attn_decode(qp["attn"], h8, cache, pos, plans.attn,
-                                    cfg, ops=ops, pages=pages,
-                                    page_size=page_size, max_len=max_len,
-                                    fold_wo=fold_wo, rope=rope)
+                                    cfg, window=cfg.window, ops=ops,
+                                    pages=pages, page_size=page_size,
+                                    max_len=max_len, fold_wo=fold_wo,
+                                    rope=rope)
         x32 = _residual_add(x32, a32, cfg)
         h8 = il.int_norm(qp["norm2"], x32, plans.norm, ops)
         x32 = _residual_add(x32, il.int_ffn_fwd(qp["ffn"], h8, plans.ffn,
                                                 cfg, ops), cfg)
     logits = logits_int(qparams, x32, plans, cfg, ops)[:, 0]
     return logits, caches
+
+
+def build_cache_from_prefill(qparams, batch, plans, cfg: ArchConfig, ops,
+                             cache_len: int):
+    """The contiguous decode caches of ``batch["tokens"]`` (B, S), built
+    token by token through :func:`int_decode_step` at positions ``0 ..
+    S-1`` (as the reference's helper does; a sliding window rolls)."""
+    ops = resolve_ops(ops, cfg)
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    dev = qparams["embed_w8"].device
+    tokens = torch.as_tensor(tokens, device=dev)
+    caches = init_decode_cache(cfg, device=dev, batch=b,
+                               cache_len=cache_len)
+    rope_tab = il.build_rope_table(cache_len + 1, cfg.hd, cfg.rope_theta,
+                                   device=dev) if cfg.pos == "rope" else None
+    for t in range(s):
+        pos = torch.full((b,), t, dtype=torch.int32, device=dev)
+        _, caches = int_decode_step(qparams, caches, tokens[:, t], pos,
+                                    plans, cfg, rope_tab, ops)
+    return caches
 
 
 def int_prefill_chunk_step(qparams, caches, tokens, base_pos, plans,

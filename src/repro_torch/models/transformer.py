@@ -52,7 +52,7 @@ def require_dense(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"arch {cfg.name!r} ({cfg.family}) is not ported yet: the port "
             "runs dense attention+FFN decoders and encoders (ROADMAP §1 "
-            "item 8)")
+            "items 6-8)")
 
 
 def init_layer(gen: torch.Generator, cfg: ArchConfig, dtype) -> Pytree:

@@ -3,13 +3,14 @@ the JAX package's ``pallas_fused`` backend, and the port's default).
 
 A thin shim over the kernel wrappers of ``repro_torch.kernels``: K1 for
 all matmuls (the raw logits head included), K2 for the norms, K3 for
-paged decode attention, K4 for paged chunked prefill, the last two with
-the o-projection folded in, K5 for full-sequence attention, K6 for
+decode attention over paged pools or a contiguous cache, K4 for paged
+chunked prefill, the last two with the o-projection folded in, K5 for full-sequence attention, K6 for
 i-GELU and K7 for the row softmax (as the reference's ``pallas_fused``
 inherits ``pallas``'s softmax kernel).  There is no fallback and no tiling predicate: on CPU tensors each
 wrapper runs its plain version; on CUDA tensors it launches its kernel
-or raises for a shape the kernel cannot take (K5: Skv above
-``MAX_ROWSUM_LEN``).
+or raises for a shape the kernel cannot take (K3, K5: a cache or Skv
+above ``MAX_ROWSUM_LEN``; every attention kernel: a head dim it is not
+compiled for).
 """
 from __future__ import annotations
 
@@ -62,10 +63,6 @@ class CudaBackend:
     def int_decode_attention(self, q8, k8_cache, v8_cache, plan, valid_len,
                              requant=None, b_vec=None, pages=None,
                              page_size: int = 0, wo=None, wo_spec=None):
-        if pages is None:
-            raise NotImplementedError("the cuda backend reads paged KV "
-                                      "pools only; the contiguous cache is "
-                                      "not ported yet (ROADMAP §1 item 5)")
         return int_decode_attention_fused(
             q8, k8_cache, v8_cache, plan, valid_len, pages, page_size,
             requant=requant, b_vec=b_vec, wo=wo, wo_spec=wo_spec)

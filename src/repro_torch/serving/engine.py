@@ -1,30 +1,41 @@
-"""Batched integer serving engine over a paged KV cache (the port of
-``repro.serving.engine.ServingEngine`` for dense decoders).
+"""Batched integer serving engine over a paged or contiguous KV cache
+(the port of ``repro.serving.engine.ServingEngine`` for dense decoders,
+full-causal or sliding-window).
 
 A continuous-batching scheduler: requests are admitted into fixed batch
-*lanes*, prompts prefill through the paged KV pool, every step decodes
-one token for every lane whose prompt is in, and finished lanes retire.
+*lanes*, prompts prefill into the KV cache, every step decodes one token
+for every lane whose prompt is in, and finished lanes retire.
 
-  * **Chunked prefill** (default): prompts advance ``prefill_chunk``
-    tokens at a time through one batched
+  * **Cache layouts** (``cache_mode``): ``"paged"`` (default), a
+    physical page pool addressed through a per-lane page table, whose
+    pages belong to sessions; ``"contiguous"``, one slab of ``L``
+    positions per lane.  A sliding window bounds ``L`` to
+    ``min(cache_len, window)`` and writes position ``pos`` at the
+    rolling slot ``pos % window``, in both layouts.
+  * **Chunked prefill** (default on paged, full-causal archs): prompts
+    advance ``prefill_chunk`` tokens at a time through one batched
     ``inttransformer.int_prefill_chunk_step`` (K4 on the ``cuda``
     backend), writing K/V straight into physical pages through the page
     table; ``prefill_budget`` caps prompt tokens per engine step so
     decoding lanes keep emitting a token every step.
-    ``prefill_chunk=0`` streams prompt tokens through the decode step.
+  * **Token-streaming prefill** (``prefill_chunk=0``, and always for a
+    sliding window or the contiguous layout): prompt tokens one at a time
+    through the decode step.
   * **Decode**: one ``inttransformer.int_decode_step`` per engine step
     (K3 with the o-projection folded in when ``fold_wo``).
-  * **Prefix sharing** (``prefix_cache``): a prompt whose prefix was
-    prefilled before maps the same physical pages (allocator refcounts);
-    the first write into a shared page copies it (copy-on-write).
-  * ``evict`` frees a session's lane and pages; ``preempt`` frees the
-    lane but keeps the pages, and the session resumes bit-exactly.
+  * **Prefix sharing** (``prefix_cache``, chunkable paged engines): a
+    prompt whose prefix was prefilled before maps the same physical
+    pages (allocator refcounts); the first write into a shared page
+    copies it (copy-on-write).
+  * ``evict`` frees a session's lane and pages; ``preempt`` (paged only)
+    frees the lane but keeps the pages, and the session resumes
+    bit-exactly.
 
 Token streams are bit-identical to the JAX engine's for the same
 weights and schedule.  Not ported yet (each raises
 ``NotImplementedError`` naming its ROADMAP item): ``tp > 1``,
-``spec_k > 0``, ``kv_dtype="int4"``, ``cache_mode="contiguous"``, and
-archs without chunked prefill (sliding window, SSM, MoE, cross).
+``spec_k > 0``, ``kv_dtype="int4"``, and SSM / MoE / cross-attention
+archs.
 """
 from __future__ import annotations
 
@@ -40,6 +51,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import intlayers as il
 from repro_torch.models import inttransformer as it
 from repro_torch.models.common import ArchConfig
+from repro_torch.models.transformer import layer_group_spec
 from repro_torch.ops import OP_NAMES, QuantLinearParams, resolve_ops
 from repro_torch.quant import plans as qplans
 from repro_torch.serving.kvcache import (NULL_PAGE, CacheLayout,
@@ -105,23 +117,23 @@ class ServingEngine:
         if spec_k:
             raise NotImplementedError(
                 "speculative decoding is not ported yet (ROADMAP §1 "
-                "item 6, serving/speculate.py)")
+                "item 3, serving/speculate.py)")
+        if cache_mode not in ("paged", "contiguous"):
+            raise ValueError("cache_mode must be 'paged' or 'contiguous',"
+                             f" got {cache_mode!r}")
         if kv_dtype != "int8":
             raise NotImplementedError(
-                "int4 KV pages are not ported yet (ROADMAP §1 item 5)")
-        if cache_mode != "paged":
-            raise NotImplementedError(
-                "the contiguous KV cache is not ported yet (ROADMAP §1 "
-                "items 5-6); use cache_mode='paged'")
+                "int4 KV pages are not ported yet (ROADMAP §1 item 4)")
         if not cfg.is_causal:
             raise ValueError(
                 f"arch {cfg.name!r} is an encoder: it has no autoregressive "
                 "serving; run it through launch.steps.make_prefill_step")
-        if not it.chunked_prefill_supported(cfg):
+        _, _, kinds = layer_group_spec(cfg)
+        if any(kind != ("attn", "ffn", False) for kind in kinds):
             raise NotImplementedError(
-                f"arch {cfg.name!r} needs token-streaming-only serving "
-                "(sliding window / SSM / MoE / cross attention), which is "
-                "not ported yet (ROADMAP §1 item 8)")
+                f"arch {cfg.name!r} has SSM / MoE / cross-attention "
+                "sublayers, which are not ported yet (ROADMAP §1 items "
+                "6-8)")
         if prefill_budget is not None and prefill_budget < 1:
             raise ValueError("prefill_budget must be >= 1 token/step, "
                              f"got {prefill_budget}")
@@ -134,11 +146,22 @@ class ServingEngine:
         self.fold_wo = fold_wo
         self.ops = resolve_ops(ops, cfg)
         self.rng = np.random.default_rng(seed)
-        self.L = cache_len
-        self.layout = CacheLayout.fit(batch_size, self.L, page_size,
-                                      num_pages, kv_dtype=kv_dtype)
-        self.kv = PagedKVCache(self.layout)
-        self.caches = it.init_decode_cache(cfg, self.layout, self.device)
+        # logical per-session cache length: the window bounds it
+        self.L = min(cache_len, cfg.window) if cfg.window > 0 else cache_len
+        self.paged = cache_mode == "paged"
+        if self.paged:
+            self.layout = CacheLayout.fit(batch_size, self.L, page_size,
+                                          num_pages, kv_dtype=kv_dtype)
+            self.kv = PagedKVCache(self.layout)
+            self.caches = it.init_decode_cache(cfg, self.layout,
+                                               self.device)
+        else:
+            self.layout = None
+            self.kv = None
+            self.caches = it.init_decode_cache(
+                cfg, device=self.device, batch=batch_size,
+                cache_len=cache_len)
+        self._chunkable = self.paged and it.chunked_prefill_supported(cfg)
         self.prefill_chunk = self._resolve_prefill_chunk(prefill_chunk)
         self._use_chunked = self.prefill_chunk > 0
         self.prefill_budget = prefill_budget
@@ -146,11 +169,12 @@ class ServingEngine:
         # it, so the RoPE table spans every position a chunk can touch
         # (the reference clamps its gather instead; positions past the
         # cache only ever write the null page or dead tail slots)
+        logical = self.layout.logical_len if self.paged else self.L
         self.rope_tab = il.build_rope_table(
-            max(cache_len, self.layout.logical_len) + self.prefill_chunk + 1,
+            max(cache_len, logical) + self.prefill_chunk + 1,
             cfg.hd, cfg.rope_theta, device=self.device) \
             if cfg.pos == "rope" else None
-        if prefix_cache:
+        if self._chunkable and prefix_cache:
             self.prefix: Optional[PrefixIndex] = PrefixIndex(
                 self.kv.allocator, self.layout.page_size)
             self.kv.allocator.reclaim = self._reclaim_prefix
@@ -165,15 +189,29 @@ class ServingEngine:
 
     def _resolve_prefill_chunk(self, prefill_chunk: Optional[int]) -> int:
         """Validate/auto-size the prefill chunk: 0 streams, None picks
-        ~32 page-compatible tokens."""
-        ps = self.layout.page_size
+        ~32 page-compatible tokens where the engine can chunk (paged, a
+        full-causal arch) and streams otherwise."""
         if prefill_chunk is None:
+            if not self._chunkable:
+                return 0
+            ps = self.layout.page_size
             return min(ps * max(1, 32 // ps), self.layout.logical_len)
         if prefill_chunk == 0:
             return 0
         if prefill_chunk < 0:
             raise ValueError("prefill_chunk must be >= 0, got "
                              f"{prefill_chunk}")
+        if not self.paged:
+            raise ValueError("prefill_chunk needs cache_mode='paged' "
+                             "(chunked prefill writes K/V through the "
+                             "page table)")
+        if not self._chunkable:
+            raise ValueError(
+                "chunked prefill is unsupported for arch "
+                f"{self.cfg.name!r}: it needs window == 0 (a sliding "
+                "window keeps token-streaming prefill); pass "
+                "prefill_chunk=0")
+        ps = self.layout.page_size
         if prefill_chunk % ps and ps % prefill_chunk:
             raise ValueError(
                 f"prefill_chunk={prefill_chunk} must divide or be a "
@@ -189,12 +227,14 @@ class ServingEngine:
         return torch.tensor(a, device=self.device)
 
     def _run_decode(self, toks):
+        paged = {}
+        if self.paged:
+            paged = dict(pages=self._tensor(self.kv.page_table.snapshot()),
+                         page_size=self.layout.page_size, max_len=self.L)
         return it.int_decode_step(
             self.qparams, self.caches, self._tensor(toks),
             self._tensor(self.pos), self.plans, self.cfg, self.rope_tab,
-            ops=self.ops, pages=self._tensor(self.kv.page_table.snapshot()),
-            page_size=self.layout.page_size, max_len=self.L,
-            fold_wo=self.fold_wo)
+            ops=self.ops, fold_wo=self.fold_wo, **paged)
 
     # ------------------------------------------------------ scheduling ---
 
@@ -235,24 +275,29 @@ class ServingEngine:
             if hit is not None:
                 shared = list(hit.pages)    # retained for this session
                 sess.prefill_pos = hit.count
-        try:
-            reserved = self._reserve_prefill(sess, n_pre, shared)
-        except PagePoolExhausted:
-            for page in shared:
-                self.kv.allocator.release(page)
-            sess.prefill_pos = 0
-            raise
-        if not reserved:
-            for page in shared:
-                self.kv.allocator.release(page)
-            sess.prefill_pos = 0
-            return False
+        if self.paged:
+            try:
+                reserved = self._reserve_prefill(sess, n_pre, shared)
+            except PagePoolExhausted:
+                for page in shared:
+                    self.kv.allocator.release(page)
+                sess.prefill_pos = 0
+                raise
+            if not reserved:
+                for page in shared:
+                    self.kv.allocator.release(page)
+                sess.prefill_pos = 0
+                return False
         self.queue.pop(0)
         self.slots[slot] = sess
         self.pos[slot] = sess.prefill_pos
         sess.pos = sess.prefill_pos
-        self.kv.bind(sess, slot)
+        if self.paged:
+            self.kv.bind(sess, slot)
+        else:
+            sess.slot = slot
         sess.state = "prefilling"
+        self._reset_slot_cache(slot)
         if sess.prefill_pos >= n_pre:
             self._finish_prefill(slot, sess)
         return True
@@ -374,6 +419,16 @@ class ServingEngine:
                 self._finish_prefill(i, sess)
         return max(spent, 1)
 
+    def _reset_slot_cache(self, slot: int):
+        """Zero a recycled lane's contiguous K/V slab, as the reference
+        does.  Paged pools are not lane-indexed and are never zeroed:
+        ``valid_len`` masking makes stale page contents unobservable."""
+        if self.paged:
+            return
+        for c in self.caches:
+            for key in ("k8", "v8"):
+                c[key][:, slot].zero_()
+
     # --------------------------------------------------- paged bookkeeping
 
     def _reclaim_prefix(self):
@@ -403,11 +458,16 @@ class ServingEngine:
 
     def _ensure_write_pages(self):
         """Before a decode step, make the page under every occupied
-        lane's write position resident and exclusively owned."""
+        lane's write slot (``pos``, or ``pos % window``) resident and
+        exclusively owned.  Nothing to do for the contiguous layout."""
+        if not self.paged:
+            return
         for slot, sess in enumerate(self.slots):
             if sess is None:
                 continue
-            wslot = min(int(self.pos[slot]), self.L - 1)
+            q = int(self.pos[slot])
+            wslot = q % self.cfg.window if self.cfg.window > 0 else q
+            wslot = min(wslot, self.L - 1)
             self.kv.ensure(sess, wslot)
             blk = wslot // self.layout.page_size
             if self.kv.allocator.refcount[sess.pages[blk]] > 1:
@@ -420,11 +480,22 @@ class ServingEngine:
         if sess.slot is not None:
             self.pos[sess.slot] = 0
             self.slots[sess.slot] = None
-        self.kv.release(sess)
+        self._release(sess)
+
+    def _release(self, sess: Session):
+        if self.paged:
+            self.kv.release(sess)
+        else:
+            sess.slot = None
+            sess.state = "done"
 
     def preempt(self, sess: Session):
         """Take a live session off its lane but keep its pages; it goes
-        back to the queue head and resumes bit-exactly."""
+        back to the queue head and resumes bit-exactly.  Paged mode only:
+        the contiguous layout ties K/V to the lane."""
+        if not self.paged:
+            raise ValueError("preempt needs cache_mode='paged' (the "
+                             "contiguous layout ties K/V to the lane)")
         if sess.state not in ("active", "prefilling") or sess.slot is None:
             raise ValueError("cannot preempt session in state "
                              f"{sess.state!r}")
@@ -440,7 +511,7 @@ class ServingEngine:
         sess.request.done = True
         self.slots[slot] = None
         self.pos[slot] = 0
-        self.kv.release(sess)
+        self._release(sess)
         self._finished.append(sess.request)
 
     # ---------------------------------------------------------- decode ---
@@ -504,16 +575,19 @@ class ServingEngine:
     def describe(self) -> dict:
         """Structured engine signature: backends, prefill mode, cache
         geometry and live page-pool / prefix-cache stats."""
-        cache = dict(mode="paged", kv_pack=self.layout.kv_dtype,
-                     **self.kv.stats())
-        cache["live_tokens"] = int(sum(
-            s.live_tokens for s in self.slots if s is not None)
-            + sum(s.live_tokens for s in self.queue))
-        cache["shared_pages"] = int(
-            (self.kv.allocator.refcount[1:] > 1).sum())
-        cache["cow_copies"] = self._cow_copies
-        cache["prefix"] = self.prefix.stats() \
-            if self.prefix is not None else None
+        if self.paged:
+            cache = dict(mode="paged", kv_pack=self.layout.kv_dtype,
+                         **self.kv.stats())
+            cache["live_tokens"] = int(sum(
+                s.live_tokens for s in self.slots if s is not None)
+                + sum(s.live_tokens for s in self.queue))
+            cache["shared_pages"] = int(
+                (self.kv.allocator.refcount[1:] > 1).sum())
+            cache["cow_copies"] = self._cow_copies
+            cache["prefix"] = self.prefix.stats() \
+                if self.prefix is not None else None
+        else:
+            cache = {"mode": "contiguous", "kv_pack": "int8"}
         cache["kv_bytes"] = int(sum(
             c[key].numel() * c[key].element_size()
             for c in self.caches for key in ("k8", "v8")))
@@ -539,12 +613,15 @@ class ServingEngine:
         pf = d["prefill"]
         prefill = f"chunked:{pf['chunk']}" if pf["mode"] == "chunked" \
             else "streaming"
-        if c["prefix"] is not None:
+        if c.get("prefix") is not None:
             prefill += f"+prefix[{c['prefix']['entries']}]"
+        if c["mode"] == "paged":
+            cache = (f"paged[{c['page_size']}tok x {c['num_pages']}pg, "
+                     f"{c['pages_used']}/{c['num_pages'] - 1} used]")
+        else:
+            cache = "contiguous"
         return (f"ops={d['ops']} device={d['device']} prefill={prefill} "
-                f"fold_wo={str(d['fold_wo']).lower()} "
-                f"cache=paged[{c['page_size']}tok x {c['num_pages']}pg, "
-                f"{c['pages_used']}/{c['num_pages'] - 1} used] "
+                f"fold_wo={str(d['fold_wo']).lower()} cache={cache} "
                 f"batch={d['batch']} cache_len={d['cache_len']}")
 
     def run_until_done(self, max_steps: int = 10000) -> List[Request]:

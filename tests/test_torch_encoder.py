@@ -331,8 +331,6 @@ def test_int_prefill_matches_reference(request, arch, s, j_ops):
 def test_int_prefill_unported_options_raise(encoder_setup):
     jc, tc, *_, tq, tp = encoder_setup
     toks = {"tokens": T(np.ones((1, 8), np.int32))}
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tit.int_prefill(tq, toks, tp, tc, return_cache=True)
     for fam in ("encdec", "vlm"):
         with pytest.raises(NotImplementedError, match="item 8"):
             tit.int_prefill(tq, toks, tp, dataclasses.replace(tc,

@@ -112,7 +112,7 @@ def test_int_layernorm_kernel(dev, subtract_mean):
     assert torch.equal(got, int_layernorm_plain(q, g, b, plan))
 
 
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 120, 128])
 @pytest.mark.parametrize("fold", [False, True])
 def test_attention_kernels(dev, hd, fold):
     """K3 (Sq 1 and 3) and K4 (chunks of 1, 7, 32 and 64 rows) over a
@@ -155,6 +155,126 @@ def test_attention_kernels(dev, hd, fold):
                 want = plain(q8, kp, vp, plan, lens, pages, ps, requant=rq,
                              b_vec=bvec, **kw)
                 assert torch.equal(got, want), (name, sq, ps, rq.kind)
+
+
+@pytest.mark.parametrize("d", [32, 64, 120, 128])
+@pytest.mark.parametrize("sq", [1, 3, 8])
+@pytest.mark.parametrize("operands", ["random", "misaligned"])
+def test_contiguous_decode_attention_kernel(dev, d, sq, operands):
+    """K3 over a contiguous (B, L, Hkv, D) cache (no page table): lanes at
+    valid_len 0, 1, 37 and L = 100 (no tile divides it), the stepped mask
+    at Sq 3 and 8, every epilogue, wo folded; ``misaligned``: q and the
+    caches 4 bytes off 16-byte alignment."""
+    rng = np.random.default_rng(d + sq)
+    b, L, h, hkv = 4, 100, 4, 2
+    plan = iattn.make_iattention(d, 8 / 127, 8 / 127, 4 / 127, 4 / 127)
+    q8 = _i8(rng, (b, sq, h, d), dev)
+    k8 = _i8(rng, (b, L, hkv, d), dev)
+    v8 = _i8(rng, (b, L, hkv, d), dev)
+    if operands == "misaligned":
+        q8, k8, v8 = (_offset_view(x, 4) for x in (q8, k8, v8))
+    vl = torch.tensor([0, 1, 37, L], dtype=torch.int32, device=dev)
+    bvec = _i32(rng, 1000, 20000, (h * d,), dev)
+    wo = dict(wo=QuantLinearParams(_i8(rng, (h * d, 40), dev),
+                                   _i32(rng, 1000, 30000, (40,), dev),
+                                   _i32(rng, -500, 500, (40,), dev)),
+              wo_spec=RequantSpec.per_channel(28, 7, 14))
+    for kw in (dict(requant=RequantSpec.per_tensor(plan.dn_out)),
+               dict(requant=RequantSpec.per_channel(22, 8), b_vec=bvec),
+               dict(requant=RequantSpec.raw()),
+               dict(requant=RequantSpec.per_tensor(plan.dn_out), **wo)):
+        before = kernels.LAUNCHES["int_decode_attention"]
+        got = int_decode_attention_fused(q8, k8, v8, plan, vl, **kw)
+        assert kernels.LAUNCHES["int_decode_attention"] == before + 1
+        want = int_decode_attention_plain(q8, k8, v8, plan, vl, **kw)
+        assert torch.equal(got, want), kw["requant"].kind
+
+
+def test_decode_attention_refuses_what_it_cannot_take(dev):
+    """A head dim K3 is not compiled for names its ROADMAP item; a
+    contiguous cache whose shape does not match q raises; nothing
+    launches."""
+    plan = iattn.make_iattention(48, 8 / 127, 8 / 127, 4 / 127, 4 / 127)
+    q8 = torch.zeros((2, 1, 4, 48), dtype=torch.int8, device=dev)
+    kv = torch.zeros((2, 16, 2, 48), dtype=torch.int8, device=dev)
+    vl = torch.tensor([3, 16], dtype=torch.int32, device=dev)
+    before = kernels.LAUNCHES["int_decode_attention"]
+    with pytest.raises(ValueError, match="ROADMAP §2 item 4"):
+        int_decode_attention_fused(q8, kv, kv, plan, vl)
+    plan = iattn.make_iattention(32, 8 / 127, 8 / 127, 4 / 127, 4 / 127)
+    q8 = torch.zeros((2, 1, 4, 32), dtype=torch.int8, device=dev)
+    kv = torch.zeros((3, 16, 2, 32), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="contiguous cache"):
+        int_decode_attention_fused(q8, kv, kv, plan, vl)
+    assert kernels.LAUNCHES["int_decode_attention"] == before
+
+
+@pytest.mark.parametrize("mode", ["paged", "contiguous"])
+@pytest.mark.parametrize("new", [6, 70])
+def test_window_engine_cuda_matches_torch_ref(dev, mode, new):
+    """Reduced h2o-danube-3-4b at its own head dim 120 on the card: the
+    kernels' token streams equal the plain backend's in both cache modes,
+    before and through the rolling window's wrap (window 64, cache_len
+    80, 70 new tokens a lane); K1, K2 and K3 launch, K4 never
+    (token-streaming prefill)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M
+    from repro_torch.quant import convert
+    from repro_torch.serving import Request, ServingEngine
+    cfg = M.reduce_config(get_config("h2o-danube-3-4b"), dtype="float32",
+                          head_dim=120, num_layers=1)
+    assert cfg.window == 64 and cfg.hd == 120
+    qp, plans = convert.init_quantized(cfg, seed=0, device=dev)
+    streams = {}
+    for backend in ("cuda", "torch_ref"):
+        eng = ServingEngine(qp, plans, cfg, batch_size=2, cache_len=80,
+                            ops=backend, device=dev, cache_mode=mode,
+                            fold_wo=mode == "paged")
+        reqs = [Request(uid=i, prompt=[1 + i, 7, 3, 9, 4, 2, 8][:3 + 4 * i],
+                        max_new_tokens=new) for i in range(2)]
+        for r in reqs:
+            eng.submit(r)
+        kernels.reset_launches()
+        eng.run_until_done(max_steps=400)
+        if backend == "cuda":
+            for name in ("int8_matmul", "int_layernorm",
+                         "int_decode_attention"):
+                assert kernels.LAUNCHES[name] > 0, name
+            assert kernels.LAUNCHES["int_paged_prefill"] == 0
+        streams[backend] = [r.out_tokens for r in reqs]
+    assert streams["cuda"] == streams["torch_ref"]
+    assert all(len(st) == new for st in streams["cuda"])
+
+
+def test_window_prefill_return_cache_cuda_matches_torch_ref(dev):
+    """``int_prefill(return_cache=True)`` of reduced h2o-danube-3-4b at
+    head dim 120 (K5 windowed, then K3 over the contiguous cache token by
+    token, past the window): logits and caches equal the plain
+    backend's."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import inttransformer as it
+    from repro_torch.models import model as M
+    from repro_torch.quant import convert
+    cfg = M.reduce_config(get_config("h2o-danube-3-4b"), dtype="float32",
+                          head_dim=120)
+    qp, plans = convert.init_quantized(cfg, seed=0, device=dev)
+    toks = torch.as_tensor(np.random.default_rng(4).integers(
+        1, cfg.vocab, (2, 90)), device=dev)
+    out = {}
+    for backend in ("cuda", "torch_ref"):
+        kernels.reset_launches()
+        out[backend] = it.int_prefill(qp, {"tokens": toks}, plans, cfg,
+                                      ops=backend, return_cache=True,
+                                      cache_len=100)
+        if backend == "cuda":
+            assert kernels.LAUNCHES["int_attention_fused"] == cfg.num_layers
+            assert kernels.LAUNCHES["int_decode_attention"] \
+                == 90 * cfg.num_layers
+    (lc, cc), (lr, cr) = out["cuda"], out["torch_ref"]
+    assert torch.equal(lc, lr)
+    assert cc[0]["k8"].shape[2] == 64                 # the rolling window
+    for a, c in zip(cc, cr):
+        assert torch.equal(a["k8"], c["k8"]) and torch.equal(a["v8"], c["v8"])
 
 
 def _k4_setup(rng, dev, b, ps, maxp, hkv, d):
@@ -291,6 +411,18 @@ _K5_EDGES = [(1, s, s, 4, 2, d, causal, window, "random")
     (2, 200, 60, 4, 2, 32, True, 16, "random"),
     (1, 4096, 4096, 2, 1, 128, True, 0, "random"),
     (1, 64, 3000, 2, 2, 128, False, 0, "random")]
+# ... and at D = 120 (rows padded to 128 bytes in the k-steps, 8-byte K
+# copies): S 1 to 1000, windows, cross, -128 / +127, 4 and 8 bytes off
+# alignment (word copies, 8-byte copies), causal 4096 (recompute)
+_K5_EDGES += [(1, s, s, 4, 2, 120, causal, window, "random")
+              for s, causal, window in ((1, False, 0), (37, True, 0),
+                                        (100, True, 16), (1000, True, 100))]
+_K5_EDGES += [(2, 24, 80, 4, 2, 120, False, 0, "random"),
+              (2, 100, 100, 4, 2, 120, False, 0, "min"),
+              (2, 100, 100, 4, 2, 120, True, 0, "max"),
+              (2, 100, 70, 4, 1, 120, True, 8, "misaligned"),
+              (2, 100, 100, 4, 2, 120, True, 16, "misaligned8"),
+              (1, 4096, 4096, 2, 1, 120, True, 0, "random")]
 
 
 def _offset_view(x, off):
@@ -325,8 +457,9 @@ def test_full_sequence_attention_kernel(dev, b, sq, skv, h, hkv, d, causal,
         q8 = _i8(rng, (b, sq, h, d), dev)
         k8 = _i8(rng, (b, skv, hkv, d), dev)
         v8 = _i8(rng, (b, skv, hkv, d), dev)
-    if operands == "misaligned":
-        q8, k8, v8 = (_offset_view(x, 4) for x in (q8, k8, v8))
+    if operands in ("misaligned", "misaligned8"):
+        off = 8 if operands == "misaligned8" else 4
+        q8, k8, v8 = (_offset_view(x, off) for x in (q8, k8, v8))
     bvec = _i32(rng, 1000, 20000, (h * d,), dev)
     for rq in (None, RequantSpec.per_channel(22, 8),
                RequantSpec.per_channel(20, 6, out_bits=16),
@@ -347,13 +480,13 @@ def test_full_sequence_attention_plan_matches_the_library(dev):
     from repro_torch.kernels.int_attention_fused import (
         exp16_division_mismatches, k5_smem_bytes)
     lib = library()
-    for d in (32, 64, 128):
+    for d in (32, 64, 120, 128):
         for tiles in (0, 1, 8, 27):
             for store in (False, True):
                 assert lib.r8_k5_smem_bytes(d, tiles, int(store)) \
                     == k5_smem_bytes(d, tiles, store)
     assert lib.r8_k5_smem_bytes(48, 1, 1) == -1
-    for d in (32, 64, 128):
+    for d in (32, 64, 120, 128):
         ie = iattn.make_iattention(d, 8 / 127, 8 / 127, 4 / 127,
                                    4 / 127).sm.iexp
         assert exp16_division_mismatches(ie) == 0
@@ -462,7 +595,11 @@ _K8_EDGES = [(1, s, s, 4, 2, d, causal, window, bl, bl, 8, "random")
     (1, 4096, 4096, 2, 1, 128, True, 0, 128, 128, 8, "random"),
     (1, 64, 65536, 2, 1, 32, False, 0, 64, 128, 8, "random"),
     (1, 64, 65536, 1, 1, 64, False, 0, 64, 65536, 8, "max"),
-    (1, 1024, 1024, 1, 1, 128, False, 0, 1024, 1024, 8, "random")]
+    (1, 1024, 1024, 1, 1, 128, False, 0, 1024, 1024, 8, "random"),
+    # D = 120: K5's padded k-steps and 8-byte K copies
+    (1, 37, 37, 4, 2, 120, True, 0, 37, 37, 8, "random"),
+    (1, 1000, 1000, 4, 2, 120, True, 100, 125, 125, 8, "random"),
+    (2, 100, 100, 4, 2, 120, False, 0, 100, 100, 8, "max")]
 
 
 @pytest.mark.parametrize(
@@ -509,7 +646,7 @@ def test_online_attention_plan_matches_the_library(dev):
     from repro_torch.kernels._build import library
     from repro_torch.kernels.int_attention import k8_smem_bytes
     lib = library()
-    for d in (32, 64, 128):
+    for d in (32, 64, 120, 128):
         assert lib.r8_online_smem_bytes(d) == k8_smem_bytes(d)
     assert lib.r8_online_smem_bytes(48) == -1
 

@@ -41,7 +41,7 @@ _CS = (1, 7, 32, 64, 96)
 _PAGES = ((1, 300), (8, 40), (16, 32), (64, 8))      # (page_size, max_pages)
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 120, 128])
 @pytest.mark.parametrize("group", [1, 2, 4, 8])
 @pytest.mark.parametrize("c", _CS)
 def test_k4_launch_plan(d, group, c):
@@ -86,7 +86,7 @@ def test_k4_plan_refusals():
     C above 64 tiles over query blocks."""
     assert F.k4_launch_plan(4, 96, 32, 8, 128, 32, 16, 0).grid == (2, 32, 4)
     with pytest.raises(ValueError, match="head dim"):
-        F.k4_launch_plan(4, 32, 32, 8, 120, 32, 16, 0)
+        F.k4_launch_plan(4, 32, 32, 8, 96, 32, 16, 0)
     with pytest.raises(ValueError, match="Hkv"):
         F.k4_launch_plan(4, 32, 6, 4, 128, 32, 16, 0)
 

@@ -3,9 +3,11 @@
 
 The kernel itself runs only on the card (``tests/test_torch_gpu.py``).
 Here: the plan the wrapper launches (grid, key tiles, shared memory, the
-e16 store, 16-byte or word copies), the exp16 division as a multiply-high,
-and a numpy model of the kernel's fragments — the Q·Kᵀ k order and the
-V-staging key permutation — held against plain products.
+e16 store, wide or word copies), the exp16 division as a multiply-high,
+and a numpy model of the kernel's fragments — the Q·Kᵀ k order, the
+V-staging key permutation, and at a head dim that is not a multiple of 32
+(D = 120) the zero pad of the Q fragments and the K tile copies in 8-byte
+granules — held against plain products.
 """
 import numpy as np
 import pytest
@@ -42,7 +44,7 @@ _SHAPES = [(1, 1), (37, 37), (100, 100), (512, 512), (4096, 4096),
            (64, 512), (37, 100), (100, 37), (1, 4096), (512, 1)]
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 120, 128])
 @pytest.mark.parametrize("sq,skv", _SHAPES)
 @pytest.mark.parametrize("mask", ["none", "causal", "window"])
 def test_k5_launch_plan(d, sq, skv, mask):
@@ -85,9 +87,21 @@ def test_k5_plan_word_copies_off_alignment(off, vec):
     assert p._replace(vec_k=True) == base
 
 
-@pytest.mark.parametrize("d", [16, 48, 96, 120, 256])
+@pytest.mark.parametrize("off,vec", [(0, True), (4, False), (8, True),
+                                     (12, False), (16, True)])
+def test_k5_plan_copy_granule_at_head_dim_120(off, vec):
+    """At D = 120 a head's K row starts 8-byte aligned, so the wide
+    copies are 8 bytes and take K at any 8-byte aligned address; 4 bytes
+    off, word copies."""
+    p = F.k5_launch_plan(2, 100, 100, 32, 8, 120, True, 0, 4096 + off)
+    assert p.vec_k == vec
+    assert F.k_copy_bytes(120, 4096 + off) == (8 if vec else 4)
+    assert F.k_copy_bytes(128, 4096 + off) == (16 if off % 16 == 0 else 4)
+
+
+@pytest.mark.parametrize("d", [16, 48, 96, 136, 256])
 def test_k5_plan_refuses_other_head_dims(d):
-    with pytest.raises(ValueError, match="head dim"):
+    with pytest.raises(ValueError, match="head dim .*ROADMAP §2 item 4"):
         F.k5_launch_plan(1, 64, 64, 2, 2, d, False, 0, 0)
 
 
@@ -155,7 +169,7 @@ def test_shift_struct_is_rshift_round(s):
     assert np.array_equal(got, want.numpy())
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 120, 128])
 def test_exp16_with_multiply_high_equals_exp16(d):
     """Over exp16's whole input range (and past its clip), the kernel's
     branch-free exp16 with the multiply-high division equals
@@ -216,12 +230,14 @@ def _vswz(d):
 
 
 def _stage_vt(v8):
-    """The kernel's store_v on one 64-key tile: (64, D) int8 -> Vᵀ words
-    (D, 16), and where each (key, column) byte went."""
+    """The kernel's load_v + store_v on one 64-key tile: (64, D) int8 ->
+    Vᵀ words (v_cols(D), 16), and where each (key, column) byte went.
+    The units run over the padded columns (an even share for each of the
+    128 threads); columns past D load as 0."""
     keys, d = v8.shape
-    dw_n = d // 4
-    vw = _words(v8)                                   # (64, D/4)
-    svt = np.zeros((d, 16), dtype=np.int64)
+    dw_n = F.v_cols(d) // 4
+    assert (16 * dw_n) % 128 == 0                     # whole units a thread
+    svt = np.zeros((F.v_cols(d), 16), dtype=np.int64)
     where = {}
     for i in range(16 * dw_n):                        # every V unit
         dw, gi = i % dw_n, i // dw_n
@@ -231,18 +247,23 @@ def _stage_vt(v8):
         for jj in range(4):                           # transpose4
             col = 4 * dw + jj
             word = 2 * (pair ^ _vswz(col)) + hw
+            if col >= d:                              # the pad loads 0
+                svt[col, word] = 0
+                continue
             svt[col, word] = _word([v8[k, col] for k in ks])
             for byte, k in enumerate(ks):
                 where[(k, col)] = (col, word, byte)
     return svt, where
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 120, 128])
 def test_v_staging_permutation_is_a_bijection(d):
     """Each (key, column) byte of a 64-key V tile lands in exactly one
-    byte of its column's Vᵀ row, and every byte of the row is used."""
+    byte of its column's Vᵀ row, every byte of the row is used, and the
+    pad rows past D hold zeros."""
     v8 = np.arange(64 * d, dtype=np.int64).reshape(64, d).astype(np.int8)
-    _, where = _stage_vt(v8)
+    svt, where = _stage_vt(v8)
+    assert not svt[d:].any()
     assert len(where) == 64 * d
     slots = set(where.values())
     assert slots == {(c, w, b) for c in range(d) for w in range(16)
@@ -257,34 +278,75 @@ def test_v_staging_permutation_is_a_bijection(d):
         assert (w & 1) == (q >> 1) and b == 2 * (q & 1) + e
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+def _q_fragments(qw, base, d):
+    """The kernel's Q A-fragments of one warp's 16 rows, read from the
+    global Q (``qw``, int32 words; row r starts at word ``base[r]``):
+    lane (g, t), k-step s -> words 8s + 2t, 8s + 2t + 1 of rows g and g + 8
+    (a0..a3), zero past D (the pad of a D that is not a multiple of 32)."""
+    ks = -(-d // 32)
+    qa = np.zeros((32, ks, 4), dtype=np.int64)
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for s in range(ks):
+            w = 8 * s + 2 * t
+            if d % 32 == 0 or w < d // 4:
+                qa[lane, s] = [qw[base[g] + w], qw[base[g + 8] + w],
+                               qw[base[g] + w + 1], qw[base[g + 8] + w + 1]]
+    return qa
+
+
+def _k_tile(kbytes, rows, d, k_addr, rng):
+    """The kernel's K tile in shared memory, (64, sk_words(D)) words: key
+    j's D bytes copied from byte ``rows[j]`` of the global K (at address
+    ``k_addr``) in granules of ``k_copy_bytes`` -- each copy aligned to
+    its granule, as cp.async needs, and the row tiled exactly; the words
+    past D are never written (random here)."""
+    gran = F.k_copy_bytes(d, k_addr)
+    assert d % gran == 0, "the copies do not tile a row"
+    tile = rng.integers(-2 ** 31, 2 ** 31, (64, F.sk_words(d)))
+    for j, a in enumerate(rows):
+        for c in range(d // gran):
+            src = a + gran * c
+            assert (k_addr + src) % gran == 0, \
+                f"a {gran}-byte copy from an address {(k_addr + src) % 16} " \
+                "bytes off 16"
+            w0 = gran // 4 * c
+            tile[j, w0:w0 + gran // 4] = _words(kbytes[src:src + gran])
+    return tile
+
+
+@pytest.mark.parametrize("d", [32, 64, 120, 128])
 def test_fragment_model_gives_exact_products(d):
-    """One warp's 16 rows against one 64-key tile through the kernel's
-    fragments: Q·Kᵀ with the permuted k order equals q8 @ k8ᵀ, and P·V
-    with p8 packed from the score layout against the staged Vᵀ equals
-    p8 @ v8, with the extreme values -128 / 127 included."""
+    """One warp's 16 rows of query head 1 against one 64-key tile of KV
+    head 1 (of 2) through the kernel's fragments: Q·Kᵀ with the permuted
+    k order equals q8 @ k8ᵀ -- at D = 120 over four k-steps, the Q pad
+    zero and the K tile copied in 8-byte granules with whatever its pad
+    holds -- and P·V with p8 packed from the score layout against the
+    staged Vᵀ equals p8 @ v8, with the extreme values -128 / 127
+    included."""
     rng = np.random.default_rng(d)
-    q8 = rng.integers(-128, 128, (16, d)).astype(np.int8)
-    k8 = rng.integers(-128, 128, (64, d)).astype(np.int8)
+    qg = rng.integers(-128, 128, (16, 2, d)).astype(np.int8)
+    kg = rng.integers(-128, 128, (64, 2, d)).astype(np.int8)
     v8 = rng.integers(-128, 128, (64, d)).astype(np.int8)
-    q8[0], k8[0], v8[:, 0] = -128, -128, 127
+    qg[0, 1], kg[0, 1], v8[:, 0] = -128, -128, 127
+    q8, k8 = qg[:, 1], kg[:, 1]
     p8 = rng.integers(0, 128, (16, 64)).astype(np.int64)
     p8[3] = 127
-    qw, kw = _words(q8), _words(k8)
+    qa = _q_fragments(_words(qg.reshape(-1)),
+                      [(2 * r + 1) * d // 4 for r in range(16)], d)
+    tile = _k_tile(kg.reshape(-1), [(2 * j + 1) * d for j in range(64)], d,
+                   4096, rng)
 
     scores = np.zeros((16, 64), dtype=np.int64)
     for j in range(8):
         c = np.zeros((32, 4), dtype=np.int64)
-        for s in range(d // 32):
-            a, b0, b1 = [], [], []
+        for s in range(-(-d // 32)):
+            b0, b1 = [], []
             for lane in range(32):
                 g, t = divmod(lane, 4)
-                a.append([qw[g, 8 * s + 2 * t], qw[g + 8, 8 * s + 2 * t],
-                          qw[g, 8 * s + 2 * t + 1],
-                          qw[g + 8, 8 * s + 2 * t + 1]])
-                b0.append(kw[8 * j + g, 8 * s + 2 * t])
-                b1.append(kw[8 * j + g, 8 * s + 2 * t + 1])
-            _mma(c, a, b0, b1)
+                b0.append(tile[8 * j + g, 8 * s + 2 * t])
+                b1.append(tile[8 * j + g, 8 * s + 2 * t + 1])
+            _mma(c, qa[:, s], b0, b1)
         for lane in range(32):
             g, t = divmod(lane, 4)
             for e in range(4):
@@ -327,16 +389,16 @@ def _bank_pairs(addrs):
     return [(a % 32) // 2 for a in addrs]
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 120, 128])
 def test_fragment_loads_are_free_of_bank_conflicts(d):
     """Each half-warp's 8-byte B-fragment loads (K rows at stride SK,
     swizzled Vᵀ rows) hit 16 distinct bank pairs."""
-    dw = d // 4
-    sk = dw if dw % 16 == 8 else dw + 8
+    sk = F.sk_words(d)
+    assert sk % 16 == 8 and sk >= F.v_cols(d) // 4
     for half in range(2):
         lanes = range(16 * half, 16 * half + 16)
         for j in range(8):
-            for s in range(d // 32):
+            for s in range(-(-d // 32)):
                 k_addr = [(8 * j + lane // 4) * sk + 8 * s + 2 * (lane % 4)
                           for lane in lanes]
                 assert len(set(_bank_pairs(k_addr))) == 16

@@ -66,7 +66,7 @@ def _b_keys(d):
     return keys
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 120, 128])
 def test_pv_fragments_share_one_key_order(d):
     """The A fragment's key order (u8 from the score layout) is the B
     fragment's (the staged Vᵀ) in every column, so P·V sums each key's
@@ -303,7 +303,7 @@ def test_rows_with_no_live_key_write_requant_zero():
 
 # ------------------------------------------------------------ the plan ----
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 120, 128])
 @pytest.mark.parametrize("bkv", [1, 8, 16, 63, 64, 65, 68, 128, 256, 1000,
                                  4096, 65536])
 def test_k8_launch_plan(d, bkv):
@@ -323,9 +323,10 @@ def test_k8_plan_at_the_path_shapes():
     enc = K8.k8_launch_plan(32, 512, 12, 64, 128)
     assert enc == K8.K8Plan((8, 12, 32), 2, 16384)
     assert K8.k8_smem_bytes(128) == 28672 and K8.k8_smem_bytes(32) == 6144
+    assert K8.k8_smem_bytes(120) == 28672      # padded as D = 128
 
 
-@pytest.mark.parametrize("d", [16, 48, 96, 120, 256])
+@pytest.mark.parametrize("d", [16, 48, 96, 136, 256])
 def test_k8_plan_refuses_other_head_dims(d):
     with pytest.raises(KernelContractError, match="head dim"):
         K8.k8_launch_plan(1, 64, 2, d, 64)

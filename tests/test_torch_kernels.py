@@ -204,13 +204,25 @@ def test_paged_prefill_oracle_matches_reference(fold):
     assert np.array_equal(tv.numpy()[1:], np.asarray(jv)[1:])
 
 
-def test_cuda_backend_reads_paged_pools_only():
-    """The ``cuda`` backend has no contiguous-cache path to fall back on."""
+@pytest.mark.parametrize("fold", [False, True])
+def test_cuda_backend_reads_contiguous_caches(fold):
+    """The ``cuda`` backend takes a contiguous ``(B, L, Hkv, D)`` cache
+    (``pages=None``, K3's contiguous launch): its plain version equals the
+    Pallas kernel in interpret mode, folded wo included."""
     rng, jp, tp, kp, vp, pages = _attn_setup(17)
-    q8 = T(_i8(rng, (3, 1, 4, 32)))
-    with pytest.raises(NotImplementedError, match="paged"):
-        resolve_ops("cuda").int_decode_attention(
-            q8, T(kp[:3]), T(vp[:3]), tp, T(np.array([1, 2, 3], np.int32)))
+    b, L, h, hkv, d = 3, 32, 4, 2, 32
+    q8, k8, v8 = (_i8(rng, (b, 1, h, d)), _i8(rng, (b, L, hkv, d)),
+                  _i8(rng, (b, L, hkv, d)))
+    vl = np.array([1, 20, 32], np.int32)
+    jw, tw = _wo(rng, h, d, 40) if fold else ({}, {})
+    want = int_decode_attention_fused(
+        jnp.asarray(q8), jnp.asarray(k8), jnp.asarray(v8), jp,
+        jnp.asarray(vl), requant=JSpec.per_tensor(jp.dn_out), bkv=16,
+        interpret=True, **jw)
+    got = resolve_ops("cuda").int_decode_attention(
+        T(q8), T(k8), T(v8), tp, T(vl), requant=TSpec.per_tensor(tp.dn_out),
+        **tw)
+    assert np.array_equal(got.numpy(), np.asarray(want))
 
 
 # ------------------------------------------------ wrappers on the CPU -----
