@@ -56,7 +56,19 @@ non-zero before the last line):
   window-prefill full h2o-danube-3-4b through ``make_prefill_step`` and
            ``int_prefill(return_cache=True)`` at 4 x 256 tokens: logits and
            the built contiguous caches of ``cuda`` equal ``torch_ref``'s;
-           the pass time and its launches (K5 at D = 120, windowed).
+           the pass time and its launches (K5 at D = 120, windowed);
+  kv4-parity     ``parity`` over int4 KV pages (``kv_dtype="int4"``):
+           llama3-8b at full width cut to 2 layers, ``cuda`` streams equal
+           ``torch_ref``'s;
+  kv4-serve      ``serve`` over int4 KV pages: full llama3-8b, the same
+           traffic, K3 and K4 launching their packed instantiations
+           (``*_kv4``) in every decode step and prefill chunk, and the
+           pool's pages and bytes.
+
+The ``kernels`` phase also holds K3's and K4's packed instantiations
+(rows ``int_decode_attention_kv4`` / ``int_paged_prefill_kv4``) against
+their plain version (``ops.packed.unpack_kv_pool``, then the int8 plain
+version) at the serve shapes, folded and not, and at D = 120.
 
 ``--verbose-build`` also prints ptxas's registers and spills and a
 ``sass`` line (per kernel ``IMMA`` / ``IDP`` / ``LDL`` / ``STL``), and
@@ -91,6 +103,9 @@ TPU_KERNELS = {
     "int_gelu": "src/repro/kernels/int_gelu.py:41",
     "int_softmax": "src/repro/kernels/int_softmax.py:66",
     "int_attention_online": "src/repro/kernels/int_attention.py:107",
+    "int_decode_attention_kv4":
+        "src/repro/kernels/int_decode_attention.py:183",
+    "int_paged_prefill_kv4": "src/repro/kernels/int_attention_fused.py:398",
 }
 SOURCES = {
     "int8_matmul": "src/repro_torch/csrc/int8_matmul.cu",
@@ -101,6 +116,8 @@ SOURCES = {
     "int_gelu": "src/repro_torch/csrc/int_gelu.cu",
     "int_softmax": "src/repro_torch/csrc/int_softmax.cu",
     "int_attention_online": "src/repro_torch/csrc/int_attention_online.cu",
+    "int_decode_attention_kv4": "src/repro_torch/csrc/int_decode_attention.cu",
+    "int_paged_prefill_kv4": "src/repro_torch/csrc/int_paged_prefill.cu",
 }
 # the kernels each driven path must launch
 PATH_KERNELS = {
@@ -117,6 +134,8 @@ PATH_KERNELS = {
                                 "int_decode_attention"),
     "window-prefill": ("int8_matmul", "int_layernorm",
                        "int_attention_fused"),
+    "kv4-serve": ("int8_matmul", "int_layernorm", "int_decode_attention_kv4",
+                  "int_paged_prefill_kv4"),
 }
 # the window-serve traffic (token-streaming prefill): prompts of 16-64
 # tokens from seed 5, 16 new tokens each, batch 4, cache_len 512
@@ -247,18 +266,20 @@ def k5_plan(q8, k8, causal: bool, window: int, plan) -> str:
             f"k_copies={k_copy_bytes(d, k8.data_ptr())}B")
 
 
-def k4_plan(q8, k_pool, pages, page_size: int, plan) -> str:
+def k4_plan(q8, k_pool, pages, page_size: int, plan,
+            packed: bool = False) -> str:
     """K4's launch for these operands (kernels/int_attention_fused.py::
-    k4_launch_plan)."""
+    k4_launch_plan); ``packed``: over int4 pools (K through registers)."""
     from repro_torch.kernels.int_attention_fused import (
         e16_fits_16_bits, k4_launch_plan, k_copy_bytes)
     b, c, h, d = q8.shape
     p = k4_launch_plan(b, c, h, k_pool.shape[2], d, pages.shape[1],
                        page_size, k_pool.data_ptr(),
-                       e16_fits_16_bits(plan.sm))
+                       e16_fits_16_bits(plan.sm), packed=packed)
+    copies = ("registers, 4 packed bytes a load" if packed
+              else f"{k_copy_bytes(d, k_pool.data_ptr())}B")
     return (f"mma grid={list(p.grid)} tiles={p.tiles} smem={p.smem} "
-            f"e16_store={p.store_e16} "
-            f"k_copies={k_copy_bytes(d, k_pool.data_ptr())}B")
+            f"e16_store={p.store_e16} k_copies={copies}")
 
 
 def k8_plan(q8, bkv: int) -> str:
@@ -458,8 +479,73 @@ def check_kernels(cfg, plans):
                                  requant=requant, **kw),
                    io, ops, rep=fold,
                    plan=k4_plan(q8, k_pool, pages, ps, aplan) if k4 else None)
+    check_packed_kernels(gen, rows, aplan, requant, wo, wo_spec, h, hkv, hd,
+                         d, "")
     check_k4_edges(gen, plans, rows)
     return rows
+
+
+def kv4_bound(lens, sq: int, h: int, hkv: int, d: int, ps: int, maxp: int,
+              fold_n: int = 0):
+    """:func:`k4_bound` over packed int4 pools (an int8 tile written):
+    each live K / V row read at D / 2 bytes, plus 8 bytes of K and V
+    shifts a page touched.  ``fold_n``: the folded o-projection's N (wo
+    and its multipliers read, (B, sq, N) int32 written in place of the
+    tile, 2 x H x D x N operations a row)."""
+    b = len(lens)
+    nbytes, ops = k4_bound(lens, sq, h, hkv, d, b * maxp, 1)
+    nbytes += 8 * sum(-(-n // ps) for n in lens) - sum(lens) * hkv * d
+    if fold_n:
+        nbytes += h * d * fold_n + 4 * fold_n + 4 * b * sq * fold_n \
+            - b * sq * h * d
+        ops += 2 * b * sq * h * d * fold_n
+    return nbytes, ops
+
+
+def check_packed_kernels(gen, rows, aplan, requant, wo, wo_spec, h: int,
+                         hkv: int, hd: int, d: int, tag: str) -> None:
+    """K3 and K4 over packed int4 pools (``kv_shifts``) at the serve
+    shapes: the lanes, lengths and 16-row pages of the int8 rows, pool
+    bytes from all 256 values, per-page K and V shifts drawn apart from
+    0..7, wo folded and not.  The folded rows (``tag`` empty) are the
+    summary rows of ``int_decode_attention_kv4`` and
+    ``int_paged_prefill_kv4``."""
+    import torch
+    from repro_torch.kernels.int_attention_fused import (
+        int_paged_prefill_fused, int_paged_prefill_plain)
+    from repro_torch.kernels.int_decode_attention import (
+        int_decode_attention_fused, int_decode_attention_plain)
+    b, ps, maxp = 4, 16, 32
+    num_pages = b * maxp + 1
+    kp = _randint(gen, -128, 128, (num_pages, ps, hkv, hd // 2), torch.int8)
+    vp = _randint(gen, -128, 128, (num_pages, ps, hkv, hd // 2), torch.int8)
+    shifts = tuple(_randint(gen, 0, 8, (num_pages,), torch.int32)
+                   for _ in range(2))
+    pages = (torch.randperm(num_pages - 1, generator=gen, device="cuda")
+             + 1).to(torch.int32).reshape(b, maxp)
+    for name, fused, plain, sq, lens in (
+            ("int_decode_attention_kv4", int_decode_attention_fused,
+             int_decode_attention_plain, 1, [1, 137, 300, 512]),
+            ("int_paged_prefill_kv4", int_paged_prefill_fused,
+             int_paged_prefill_plain, 32, [32, 100 + 32, 250 + 32, 512])):
+        q8 = _randint(gen, -127, 128, (b, sq, h, hd), torch.int8)
+        vl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        for fold in (False, True):
+            kw = dict(requant=requant, kv_shifts=shifts)
+            if fold:
+                kw.update(wo=wo, wo_spec=wo_spec)
+            args = (q8, kp, vp, aplan, vl, pages, ps)
+            nbytes, ops = kv4_bound(lens, sq, h, hkv, hd, ps, maxp,
+                                    d if fold else 0)
+            record(rows, name, f"{tag}B={b} S={sq} H={h} Hkv={hkv} D={hd} "
+                   f"ps={ps} pages/lane={maxp} valid={lens} fold_wo={fold} "
+                   "int4 shifts 0..7", fused(*args, **kw),
+                   plain(*args, **kw), lambda: fused(*args, **kw),
+                   lambda: plain(*args, **kw), nbytes, ops,
+                   rep=fold and not tag, iters=10, plain_iters=2,
+                   plan=(k4_plan(q8, kp, pages, ps, aplan, packed=True)
+                         if sq > 1 else None))
+        del q8
 
 
 def k4_bound(lens, c: int, h: int, hkv: int, d: int, table_ints: int,
@@ -1020,6 +1106,10 @@ def check_window_kernels(cfg, plans, rows) -> None:
            plan=k4_plan(q8, kp, pages, ps, aplan))
     del q8, kp, vp, args
 
+    # K3 and K4 over packed int4 pools at D = 120 (60-byte packed rows)
+    check_packed_kernels(gen, rows, aplan, requant, wo, wo_spec, h, hkv, hd,
+                         d, "h2o ")
+
     # K8 at D = 120 (K5's pieces, the online schedule), at the reference's
     # 128 x 128 blocks and at blocks of 125 with a window
     for bb, s_, causal, window, blk in ((4, 512, True, 0, 128),
@@ -1057,10 +1147,13 @@ def run_engine(qp, plans, cfg, prompts, max_new, backend, **kw):
     return eng, reqs
 
 
-def phase_parity(cfg_full):
+def phase_parity(cfg_full, kv_dtype: str = "int8"):
+    """llama3-8b at full width cut to 2 layers: ``cuda`` token streams
+    equal ``torch_ref``'s, over int8 or packed int4 KV pages."""
     import dataclasses
     import torch
     from repro_torch.quant import convert
+    phase = "parity" if kv_dtype == "int8" else "kv4-parity"
     cfg = dataclasses.replace(cfg_full, num_layers=2)
     qp, plans = convert.init_quantized(
         cfg, seed=0, device="cuda",
@@ -1070,7 +1163,8 @@ def phase_parity(cfg_full):
     for backend in ("cuda", "torch_ref"):
         eng, reqs = run_engine(qp, plans, cfg, prompts, 16, backend,
                                batch_size=4, cache_len=512, page_size=16,
-                               prefill_chunk=32, fold_wo=True)
+                               prefill_chunk=32, fold_wo=True,
+                               kv_dtype=kv_dtype)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         eng.run_until_done()
@@ -1079,24 +1173,41 @@ def phase_parity(cfg_full):
         streams[backend] = [r.out_tokens for r in reqs]
     same = streams["cuda"] == streams["torch_ref"]
     distinct = len({t for s in streams["cuda"] for t in s})
-    emit({"phase": "parity", "layers": cfg.num_layers, "requests":
-          len(prompts), "prompt_lens": [len(p) for p in prompts],
+    emit({"phase": phase, "layers": cfg.num_layers, "kv_dtype": kv_dtype,
+          "requests": len(prompts), "prompt_lens": [len(p) for p in prompts],
           "identical": same, "distinct_tokens": distinct,
           "cuda_s": secs["cuda"], "torch_ref_s": secs["torch_ref"],
           "first_stream": streams["cuda"][0]})
     if not same:
-        raise AssertionError("cuda and torch_ref token streams differ")
+        raise AssertionError(f"{phase}: cuda and torch_ref token streams "
+                             "differ")
     if distinct < 2:
         raise AssertionError("degenerate streams: one token everywhere")
     del qp
 
 
-def phase_serve(cfg):
+def phase_serve(cfg, kv_dtype: str = "int8"):
+    """Full llama3-8b on ``cuda`` over int8 (``serve``) or packed int4
+    (``kv4-serve``) KV pages: throughput, step times, peak memory, the
+    pool's pages and bytes and the launches of each decode step and
+    prefill chunk, then a profiled decode window and a profiled window of
+    prefill chunks.  Over int4 every step and chunk must launch the
+    packed K3 / K4 once a layer and the int8 ones never.  Returns the
+    run's launches."""
+    import gc
+
     import numpy as np
     import torch
     from repro_torch import kernels
     from repro_torch.models import inttransformer as it
     from repro_torch.quant import convert
+    packed = kv_dtype == "int4"
+    phase = "kv4-serve" if packed else "serve"
+    k3, k4 = (("int_decode_attention_kv4", "int_paged_prefill_kv4")
+              if packed else ("int_decode_attention", "int_paged_prefill"))
+    # an engine is a reference cycle (its allocator's reclaim hook): free
+    # the parity phase's before the peak memory is read
+    gc.collect()
     t0 = time.perf_counter()
     qp, plans = convert.init_quantized(
         cfg, seed=0, device="cuda",
@@ -1107,7 +1218,7 @@ def phase_serve(cfg):
     prompts = _prompts(5, 8, 32, 200, cfg.vocab)
     eng, reqs = run_engine(qp, plans, cfg, prompts, 32, "cuda",
                            batch_size=4, cache_len=512, page_size=16,
-                           prefill_chunk=32, fold_wo=True)
+                           prefill_chunk=32, fold_wo=True, kv_dtype=kv_dtype)
     # time every prefill chunk and decode step with CUDA events, and
     # count the kernel launches each one makes
     events = {"decode": [], "prefill": []}
@@ -1145,7 +1256,10 @@ def phase_serve(cfg):
     distinct = len({t for r in reqs for t in r.out_tokens})
     step_ms = {k: [s.elapsed_time(e) for s, e in v]
                for k, v in events.items()}
-    emit({"phase": "serve", "arch": cfg.name, "layers": cfg.num_layers,
+    cache = eng.describe()["cache"]
+    emit({"phase": phase, "arch": cfg.name, "layers": cfg.num_layers,
+          "kv_dtype": kv_dtype, "describe": eng.describe_str(),
+          "num_pages": cache["num_pages"], "kv_bytes": cache["kv_bytes"],
           "requests": len(reqs), "prompt_lens": [len(p) for p in prompts],
           "max_new": 32, "batch": 4, "cache_len": 512, "prefill_chunk": 32,
           "tokens": n_tok, "distinct_tokens": distinct, "wall_s": wall,
@@ -1159,16 +1273,24 @@ def phase_serve(cfg):
           "quantize_s": quant_s, "weight_bytes": weight_bytes,
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "launches": launches})
-    profile_decode(eng, cfg)
-    profile_prefill(eng, cfg)
+    profile_decode(eng, cfg, "kv4-profile" if packed else "profile")
+    profile_prefill(eng, cfg, k4)
     if not all(len(r.out_tokens) == 32 for r in reqs):
         raise AssertionError("a request came back short")
     vocab_ok = all(0 <= t < cfg.vocab for r in reqs for t in r.out_tokens)
     if not vocab_ok:
         raise AssertionError("token outside the vocabulary")
-    missing = [k for k in PATH_KERNELS["serve"] if launches[k] <= 0]
+    missing = [k for k in PATH_KERNELS[phase] if launches[k] <= 0]
     if missing:
-        raise AssertionError(f"serve path never launched {missing}")
+        raise AssertionError(f"{phase} path never launched {missing}")
+    other = ("int_decode_attention", "int_paged_prefill") if packed \
+        else ("int_decode_attention_kv4", "int_paged_prefill_kv4")
+    off = [(tag, i) for tag, name in (("decode", k3), ("prefill", k4))
+           for i, c in enumerate(per_step[tag])
+           if c[name] != cfg.num_layers or any(c[o] for o in other)]
+    if off:
+        raise AssertionError(f"{phase}: steps without one {k3} / {k4} a "
+                             f"layer, or with {other}: {off[:5]}")
     return launches
 
 
@@ -1672,36 +1794,41 @@ def profile_decode(eng, cfg, phase="profile"):
 
 
 # every kernel name K4 has had on the card: the tensor-core kernel, and
-# before it the __dp4a body's 16-row instantiation (K3's are 1 and 8 rows)
-K4_KERNEL_NAMES = ("int_paged_prefill_mma_kernel",
-                   "int_attention_kernel<16, 64,")
+# before it the __dp4a body's 16-row instantiation (K3's are 1 and 8 rows);
+# over packed int4 pools its kv4 instantiation
+K4_KERNEL_NAMES = {"int_paged_prefill": ("int_paged_prefill_mma_kernel",
+                                         "int_attention_kernel<16, 64,"),
+                   "int_paged_prefill_kv4": ("int_paged_prefill_kv4_kernel",)}
 
 
-def profile_prefill(eng, cfg):
+def profile_prefill(eng, cfg, k4: str = "int_paged_prefill"):
     """torch.profiler over the prefill chunks of four 256-token prompts
     admitted together (8 chunk rounds of 32 tokens, pos_end 32 .. 256, in
     every lane): the device ms a chunk and K4's share of it.  The window
     is the engine's admission and prefill alone, without the decode step
     that ``step()`` would add, so its device time is the chunks'.  Chunks
-    are K4's launches in the window over the layers (one a layer)."""
+    are K4's launches in the window over the layers (one a layer).
+    ``k4``: K4's counter, ``int_paged_prefill_kv4`` over int4 pages (the
+    phase is then ``kv4-prefill-profile``)."""
     from repro_torch import kernels
     from repro_torch.serving import Request
     prompts = _prompts(13, 4, 256, 256, cfg.vocab)
     for i, p in enumerate(prompts):
         eng.submit(Request(uid=200 + i, prompt=p, max_new_tokens=2))
-    before = kernels.LAUNCHES["int_paged_prefill"]
+    before = kernels.LAUNCHES[k4]
 
     def k4_launches():
-        return kernels.LAUNCHES["int_paged_prefill"] - before
+        return kernels.LAUNCHES[k4] - before
 
     def window():
         eng._admit()
         eng._advance_prefill()
 
-    profile_window("prefill-profile", "prefill chunks of 4 x 256 "
+    profile_window("prefill-profile" if k4 == "int_paged_prefill"
+                   else "kv4-prefill-profile", "prefill chunks of 4 x 256 "
                    "tokens, chunk 32", window,
                    lambda: k4_launches() // cfg.num_layers,
-                   (K4_KERNEL_NAMES, k4_launches))
+                   (K4_KERNEL_NAMES[k4], k4_launches))
     eng.run_until_done()
 
 
@@ -1765,6 +1892,7 @@ def profile_window(phase, what, fn, units=None, focus=None):
 # instantiation of K5's, K4's and K8's
 TENSOR_CORE_KERNELS = ("int_attention_mma_kernel",
                        "int_paged_prefill_mma_kernel",
+                       "int_paged_prefill_kv4_kernel",
                        "int_attention_online_kernel")
 
 
@@ -1815,7 +1943,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,kernels,parity,serve,encode,"
                     "encode-online,ops,window-parity,window-serve,"
-                    "window-prefill")
+                    "window-prefill,kv4-parity,kv4-serve")
     ap.add_argument("--verbose-build", action="store_true",
                     help="print nvcc -Xptxas -v (registers, spills) and "
                     "each kernel's IMMA / IDP / LDL / STL count")
@@ -1878,6 +2006,10 @@ def main(argv=None) -> int:
         launches.update(phase_window_serve(window_config()))
     if "window-prefill" in phases:
         launches["window-prefill"] = phase_window_prefill(window_config())
+    if "kv4-parity" in phases:
+        phase_parity(cfg, kv_dtype="int4")
+    if "kv4-serve" in phases:
+        launches["kv4-serve"] = phase_serve(cfg, kv_dtype="int4")
     if rows:
         # each kernel's launches come from the first path of this run
         # that drives it (K1/K2: serve, the first path); every path's

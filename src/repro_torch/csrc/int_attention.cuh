@@ -32,6 +32,14 @@
 // passed as one page of L rows a lane, and position t of lane b is row
 // b * L + t.  D is any multiple of 4 (rows are read as words).  GQA:
 // query head h reads KV head h / (H / Hkv).
+//
+// PACKED (paged only): int4 pools (num_pages, page_size, Hkv, D / 2), two
+// head-dim lanes a byte, with per-page shifts k_shift / v_shift
+// (num_pages,).  The copy loop reads 2 packed bytes where it read a word
+// and expands them to the word's four int8 lanes with the shift of the
+// key's page (unpack_kv4, int_common.cuh); the sweeps read the same int8
+// tiles as the int8 instantiations.  Packed rows start on 2-byte
+// boundaries (D / 2 is even), so the 2-byte loads are aligned for every D.
 #pragma once
 
 #include "int_common.cuh"
@@ -50,6 +58,8 @@ struct AttnArgs {
   int out_is_int8;
   SoftmaxConsts sm;
   Requant rq;
+  const int* k_shift;       // (num_pages,) packed int4 pools, or null:
+  const int* v_shift;       //   int8 pools
 };
 
 // hi of query row i (its keys are [0, hi)), clamped to [0, L]
@@ -66,10 +76,11 @@ __host__ __device__ constexpr int attn_smem_bytes(int BQ, int TK, int D) {
 }
 
 // BQ query rows a block, key tiles of TK; PAGED: keys through the page
-// table, else the contiguous cache
-template <int BQ, int TK, int D, bool PAGED>
+// table, else the contiguous cache; PACKED: int4 pools
+template <int BQ, int TK, int D, bool PAGED, bool PACKED = false>
 __global__ void __launch_bounds__(ATTN_THREADS)
 int_attention_kernel(AttnArgs a) {
+  static_assert(PAGED || !PACKED, "packed int4 pools are paged");
   constexpr int NT = ATTN_THREADS;
   constexpr int D4 = D / 4;
   constexpr int QS = D4 + 1;               // padded word stride (banks)
@@ -130,9 +141,21 @@ int_attention_kernel(AttnArgs a) {
               PAGED ? (size_t)ptab[t / a.page_size] * a.page_size +
                           t % a.page_size
                     : (size_t)b * L + t;
-          const size_t off = (row * a.Hkv + hk) * D;
-          kv = reinterpret_cast<const int*>(a.k + off)[w];
-          if (sweep == 2) vv = reinterpret_cast<const int*>(a.v + off)[w];
+          if constexpr (PACKED) {
+            const int page = ptab[t / a.page_size];
+            const size_t off = (row * a.Hkv + hk) * (D / 2);
+            kv = (int)unpack_kv4(
+                reinterpret_cast<const unsigned short*>(a.k + off)[w],
+                a.k_shift[page]);
+            if (sweep == 2)
+              vv = (int)unpack_kv4(
+                  reinterpret_cast<const unsigned short*>(a.v + off)[w],
+                  a.v_shift[page]);
+          } else {
+            const size_t off = (row * a.Hkv + hk) * D;
+            kv = reinterpret_cast<const int*>(a.k + off)[w];
+            if (sweep == 2) vv = reinterpret_cast<const int*>(a.v + off)[w];
+          }
         }
         sK[j * QS + w] = kv;
         if (sweep == 2) reinterpret_cast<int*>(sV)[j * D4 + w] = vv;
@@ -202,7 +225,10 @@ int_attention_kernel(AttnArgs a) {
 template <int BQ, int TK, int D>
 inline void launch_layout(const AttnArgs& a, dim3 grid, cudaStream_t s) {
   constexpr int smem = attn_smem_bytes(BQ, TK, D);
-  if (a.pages)
+  if (a.k_shift)
+    int_attention_kernel<BQ, TK, D, true, true>
+        <<<grid, ATTN_THREADS, smem, s>>>(a);
+  else if (a.pages)
     int_attention_kernel<BQ, TK, D, true><<<grid, ATTN_THREADS, smem, s>>>(a);
   else
     int_attention_kernel<BQ, TK, D, false><<<grid, ATTN_THREADS, smem, s>>>(a);
@@ -211,7 +237,8 @@ inline void launch_layout(const AttnArgs& a, dim3 grid, cudaStream_t s) {
 // launch one instantiation; D must be 32, 64, 120 or 128
 template <int BQ, int TK>
 inline int launch_attention(const AttnArgs& a, cudaStream_t s) {
-  if (!a.vlen || (!a.pages && a.max_pages != 1))
+  if (!a.vlen || (!a.pages && a.max_pages != 1) ||
+      !a.k_shift != !a.v_shift || (a.k_shift && !a.pages))
     return (int)cudaErrorInvalidValue;
   dim3 grid((a.S + BQ - 1) / BQ, a.H, a.B);
   switch (a.D) {

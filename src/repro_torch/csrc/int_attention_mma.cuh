@@ -53,6 +53,13 @@
 //   read one tile ahead) and the branch-free exp16 are the shared pieces
 //   of int_attention_tc.cuh, whose note says how they work.
 //
+// PACKED (K4 over int4 pools, kv_shifts): keys and values are rows of
+// D / 2 packed bytes a key, each page with its own shift; K goes through
+// registers one tile ahead (tc::load_kp / store_kp) instead of cp.async,
+// V's units load 2 packed bytes a key and expand before store_v
+// (tc::load_vp / expand_v).  The tiles the sweeps read are the int8 ones,
+// so every sweep is the int8 instantiation's.
+//
 // Masks (row_range): K5 none, or causal with an optional window; K4 the
 // stepped mask hi_i = pos_end[b] - (Sq - 1 - i), lo_i = 0, read from
 // pos_end by the kernel itself.  A row with no live key keeps max -2^30,
@@ -133,6 +140,8 @@ struct Args {
   const int* pages;         // K4: (B, max_pages) page table (K5: null)
   const int* pos_end;       // K4: (B,) (K5: null)
   int page_size, max_pages;   // K4
+  const int* k_shift;       // K4 over packed int4 pools: (num_pages,)
+  const int* v_shift;       //   per-page shifts; null for int8 pools
 };
 
 // the address of key `key`'s D bytes in K or V: `base` is the tensor at
@@ -149,12 +158,18 @@ struct KeyRows {
     return base + ((size_t)ptab[(unsigned)key / ps] * ps +
                    (unsigned)key % ps) * stride;
   }
+  // the page of key `key` (PAGED)
+  __device__ __forceinline__ int page(int key) const {
+    return ptab[(unsigned)key / ps];
+  }
 };
 
 // LO: rows may start past key 0 (a window); STORE: sweep 1 keeps e16;
-// PAGED: K4 (keys through the page table, the stepped mask), else K5
-template <int D, bool LO, bool STORE, bool PAGED>
+// PAGED: K4 (keys through the page table, the stepped mask), else K5;
+// PACKED: K4 over packed int4 pools
+template <int D, bool LO, bool STORE, bool PAGED, bool PACKED = false>
 __device__ __forceinline__ void attend(const Args& a) {
+  static_assert(PAGED || !PACKED, "packed int4 pools are paged");
   constexpr int KS = tc::ksteps(D);          // k-steps of Q·Kᵀ
   constexpr int SK = tc::sk_words(D);
   constexpr int SV = KEYS / 4;               // words of a Vᵀ row
@@ -172,14 +187,15 @@ __device__ __forceinline__ void attend(const Args& a) {
   const int g = lane >> 2, t = lane & 3;
   const int q0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (a.H / a.Hkv);
-  const size_t kvstride = (size_t)a.Hkv * D;
+  constexpr int RB = PACKED ? D / 2 : D;     // bytes of a stored K/V row
+  const size_t kvstride = (size_t)a.Hkv * RB;
   const size_t lane_off = PAGED ? 0 : (size_t)b * a.Skv * kvstride;
   const int* ptab = PAGED ? a.pages + (size_t)b * a.max_pages : nullptr;
   // key rows of K and V (read only for keys of the block's range)
-  const KeyRows<PAGED> k_at{a.k + lane_off + (size_t)hk * D, kvstride, ptab,
-                            a.page_size};
-  const KeyRows<PAGED> v_at{a.v + lane_off + (size_t)hk * D, kvstride, ptab,
-                            a.page_size};
+  const KeyRows<PAGED> k_at{a.k + lane_off + (size_t)hk * RB, kvstride,
+                            ptab, a.page_size};
+  const KeyRows<PAGED> v_at{a.v + lane_off + (size_t)hk * RB, kvstride,
+                            ptab, a.page_size};
   const int vl = PAGED ? a.pos_end[b] : 0;
   auto range = [&](int i, int& lo, int& hi) {
     row_range<PAGED>(a.Sq, a.Skv, a.causal, a.window, vl, i, lo, hi);
@@ -215,9 +231,15 @@ __device__ __forceinline__ void attend(const Args& a) {
     }
   }
 
+  // PACKED: the next K tile's packed units, expanded by store_k
+  constexpr int KU = PACKED ? tc::kp_units<D, KEYS, THREADS>() : 1;
+  unsigned kr[KU];
+  int ks[KU];
   auto load_k = [&](int t0, int buf) {
     int* dst = sK + buf * KEYS * SK;
-    if (a.vec_k) {
+    if constexpr (PACKED) {
+      tc::load_kp<D, KEYS, THREADS>(kr, ks, k_at, a.k_shift, t0, t_hi, tid);
+    } else if (a.vec_k) {
       tc::load_k_wide<D, KEYS, THREADS>(dst, k_at, t0, t_hi, tid, a.k);
     } else {
 #pragma unroll 4
@@ -230,26 +252,47 @@ __device__ __forceinline__ void attend(const Args& a) {
     }
   };
 
-  unsigned vr[VU][4];
-  auto load_v = [&](int t0) {
-    tc::load_v<D, KEYS, THREADS>(vr, v_at, t0, t_hi, tid);
+  auto store_k = [&](int buf) {
+    if constexpr (PACKED)
+      tc::store_kp<D, KEYS, THREADS>(sK + buf * KEYS * SK, kr, ks, tid);
   };
-  auto store_v = [&]() { tc::store_v<D, KEYS, THREADS>(sVt, vr, tid); };
 
+  unsigned vr[VU][4];
+  int vs[PACKED ? VU : 1][4];               // PACKED: each key's shift
+  auto load_v = [&](int t0) {
+    if constexpr (PACKED)
+      tc::load_vp<D, KEYS, THREADS>(vr, vs, v_at, a.v_shift, t0, t_hi, tid);
+    else
+      tc::load_v<D, KEYS, THREADS>(vr, v_at, t0, t_hi, tid);
+  };
+  auto store_v = [&]() {
+    if constexpr (PACKED) tc::expand_v<D, KEYS, THREADS>(vr, vs);
+    tc::store_v<D, KEYS, THREADS>(sVt, vr, tid);
+  };
+
+  // V is read one tile ahead, except where sweep 2 also carries the next
+  // packed K tile in registers (PACKED without the e16 store): there the
+  // two prefetches together would spill, so V is read at its own step
+  constexpr bool V_AHEAD = STORE || !PACKED;
   // every tile of the block's range once; body(ti, t0, K tile) runs only
-  // where the tile meets this warp's rows
+  // where the tile meets this warp's rows (PACKED: K tile ti is stored
+  // from registers at the top of its step, as V is)
   auto sweep = [&](bool use_k, bool use_v, auto&& body) {
     if (nt > 0) {
       if (use_k) load_k(t_lo, 0);
-      if (use_v) load_v(t_lo);
+      if (use_v && V_AHEAD) load_v(t_lo);
     }
     tc::cp_commit();
     for (int ti = 0; ti < nt; ++ti) {
       const int t0 = t_lo + ti * KEYS;
-      if (use_v) store_v();
+      if (use_k) store_k(ti & 1);
+      if (use_v) {
+        if (!V_AHEAD) load_v(t0);
+        store_v();
+      }
       if (ti + 1 < nt) {
         if (use_k) load_k(t0 + KEYS, (ti + 1) & 1);
-        if (use_v) load_v(t0 + KEYS);
+        if (use_v && V_AHEAD) load_v(t0 + KEYS);
       }
       tc::cp_commit();
       tc::cp_wait<1>();

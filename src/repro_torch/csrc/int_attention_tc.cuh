@@ -43,6 +43,18 @@
 //   spreads the stores.  tests/test_torch_k5_plan.py models this layout
 //   in numpy.
 //
+//   Packed int4 pools (K4's kv_shifts: rows of D / 2 bytes, two head-dim
+//   lanes a byte, a shift per page; int_common.cuh's unpack_kv4): cp.async
+//   cannot transform bytes, so K goes through registers as V does.
+//   load_kp reads a tile's packed K rows one tile ahead, 4 bytes (8 lanes)
+//   a load, with the shift of each key's page; store_kp expands them into
+//   the int8 K tile (two words a load) that qk_ntile reads.  load_vp reads
+//   V's units as load_v does, 2 packed bytes where load_v reads a word,
+//   with each key's shift; expand_v turns them into load_v's words before
+//   store_v.  Packed rows start on 4-byte boundaries (D / 2 is a multiple
+//   of 4 for every D the kernels take), so the loads are aligned for every
+//   D and every 4-byte aligned pool.
+//
 //   exp16 (exp16_mma) is int_common.cuh's with no branch per pair: the
 //   host resolves each dyadic shift, a launch constant, into a multiply,
 //   a rounding add and a right shift (kernels/_abi.py::exp16_consts),
@@ -141,6 +153,48 @@ __device__ __forceinline__ void load_k_wide(int* dst, Row&& row, int t0,
   }
 }
 
+// 4-byte packed units (8 head-dim lanes) of a K tile a thread loads
+template <int D, int KEYS, int THREADS>
+__host__ __device__ constexpr int kp_units() {
+  return (KEYS * (D / 8) + THREADS - 1) / THREADS;
+}
+
+// packed K rows t0 .. t0 + KEYS - 1 into registers: unit n of this thread
+// is 4 bytes at column unit c of key j (i = tid + n * THREADS = j * D / 8 +
+// c), with its page's shift; keys at or past t_hi read as 0.  row(key) is
+// the address of key's D / 2 packed bytes, row.page(key) its page.
+template <int D, int KEYS, int THREADS, class Row>
+__device__ __forceinline__ void load_kp(
+    unsigned (&kr)[kp_units<D, KEYS, THREADS>()],
+    int (&ks)[kp_units<D, KEYS, THREADS>()], Row&& row, const int* shift,
+    int t0, int t_hi, int tid) {
+  constexpr int CH = D / 8;
+  static_assert(D % 8 == 0, "packed K rows load in 4-byte units");
+#pragma unroll
+  for (int n = 0; n < kp_units<D, KEYS, THREADS>(); ++n) {
+    const int i = tid + n * THREADS, j = i / CH, c = i % CH, key = t0 + j;
+    const bool ok = i < KEYS * CH && key < t_hi;
+    kr[n] = ok ? reinterpret_cast<const unsigned*>(row(key))[c] : 0u;
+    ks[n] = ok ? shift[row.page(key)] : 0;
+  }
+}
+
+// the units of load_kp expanded into the int8 K tile dst (row stride
+// sk_words(D) words): unit (j, c) is words 2c, 2c + 1 of row j
+template <int D, int KEYS, int THREADS>
+__device__ __forceinline__ void store_kp(
+    int* dst, const unsigned (&kr)[kp_units<D, KEYS, THREADS>()],
+    const int (&ks)[kp_units<D, KEYS, THREADS>()], int tid) {
+  constexpr int CH = D / 8;
+#pragma unroll
+  for (int n = 0; n < kp_units<D, KEYS, THREADS>(); ++n) {
+    const int i = tid + n * THREADS, j = i / CH, c = i % CH;
+    if (i < KEYS * CH)
+      *reinterpret_cast<uint2*>(dst + j * sk_words(D) + 2 * c) =
+          unpack_kv4x2(kr[n], ks[n]);
+  }
+}
+
 // Q·Kᵀ of n-tile j (keys 8j..8j+7 of the K tile sKb) from the Q
 // A-fragments qa: c0, c1 row g keys 8j+2t, +1; c2, c3 row g + 8
 template <int D>
@@ -185,6 +239,42 @@ __device__ __forceinline__ void load_v(
                       : 0u;
     }
   }
+}
+
+// load_v over packed pools: unit n's four keys' 2 packed bytes of columns
+// 4 dw..4 dw+3 (bytes 2 dw, 2 dw + 1 of the packed row) and the shift of
+// each key's page; row and row.page as in load_kp
+template <int D, int KEYS, int THREADS, class Row>
+__device__ __forceinline__ void load_vp(
+    unsigned (&vr)[v_units<D, KEYS, THREADS>()][4],
+    int (&vs)[v_units<D, KEYS, THREADS>()][4], Row&& row, const int* shift,
+    int t0, int t_hi, int tid) {
+  constexpr int DW = v_cols(D) / 4;
+#pragma unroll
+  for (int n = 0; n < v_units<D, KEYS, THREADS>(); ++n) {
+    const int i = tid + n * THREADS, dw = i % DW, gi = i / DW;
+    const int k0 = t0 + 32 * (gi >> 3) + 16 * ((gi >> 2) & 1) + 2 * (gi & 3);
+    const bool col = D % 32 == 0 || dw < D / 4;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int key = k0 + (jj & 1) + 8 * (jj >> 1);
+      const bool ok = col && key < t_hi;
+      vr[n][jj] =
+          ok ? reinterpret_cast<const unsigned short*>(row(key))[dw] : 0u;
+      vs[n][jj] = ok ? shift[row.page(key)] : 0;
+    }
+  }
+}
+
+// load_vp's packed units expanded into load_v's int8 words
+template <int D, int KEYS, int THREADS>
+__device__ __forceinline__ void expand_v(
+    unsigned (&vr)[v_units<D, KEYS, THREADS>()][4],
+    const int (&vs)[v_units<D, KEYS, THREADS>()][4]) {
+#pragma unroll
+  for (int n = 0; n < v_units<D, KEYS, THREADS>(); ++n)
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) vr[n][jj] = unpack_kv4(vr[n][jj], vs[n][jj]);
 }
 
 // the units of load_v as Vᵀ (v_cols(D) rows of KEYS / 4 words)

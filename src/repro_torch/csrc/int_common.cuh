@@ -82,6 +82,32 @@ __device__ __forceinline__ int exp16(int q_sub, const SoftmaxConsts& p) {
   return dyadic(e, p.e_b, p.e_c, p.e_pre);
 }
 
+// Packed int4 KV (repro/ops/packed.py, the kv_dtype="int4" page tier): a
+// byte holds head-dim lanes 2i (low nibble) and 2i + 1 (high); a lane
+// dequantizes to its sign-extended nibble q4 shifted left by its page's
+// shift, wrapped to int8 as the reference's int32 shift and int8 cast do.
+// Four lanes (two packed bytes, the low 16 bits of p) expand into one
+// word of four int8 lanes; 8 lanes (four bytes) into two words.  The
+// nibbles are spread into bytes with one byte permute, sign-extended
+// bytewise (n | (n & 8) * 30: 8 * 30 = 0xF0 stays inside the byte) and
+// shifted as a word, the bits a byte shifts into its neighbour masked
+// off.  A shift outside 0..7 leaves 0, the low byte of q4 << s for s >= 8.
+__device__ __forceinline__ unsigned kv4_shift(unsigned n, int s) {
+  const unsigned v = n | ((n & 0x08080808u) * 0x1Eu);
+  const unsigned su = min((unsigned)s, 8u);
+  return (v << su) & (((0xFFu << su) & 0xFFu) * 0x01010101u);
+}
+
+__device__ __forceinline__ unsigned unpack_kv4(unsigned p, int s) {
+  return kv4_shift(__byte_perm(p & 0x0F0Fu, (p >> 4) & 0x0F0Fu, 0x5140), s);
+}
+
+__device__ __forceinline__ uint2 unpack_kv4x2(unsigned p, int s) {
+  const unsigned lo = p & 0x0F0F0F0Fu, hi = (p >> 4) & 0x0F0F0F0Fu;
+  return make_uint2(kv4_shift(__byte_perm(lo, hi, 0x5140), s),
+                    kv4_shift(__byte_perm(lo, hi, 0x7362), s));
+}
+
 // the RequantSpec epilogue on one int32 accumulator (not raw)
 __device__ __forceinline__ int requant(int acc, const Requant& rq, int b) {
   return clampi(dyadic(acc, b, rq.c, rq.pre), rq.lo, rq.hi);

@@ -19,7 +19,9 @@
 // through the page table itself (the TPU kernel did this in its
 // scalar-prefetch index map), or, with no table, reading row b * L + t of
 // the contiguous (B, L, Hkv, D) cache.  The three exact sweeps and the
-// epilogue are the shared body in int_attention.cuh.  The folded
+// epilogue are the shared body in int_attention.cuh.  Over packed int4
+// pools (kv_shifts) the body is instantiated PACKED: its copy loop reads
+// half the bytes and expands them with each key's page shift.  The folded
 // o-projection is not carried across heads here: TPU grid steps run in
 // order and carried a (Sq, N) accumulator across the head axis, but GPU
 // blocks run in parallel, so the wrapper writes this launch's int8

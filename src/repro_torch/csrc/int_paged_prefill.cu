@@ -24,6 +24,17 @@
 //   - the stepped mask t < pos_end[b] - (C - 1 - i), which is causal
 //     attention over history + chunk; the kernel reads pos_end itself, so
 //     the launch needs no value from the device;
+//   - packed int4 pools (kv_shifts, the kv_dtype="int4" tier): one more
+//     instantiation, int_paged_prefill_kv4_kernel, selected by a template
+//     argument so the int8 instantiations keep their code.  cp.async
+//     cannot expand nibbles, so K rows come through registers one tile
+//     ahead (4 packed bytes a load) and are expanded with each key's page
+//     shift into the same int8 K tile; V's units load 2 packed bytes a key
+//     and expand before the Vᵀ store (int_attention_tc.cuh).  A key moves
+//     half the bytes of the int8 pools.  Copying the packed rows by
+//     cp.async into a staging tile and expanding them shared-to-shared
+//     (one more barrier a tile) was measured 1.3x slower at the serving
+//     shape (PERF.md);
 // A block is K5's: 64 chunk rows of one (lane, head), grid
 // (ceil(C / 64), H, B).  At the serving C = 32 its last two warps have no
 // rows; packing 2 or 4 query heads of a KV group into a block, so that
@@ -46,20 +57,33 @@ int_paged_prefill_mma_kernel(k5::Args a) {
   k5::attend<D, false, STORE, true>(a);
 }
 
+// the same over packed int4 pools
 template <int D, bool STORE>
-inline int launch(const k5::Args& a, cudaStream_t s) {
+__global__ void __launch_bounds__(k5::THREADS, 1)
+int_paged_prefill_kv4_kernel(k5::Args a) {
+  k5::attend<D, false, STORE, true, true>(a);
+}
+
+// (not `launch`: ADL on k5::Args would also find k5::launch)
+template <int D, bool STORE, bool PACKED>
+inline int launch_k4(const k5::Args& a, cudaStream_t s) {
+  void (*kernel)(k5::Args) = PACKED ? int_paged_prefill_kv4_kernel<D, STORE>
+                                    : int_paged_prefill_mma_kernel<D, STORE>;
   const cudaError_t e = cudaFuncSetAttribute(
-      int_paged_prefill_mma_kernel<D, STORE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((a.Sq + k5::ROWS - 1) / k5::ROWS, a.H, a.B);
-  int_paged_prefill_mma_kernel<D, STORE><<<grid, k5::THREADS, a.smem, s>>>(a);
+  kernel<<<grid, k5::THREADS, a.smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 inline int launch_d(const k5::Args& a, cudaStream_t s) {
-  return a.store_e16 ? launch<D, true>(a, s) : launch<D, false>(a, s);
+  if (a.k_shift)
+    return a.store_e16 ? launch_k4<D, true, true>(a, s)
+                       : launch_k4<D, false, true>(a, s);
+  return a.store_e16 ? launch_k4<D, true, false>(a, s)
+                     : launch_k4<D, false, false>(a, s);
 }
 
 }  // namespace k4
@@ -76,7 +100,8 @@ extern "C" int r8_int_paged_prefill(const r8::k5::Args* a, void* stream) {
       a->tiles != (a->Skv + r8::k5::KEYS - 1) / r8::k5::KEYS ||
       a->ex.z_shift < 0 || a->ex.z_shift > 31 ||
       a->smem != r8::k5::smem_bytes(a->D, a->tiles, a->store_e16 != 0) ||
-      a->smem > r8::k5::SMEM_LIMIT)
+      a->smem > r8::k5::SMEM_LIMIT || !a->k_shift != !a->v_shift ||
+      (a->k_shift && a->vec_k))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   switch (a->D) {

@@ -63,7 +63,8 @@ def qparams_from_reference(tree, device=DEFAULT_DEVICE):
     if type(tree).__name__ == "QuantLinearParams":
         if getattr(tree, "w_packed", None) is not None:
             raise NotImplementedError("packed int4/MSR-4 weights are not "
-                                      "ported yet")
+                                      "ported yet (ROADMAP §1 item 4, its "
+                                      "weight half)")
         return QuantLinearParams(*[qparams_from_reference(
             getattr(tree, f), device) for f in QuantLinearParams._fields])
     if isinstance(tree, dict):

@@ -7,6 +7,10 @@ paths, and their oracles.
                                                  (csrc/int_decode_attention.cu)
   * K4 ``int_attention_fused.int_paged_prefill_fused``
                      (csrc/int_paged_prefill.cu over int_attention_mma.cuh)
+
+    (K3 and K4 over packed int4 pools, ``kv_shifts=``, launch one more
+    instantiation of their kernel each, counted as
+    ``int_decode_attention_kv4`` and ``int_paged_prefill_kv4``)
   * K5 ``int_attention_fused.int_attention_fused``
                      (csrc/int_attention_fused.cu over int_attention_mma.cuh)
   * K6 ``int_gelu.int_gelu``                           (csrc/int_gelu.cu)
@@ -24,7 +28,8 @@ from __future__ import annotations
 
 KERNELS = ("int8_matmul", "int_layernorm", "int_decode_attention",
            "int_paged_prefill", "int_attention_fused", "int_gelu",
-           "int_softmax", "int_attention_online")
+           "int_softmax", "int_attention_online",
+           "int_decode_attention_kv4", "int_paged_prefill_kv4")
 
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 

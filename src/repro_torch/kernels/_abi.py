@@ -38,12 +38,15 @@ class GeluConsts(ctypes.Structure):
 
 
 class AttnArgs(ctypes.Structure):
-    """``csrc/int_attention.cuh``'s ``AttnArgs`` (K3)."""
+    """``csrc/int_attention.cuh``'s ``AttnArgs`` (K3).  ``k_shift`` /
+    ``v_shift``: the per-page shifts of packed int4 pools, null for int8
+    pools."""
     _fields_ = ([(n, _P) for n in ("q", "k", "v", "pages", "vlen", "bvec",
                                    "out")]
                 + [(n, _I) for n in ("B", "S", "H", "Hkv", "D", "page_size",
                                      "max_pages", "out_is_int8")]
-                + [("sm", SoftmaxConsts), ("rq", Requant)])
+                + [("sm", SoftmaxConsts), ("rq", Requant)]
+                + [(n, _P) for n in ("k_shift", "v_shift")])
 
 
 class Shift(ctypes.Structure):
@@ -63,14 +66,17 @@ class Exp16(ctypes.Structure):
 
 
 class MmaAttnArgs(ctypes.Structure):
-    """``csrc/int_attention_mma.cuh``'s ``k5::Args`` (K5 and K4)."""
+    """``csrc/int_attention_mma.cuh``'s ``k5::Args`` (K5 and K4).
+    ``k_shift`` / ``v_shift``: K4's per-page shifts of packed int4 pools,
+    null for int8 pools (and for K5)."""
     _fields_ = ([(n, _P) for n in ("q", "k", "v", "bvec", "out")]
                 + [(n, _I) for n in ("B", "Sq", "Skv", "H", "Hkv", "D",
                                      "causal", "window", "out_is_int8",
                                      "tiles", "store_e16", "vec_k", "smem")]
                 + [("ex", Exp16), ("rq", Requant)]
                 + [(n, _P) for n in ("pages", "pos_end")]
-                + [(n, _I) for n in ("page_size", "max_pages")])
+                + [(n, _I) for n in ("page_size", "max_pages")]
+                + [(n, _P) for n in ("k_shift", "v_shift")])
 
 
 class OnlineArgs(ctypes.Structure):

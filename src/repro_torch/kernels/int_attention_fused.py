@@ -22,6 +22,7 @@ from repro_torch.analysis.budgets import MAX_ROWSUM_LEN
 from repro_torch.core.softmax import _exp16
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels import ref as _ref
+from repro_torch.ops.packed import unpack_kv_pool
 from repro_torch.ops.spec import PER_CHANNEL, QuantLinearParams, RequantSpec
 
 #: the head dims each attention kernel is compiled for.  K3 takes any D
@@ -120,19 +121,26 @@ def _epilogue_operands(q8, requant, b_vec):
     return bvec, torch.empty((b, s, h, d), dtype=out_dtype, device=dev)
 
 
-def paged_operands(q8, k_pool, v_pool, pos_end, pages, page_size: int):
+def paged_operands(q8, k_pool, v_pool, pos_end, pages, page_size: int,
+                   kv_shifts=None):
     """Check the operands of a paged attention launch (K3, K4) on the
-    card; returns ``(pages, pos_end)`` as contiguous int32 tensors on the
-    card (converted there: nothing is read back to the host)."""
+    card; returns ``(pages, pos_end, shifts)`` as contiguous int32 tensors
+    on the card (converted there: nothing is read back to the host).
+    ``kv_shifts``: the ``(k_shift, v_shift)`` pair of ``(num_pages,)``
+    per-page shifts of packed int4 pools ``(num_pages, page_size, Hkv, D
+    // 2)``; ``shifts`` is then that pair, else None."""
     b, s, h, d = q8.shape
     dev = q8.device
     if k_pool.shape != v_pool.shape or k_pool.dim() != 4:
         raise ValueError("paged attention: k/v pools must both be "
                          "(num_pages, page_size, Hkv, D)")
     ps, hkv = k_pool.shape[1], k_pool.shape[2]
-    if ps != page_size or k_pool.shape[3] != d or h % hkv:
+    width = d if kv_shifts is None else d // 2
+    if ps != page_size or k_pool.shape[3] != width or h % hkv \
+            or (kv_shifts is not None and d % 2):
         raise ValueError(f"paged attention: pool {tuple(k_pool.shape)} vs "
-                         f"q {tuple(q8.shape)}, page_size={page_size}")
+                         f"q {tuple(q8.shape)}, page_size={page_size}"
+                         f"{'' if kv_shifts is None else ' (int4 packed)'}")
     _check_int8(dev, q8=q8, k_pool=k_pool, v_pool=v_pool)
     pages = torch.as_tensor(pages, dtype=torch.int32,
                             device=dev).contiguous()
@@ -147,7 +155,16 @@ def paged_operands(q8, k_pool, v_pool, pos_end, pages, page_size: int):
                          f"{page_size} page table spans more than the "
                          f"{MAX_ROWSUM_LEN} positions an exact int32 row "
                          "sum allows")
-    return pages, pos_end
+    shifts = None
+    if kv_shifts is not None:
+        shifts = tuple(torch.as_tensor(x, dtype=torch.int32,
+                                       device=dev).contiguous()
+                       for x in kv_shifts)
+        if any(tuple(x.shape) != (k_pool.shape[0],) for x in shifts):
+            raise ValueError("paged attention: kv_shifts must be two "
+                             f"({k_pool.shape[0]},) per-page shift "
+                             "vectors")
+    return pages, pos_end, shifts
 
 
 # ------------------------------------------------------------------ K5 ----
@@ -353,10 +370,16 @@ def exp16_division_mismatches(ie, device="cuda") -> int:
 
 def int_paged_prefill_plain(q8, k_pool, v_pool, plan, pos_end, pages,
                             page_size: int, requant=None, b_vec=None,
-                            wo=None, wo_spec=None):
+                            wo=None, wo_spec=None, kv_shifts=None):
     """The plain version of K4, and of K3: a chunk over pools that hold
-    its K/V is stepped-mask decode with ``valid_len = pos_end``."""
+    its K/V is stepped-mask decode with ``valid_len = pos_end``.  Packed
+    int4 pools (``kv_shifts``) are dequantized first
+    (``ops.packed.unpack_kv_pool``, the reference's declared dequant
+    reference)."""
     requant, wo = epilogue_setup(requant, plan, wo, wo_spec)
+    if kv_shifts is not None:
+        k_pool = unpack_kv_pool(k_pool, kv_shifts[0])
+        v_pool = unpack_kv_pool(v_pool, kv_shifts[1])
     return _ref.ref_int_paged_decode_attention(
         q8, k_pool, v_pool, plan, pos_end, pages, page_size,
         requant=requant, b_vec=b_vec, wo=wo, wo_spec=wo_spec)
@@ -364,7 +387,7 @@ def int_paged_prefill_plain(q8, k_pool, v_pool, plan, pos_end, pages,
 
 def k4_launch_plan(b: int, c: int, h: int, hkv: int, d: int,
                    max_pages: int, page_size: int, k_addr: int,
-                   e16_fits: bool = True) -> K5Plan:
+                   e16_fits: bool = True, packed: bool = False) -> K5Plan:
     """The K4 launch (K5's blocks) of a ``(B, C, H, D)`` chunk over pools of ``Hkv`` KV
     heads and a ``(B, max_pages)`` table of ``page_size``-row pages, K at
     address ``k_addr``: from shapes only, never from ``pos_end``, which
@@ -372,8 +395,10 @@ def k4_launch_plan(b: int, c: int, h: int, hkv: int, d: int,
     tiles).  Tiles and the e16 store are sized for the table's whole span
     ``max_pages * page_size``; the store iff e16 fits 16 bits
     (``e16_fits``) and the span fits a block's shared memory; wide copies
-    of K iff it is aligned to them (:func:`k_copy_bytes`).  Raises for a head dim the
-    kernel is not compiled for or a ragged GQA group."""
+    of K iff it is aligned to them (:func:`k_copy_bytes`); never for
+    ``packed`` int4 pools, whose K rows go through registers (4 packed
+    bytes a load) to be expanded.  Raises for a head dim the kernel is not
+    compiled for or a ragged GQA group."""
     require_head_dim("int_paged_prefill", d)
     if hkv <= 0 or h % hkv:
         raise ValueError(f"int_paged_prefill: H={h} is not a multiple of "
@@ -382,59 +407,69 @@ def k4_launch_plan(b: int, c: int, h: int, hkv: int, d: int,
     store = e16_fits and k5_smem_bytes(d, tiles, True) <= K5_SMEM_LIMIT
     return K5Plan((-(-c // K5_ROWS), h, b), tiles,
                   k5_smem_bytes(d, tiles, store), store,
-                  k_copy_bytes(d, k_addr) > 4)
+                  not packed and k_copy_bytes(d, k_addr) > 4)
 
 
 def k4_args(q8, k_pool, v_pool, plan, pos_end, pages, page_size: int,
-            requant, b_vec):
+            requant, b_vec, kv_shifts=None):
     """Check the operands and pack one K4 launch, on the host alone:
-    ``(args, out, K5Plan)``.  ``pos_end`` and ``pages`` travel as device
-    pointers and are never read here."""
+    ``(args, out, K5Plan)``.  ``pos_end``, ``pages`` and the shifts of
+    packed pools (``kv_shifts``) travel as device pointers and are never
+    read here."""
     from repro_torch.kernels import _abi
-    pages, pos_end = paged_operands(q8, k_pool, v_pool, pos_end, pages,
-                                    page_size)
+    pages, pos_end, shifts = paged_operands(q8, k_pool, v_pool, pos_end,
+                                            pages, page_size, kv_shifts)
     b, c, h, d = q8.shape
     hkv, maxp = k_pool.shape[2], pages.shape[1]
     bvec, out = _epilogue_operands(q8, requant, b_vec)
     sm = plan.sm
     kp = k4_launch_plan(b, c, h, hkv, d, maxp, page_size, k_pool.data_ptr(),
-                        e16_fits_16_bits(sm))
+                        e16_fits_16_bits(sm), packed=shifts is not None)
+    k_shift, v_shift = shifts if shifts is not None else (None, None)
     args = _abi.MmaAttnArgs(
         q8.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), _abi.ptr(bvec),
         out.data_ptr(), b, c, maxp * page_size, h, hkv, d, 0, 0,
         int(out.dtype == torch.int8), kp.tiles, int(kp.store_e16),
         int(kp.vec_k), kp.smem, exp16_args(sm), _abi.requant_struct(requant),
-        pages.data_ptr(), pos_end.data_ptr(), page_size, maxp)
+        pages.data_ptr(), pos_end.data_ptr(), page_size, maxp,
+        _abi.ptr(k_shift), _abi.ptr(v_shift))
     # the pointers must outlive the launch
-    args._keep = (pages, pos_end, bvec)
+    args._keep = (pages, pos_end, bvec, shifts)
     return args, out, kp
 
 
 def k4_launch(q8, k_pool, v_pool, plan, pos_end, pages, page_size: int,
-              requant, b_vec):
-    """One K4 launch on the card (counted in ``LAUNCHES``); returns the
-    ``(B, C, H, D)`` attention tile."""
+              requant, b_vec, kv_shifts=None):
+    """One K4 launch on the card (counted in ``LAUNCHES``: packed int4
+    pools under ``int_paged_prefill_kv4``); returns the ``(B, C, H, D)``
+    attention tile."""
     from repro_torch.kernels import _abi
     from repro_torch.kernels._build import library
     args, out, _ = k4_args(q8, k_pool, v_pool, plan, pos_end, pages,
-                           page_size, requant, b_vec)
+                           page_size, requant, b_vec, kv_shifts)
     if out.numel() == 0:
         return out
     lib = library()
     rc = lib.r8_int_paged_prefill(ctypes.byref(args), _abi.stream_of(q8))
-    LAUNCHES["int_paged_prefill"] += 1
+    LAUNCHES["int_paged_prefill" if kv_shifts is None
+             else "int_paged_prefill_kv4"] += 1
     _abi.check(lib, rc, "int_paged_prefill")
     return out
 
 
 def int_paged_prefill_fused(q8, k_pool, v_pool, plan, pos_end, pages,
                             page_size: int, requant=None, b_vec=None,
-                            wo=None, wo_spec=None):
+                            wo=None, wo_spec=None, kv_shifts=None):
     """q8 (B, C, H, D) int8 chunk queries; pools ``(num_pages, page_size,
     Hkv, D)`` int8 *already holding the chunk's K/V*
     (``ops.paged.scatter_chunk``); ``pos_end`` (B,) = base_pos + C;
     ``pages`` (B, max_pages) int32.  Chunk row ``i`` attends to logical
     positions ``<= pos_end - C + i``.
+
+    ``kv_shifts``: a ``(k_shift, v_shift)`` pair of int32 ``(num_pages,)``
+    per-page shifts switches the pools to the packed int4 layout
+    ``(num_pages, page_size, Hkv, D // 2)`` (``ops.packed``), expanded
+    inside the kernel; packed pages never exist as int8 in device memory.
 
     ``requant``/``b_vec``: the attention epilogue (default: the plan's
     per-tensor ``dn_out``).  ``wo``/``wo_spec``: fold the o-projection in;
@@ -445,10 +480,10 @@ def int_paged_prefill_fused(q8, k_pool, v_pool, plan, pos_end, pages,
     if not q8.is_cuda:
         return int_paged_prefill_plain(q8, k_pool, v_pool, plan, pos_end,
                                        pages, page_size, requant, b_vec, wo,
-                                       wo_spec)
+                                       wo_spec, kv_shifts)
     requant, wo = epilogue_setup(requant, plan, wo, wo_spec)
     o = k4_launch(q8, k_pool, v_pool, plan, pos_end, pages, page_size,
-                  requant, b_vec)
+                  requant, b_vec, kv_shifts)
     if wo is None:
         return o
     return apply_wo_cuda(o, wo, wo_spec)

@@ -20,6 +20,7 @@ from repro_torch.core.dyadic import clip_to_bits, rshift_round
 from repro_torch.models.common import ArchConfig
 from repro_torch.ops import (QuantLinearParams, RequantSpec, get_backend,
                              resolve_ops)
+from repro_torch.ops.packed import pack_kv
 from repro_torch.quant import plans as qplans
 
 
@@ -184,6 +185,10 @@ def int_attn_decode(qp, x8, cache, pos, plans: qplans.AttnPlan,
     ops = resolve_ops(ops)
     b = x8.shape[0]
     paged = pages is not None
+    packed_kv = "k_shift" in cache
+    if packed_kv and not paged:
+        raise ValueError("int4 KV pages (k_shift/v_shift in the cache) "
+                         "need the paged layout")
     L = (max_len or pages.shape[1] * page_size) if paged \
         else cache["k8"].shape[1]
     q8, k8, v8 = _qkv(qp, x8, plans, cfg, ops)
@@ -201,12 +206,17 @@ def int_attn_decode(qp, x8, cache, pos, plans: qplans.AttnPlan,
         where = (page, slot % page_size)
     else:
         where = (torch.arange(b, device=slot.device), slot)
-    cache["k8"].index_put_(where, k8[:, 0])
-    cache["v8"].index_put_(where, v8[:, 0])
+    k_w, v_w = k8[:, 0], v8[:, 0]
+    if packed_kv:
+        k_w, v_w = pack_kv(k_w), pack_kv(v_w)
+    cache["k8"].index_put_(where, k_w)
+    cache["v8"].index_put_(where, v_w)
     valid = torch.clamp(pos + 1, max=L) if (window > 0 or paged) \
         else pos + 1
     valid = valid.to(torch.int32)
     kv = dict(pages=pages, page_size=page_size) if paged else {}
+    if packed_kv:
+        kv.update(kv_shifts=(cache["k_shift"], cache["v_shift"]))
     requant = RequantSpec.per_tensor(plans.attn.dn_out)
     if fold_wo:
         out32 = ops.int_decode_attention(
@@ -228,9 +238,11 @@ def int_attn_prefill_chunk(qp, x8, cache, base_pos, plans: qplans.AttnPlan,
                            fold_wo: bool = False, rope=None):
     """Chunked prefill attention over a paged pool.  x8: (B, C, D), lane
     ``b`` covering logical positions ``[base_pos[b], base_pos[b] + C)``.
-    Writes the chunk's K/V through the table (in place) and runs causal
-    attention over history + chunk.  ``rope``: cos/sin already gathered
-    for those positions.  Returns (out32 (B, C, D), cache)."""
+    Writes the chunk's K/V through the table (in place; packed int4 pools,
+    ``k_shift``/``v_shift`` in the cache, take them quantized and packed
+    by the dispatch layer) and runs causal attention over history +
+    chunk.  ``rope``: cos/sin already gathered for those positions.
+    Returns (out32 (B, C, D), cache)."""
     if cfg.window:
         raise NotImplementedError("chunked prefill needs full causal "
                                   "attention")
@@ -245,16 +257,19 @@ def int_attn_prefill_chunk(qp, x8, cache, base_pos, plans: qplans.AttnPlan,
         q8 = rope_rotate(q8, *rope)
         k8 = rope_rotate(k8, *rope)
     requant = RequantSpec.per_tensor(plans.attn.dn_out)
+    kw = {}
+    if "k_shift" in cache:
+        kw.update(kv_shifts=(cache["k_shift"], cache["v_shift"]))
     if fold_wo:
         out32, k_pool, v_pool = ops.int_paged_prefill(
             q8, k8, v8, cache["k8"], cache["v8"], plans.attn, base_pos,
             pages, page_size, requant=requant,
             wo=QuantLinearParams.of(qp["wo"]),
-            wo_spec=RequantSpec.for_linear(plans.out))
+            wo_spec=RequantSpec.for_linear(plans.out), **kw)
     else:
         o8, k_pool, v_pool = ops.int_paged_prefill(
             q8, k8, v8, cache["k8"], cache["v8"], plans.attn, base_pos,
-            pages, page_size, requant=requant)
+            pages, page_size, requant=requant, **kw)
         o8 = o8.to(torch.int8).reshape(b, c, cfg.n_heads * cfg.hd)
         out32 = int_linear(o8, qp["wo"], plans.out, ops)
     return out32, {"k8": k_pool, "v8": v_pool}

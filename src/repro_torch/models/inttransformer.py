@@ -19,6 +19,7 @@ from repro_torch.models import intlayers as il
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.transformer import layer_group_spec
 from repro_torch.ops import QuantLinearParams, resolve_ops
+from repro_torch.ops.packed import KV_SHIFT
 from repro_torch.quant import plans as qplans
 
 Pytree = Any
@@ -128,20 +129,31 @@ def init_decode_cache(cfg: ArchConfig, layout=None, device="cpu", *,
     num_pages, page_size, Hkv, hd)`` for ``layout`` (a
     ``serving.kvcache.CacheLayout``), else contiguous ``(ng, batch, L,
     Hkv, hd)`` with ``L = min(cache_len, cfg.window)`` for a sliding
-    window (the rolling buffer), ``cache_len`` otherwise."""
+    window (the rolling buffer), ``cache_len`` otherwise.  With
+    ``layout.kv_dtype == "int4"`` the pools pack two head-dim nibbles a
+    byte (last dim ``hd // 2``) and carry per-page shifts ``k_shift`` /
+    ``v_shift`` ``(ng, num_pages)`` int32, all ``ops.packed.KV_SHIFT``."""
     _, ng, kinds = layer_group_spec(cfg)
+    packed = layout is not None and layout.kv_dtype == "int4"
+    if packed and cfg.hd % 2:
+        raise ValueError("int4 KV pages pair head-dim nibbles: hd must "
+                         f"be even, got {cfg.hd}")
     if layout is not None:
-        if layout.kv_dtype != "int8":
-            raise NotImplementedError("int4 KV pages are not ported yet "
-                                      "(ROADMAP §1 item 4)")
         shape = (ng, layout.num_pages, layout.page_size, cfg.n_kv_heads,
-                 cfg.hd)
+                 cfg.hd // 2 if packed else cfg.hd)
     else:
         L = min(cache_len, cfg.window) if cfg.window > 0 else cache_len
         shape = (ng, batch, L, cfg.n_kv_heads, cfg.hd)
-    return [{"k8": torch.zeros(shape, dtype=torch.int8, device=device),
+    caches = []
+    for _ in kinds:
+        c = {"k8": torch.zeros(shape, dtype=torch.int8, device=device),
              "v8": torch.zeros(shape, dtype=torch.int8, device=device)}
-            for _ in kinds]
+        if packed:
+            for key in ("k_shift", "v_shift"):
+                c[key] = torch.full((ng, layout.num_pages), KV_SHIFT,
+                                    dtype=torch.int32, device=device)
+        caches.append(c)
+    return caches
 
 
 def _sublayers(qparams, caches, cfg: ArchConfig):
@@ -149,9 +161,8 @@ def _sublayers(qparams, caches, cfg: ArchConfig):
     _, ng, kinds = layer_group_spec(cfg)
     for g in range(ng):
         for j in range(len(kinds)):
-            cache = caches[j]
             yield (_layer(qparams["layers"][j], g),
-                   {"k8": cache["k8"][g], "v8": cache["v8"][g]})
+                   {key: leaf[g] for key, leaf in caches[j].items()})
 
 
 def int_decode_step(qparams, caches, tokens, pos, plans, cfg: ArchConfig,

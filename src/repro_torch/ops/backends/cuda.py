@@ -4,7 +4,8 @@ the JAX package's ``pallas_fused`` backend, and the port's default).
 A thin shim over the kernel wrappers of ``repro_torch.kernels``: K1 for
 all matmuls (the raw logits head included), K2 for the norms, K3 for
 decode attention over paged pools or a contiguous cache, K4 for paged
-chunked prefill, the last two with the o-projection folded in, K5 for full-sequence attention, K6 for
+chunked prefill, the last two with the o-projection folded in and over
+int8 or packed int4 pools (``kv_shifts``), K5 for full-sequence attention, K6 for
 i-GELU and K7 for the row softmax (as the reference's ``pallas_fused``
 inherits ``pallas``'s softmax kernel).  There is no fallback and no tiling predicate: on CPU tensors each
 wrapper runs its plain version; on CUDA tensors it launches its kernel
@@ -32,6 +33,7 @@ class CudaBackend:
     decode_wo_fold = True     # the o-projection rides in the decode call
     paged_prefill = True      # chunked prefill straight over the page table
     prefill_wo_fold = True    # ... with the o-projection folded in too
+    packed_kv = True          # int4 KV pages expanded inside K3 and K4
 
     def int8_matmul(self, x8, w8, spec, *, bias32=None, b_vec=None):
         return int8_matmul(x8, w8, spec, bias32=bias32, b_vec=b_vec)
@@ -62,20 +64,24 @@ class CudaBackend:
 
     def int_decode_attention(self, q8, k8_cache, v8_cache, plan, valid_len,
                              requant=None, b_vec=None, pages=None,
-                             page_size: int = 0, wo=None, wo_spec=None):
+                             page_size: int = 0, wo=None, wo_spec=None,
+                             kv_shifts=None):
         return int_decode_attention_fused(
             q8, k8_cache, v8_cache, plan, valid_len, pages, page_size,
-            requant=requant, b_vec=b_vec, wo=wo, wo_spec=wo_spec)
+            requant=requant, b_vec=b_vec, wo=wo, wo_spec=wo_spec,
+            kv_shifts=kv_shifts)
 
     def int_paged_prefill(self, q8, k8_new, v8_new, k_pool, v_pool, plan,
                           base_pos, pages, page_size: int, requant=None,
-                          b_vec=None, wo=None, wo_spec=None):
+                          b_vec=None, wo=None, wo_spec=None, kv_shifts=None):
         """Scatter the chunk's K/V into the pools (in place), then the
-        paged prefill kernel over the page table."""
+        paged prefill kernel over the page table.  Packed int4 pools
+        (``kv_shifts``) take the chunk already packed (the OpSet packs
+        it for every backend)."""
         k_pool = scatter_chunk(k_pool, k8_new, base_pos, pages, page_size)
         v_pool = scatter_chunk(v_pool, v8_new, base_pos, pages, page_size)
         o = int_paged_prefill_fused(q8, k_pool, v_pool, plan,
                                     base_pos + q8.shape[1], pages, page_size,
                                     requant=requant, b_vec=b_vec, wo=wo,
-                                    wo_spec=wo_spec)
+                                    wo_spec=wo_spec, kv_shifts=kv_shifts)
         return o, k_pool, v_pool

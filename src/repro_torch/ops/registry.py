@@ -34,10 +34,14 @@ streaming kernel (the model layer then calls it at any length) or the
 full-matrix oracle (which the layer calls only up to the reference's
 chunking threshold).  Optional capabilities are negotiated exactly as in
 the reference: a backend advertising ``paged_decode`` / ``decode_wo_fold`` /
-``paged_prefill`` / ``prefill_wo_fold`` gets the page table and the
-folded o-projection verbatim; for the rest this layer lowers them exactly
-(gather pages, decode-then-matmul, scatter + stepped-mask paged decode),
-so every backend returns identical integers.
+``paged_prefill`` / ``prefill_wo_fold`` / ``packed_kv`` gets the page
+table, the folded o-projection and packed int4 pools (``kv_shifts``)
+verbatim; for the rest this layer lowers them exactly (gather pages,
+decode-then-matmul, scatter + stepped-mask paged decode, dequantize the
+pools with ``ops.packed.unpack_kv_pool``), so every backend returns
+identical integers.  A prefill chunk bound for packed pools is quantized
+and packed here (``ops.packed.pack_kv``) for every backend, so the pool
+bytes never depend on the backend.
 """
 from __future__ import annotations
 
@@ -48,6 +52,7 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.ops.packed import pack_kv, unpack_kv_pool
 from repro_torch.ops.paged import gather_pages, scatter_chunk
 from repro_torch.ops.spec import QuantLinearParams
 
@@ -173,14 +178,25 @@ class OpSet:
 
     def int_decode_attention(self, q8, k8_cache, v8_cache, plan, valid_len,
                              pages=None, page_size: int = 0, wo=None,
-                             wo_spec=None, requant=None):
+                             wo_spec=None, requant=None, kv_shifts=None):
         """Decode attention with capability negotiation (``pages`` selects
         the paged layout; ``wo``/``wo_spec`` ask for the folded
-        o-projection)."""
+        o-projection; ``kv_shifts``, the ``(k_shift, v_shift)`` per-page
+        shifts, marks the pools as packed int4, paged layout only)."""
         be = self.backend_for("int_decode_attention")
+        if kv_shifts is not None and pages is None:
+            raise ValueError("int4 KV (kv_shifts=) requires the paged "
+                             "layout")
         kw = {}
         if pages is not None:
-            if getattr(be, "paged_decode", False):
+            paged_native = getattr(be, "paged_decode", False)
+            if kv_shifts is not None:
+                if paged_native and getattr(be, "packed_kv", False):
+                    kw.update(kv_shifts=kv_shifts)
+                else:
+                    k8_cache = unpack_kv_pool(k8_cache, kv_shifts[0])
+                    v8_cache = unpack_kv_pool(v8_cache, kv_shifts[1])
+            if paged_native:
                 kw.update(pages=pages, page_size=page_size)
             else:
                 k8_cache = gather_pages(k8_cache, pages, page_size)
@@ -199,15 +215,21 @@ class OpSet:
 
     def int_paged_prefill(self, q8, k8_new, v8_new, k_pool, v_pool, plan,
                           base_pos, pages, page_size: int, wo=None,
-                          wo_spec=None, requant=None):
+                          wo_spec=None, requant=None, kv_shifts=None):
         """Chunked paged prefill: scatter the chunk's K/V into the pools
-        (in place) and attend causally over history + chunk.  Returns
-        ``(o, k_pool, v_pool)``."""
+        (in place) and attend causally over history + chunk.  With
+        ``kv_shifts`` the pools are packed int4: the chunk's K/V are
+        quantized and packed first (``ops.packed.pack_kv``), and a backend
+        without ``packed_kv`` reads the pools dequantized.  Returns ``(o,
+        k_pool, v_pool)``."""
         be = self.backend_for("int_paged_prefill")
         if wo is not None:
             wo = _validate_wo(wo, wo_spec, requant)
-        if getattr(be, "paged_prefill", False):
-            kw = {}
+        if kv_shifts is not None:
+            k8_new, v8_new = pack_kv(k8_new), pack_kv(v8_new)
+        if getattr(be, "paged_prefill", False) and (
+                kv_shifts is None or getattr(be, "packed_kv", False)):
+            kw = {} if kv_shifts is None else dict(kv_shifts=kv_shifts)
             if wo is not None and getattr(be, "prefill_wo_fold", False):
                 kw.update(wo=wo, wo_spec=wo_spec)
                 wo = None
@@ -224,7 +246,8 @@ class OpSet:
         vl = base_pos.to(torch.int32) + q8.shape[1]
         o = self.int_decode_attention(q8, k_pool, v_pool, plan, vl,
                                       pages=pages, page_size=page_size,
-                                      wo=wo, wo_spec=wo_spec, requant=requant)
+                                      wo=wo, wo_spec=wo_spec, requant=requant,
+                                      kv_shifts=kv_shifts)
         return o, k_pool, v_pool
 
 

@@ -30,12 +30,15 @@ for every lane whose prompt is in, and finished lanes retire.
   * ``evict`` frees a session's lane and pages; ``preempt`` (paged only)
     frees the lane but keeps the pages, and the session resumes
     bit-exactly.
+  * **int4 KV pages** (``kv_dtype="int4"``, paged only): pools of two
+    head-dim nibbles a byte with a shift per page (``ops.packed``); an
+    auto-sized pool has twice the pages in the same bytes, and K3 / K4
+    expand the pages inside the kernel.
 
 Token streams are bit-identical to the JAX engine's for the same
 weights and schedule.  Not ported yet (each raises
 ``NotImplementedError`` naming its ROADMAP item): ``tp > 1``,
-``spec_k > 0``, ``kv_dtype="int4"``, and SSM / MoE / cross-attention
-archs.
+``spec_k > 0``, and SSM / MoE / cross-attention archs.
 """
 from __future__ import annotations
 
@@ -121,9 +124,10 @@ class ServingEngine:
         if cache_mode not in ("paged", "contiguous"):
             raise ValueError("cache_mode must be 'paged' or 'contiguous',"
                              f" got {cache_mode!r}")
-        if kv_dtype != "int8":
-            raise NotImplementedError(
-                "int4 KV pages are not ported yet (ROADMAP §1 item 4)")
+        if kv_dtype != "int8" and cache_mode != "paged":
+            raise ValueError("kv_dtype='int4' needs cache_mode='paged' "
+                             "(the packed tier stores per-page requant "
+                             "shifts next to the page pools)")
         if not cfg.is_causal:
             raise ValueError(
                 f"arch {cfg.name!r} is an encoder: it has no autoregressive "
@@ -438,8 +442,8 @@ class ServingEngine:
             pass
 
     def _cow(self, sess: Session, blk: int):
-        """Copy-on-write: a private copy of a shared page before a write
-        lands on it."""
+        """Copy-on-write: a private copy of a shared page (and, int4, of its
+        shifts) before a write lands on it."""
         old = sess.pages[blk]
         try:
             new = self.kv.allocator.alloc()
@@ -448,8 +452,9 @@ class ServingEngine:
                 return
             raise
         for c in self.caches:
-            for key in ("k8", "v8"):
-                c[key][:, new] = c[key][:, old]
+            for key in ("k8", "v8", "k_shift", "v_shift"):
+                if key in c:
+                    c[key][:, new] = c[key][:, old]
         self.kv.allocator.release(old)
         sess.pages[blk] = new
         if sess.slot is not None:
@@ -588,6 +593,7 @@ class ServingEngine:
                 if self.prefix is not None else None
         else:
             cache = {"mode": "contiguous", "kv_pack": "int8"}
+        # the pools' bytes: packed int4 pools hold half of int8's a token
         cache["kv_bytes"] = int(sum(
             c[key].numel() * c[key].element_size()
             for c in self.caches for key in ("k8", "v8")))
@@ -616,7 +622,9 @@ class ServingEngine:
         if c.get("prefix") is not None:
             prefill += f"+prefix[{c['prefix']['entries']}]"
         if c["mode"] == "paged":
-            cache = (f"paged[{c['page_size']}tok x {c['num_pages']}pg, "
+            pack = "" if c["kv_pack"] == "int8" else f", {c['kv_pack']}"
+            cache = (f"paged[{c['page_size']}tok x {c['num_pages']}pg"
+                     f"{pack}, "
                      f"{c['pages_used']}/{c['num_pages'] - 1} used]")
         else:
             cache = "contiguous"

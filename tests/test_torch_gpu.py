@@ -1,5 +1,6 @@
-"""The CUDA kernels on the card (K1-K8): each wrapper launches (its
-counter moves) and returns its plain version's integers exactly.
+"""The CUDA kernels on the card (K1-K8, and K3 / K4 over packed int4
+pools): each wrapper launches (its counter moves) and returns its plain
+version's integers exactly.
 
 Marked ``gpu``: a CUDA kernel has no CPU mode, so these skip without a
 card (the decision is made inside a fixture, never at import).  The file
@@ -387,6 +388,142 @@ def test_engine_cuda_matches_torch_ref(dev, geometry):
             for name in ("int8_matmul", "int_layernorm",
                          "int_decode_attention", "int_paged_prefill"):
                 assert kernels.LAUNCHES[name] > 0, name
+        streams[backend] = [r.out_tokens for r in reqs]
+    assert streams["cuda"] == streams["cuda_online"] == streams["torch_ref"]
+
+
+def _packed_pools(rng, dev, num_pages, ps, hkv, d):
+    """Packed int4 pools (bytes from all 256 values) and per-page K and V
+    shifts drawn independently from 0..7."""
+    kp, vp = (torch.as_tensor(rng.integers(-128, 128, (num_pages, ps, hkv,
+                                                       d // 2))
+                              .astype(np.int8), device=dev)
+              for _ in range(2))
+    ks, vs = (_i32(rng, 0, 8, (num_pages,), dev) for _ in range(2))
+    return kp, vp, (ks, vs)
+
+
+@pytest.mark.parametrize("d", [32, 64, 120, 128])
+@pytest.mark.parametrize("ps", [1, 8, 16, 64])
+@pytest.mark.parametrize("operands", ["random", "misaligned"])
+def test_packed_attention_kernels(dev, d, ps, operands):
+    """K3 (Sq 1 and 4) and K4 (chunks of 1, 7 and 32 rows) over packed int4
+    pools through a permuted page table: a lane mapped to the null page,
+    ragged lengths, per-page shifts 0..7 differing between K and V, wo
+    folded and not, q and the pools 4 bytes off 16-byte alignment.  Each
+    launch counts under its packed name (``*_kv4``), never under the int8
+    one, and equals the plain version (unpack_kv_pool, then the int8
+    plain version)."""
+    rng = np.random.default_rng(d * ps + (operands == "misaligned"))
+    b, h, hkv = 4, 8, 2
+    plan = iattn.make_iattention(d, 8 / 127, 8 / 127, 4 / 127, 4 / 127)
+    maxp = -(-160 // ps)
+    num_pages = b * maxp + 1
+    kp, vp, shifts = _packed_pools(rng, dev, num_pages, ps, hkv, d)
+    pages = rng.permutation(np.arange(1, num_pages)).reshape(b, maxp)
+    pages[1] = 0
+    pages = torch.as_tensor(pages.astype(np.int32), device=dev)
+    if operands == "misaligned":
+        kp, vp = _offset_view(kp, 4), _offset_view(vp, 4)
+    vl = torch.tensor([1, 37, 64, 96], dtype=torch.int32, device=dev)
+    wo = dict(wo=QuantLinearParams(_i8(rng, (h * d, 40), dev),
+                                   _i32(rng, 1000, 30000, (40,), dev),
+                                   _i32(rng, -500, 500, (40,), dev)),
+              wo_spec=RequantSpec.per_channel(28, 7, 14))
+    launches = [(sq, int_decode_attention_fused, int_decode_attention_plain,
+                 "int_decode_attention", vl + sq - 1) for sq in (1, 4)]
+    launches += [(c, int_paged_prefill_fused, int_paged_prefill_plain,
+                  "int_paged_prefill", vl + c) for c in (1, 7, 32)]
+    for sq, fused, plain, name, lens in launches:
+        for kw in ({}, wo):
+            q8 = _i8(rng, (b, sq, h, d), dev)
+            if operands == "misaligned":
+                q8 = _offset_view(q8, 4)
+            before = dict(kernels.LAUNCHES)
+            got = fused(q8, kp, vp, plan, lens, pages, ps, kv_shifts=shifts,
+                        **kw)
+            assert kernels.LAUNCHES[name + "_kv4"] == before[name + "_kv4"] + 1
+            assert kernels.LAUNCHES[name] == before[name]
+            want = plain(q8, kp, vp, plan, lens, pages, ps, kv_shifts=shifts,
+                         **kw)
+            assert torch.equal(got, want), (name, sq, bool(kw))
+
+
+def test_packed_attention_epilogues_and_shift_range(dev):
+    """K3 and K4 over packed pools with per-channel and raw epilogues, and
+    every page at each shift 0..7 in turn (5..7 wrap q4 << s in int8)."""
+    rng = np.random.default_rng(11)
+    b, h, hkv, d, ps, maxp = 2, 4, 1, 128, 16, 6
+    plan = iattn.make_iattention(d, 8 / 127, 8 / 127, 4 / 127, 4 / 127)
+    kp, vp, _ = _packed_pools(rng, dev, b * maxp + 1, ps, hkv, d)
+    pages = torch.as_tensor(np.arange(1, b * maxp + 1, dtype=np.int32)
+                            .reshape(b, maxp), device=dev)
+    vl = torch.tensor([50, 96], dtype=torch.int32, device=dev)
+    bvec = _i32(rng, 1000, 20000, (h * d,), dev)
+    for s in range(8):
+        full = torch.full((b * maxp + 1,), s, dtype=torch.int32, device=dev)
+        shifts = (full, torch.full_like(full, 7 - s))
+        for rq in (RequantSpec.per_channel(22, 8), RequantSpec.raw()):
+            for fused, plain, sq in ((int_decode_attention_fused,
+                                      int_decode_attention_plain, 1),
+                                     (int_paged_prefill_fused,
+                                      int_paged_prefill_plain, 16)):
+                q8 = _i8(rng, (b, sq, h, d), dev)
+                args = (q8, kp, vp, plan, vl, pages, ps)
+                kw = dict(requant=rq, b_vec=bvec, kv_shifts=shifts)
+                assert torch.equal(fused(*args, **kw), plain(*args, **kw)), \
+                    (s, rq.kind, sq)
+
+
+def test_packed_attention_refuses_what_it_cannot_take(dev):
+    """Packed pools need the paged layout, pools of D / 2 bytes a row and
+    two (num_pages,) shift vectors: the wrappers raise before launching."""
+    rng = np.random.default_rng(3)
+    plan = iattn.make_iattention(64, 8 / 127, 8 / 127, 4 / 127, 4 / 127)
+    kp, vp, shifts = _packed_pools(rng, dev, 5, 16, 2, 64)
+    pages = torch.ones((1, 2), dtype=torch.int32, device=dev)
+    vl = torch.tensor([5], dtype=torch.int32, device=dev)
+    q8 = _i8(rng, (1, 1, 4, 64), dev)
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError, match="paged"):
+        int_decode_attention_fused(q8, kp, vp, plan, vl, kv_shifts=shifts)
+    wide = _i8(rng, (5, 16, 2, 64), dev)
+    for fused in (int_decode_attention_fused, int_paged_prefill_fused):
+        with pytest.raises(ValueError, match="int4"):
+            fused(q8, wide, wide, plan, vl, pages, 16, kv_shifts=shifts)
+        with pytest.raises(ValueError, match="kv_shifts"):
+            fused(q8, kp, vp, plan, vl, pages, 16,
+                  kv_shifts=(shifts[0][:4], shifts[1]))
+    assert dict(kernels.LAUNCHES) == before
+
+
+def test_engine_int4_cuda_matches_torch_ref(dev):
+    """A reduced engine over int4 pages on the card: ``cuda`` and
+    ``cuda_online`` streams equal ``torch_ref``'s, and the packed K3 and
+    K4 launched while the int8 ones did not."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M
+    from repro_torch.quant import convert
+    from repro_torch.serving import Request, ServingEngine
+    cfg = M.reduce_config(get_config("llama3-8b"), dtype="float32")
+    qp, plans = convert.init_quantized(cfg, seed=0, device=dev)
+    streams = {}
+    for backend in ("cuda", "cuda_online", "torch_ref"):
+        eng = ServingEngine(qp, plans, cfg, batch_size=2, cache_len=64,
+                            ops=backend, device=dev, kv_dtype="int4",
+                            page_size=8, prefill_chunk=8)
+        reqs = [Request(uid=i, prompt=[1 + i] * (5 + 9 * i),
+                        max_new_tokens=4) for i in range(3)]
+        for r in reqs:
+            eng.submit(r)
+        kernels.reset_launches()
+        eng.run_until_done()
+        if backend == "cuda":
+            for name in ("int8_matmul", "int_layernorm",
+                         "int_decode_attention_kv4", "int_paged_prefill_kv4"):
+                assert kernels.LAUNCHES[name] > 0, name
+            for name in ("int_decode_attention", "int_paged_prefill"):
+                assert kernels.LAUNCHES[name] == 0, name
         streams[backend] = [r.out_tokens for r in reqs]
     assert streams["cuda"] == streams["cuda_online"] == streams["torch_ref"]
 

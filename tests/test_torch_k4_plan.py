@@ -103,11 +103,12 @@ class _DeviceOnly(torch.Tensor):
 
 
 def test_k4_plan_never_reads_pos_end():
-    """The plan takes shapes only, and packing a launch hands ``pos_end``
-    and the page table over as pointers without reading a value."""
+    """The plan takes shapes only, and packing a launch hands ``pos_end``,
+    the page table and the shifts of packed int4 pools over as pointers
+    without reading a value."""
     params = list(inspect.signature(F.k4_launch_plan).parameters)
     assert params == ["b", "c", "h", "hkv", "d", "max_pages", "page_size",
-                      "k_addr", "e16_fits"]
+                      "k_addr", "e16_fits", "packed"]
     jp = j_attn.make_iattention(64, 8 / 127, 8 / 127, 4 / 127, 4 / 127)
     plan = plan_from_reference(jp)
     F.e16_fits_16_bits(plan.sm)                    # warm the plan caches
@@ -123,6 +124,17 @@ def test_k4_plan_never_reads_pos_end():
     assert args.pages == pages.data_ptr()
     assert (args.Sq, args.Skv, args.tiles) == (32, 64, 1)
     assert kp.grid == (1, 8, 2) and tuple(out.shape) == (2, 32, 8, 64)
+    assert not args.k_shift and not args.v_shift
+    packed = torch.zeros((9, 16, 2, 32), dtype=torch.int8)
+    shifts = tuple(torch.full((9,), 4, dtype=torch.int32).as_subclass(
+        _DeviceOnly) for _ in range(2))
+    args, out, kp = F.k4_args(q8, packed, packed, plan, pos_end, pages, 16,
+                              RequantSpec.per_tensor(plan.dn_out), None,
+                              kv_shifts=shifts)
+    assert (args.k_shift, args.v_shift) == tuple(x.data_ptr()
+                                                 for x in shifts)
+    assert not args.vec_k and not kp.vec_k
+    assert kp.smem == F.k4_launch_plan(2, 32, 8, 2, 64, 4, 16, 0).smem
 
 
 # --------------------------------------------------- the kernel's order --

@@ -230,10 +230,10 @@ def test_engine_evict_and_preempt(setup):
 
 def test_engine_unported_options_raise(setup):
     """What the port does not serve yet names its ROADMAP §1 item (the
-    contiguous cache and sliding windows are served since; their parity
-    is tests/test_torch_window.py's)."""
+    contiguous cache and sliding windows are served since, their parity
+    tests/test_torch_window.py's; int4 KV pages too, tests/
+    test_torch_kv4.py's)."""
     _, tcfg, _, _, tq, tp = setup
-    for kw, item in ((dict(tp=2), "item 9"), (dict(spec_k=2), "item 3"),
-                     (dict(kv_dtype="int4"), "item 4")):
+    for kw, item in ((dict(tp=2), "item 9"), (dict(spec_k=2), "item 3")):
         with pytest.raises(NotImplementedError, match=item):
             TEngine(tq, tp, tcfg, device="cpu", **kw)
