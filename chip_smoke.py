@@ -63,17 +63,33 @@ non-zero before the last line):
   kv4-serve      ``serve`` over int4 KV pages: full llama3-8b, the same
            traffic, K3 and K4 launching their packed instantiations
            (``*_kv4``) in every decode step and prefill chunk, and the
-           pool's pages and bytes.
+           pool's pages and bytes;
+  packed-parity  llama3-8b at full width cut to 2 layers, its weights
+           packed on the card with ``quant.pack.pack_tree`` (group 64):
+           msr4 streams of ``cuda`` equal ``torch_ref``'s and the dense
+           int8 engine's (the tier is lossless); then a derived model,
+           every linear weight clamped to [-7, 7], packed int4: ``cuda``
+           equals ``torch_ref`` and the clamped dense model;
+  msr4-serve     ``serve`` on msr4 weights (group 64, the reference serving
+           benchmark's tier): full llama3-8b, the same traffic, every
+           matmul through K1's nibble instantiation and the MSR-4
+           correction kernel (the dense K1 never: a packed wo never
+           folds), the packed weight bytes, a profiled decode window and
+           prefill chunks.
 
 The ``kernels`` phase also holds K3's and K4's packed instantiations
 (rows ``int_decode_attention_kv4`` / ``int_paged_prefill_kv4``) against
 their plain version (``ops.packed.unpack_kv_pool``, then the int8 plain
-version) at the serve shapes, folded and not, and at D = 120.
+version) at the serve shapes, folded and not, and at D = 120; and K1 over
+packed weights (rows ``int8_matmul_packed``: the nibble launch, int4 fused
+or msr4 raw) and the MSR-4 correction kernel (rows ``int8_matmul_msr4``)
+against their plain versions at llama3-8b's shapes and at their edges.
 
 ``--verbose-build`` also prints ptxas's registers and spills and a
 ``sass`` line (per kernel ``IMMA`` / ``IDP`` / ``LDL`` / ``STL``), and
 fails unless every K4, K5 and K8 instantiation shows ``IMMA`` and none of
-the other three.
+the other three, every K1 tensor-core instantiation ``IMMA``, and no K1
+or MSR-4 correction instantiation ``LDL`` / ``STL``.
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit,
 and the final ``{"ok": true, "device": {...}}`` line.  The script imports
@@ -106,6 +122,8 @@ TPU_KERNELS = {
     "int_decode_attention_kv4":
         "src/repro/kernels/int_decode_attention.py:183",
     "int_paged_prefill_kv4": "src/repro/kernels/int_attention_fused.py:398",
+    "int8_matmul_packed": "src/repro/kernels/int8_matmul.py:90",
+    "int8_matmul_msr4": "src/repro/kernels/int8_matmul.py:90",
 }
 SOURCES = {
     "int8_matmul": "src/repro_torch/csrc/int8_matmul.cu",
@@ -118,6 +136,8 @@ SOURCES = {
     "int_attention_online": "src/repro_torch/csrc/int_attention_online.cu",
     "int_decode_attention_kv4": "src/repro_torch/csrc/int_decode_attention.cu",
     "int_paged_prefill_kv4": "src/repro_torch/csrc/int_paged_prefill.cu",
+    "int8_matmul_packed": "src/repro_torch/csrc/int8_matmul.cu",
+    "int8_matmul_msr4": "src/repro_torch/csrc/int8_matmul_msr4.cu",
 }
 # the kernels each driven path must launch
 PATH_KERNELS = {
@@ -136,7 +156,12 @@ PATH_KERNELS = {
                        "int_attention_fused"),
     "kv4-serve": ("int8_matmul", "int_layernorm", "int_decode_attention_kv4",
                   "int_paged_prefill_kv4"),
+    "msr4-serve": ("int8_matmul_packed", "int8_matmul_msr4", "int_layernorm",
+                   "int_decode_attention", "int_paged_prefill"),
 }
+# the reference serving benchmark's weight tier (pack_tree(qp, "msr4",
+# group=64), benchmarks/bench_serving.py)
+PACK_GROUP = 64
 # the window-serve traffic (token-streaming prefill): prompts of 16-64
 # tokens from seed 5, 16 new tokens each, batch 4, cache_len 512
 WINDOW_SERVE = dict(requests=8, lo=16, hi=64, max_new=16, batch=4,
@@ -546,6 +571,181 @@ def check_packed_kernels(gen, rows, aplan, requant, wo, wo_spec, h: int,
                    plan=(k4_plan(q8, kp, pages, ps, aplan, packed=True)
                          if sq > 1 else None))
         del q8
+
+
+def _q_weights(gen, k: int, n: int):
+    """int8 (k, n) weights as the port quantizes a Gaussian layer
+    (per-channel abs-max to +-127, ``quant/convert.py::_q_linear``): most
+    of them outside [-7, 7], so msr4 takes n_outliers = group."""
+    import torch
+    w = torch.randn((k, n), generator=gen, device="cuda")
+    s = w.abs().amax(dim=0).clamp(min=1e-8) / 127.0
+    return torch.clamp(torch.round(w / s), -127, 127).to(torch.int8)
+
+
+def _packed(w8, scheme: str, group: int = PACK_GROUP, b_vec=None,
+            bias=None):
+    from repro_torch.ops.spec import QuantLinearParams
+    from repro_torch.quant.pack import pack_linear
+    return pack_linear(QuantLinearParams(w8, b_vec, bias), scheme, group)
+
+
+def packed_bounds(m: int, k: int, n: int, spec, qw, corr: bool):
+    """Bytes and operations of K1's nibble launch (``corr`` False: x, the
+    K / 2 x N nibbles, bias / multipliers read, the output written; 2 x M
+    x K x N operations) or of the correction (the raw accumulator, x, the
+    lanes, bias / multipliers read, the output written; 2 operations a
+    row and lane that carries a delta)."""
+    import torch
+    out_b = 4 if spec.is_raw or spec.out_bits > 8 else 1
+    vecs = 4 * n * ((qw.bias32 is not None) + (spec.kind == "per_channel"))
+    if not corr:
+        return m * k + k // 2 * n + vecs + out_b * m * n, 2 * m * k * n
+    lanes = qw.out_val.numel()
+    nnz = int(torch.count_nonzero(qw.out_val))
+    return (4 * m * n + m * k + 3 * lanes + vecs + out_b * m * n,
+            2 * m * nnz)
+
+
+def check_packed_matmul_kernels(cfg, plans, rows) -> None:
+    """K1 over packed weights and the MSR-4 correction against their
+    plain versions.  llama3-8b's shapes with Gaussian-quantized weights
+    packed msr4 at group 64 (the raw nibble launch, then the correction:
+    w1 and w2 at M = 4, w1 at M = 128, the raw head at M = 4 and 128) and
+    int4 weights drawn in [-7, 7] (one fused launch: w1 at M = 4, the
+    summary row of ``int8_matmul_packed``; msr4 w1 at M = 4 is that of
+    ``int8_matmul_msr4``); then the edges: M 1 / 5 / 16 / 17 / 33, K = 2
+    mod 4, ragged N, operands 1 byte off alignment, split K, per-tensor +
+    bias, msr4 groups 4 / 16 / 64 / 256 / K with n_outliers 0, 1 and g."""
+    import torch
+    from repro_torch.core.dyadic import fit_dyadic
+    from repro_torch.kernels.int8_matmul import (
+        int8_matmul_nibbles, int8_matmul_nibbles_plain, int8_matmul_packed,
+        int8_matmul_plain, msr4_correct, msr4_correct_plain)
+    from repro_torch.ops.spec import RequantSpec
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.padded_vocab()
+    raw = RequantSpec.raw()
+
+    def both(tag, x8, qw, spec, rep_nib=False, rep_corr=False, dense=None,
+             iters=20):
+        m, k = x8.shape
+        n = qw.n_dim
+        meta = qw.pack_meta
+        two = meta.scheme == "msr4" and meta.n_outliers > 0
+        nspec = raw if two else spec
+        bias, bvec = (None, None) if two else (qw.bias32, qw.b_mult)
+        got = int8_matmul_nibbles(x8, qw.w_packed, nspec, bias, bvec)
+        want = int8_matmul_nibbles_plain(x8, qw.w_packed, nspec, bias, bvec)
+        nb, no = packed_bounds(m, k, n, nspec, qw._replace(bias32=bias),
+                               False)
+        record(rows, "int8_matmul_packed",
+               f"{tag} {'raw nibbles' if two else 'nibbles'} M={m} K={k} "
+               f"N={n} {meta.scheme} g={meta.group} "
+               f"n_out={meta.n_outliers} {nspec.kind}", got, want,
+               lambda: int8_matmul_nibbles(x8, qw.w_packed, nspec, bias,
+                                           bvec),
+               lambda: int8_matmul_nibbles_plain(x8, qw.w_packed, nspec,
+                                                 bias, bvec),
+               nb, no, rep=rep_nib, iters=iters, plain_iters=2,
+               plan=k1_plan(m, n, k))
+        if meta.scheme == "msr4":
+            acc = got
+            got = msr4_correct(acc, x8, qw, spec)
+            want = msr4_correct_plain(acc, x8, qw, spec)
+            nb, no = packed_bounds(m, k, n, spec, qw, True)
+            record(rows, "int8_matmul_msr4",
+                   f"{tag} correction M={m} K={k} N={n} g={meta.group} "
+                   f"n_out={meta.n_outliers} {spec.kind}", got, want,
+                   lambda: msr4_correct(acc, x8, qw, spec),
+                   lambda: msr4_correct_plain(acc, x8, qw, spec), nb, no,
+                   rep=rep_corr, iters=iters, plain_iters=2)
+        if dense is not None:
+            whole = int8_matmul_packed(x8, qw, spec)
+            err = max_abs_diff(whole, int8_matmul_plain(
+                x8, dense, spec, qw.bias32, qw.b_mult))
+            if err:
+                raise AssertionError(f"int8_matmul_packed {tag}: != the "
+                                     f"dense product (max |diff| {err})")
+
+    # llama3-8b's shapes
+    for tag, k, n, lp, ms in (("w1", d, f, plans.ffn.up, (4, 128)),
+                              ("w2", f, d, plans.ffn.down, (4,)),
+                              ("head raw", d, v, None, (4, 128))):
+        w8 = _q_weights(gen, k, n)
+        spec = raw if lp is None else RequantSpec.for_linear(lp)
+        b_vec = None if lp is None else _randint(gen, 256, 4096, (n,),
+                                                 torch.int32)
+        qw = _packed(w8, "msr4", b_vec=b_vec)
+        for m in ms:
+            x8 = _randint(gen, -127, 128, (m, k), torch.int8)
+            both(tag, x8, qw, spec, rep_corr=(tag == "w1" and m == 4),
+                 dense=w8, iters=10 if tag.startswith("head") else 20)
+        del w8, qw
+        if tag == "w1":
+            w4 = _randint(gen, -7, 8, (k, n), torch.int8)
+            q4 = _packed(w4, "int4", b_vec=b_vec)
+            x8 = _randint(gen, -127, 128, (4, k), torch.int8)
+            both("w1", x8, q4, spec, rep_nib=True, dense=w4)
+            del w4, q4
+    # the edges
+    pt = RequantSpec.per_tensor(fit_dyadic(1 / 3000.0, 1 << 26))
+    pc = RequantSpec.per_channel(24, 10, 11)
+    for m in (1, 5, 16, 17, 33):
+        for k, n in ((130, 260), (4096, 96)):
+            w8 = _randint(gen, -128, 128, (k, n), torch.int8)
+            bias = _randint(gen, -5000, 5000, (n,), torch.int32)
+            b_vec = _randint(gen, 256, 4096, (n,), torch.int32)
+            x8 = _randint(gen, -128, 128, (m, k), torch.int8)
+            for scheme, w in (("msr4", w8), ("int4", w8.clamp(-7, 7))):
+                qw = _packed(w, scheme, 16, b_vec, bias)
+                for spec in (pt, pc):
+                    both(f"edge {spec.kind}+bias", x8, qw, spec, dense=w,
+                         iters=5)
+    for tag, m, k, n in (("1 byte off", 17, 302, 100),
+                         ("1 byte off", 4, 302, 100),
+                         ("split K", 4, 8192, 256),
+                         ("split K", 128, 4096, 128)):
+        w8 = _randint(gen, -128, 128, (k, n), torch.int8)
+        qw = _packed(w8, "msr4", 64 if k % 64 == 0 else 302)
+        x8 = _randint(gen, -128, 128, (m, k), torch.int8)
+        if tag == "1 byte off":
+            x8 = _offset_view(x8, 1)
+            qw = qw._replace(w_packed=_offset_view(qw.w_packed, 1))
+        both(tag, x8, qw, raw, dense=w8, iters=5)
+    k, n = 512, 300
+    x8 = _randint(gen, -128, 128, (5, k), torch.int8)
+    for g in (4, 16, 64, 256, 100):             # 100: g = K
+        gg = g if k % g == 0 else k
+        lo = _randint(gen, -7, 8, (k, n), torch.int8)
+        one = lo.clone()
+        rows_ = torch.arange(0, k, gg, device="cuda")
+        one[rows_ + (rows_ // gg) % gg, ::2] = -128
+        full = (_randint(gen, 8, 128, (k, n), torch.int32)
+                * (2 * _randint(gen, 0, 2, (k, n), torch.int32) - 1)
+                ).clamp(-128, 127).to(torch.int8)
+        b_vec = _randint(gen, 256, 4096, (n,), torch.int32)
+        for w, want_out in ((lo, 0), (one, 1), (full, gg)):
+            qw = _packed(w, "msr4", g, b_vec)
+            if qw.pack_meta.n_outliers != want_out:
+                raise AssertionError(f"msr4 g={g}: n_outliers "
+                                     f"{qw.pack_meta.n_outliers} != "
+                                     f"{want_out}")
+            acc = int8_matmul_nibbles(x8, qw.w_packed, raw)
+            got = msr4_correct(acc, x8, qw, pc)
+            want = msr4_correct_plain(acc, x8, qw, pc)
+            nb, no = packed_bounds(5, k, n, pc, qw, True)
+            record(rows, "int8_matmul_msr4",
+                   f"edge correction M=5 K={k} N={n} g={gg} "
+                   f"n_out={want_out} per_channel", got, want,
+                   lambda: msr4_correct(acc, x8, qw, pc),
+                   lambda: msr4_correct_plain(acc, x8, qw, pc), nb, no,
+                   iters=5, plain_iters=1)
+            err = max_abs_diff(int8_matmul_packed(x8, qw, pc),
+                               int8_matmul_plain(x8, w, pc, None, b_vec))
+            if err:
+                raise AssertionError(f"msr4 g={g} n_out={want_out}: packed "
+                                     f"!= dense (max |diff| {err})")
 
 
 def k4_bound(lens, c: int, h: int, hkv: int, d: int, table_ints: int,
@@ -1186,14 +1386,101 @@ def phase_parity(cfg_full, kv_dtype: str = "int8"):
     del qp
 
 
-def phase_serve(cfg, kv_dtype: str = "int8"):
+def _clamp_linears(tree):
+    """A derived model: every linear weight clamped to [-7, 7] (plain int4
+    packs only such weights)."""
+    import torch
+    from repro_torch.ops.spec import QuantLinearParams
+    if isinstance(tree, QuantLinearParams):
+        return tree._replace(w8=torch.clamp(tree.w8, -7, 7))
+    if isinstance(tree, dict):
+        return {k: _clamp_linears(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clamp_linears(v) for v in tree]
+    return tree
+
+
+def phase_packed_parity(cfg_full):
+    """llama3-8b at full width cut to 2 layers on packed weights, packed on
+    the card with the port's ``pack_tree``: msr4 at group 64, ``cuda``
+    streams equal ``torch_ref``'s and the dense int8 engine's; int4 on the
+    derived model with every linear weight clamped to [-7, 7], ``cuda``
+    equal ``torch_ref`` and the clamped dense model.  The ``cuda`` runs
+    must launch K1's nibble instantiation (msr4: and the correction) and
+    never the dense K1."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.quant import convert
+    from repro_torch.quant.pack import pack_tree
+    cfg = dataclasses.replace(cfg_full, num_layers=2)
+    qp, plans = convert.init_quantized(
+        cfg, seed=0, device="cuda",
+        embed_scale=convert.unit_embed_scale(cfg))
+    prompts = _prompts(11, 6, 20, 150, cfg.vocab)
+
+    def drain(tree, backend):
+        eng, reqs = run_engine(tree, plans, cfg, prompts, 16, backend,
+                               batch_size=4, cache_len=512, page_size=16,
+                               prefill_chunk=32, fold_wo=True)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        eng.run_until_done()
+        torch.cuda.synchronize()
+        return ([r.out_tokens for r in reqs], time.perf_counter() - t0,
+                dict(kernels.LAUNCHES))
+
+    for scheme in ("msr4", "int4"):
+        dense = qp if scheme == "msr4" else _clamp_linears(qp)
+        t0 = time.perf_counter()
+        packed = pack_tree(dense, scheme, PACK_GROUP)
+        torch.cuda.synchronize()
+        pack_s = time.perf_counter() - t0
+        runs = {"dense": drain(dense, "cuda"), "cuda": drain(packed, "cuda"),
+                "torch_ref": drain(packed, "torch_ref")}
+        streams = {k: r[0] for k, r in runs.items()}
+        same = streams["cuda"] == streams["torch_ref"] == streams["dense"]
+        distinct = len({t for st in streams["cuda"] for t in st})
+        launches = runs["cuda"][2]
+        meta = packed["head"].pack_meta
+        emit({"phase": "packed-parity", "scheme": scheme,
+              "derived": "linear weights clamped to [-7, 7]"
+              if scheme == "int4" else None,
+              "group": meta.group, "head_n_outliers": meta.n_outliers,
+              "layers": cfg.num_layers, "requests": len(prompts),
+              "identical": same, "distinct_tokens": distinct,
+              "pack_s": pack_s, "dense_s": runs["dense"][1],
+              "cuda_s": runs["cuda"][1], "torch_ref_s": runs["torch_ref"][1],
+              "cuda_launches": {k: c for k, c in launches.items() if c},
+              "first_stream": streams["cuda"][0]})
+        if not same:
+            raise AssertionError(f"packed-parity {scheme}: cuda, torch_ref "
+                                 "and the dense engine's streams differ")
+        if distinct < 2:
+            raise AssertionError("degenerate streams: one token everywhere")
+        if launches["int8_matmul"] or not launches["int8_matmul_packed"] \
+                or bool(launches["int8_matmul_msr4"]) != (scheme == "msr4"):
+            raise AssertionError(f"packed-parity {scheme}: launches "
+                                 f"{launches}")
+        del dense, packed
+        gc.collect()
+    del qp
+
+
+def phase_serve(cfg, kv_dtype: str = "int8", weights: str = "int8"):
     """Full llama3-8b on ``cuda`` over int8 (``serve``) or packed int4
-    (``kv4-serve``) KV pages: throughput, step times, peak memory, the
-    pool's pages and bytes and the launches of each decode step and
-    prefill chunk, then a profiled decode window and a profiled window of
-    prefill chunks.  Over int4 every step and chunk must launch the
-    packed K3 / K4 once a layer and the int8 ones never.  Returns the
-    run's launches."""
+    (``kv4-serve``) KV pages, or on msr4 weights (``msr4-serve``, group 64,
+    packed on the card and the dense model freed before serving):
+    throughput, step times, peak memory, the pool's pages and bytes, the
+    weight bytes and the launches of each decode step and prefill chunk,
+    then a profiled decode window and a profiled window of prefill chunks.
+    Over int4 pages every step and chunk must launch the packed K3 / K4
+    once a layer and the int8 ones never; on msr4 weights every step and
+    chunk K1's nibble instantiation and the correction and never the
+    dense K1 (so wo never folded).  Returns the run's launches."""
     import gc
 
     import numpy as np
@@ -1201,8 +1488,10 @@ def phase_serve(cfg, kv_dtype: str = "int8"):
     from repro_torch import kernels
     from repro_torch.models import inttransformer as it
     from repro_torch.quant import convert
+    from repro_torch.quant.pack import pack_tree
     packed = kv_dtype == "int4"
-    phase = "kv4-serve" if packed else "serve"
+    msr4 = weights == "msr4"
+    phase = "kv4-serve" if packed else "msr4-serve" if msr4 else "serve"
     k3, k4 = (("int_decode_attention_kv4", "int_paged_prefill_kv4")
               if packed else ("int_decode_attention", "int_paged_prefill"))
     # an engine is a reference cycle (its allocator's reclaim hook): free
@@ -1214,6 +1503,15 @@ def phase_serve(cfg, kv_dtype: str = "int8"):
         embed_scale=convert.unit_embed_scale(cfg))
     torch.cuda.synchronize()
     quant_s = time.perf_counter() - t0
+    pack_s = None
+    if msr4:
+        t0 = time.perf_counter()
+        dense, qp = qp, pack_tree(qp, "msr4", PACK_GROUP)
+        torch.cuda.synchronize()
+        pack_s = time.perf_counter() - t0
+        del dense
+        gc.collect()
+        torch.cuda.empty_cache()
     weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(qp))
     prompts = _prompts(5, 8, 32, 200, cfg.vocab)
     eng, reqs = run_engine(qp, plans, cfg, prompts, 32, "cuda",
@@ -1270,11 +1568,13 @@ def phase_serve(cfg, kv_dtype: str = "int8"):
           "prefill_chunk_ms_mean": float(np.mean(step_ms["prefill"])),
           "launches_per_decode_step": _mean_counts(per_step["decode"]),
           "launches_per_prefill_chunk": _mean_counts(per_step["prefill"]),
+          "weights": weights, "pack_s": pack_s,
           "quantize_s": quant_s, "weight_bytes": weight_bytes,
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "launches": launches})
-    profile_decode(eng, cfg, "kv4-profile" if packed else "profile")
-    profile_prefill(eng, cfg, k4)
+    profile_decode(eng, cfg, "kv4-profile" if packed else
+                   "msr4-profile" if msr4 else "profile")
+    profile_prefill(eng, cfg, k4, "msr4-prefill-profile" if msr4 else None)
     if not all(len(r.out_tokens) == 32 for r in reqs):
         raise AssertionError("a request came back short")
     vocab_ok = all(0 <= t < cfg.vocab for r in reqs for t in r.out_tokens)
@@ -1291,6 +1591,14 @@ def phase_serve(cfg, kv_dtype: str = "int8"):
     if off:
         raise AssertionError(f"{phase}: steps without one {k3} / {k4} a "
                              f"layer, or with {other}: {off[:5]}")
+    if msr4:
+        dense_k1 = [(tag, i) for tag in ("decode", "prefill")
+                    for i, c in enumerate(per_step[tag])
+                    if c["int8_matmul"] or not c["int8_matmul_packed"]
+                    or not c["int8_matmul_msr4"]]
+        if dense_k1:
+            raise AssertionError(f"{phase}: steps with the dense K1 or "
+                                 f"without the packed one: {dense_k1[:5]}")
     return launches
 
 
@@ -1801,7 +2109,7 @@ K4_KERNEL_NAMES = {"int_paged_prefill": ("int_paged_prefill_mma_kernel",
                    "int_paged_prefill_kv4": ("int_paged_prefill_kv4_kernel",)}
 
 
-def profile_prefill(eng, cfg, k4: str = "int_paged_prefill"):
+def profile_prefill(eng, cfg, k4: str = "int_paged_prefill", phase=None):
     """torch.profiler over the prefill chunks of four 256-token prompts
     admitted together (8 chunk rounds of 32 tokens, pos_end 32 .. 256, in
     every lane): the device ms a chunk and K4's share of it.  The window
@@ -1809,7 +2117,8 @@ def profile_prefill(eng, cfg, k4: str = "int_paged_prefill"):
     that ``step()`` would add, so its device time is the chunks'.  Chunks
     are K4's launches in the window over the layers (one a layer).
     ``k4``: K4's counter, ``int_paged_prefill_kv4`` over int4 pages (the
-    phase is then ``kv4-prefill-profile``)."""
+    phase is then ``kv4-prefill-profile``); ``phase``: the phase's name
+    where it is neither."""
     from repro_torch import kernels
     from repro_torch.serving import Request
     prompts = _prompts(13, 4, 256, 256, cfg.vocab)
@@ -1824,8 +2133,9 @@ def profile_prefill(eng, cfg, k4: str = "int_paged_prefill"):
         eng._admit()
         eng._advance_prefill()
 
-    profile_window("prefill-profile" if k4 == "int_paged_prefill"
-                   else "kv4-prefill-profile", "prefill chunks of 4 x 256 "
+    profile_window(phase or ("prefill-profile" if k4 == "int_paged_prefill"
+                             else "kv4-prefill-profile"),
+                   "prefill chunks of 4 x 256 "
                    "tokens, chunk 32", window,
                    lambda: k4_launches() // cfg.num_layers,
                    (K4_KERNEL_NAMES[k4], k4_launches))
@@ -1896,6 +2206,12 @@ TENSOR_CORE_KERNELS = ("int_attention_mma_kernel",
                        "int_attention_online_kernel")
 
 
+# K1's instantiations (dense and packed, both paths) and the MSR-4
+# correction's: no spill, and K1's tensor-core tiles on the tensor cores
+NO_SPILL_KERNELS = ("int8_matmul_kernel", "int8_matmul_mma_kernel",
+                    "msr4_correct_kernel")
+
+
 def sass_summary(so: str) -> None:
     """Per kernel of the built library, the count of the SASS
     instructions that say how it computes: ``IMMA`` (int8 tensor cores),
@@ -1920,22 +2236,30 @@ def sass_summary(so: str) -> None:
     emit({"phase": "sass", "kernels": counts})
     tc = {n: c for n, c in counts.items()
           if any(k in n for k in TENSOR_CORE_KERNELS)}
-    missing = [k for k in TENSOR_CORE_KERNELS if not any(k in n for n in tc)]
+    missing = [k for k in TENSOR_CORE_KERNELS + NO_SPILL_KERNELS
+               if not any(k in n for n in counts)]
     bad = [n for n, c in tc.items()
            if c["IMMA"] == 0 or c["IDP"] or c["LDL"] or c["STL"]]
+    bad += [n for n, c in counts.items()
+            if any(k in n for k in NO_SPILL_KERNELS)
+            and (c["LDL"] or c["STL"]
+                 or ("int8_matmul_mma_kernel" in n and not c["IMMA"]))]
     if missing or bad:
         raise AssertionError(f"sass: no instantiation of {missing}; without "
                              f"IMMA or with IDP / LDL / STL: {bad}")
 
 
 def _leaves(tree):
+    """The tensors of a params tree (a packed weight's static PackMeta is
+    not one)."""
+    import torch
     if isinstance(tree, dict):
         for v in tree.values():
             yield from _leaves(v)
     elif isinstance(tree, (list, tuple)):
         for v in tree:
             yield from _leaves(v)
-    elif tree is not None:
+    elif isinstance(tree, torch.Tensor):
         yield tree
 
 
@@ -1943,7 +2267,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,kernels,parity,serve,encode,"
                     "encode-online,ops,window-parity,window-serve,"
-                    "window-prefill,kv4-parity,kv4-serve")
+                    "window-prefill,kv4-parity,kv4-serve,packed-parity,"
+                    "msr4-serve")
     ap.add_argument("--verbose-build", action="store_true",
                     help="print nvcc -Xptxas -v (registers, spills) and "
                     "each kernel's IMMA / IDP / LDL / STL count")
@@ -1987,6 +2312,7 @@ def main(argv=None) -> int:
         check_online_kernels(ecfg, eplans, rows)
         wcfg = window_config()
         check_window_kernels(wcfg, qplans.build_layer_plans(wcfg), rows)
+        check_packed_matmul_kernels(cfg, plans, rows)
     if "parity" in phases:
         phase_parity(cfg)
     if "serve" in phases:
@@ -2010,6 +2336,10 @@ def main(argv=None) -> int:
         phase_parity(cfg, kv_dtype="int4")
     if "kv4-serve" in phases:
         launches["kv4-serve"] = phase_serve(cfg, kv_dtype="int4")
+    if "packed-parity" in phases:
+        phase_packed_parity(cfg)
+    if "msr4-serve" in phases:
+        launches["msr4-serve"] = phase_serve(cfg, weights="msr4")
     if rows:
         # each kernel's launches come from the first path of this run
         # that drives it (K1/K2: serve, the first path); every path's

@@ -80,6 +80,20 @@
 // N or a pointer is not aligned for the vector copies (vec_x / vec_w),
 // the same kernel takes scalar masked loads.
 //
+// Packed weights (int8_matmul_pallas's packed=True: QuantLinearParams.
+// w_packed, int4 nibble pairs (K/2, N), K row 2i in the low nibble of byte
+// row i) are the PACKED instantiation of both paths, a template argument
+// (a run-time branch cost 5-6 % in K3).  Only the W loads change: byte
+// rows 2kk and 2kk + 1 of a column hold exactly K rows 4kk..4kk+3, so the
+// two bytes b0 | b1 << 8 expand (unpack_kv4 at shift 0: one byte permute
+// and a bytewise sign extension) straight into the "4 K values of one
+// column" word, with no 4x4 transpose; a load unit reads half the bytes.
+// The K range of a split is a multiple of BK, so every byte row is whole;
+// where K / 2 is odd, the byte row past kend / 2 loads as zero.  A decode
+// GEMM over nibbles is bound by half the weight bytes of int8 (w1: 29.4
+// MB, 8.8 us at 3.35 TB/s).  MSR-4's outlier lanes are not applied here:
+// a raw launch feeds csrc/int8_matmul_msr4.cu.
+//
 // Epilogue (exactly _requant_tile), in registers: acc + bias, then raw
 // int32 out, or the two-stage round-half-up dyadic (per-tensor b, or
 // per-channel b_vec[n] with shared c, pre), clipped to out_bits, stored
@@ -115,7 +129,16 @@ __device__ __forceinline__ int load_w_word(const int8_t* __restrict__ w,
   return v;
 }
 
-template <int BM, int BN, int BK, int TM, int TN>
+// two byte rows' words (4 columns each) of packed nibbles -> the 4
+// columns' "4 K values of one column" words: column j's bytes b0 (K rows
+// k, k + 1) and b1 (k + 2, k + 3) side by side, then expanded
+__device__ __forceinline__ int4 expand_w4(unsigned p0, unsigned p1) {
+  const uint2 c01 = unpack_kv4x2(__byte_perm(p0, p1, 0x5140), 0);
+  const uint2 c23 = unpack_kv4x2(__byte_perm(p0, p1, 0x7362), 0);
+  return make_int4((int)c01.x, (int)c01.y, (int)c23.x, (int)c23.y);
+}
+
+template <int BM, int BN, int BK, int TM, int TN, bool PACKED>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 int8_matmul_kernel(const int8_t* __restrict__ x,
                    const int8_t* __restrict__ w,
@@ -152,6 +175,14 @@ int8_matmul_kernel(const int8_t* __restrict__ x,
     for (int i = tid; i < BK4 * (BN / 4); i += NT) {
       const int kk = i / (BN / 4), nn = i % (BN / 4);
       const int k = k0 + 4 * kk, n = n0 + 4 * nn;
+      if constexpr (PACKED) {
+        // byte rows k / 2 and k / 2 + 1 hold K rows k..k+3 (k0 is even)
+        const int4 c = expand_w4(
+            (unsigned)load_w_word(w, N, kend / 2, k / 2, n, vec_w),
+            (unsigned)load_w_word(w, N, kend / 2, k / 2 + 1, n, vec_w));
+        *reinterpret_cast<int4*>(&sw[kk][4 * nn]) = c;
+        continue;
+      }
       const int r0 = load_w_word(w, N, kend, k + 0, n, vec_w);
       const int r1 = load_w_word(w, N, kend, k + 1, n, vec_w);
       const int r2 = load_w_word(w, N, kend, k + 2, n, vec_w);
@@ -297,22 +328,33 @@ __device__ __forceinline__ uint2 load_w8(const int8_t* __restrict__ w, int N,
 }
 
 // this thread's W load unit of a stage: word row kk (K rows 4 kk..4 kk+3),
-// columns 8 nn..8 nn+7
+// columns 8 nn..8 nn+7; PACKED: byte rows 2 kk, 2 kk + 1 of the nibbles
+// (k0 is even), into r[0..1]
+template <bool PACKED>
 __device__ __forceinline__ void load_w_regs(uint2 (&r)[4],
                                             const int8_t* __restrict__ w,
                                             int N, int kend, int k0, int n0,
                                             bool vec) {
   const int kk = threadIdx.x / (BN / 8), nn = threadIdx.x % (BN / 8);
+  if constexpr (PACKED) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
-    r[j] = load_w8(w, N, kend, k0 + 4 * kk + j, n0 + 8 * nn, vec);
+    for (int j = 0; j < 2; ++j)
+      r[j] = load_w8(w, N, kend / 2, k0 / 2 + 2 * kk + j, n0 + 8 * nn, vec);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      r[j] = load_w8(w, N, kend, k0 + 4 * kk + j, n0 + 8 * nn, vec);
+  }
 }
 
 // the unit as "4 K values of one column" words into sw
+template <bool PACKED>
 __device__ __forceinline__ void store_w_regs(int* sw, const uint2 (&r)[4]) {
   const int kk = threadIdx.x / (BN / 8), nn = threadIdx.x % (BN / 8);
-  const int4 lo = transpose4(r[0].x, r[1].x, r[2].x, r[3].x);
-  const int4 hi = transpose4(r[0].y, r[1].y, r[2].y, r[3].y);
+  const int4 lo = PACKED ? expand_w4(r[0].x, r[1].x)
+                         : transpose4(r[0].x, r[1].x, r[2].x, r[3].x);
+  const int4 hi = PACKED ? expand_w4(r[0].y, r[1].y)
+                         : transpose4(r[0].y, r[1].y, r[2].y, r[3].y);
   int* row = sw + kk * SW + 8 * nn;
   // upper half first where nn & 4: conflict-free phases (see the note)
   const bool swap = (nn & 4) != 0;
@@ -321,7 +363,7 @@ __device__ __forceinline__ void store_w_regs(int* sw, const uint2 (&r)[4]) {
 }
 
 // 2 blocks an SM: at most 128 registers a thread
-template <int BM>
+template <int BM, bool PACKED>
 __global__ void __launch_bounds__(THREADS, 2)
 int8_matmul_mma_kernel(const int8_t* __restrict__ x,
                        const int8_t* __restrict__ w,
@@ -365,12 +407,12 @@ int8_matmul_mma_kernel(const int8_t* __restrict__ x,
     cp_commit();
   }
   uint2 wr[4];
-  load_w_regs(wr, w, N, kend, kbeg, n0, vec_w);
-  store_w_regs(sw0, wr);
+  load_w_regs<PACKED>(wr, w, N, kend, kbeg, n0, vec_w);
+  store_w_regs<PACKED>(sw0, wr);
 
   for (int it = 0; it < nk; ++it) {
     if (it + 1 < nk)                 // next W step: in flight meanwhile
-      load_w_regs(wr, w, N, kend, kbeg + (it + 1) * BK, n0, vec_w);
+      load_w_regs<PACKED>(wr, w, N, kend, kbeg + (it + 1) * BK, n0, vec_w);
     cp_wait<XSTAGES - 2>();          // X of step it has landed
     __syncthreads();                 // ... for every thread; step it-1 done
     {
@@ -399,7 +441,7 @@ int8_matmul_mma_kernel(const int8_t* __restrict__ x,
       }
     }
     if (it + 1 < nk)                 // the sw buffer read at it-1 is free
-      store_w_regs(sw0 + ((it + 1) & 1) * BK4 * SW, wr);
+      store_w_regs<PACKED>(sw0 + ((it + 1) & 1) * BK4 * SW, wr);
   }
 
   // this thread's outputs: rows m_i + 8 h, columns n_j, n_j + 1
@@ -488,13 +530,13 @@ int8_matmul_mma_kernel(const int8_t* __restrict__ x,
   }
 }
 
-template <int BM>
+template <int BM, bool PACKED>
 int launch(const void* x, const void* w, const void* bias, const void* bvec,
            const Requant& rq, void* out, int out_is_int8, int M, int N,
            int K, int splits, int k_per_split, void* ws, void* tile_count,
            int vec_x, int vec_w, cudaStream_t s) {
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
-  int8_matmul_mma_kernel<BM><<<grid, THREADS, 0, s>>>(
+  int8_matmul_mma_kernel<BM, PACKED><<<grid, THREADS, 0, s>>>(
       (const int8_t*)x, (const int8_t*)w, (const int*)bias,
       (const int*)bvec, rq, out, out_is_int8, M, N, K, k_per_split,
       (int*)ws, (int*)tile_count, vec_x, vec_w);
@@ -507,30 +549,50 @@ int launch(const void* x, const void* w, const void* bias, const void* bvec,
 // the M <= 16 __dp4a tile (decode: M = batch)
 #define R8_SMALL 4, 256, 64, 1, 4
 
+namespace r8 {
+template <bool PACKED>
+int launch_all(const void* x, const void* w, const void* bias,
+               const void* bvec, const Requant& rq, void* out,
+               int out_is_int8, int M, int N, int K, int tile, int splits,
+               int k_per_split, void* ws, void* tile_count, int vec_x,
+               int vec_w, cudaStream_t s) {
+  if (tile == 1)
+    return tc::launch<64, PACKED>(x, w, bias, bvec, rq, out, out_is_int8, M,
+                                  N, K, splits, k_per_split, ws, tile_count,
+                                  vec_x, vec_w, s);
+  if (tile == 2)
+    return tc::launch<128, PACKED>(x, w, bias, bvec, rq, out, out_is_int8, M,
+                                   N, K, splits, k_per_split, ws, tile_count,
+                                   vec_x, vec_w, s);
+  if (tile != 0) return (int)cudaErrorInvalidValue;
+  dim3 grid((N + 255) / 256, (M + 3) / 4, splits);
+  int8_matmul_kernel<R8_SMALL, PACKED><<<grid, 256, 0, s>>>(
+      (const int8_t*)x, (const int8_t*)w, (const int*)bias,
+      (const int*)bvec, rq, out, out_is_int8, M, N, K, k_per_split,
+      (int*)ws, (int*)tile_count, vec_x, vec_w);
+  return (int)cudaGetLastError();
+}
+}  // namespace r8
+
 // tile: 0 the __dp4a tile (M <= 16), 1 the 64 x 128 and 2 the 128 x 128
-// tensor-core tiles (kernels/int8_matmul.py::launch_plan)
+// tensor-core tiles (kernels/int8_matmul.py::launch_plan); packed: w is
+// (K / 2, N) int4 nibble pairs
 extern "C" int r8_int8_matmul(const void* x, const void* w, const void* bias,
                               const void* bvec, const r8::Requant* rq,
                               void* out, int out_is_int8, int M, int N,
                               int K, int tile, int splits,
                               int k_per_split, void* ws, void* tile_count,
-                              int vec_x, int vec_w, void* stream) {
+                              int vec_x, int vec_w, int packed,
+                              void* stream) {
   const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (tile == 1)
-    return r8::tc::launch<64>(x, w, bias, bvec, *rq, out, out_is_int8, M, N,
-                              K, splits, k_per_split, ws, tile_count, vec_x,
-                              vec_w, s);
-  if (tile == 2)
-    return r8::tc::launch<128>(x, w, bias, bvec, *rq, out, out_is_int8, M,
-                               N, K, splits, k_per_split, ws, tile_count,
-                               vec_x, vec_w, s);
-  if (tile != 0) return (int)cudaErrorInvalidValue;
-  dim3 grid((N + 255) / 256, (M + 3) / 4, splits);
-  r8::int8_matmul_kernel<R8_SMALL><<<grid, 256, 0, s>>>(
-      (const int8_t*)x, (const int8_t*)w, (const int*)bias,
-      (const int*)bvec, *rq, out, out_is_int8, M, N, K, k_per_split,
-      (int*)ws, (int*)tile_count, vec_x, vec_w);
-  return (int)cudaGetLastError();
+  return packed ? r8::launch_all<true>(x, w, bias, bvec, *rq, out,
+                                       out_is_int8, M, N, K, tile, splits,
+                                       k_per_split, ws, tile_count, vec_x,
+                                       vec_w, s)
+                : r8::launch_all<false>(x, w, bias, bvec, *rq, out,
+                                        out_is_int8, M, N, K, tile, splits,
+                                        k_per_split, ws, tile_count, vec_x,
+                                        vec_w, s);
 }
 
 extern "C" const char* r8_error_string(int code) {

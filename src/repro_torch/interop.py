@@ -23,7 +23,7 @@ from repro_torch.core.intmath import IErfPlan, IExpPlan, IGeluPlan
 from repro_torch.core.norms import INormPlan
 from repro_torch.core.softmax import ISoftmaxPlan
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
-from repro_torch.ops.spec import QuantLinearParams
+from repro_torch.ops.spec import PackMeta, QuantLinearParams
 from repro_torch.quant.plans import (AttnPlan, EmbedPlan, FfnPlan, HeadPlan,
                                      LayerPlans, LinearPlan)
 
@@ -53,20 +53,27 @@ def _tensor(a, device):
     return torch.as_tensor(np.array(a), device=device)
 
 
+def _pack_meta(meta):
+    """The reference's ``PackMeta`` (or None), read by field name."""
+    if meta is None:
+        return None
+    return PackMeta(**{f.name: getattr(meta, f.name)
+                       for f in dataclasses.fields(PackMeta)})
+
+
 def qparams_from_reference(tree, device=DEFAULT_DEVICE):
     """numpy leaves -> tensors on ``device`` (default the card; raises
-    without one); the reference's ``QuantLinearParams`` (by name and
-    fields) -> the port's dense one."""
+    without one) of the same dtypes; the reference's ``QuantLinearParams``
+    (by name and fields), dense or packed, -> the port's, its
+    ``PackMeta`` read field by field."""
     device = resolve_device(device)
     if tree is None:
         return None
     if type(tree).__name__ == "QuantLinearParams":
-        if getattr(tree, "w_packed", None) is not None:
-            raise NotImplementedError("packed int4/MSR-4 weights are not "
-                                      "ported yet (ROADMAP §1 item 4, its "
-                                      "weight half)")
-        return QuantLinearParams(*[qparams_from_reference(
-            getattr(tree, f), device) for f in QuantLinearParams._fields])
+        return QuantLinearParams(*[
+            _pack_meta(getattr(tree, f)) if f == "pack_meta"
+            else qparams_from_reference(getattr(tree, f), device)
+            for f in QuantLinearParams._fields])
     if isinstance(tree, dict):
         return {k: qparams_from_reference(v, device)
                 for k, v in tree.items()}

@@ -2,6 +2,11 @@
 paths, and their oracles.
 
   * K1 ``int8_matmul.int8_matmul``                     (csrc/int8_matmul.cu)
+
+    (K1 over packed int4 / MSR-4 weights, ``int8_matmul.int8_matmul_packed``,
+    launches its nibble instantiation, counted as ``int8_matmul_packed``,
+    and for MSR-4 the outlier-correction kernel of
+    csrc/int8_matmul_msr4.cu, counted as ``int8_matmul_msr4``)
   * K2 ``int_layernorm.int_layernorm``                 (csrc/int_layernorm.cu)
   * K3 ``int_decode_attention.int_decode_attention_fused``
                                                  (csrc/int_decode_attention.cu)
@@ -29,7 +34,8 @@ from __future__ import annotations
 KERNELS = ("int8_matmul", "int_layernorm", "int_decode_attention",
            "int_paged_prefill", "int_attention_fused", "int_gelu",
            "int_softmax", "int_attention_online",
-           "int_decode_attention_kv4", "int_paged_prefill_kv4")
+           "int_decode_attention_kv4", "int_paged_prefill_kv4",
+           "int8_matmul_packed", "int8_matmul_msr4")
 
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 

@@ -89,11 +89,25 @@ class OnlineArgs(ctypes.Structure):
                 + [("ex", Exp16)])
 
 
+class Msr4Args(ctypes.Structure):
+    """``csrc/int8_matmul_msr4.cu``'s ``msr4::Args`` (the MSR-4
+    correction)."""
+    _fields_ = ([(n, _P) for n in ("acc", "x", "idx", "val", "bias", "bvec",
+                                   "out", "ws", "tile_count")]
+                + [(n, _I) for n in ("M", "N", "K", "g", "n_out",
+                                     "out_is_int8", "groups_per_split",
+                                     "kc")]
+                + [("rq", Requant)])
+
+
 def declare(lib: ctypes.CDLL) -> None:
     lib.r8_int8_matmul.argtypes = [
         _P, _P, _P, _P, ctypes.POINTER(Requant), _P, _I, _I, _I, _I, _I,
-        _I, _I, _P, _P, _I, _I, _P]
+        _I, _I, _P, _P, _I, _I, _I, _P]
     lib.r8_int8_matmul.restype = _I
+    lib.r8_int8_matmul_msr4.argtypes = [ctypes.POINTER(Msr4Args), _I, _I,
+                                        _I, _P]
+    lib.r8_int8_matmul_msr4.restype = _I
     lib.r8_int_layernorm.argtypes = [_P, _P, _P, ctypes.POINTER(NormConsts),
                                      _P, _I, _P]
     lib.r8_int_layernorm.restype = _I

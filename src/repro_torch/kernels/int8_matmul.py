@@ -1,8 +1,15 @@
-"""K1: int8 x int8 -> int32 matmul with the fused requant epilogue.
+"""K1: int8 x int8 -> int32 matmul with the fused requant epilogue, over
+dense int8 or packed int4 / MSR-4 weights.
 
-The port of ``repro/kernels/int8_matmul.py::int8_matmul_pallas``; the CUDA
-kernel is ``csrc/int8_matmul.cu``.  :func:`int8_matmul_plain` beside it is
-the plain PyTorch version with the same arithmetic.
+The port of ``repro/kernels/int8_matmul.py::int8_matmul_pallas`` (both its
+dense and its ``packed=True`` variant); the CUDA kernel is
+``csrc/int8_matmul.cu``, its nibble layout a template argument.  MSR-4
+weights take a raw packed launch plus the outlier-correction kernel of
+``csrc/int8_matmul_msr4.cu``, which also runs the staged epilogue (the
+split of ``repro/ops/backends/pallas_fused.py:118-134``).  Beside each
+wrapper its plain PyTorch version with the same arithmetic:
+:func:`int8_matmul_plain`, :func:`int8_matmul_nibbles_plain`,
+:func:`msr4_correct_plain` and :func:`int8_matmul_packed_plain`.
 """
 from __future__ import annotations
 
@@ -11,9 +18,13 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core.dyadic import (apply_dyadic, apply_dyadic_perchannel,
+                                     clip_to_bits)
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels import ref as _ref
-from repro_torch.ops.spec import PER_TENSOR
+from repro_torch.ops.packed import (msr4_correction, nibble_unpack,
+                                    unpack_weights)
+from repro_torch.ops.spec import PER_TENSOR, RequantSpec
 
 #: (BM, BN, BK) of the tiles compiled into csrc/int8_matmul.cu, by id:
 #: 0 the __dp4a tile of M <= SMALL_M_MAX, 1 and 2 the tensor-core tiles
@@ -25,16 +36,21 @@ def _out_dtype(spec) -> torch.dtype:
     return torch.int32 if spec.is_raw else spec.out_dtype
 
 
+def _epilogue_plain(acc, spec, b_vec):
+    """The RequantSpec epilogue on an int32 accumulator (bias included)."""
+    if spec.is_raw:
+        return acc
+    if spec.kind == PER_TENSOR:
+        out = apply_dyadic(acc, spec.dn)
+    else:
+        out = apply_dyadic_perchannel(acc, b_vec, spec.c, spec.pre)
+    return clip_to_bits(out, spec.out_bits).to(spec.out_dtype)
+
+
 def int8_matmul_plain(x8, w8, spec, bias32=None, b_vec=None):
     """The plain version: exact contraction + the spec's epilogue."""
-    if spec.is_raw:
-        return _ref.ref_int8_matmul_raw(x8, w8, bias32)
-    if spec.kind == PER_TENSOR:
-        out = _ref.ref_int8_matmul(x8, w8, bias32, spec.dn, spec.out_bits)
-    else:
-        out = _ref.ref_int8_matmul_perchannel(x8, w8, bias32, b_vec, spec.c,
-                                              spec.pre, spec.out_bits)
-    return out.to(spec.out_dtype)
+    return _epilogue_plain(_ref.ref_int8_matmul_raw(x8, w8, bias32), spec,
+                           b_vec)
 
 
 def _split_k(tiles: int, k: int, bk: int, sms: int):
@@ -77,34 +93,34 @@ def launch_plan(m: int, n: int, k: int, sms: int) -> LaunchPlan:
     return LaunchPlan(tile, (gx, gy, splits), k_per, x_align, w_align)
 
 
-def int8_matmul(x8, w8, spec, bias32=None, b_vec=None):
-    """x8 (M, K) int8 @ w8 (K, N) int8 -> (M, N) with the ``spec``
-    epilogue: int32 for raw, else clipped to ``spec.out_bits`` in
-    ``spec.out_dtype``.  ``b_vec`` (N,) int32 is required iff per-channel.
+def _check(what, dev, **tensors) -> None:
+    """Device, dtype, contiguity and shape of a launch's operands: ``name:
+    (tensor or None, dtype, shape or None)``."""
+    for name, (t, dt, shape) in tensors.items():
+        if t is None:
+            continue
+        if t.device != dev or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be a contiguous {dt} "
+                             f"tensor on {dev}")
+        if shape is not None and tuple(t.shape) != shape:
+            raise ValueError(f"{what}: {name} shape {tuple(t.shape)} != "
+                             f"{shape}")
 
-    CPU tensors take :func:`int8_matmul_plain`; CUDA tensors launch the
-    kernel (ragged M, N, K masked in-kernel) or raise."""
-    if not x8.is_cuda:
-        return int8_matmul_plain(x8, w8, spec, bias32, b_vec)
+
+def _launch(what, x8, w, spec, bias32, b_vec, packed: bool):
+    """One K1 launch of x8 (M, K) against ``w``: int8 (K, N), or with
+    ``packed`` its (K / 2, N) nibble pairs."""
     from repro_torch.kernels import _abi
     from repro_torch.kernels._build import library
     m, k = x8.shape
-    k2, n = w8.shape
-    if k != k2:
-        raise ValueError(f"int8_matmul: x {tuple(x8.shape)} vs w "
-                         f"{tuple(w8.shape)}")
-    for name, t, dt, shape in (("x8", x8, torch.int8, None),
-                               ("w8", w8, torch.int8, None),
-                               ("bias32", bias32, torch.int32, (n,)),
-                               ("b_vec", b_vec, torch.int32, (n,))):
-        if t is None:
-            continue
-        if t.device != x8.device or t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"int8_matmul: {name} must be a contiguous "
-                             f"{dt} tensor on {x8.device}")
-        if shape is not None and tuple(t.shape) != shape:
-            raise ValueError(f"int8_matmul: {name} shape {tuple(t.shape)}"
-                             f" != {shape}")
+    if w.dim() != 2 or k != (2 if packed else 1) * w.shape[0]:
+        raise ValueError(f"{what}: x {tuple(x8.shape)} vs w "
+                         f"{tuple(w.shape)}{' (packed)' if packed else ''}")
+    n = w.shape[1]
+    _check(what, x8.device, x8=(x8, torch.int8, None),
+           w=(w, torch.int8, None),
+           bias32=(bias32, torch.int32, (n,)), b_vec=(b_vec, torch.int32,
+                                                     (n,)))
     if not spec.is_raw and spec.kind != PER_TENSOR and b_vec is None:
         raise ValueError("per-channel RequantSpec needs the b_vec "
                          "multiplier vector")
@@ -113,7 +129,7 @@ def int8_matmul(x8, w8, spec, bias32=None, b_vec=None):
     if m == 0 or n == 0:
         return out
     if k == 0:
-        raise ValueError("int8_matmul: empty contraction (K == 0)")
+        raise ValueError(f"{what}: empty contraction (K == 0)")
     sms = torch.cuda.get_device_properties(x8.device).multi_processor_count
     plan = launch_plan(m, n, k, sms)
     gx, gy, splits = plan.grid
@@ -124,14 +140,178 @@ def int8_matmul(x8, w8, spec, bias32=None, b_vec=None):
     rq = _abi.requant_struct(spec)
     lib = library()
     vec_x = int(k % plan.x_align == 0 and x8.data_ptr() % plan.x_align == 0)
-    vec_w = int(n % plan.w_align == 0 and w8.data_ptr() % plan.w_align == 0)
+    vec_w = int(n % plan.w_align == 0 and w.data_ptr() % plan.w_align == 0)
     rc = lib.r8_int8_matmul(
-        x8.data_ptr(), w8.data_ptr(), _abi.ptr(bias32),
+        x8.data_ptr(), w.data_ptr(), _abi.ptr(bias32),
         _abi.ptr(b_vec if spec.kind != PER_TENSOR else None),
         ctypes.byref(rq),
         out.data_ptr(), int(dt == torch.int8), m, n, k, plan.tile, splits,
         plan.k_per_split, _abi.ptr(ws), _abi.ptr(cnt), vec_x, vec_w,
-        _abi.stream_of(x8))
-    LAUNCHES["int8_matmul"] += 1
-    _abi.check(lib, rc, "int8_matmul")
+        int(packed), _abi.stream_of(x8))
+    LAUNCHES["int8_matmul_packed" if packed else "int8_matmul"] += 1
+    _abi.check(lib, rc, what)
     return out
+
+
+def int8_matmul(x8, w8, spec, bias32=None, b_vec=None):
+    """x8 (M, K) int8 @ w8 (K, N) int8 -> (M, N) with the ``spec``
+    epilogue: int32 for raw, else clipped to ``spec.out_bits`` in
+    ``spec.out_dtype``.  ``b_vec`` (N,) int32 is required iff per-channel.
+
+    CPU tensors take :func:`int8_matmul_plain`; CUDA tensors launch the
+    kernel (ragged M, N, K masked in-kernel) or raise."""
+    if not x8.is_cuda:
+        return int8_matmul_plain(x8, w8, spec, bias32, b_vec)
+    return _launch("int8_matmul", x8, w8, spec, bias32, b_vec, packed=False)
+
+
+# ------------------------------------------------------ packed weights --
+
+def int8_matmul_nibbles_plain(x8, w_packed, spec, bias32=None, b_vec=None):
+    """The plain version of K1's packed launch: the nibbles expanded
+    (``ops.packed.nibble_unpack``), then :func:`int8_matmul_plain`."""
+    w = nibble_unpack(w_packed, axis=-2).to(torch.int8)
+    return int8_matmul_plain(x8, w, spec, bias32, b_vec)
+
+
+def int8_matmul_nibbles(x8, w_packed, spec, bias32=None, b_vec=None):
+    """K1 over int4 nibble pairs ``w_packed`` (K / 2, N) (two's
+    complement, K row 2i in the low nibble of byte row i), expanded in
+    the kernel's weight loads; otherwise :func:`int8_matmul`.  Outlier
+    lanes are not applied here (:func:`msr4_correct`)."""
+    if not x8.is_cuda:
+        return int8_matmul_nibbles_plain(x8, w_packed, spec, bias32, b_vec)
+    return _launch("int8_matmul_packed", x8, w_packed, spec, bias32, b_vec,
+                   packed=True)
+
+
+#: columns a block of the correction kernel; rows a block (MT) by the
+#: size of the product; bytes of x a block stages at a time, as whole
+#: groups; the shared memory a block may take (H100)
+MSR4_THREADS = 128
+MSR4_CHUNK = 16384
+MSR4_MAX_SMEM = 232448
+
+
+class Msr4Plan(NamedTuple):
+    """One correction launch: rows a block (``mt``), the grid ``(M tiles,
+    N tiles, splits)``, the K groups of a split, the K rows a staged
+    chunk of x (whole groups) and its shared-memory bytes."""
+    mt: int
+    grid: tuple
+    groups_per_split: int
+    kc: int
+    smem: int
+
+
+def msr4_plan(m: int, n: int, k: int, g: int, n_out: int,
+              sms: int) -> Msr4Plan:
+    """The correction's launch for an (m, k) product with groups of ``g``
+    rows and ``n_out`` lanes: 4 rows a block for decode (M <= 4), else 16
+    (where 16 rows of a group fit the shared memory); the K groups split
+    across blocks until the grid covers the SMs about eight blocks deep
+    (each split keeps at least 4 groups)."""
+    ngrp = k // g
+    mt = 4 if m <= 4 or 16 * g > MSR4_MAX_SMEM else 16
+    gx, gy = -(-m // mt), -(-n // MSR4_THREADS)
+    want = max(1, -(-8 * sms // (gx * gy)))
+    splits = min(want, max(1, ngrp // 4)) if n_out else 1
+    gps = -(-ngrp // splits)
+    splits = -(-ngrp // gps)
+    gpc = max(1, min(gps, MSR4_CHUNK // (g * mt)))
+    kc = gpc * g
+    return Msr4Plan(mt, (gx, gy, splits), gps, kc, -(-kc * mt // 16) * 16)
+
+
+def msr4_correct_plain(acc, x8, qw, spec):
+    """The plain version of the correction kernel: ``acc`` (the raw
+    nibble accumulator, no bias) + ``ops.packed.msr4_correction`` + the
+    bias, then the spec's epilogue."""
+    acc = acc + msr4_correction(x8.to(torch.int32), qw)
+    if qw.bias32 is not None:
+        acc = acc + qw.bias32.to(torch.int32)[None, :]
+    return _epilogue_plain(acc, spec, qw.b_mult)
+
+
+def msr4_correct(acc, x8, qw, spec):
+    """The MSR-4 outlier correction and the staged epilogue: ``acc`` (M,
+    N) int32, the raw nibble accumulator of :func:`int8_matmul_nibbles`
+    (no bias), plus ``x8 @ scatter(out_val)`` over the lanes of the 2-D
+    packed ``qw``, plus its bias, then the spec's epilogue (a new
+    tensor; ``acc`` is only read)."""
+    if not x8.is_cuda:
+        return msr4_correct_plain(acc, x8, qw, spec)
+    from repro_torch.kernels import _abi
+    from repro_torch.kernels._build import library
+    meta = qw.pack_meta
+    m, k = x8.shape
+    n = qw.n_dim
+    if meta is None or meta.scheme != "msr4" or meta.k != k \
+            or tuple(acc.shape) != (m, n) or qw.w_packed.dim() != 2:
+        raise ValueError(f"msr4_correct: acc {tuple(acc.shape)}, x "
+                         f"{tuple(x8.shape)} vs a 2-D msr4 weight of k="
+                         f"{getattr(meta, 'k', None)}, n={n}")
+    g, n_out = meta.group, meta.n_outliers
+    lanes = (k // g, n_out, n)
+    _check("msr4_correct", x8.device, acc=(acc, torch.int32, (m, n)),
+           x8=(x8, torch.int8, None),
+           out_idx=(qw.out_idx, torch.int16, lanes),
+           out_val=(qw.out_val, torch.int8, lanes),
+           bias32=(qw.bias32, torch.int32, (n,)),
+           b_vec=(qw.b_mult, torch.int32, (n,)))
+    if not spec.is_raw and spec.kind != PER_TENSOR and qw.b_mult is None:
+        raise ValueError("per-channel RequantSpec needs the b_vec "
+                         "multiplier vector")
+    dt = _out_dtype(spec)
+    out = torch.empty((m, n), dtype=dt, device=x8.device)
+    if m == 0 or n == 0:
+        return out
+    sms = torch.cuda.get_device_properties(x8.device).multi_processor_count
+    plan = msr4_plan(m, n, k, g, n_out, sms)
+    gx, gy, splits = plan.grid
+    ws = cnt = None
+    if splits > 1:
+        ws = torch.zeros((m, n), dtype=torch.int32, device=x8.device)
+        cnt = torch.zeros((gx * gy,), dtype=torch.int32, device=x8.device)
+    args = _abi.Msr4Args(
+        acc.data_ptr(), x8.data_ptr(), _abi.ptr(qw.out_idx),
+        _abi.ptr(qw.out_val), _abi.ptr(qw.bias32),
+        _abi.ptr(qw.b_mult if spec.kind != PER_TENSOR else None),
+        out.data_ptr(), _abi.ptr(ws), _abi.ptr(cnt), m, n, k, g, n_out,
+        int(dt == torch.int8), plan.groups_per_split, plan.kc,
+        _abi.requant_struct(spec))
+    lib = library()
+    rc = lib.r8_int8_matmul_msr4(ctypes.byref(args), plan.mt, splits,
+                                 plan.smem, _abi.stream_of(x8))
+    LAUNCHES["int8_matmul_msr4"] += 1
+    _abi.check(lib, rc, "int8_matmul_msr4")
+    return out
+
+
+def int8_matmul_packed_plain(x8, qw, spec):
+    """The plain version of :func:`int8_matmul_packed`: the dense weights
+    reconstructed (``ops.packed.unpack_weights``), then
+    :func:`int8_matmul_plain`."""
+    return int8_matmul_plain(x8, unpack_weights(qw), spec, qw.bias32,
+                             qw.b_mult)
+
+
+def int8_matmul_packed(x8, qw, spec):
+    """x8 (M, K) int8 @ a 2-D packed ``QuantLinearParams`` -> (M, N) with
+    the ``spec`` epilogue (its ``bias32`` / ``b_mult`` as on the dense
+    path); the dense weights never exist on the card.
+
+    Plain int4 (or msr4 without lanes): one K1 launch over the nibbles
+    with the fused epilogue.  MSR-4: a raw K1 launch over the nibbles,
+    then the correction kernel adds the lanes, the bias and the epilogue;
+    integer addition mod 2^32 is associative, so the result equals the
+    dense product's bit for bit.  CPU tensors take
+    :func:`int8_matmul_packed_plain`."""
+    if not x8.is_cuda:
+        return int8_matmul_packed_plain(x8, qw, spec)
+    meta = qw.pack_meta
+    if meta.scheme != "msr4" or not meta.n_outliers:
+        return int8_matmul_nibbles(x8, qw.w_packed, spec, qw.bias32,
+                                   qw.b_mult)
+    acc = int8_matmul_nibbles(x8, qw.w_packed, RequantSpec.raw())
+    return msr4_correct(acc, x8, qw, spec)

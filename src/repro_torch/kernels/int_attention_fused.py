@@ -81,14 +81,26 @@ def epilogue_setup(requant, plan, wo, wo_spec):
         if requant.is_raw or requant.out_bits > 8:
             raise ValueError("wo folding needs an int8 attention "
                              f"epilogue, got {requant}")
-        wo = QuantLinearParams.of(wo)
+        wo = _dense_wo(wo)
     return requant, wo
+
+
+def _dense_wo(wo):
+    """A folded o-projection must be dense int8: a packed wo never folds
+    (the dispatch layer composes it through ``int8_matmul_packed``)."""
+    wo = QuantLinearParams.of(wo)
+    if wo.is_packed:
+        raise ValueError("a packed (int4 / MSR-4) wo never folds into an "
+                         "attention launch; use ops.int8_matmul_packed")
+    return wo
 
 
 def apply_wo_cuda(o8, wo, wo_spec):
     """The folded o-projection on the card: one K1 launch over the int8
-    ``(B, S, H, D)`` attention tile -> ``(B, S, N)``."""
+    ``(B, S, H, D)`` attention tile -> ``(B, S, N)``.  Raises for a
+    packed wo."""
     from repro_torch.kernels.int8_matmul import int8_matmul
+    wo = _dense_wo(wo)
     b, s = o8.shape[0], o8.shape[1]
     out = int8_matmul(o8.reshape(b * s, -1), wo.w8, wo_spec,
                       bias32=wo.bias32, b_vec=wo.b_mult)

@@ -28,13 +28,18 @@ from repro_torch.quant import plans as qplans
 
 def int_linear(x8, qw, plan: qplans.LinearPlan, ops=None):
     """x8 (..., K) int8 -> (..., N): int8 when the plan requantizes to
-    <= 8 bits, else the int32 (clipped or raw) accumulator."""
+    <= 8 bits, else the int32 (clipped or raw) accumulator.  Packed
+    (int4 / MSR-4) params dispatch to ``ops.int8_matmul_packed``."""
     ops = resolve_ops(ops)
     qw = QuantLinearParams.of(qw)
     lead = x8.shape[:-1]
     spec = RequantSpec.for_linear(plan)
-    out = ops.int8_matmul(x8.reshape(-1, x8.shape[-1]), qw.w8, spec,
-                          bias32=qw.bias32, b_vec=qw.b_mult)
+    x2 = x8.reshape(-1, x8.shape[-1])
+    if qw.is_packed:
+        out = ops.int8_matmul_packed(x2, qw, spec)
+    else:
+        out = ops.int8_matmul(x2, qw.w8, spec, bias32=qw.bias32,
+                              b_vec=qw.b_mult)
     out = out.reshape(*lead, qw.n_dim)
     if not spec.is_raw and plan.out_bits <= 8:
         out = out.to(torch.int8)

@@ -32,8 +32,7 @@ def _residual_add(x32, delta32, cfg: ArchConfig):
 def _layer(tree, g: int):
     """Layer ``g``'s views of layer-stacked params (no copies)."""
     if isinstance(tree, QuantLinearParams):
-        return QuantLinearParams(*[None if t is None else t[g]
-                                   for t in tree])
+        return tree.map(lambda t: t[g])
     if isinstance(tree, dict):
         return {k: _layer(v, g) for k, v in tree.items()}
     return tree[g]

@@ -1,6 +1,7 @@
 """repro_torch.ops — the operator API of the integer datapath.
 
-:class:`RequantSpec` / :class:`QuantLinearParams` (``ops.spec``), the
+:class:`RequantSpec` / :class:`QuantLinearParams` / :class:`PackMeta`
+(``ops.spec``), the
 paged-pool utilities (``ops.paged``), the :class:`OpSet` dispatch handle
 with its backends ``"cuda"``, ``"cuda_online"``, ``"cuda_online_tuned"``
 and ``"torch_ref"``, the :func:`use_backend` context and the
@@ -16,20 +17,25 @@ from repro_torch.ops.registry import (DEFAULT_BACKEND, ENV_VAR, OP_NAMES,
                                       current_opset, get_backend,
                                       register_backend, resolve_ops,
                                       twin_backend, use_backend)
-from repro_torch.ops.spec import (PER_CHANNEL, PER_TENSOR, RAW,
+from repro_torch.ops.spec import (PER_CHANNEL, PER_TENSOR, RAW, PackMeta,
                                   QuantLinearParams, RequantSpec)
 
 __all__ = ["DEFAULT_BACKEND", "ENV_VAR", "OP_NAMES", "OpSet", "PER_CHANNEL",
-           "PER_TENSOR", "QuantLinearParams", "RAW", "RequantSpec", "TWINS",
+           "PER_TENSOR", "PackMeta", "QuantLinearParams", "RAW", "RequantSpec", "TWINS",
            "available_backends", "current_opset", "get_backend",
            "register_backend", "resolve_ops", "twin_backend", "use_backend",
-           "int8_matmul", "int_softmax", "int_gelu", "int_layernorm",
+           "int8_matmul", "int8_matmul_packed", "int_softmax", "int_gelu",
+           "int_layernorm",
            "int_attention", "int_decode_attention", "int_paged_prefill"]
 
 
 def int8_matmul(x8, w8, spec, *, bias32=None, b_vec=None, ops=None):
     return resolve_ops(ops).int8_matmul(x8, w8, spec, bias32=bias32,
                                         b_vec=b_vec)
+
+
+def int8_matmul_packed(x8, qw, spec, *, ops=None):
+    return resolve_ops(ops).int8_matmul_packed(x8, qw, spec)
 
 
 def int_softmax(scores, plan, *, ops=None, **opts):

@@ -2,7 +2,9 @@
 the JAX package's ``pallas_fused`` backend, and the port's default).
 
 A thin shim over the kernel wrappers of ``repro_torch.kernels``: K1 for
-all matmuls (the raw logits head included), K2 for the norms, K3 for
+all matmuls (the raw logits head included; over packed int4 / MSR-4
+weights its nibble instantiation, MSR-4 with the outlier-correction
+kernel), K2 for the norms, K3 for
 decode attention over paged pools or a contiguous cache, K4 for paged
 chunked prefill, the last two with the o-projection folded in and over
 int8 or packed int4 pools (``kv_shifts``), K5 for full-sequence attention, K6 for
@@ -15,7 +17,7 @@ compiled for).
 """
 from __future__ import annotations
 
-from repro_torch.kernels.int8_matmul import int8_matmul
+from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_packed
 from repro_torch.kernels.int_attention_fused import (int_attention_fused,
                                                      int_paged_prefill_fused)
 from repro_torch.kernels.int_decode_attention import \
@@ -34,9 +36,15 @@ class CudaBackend:
     paged_prefill = True      # chunked prefill straight over the page table
     prefill_wo_fold = True    # ... with the o-projection folded in too
     packed_kv = True          # int4 KV pages expanded inside K3 and K4
+    packed_matmul = True      # int4 / MSR-4 weights expanded inside K1
 
     def int8_matmul(self, x8, w8, spec, *, bias32=None, b_vec=None):
         return int8_matmul(x8, w8, spec, bias32=bias32, b_vec=b_vec)
+
+    def int8_matmul_packed(self, x8, qw, spec):
+        """K1 over the nibbles (one launch; MSR-4: a raw launch and the
+        outlier-correction kernel)."""
+        return int8_matmul_packed(x8, qw, spec)
 
     def int_softmax(self, scores, plan, valid_len: int = -1,
                     block_rows: int = 8, where=None):

@@ -22,6 +22,11 @@ Routing, op by op:
   * ``int8_matmul``, ``int_layernorm``, ``int_gelu`` — K1, K2, K6 (the
     reference's Pallas kernels here are exact, so the blocks it gives
     them change no integer and the port's kernels choose their own);
+  * ``int8_matmul_packed`` — K1 over the nibbles, inherited from ``cuda``
+    with its ``packed_matmul``.  The reference's ``pallas`` backend does
+    not advertise it, and the dispatch layer unpacks the weights densely
+    for it; a dense copy of MSR-4 weights would not fit the card.  The
+    flag differs, the integers do not;
   * decode and paged prefill — K3 and K4, inherited from ``cuda``.  The
     reference's ``pallas`` backend advertises no paged or folded
     capability and the dispatch layer lowers those calls exactly onto its

@@ -1,9 +1,10 @@
 """``torch_ref`` backend: the plain oracles of ``repro_torch.kernels.ref``
 (the counterpart of the JAX package's ``ref`` backend).
 
-It advertises no paged or folded capability, so the OpSet lowers the page
-table, the chunk scatter and the o-projection exactly before dispatching
-here — the same lowering the reference's ``ref`` backend takes.
+It advertises no paged, folded or packed capability, so the OpSet lowers
+the page table, the chunk scatter, the o-projection and packed weights
+(``ops.packed.unpack_weights``) exactly before dispatching here — the same
+lowering the reference's ``ref`` backend takes.
 """
 from __future__ import annotations
 

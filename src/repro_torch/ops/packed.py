@@ -1,29 +1,37 @@
-"""Pack/unpack of the int4 KV page tier (twin of ``repro.ops.packed``,
-its KV half).
+"""Pack/unpack of the sub-8-bit storage tier (twin of ``repro.ops.packed``).
 
-A packed KV page stores two head-dim nibbles per byte (two's-complement,
-value ``2i`` in the low nibble of byte ``i``, ``2i + 1`` in the high) and
-carries a per-page requant shift: a pool element stores
-``clip(rshift_round(v, shift), -7, 7)`` and dequantizes to ``q4 << shift``,
-wrapped to int8.
+Two packed families share one byte layout (two's-complement nibbles,
+value ``2i`` in the low nibble of byte ``i``, ``2i + 1`` in the high):
+
+  * **packed weights** (``QuantLinearParams.w_packed``): nibbles along the
+    contraction axis (``-2``), plus the msr4 outlier lanes (``out_idx`` /
+    ``out_val``) that make the reconstruction exact for every int8 value;
+  * **packed KV pages**: nibbles along the head dim (``-1``) with a
+    per-page requant shift: a pool element stores ``clip(rshift_round(v,
+    shift), -7, 7)`` and dequantizes to ``q4 << shift``, wrapped to int8.
 
 All nibble arithmetic is done in int32 with explicit sign extension —
-``((x & 15) ^ 8) - 8`` — as the reference does.  :func:`unpack_kv_pool` is
-the declared dequant reference the kernels' in-register unpack (K3 and
-K4 with ``kv_shifts``) is bit-exact against.  The packed weights of the
-reference (``unpack_weights``, ``msr4_correction``) are not ported yet
-(ROADMAP §1 item 4, its weight half).
+``((x & 15) ^ 8) - 8`` — as the reference does.  :func:`unpack_weights`,
+:func:`msr4_correction` and :func:`unpack_kv_pool` are the declared
+references the kernels are bit-exact against: K1's in-register nibble
+expansion (``packed=True``), the MSR-4 correction kernel, and K3 / K4
+with ``kv_shifts``.  Where the reference broadcasts one-hot lane masks,
+these use PyTorch's own idiom (``scatter_add_``, a dense delta matrix):
+the integers are equal because a column's lanes name distinct rows and
+filler lanes carry delta 0.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.intmath import int_einsum
+
 #: static per-page requant shift of the int4 KV tier: pages store
 #: clip(rshift_round(v, KV_SHIFT), -7, 7); dequant is q4 << shift (<= 112)
 KV_SHIFT = 4
 
-__all__ = ["KV_SHIFT", "nibble_pack", "nibble_unpack", "quantize_kv",
-           "pack_kv", "unpack_kv_pool"]
+__all__ = ["KV_SHIFT", "nibble_pack", "nibble_unpack", "unpack_weights",
+           "msr4_correction", "quantize_kv", "pack_kv", "unpack_kv_pool"]
 
 
 def _rshift_round(x, s: int):
@@ -62,6 +70,47 @@ def nibble_unpack(p, axis: int = -2):
     pair = torch.stack([lo, hi], dim=ax + 1)
     shape = p.shape[:ax] + (2 * p.shape[ax],) + p.shape[ax + 1:]
     return pair.reshape(shape)
+
+
+def _lane_deltas(qw):
+    """The msr4 outlier deltas scattered into their rows: ``(..., K // g,
+    g, N)`` int32, zero where no lane points."""
+    meta = qw.pack_meta
+    idx = qw.out_idx.to(torch.int64)                # (..., ngrp, n_out, N)
+    *lead, ngrp, _, n = idx.shape
+    d = torch.zeros((*lead, ngrp, meta.group, n), dtype=torch.int32,
+                    device=idx.device)
+    return d.scatter_add_(-2, idx, qw.out_val.to(torch.int32))
+
+
+def unpack_weights(qw):
+    """Reconstruct the dense int8 weights of a packed ``QuantLinearParams``
+    (leading layer dims allowed): the nibble expansion, plus for msr4 the
+    outlier deltas added into their within-group rows.  Exact for every
+    int8 weight."""
+    meta = qw.pack_meta
+    w = nibble_unpack(qw.w_packed, axis=-2)         # (..., K, N) int32
+    if meta.scheme == "msr4" and meta.n_outliers:
+        *lead, k, n = w.shape
+        g = meta.group
+        w = (w.reshape(*lead, k // g, g, n) + _lane_deltas(qw)
+             ).reshape(*lead, k, n)
+    return _wrap8(w)
+
+
+def msr4_correction(x32, qw):
+    """The outlier lanes' contribution ``x @ scatter(out_val)`` as (M, N)
+    int32, for ``x32`` (M, K) int32 holding int8 values and a 2-D packed
+    ``qw``.  With ``acc_nib = x @ nibbles``, ``acc_nib +
+    msr4_correction(x, qw) == x @ unpack_weights(qw)`` exactly (integer
+    distributivity): the identity the two-launch msr4 matmul rests on."""
+    meta = qw.pack_meta
+    n = qw.n_dim
+    if meta.scheme != "msr4" or not meta.n_outliers:
+        return torch.zeros((x32.shape[0], n), dtype=torch.int32,
+                           device=x32.device)
+    delta = _lane_deltas(qw).reshape(meta.k, n)
+    return int_einsum("mk,kn->mn", x32, delta)
 
 
 def quantize_kv(v8, shift: int = KV_SHIFT):

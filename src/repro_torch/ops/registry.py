@@ -34,12 +34,16 @@ streaming kernel (the model layer then calls it at any length) or the
 full-matrix oracle (which the layer calls only up to the reference's
 chunking threshold).  Optional capabilities are negotiated exactly as in
 the reference: a backend advertising ``paged_decode`` / ``decode_wo_fold`` /
-``paged_prefill`` / ``prefill_wo_fold`` / ``packed_kv`` gets the page
-table, the folded o-projection and packed int4 pools (``kv_shifts``)
-verbatim; for the rest this layer lowers them exactly (gather pages,
-decode-then-matmul, scatter + stepped-mask paged decode, dequantize the
-pools with ``ops.packed.unpack_kv_pool``), so every backend returns
-identical integers.  A prefill chunk bound for packed pools is quantized
+``paged_prefill`` / ``prefill_wo_fold`` / ``packed_kv`` /
+``packed_matmul`` gets the page table, the folded o-projection, packed
+int4 pools (``kv_shifts``) and packed int4 / MSR-4 weights verbatim; for
+the rest this layer lowers them exactly (gather pages, decode-then-matmul,
+scatter + stepped-mask paged decode, dequantize the pools with
+``ops.packed.unpack_kv_pool``, reconstruct the weights with
+``ops.packed.unpack_weights``), so every backend returns identical
+integers.  A packed wo never folds into an attention launch: it takes the
+unfolded composition through ``int8_matmul_packed``, as in the
+reference.  A prefill chunk bound for packed pools is quantized
 and packed here (``ops.packed.pack_kv``) for every backend, so the pool
 bytes never depend on the backend.
 """
@@ -52,7 +56,7 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.ops.packed import pack_kv, unpack_kv_pool
+from repro_torch.ops.packed import pack_kv, unpack_kv_pool, unpack_weights
 from repro_torch.ops.paged import gather_pages, scatter_chunk
 from repro_torch.ops.spec import QuantLinearParams
 
@@ -64,7 +68,8 @@ TWINS = {"ref": "cuda", "pallas_fused": "cuda", "pallas": "cuda_online",
          "pallas_tuned": "cuda_online_tuned"}
 
 OP_NAMES = ("int8_matmul", "int_softmax", "int_layernorm", "int_gelu",
-            "int_attention", "int_decode_attention", "int_paged_prefill")
+            "int_attention", "int_decode_attention", "int_paged_prefill",
+            "int8_matmul_packed")
 
 _REGISTRY: Dict[str, object] = {}
 
@@ -166,12 +171,33 @@ class OpSet:
             q8, k8, v8, plan, causal=causal, window=window,
             out_bits=out_bits, requant=requant, b_vec=b_vec)
 
+    def int8_matmul_packed(self, x8, qw, spec):
+        """Matmul against packed (int4 / msr4) weights, with negotiation:
+        a backend advertising ``packed_matmul`` gets the packed operands as
+        they are; for the rest the weights are reconstructed exactly
+        (``ops.packed.unpack_weights``) for the backend's own
+        ``int8_matmul``, so every backend gives the same integers.  A dense
+        ``qw`` falls through to ``int8_matmul``."""
+        qw = QuantLinearParams.of(qw)
+        if not qw.is_packed:
+            return self.int8_matmul(x8, qw.w8, spec, bias32=qw.bias32,
+                                    b_vec=qw.b_mult)
+        be = self.backend_for("int8_matmul_packed")
+        if getattr(be, "packed_matmul", False):
+            return be.int8_matmul_packed(x8, qw, spec)
+        return be.int8_matmul(x8, unpack_weights(qw), spec,
+                              bias32=qw.bias32, b_vec=qw.b_mult)
+
     def _compose_wo(self, be, o8, wo, wo_spec):
-        """Exact unfolded composition: attention output -> o-projection."""
+        """Exact unfolded composition: attention output -> o-projection
+        (a packed wo through :meth:`int8_matmul_packed`)."""
         b, sq = o8.shape[0], o8.shape[1]
         x8 = o8.to(torch.int8).reshape(b * sq, -1)
-        acc = be.int8_matmul(x8, wo.w8, wo_spec, bias32=wo.bias32,
-                             b_vec=wo.b_mult)
+        if wo.is_packed:
+            acc = self.int8_matmul_packed(x8, wo, wo_spec)
+        else:
+            acc = be.int8_matmul(x8, wo.w8, wo_spec, bias32=wo.bias32,
+                                 b_vec=wo.b_mult)
         if not wo_spec.is_raw and wo_spec.out_bits <= 8:
             acc = acc.to(torch.int8)       # the folded kernel's dtype
         return acc.reshape(b, sq, -1)
@@ -205,7 +231,7 @@ class OpSet:
             return be.int_decode_attention(q8, k8_cache, v8_cache, plan,
                                            valid_len, requant=requant, **kw)
         wo = _validate_wo(wo, wo_spec, requant)
-        if getattr(be, "decode_wo_fold", False):
+        if getattr(be, "decode_wo_fold", False) and not wo.is_packed:
             return be.int_decode_attention(q8, k8_cache, v8_cache, plan,
                                            valid_len, requant=requant,
                                            wo=wo, wo_spec=wo_spec, **kw)
@@ -230,7 +256,8 @@ class OpSet:
         if getattr(be, "paged_prefill", False) and (
                 kv_shifts is None or getattr(be, "packed_kv", False)):
             kw = {} if kv_shifts is None else dict(kv_shifts=kv_shifts)
-            if wo is not None and getattr(be, "prefill_wo_fold", False):
+            if wo is not None and getattr(be, "prefill_wo_fold", False) \
+                    and not wo.is_packed:
                 kw.update(wo=wo, wo_spec=wo_spec)
                 wo = None
             o, k_pool, v_pool = be.int_paged_prefill(

@@ -94,8 +94,7 @@ class Request:
 
 def _to_device(tree, dev):
     if isinstance(tree, QuantLinearParams):
-        return QuantLinearParams(*[None if t is None else t.to(dev)
-                                   for t in tree])
+        return tree.map(lambda t: t.to(dev))
     if isinstance(tree, dict):
         return {k: _to_device(v, dev) for k, v in tree.items()}
     if isinstance(tree, list):

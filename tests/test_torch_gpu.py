@@ -832,3 +832,184 @@ def test_encoder_prefill_cuda_online_matches_plain(dev):
     want = make_prefill_step(cfg, plans, ops=plain_online_opset(),
                              device=dev)(qp, {"tokens": toks})
     assert torch.equal(got, want)
+
+
+# ---------------------------------------- packed K1 and the MSR-4 kernel --
+
+def _packed_weights(rng, k, n, kind, dev, group=64):
+    """Dense int8 weights (K, N) of ``kind`` and their pack on the card:
+    ``int4`` in [-7, 7]; ``msr4-0`` the same packed msr4 (no lanes);
+    ``msr4-1`` one outlier (-128 or 127) on row ``grp % g`` of every
+    group in the even columns; ``msr4-g`` every weight an outlier (|w| >=
+    8, -128 included); ``msr4`` any int8."""
+    from repro_torch.quant.pack import pack_linear
+    if kind in ("int4", "msr4-0", "msr4-1"):
+        w = rng.integers(-7, 8, (k, n))
+    elif kind == "msr4-g":
+        w = rng.integers(8, 129, (k, n)) * rng.choice([-1, 1], (k, n))
+    else:
+        w = rng.integers(-128, 128, (k, n))
+    w = np.clip(w, -128, 127).astype(np.int8)
+    if kind == "msr4-1":
+        g = group if k % group == 0 else k
+        for grp in range(k // g):
+            w[grp * g + grp % g, ::2] = -128 if grp % 2 else 127
+    qw = QuantLinearParams(torch.as_tensor(w, device=dev),
+                           _i32(rng, 256, 4096, (n,), dev),
+                           _i32(rng, -5000, 5000, (n,), dev))
+    packed = pack_linear(qw, "int4" if kind == "int4" else "msr4", group)
+    return qw, packed
+
+
+def _specs():
+    from repro_torch.core.dyadic import fit_dyadic
+    return (RequantSpec.raw(), RequantSpec.per_channel(24, 10, 11),
+            RequantSpec.per_tensor(fit_dyadic(1 / 3000.0, 1 << 26)))
+
+
+# M around the __dp4a tile's edge (16) and the tensor cores', K = 2 mod 4
+# (an odd number of byte rows), ragged N, split K (one N tile, deep K)
+_PACKED_SHAPES = ([(m, k, n) for m in (1, 5, 16, 17, 33)
+                   for k, n in ((130, 260), (4096, 96), (256, 3072))]
+                  + [(128, 4096, 512), (4, 8192, 256), (1000, 302, 2100),
+                     (64, 14336, 200)])
+
+
+@pytest.mark.parametrize("m,k,n", _PACKED_SHAPES)
+@pytest.mark.parametrize("operands", ["random", "misaligned"])
+def test_packed_int8_matmul_kernel(dev, m, k, n, operands):
+    """K1's nibble instantiation on both tiles against its plain version,
+    every epilogue, and ``int8_matmul_packed`` (int4: one launch; msr4:
+    the raw launch and the correction) against the dense product;
+    ``misaligned``: x and the nibbles 1 byte past a 16-byte boundary."""
+    from repro_torch.kernels.int8_matmul import (
+        int8_matmul_nibbles, int8_matmul_nibbles_plain, int8_matmul_packed,
+        launch_plan)
+    rng = np.random.default_rng(m * 7 + k + n)
+    x8 = _i8(rng, (m, k), dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert (launch_plan(m, n, k, sms).tile == 0) == (m <= 16)
+    for kind in ("int4", "msr4"):
+        dense, qw = _packed_weights(rng, k, n, kind, dev)
+        wp = qw.w_packed
+        if operands == "misaligned":
+            x8, wp = _offset_view(x8, 1), _offset_view(wp, 1)
+            qw = qw._replace(w_packed=wp)
+        for spec in _specs():
+            before = dict(kernels.LAUNCHES)
+            got = int8_matmul_nibbles(x8, wp, spec, qw.bias32, qw.b_mult)
+            assert kernels.LAUNCHES["int8_matmul_packed"] == \
+                before["int8_matmul_packed"] + 1
+            assert torch.equal(got, int8_matmul_nibbles_plain(
+                x8, wp, spec, qw.bias32, qw.b_mult))
+            before = dict(kernels.LAUNCHES)
+            got = int8_matmul_packed(x8, qw, spec)
+            msr = kind == "msr4"
+            assert kernels.LAUNCHES["int8_matmul_packed"] == \
+                before["int8_matmul_packed"] + 1
+            assert kernels.LAUNCHES["int8_matmul_msr4"] == \
+                before["int8_matmul_msr4"] + msr
+            assert kernels.LAUNCHES["int8_matmul"] == before["int8_matmul"]
+            assert torch.equal(got, int8_matmul_plain(
+                x8, dense.w8, spec, dense.bias32, dense.b_mult)), (kind, spec)
+
+
+@pytest.mark.parametrize("m", [1, 4, 5, 17, 128])
+@pytest.mark.parametrize("group,kind", [
+    (4, "msr4"), (16, "msr4-g"), (64, "msr4-1"), (64, "msr4-0"),
+    (256, "msr4"), (100, "msr4-1"), (100, "msr4-g")])
+def test_msr4_correction_kernel(dev, m, group, kind):
+    """The correction kernel alone, on a raw nibble accumulator, against
+    its plain version: groups 4 / 16 / 64 / 256 and g = K (100 does not
+    divide K = 512), n_out 0, 1, g and random, -128 weights, every
+    epilogue; the two-launch product against the dense one."""
+    from repro_torch.kernels.int8_matmul import (
+        int8_matmul_nibbles, int8_matmul_packed, msr4_correct,
+        msr4_correct_plain)
+    rng = np.random.default_rng(m + group + len(kind))
+    k, n = 512, 300
+    x8 = _i8(rng, (m, k), dev)
+    x8[0, :3] = -128
+    dense, qw = _packed_weights(rng, k, n, kind, dev, group)
+    meta = qw.pack_meta
+    assert meta.group == (group if k % group == 0 else k)
+    want_out = {"msr4-0": 0, "msr4-1": 1, "msr4-g": meta.group}.get(kind)
+    assert want_out is None or meta.n_outliers == want_out
+    acc = int8_matmul_nibbles(x8, qw.w_packed, RequantSpec.raw())
+    keep = acc.clone()
+    for spec in _specs():
+        before = kernels.LAUNCHES["int8_matmul_msr4"]
+        got = msr4_correct(acc, x8, qw, spec)
+        assert kernels.LAUNCHES["int8_matmul_msr4"] == before + 1
+        assert torch.equal(acc, keep)                 # acc is only read
+        assert torch.equal(got, msr4_correct_plain(acc, x8, qw, spec))
+        assert torch.equal(int8_matmul_packed(x8, qw, spec),
+                           int8_matmul_plain(x8, dense.w8, spec,
+                                             dense.bias32, dense.b_mult))
+
+
+def test_packed_matmul_refuses_what_it_cannot_take(dev):
+    from repro_torch.kernels.int_attention_fused import apply_wo_cuda
+    from repro_torch.kernels.int8_matmul import (int8_matmul_nibbles,
+                                                 msr4_correct)
+    rng = np.random.default_rng(5)
+    _, qw = _packed_weights(rng, 64, 32, "msr4", dev, 16)
+    _, q4 = _packed_weights(rng, 64, 32, "int4", dev)
+    x8 = _i8(rng, (4, 64), dev)
+    raw = RequantSpec.raw()
+    with pytest.raises(ValueError):
+        int8_matmul_nibbles(_i8(rng, (4, 66), dev), qw.w_packed, raw)
+    with pytest.raises(ValueError):
+        int8_matmul_nibbles(x8, qw.w_packed.t(), raw)
+    with pytest.raises(ValueError):
+        int8_matmul_nibbles(x8, qw.w_packed.to(torch.int32), raw)
+    acc = int8_matmul_nibbles(x8, qw.w_packed, raw)
+    with pytest.raises(ValueError):
+        msr4_correct(acc, x8, q4, raw)                # not msr4
+    with pytest.raises(ValueError):
+        msr4_correct(acc[:2], x8, qw, raw)
+    with pytest.raises(ValueError):
+        msr4_correct(acc, x8, qw._replace(out_idx=qw.out_idx.to(
+            torch.int32)), raw)
+    with pytest.raises(ValueError, match="b_vec"):
+        msr4_correct(acc, x8, qw._replace(b_mult=None),
+                     RequantSpec.per_channel(24, 10, 11))
+    with pytest.raises(ValueError, match="never folds"):
+        apply_wo_cuda(torch.zeros((1, 1, 2, 32), dtype=torch.int8,
+                                  device=dev), q4, raw)
+
+
+def test_engine_msr4_cuda_matches_torch_ref(dev):
+    """A reduced engine on msr4 weights (group 64) packed on the card:
+    ``cuda`` and ``cuda_online`` streams equal ``torch_ref``'s and the
+    dense model's; every matmul took the packed K1 and the correction,
+    the dense K1 never (a packed wo never folds)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M
+    from repro_torch.quant import convert
+    from repro_torch.quant.pack import pack_tree
+    from repro_torch.serving import Request, ServingEngine
+    cfg = M.reduce_config(get_config("llama3-8b"), dtype="float32")
+    qp, plans = convert.init_quantized(cfg, seed=0, device=dev)
+    packed = pack_tree(qp, "msr4", 64)
+    streams = {}
+    for name, tree, backend in (("cuda", packed, "cuda"),
+                                ("cuda_online", packed, "cuda_online"),
+                                ("torch_ref", packed, "torch_ref"),
+                                ("dense", qp, "cuda")):
+        eng = ServingEngine(tree, plans, cfg, batch_size=2, cache_len=64,
+                            ops=backend, device=dev, page_size=8,
+                            prefill_chunk=8, fold_wo=True)
+        reqs = [Request(uid=i, prompt=[1 + i] * (5 + 9 * i),
+                        max_new_tokens=4) for i in range(3)]
+        for r in reqs:
+            eng.submit(r)
+        kernels.reset_launches()
+        eng.run_until_done()
+        if name == "cuda":
+            assert kernels.LAUNCHES["int8_matmul_packed"] > 0
+            assert kernels.LAUNCHES["int8_matmul_msr4"] > 0
+            assert kernels.LAUNCHES["int8_matmul"] == 0
+        streams[name] = [r.out_tokens for r in reqs]
+    assert streams["cuda"] == streams["cuda_online"] == \
+        streams["torch_ref"] == streams["dense"]
