@@ -82,14 +82,20 @@ The ``kernels`` phase also holds K3's and K4's packed instantiations
 their plain version (``ops.packed.unpack_kv_pool``, then the int8 plain
 version) at the serve shapes, folded and not, and at D = 120; and K1 over
 packed weights (rows ``int8_matmul_packed``: the nibble launch, int4 fused
-or msr4 raw) and the MSR-4 correction kernel (rows ``int8_matmul_msr4``)
-against their plain versions at llama3-8b's shapes and at their edges.
+or msr4 raw) and the MSR-4 correction kernel (rows ``int8_matmul_msr4``,
+each with its route: the tensor cores or the gather) against their plain
+versions at llama3-8b's shapes and at their edges; at the five full-width
+shapes the gather route runs beside the route ``msr4_plan`` chose, exact
+too, as the yardstick (``gather_ms``), and at M = 128 ``torch._int_mm``
+over the dense delta matrix, a layout the port does not store
+(``library_ms``).
 
 ``--verbose-build`` also prints ptxas's registers and spills and a
 ``sass`` line (per kernel ``IMMA`` / ``IDP`` / ``LDL`` / ``STL``), and
-fails unless every K4, K5 and K8 instantiation shows ``IMMA`` and none of
-the other three, every K1 tensor-core instantiation ``IMMA``, and no K1
-or MSR-4 correction instantiation ``LDL`` / ``STL``.
+fails unless every K4, K5, K8 and tensor-core MSR-4 correction
+instantiation shows ``IMMA`` and none of the other three, every K1
+tensor-core instantiation ``IMMA``, and no K1 or gather-route correction
+instantiation ``LDL`` / ``STL``.
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit,
 and the final ``{"ok": true, "device": {...}}`` line.  The script imports
@@ -244,12 +250,14 @@ def _randint(gen, lo, hi, shape, dtype):
 
 
 def record(rows, name, case, got, want, kernel, plain, nbytes, ops,
-           lib_ms=None, rep=False, iters=20, plain_iters=3, plan=None):
+           lib_ms=None, rep=False, iters=20, plain_iters=3, plan=None,
+           extra=None):
     """Exactness first, then times: ``ms`` / ``plain_ms`` are device time
     per call (profiler), ``call_ms`` the kernel wrapper's wall time per
     call on the device timeline (CUDA events, host issue gaps included).
     ``rep``: this case is the kernel's row in the summary line; ``plan``:
-    the launch the wrapper chose, printed with the case."""
+    the launch the wrapper chose, printed with the case; ``extra``: more
+    keys for the printed row."""
     err = max_abs_diff(got, want)
     b_ms, b_by = bound_ms(nbytes, ops)
     call = time_ms(kernel, iters)
@@ -259,7 +267,8 @@ def record(rows, name, case, got, want, kernel, plain, nbytes, ops,
                         or time_ms(plain, plain_iters)),
            "call_ms": call,
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
-    emit({"phase": "kernels", **row, **({"plan": plan} if plan else {})})
+    emit({"phase": "kernels", **row, **({"plan": plan} if plan else {}),
+          **(extra or {})})
     if err != 0:
         raise AssertionError(f"{name} {case}: kernel != plain "
                              f"(max |diff| {err})")
@@ -333,13 +342,13 @@ def division_check(name: str, aplan) -> None:
 
 
 def _offset_view(x, off: int):
-    """A contiguous copy of ``x`` starting ``off`` bytes past a 16-byte
-    boundary."""
+    """A contiguous copy of ``x`` starting ``off`` elements past a 16-byte
+    boundary (``off`` bytes for int8)."""
     import torch
     flat = torch.empty(x.numel() + 16, dtype=x.dtype, device=x.device)
     y = flat[off:off + x.numel()].view(x.shape)
     y.copy_(x)
-    if y.data_ptr() % 16 != off:
+    if y.data_ptr() % 16 != off * x.element_size():
         raise AssertionError("offset view is not where it was asked")
     return y
 
@@ -573,6 +582,48 @@ def check_packed_kernels(gen, rows, aplan, requant, wo, wo_spec, h: int,
         del q8
 
 
+def msr4_plan_str(m: int, n: int, k: int, qw, gather: bool = False) -> str:
+    """The correction's launch on this card: ``msr4_plan``'s route, or
+    with ``gather`` the gather route's plan at the same shape."""
+    import torch
+    from repro_torch.kernels.int8_matmul import msr4_gather_plan, msr4_plan
+    meta = qw.pack_meta
+    p = (msr4_gather_plan if gather else msr4_plan)(
+        m, n, k, meta.group, meta.n_outliers,
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    return (f"{p.route} {p.mt}x128 splits={p.grid[2]} kc={p.kc} "
+            f"smem={p.smem}")
+
+
+def msr4_gather_yardstick(acc, x8, qw, spec, want, dense, iters):
+    """The gather route at a shape where ``msr4_plan`` chose the tensor
+    cores: held exact against the plain version, then timed (device ms a
+    call); and, where M > 16, ``torch._int_mm`` over the dense (K, N)
+    delta matrix (a layout the port does not store).  Returns the extra
+    keys of the row and the library time."""
+    import torch
+    from repro_torch.kernels.int8_matmul import _msr4_launch, msr4_gather_plan
+    m, k = x8.shape
+    n = qw.n_dim
+    meta = qw.pack_meta
+    plan = msr4_gather_plan(
+        m, n, k, meta.group, meta.n_outliers,
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    err = max_abs_diff(_msr4_launch(acc, x8, qw, spec, plan), want)
+    if err:
+        raise AssertionError(f"int8_matmul_msr4 gather route M={m} K={k} "
+                             f"N={n}: != plain (max |diff| {err})")
+    gather = lambda: _msr4_launch(acc, x8, qw, spec, plan)
+    lib_ms = None
+    if m > 16:
+        delta = (dense.to(torch.int16) - dense.clamp(-7, 7)).to(torch.int8)
+        lib_ms = int_mm_ms(x8, delta)
+        del delta
+    return {"gather_ms": device_ms(gather, iters) or time_ms(gather, iters),
+            "gather_plan": msr4_plan_str(m, n, k, qw, gather=True),
+            "mma_ops_bound_ms": 2 * m * k * n / INT8_OPS_PER_S * 1e3}, lib_ms
+
+
 def _q_weights(gen, k: int, n: int):
     """int8 (k, n) weights as the port quantizes a Gaussian layer
     (per-channel abs-max to +-127, ``quant/convert.py::_q_linear``): most
@@ -616,7 +667,11 @@ def check_packed_matmul_kernels(cfg, plans, rows) -> None:
     summary row of ``int8_matmul_packed``; msr4 w1 at M = 4 is that of
     ``int8_matmul_msr4``); then the edges: M 1 / 5 / 16 / 17 / 33, K = 2
     mod 4, ragged N, operands 1 byte off alignment, split K, per-tensor +
-    bias, msr4 groups 4 / 16 / 64 / 256 / K with n_outliers 0, 1 and g."""
+    bias, msr4 groups 4 / 16 / 64 / 256 / K with n_outliers 0, 1 and g on
+    the tensor cores and g = K = 2048 on the gather route, and on both
+    routes filler lanes outside [0, g) with the operands aligned and 1
+    byte off.  At the five full-width shapes the gather route runs too
+    (:func:`msr4_gather_yardstick`)."""
     import torch
     from repro_torch.core.dyadic import fit_dyadic
     from repro_torch.kernels.int8_matmul import (
@@ -628,7 +683,7 @@ def check_packed_matmul_kernels(cfg, plans, rows) -> None:
     raw = RequantSpec.raw()
 
     def both(tag, x8, qw, spec, rep_nib=False, rep_corr=False, dense=None,
-             iters=20):
+             iters=20, yardstick=False):
         m, k = x8.shape
         n = qw.n_dim
         meta = qw.pack_meta
@@ -654,12 +709,16 @@ def check_packed_matmul_kernels(cfg, plans, rows) -> None:
             got = msr4_correct(acc, x8, qw, spec)
             want = msr4_correct_plain(acc, x8, qw, spec)
             nb, no = packed_bounds(m, k, n, spec, qw, True)
+            extra, lib_ms = (msr4_gather_yardstick(acc, x8, qw, spec, want,
+                                                   dense, iters)
+                             if yardstick else (None, None))
             record(rows, "int8_matmul_msr4",
                    f"{tag} correction M={m} K={k} N={n} g={meta.group} "
                    f"n_out={meta.n_outliers} {spec.kind}", got, want,
                    lambda: msr4_correct(acc, x8, qw, spec),
                    lambda: msr4_correct_plain(acc, x8, qw, spec), nb, no,
-                   rep=rep_corr, iters=iters, plain_iters=2)
+                   lib_ms=lib_ms, rep=rep_corr, iters=iters, plain_iters=2,
+                   plan=msr4_plan_str(m, n, k, qw), extra=extra)
         if dense is not None:
             whole = int8_matmul_packed(x8, qw, spec)
             err = max_abs_diff(whole, int8_matmul_plain(
@@ -680,7 +739,8 @@ def check_packed_matmul_kernels(cfg, plans, rows) -> None:
         for m in ms:
             x8 = _randint(gen, -127, 128, (m, k), torch.int8)
             both(tag, x8, qw, spec, rep_corr=(tag == "w1" and m == 4),
-                 dense=w8, iters=10 if tag.startswith("head") else 20)
+                 dense=w8, iters=10 if tag.startswith("head") else 20,
+                 yardstick=True)
         del w8, qw
         if tag == "w1":
             w4 = _randint(gen, -7, 8, (k, n), torch.int8)
@@ -740,12 +800,85 @@ def check_packed_matmul_kernels(cfg, plans, rows) -> None:
                    f"n_out={want_out} per_channel", got, want,
                    lambda: msr4_correct(acc, x8, qw, pc),
                    lambda: msr4_correct_plain(acc, x8, qw, pc), nb, no,
-                   iters=5, plain_iters=1)
+                   iters=5, plain_iters=1, plan=msr4_plan_str(5, n, k, qw))
             err = max_abs_diff(int8_matmul_packed(x8, qw, pc),
                                int8_matmul_plain(x8, w, pc, None, b_vec))
             if err:
                 raise AssertionError(f"msr4 g={g} n_out={want_out}: packed "
                                      f"!= dense (max |diff| {err})")
+    check_msr4_route_edges(gen, rows, pc)
+
+
+def check_msr4_route_edges(gen, rows, pc) -> None:
+    """The correction on both routes at their edges: the gather route
+    (g = K = 2048) with n_outliers 0, 1 and g at M = 5 and 17; then on
+    each route (g = 64 and g = K = 2048, N = 320) filler lanes outside [0,
+    g) (index g, -1, 32767: they add nothing) at M = 4 and 17, with every
+    operand aligned for the 16-byte copies or 1 byte off (x and the
+    deltas 1 byte, the indices 2, acc 4)."""
+    import torch
+    from repro_torch.kernels.int8_matmul import (
+        int8_matmul_nibbles, int8_matmul_packed, int8_matmul_packed_plain,
+        msr4_correct, msr4_correct_plain)
+    from repro_torch.ops.spec import RequantSpec
+    raw = RequantSpec.raw()
+
+    def one(tag, x8, qw, acc, route):
+        m, k = x8.shape
+        n = qw.n_dim
+        plan = msr4_plan_str(m, n, k, qw)
+        if not plan.startswith(route):
+            raise AssertionError(f"msr4 {tag}: route {plan}, not {route}")
+        got = msr4_correct(acc, x8, qw, pc)
+        want = msr4_correct_plain(acc, x8, qw, pc)
+        nb, no = packed_bounds(m, k, n, pc, qw, True)
+        meta = qw.pack_meta
+        record(rows, "int8_matmul_msr4",
+               f"edge {tag} M={m} K={k} N={n} g={meta.group} "
+               f"n_out={meta.n_outliers} per_channel", got, want,
+               lambda: msr4_correct(acc, x8, qw, pc),
+               lambda: msr4_correct_plain(acc, x8, qw, pc), nb, no,
+               iters=5, plain_iters=1, plan=plan)
+        err = max_abs_diff(int8_matmul_packed(x8, qw, pc),
+                           int8_matmul_packed_plain(x8, qw, pc))
+        if err:
+            raise AssertionError(f"msr4 {tag}: packed != its plain version "
+                                 f"(max |diff| {err})")
+
+    k, n = 2048, 300
+    b_vec = _randint(gen, 256, 4096, (n,), torch.int32)
+    lo = _randint(gen, -7, 8, (k, n), torch.int8)
+    one_ = lo.clone()
+    one_[5, ::2] = -128
+    full = (_randint(gen, 8, 128, (k, n), torch.int32)
+            * (2 * _randint(gen, 0, 2, (k, n), torch.int32) - 1)
+            ).clamp(-128, 127).to(torch.int8)
+    for w, want_out in ((lo, 0), (one_, 1), (full, k)):
+        qw = _packed(w, "msr4", 100, b_vec)     # 100 does not divide K
+        if qw.pack_meta.n_outliers != want_out:
+            raise AssertionError(f"msr4 g=K: n_outliers "
+                                 f"{qw.pack_meta.n_outliers} != {want_out}")
+        for m in (5, 17):
+            x8 = _randint(gen, -128, 128, (m, k), torch.int8)
+            acc = int8_matmul_nibbles(x8, qw.w_packed, raw)
+            one("gather", x8, qw, acc, "gather")
+    n = 320
+    b_vec = _randint(gen, 256, 4096, (n,), torch.int32)
+    for k, group, route in ((512, 64, "mma"), (2048, 100, "gather")):
+        w8 = _randint(gen, -128, 128, (k, n), torch.int8)
+        qw = _packed(w8, "msr4", group, b_vec)
+        g = qw.pack_meta.group
+        idx = qw.out_idx.clone()
+        idx[0, 0, 3], idx[-1, -1, 5], idx[0, 1, 200] = g, -1, 32767
+        qw = qw._replace(out_idx=idx)
+        for m in (4, 17):
+            x8 = _randint(gen, -128, 128, (m, k), torch.int8)
+            acc = int8_matmul_nibbles(x8, qw.w_packed, raw)
+            one("filler lanes aligned", x8, qw, acc, route)
+            one("filler lanes 1 byte off", _offset_view(x8, 1),
+                qw._replace(out_idx=_offset_view(qw.out_idx, 1),
+                            out_val=_offset_view(qw.out_val, 1)),
+                _offset_view(acc, 1), route)
 
 
 def k4_bound(lens, c: int, h: int, hkv: int, d: int, table_ints: int,
@@ -2199,15 +2332,18 @@ def profile_window(phase, what, fn, units=None, focus=None):
 
 
 # the kernels that must run on the int8 tensor cores with no spill: every
-# instantiation of K5's, K4's and K8's
+# instantiation of K5's, K4's, K8's and the MSR-4 correction's
+# tensor-core route
 TENSOR_CORE_KERNELS = ("int_attention_mma_kernel",
                        "int_paged_prefill_mma_kernel",
                        "int_paged_prefill_kv4_kernel",
-                       "int_attention_online_kernel")
+                       "int_attention_online_kernel",
+                       "msr4_correct_mma_kernel")
 
 
 # K1's instantiations (dense and packed, both paths) and the MSR-4
-# correction's: no spill, and K1's tensor-core tiles on the tensor cores
+# correction's gather route: no spill, and K1's tensor-core tiles on the
+# tensor cores
 NO_SPILL_KERNELS = ("int8_matmul_kernel", "int8_matmul_mma_kernel",
                     "msr4_correct_kernel")
 

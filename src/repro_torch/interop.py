@@ -23,6 +23,7 @@ from repro_torch.core.intmath import IErfPlan, IExpPlan, IGeluPlan
 from repro_torch.core.norms import INormPlan
 from repro_torch.core.softmax import ISoftmaxPlan
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.ops.packed import msr4_lanes_distinct
 from repro_torch.ops.spec import PackMeta, QuantLinearParams
 from repro_torch.quant.plans import (AttnPlan, EmbedPlan, FfnPlan, HeadPlan,
                                      LayerPlans, LinearPlan)
@@ -65,15 +66,26 @@ def qparams_from_reference(tree, device=DEFAULT_DEVICE):
     """numpy leaves -> tensors on ``device`` (default the card; raises
     without one) of the same dtypes; the reference's ``QuantLinearParams``
     (by name and fields), dense or packed, -> the port's, its
-    ``PackMeta`` read field by field."""
+    ``PackMeta`` read field by field.  A packed msr4 leaf whose in-range
+    lanes repeat a row within a group of a column raises ``ValueError``
+    (``ops.packed.msr4_lanes_distinct``: the correction kernel's
+    precondition), checked once per leaf."""
     device = resolve_device(device)
     if tree is None:
         return None
     if type(tree).__name__ == "QuantLinearParams":
-        return QuantLinearParams(*[
+        qw = QuantLinearParams(*[
             _pack_meta(getattr(tree, f)) if f == "pack_meta"
             else qparams_from_reference(getattr(tree, f), device)
             for f in QuantLinearParams._fields])
+        meta = qw.pack_meta
+        if meta is not None and meta.scheme == "msr4" and meta.n_outliers \
+                and not msr4_lanes_distinct(qw.out_idx, meta.group):
+            raise ValueError(
+                "msr4 leaf: within a group, a column's in-range outlier "
+                "lanes repeat a row; the correction kernel's dense delta "
+                "tile needs distinct rows (pack_msr4 writes them so)")
+        return qw
     if isinstance(tree, dict):
         return {k: qparams_from_reference(v, device)
                 for k, v in tree.items()}

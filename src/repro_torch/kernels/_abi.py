@@ -100,6 +100,13 @@ class Msr4Args(ctypes.Structure):
                 + [("rq", Requant)])
 
 
+class Msr4MmaArgs(ctypes.Structure):
+    """``msr4::MmaArgs``: :class:`Msr4Args`, then the tensor-core route's
+    own fields."""
+    _fields_ = Msr4Args._fields_ + [(n, _I) for n in (
+        "lc", "sp", "x_vec", "idx_vec", "val_vec")]
+
+
 def declare(lib: ctypes.CDLL) -> None:
     lib.r8_int8_matmul.argtypes = [
         _P, _P, _P, _P, ctypes.POINTER(Requant), _P, _I, _I, _I, _I, _I,
@@ -108,6 +115,9 @@ def declare(lib: ctypes.CDLL) -> None:
     lib.r8_int8_matmul_msr4.argtypes = [ctypes.POINTER(Msr4Args), _I, _I,
                                         _I, _P]
     lib.r8_int8_matmul_msr4.restype = _I
+    lib.r8_int8_matmul_msr4_mma.argtypes = [ctypes.POINTER(Msr4MmaArgs),
+                                            _I, _I, _I, _P]
+    lib.r8_int8_matmul_msr4_mma.restype = _I
     lib.r8_int_layernorm.argtypes = [_P, _P, _P, ctypes.POINTER(NormConsts),
                                      _P, _I, _P]
     lib.r8_int_layernorm.restype = _I

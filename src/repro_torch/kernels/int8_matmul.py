@@ -185,32 +185,48 @@ def int8_matmul_nibbles(x8, w_packed, spec, bias32=None, b_vec=None):
                    packed=True)
 
 
-#: columns a block of the correction kernel; rows a block (MT) by the
-#: size of the product; bytes of x a block stages at a time, as whole
-#: groups; the shared memory a block may take (H100)
+#: the gather route: columns a block of the correction kernel; rows a
+#: block (MT) by the size of the product; bytes of x a block stages at a
+#: time, as whole groups; the shared memory a block may take (H100)
 MSR4_THREADS = 128
 MSR4_CHUNK = 16384
 MSR4_MAX_SMEM = 232448
 
+#: the tensor-core route: columns a block; K rows a step takes at least
+#: (whole groups: max(1, 64 // g) of them); lane rows a staged chunk at
+#: most; bytes a staged lane row (int16 index + int8 delta, 128 columns);
+#: slots of the copy ring (lane chunks and x tiles)
+MSR4_BN = 128
+MSR4_STEP = 64
+MSR4_LANE_CHUNK = 64
+MSR4_LANE_ROW = 3 * MSR4_BN
+MSR4_STAGES = 2
+
 
 class Msr4Plan(NamedTuple):
-    """One correction launch: rows a block (``mt``), the grid ``(M tiles,
-    N tiles, splits)``, the K groups of a split, the K rows a staged
-    chunk of x (whole groups) and its shared-memory bytes."""
+    """One correction launch: the route (``"mma"``, the tensor cores over
+    a dense delta tile, or ``"gather"``), rows a block (``mt``), the grid
+    ``(M tiles, N tiles, splits)``, the K groups of a split, the K rows of
+    a staged chunk of x (gather) or of a step (mma), whole groups either
+    way, the shared-memory bytes, and (mma) the lane rows of a staged
+    chunk and the rows of the step's delta tile (``kc`` up to 32)."""
+    route: str
     mt: int
     grid: tuple
     groups_per_split: int
     kc: int
     smem: int
+    lc: int = 0
+    sp: int = 0
 
 
-def msr4_plan(m: int, n: int, k: int, g: int, n_out: int,
-              sms: int) -> Msr4Plan:
-    """The correction's launch for an (m, k) product with groups of ``g``
-    rows and ``n_out`` lanes: 4 rows a block for decode (M <= 4), else 16
-    (where 16 rows of a group fit the shared memory); the K groups split
-    across blocks until the grid covers the SMs about eight blocks deep
-    (each split keeps at least 4 groups)."""
+def msr4_gather_plan(m: int, n: int, k: int, g: int, n_out: int,
+                     sms: int) -> Msr4Plan:
+    """The gather route's launch for an (m, k) product with groups of
+    ``g`` rows and ``n_out`` lanes: 4 rows a block for decode (M <= 4),
+    else 16 (where 16 rows of a group fit the shared memory); the K groups
+    split across blocks until the grid covers the SMs about eight blocks
+    deep (each split keeps at least 4 groups)."""
     ngrp = k // g
     mt = 4 if m <= 4 or 16 * g > MSR4_MAX_SMEM else 16
     gx, gy = -(-m // mt), -(-n // MSR4_THREADS)
@@ -220,7 +236,69 @@ def msr4_plan(m: int, n: int, k: int, g: int, n_out: int,
     splits = -(-ngrp // gps)
     gpc = max(1, min(gps, MSR4_CHUNK // (g * mt)))
     kc = gpc * g
-    return Msr4Plan(mt, (gx, gy, splits), gps, kc, -(-kc * mt // 16) * 16)
+    return Msr4Plan("gather", mt, (gx, gy, splits), gps, kc,
+                    -(-kc * mt // 16) * 16)
+
+
+def msr4_mma_smem(bm: int, sp: int, lc: int) -> int:
+    """Shared-memory bytes of the tensor-core route: a ring of
+    ``MSR4_STAGES`` lane chunks and as many x tiles (rows of sp + 16
+    bytes), and 2 delta tiles."""
+    return (MSR4_STAGES * (MSR4_LANE_ROW * lc + bm * (sp + 16))
+            + 2 * sp * MSR4_BN)
+
+
+def msr4_lane_chunk(bm: int, sp: int, lanes: int) -> int:
+    """Lane rows a staged chunk: ``MSR4_LANE_CHUNK`` (no more than a
+    step's ``lanes``), halved down to 16 while the step does not fit the
+    shared memory."""
+    lc = MSR4_LANE_CHUNK
+    while lc > 16 and msr4_mma_smem(bm, sp, lc) > MSR4_MAX_SMEM:
+        lc //= 2
+    return max(1, min(lanes, lc))
+
+
+def msr4_plan(m: int, n: int, k: int, g: int, n_out: int,
+              sms: int) -> Msr4Plan:
+    """The correction's launch for an (m, k) product with groups of ``g``
+    rows and ``n_out`` lanes on a card of ``sms`` SMs, from the shape
+    alone.
+
+    The rule: the tensor-core route wherever a step fits the shared
+    memory (:func:`msr4_mma_smem` <= ``MSR4_MAX_SMEM``), else the gather
+    route (:func:`msr4_gather_plan`).  A step is max(1, 64 // g) whole
+    groups (kc rows, its delta tile sp = kc rounded up to 32 rows), its
+    lanes staged in chunks of :func:`msr4_lane_chunk` rows.  Rows
+    a block: 16 for m <= 16, 64 for m <= 64, else 128 (the lanes, 3 bytes
+    a weight, are read once per row tile, so the fewest row tiles), or
+    the next smaller tile where that one does not fit.  K splits across
+    blocks until the grid covers the SMs about 8 blocks deep with 16-row
+    tiles (decode), or up to one wave of 2 blocks an SM with larger tiles
+    (there a split's atomics cost more than the blocks it adds), each
+    split keeping at least 2 steps; no lanes (n_out 0): one split, no
+    steps."""
+    ngrp = k // g
+    gps = max(1, MSR4_STEP // g)
+    kc = gps * g
+    sp = -(-kc // 32) * 32
+    first = 16 if m <= 16 else 64 if m <= 64 else 128
+    for bm in (b for b in (128, 64, 16) if b <= first):
+        lc = msr4_lane_chunk(bm, sp, gps * n_out)
+        smem = msr4_mma_smem(bm, sp, lc)
+        if smem <= MSR4_MAX_SMEM:
+            break
+    else:
+        return msr4_gather_plan(m, n, k, g, n_out, sms)
+    gx, gy = -(-m // bm), -(-n // MSR4_BN)
+    steps = -(-ngrp // gps)
+    if bm == 16:
+        want = -(-8 * sms // (gx * gy))
+    else:                          # 2 blocks an SM (128 registers a thread)
+        want = max(1, 2 * sms // (gx * gy))
+    splits = min(want, max(1, steps // 2)) if n_out else 1
+    sps = -(-steps // splits)
+    splits = -(-steps // sps)
+    return Msr4Plan("mma", bm, (gx, gy, splits), sps * gps, kc, smem, lc, sp)
 
 
 def msr4_correct_plain(acc, x8, qw, spec):
@@ -238,11 +316,17 @@ def msr4_correct(acc, x8, qw, spec):
     N) int32, the raw nibble accumulator of :func:`int8_matmul_nibbles`
     (no bias), plus ``x8 @ scatter(out_val)`` over the lanes of the 2-D
     packed ``qw``, plus its bias, then the spec's epilogue (a new
-    tensor; ``acc`` is only read)."""
+    tensor; ``acc`` is only read).  A lane index outside [0, g) adds
+    nothing.
+
+    Precondition: within a group, a column's lanes whose index lies in
+    [0, g) name distinct rows (the tensor-core route builds a dense delta
+    tile with one delta per row and column).  ``quant.pack.pack_msr4``
+    and the reference's guarantee it (a stable-sort prefix), and
+    ``interop.qparams_from_reference`` checks it once per leaf; no call
+    checks it.  The route is :func:`msr4_plan`'s, from the shape."""
     if not x8.is_cuda:
         return msr4_correct_plain(acc, x8, qw, spec)
-    from repro_torch.kernels import _abi
-    from repro_torch.kernels._build import library
     meta = qw.pack_meta
     m, k = x8.shape
     n = qw.n_dim
@@ -251,6 +335,22 @@ def msr4_correct(acc, x8, qw, spec):
         raise ValueError(f"msr4_correct: acc {tuple(acc.shape)}, x "
                          f"{tuple(x8.shape)} vs a 2-D msr4 weight of k="
                          f"{getattr(meta, 'k', None)}, n={n}")
+    sms = torch.cuda.get_device_properties(x8.device).multi_processor_count
+    return _msr4_launch(acc, x8, qw, spec, msr4_plan(
+        m, n, k, meta.group, meta.n_outliers, sms))
+
+
+def _msr4_launch(acc, x8, qw, spec, plan: Msr4Plan):
+    """One correction launch by ``plan`` (either route), counted in
+    ``LAUNCHES["int8_matmul_msr4"]``.  :func:`msr4_correct` passes
+    :func:`msr4_plan`'s; a measurement may pass
+    :func:`msr4_gather_plan`'s to time the gather route at the same
+    shape."""
+    from repro_torch.kernels import _abi
+    from repro_torch.kernels._build import library
+    meta = qw.pack_meta
+    m, k = x8.shape
+    n = qw.n_dim
     g, n_out = meta.group, meta.n_outliers
     lanes = (k // g, n_out, n)
     _check("msr4_correct", x8.device, acc=(acc, torch.int32, (m, n)),
@@ -266,23 +366,31 @@ def msr4_correct(acc, x8, qw, spec):
     out = torch.empty((m, n), dtype=dt, device=x8.device)
     if m == 0 or n == 0:
         return out
-    sms = torch.cuda.get_device_properties(x8.device).multi_processor_count
-    plan = msr4_plan(m, n, k, g, n_out, sms)
     gx, gy, splits = plan.grid
     ws = cnt = None
     if splits > 1:
         ws = torch.zeros((m, n), dtype=torch.int32, device=x8.device)
         cnt = torch.zeros((gx * gy,), dtype=torch.int32, device=x8.device)
-    args = _abi.Msr4Args(
-        acc.data_ptr(), x8.data_ptr(), _abi.ptr(qw.out_idx),
-        _abi.ptr(qw.out_val), _abi.ptr(qw.bias32),
-        _abi.ptr(qw.b_mult if spec.kind != PER_TENSOR else None),
-        out.data_ptr(), _abi.ptr(ws), _abi.ptr(cnt), m, n, k, g, n_out,
-        int(dt == torch.int8), plan.groups_per_split, plan.kc,
-        _abi.requant_struct(spec))
+    args = (acc.data_ptr(), x8.data_ptr(), _abi.ptr(qw.out_idx),
+            _abi.ptr(qw.out_val), _abi.ptr(qw.bias32),
+            _abi.ptr(qw.b_mult if spec.kind != PER_TENSOR else None),
+            out.data_ptr(), _abi.ptr(ws), _abi.ptr(cnt), m, n, k, g, n_out,
+            int(dt == torch.int8), plan.groups_per_split, plan.kc,
+            _abi.requant_struct(spec))
     lib = library()
-    rc = lib.r8_int8_matmul_msr4(ctypes.byref(args), plan.mt, splits,
-                                 plan.smem, _abi.stream_of(x8))
+    if plan.route == "mma":
+        args = _abi.Msr4MmaArgs(
+            *args, plan.lc, plan.sp,
+            int(k % 16 == 0 and plan.kc % 16 == 0
+                and x8.data_ptr() % 16 == 0),
+            int(n % 8 == 0 and qw.out_idx.data_ptr() % 16 == 0),
+            int(n % 16 == 0 and qw.out_val.data_ptr() % 16 == 0))
+        launch = lib.r8_int8_matmul_msr4_mma
+    else:
+        args = _abi.Msr4Args(*args)
+        launch = lib.r8_int8_matmul_msr4
+    rc = launch(ctypes.byref(args), plan.mt, splits, plan.smem,
+                _abi.stream_of(x8))
     LAUNCHES["int8_matmul_msr4"] += 1
     _abi.check(lib, rc, "int8_matmul_msr4")
     return out

@@ -31,7 +31,8 @@ from repro_torch.core.intmath import int_einsum
 KV_SHIFT = 4
 
 __all__ = ["KV_SHIFT", "nibble_pack", "nibble_unpack", "unpack_weights",
-           "msr4_correction", "quantize_kv", "pack_kv", "unpack_kv_pool"]
+           "msr4_correction", "msr4_lanes_distinct", "quantize_kv",
+           "pack_kv", "unpack_kv_pool"]
 
 
 def _rshift_round(x, s: int):
@@ -74,13 +75,32 @@ def nibble_unpack(p, axis: int = -2):
 
 def _lane_deltas(qw):
     """The msr4 outlier deltas scattered into their rows: ``(..., K // g,
-    g, N)`` int32, zero where no lane points."""
+    g, N)`` int32, zero where no lane points.  A lane index outside [0,
+    g) adds nothing, as in the reference's one-hot ``unpack_weights``."""
     meta = qw.pack_meta
     idx = qw.out_idx.to(torch.int64)                # (..., ngrp, n_out, N)
     *lead, ngrp, _, n = idx.shape
+    hit = (idx >= 0) & (idx < meta.group)
     d = torch.zeros((*lead, ngrp, meta.group, n), dtype=torch.int32,
                     device=idx.device)
-    return d.scatter_add_(-2, idx, qw.out_val.to(torch.int32))
+    return d.scatter_add_(-2, torch.where(hit, idx, 0),
+                          torch.where(hit, qw.out_val.to(torch.int32), 0))
+
+
+def msr4_lanes_distinct(out_idx, group: int) -> bool:
+    """Whether, in every (group, column) of ``out_idx`` (..., K // g,
+    n_out, N), the lanes whose index lies in [0, ``group``) name distinct
+    rows: the precondition of the correction kernel's dense delta tile
+    (one delta per row and column).  ``pack_msr4`` guarantees it."""
+    idx = torch.as_tensor(out_idx).to(torch.int32)
+    n_out = idx.shape[-2]
+    if n_out < 2 or idx.numel() == 0:
+        return True
+    spare = group + torch.arange(n_out, dtype=torch.int32,
+                                 device=idx.device).view(n_out, 1)
+    key = torch.where((idx >= 0) & (idx < group), idx, spare)
+    key = key.sort(dim=-2).values
+    return not bool((key[..., 1:, :] == key[..., :-1, :]).any())
 
 
 def unpack_weights(qw):

@@ -914,20 +914,24 @@ def test_packed_int8_matmul_kernel(dev, m, k, n, operands):
                 x8, dense.w8, spec, dense.bias32, dense.b_mult)), (kind, spec)
 
 
-@pytest.mark.parametrize("m", [1, 4, 5, 17, 128])
-@pytest.mark.parametrize("group,kind", [
-    (4, "msr4"), (16, "msr4-g"), (64, "msr4-1"), (64, "msr4-0"),
-    (256, "msr4"), (100, "msr4-1"), (100, "msr4-g")])
-def test_msr4_correction_kernel(dev, m, group, kind):
+@pytest.mark.parametrize("m", [1, 4, 5, 16, 17, 33, 128])
+@pytest.mark.parametrize("group,kind,k,route", [
+    (4, "msr4", 512, "mma"), (16, "msr4-g", 512, "mma"),
+    (64, "msr4-1", 512, "mma"), (64, "msr4-0", 512, "mma"),
+    (256, "msr4", 512, "mma"), (100, "msr4-1", 512, "mma"),
+    (100, "msr4-g", 512, "mma"), (100, "msr4-1", 2048, "gather"),
+    (100, "msr4-g", 2048, "gather"), (100, "msr4", 2048, "gather")])
+def test_msr4_correction_kernel(dev, m, group, kind, k, route):
     """The correction kernel alone, on a raw nibble accumulator, against
     its plain version: groups 4 / 16 / 64 / 256 and g = K (100 does not
-    divide K = 512), n_out 0, 1, g and random, -128 weights, every
-    epilogue; the two-launch product against the dense one."""
+    divide K) on the tensor cores at K = 512, g = K on the gather route at
+    K = 2048, n_out 0, 1, g and random, -128 weights, every epilogue; the
+    two-launch product against the dense one."""
     from repro_torch.kernels.int8_matmul import (
         int8_matmul_nibbles, int8_matmul_packed, msr4_correct,
-        msr4_correct_plain)
-    rng = np.random.default_rng(m + group + len(kind))
-    k, n = 512, 300
+        msr4_correct_plain, msr4_plan)
+    rng = np.random.default_rng(m + group + len(kind) + k)
+    n = 300
     x8 = _i8(rng, (m, k), dev)
     x8[0, :3] = -128
     dense, qw = _packed_weights(rng, k, n, kind, dev, group)
@@ -935,6 +939,9 @@ def test_msr4_correction_kernel(dev, m, group, kind):
     assert meta.group == (group if k % group == 0 else k)
     want_out = {"msr4-0": 0, "msr4-1": 1, "msr4-g": meta.group}.get(kind)
     assert want_out is None or meta.n_outliers == want_out
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert msr4_plan(m, n, k, meta.group, meta.n_outliers,
+                     sms).route == route
     acc = int8_matmul_nibbles(x8, qw.w_packed, RequantSpec.raw())
     keep = acc.clone()
     for spec in _specs():
@@ -946,6 +953,53 @@ def test_msr4_correction_kernel(dev, m, group, kind):
         assert torch.equal(int8_matmul_packed(x8, qw, spec),
                            int8_matmul_plain(x8, dense.w8, spec,
                                              dense.bias32, dense.b_mult))
+
+
+def _offset_bytes(x, nbytes):
+    """A contiguous copy of ``x`` whose data starts ``nbytes`` bytes past
+    a 16-byte boundary (a multiple of its element size)."""
+    off = nbytes // x.element_size()
+    flat = torch.empty(x.numel() + 16, dtype=x.dtype, device=x.device)
+    y = flat[off:off + x.numel()].view(x.shape)
+    y.copy_(x)
+    assert y.is_contiguous() and y.data_ptr() % 16 == nbytes
+    return y
+
+
+@pytest.mark.parametrize("m", [1, 4, 5, 16, 17, 33, 128])
+@pytest.mark.parametrize("k,group,route", [(512, 64, "mma"),
+                                           (2048, 100, "gather")])
+@pytest.mark.parametrize("operands", ["aligned", "1 byte off"])
+def test_msr4_correction_kernel_filler_lanes(dev, m, k, group, route,
+                                             operands):
+    """Both routes with filler lanes outside [0, g) (index g, -1 and
+    32767: they add nothing), N = 320 (16-byte lane copies where
+    aligned); ``1 byte off``: x and the deltas 1 byte past a 16-byte
+    boundary, the indices 2 bytes and acc 4 (scalar copies)."""
+    from repro_torch.kernels.int8_matmul import (
+        int8_matmul_nibbles, int8_matmul_packed, int8_matmul_packed_plain,
+        msr4_correct, msr4_correct_plain, msr4_plan)
+    rng = np.random.default_rng(m + k + len(operands))
+    n = 320
+    _, qw = _packed_weights(rng, k, n, "msr4", dev, group)
+    meta = qw.pack_meta
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert msr4_plan(m, n, k, meta.group, meta.n_outliers,
+                     sms).route == route
+    idx = qw.out_idx.clone()
+    idx[0, 0, 3], idx[-1, -1, 5], idx[0, 1, 200] = meta.group, -1, 32767
+    qw = qw._replace(out_idx=idx)
+    x8 = _i8(rng, (m, k), dev)
+    acc = int8_matmul_nibbles(x8, qw.w_packed, RequantSpec.raw())
+    if operands == "1 byte off":
+        x8, acc = _offset_bytes(x8, 1), _offset_bytes(acc, 4)
+        qw = qw._replace(out_idx=_offset_bytes(qw.out_idx, 2),
+                         out_val=_offset_bytes(qw.out_val, 1))
+    for spec in _specs():
+        got = msr4_correct(acc, x8, qw, spec)
+        assert torch.equal(got, msr4_correct_plain(acc, x8, qw, spec))
+        assert torch.equal(int8_matmul_packed(x8, qw, spec),
+                           int8_matmul_packed_plain(x8, qw, spec))
 
 
 def test_packed_matmul_refuses_what_it_cannot_take(dev):

@@ -10,9 +10,10 @@
   * a numpy model of K1's in-register nibble expansion
     (``csrc/int8_matmul.cu``: two byte rows -> "4 K values of one column"
     words) on every 16-bit pattern, and a numpy emulation of the MSR-4
-    correction kernel's schedule (``csrc/int8_matmul_msr4.cu``, from
-    ``msr4_plan``: row tiles, staged chunks of whole groups, split K)
-    against its plain version;
+    correction's gather route (``csrc/int8_matmul_msr4.cu``, from
+    ``msr4_gather_plan``: row tiles, staged chunks of whole groups, split
+    K) against its plain version (the tensor-core route's emulation is
+    ``tests/test_torch_msr4_plan.py``);
   * ``int8_matmul_packed`` on ``torch_ref``, ``cuda`` and ``cuda_online``
     (their plain versions here) against JAX ``pallas_fused`` (interpret)
     and ``ref``, every epilogue form, both schemes;
@@ -286,7 +287,7 @@ def test_k1_nibble_expansion_model_on_every_16_bit_pattern():
 
 
 def _emulate_msr4_kernel(acc, x8, qw, spec, plan):
-    """``msr4_correct_kernel`` block by block in numpy: each block stages
+    """``msr4_correct_kernel`` (the gather route) block by block in numpy: each block stages
     its rows of x for a chunk of whole groups ([row][MT] bytes, zero past
     M), walks its columns' lanes, and with split K adds into acc, the
     last split running the epilogue (here: after every split)."""
@@ -334,9 +335,10 @@ def _emulate_msr4_kernel(acc, x8, qw, spec, plan):
 @pytest.mark.parametrize("sms", [1, 132])
 def test_msr4_plan_and_kernel_schedule_match_plain(m, k, n, group, spread,
                                                   sms):
-    """``msr4_plan`` (rows a block, staged chunks of whole groups, split
-    K, shared-memory bytes) and the kernel's schedule in numpy equal
-    :func:`msr4_correct_plain`: n_out 0 (spread 8), a few, and g."""
+    """``msr4_gather_plan`` (rows a block, staged chunks of whole groups,
+    split K, shared-memory bytes) and the gather kernel's schedule in
+    numpy equal :func:`msr4_correct_plain`: n_out 0 (spread 8), a few, and
+    g."""
     rng = np.random.default_rng(m + k + n + group)
     w = rng.integers(-spread, spread, (k, n)).astype(np.int8)
     qw = tpack.pack_linear(QuantLinearParams(
@@ -344,9 +346,9 @@ def test_msr4_plan_and_kernel_schedule_match_plain(m, k, n, group, spread,
         T(rng.integers(-500, 500, n).astype(np.int32))), "msr4", group)
     x8 = T(rng.integers(-128, 128, (m, k)).astype(np.int8))
     spec = TSpec.per_channel(c=28, pre=7, out_bits=14)
-    plan = k1.msr4_plan(m, n, k, qw.pack_meta.group,
-                        qw.pack_meta.n_outliers, sms)
-    assert plan.mt == (4 if m <= 4 else 16)
+    plan = k1.msr4_gather_plan(m, n, k, qw.pack_meta.group,
+                               qw.pack_meta.n_outliers, sms)
+    assert plan.route == "gather" and plan.mt == (4 if m <= 4 else 16)
     assert plan.kc % qw.pack_meta.group == 0 and plan.kc <= k
     assert plan.smem <= k1.MSR4_MAX_SMEM
     if not qw.pack_meta.n_outliers:
@@ -359,17 +361,29 @@ def test_msr4_plan_and_kernel_schedule_match_plain(m, k, n, group, spread,
 
 
 def test_msr4_plan_at_full_width():
-    """The llama3-8b launches on 132 SMs: decode splits K, the 128-row
-    chunk takes 16-row tiles; a whole-K group (the ``g = K`` fallback)
-    takes 16 rows where they fit the shared memory, else 4."""
-    p = k1.msr4_plan(4, 14336, 4096, 64, 64, 132)
-    assert p.mt == 4 and p.grid == (1, 112, 10) and p.kc * 4 <= 16384
-    p = k1.msr4_plan(128, 14336, 4096, 64, 64, 132)
-    assert p.mt == 16 and p.grid[:2] == (8, 112)
+    """The llama3-8b launches on 132 SMs (group 64, n_out 64: w1, w2, qkv,
+    wo and the head at M = 4 and 128) take the tensor-core route, decode
+    in 16-row tiles with K split, the 128-row chunk in one 128-row tile; a
+    whole-K group (the ``g = K`` fallback) takes the gather route, 16 rows
+    where they fit the shared memory, else 4."""
+    d, f, v, kv = 4096, 14336, 128256, 1024
+    for k, n in ((d, f), (f, d), (d, d + 2 * kv), (d, d), (d, v)):
+        for m in (4, 128):
+            p = k1.msr4_plan(m, n, k, 64, 64, 132)
+            assert p.route == "mma" and p.kc == 64 and p.sp == 64
+            assert p.lc == 64 and p.smem <= k1.MSR4_MAX_SMEM
+            assert p.mt == (16 if m == 4 else 128)
+            assert p.grid[:2] == (1, -(-n // 128))
+            assert p.groups_per_split * p.grid[2] >= k // 64
+    assert k1.msr4_plan(4, f, d, 64, 64, 132).grid == (1, 112, 10)
+    assert k1.msr4_plan(128, f, d, 64, 64, 132).grid == (1, 112, 2)
     p = k1.msr4_plan(128, 4096, 14336, 14336, 140, 132)
+    assert p.route == "gather"
     assert p.mt == 16 and p.kc == 14336 and p.grid[2] == 1
     assert p.smem == 16 * 14336 <= k1.MSR4_MAX_SMEM
+    assert p == k1.msr4_gather_plan(128, 4096, 14336, 14336, 140, 132)
     p = k1.msr4_plan(128, 4096, 16384, 16384, 140, 132)
+    assert p.route == "gather"
     assert p.mt == 4 and p.kc == 16384 and p.smem == 4 * 16384
 
 
