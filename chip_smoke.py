@@ -13,7 +13,9 @@ non-zero before the last line):
   kernels  each kernel K1-K8 against its plain PyTorch version on seeded
            inputs (max |diff| must be 0), with kernel / plain / library
            times and the roofline bound: K1-K4 at the serving path's
-           full-width llama3-8b shapes, K1, K2 (LayerNorm), K5 and K6 at
+           full-width llama3-8b shapes (K1 at M = 4 and 16, the decode
+           tile, each row with its plan: route, BN, cluster; and 128),
+           K1, K2 (LayerNorm), K5 and K6 at
            the encoder path's full-width roberta-base shapes, K7 and K8
            at the ``pallas`` backend's (the full score matrix, the
            encoder's attention at the reference's logical blocks), then
@@ -21,13 +23,20 @@ non-zero before the last line):
            division on its whole domain, then K1, K2, K3 (contiguous and
            paged) and K5 at h2o-danube-3-4b's shapes, head dim 120 (and
            one K4 and two K8 rows there);
+  k1-decode  (not in the default list) K1's decode rows alone: every
+           llama3-8b and h2o-danube-3-4b decode projection at M = 4 and
+           16, dense and over nibbles, exact against the plain version,
+           device, call and host ms; it calls only the wrappers, so
+           the same script times another commit's tree (copy it there
+           and run ``--phases build,k1-decode``) on the same operands;
   parity   full-width llama3-8b cut to 2 layers: ServingEngine token
            streams on the ``cuda`` backend must equal ``torch_ref``'s;
   serve    full llama3-8b (32 layers) on the ``cuda`` backend: throughput,
            step times, peak memory and per-kernel launch counts (each
            serving kernel must be > 0), then a profiled decode window
-           and a profiled window of prefill chunks (device ms a chunk,
-           K4's share);
+           and a profiled window of prefill chunks (device ms, device
+           kernel calls and ``FillFunctor`` calls a step or chunk, K4's
+           share);
   encode   full-width roberta-base (12 layers, tied embeddings) through
            ``launch.steps.make_prefill_step``: logits of ``cuda`` and
            ``torch_ref`` identical on 8 x 512 tokens, then timed passes
@@ -92,8 +101,8 @@ over the dense delta matrix, a layout the port does not store
 
 ``--verbose-build`` also prints ptxas's registers and spills and a
 ``sass`` line (per kernel ``IMMA`` / ``IDP`` / ``LDL`` / ``STL``), and
-fails unless every K4, K5, K8 and tensor-core MSR-4 correction
-instantiation shows ``IMMA`` and none of the other three, every K1
+fails unless every K1 decode-tile, K4, K5, K8 and tensor-core MSR-4
+correction instantiation shows ``IMMA`` and none of the other three, every K1
 tensor-core instantiation ``IMMA``, and no K1 or gather-route correction
 instantiation ``LDL`` / ``STL``.
 
@@ -131,8 +140,10 @@ TPU_KERNELS = {
     "int8_matmul_packed": "src/repro/kernels/int8_matmul.py:90",
     "int8_matmul_msr4": "src/repro/kernels/int8_matmul.py:90",
 }
+# the summary rows of K1 (the raw head, and packed int4 w1, at M = 4) run
+# its decode tile; its M > 16 tiles are in csrc/int8_matmul.cu
 SOURCES = {
-    "int8_matmul": "src/repro_torch/csrc/int8_matmul.cu",
+    "int8_matmul": "src/repro_torch/csrc/int8_matmul_decode.cu",
     "int_layernorm": "src/repro_torch/csrc/int_layernorm.cu",
     "int_decode_attention": "src/repro_torch/csrc/int_decode_attention.cu",
     "int_paged_prefill": "src/repro_torch/csrc/int_paged_prefill.cu",
@@ -142,7 +153,7 @@ SOURCES = {
     "int_attention_online": "src/repro_torch/csrc/int_attention_online.cu",
     "int_decode_attention_kv4": "src/repro_torch/csrc/int_decode_attention.cu",
     "int_paged_prefill_kv4": "src/repro_torch/csrc/int_paged_prefill.cu",
-    "int8_matmul_packed": "src/repro_torch/csrc/int8_matmul.cu",
+    "int8_matmul_packed": "src/repro_torch/csrc/int8_matmul_decode.cu",
     "int8_matmul_msr4": "src/repro_torch/csrc/int8_matmul_msr4.cu",
 }
 # the kernels each driven path must launch
@@ -214,6 +225,22 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_ms(fn, iters: int) -> float:
+    """The host's time to issue one call of ``fn`` (its wrapper's Python,
+    allocations and launches; the card may still be busy), after a
+    warm-up: ``perf_counter`` around ``iters`` calls, then a
+    synchronize outside the timing."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = (time.perf_counter() - t0) / iters * 1e3
+    torch.cuda.synchronize()
+    return t
+
+
 def device_ms(fn, iters: int):
     """Device time per call of everything ``fn`` launches, from
     ``torch.profiler`` (kernel execution only: no host issue gaps); None
@@ -276,15 +303,21 @@ def record(rows, name, case, got, want, kernel, plain, nbytes, ops,
         rows[name] = row
 
 
-def k1_plan(m: int, n: int, k: int) -> str:
-    """K1's launch for an (m, k) x (k, n) product on this card."""
+def k1_plan(m: int, n: int, k: int, packed: bool = False, x8=None,
+            w=None) -> str:
+    """K1's launch for an (m, k) x (k, n) product on this card (with the
+    operands, their alignment picks the decode tile's route)."""
     import torch
     from repro_torch.kernels.int8_matmul import TILES, launch_plan
     p = launch_plan(m, n, k,
-                    torch.cuda.get_device_properties(0).multi_processor_count)
+                    torch.cuda.get_device_properties(0).multi_processor_count,
+                    packed, 0 if x8 is None else x8.data_ptr(),
+                    0 if w is None else w.data_ptr())
+    if p.tile == 0:
+        return (f"decode {p.route} 16x{p.bn} cluster={p.cluster} "
+                f"k_per_rank={p.k_per_split} blocks={p.grid[0] * p.cluster}")
     bm, bn, _ = TILES[p.tile]
-    return (f"{'dp4a' if p.tile == 0 else 'mma'} {bm}x{bn} "
-            f"splits={p.grid[2]}")
+    return f"mma {bm}x{bn} splits={p.grid[2]}"
 
 
 def k5_plan(q8, k8, causal: bool, window: int, plan) -> str:
@@ -403,13 +436,14 @@ def check_kernels(cfg, plans):
     d, f, v = cfg.d_model, cfg.d_ff, cfg.padded_vocab()
     hd, h, hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
 
-    # K1: every projection of a layer, at decode (M=4) and chunk (M=128)
+    # K1: every projection of a layer, at decode (M = 4 and 16: the
+    # decode tile) and chunk (M = 128: the tensor-core tiles)
     mm_cases = [("wq", d, h * hd, plans.attn.qkv),
                 ("wk", d, hkv * hd, plans.attn.qkv),
                 ("w1", d, f, plans.ffn.up),
                 ("w2", f, d, plans.ffn.down),
                 ("wo", h * hd, d, plans.attn.out)]
-    for m in (4, 128):
+    for m in (4, 16, 128):
         x_cache = {}
         for tag, k, n, lp in mm_cases:
             x8 = x_cache.setdefault(k, _randint(gen, -127, 128, (m, k),
@@ -425,7 +459,7 @@ def check_kernels(cfg, plans):
                    lambda: int8_matmul(x8, w8, spec, b_vec=b_vec),
                    lambda: int8_matmul_plain(x8, w8, spec, b_vec=b_vec),
                    m * k + k * n + 4 * n + out_b * m * n, 2 * m * k * n,
-                   plan=k1_plan(m, n, k))
+                   plan=k1_plan(m, n, k, x8=x8, w=w8))
         # per-tensor epilogue with a bias (not on the llama path; the
         # epilogue form the kernel must still get exactly right)
         x8 = x_cache[d]
@@ -439,7 +473,7 @@ def check_kernels(cfg, plans):
                got, want, lambda: int8_matmul(x8, w8, spec, bias32=bias),
                lambda: int8_matmul_plain(x8, w8, spec, bias32=bias),
                m * d + d * d + 4 * d + m * d, 2 * m * d * d,
-               plan=k1_plan(m, d, d))
+               plan=k1_plan(m, d, d, x8=x8, w=w8))
         # the raw logits head
         w8 = _randint(gen, -127, 128, (d, v), torch.int8)
         raw = RequantSpec.raw()
@@ -450,7 +484,7 @@ def check_kernels(cfg, plans):
                lambda: int8_matmul_plain(x8, w8, raw),
                m * d + d * v + 4 * m * v, 2 * m * d * v,
                lib_ms=int_mm_ms(x8, w8), rep=(m == 4), iters=10,
-               plan=k1_plan(m, v, d))
+               plan=k1_plan(m, v, d, x8=x8, w=w8))
         del w8
 
     # K2: RMSNorm rows of the residual stream
@@ -703,7 +737,7 @@ def check_packed_matmul_kernels(cfg, plans, rows) -> None:
                lambda: int8_matmul_nibbles_plain(x8, qw.w_packed, nspec,
                                                  bias, bvec),
                nb, no, rep=rep_nib, iters=iters, plain_iters=2,
-               plan=k1_plan(m, n, k))
+               plan=k1_plan(m, n, k, True, x8, qw.w_packed))
         if meta.scheme == "msr4":
             acc = got
             got = msr4_correct(acc, x8, qw, spec)
@@ -727,10 +761,10 @@ def check_packed_matmul_kernels(cfg, plans, rows) -> None:
                 raise AssertionError(f"int8_matmul_packed {tag}: != the "
                                      f"dense product (max |diff| {err})")
 
-    # llama3-8b's shapes
-    for tag, k, n, lp, ms in (("w1", d, f, plans.ffn.up, (4, 128)),
-                              ("w2", f, d, plans.ffn.down, (4,)),
-                              ("head raw", d, v, None, (4, 128))):
+    # llama3-8b's shapes (M = 4 and 16: the decode tile)
+    for tag, k, n, lp, ms in (("w1", d, f, plans.ffn.up, (4, 16, 128)),
+                              ("w2", f, d, plans.ffn.down, (4, 16)),
+                              ("head raw", d, v, None, (4, 16, 128))):
         w8 = _q_weights(gen, k, n)
         spec = raw if lp is None else RequantSpec.for_linear(lp)
         b_vec = None if lp is None else _randint(gen, 256, 4096, (n,),
@@ -740,13 +774,14 @@ def check_packed_matmul_kernels(cfg, plans, rows) -> None:
             x8 = _randint(gen, -127, 128, (m, k), torch.int8)
             both(tag, x8, qw, spec, rep_corr=(tag == "w1" and m == 4),
                  dense=w8, iters=10 if tag.startswith("head") else 20,
-                 yardstick=True)
+                 yardstick=m != 16)
         del w8, qw
         if tag == "w1":
             w4 = _randint(gen, -7, 8, (k, n), torch.int8)
             q4 = _packed(w4, "int4", b_vec=b_vec)
-            x8 = _randint(gen, -127, 128, (4, k), torch.int8)
-            both("w1", x8, q4, spec, rep_nib=True, dense=w4)
+            for m in (4, 16):
+                x8 = _randint(gen, -127, 128, (m, k), torch.int8)
+                both("w1", x8, q4, spec, rep_nib=m == 4, dense=w4)
             del w4, q4
     # the edges
     pt = RequantSpec.per_tensor(fit_dyadic(1 / 3000.0, 1 << 26))
@@ -807,6 +842,67 @@ def check_packed_matmul_kernels(cfg, plans, rows) -> None:
                 raise AssertionError(f"msr4 g={g} n_out={want_out}: packed "
                                      f"!= dense (max |diff| {err})")
     check_msr4_route_edges(gen, rows, pc)
+
+
+def check_k1_decode(cfg, wcfg, plans, wplans) -> None:
+    """The ``k1-decode`` phase: K1's decode rows alone, every llama3-8b
+    and h2o-danube-3-4b decode projection at M = 4 and 16 (dense with its
+    epilogue; llama's per-tensor + bias and raw heads; the nibble launch
+    of int4 w1, fused, and of msr4 w1 / w2 / head, raw), each held exact
+    against its plain version, then its device ms (profiler), call ms
+    (CUDA events) and host ms (the wrapper's issue time a call).  It
+    calls only the wrappers and their plain versions, so the same script
+    times another tree's kernels on the same seeded operands (an A/B of
+    two commits in one call)."""
+    import torch
+    from repro_torch.core.dyadic import fit_dyadic
+    from repro_torch.kernels.int8_matmul import (
+        int8_matmul, int8_matmul_nibbles, int8_matmul_nibbles_plain,
+        int8_matmul_plain)
+    from repro_torch.ops.spec import RequantSpec
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    raw = RequantSpec.raw()
+    rows = {}
+    for arch, c, pl in (("llama3-8b", cfg, plans), ("h2o", wcfg, wplans)):
+        d, f, v = c.d_model, c.d_ff, c.padded_vocab()
+        hd, h, hkv = c.hd, c.n_heads, c.n_kv_heads
+        cases = [("wq", d, h * hd, RequantSpec.for_linear(pl.attn.qkv)),
+                 ("wk", d, hkv * hd, RequantSpec.for_linear(pl.attn.qkv)),
+                 ("w1", d, f, RequantSpec.for_linear(pl.ffn.up)),
+                 ("w2", f, d, RequantSpec.for_linear(pl.ffn.down)),
+                 ("wo", h * hd, d, RequantSpec.for_linear(pl.attn.out)),
+                 ("head raw", d, v, raw)]
+        if arch == "llama3-8b":
+            cases.insert(5, ("per-tensor+bias", d, d, RequantSpec.per_tensor(
+                fit_dyadic(1 / 3000.0, d * 127 * 127), out_bits=8)))
+            cases += [("int4 w1 nibbles", d, f,
+                       RequantSpec.for_linear(pl.ffn.up)),
+                      ("msr4 w1 raw nibbles", d, f, raw),
+                      ("msr4 w2 raw nibbles", f, d, raw),
+                      ("msr4 head raw nibbles", d, v, raw)]
+        for tag, k, n, spec in cases:
+            nib = "nibbles" in tag
+            w = _randint(gen, -128, 128, (k // 2 if nib else k, n),
+                         torch.int8)
+            b_vec = (_randint(gen, 256, 4096, (n,), torch.int32)
+                     if spec.kind == "per_channel" else None)
+            bias = (_randint(gen, -5000, 5000, (n,), torch.int32)
+                    if "bias" in tag else None)
+            fn, plain = ((int8_matmul_nibbles, int8_matmul_nibbles_plain)
+                         if nib else (int8_matmul, int8_matmul_plain))
+            out_b = 4 if spec.is_raw or spec.out_bits > 8 else 1
+            vecs = 4 * n * ((b_vec is not None) + (bias is not None))
+            for m in (4, 16):
+                x8 = _randint(gen, -127, 128, (m, k), torch.int8)
+                args = (x8, w, spec, bias, b_vec)
+                record(rows, "int8_matmul_packed" if nib else "int8_matmul",
+                       f"k1-decode {arch} {tag} M={m} K={k} N={n} "
+                       f"{spec.kind}", fn(*args), plain(*args),
+                       lambda: fn(*args), lambda: plain(*args),
+                       m * k + w.numel() + vecs + out_b * m * n,
+                       2 * m * k * n, iters=50, plain_iters=2,
+                       extra={"host_ms": host_ms(lambda: fn(*args), 50)})
+            del w
 
 
 def check_msr4_route_edges(gen, rows, pc) -> None:
@@ -1281,14 +1377,14 @@ def check_window_kernels(cfg, plans, rows) -> None:
     d, f, v = cfg.d_model, cfg.d_ff, cfg.padded_vocab()
     hd, h, hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
 
-    # K1: every projection of a layer at decode (M = 4) and M = 128
+    # K1: every projection of a layer at decode (M = 4 and 16) and M = 128
     mm_cases = [("wq", d, h * hd, plans.attn.qkv),
                 ("wk", d, hkv * hd, plans.attn.qkv),
                 ("w1", d, f, plans.ffn.up),
                 ("w2", f, d, plans.ffn.down),
                 ("wo", h * hd, d, plans.attn.out)]
     raw = RequantSpec.raw()
-    for m in (4, 128):
+    for m in (4, 16, 128):
         x_cache = {}
         for tag, k, n, lp in mm_cases:
             x8 = x_cache.setdefault(k, _randint(gen, -127, 128, (m, k),
@@ -1304,7 +1400,7 @@ def check_window_kernels(cfg, plans, rows) -> None:
                    lambda: int8_matmul(x8, w8, spec, b_vec=b_vec),
                    lambda: int8_matmul_plain(x8, w8, spec, b_vec=b_vec),
                    m * k + k * n + 4 * n + out_b * m * n, 2 * m * k * n,
-                   plan=k1_plan(m, n, k))
+                   plan=k1_plan(m, n, k, x8=x8, w=w8))
         x8 = x_cache[d]
         w8 = _randint(gen, -127, 128, (d, v), torch.int8)
         record(rows, "int8_matmul", f"h2o head raw M={m} K={d} N={v}",
@@ -1312,7 +1408,8 @@ def check_window_kernels(cfg, plans, rows) -> None:
                lambda: int8_matmul(x8, w8, raw),
                lambda: int8_matmul_plain(x8, w8, raw),
                m * d + d * v + 4 * m * v, 2 * m * d * v,
-               lib_ms=int_mm_ms(x8, w8), iters=10, plan=k1_plan(m, v, d))
+               lib_ms=int_mm_ms(x8, w8), iters=10,
+               plan=k1_plan(m, v, d, x8=x8, w=w8))
         del w8, x_cache
 
     # K2: RMSNorm rows of the residual stream
@@ -2278,7 +2375,9 @@ def profile_prefill(eng, cfg, k4: str = "int_paged_prefill", phase=None):
 def profile_window(phase, what, fn, units=None, focus=None):
     """torch.profiler over ``fn``: the device's busy share of the wall
     time and the device time by kernel.  ``units``: a callable giving the
-    count of steps the window ran (device and wall ms a step are added);
+    count of steps the window ran (device and wall ms a step, device
+    kernel calls a step and the ``FillFunctor`` calls among them, i.e.
+    ``torch.zeros`` / ``fill_``, are added);
     ``focus``: ``(names, launches)``, the kernel-name fragments of one
     kernel and a callable giving its launches in the window; its device
     ms, its calls as the profiler saw them and its launches are added,
@@ -2307,8 +2406,14 @@ def profile_window(phase, what, fn, units=None, focus=None):
     extra = {}
     if units is not None:
         n = units()
+        calls = sum(r[2] for r in rows)
+        fills = sum(r[2] for r in rows if "FillFunctor" in r[0])
         extra = {"steps": n, "wall_ms_per_step": wall_ms / max(n, 1),
                  "device_ms_per_step": busy_ms / max(n, 1) if rows
+                 else None,
+                 "kernel_calls_per_step": calls / max(n, 1) if rows
+                 else None,
+                 "fill_calls_per_step": fills / max(n, 1) if rows
                  else None}
     mismatch = None
     if focus is not None and rows:
@@ -2332,9 +2437,10 @@ def profile_window(phase, what, fn, units=None, focus=None):
 
 
 # the kernels that must run on the int8 tensor cores with no spill: every
-# instantiation of K5's, K4's, K8's and the MSR-4 correction's
-# tensor-core route
-TENSOR_CORE_KERNELS = ("int_attention_mma_kernel",
+# instantiation of K1's decode tile, K5's, K4's, K8's and the MSR-4
+# correction's tensor-core route
+TENSOR_CORE_KERNELS = ("int8_matmul_decode_kernel",
+                       "int_attention_mma_kernel",
                        "int_paged_prefill_mma_kernel",
                        "int_paged_prefill_kv4_kernel",
                        "int_attention_online_kernel",
@@ -2344,7 +2450,7 @@ TENSOR_CORE_KERNELS = ("int_attention_mma_kernel",
 # K1's instantiations (dense and packed, both paths) and the MSR-4
 # correction's gather route: no spill, and K1's tensor-core tiles on the
 # tensor cores
-NO_SPILL_KERNELS = ("int8_matmul_kernel", "int8_matmul_mma_kernel",
+NO_SPILL_KERNELS = ("int8_matmul_decode_kernel", "int8_matmul_mma_kernel",
                     "msr4_correct_kernel")
 
 
@@ -2449,6 +2555,9 @@ def main(argv=None) -> int:
         wcfg = window_config()
         check_window_kernels(wcfg, qplans.build_layer_plans(wcfg), rows)
         check_packed_matmul_kernels(cfg, plans, rows)
+    if "k1-decode" in phases:
+        wcfg = window_config()
+        check_k1_decode(cfg, wcfg, plans, qplans.build_layer_plans(wcfg))
     if "parity" in phases:
         phase_parity(cfg)
     if "serve" in phases:

@@ -6,14 +6,8 @@
 // shares with the reference and with K3/K4's folded o-projection.
 //
 // Two paths, chosen by the wrapper from the shape (kernels/int8_matmul.py
-// ::launch_plan):
-//
-// * Design, M <= 16 (decode, M = batch): a __dp4a tile of 4 x 256.  A decode
-//   GEMM streams a whole weight matrix for a handful of rows, so it is
-//   bound by device-memory bytes (w1: 58.7 MB, 17.5 us at 3.35 TB/s) and
-//   the CUDA cores' int8 rate is not the limit.  Weight rows are read as
-//   4-byte words along N and transposed with __byte_perm into "4 K values
-//   of one column" words, so one __dp4a does four multiply-adds.
+// ::launch_plan): M <= 16 (decode, M = batch) is the TMA-fed tile of
+// int8_matmul_decode.cu; this file holds the tiles of M > 16:
 //
 // * Design, M > 16 (prefill chunks M = 128, encoder passes M = 16 384,
 //   heads): mma.sync.m16n8k32 s8 x s8 -> s32 on the int8 tensor cores.  At
@@ -31,7 +25,7 @@
 //       (sixteen threads cover a 128-byte row, so every thread of the
 //       block has one 4-row x 8-byte unit), byte-transposed with
 //       __byte_perm into the same "4 K values of one column" words as the
-//       __dp4a path, and stored into the other of two sw buffers after
+//       decode tile's, and stored into the other of two sw buffers after
 //       the current step's products.  Those words are exactly mma's .col
 //       B fragments, and the X words sx[m][k/4] exactly its .row A
 //       fragments, so neither operand is reshuffled again.
@@ -70,7 +64,7 @@
 // copy would change the weight layout shared with the reference, or
 // double weight memory; that is a later change (ROADMAP).
 //
-// Both paths split K across blocks (grid.z) when the output tiles cover
+// The tiles split K across blocks (grid.z) when the output tiles cover
 // fewer than about two waves of SMs: each split adds its partial tile
 // into an int32 workspace with atomicAdd and the last split to arrive (a
 // per-tile counter) runs the epilogue on the full sum.  Integer addition
@@ -82,17 +76,16 @@
 //
 // Packed weights (int8_matmul_pallas's packed=True: QuantLinearParams.
 // w_packed, int4 nibble pairs (K/2, N), K row 2i in the low nibble of byte
-// row i) are the PACKED instantiation of both paths, a template argument
+// row i) are the PACKED instantiation of the tiles, a template argument
 // (a run-time branch cost 5-6 % in K3).  Only the W loads change: byte
 // rows 2kk and 2kk + 1 of a column hold exactly K rows 4kk..4kk+3, so the
 // two bytes b0 | b1 << 8 expand (unpack_kv4 at shift 0: one byte permute
 // and a bytewise sign extension) straight into the "4 K values of one
 // column" word, with no 4x4 transpose; a load unit reads half the bytes.
 // The K range of a split is a multiple of BK, so every byte row is whole;
-// where K / 2 is odd, the byte row past kend / 2 loads as zero.  A decode
-// GEMM over nibbles is bound by half the weight bytes of int8 (w1: 29.4
-// MB, 8.8 us at 3.35 TB/s).  MSR-4's outlier lanes are not applied here:
-// a raw launch feeds csrc/int8_matmul_msr4.cu.
+// where K / 2 is odd, the byte row past kend / 2 loads as zero.  MSR-4's
+// outlier lanes are not applied here: a raw launch feeds
+// csrc/int8_matmul_msr4.cu.
 //
 // Epilogue (exactly _requant_tile), in registers: acc + bias, then raw
 // int32 out, or the two-stage round-half-up dyadic (per-tensor b, or
@@ -115,158 +108,6 @@ __device__ __forceinline__ int load_x_pack(const int8_t* __restrict__ x,
     if (k + j < kend) v |= ((int)(uint8_t)p[j]) << (8 * j);
   return v;
 }
-
-// four w[k][n..n+3] bytes as one word, zero past kend / N
-__device__ __forceinline__ int load_w_word(const int8_t* __restrict__ w,
-                                           int N, int kend, int k, int n,
-                                           bool vec) {
-  if (k >= kend || n >= N) return 0;
-  const int8_t* p = w + (size_t)k * N + n;
-  if (vec && n + 3 < N) return *reinterpret_cast<const int*>(p);
-  int v = 0;
-  for (int j = 0; j < 4; ++j)
-    if (n + j < N) v |= ((int)(uint8_t)p[j]) << (8 * j);
-  return v;
-}
-
-// two byte rows' words (4 columns each) of packed nibbles -> the 4
-// columns' "4 K values of one column" words: column j's bytes b0 (K rows
-// k, k + 1) and b1 (k + 2, k + 3) side by side, then expanded
-__device__ __forceinline__ int4 expand_w4(unsigned p0, unsigned p1) {
-  const uint2 c01 = unpack_kv4x2(__byte_perm(p0, p1, 0x5140), 0);
-  const uint2 c23 = unpack_kv4x2(__byte_perm(p0, p1, 0x7362), 0);
-  return make_int4((int)c01.x, (int)c01.y, (int)c23.x, (int)c23.y);
-}
-
-template <int BM, int BN, int BK, int TM, int TN, bool PACKED>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
-int8_matmul_kernel(const int8_t* __restrict__ x,
-                   const int8_t* __restrict__ w,
-                   const int* __restrict__ bias,
-                   const int* __restrict__ bvec, Requant rq,
-                   void* __restrict__ out, int out_is_int8, int M, int N,
-                   int K, int k_per_split, int* __restrict__ ws,
-                   int* __restrict__ tile_count, int vec_x, int vec_w) {
-  constexpr int NT = (BM / TM) * (BN / TN);
-  constexpr int BK4 = BK / 4;
-  __shared__ int sx[BM][BK4 + 1];
-  __shared__ __align__(16) int sw[BK4][BN];
-  __shared__ int is_last;
-
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN);
-  const int ty = tid / (BN / TN);
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int kbeg = blockIdx.z * k_per_split;
-  const int kend = min(K, kbeg + k_per_split);
-
-  int acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0;
-
-  for (int k0 = kbeg; k0 < kend; k0 += BK) {
-    for (int i = tid; i < BM * BK4; i += NT) {
-      const int r = i / BK4, kk = i % BK4;
-      sx[r][kk] = load_x_pack(x, M, K, kend, m0 + r, k0 + 4 * kk, vec_x);
-    }
-    for (int i = tid; i < BK4 * (BN / 4); i += NT) {
-      const int kk = i / (BN / 4), nn = i % (BN / 4);
-      const int k = k0 + 4 * kk, n = n0 + 4 * nn;
-      if constexpr (PACKED) {
-        // byte rows k / 2 and k / 2 + 1 hold K rows k..k+3 (k0 is even)
-        const int4 c = expand_w4(
-            (unsigned)load_w_word(w, N, kend / 2, k / 2, n, vec_w),
-            (unsigned)load_w_word(w, N, kend / 2, k / 2 + 1, n, vec_w));
-        *reinterpret_cast<int4*>(&sw[kk][4 * nn]) = c;
-        continue;
-      }
-      const int r0 = load_w_word(w, N, kend, k + 0, n, vec_w);
-      const int r1 = load_w_word(w, N, kend, k + 1, n, vec_w);
-      const int r2 = load_w_word(w, N, kend, k + 2, n, vec_w);
-      const int r3 = load_w_word(w, N, kend, k + 3, n, vec_w);
-      // 4x4 byte transpose: column j's pack holds w[k+0..3][n+j]
-      const int lo01 = __byte_perm(r0, r1, 0x5140);
-      const int lo23 = __byte_perm(r2, r3, 0x5140);
-      const int hi01 = __byte_perm(r0, r1, 0x7362);
-      const int hi23 = __byte_perm(r2, r3, 0x7362);
-      sw[kk][4 * nn + 0] = __byte_perm(lo01, lo23, 0x5410);
-      sw[kk][4 * nn + 1] = __byte_perm(lo01, lo23, 0x7632);
-      sw[kk][4 * nn + 2] = __byte_perm(hi01, hi23, 0x5410);
-      sw[kk][4 * nn + 3] = __byte_perm(hi01, hi23, 0x7632);
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < BK4; ++kk) {
-      int a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = sx[ty + i * (BM / TM)][kk];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = sw[kk][tx * TN + j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  if (gridDim.z > 1) {
-    // split-K: add this split's partial tile, the last split finishes
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int m = m0 + ty + i * (BM / TM);
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int n = n0 + tx * TN + j;
-        if (m < M && n < N) atomicAdd(&ws[(size_t)m * N + n], acc[i][j]);
-      }
-    }
-    __threadfence();
-    __syncthreads();
-    if (tid == 0) {
-      const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-      is_last = atomicAdd(&tile_count[tile], 1) == (int)gridDim.z - 1;
-    }
-    __syncthreads();
-    if (!is_last) return;
-    __threadfence();
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int m = m0 + ty + i * (BM / TM);
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int n = n0 + tx * TN + j;
-        if (m < M && n < N) acc[i][j] = __ldcg(&ws[(size_t)m * N + n]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty + i * (BM / TM);
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx * TN + j;
-      if (n >= N) continue;
-      int v = acc[i][j];
-      if (bias != nullptr) v = wadd(v, bias[n]);
-      if (rq.kind != RQ_RAW) {
-        const int b = rq.kind == RQ_PER_CHANNEL ? bvec[n] : rq.b;
-        v = requant(v, rq, b);
-      }
-      const size_t o = (size_t)m * N + n;
-      if (out_is_int8)
-        reinterpret_cast<int8_t*>(out)[o] = (int8_t)v;
-      else
-        reinterpret_cast<int*>(out)[o] = v;
-    }
-  }
-}
-
 
 namespace tc {
 
@@ -546,9 +387,6 @@ int launch(const void* x, const void* w, const void* bias, const void* bvec,
 }  // namespace tc
 }  // namespace r8
 
-// the M <= 16 __dp4a tile (decode: M = batch)
-#define R8_SMALL 4, 256, 64, 1, 4
-
 namespace r8 {
 template <bool PACKED>
 int launch_all(const void* x, const void* w, const void* bias,
@@ -564,19 +402,13 @@ int launch_all(const void* x, const void* w, const void* bias,
     return tc::launch<128, PACKED>(x, w, bias, bvec, rq, out, out_is_int8, M,
                                    N, K, splits, k_per_split, ws, tile_count,
                                    vec_x, vec_w, s);
-  if (tile != 0) return (int)cudaErrorInvalidValue;
-  dim3 grid((N + 255) / 256, (M + 3) / 4, splits);
-  int8_matmul_kernel<R8_SMALL, PACKED><<<grid, 256, 0, s>>>(
-      (const int8_t*)x, (const int8_t*)w, (const int*)bias,
-      (const int*)bvec, rq, out, out_is_int8, M, N, K, k_per_split,
-      (int*)ws, (int*)tile_count, vec_x, vec_w);
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }
 }  // namespace r8
 
-// tile: 0 the __dp4a tile (M <= 16), 1 the 64 x 128 and 2 the 128 x 128
-// tensor-core tiles (kernels/int8_matmul.py::launch_plan); packed: w is
-// (K / 2, N) int4 nibble pairs
+// tile: 1 the 64 x 128 and 2 the 128 x 128 tensor-core tiles (M > 16;
+// kernels/int8_matmul.py::launch_plan; M <= 16 is int8_matmul_decode.cu's);
+// packed: w is (K / 2, N) int4 nibble pairs
 extern "C" int r8_int8_matmul(const void* x, const void* w, const void* bias,
                               const void* bvec, const r8::Requant* rq,
                               void* out, int out_is_int8, int M, int N,

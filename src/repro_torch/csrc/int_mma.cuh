@@ -1,5 +1,5 @@
 // Tensor-core and async-copy helpers shared by the int8 kernels on
-// mma.sync: K1's M > 16 tiles (int8_matmul.cu), K5 and K4
+// mma.sync: K1's tiles (int8_matmul.cu, int8_matmul_decode.cu), K5 and K4
 // (int_attention_mma.cuh) and K8 (int_attention_online.cu).
 //
 // mma.sync.m16n8k32 .s8 fragments (PTX ISA; g = lane / 4, t = lane % 4):
@@ -12,6 +12,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "int_common.cuh"
 
 namespace r8 {
 namespace tc {
@@ -77,6 +79,16 @@ __device__ __forceinline__ int4 transpose4(unsigned r0, unsigned r1,
                    (int)__byte_perm(lo01, lo23, 0x7632),
                    (int)__byte_perm(hi01, hi23, 0x5410),
                    (int)__byte_perm(hi01, hi23, 0x7632));
+}
+
+// two byte rows' words (4 columns each) of packed int4 nibbles (K row 2i
+// in the low nibble of byte row i) -> the 4 columns' "4 K values of one
+// column" words: column j's byte of p0 (K rows 2 r0, 2 r0 + 1) and of p1
+// (2 r1, 2 r1 + 1) side by side, then expanded (unpack_kv4 at shift 0)
+__device__ __forceinline__ int4 expand_w4(unsigned p0, unsigned p1) {
+  const uint2 c01 = unpack_kv4x2(__byte_perm(p0, p1, 0x5140), 0);
+  const uint2 c23 = unpack_kv4x2(__byte_perm(p0, p1, 0x7362), 0);
+  return make_int4((int)c01.x, (int)c01.y, (int)c23.x, (int)c23.y);
 }
 
 }  // namespace tc

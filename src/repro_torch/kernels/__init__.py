@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels of the serving, encoder and ``pallas``-backend
 paths, and their oracles.
 
-  * K1 ``int8_matmul.int8_matmul``                     (csrc/int8_matmul.cu)
+  * K1 ``int8_matmul.int8_matmul``                     (csrc/int8_matmul.cu;
+                               M <= 16: csrc/int8_matmul_decode.cu)
 
     (K1 over packed int4 / MSR-4 weights, ``int8_matmul.int8_matmul_packed``,
     launches its nibble instantiation, counted as ``int8_matmul_packed``,

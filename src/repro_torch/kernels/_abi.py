@@ -107,11 +107,28 @@ class Msr4MmaArgs(ctypes.Structure):
         "lc", "sp", "x_vec", "idx_vec", "val_vec")]
 
 
+class DecodeArgs(ctypes.Structure):
+    """``csrc/int8_matmul_decode.cu``'s ``dec::Args`` (K1's M <= 16
+    tile)."""
+    _fields_ = ([(n, _P) for n in ("x", "w", "bias", "bvec", "out")]
+                + [("rq", Requant)]
+                + [(n, _I) for n in ("out_is_int8", "M", "N", "K",
+                                     "k_per_split", "use_tma", "vec_x",
+                                     "vec_w")])
+
+
 def declare(lib: ctypes.CDLL) -> None:
     lib.r8_int8_matmul.argtypes = [
         _P, _P, _P, _P, ctypes.POINTER(Requant), _P, _I, _I, _I, _I, _I,
         _I, _I, _P, _P, _I, _I, _I, _P]
     lib.r8_int8_matmul.restype = _I
+    lib.r8_int8_matmul_decode.argtypes = [ctypes.POINTER(DecodeArgs), _P,
+                                          _P, _I, _I, _I, _P]
+    lib.r8_int8_matmul_decode.restype = _I
+    lib.r8_tensor_map_2d.argtypes = [_P, _P, ctypes.c_ulonglong,
+                                     ctypes.c_ulonglong, ctypes.c_uint,
+                                     ctypes.c_uint, _I]
+    lib.r8_tensor_map_2d.restype = _I
     lib.r8_int8_matmul_msr4.argtypes = [ctypes.POINTER(Msr4Args), _I, _I,
                                         _I, _P]
     lib.r8_int8_matmul_msr4.restype = _I

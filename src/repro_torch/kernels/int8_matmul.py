@@ -2,8 +2,11 @@
 dense int8 or packed int4 / MSR-4 weights.
 
 The port of ``repro/kernels/int8_matmul.py::int8_matmul_pallas`` (both its
-dense and its ``packed=True`` variant); the CUDA kernel is
-``csrc/int8_matmul.cu``, its nibble layout a template argument.  MSR-4
+dense and its ``packed=True`` variant); the CUDA kernels are
+``csrc/int8_matmul_decode.cu`` for M <= 16 (decode: a TMA-fed ring, the
+int8 tensor cores, K split across a thread block cluster with no
+workspace) and ``csrc/int8_matmul.cu`` beyond, the nibble layout a
+template argument of both (:func:`launch_plan` chooses).  MSR-4
 weights take a raw packed launch plus the outlier-correction kernel of
 ``csrc/int8_matmul_msr4.cu``, which also runs the staged epilogue (the
 split of ``repro/ops/backends/pallas_fused.py:118-134``).  Beside each
@@ -14,6 +17,7 @@ wrapper its plain PyTorch version with the same arithmetic:
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -26,10 +30,21 @@ from repro_torch.ops.packed import (msr4_correction, nibble_unpack,
                                     unpack_weights)
 from repro_torch.ops.spec import PER_TENSOR, RequantSpec
 
-#: (BM, BN, BK) of the tiles compiled into csrc/int8_matmul.cu, by id:
-#: 0 the __dp4a tile of M <= SMALL_M_MAX, 1 and 2 the tensor-core tiles
-TILES = {0: (4, 256, 64), 1: (64, 128, 64), 2: (128, 128, 64)}
+#: (BM, BN, BK) of the tensor-core tiles compiled into csrc/int8_matmul.cu
+#: by id (M > SMALL_M_MAX); id 0 is the decode tile of
+#: csrc/int8_matmul_decode.cu (M <= SMALL_M_MAX, :func:`decode_plan`)
+TILES = {1: (64, 128, 64), 2: (128, 128, 64)}
 SMALL_M_MAX = 16
+
+#: the decode tile: rows a block (all of M); the weight tile rows a ring
+#: stage (K rows, or byte rows of packed nibbles); the bytes of an x box
+#: (16 rows x 128 K); cluster sizes (blocks splitting K)
+DECODE_BM = 16
+DECODE_ROWS = 128
+DECODE_XBOX = DECODE_BM * 128
+DECODE_CLUSTERS = (1, 2, 4, 8)
+#: the rows of a k32 step that lane t reads for its b0 (b1: ^ 1), plus 8 r
+DECODE_ROW_BASE = (0, 4, 3, 7)
 
 
 def _out_dtype(spec) -> torch.dtype:
@@ -53,6 +68,24 @@ def int8_matmul_plain(x8, w8, spec, bias32=None, b_vec=None):
                            b_vec)
 
 
+def decode_stages(bn: int) -> int:
+    """Stages of the decode tile's ring: 64 KB of weights either way."""
+    return 4 if bn == 128 else 8
+
+
+def decode_k_step(packed: bool) -> int:
+    """K a ring stage covers: 128 rows, or 256 for packed nibbles (128
+    byte rows)."""
+    return 2 * DECODE_ROWS if packed else DECODE_ROWS
+
+
+def decode_smem(bn: int, packed: bool) -> int:
+    """Dynamic shared memory of the decode tile: the ring's weight tiles
+    and x boxes, plus 1 KB to align it to 1024 bytes."""
+    return (decode_stages(bn) * (DECODE_ROWS * bn
+                                 + DECODE_BM * decode_k_step(packed)) + 1024)
+
+
 def _split_k(tiles: int, k: int, bk: int, sms: int):
     """Split K across blocks until the grid covers the SMs about twice;
     every split keeps at least 4 K-steps.  Returns (splits, k_per_split)."""
@@ -65,32 +98,116 @@ def _split_k(tiles: int, k: int, bk: int, sms: int):
 
 
 class LaunchPlan(NamedTuple):
-    """One K1 launch: the tile (a key of :data:`TILES`), the grid
-    ``(N tiles, M tiles, splits)``, the K range of each split, and the
-    alignment (bytes) that K or N and the operand's address need for the
-    kernel's vector copies of x and w (else it takes scalar masked
-    loads)."""
+    """One K1 launch: the tile (0 the decode tile, else a key of
+    :data:`TILES`), the grid ``(N tiles, M tiles, splits)`` (decode: the
+    splits are a cluster), the K range of each split, and the alignment
+    (bytes) that K or N and the operand's address need for the vector
+    copies of x and w (decode: for the TMA route).  Decode only: the
+    route (``"tma"``, or ``"copy"`` where a tensor map cannot describe an
+    operand), BN, the cluster size and the dynamic shared memory; the
+    tensor-core tiles have route ``"mma"``."""
     tile: int
     grid: tuple
     k_per_split: int
     x_align: int
     w_align: int
+    route: str = "mma"
+    bn: int = 128
+    cluster: int = 1
+    smem: int = 0
 
 
-def launch_plan(m: int, n: int, k: int, sms: int) -> LaunchPlan:
+def decode_plan(m: int, n: int, k: int, sms: int, packed: bool = False,
+                x_addr: int = 0, w_addr: int = 0) -> LaunchPlan:
+    """The decode tile's launch (m <= SMALL_M_MAX) from the shape and the
+    operands' addresses alone.
+
+    BN (128 or 64 columns a block) and the cluster size C (1, 2, 4 or 8
+    blocks splitting K) give ceil(n / BN) x C blocks: the pair with the
+    most blocks that still fit one wave of ``sms`` (one block an SM),
+    then the larger BN, then the smaller C; where ceil(n / 128) alone
+    fills the wave, BN 128 and C 1.  C never exceeds the K stages.
+    Each rank's K range is a whole number of stages (:func:`decode_k_step`
+    K); the last rank's may run past K (zero-filled), a rank past K has
+    none.  The route is ``"tma"`` where N and K are multiples of 16 and w
+    and x are 16-byte aligned (what a tensor map needs), else ``"copy"``
+    (the producer warp's masked loads into the same ring).  No route or
+    size is chosen from a build or a launch.
+
+    On the H100 (132 SMs): llama3-8b wq / wo (K 4096, N 4096): BN 128, C
+    4, 128 blocks; wk / wv (N 1024): BN 64, C 8, 128; w1 / w3 (N 14336):
+    BN 128, C 1, 112; w2 (K 14336, N 4096): BN 128, C 4, 128; the head (N
+    128256): BN 128, C 1, 1002.  h2o-danube-3-4b (d 3840): wq / wo (N
+    3840): BN 128, C 4, 120; wk / wv (N 960, a ragged last tile): BN 64,
+    C 8, 120; w1 / w3 (N 10240): BN 128, C 1, 80; w2 (K 10240, N 3840):
+    BN 128, C 4, 120; the head (N 32000): BN 128, C 1, 250.  Packed
+    weights take the same BN and C (the K stages halve)."""
+    bn, c, k_per = _decode_shape(n, k, sms, packed)
+    tma = (n % 16 == 0 and k % 16 == 0 and x_addr % 16 == 0
+           and w_addr % 16 == 0)
+    return LaunchPlan(0, (-(-n // bn), 1, c), k_per, 16, 16,
+                      "tma" if tma else "copy", bn, c,
+                      decode_smem(bn, packed))
+
+
+@functools.lru_cache(maxsize=4096)
+def _decode_shape(n: int, k: int, sms: int, packed: bool):
+    """(BN, cluster, K a rank) of :func:`decode_plan`, cached: a decode
+    step asks for the same few shapes 225 times."""
+    ks = decode_k_step(packed)
+    stages = -(-k // ks)
+    best = (0, 128, -1)
+    if -(-n // 128) < sms:
+        for bn in (128, 64):
+            for c in DECODE_CLUSTERS:
+                blocks = -(-n // bn) * c
+                if c <= stages and blocks <= sms:
+                    best = max(best, (blocks, bn, -c))
+    _, bn, neg_c = best
+    return bn, -neg_c, -(-stages // -neg_c) * ks
+
+
+def launch_plan(m: int, n: int, k: int, sms: int, packed: bool = False,
+                x_addr: int = 0, w_addr: int = 0) -> LaunchPlan:
     """The launch of an (m, k) x (k, n) product on a card of ``sms`` SMs:
-    the __dp4a tile for m <= SMALL_M_MAX, else the tensor cores, in
-    128 x 128 tiles where m > 64 and they fill the card, else 64 x 128."""
+    the decode tile for m <= SMALL_M_MAX (:func:`decode_plan`; ``packed``
+    and the operands' addresses choose its K stages and route), else the
+    tensor cores, in 128 x 128 tiles where m > 64 and they fill the card,
+    else 64 x 128, K split into a workspace (:func:`_split_k`)."""
     if m <= SMALL_M_MAX:
-        tile = 0
-    else:
-        full = -(-m // 128) * -(-n // 128)
-        tile = 2 if m > 64 and full >= sms else 1
+        return decode_plan(m, n, k, sms, packed, x_addr, w_addr)
+    full = -(-m // 128) * -(-n // 128)
+    tile = 2 if m > 64 and full >= sms else 1
     bm, bn, bk = TILES[tile]
     gx, gy = -(-n // bn), -(-m // bm)
     splits, k_per = _split_k(gx * gy, k, bk, sms)
-    x_align, w_align = (4, 4) if tile == 0 else (16, 8)
-    return LaunchPlan(tile, (gx, gy, splits), k_per, x_align, w_align)
+    return LaunchPlan(tile, (gx, gy, splits), k_per, 16, 8, "mma", bn)
+
+
+#: tensor maps by (address, inner, outer, box inner, box outer, swizzle),
+#: at most TMAP_CACHE of them: a decode step encodes none twice
+TMAP_CACHE = 4096
+_TMAPS: dict = {}
+
+
+def _tensor_map(lib, t, inner: int, outer: int, box_inner: int,
+                box_outer: int, swizzle: int):
+    """The 128-byte TMA descriptor of ``t`` as a 2-D (outer, inner) int8
+    array, from the cache or encoded (``cuTensorMapEncodeTiled``)."""
+    key = (t.data_ptr(), inner, outer, box_inner, box_outer, swizzle)
+    buf = _TMAPS.get(key)
+    if buf is None:
+        buf = ctypes.create_string_buffer(128)
+        rc = lib.r8_tensor_map_2d(buf, t.data_ptr(), inner, outer,
+                                  box_inner, box_outer, swizzle)
+        if rc:
+            raise RuntimeError(f"cuTensorMapEncodeTiled failed ({rc}) for "
+                               f"{outer} x {inner} bytes, box {box_outer} x "
+                               f"{box_inner}")
+        if len(_TMAPS) >= TMAP_CACHE:
+            _TMAPS.pop(next(iter(_TMAPS)))
+        _TMAPS[key] = buf
+    return buf
 
 
 def _check(what, dev, **tensors) -> None:
@@ -131,26 +248,57 @@ def _launch(what, x8, w, spec, bias32, b_vec, packed: bool):
     if k == 0:
         raise ValueError(f"{what}: empty contraction (K == 0)")
     sms = torch.cuda.get_device_properties(x8.device).multi_processor_count
-    plan = launch_plan(m, n, k, sms)
+    plan = launch_plan(m, n, k, sms, packed, x8.data_ptr(), w.data_ptr())
+    rq = _abi.requant_struct(spec)
+    lib = library()
+    bvec = b_vec if spec.kind != PER_TENSOR else None
+    if plan.tile == 0:
+        _decode_launch(what, lib, plan, x8, w, bias32, bvec, rq, out, dt,
+                       packed)
+        return out
     gx, gy, splits = plan.grid
     ws = cnt = None
     if splits > 1:
         ws = torch.zeros((m, n), dtype=torch.int32, device=x8.device)
         cnt = torch.zeros((gx * gy,), dtype=torch.int32, device=x8.device)
-    rq = _abi.requant_struct(spec)
-    lib = library()
     vec_x = int(k % plan.x_align == 0 and x8.data_ptr() % plan.x_align == 0)
     vec_w = int(n % plan.w_align == 0 and w.data_ptr() % plan.w_align == 0)
     rc = lib.r8_int8_matmul(
-        x8.data_ptr(), w.data_ptr(), _abi.ptr(bias32),
-        _abi.ptr(b_vec if spec.kind != PER_TENSOR else None),
+        x8.data_ptr(), w.data_ptr(), _abi.ptr(bias32), _abi.ptr(bvec),
         ctypes.byref(rq),
         out.data_ptr(), int(dt == torch.int8), m, n, k, plan.tile, splits,
         plan.k_per_split, _abi.ptr(ws), _abi.ptr(cnt), vec_x, vec_w,
         int(packed), _abi.stream_of(x8))
-    LAUNCHES["int8_matmul_packed" if packed else "int8_matmul"] += 1
+    LAUNCHES[what] += 1
     _abi.check(lib, rc, what)
     return out
+
+
+def _decode_launch(what, lib, plan, x8, w, bias32, bvec, rq, out, dt,
+                   packed) -> None:
+    """One launch of the decode tile by ``plan``: no workspace, one
+    kernel.  The TMA route passes the (cached) tensor maps of w (its rows
+    in boxes of 128 x BN bytes) and x (16 x 128 bytes); the copy route
+    none."""
+    from repro_torch.kernels import _abi
+    m, k = x8.shape
+    n = w.shape[1]
+    wmap = xmap = None
+    if plan.route == "tma":
+        wmap = _tensor_map(lib, w, n, w.shape[0], plan.bn, DECODE_ROWS,
+                           plan.bn)
+        xmap = _tensor_map(lib, x8, k, m, 128, DECODE_BM, 128)
+    args = _abi.DecodeArgs(
+        x8.data_ptr(), w.data_ptr(), _abi.ptr(bias32), _abi.ptr(bvec),
+        out.data_ptr(), rq, int(dt == torch.int8), m, n, k,
+        plan.k_per_split, int(plan.route == "tma"),
+        int(k % 4 == 0 and x8.data_ptr() % 4 == 0),
+        int(n % 4 == 0 and w.data_ptr() % 4 == 0))
+    rc = lib.r8_int8_matmul_decode(ctypes.byref(args), wmap, xmap, plan.bn,
+                                   plan.cluster, int(packed),
+                                   _abi.stream_of(x8))
+    LAUNCHES[what] += 1
+    _abi.check(lib, rc, what)
 
 
 def int8_matmul(x8, w8, spec, bias32=None, b_vec=None):

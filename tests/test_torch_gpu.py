@@ -97,6 +97,107 @@ def test_int8_matmul_kernel(dev, m, k, n, operands):
         assert torch.equal(got, int8_matmul_plain(x8, w8, spec, bias, bvec))
 
 
+# K1's decode tile (M <= 16): (K, N) whose plan on 132 SMs takes each
+# cluster size (1, 2, 4, 8; BN 64 for the last)
+_DECODE_CLUSTER_SHAPES = ((1024, 14336, 1), (512, 5120, 2), (1024, 4096, 4),
+                          (1024, 1024, 8))
+
+
+def _decode_specs():
+    from repro_torch.core.dyadic import fit_dyadic
+    return (RequantSpec.raw(), RequantSpec.per_channel(24, 10, 11),
+            RequantSpec.per_tensor(fit_dyadic(1 / 3000.0, 1 << 26)))
+
+
+@pytest.mark.parametrize("m", range(1, 17))
+def test_int8_matmul_decode_kernel(dev, m):
+    """The decode tile at every M from 1 to 16 on the TMA route, each
+    cluster size in turn (the plan's, checked on a 132-SM card), all
+    three epilogues with a bias."""
+    from repro_torch.kernels.int8_matmul import launch_plan
+    k, n, cluster = _DECODE_CLUSTER_SHAPES[m % 4]
+    rng = np.random.default_rng(100 + m)
+    x8, w8 = _i8(rng, (m, k), dev), _i8(rng, (k, n), dev)
+    x8[0, :5] = -128
+    bvec = _i32(rng, 256, 4096, (n,), dev)
+    bias = _i32(rng, -5000, 5000, (n,), dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    p = launch_plan(m, n, k, sms, False, x8.data_ptr(), w8.data_ptr())
+    assert (p.tile, p.route) == (0, "tma")
+    assert sms != 132 or p.cluster == cluster
+    for spec in _decode_specs():
+        before = kernels.LAUNCHES["int8_matmul"]
+        got = int8_matmul(x8, w8, spec, bias32=bias, b_vec=bvec)
+        assert kernels.LAUNCHES["int8_matmul"] == before + 1
+        assert torch.equal(got, int8_matmul_plain(x8, w8, spec, bias, bvec))
+
+
+@pytest.mark.parametrize("m,k,n,case", [
+    (4, 4096, 100, "n%16"), (16, 4096, 100, "n%16"), (5, 300, 96, "k%16"),
+    (16, 4096, 96, "w off 16"), (4, 4096, 96, "x off 16"),
+    (1, 3840, 960, "ragged tile"), (16, 3840, 960, "ragged tile"),
+    (16, 14336, 96, "min"), (16, 14336, 96, "max"),
+    (1, 14336, 4096, "min"), (16, 14336, 4096, "max")])
+def test_int8_matmul_decode_kernel_edges(dev, m, k, n, case):
+    """The decode tile where a tensor map cannot describe an operand (N
+    or K not a multiple of 16, w 8 or x 4 bytes off a 16-byte boundary:
+    the copy route), a ragged last tile of BN 64 (N 960), and every
+    operand -128 / +127 at the FFN-down depth (the largest sums), in all
+    three epilogues."""
+    from repro_torch.kernels.int8_matmul import launch_plan
+    rng = np.random.default_rng(m + k + n)
+    if case in ("min", "max"):
+        fill = -128 if case == "min" else 127
+        x8 = torch.full((m, k), fill, dtype=torch.int8, device=dev)
+        w8 = torch.full((k, n), fill, dtype=torch.int8, device=dev)
+    else:
+        x8, w8 = _i8(rng, (m, k), dev), _i8(rng, (k, n), dev)
+    if case == "w off 16":
+        w8 = _offset_view(w8, 8)
+    if case == "x off 16":
+        x8 = _offset_view(x8, 4)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    p = launch_plan(m, n, k, sms, False, x8.data_ptr(), w8.data_ptr())
+    copy = case in ("n%16", "k%16", "w off 16", "x off 16")
+    assert (p.tile, p.route) == (0, "copy" if copy else "tma")
+    bvec = _i32(rng, 256, 4096, (n,), dev)
+    bias = _i32(rng, -5000, 5000, (n,), dev)
+    for spec in _decode_specs():
+        got = int8_matmul(x8, w8, spec, bias32=bias, b_vec=bvec)
+        assert torch.equal(got, int8_matmul_plain(x8, w8, spec, bias, bvec))
+
+
+def test_decode_launch_allocates_no_workspace(dev, monkeypatch):
+    """A split decode launch (cluster 4, dense and packed) allocates no
+    workspace (``torch.zeros`` raises) and runs one device kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.int8_matmul import (int8_matmul_nibbles,
+                                                 int8_matmul_nibbles_plain)
+    rng = np.random.default_rng(7)
+    x8, w8 = _i8(rng, (4, 4096), dev), _i8(rng, (4096, 4096), dev)
+    raw = RequantSpec.raw()
+    want = int8_matmul_plain(x8, w8, raw)
+    want_p = int8_matmul_nibbles_plain(x8, w8[:2048], raw)
+    int8_matmul(x8, w8, raw)
+    int8_matmul_nibbles(x8, w8[:2048], raw)
+    torch.cuda.synchronize()
+
+    def refuse(*a, **kw):
+        raise AssertionError("torch.zeros in a decode launch")
+
+    monkeypatch.setattr(torch, "zeros", refuse)
+    for fn, w, ref in ((int8_matmul, w8, want),
+                       (int8_matmul_nibbles, w8[:2048], want_p)):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            got = fn(x8, w, raw)
+            torch.cuda.synchronize()
+        calls = sum(ev.count for ev in prof.key_averages()
+                    if ev.device_type == DeviceType.CUDA)
+        assert calls == 1
+        assert torch.equal(got, ref)
+
+
 @pytest.mark.parametrize("subtract_mean", [False, True])
 def test_int_layernorm_kernel(dev, subtract_mean):
     rng = np.random.default_rng(40)
@@ -912,6 +1013,41 @@ def test_packed_int8_matmul_kernel(dev, m, k, n, operands):
             assert kernels.LAUNCHES["int8_matmul"] == before["int8_matmul"]
             assert torch.equal(got, int8_matmul_plain(
                 x8, dense.w8, spec, dense.bias32, dense.b_mult)), (kind, spec)
+
+
+@pytest.mark.parametrize("m", [4, 16])
+@pytest.mark.parametrize("k,n,cluster", [(4096, 14336, 1), (512, 5120, 2),
+                                         (14336, 4096, 4), (4096, 1024, 8),
+                                         (3840, 960, 8)])
+def test_packed_decode_kernel(dev, m, k, n, cluster):
+    """The decode tile's nibble instantiation at M 4 and 16 against its
+    plain version, each cluster size (the plan's on a 132-SM card), every
+    epilogue; and every nibble -8 (byte 0x88) or +7 (0x77) with x -128 /
+    +127 at the FFN-down depth."""
+    from repro_torch.kernels.int8_matmul import (
+        int8_matmul_nibbles, int8_matmul_nibbles_plain, launch_plan)
+    rng = np.random.default_rng(m * 3 + k + n)
+    x8, wp = _i8(rng, (m, k), dev), _i8(rng, (k // 2, n), dev)
+    wp[0, :3] = -128
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    p = launch_plan(m, n, k, sms, True, x8.data_ptr(), wp.data_ptr())
+    assert (p.tile, p.route) == (0, "tma")
+    assert sms != 132 or p.cluster == cluster
+    bvec = _i32(rng, 256, 4096, (n,), dev)
+    bias = _i32(rng, -5000, 5000, (n,), dev)
+    for spec in _specs():
+        before = kernels.LAUNCHES["int8_matmul_packed"]
+        got = int8_matmul_nibbles(x8, wp, spec, bias, bvec)
+        assert kernels.LAUNCHES["int8_matmul_packed"] == before + 1
+        assert torch.equal(got, int8_matmul_nibbles_plain(x8, wp, spec,
+                                                          bias, bvec))
+    if k == 14336:
+        for xv, wv in ((-128, 0x88 - 256), (127, 0x77), (-128, 0x77)):
+            x = torch.full((m, k), xv, dtype=torch.int8, device=dev)
+            w = torch.full((k // 2, n), wv, dtype=torch.int8, device=dev)
+            raw = RequantSpec.raw()
+            assert torch.equal(int8_matmul_nibbles(x, w, raw),
+                               int8_matmul_nibbles_plain(x, w, raw))
 
 
 @pytest.mark.parametrize("m", [1, 4, 5, 16, 17, 33, 128])

@@ -275,22 +275,34 @@ def test_int8_matmul_split_k_covers_k_exactly(k):
     (129, 260, 768), (1000, 2100, 300), (16384, 768, 768),
     (16384, 3072, 768), (16384, 768, 3072)])
 def test_int8_matmul_launch_plan(m, n, k):
-    """K1's launch plan from the shape alone: the __dp4a tile up to
-    SMALL_M_MAX rows and the tensor cores beyond; every split non-empty,
-    a whole number of K-steps, together covering K; the grid covering
-    M and N; vector alignment as each kernel's copies need."""
-    from repro_torch.kernels.int8_matmul import (SMALL_M_MAX, TILES,
+    """K1's launch plan from the shape alone: the decode tile up to
+    SMALL_M_MAX rows (all of them in one 16-row block, K split across a
+    cluster of whole ring stages, no workspace) and the tensor cores
+    beyond; every split non-empty (decode: every rank but those past K),
+    a whole number of K-steps, together covering K; the grid covering M
+    and N; vector alignment as each kernel's copies need."""
+    from repro_torch.kernels.int8_matmul import (DECODE_BM, SMALL_M_MAX,
+                                                 TILES, decode_k_step,
                                                  launch_plan)
     for sms in (132, 114):
-        p = launch_plan(m, n, k, sms)
-        assert (p.tile == 0) == (m <= SMALL_M_MAX)
-        bm, bn, bk = TILES[p.tile]
-        gx, gy, splits = p.grid
-        if p.tile == 2:
-            assert m > 64 and gx * gy >= sms
-        assert gx * bn >= n > (gx - 1) * bn
-        assert gy * bm >= m > (gy - 1) * bm
-        assert splits >= 1 and p.k_per_split % bk == 0
-        assert splits * p.k_per_split >= k > (splits - 1) * p.k_per_split
-        want = (4, 4) if p.tile == 0 else (16, 8)
-        assert (p.x_align, p.w_align) == want
+        for packed in (False, True):
+            p = launch_plan(m, n, k, sms, packed)
+            assert (p.tile == 0) == (m <= SMALL_M_MAX)
+            if p.tile == 0:
+                bm, bn, bk = DECODE_BM, p.bn, decode_k_step(packed)
+                assert p.grid[1] == 1 and p.grid[2] == p.cluster
+                assert p.grid[0] * p.cluster <= max(sms, p.grid[0])
+            else:
+                bm, bn, bk = TILES[p.tile]
+                assert p.route == "mma"
+            gx, gy, splits = p.grid
+            if p.tile == 2:
+                assert m > 64 and gx * gy >= sms
+            assert gx * bn >= n > (gx - 1) * bn
+            assert gy * bm >= m > (gy - 1) * bm
+            assert splits >= 1 and p.k_per_split % bk == 0
+            assert splits * p.k_per_split >= k
+            if p.tile:
+                assert k > (splits - 1) * p.k_per_split
+            want = (16, 16) if p.tile == 0 else (16, 8)
+            assert (p.x_align, p.w_align) == want
