@@ -29,14 +29,23 @@ non-zero before the last line):
            device, call and host ms; it calls only the wrappers, so
            the same script times another commit's tree (copy it there
            and run ``--phases build,k1-decode``) on the same operands;
+  k3-decode  (not in the default list) K3's rows alone: llama3-8b's serve
+           row over int8 and int4 pools (folded and not), the serve
+           traffic's decode lengths and the profiled decode window's short
+           lanes, Sq 8, a 32 768-position table (the streaming
+           route), and h2o-danube-3-4b's contiguous L 512 and full
+           4096-position window (folded and not), Sq 8 and pools, exact
+           against the plain version, device, call and host ms, each with
+           its plan; like ``k1-decode`` it calls only the wrappers, so the
+           same script times another commit's tree;
   parity   full-width llama3-8b cut to 2 layers: ServingEngine token
            streams on the ``cuda`` backend must equal ``torch_ref``'s;
   serve    full llama3-8b (32 layers) on the ``cuda`` backend: throughput,
            step times, peak memory and per-kernel launch counts (each
            serving kernel must be > 0), then a profiled decode window
            and a profiled window of prefill chunks (device ms, device
-           kernel calls and ``FillFunctor`` calls a step or chunk, K4's
-           share);
+           kernel calls and ``FillFunctor`` calls a step or chunk, K3's
+           device ms a decode step, K4's share of a chunk);
   encode   full-width roberta-base (12 layers, tied embeddings) through
            ``launch.steps.make_prefill_step``: logits of ``cuda`` and
            ``torch_ref`` identical on 8 x 512 tokens, then timed passes
@@ -101,7 +110,7 @@ over the dense delta matrix, a layout the port does not store
 
 ``--verbose-build`` also prints ptxas's registers and spills and a
 ``sass`` line (per kernel ``IMMA`` / ``IDP`` / ``LDL`` / ``STL``), and
-fails unless every K1 decode-tile, K4, K5, K8 and tensor-core MSR-4
+fails unless every K1 decode-tile, K3, K4, K5, K8 and tensor-core MSR-4
 correction instantiation shows ``IMMA`` and none of the other three, every K1
 tensor-core instantiation ``IMMA``, and no K1 or gather-route correction
 instantiation ``LDL`` / ``STL``.
@@ -300,7 +309,7 @@ def record(rows, name, case, got, want, kernel, plain, nbytes, ops,
         raise AssertionError(f"{name} {case}: kernel != plain "
                              f"(max |diff| {err})")
     if rep:
-        rows[name] = row
+        rows[name] = dict(row, **({"plan": plan} if plan else {}))
 
 
 def k1_plan(m: int, n: int, k: int, packed: bool = False, x8=None,
@@ -347,6 +356,26 @@ def k4_plan(q8, k_pool, pages, page_size: int, plan,
               else f"{k_copy_bytes(d, k_pool.data_ptr())}B")
     return (f"mma grid={list(p.grid)} tiles={p.tiles} smem={p.smem} "
             f"e16_store={p.store_e16} k_copies={copies}")
+
+
+def k3_plan(q8, k8, v8, kw) -> str:
+    """K3's launch for these operands (kernels/int_decode_attention.py::
+    k3_launch_plan), or None in a tree that has no such plan (the
+    ``k3-decode`` phase also times older trees)."""
+    import torch
+    try:
+        from repro_torch.kernels.int_decode_attention import k3_launch_plan
+    except ImportError:
+        return None
+    b, sq, h, d = q8.shape
+    pages = kw.get("pages")
+    length = (pages.shape[1] * kw["page_size"] if pages is not None
+              else k8.shape[1])
+    return k3_launch_plan(
+        b, sq, h, k8.shape[2], d, length, pages is not None,
+        kw.get("kv_shifts") is not None, k8.data_ptr(), v8.data_ptr(),
+        torch.cuda.get_device_properties(0).multi_processor_count
+    ).describe()
 
 
 def k8_plan(q8, bkv: int) -> str:
@@ -546,7 +575,11 @@ def check_kernels(cfg, plans):
                    lambda: plain(q8, k_pool, v_pool, aplan, vl, pages, ps,
                                  requant=requant, **kw),
                    io, ops, rep=fold,
-                   plan=k4_plan(q8, k_pool, pages, ps, aplan) if k4 else None)
+                   plan=(k4_plan(q8, k_pool, pages, ps, aplan) if k4 else
+                         k3_plan(q8, k_pool, v_pool,
+                                 dict(pages=pages, page_size=ps))))
+    # K3's and K4's exp16 division on its whole domain for llama's plan
+    division_check("int_decode_attention", aplan)
     check_packed_kernels(gen, rows, aplan, requant, wo, wo_spec, h, hkv, hd,
                          d, "")
     check_k4_edges(gen, plans, rows)
@@ -612,7 +645,9 @@ def check_packed_kernels(gen, rows, aplan, requant, wo, wo_spec, h: int,
                    lambda: plain(*args, **kw), nbytes, ops,
                    rep=fold and not tag, iters=10, plain_iters=2,
                    plan=(k4_plan(q8, kp, pages, ps, aplan, packed=True)
-                         if sq > 1 else None))
+                         if sq > 1 else
+                         k3_plan(q8, kp, vp, dict(kw, pages=pages,
+                                                  page_size=ps))))
         del q8
 
 
@@ -903,6 +938,99 @@ def check_k1_decode(cfg, wcfg, plans, wplans) -> None:
                        2 * m * k * n, iters=50, plain_iters=2,
                        extra={"host_ms": host_ms(lambda: fn(*args), 50)})
             del w
+
+
+def check_k3_decode(cfg, wcfg, plans, wplans) -> None:
+    """The ``k3-decode`` phase: K3's rows alone, each held exact against
+    its plain version, then its device ms (profiler), call ms (CUDA
+    events) and host ms (the wrapper's issue time a call): llama3-8b's
+    serve row (4 lanes over 32 pages of 16, valid 1 / 137 / 300 / 512),
+    unfolded and with wo folded, over int8 and packed int4 pools, the
+    serve traffic's decode lengths (<= 232 positions) and the profiled
+    decode window's (9-15, int8 and int4), Sq 8; h2o-danube-3-4b
+    (D 120) on the contiguous cache at L 512 and the full 4096-position
+    window, folded and not, Sq 8, and over pools; a 32 768-position table
+    (the streaming route).  It calls only the wrappers and their plain
+    versions, so the same script times another tree's kernels on the
+    same seeded operands (an A/B of two commits in one call)."""
+    import torch
+    from repro_torch.kernels.int_decode_attention import (
+        int_decode_attention_fused, int_decode_attention_plain)
+    from repro_torch.ops.spec import QuantLinearParams, RequantSpec
+    gen = torch.Generator(device="cuda").manual_seed(3579)
+    rows = {}
+    serve = [1, 137, 300, 512]
+    # (arch, tag, Sq, layout, L, valid, fold)
+    cases = [("llama3-8b", "serve", 1, "paged", 512, serve, False),
+             ("llama3-8b", "serve", 1, "paged", 512, serve, True),
+             ("llama3-8b", "kv4 serve", 1, "kv4", 512, serve, False),
+             ("llama3-8b", "kv4 serve", 1, "kv4", 512, serve, True),
+             ("llama3-8b", "step lengths", 1, "paged", 512,
+              [40, 120, 200, 232], False),
+             ("llama3-8b", "short lanes", 1, "paged", 512,
+              [9, 11, 13, 15], False),
+             ("llama3-8b", "kv4 short lanes", 1, "kv4", 512,
+              [9, 11, 13, 15], False),
+             ("llama3-8b", "Sq=8", 8, "paged", 512, [8, 137, 300, 512],
+              False),
+             ("llama3-8b", "long table", 1, "paged", 32768,
+              [32768, 20000, 5000, 1], False),
+             ("h2o", "L=512", 1, "contiguous", 512, serve, False),
+             ("h2o", "L=512", 1, "contiguous", 512, serve, True),
+             ("h2o", "full window", 1, "contiguous", 4096, [4096] * 4,
+              False),
+             ("h2o", "full window", 1, "contiguous", 4096, [4096] * 4,
+              True),
+             ("h2o", "Sq=8", 8, "contiguous", 512, [8, 137, 300, 512],
+              False),
+             ("h2o", "paged L=512", 1, "paged", 512, serve, False)]
+    b, ps = 4, 16
+    for arch, tag, sq, layout, L, lens, fold in cases:
+        c, pl = (cfg, plans) if arch == "llama3-8b" else (wcfg, wplans)
+        d, hd, h, hkv = c.d_model, c.hd, c.n_heads, c.n_kv_heads
+        aplan = pl.attn.attn
+        kw = dict(requant=RequantSpec.per_tensor(aplan.dn_out))
+        q8 = _randint(gen, -127, 128, (b, sq, h, hd), torch.int8)
+        if layout == "contiguous":
+            k8, v8 = (_randint(gen, -127, 128, (b, L, hkv, hd), torch.int8)
+                      for _ in range(2))
+            nbytes, ops = k4_bound(lens, sq, h, hkv, hd, 0, 1)
+        else:
+            maxp = L // ps
+            num = b * maxp + 1
+            w = hd // 2 if layout == "kv4" else hd
+            k8, v8 = (_randint(gen, -128, 128, (num, ps, hkv, w), torch.int8)
+                      for _ in range(2))
+            kw.update(pages=(torch.randperm(num - 1, generator=gen,
+                                            device="cuda") + 1)
+                      .to(torch.int32).reshape(b, maxp), page_size=ps)
+            if layout == "kv4":
+                kw["kv_shifts"] = tuple(
+                    _randint(gen, 0, 8, (num,), torch.int32)
+                    for _ in range(2))
+                nbytes, ops = kv4_bound(lens, sq, h, hkv, hd, ps, maxp)
+            else:
+                nbytes, ops = k4_bound(lens, sq, h, hkv, hd, b * maxp, 1)
+        if fold:
+            kw.update(wo=QuantLinearParams(
+                _randint(gen, -127, 128, (h * hd, d), torch.int8),
+                _randint(gen, 256, 4096, (d,), torch.int32)),
+                wo_spec=RequantSpec.for_linear(pl.attn.out))
+            nbytes += h * hd * d + 4 * d + 4 * b * sq * d - b * sq * h * hd
+            ops += 2 * b * sq * h * hd * d
+        vl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        args = (q8, k8, v8, aplan, vl)
+        name = ("int_decode_attention_kv4" if layout == "kv4"
+                else "int_decode_attention")
+        fn = lambda: int_decode_attention_fused(*args, **kw)
+        record(rows, name, f"k3-decode {arch} {tag} B={b} Sq={sq} H={h} "
+               f"Hkv={hkv} D={hd} {layout} L={L} valid={lens} "
+               f"fold_wo={fold}", fn(),
+               int_decode_attention_plain(*args, **kw), fn,
+               lambda: int_decode_attention_plain(*args, **kw), nbytes, ops,
+               iters=50, plain_iters=2, plan=k3_plan(q8, k8, v8, kw),
+               extra={"host_ms": host_ms(fn, 50)})
+        del q8, k8, v8, args, kw
 
 
 def check_msr4_route_edges(gen, rows, pc) -> None:
@@ -1476,7 +1604,8 @@ def check_window_kernels(cfg, plans, rows) -> None:
                int_decode_attention_plain(*args, **kw),
                lambda: int_decode_attention_fused(*args, **kw),
                lambda: int_decode_attention_plain(*args, **kw),
-               nbytes, ops, iters=10, plain_iters=2)
+               nbytes, ops, iters=10, plain_iters=2,
+               plan=k3_plan(q8, k8, v8, kw))
         del q8, k8, v8, args
 
     # K5 at D = 120: the window-prefill launch (causal, window 4096), a
@@ -1803,7 +1932,7 @@ def phase_serve(cfg, kv_dtype: str = "int8", weights: str = "int8"):
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "launches": launches})
     profile_decode(eng, cfg, "kv4-profile" if packed else
-                   "msr4-profile" if msr4 else "profile")
+                   "msr4-profile" if msr4 else "profile", k3)
     profile_prefill(eng, cfg, k4, "msr4-prefill-profile" if msr4 else None)
     if not all(len(r.out_tokens) == 32 for r in reqs):
         raise AssertionError("a request came back short")
@@ -2313,9 +2442,13 @@ def _mean_counts(deltas):
             for n in (deltas[0] if deltas else {})}
 
 
-def profile_decode(eng, cfg, phase="profile"):
+def profile_decode(eng, cfg, phase="profile",
+                   k3="int_decode_attention"):
     """torch.profiler over a short decode-heavy window of the serve
-    engine: the device's busy share and the device time by kernel."""
+    engine: the device's busy share, the device time by kernel, and K3's
+    device ms a step (``k3``: its counter, ``int_decode_attention_kv4``
+    over int4 pages)."""
+    from repro_torch import kernels
     from repro_torch.serving import Request
     prompts = _prompts(9, 4, 8, 8, cfg.vocab)
     reqs = [Request(uid=100 + i, prompt=p, max_new_tokens=8)
@@ -2323,17 +2456,27 @@ def profile_decode(eng, cfg, phase="profile"):
     for r in reqs:
         eng.submit(r)
     eng.step()                       # admit + prefill + first decode
+    before = kernels.LAUNCHES[k3]
 
     def window():
         for _ in range(4):
             eng.step()
-    profile_window(phase, "4 decode steps, batch 4", window, lambda: 4)
+    profile_window(phase, "4 decode steps, batch 4", window, lambda: 4,
+                   (K3_KERNEL_NAMES, lambda: kernels.LAUNCHES[k3] - before))
     eng.run_until_done()
 
 
+# every kernel name K3 has had on the card: the Hopper kernel, and before
+# it the __dp4a body's 1- and 8-row instantiations (int8 and packed pools
+# alike)
+K3_KERNEL_NAMES = ("int_decode_attention_kernel",
+                   "int_attention_kernel<1, 128,",
+                   "int_attention_kernel<8, 128,")
+
+
 # every kernel name K4 has had on the card: the tensor-core kernel, and
-# before it the __dp4a body's 16-row instantiation (K3's are 1 and 8 rows);
-# over packed int4 pools its kv4 instantiation
+# before it the __dp4a body's 16-row instantiation (K3's were its 1- and
+# 8-row ones); over packed int4 pools its kv4 instantiation
 K4_KERNEL_NAMES = {"int_paged_prefill": ("int_paged_prefill_mma_kernel",
                                          "int_attention_kernel<16, 64,"),
                    "int_paged_prefill_kv4": ("int_paged_prefill_kv4_kernel",)}
@@ -2424,6 +2567,8 @@ def profile_window(phase, what, fn, units=None, focus=None):
         extra.update({"focus": [r[0][:90] for r in mine],
                       "focus_device_ms": f_ms, "focus_share": f_ms / busy_ms,
                       "focus_calls": calls, "focus_launches": n_launch})
+        if units is not None:
+            extra["focus_device_ms_per_step"] = f_ms / max(units(), 1)
         if n_launch and not calls:
             mismatch = (f"{phase}: no kernel named like {names} among the "
                         f"profiler's rows, {n_launch} launches")
@@ -2437,9 +2582,10 @@ def profile_window(phase, what, fn, units=None, focus=None):
 
 
 # the kernels that must run on the int8 tensor cores with no spill: every
-# instantiation of K1's decode tile, K5's, K4's, K8's and the MSR-4
+# instantiation of K1's decode tile, K3's, K5's, K4's, K8's and the MSR-4
 # correction's tensor-core route
 TENSOR_CORE_KERNELS = ("int8_matmul_decode_kernel",
+                       "int_decode_attention_kernel",
                        "int_attention_mma_kernel",
                        "int_paged_prefill_mma_kernel",
                        "int_paged_prefill_kv4_kernel",
@@ -2558,6 +2704,9 @@ def main(argv=None) -> int:
     if "k1-decode" in phases:
         wcfg = window_config()
         check_k1_decode(cfg, wcfg, plans, qplans.build_layer_plans(wcfg))
+    if "k3-decode" in phases:
+        wcfg = window_config()
+        check_k3_decode(cfg, wcfg, plans, qplans.build_layer_plans(wcfg))
     if "parity" in phases:
         phase_parity(cfg)
     if "serve" in phases:
@@ -2602,7 +2751,8 @@ def main(argv=None) -> int:
              "plain_ms": r["plain_ms"], "call_ms": r["call_ms"],
              "bound_ms": r["bound_ms"],
              "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-             "case": r["case"]}
+             "case": r["case"], **({"plan": r["plan"]} if "plan" in r
+                                   else {})}
             for name, r in rows.items()]})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -88,6 +88,7 @@
 #include <cuda.h>
 #include <cstring>
 
+#include "int_cluster.cuh"
 #include "int_common.cuh"
 #include "int_mma.cuh"
 
@@ -170,35 +171,6 @@ __device__ __forceinline__ void tma_load_2d(unsigned dst,
       "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
       : "memory");
-}
-
-__device__ __forceinline__ unsigned cluster_rank() {
-  unsigned r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::
-          : "memory");
-}
-
-// the same shared-memory offset in the block of cluster rank `rank`
-__device__ __forceinline__ unsigned map_rank(unsigned addr, unsigned rank) {
-  unsigned r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(r)
-               : "r"(addr), "r"(rank));
-  return r;
-}
-
-__device__ __forceinline__ void st_cluster(unsigned addr, int4 v) {
-  asm volatile("st.shared::cluster.v4.s32 [%0], {%1, %2, %3, %4};\n" ::"r"(
-                   addr),
-               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
-               : "memory");
 }
 
 // byte offset of (row, col) in a weight tile of BN-byte rows, as the TMA

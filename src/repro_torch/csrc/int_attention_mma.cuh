@@ -3,7 +3,7 @@
 // cores (mma.sync.m16n8k32 s8 x s8 -> s32), bit-exact.
 //
 // Twin of repro/kernels/int_attention_fused.py::_streaming_attn_body, the
-// same three exact sweeps as int_attention.cuh (which K3 keeps):
+// same three exact sweeps as K3's (int_decode_attention.cu):
 //
 //   sweep 0  row max   m = max_t score(r, t)
 //   sweep 1  row sum   s = sum_t e16(score(r, t) - m)

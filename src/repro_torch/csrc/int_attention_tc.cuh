@@ -1,10 +1,11 @@
 // Pieces of integer attention on the int8 tensor cores shared by K5 and
-// K4 (int_attention_mma.cuh, exact) and K8 (int_attention_online.cu, one
-// pass): the branch-free exp16, the K tile copy, the Q·Kᵀ n-tile, and the
-// key-permuted, swizzled Vᵀ tile with the P·V chunk that reads it.  The
-// copies take each key's row address from a functor, so one tile may
-// gather its keys from contiguous K/V (K5, K8) or through a page table
-// (K4).
+// K4 (int_attention_mma.cuh, exact), K8 (int_attention_online.cu, one
+// pass) and K3 (int_decode_attention.cu, exact): the branch-free exp16,
+// the K tile copy, the Q·Kᵀ n-tile, and the key-permuted, swizzled Vᵀ
+// tile with the P·V chunk that reads it.  The copies take each key's row
+// address from a functor, so one tile may gather its keys from contiguous
+// K/V (K5, K8) or through a page table (K4), or, in K3, from rows already
+// copied into shared memory.
 //
 // Tiles of KEYS keys are processed by THREADS threads in warps of 16
 // query rows; thread (g, t) = (lane / 4, lane % 4) of a warp owns rows g
@@ -277,12 +278,13 @@ __device__ __forceinline__ void expand_v(
     for (int jj = 0; jj < 4; ++jj) vr[n][jj] = unpack_kv4(vr[n][jj], vs[n][jj]);
 }
 
-// the units of load_v as Vᵀ (v_cols(D) rows of KEYS / 4 words)
+// the units of load_v as KEYS columns of a Vᵀ tile whose rows are sv
+// words (v_cols(D) rows), from pair `pair0` (a multiple of 8: 64 keys) on
 template <int D, int KEYS, int THREADS>
-__device__ __forceinline__ void store_v(
-    int* sVt, const unsigned (&vr)[v_units<D, KEYS, THREADS>()][4],
-    int tid) {
-  constexpr int DW = v_cols(D) / 4, SV = KEYS / 4;
+__device__ __forceinline__ void store_v_at(
+    int* sVt, const unsigned (&vr)[v_units<D, KEYS, THREADS>()][4], int tid,
+    int sv, int pair0) {
+  constexpr int DW = v_cols(D) / 4;
 #pragma unroll
   for (int n = 0; n < v_units<D, KEYS, THREADS>(); ++n) {
     const int i = tid + n * THREADS, dw = i % DW, gi = i / DW;
@@ -292,9 +294,17 @@ __device__ __forceinline__ void store_v(
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
       const int d = 4 * dw + jj;
-      sVt[d * SV + 2 * (pair ^ vswz(d)) + hw] = col[jj];
+      sVt[d * sv + 2 * (pair0 + (pair ^ vswz(d))) + hw] = col[jj];
     }
   }
+}
+
+// the units of load_v as Vᵀ (v_cols(D) rows of KEYS / 4 words)
+template <int D, int KEYS, int THREADS>
+__device__ __forceinline__ void store_v(
+    int* sVt, const unsigned (&vr)[v_units<D, KEYS, THREADS>()][4],
+    int tid) {
+  store_v_at<D, KEYS, THREADS>(sVt, vr, tid, KEYS / 4, 0);
 }
 
 // the four s8 weights p[] (n-tile 4s + jj of a chunk, C layout) into the

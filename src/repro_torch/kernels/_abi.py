@@ -37,18 +37,6 @@ class GeluConsts(ctypes.Structure):
                                   "out_b", "out_c", "out_pre", "lo", "hi")]
 
 
-class AttnArgs(ctypes.Structure):
-    """``csrc/int_attention.cuh``'s ``AttnArgs`` (K3).  ``k_shift`` /
-    ``v_shift``: the per-page shifts of packed int4 pools, null for int8
-    pools."""
-    _fields_ = ([(n, _P) for n in ("q", "k", "v", "pages", "vlen", "bvec",
-                                   "out")]
-                + [(n, _I) for n in ("B", "S", "H", "Hkv", "D", "page_size",
-                                     "max_pages", "out_is_int8")]
-                + [("sm", SoftmaxConsts), ("rq", Requant)]
-                + [(n, _P) for n in ("k_shift", "v_shift")])
-
-
 class Shift(ctypes.Structure):
     """``tc::Shift``: core.dyadic.rshift_round by a fixed s as
     ``(x * mul + half) >> rs`` in wrapping uint32."""
@@ -56,7 +44,7 @@ class Shift(ctypes.Structure):
 
 
 class Exp16(ctypes.Structure):
-    """``tc::Exp16`` (``csrc/int_attention_tc.cuh``, K5 and K8): the
+    """``tc::Exp16`` (``csrc/int_attention_tc.cuh``; K3, K4, K5, K8): the
     Shiftmax constants with every shift resolved."""
     _fields_ = ([(n, _I) for n in ("q_band", "in_b", "neg_zq", "q_ln2",
                                    "q_b", "q_c", "e_b")]
@@ -77,6 +65,19 @@ class MmaAttnArgs(ctypes.Structure):
                 + [(n, _P) for n in ("pages", "pos_end")]
                 + [(n, _I) for n in ("page_size", "max_pages")]
                 + [(n, _P) for n in ("k_shift", "v_shift")])
+
+
+class K3Args(ctypes.Structure):
+    """``csrc/int_decode_attention.cu``'s ``k3::Args`` (K3).  ``k_shift``
+    / ``v_shift``: the per-page shifts of packed int4 pools, null for
+    int8 pools; ``pages`` null: the contiguous cache."""
+    _fields_ = ([(n, _P) for n in ("q", "k", "v", "pages", "vlen", "bvec",
+                                   "out", "k_shift", "v_shift")]
+                + [(n, _I) for n in ("B", "S", "H", "Hkv", "D", "L",
+                                     "page_size", "max_pages", "out_is_int8",
+                                     "cluster", "rank_keys", "mtb",
+                                     "resident", "vec", "smem")]
+                + [("ex", Exp16), ("rq", Requant)])
 
 
 class OnlineArgs(ctypes.Structure):
@@ -138,8 +139,10 @@ def declare(lib: ctypes.CDLL) -> None:
     lib.r8_int_layernorm.argtypes = [_P, _P, _P, ctypes.POINTER(NormConsts),
                                      _P, _I, _P]
     lib.r8_int_layernorm.restype = _I
-    lib.r8_int_decode_attention.argtypes = [ctypes.POINTER(AttnArgs), _P]
+    lib.r8_int_decode_attention.argtypes = [ctypes.POINTER(K3Args), _P]
     lib.r8_int_decode_attention.restype = _I
+    lib.r8_k3_smem_bytes.argtypes = [_I, _I, _I, _I, _I, _I]
+    lib.r8_k3_smem_bytes.restype = ctypes.c_longlong
     lib.r8_int_paged_prefill.argtypes = [ctypes.POINTER(MmaAttnArgs), _P]
     lib.r8_int_paged_prefill.restype = _I
     lib.r8_int_attention_fused.argtypes = [ctypes.POINTER(MmaAttnArgs),
@@ -215,7 +218,7 @@ def shift_struct(s: int) -> Shift:
 
 
 def exp16_consts(sm, magic: int, z_shift: int) -> Exp16:
-    """Pack an ISoftmaxPlan for K5's and K8's branch-free exp16, with
+    """Pack an ISoftmaxPlan for the attention kernels' branch-free exp16, with
     ``(magic, z_shift)`` its division by q_ln2 as a multiply-high."""
     for dn in (sm.dn_in, sm.dn_e16):
         _shifts_ok(dn.b, dn.c, dn.pre)

@@ -25,10 +25,9 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.ops.packed import unpack_kv_pool
 from repro_torch.ops.spec import PER_CHANNEL, QuantLinearParams, RequantSpec
 
-#: the head dims each attention kernel is compiled for.  K3 takes any D
-#: that is a multiple of 4 in its body; K4, K5 and K8 (the tensor-core
-#: body) any multiple of 8, a D that is not a multiple of 32 padded to the
-#: next one inside the kernel.  The reference takes every even D (ROADMAP
+#: the head dims each attention kernel is compiled for.  Every one (all on
+#: the int8 tensor cores) takes any multiple of 8 in its body, a D that is
+#: not a multiple of 32 padded to the next one inside the kernel.  The reference takes every even D (ROADMAP
 #: §2 item 4 lists the rest).
 HEAD_DIMS = {"int_decode_attention": (32, 64, 120, 128),
              "int_attention_fused": (32, 64, 120, 128),
@@ -272,14 +271,14 @@ def k5_launch_plan(b: int, sq: int, skv: int, h: int, hkv: int, d: int,
 @functools.lru_cache(maxsize=16)
 def exp16_divisor(q_ln2: int, n_max: int) -> tuple[int, int]:
     """``(magic, shift)`` with ``(n * magic) >> (32 + shift) == n //
-    q_ln2`` for every ``0 <= n <= n_max`` (K5's and K8's exp16 division
+    q_ln2`` for every ``0 <= n <= n_max`` (K3's, K4's, K5's and K8's exp16 division
     as a multiply-high), checked on all of them.  The rounded-up reciprocal
     ``magic = ceil(2^k / q_ln2)`` is exact there when ``n_max * (magic *
     q_ln2 - 2^k) < 2^k``; the largest ``k`` whose magic fits 32 bits is
     taken."""
     if q_ln2 < 2 or not 0 <= n_max < 1 << 31:
         raise ValueError(f"exp16 division: q_ln2={q_ln2}, n_max={n_max} "
-                         "outside what K5 and K8 take")
+                         "outside what the attention kernels take")
     for shift in range(31, -1, -1):
         k = 32 + shift
         magic = -(-(1 << k) // q_ln2)
@@ -294,7 +293,7 @@ def exp16_divisor(q_ln2: int, n_max: int) -> tuple[int, int]:
 
 @functools.lru_cache(maxsize=16)
 def exp16_args(sm):
-    """The plan ``sm``'s constants for K5's and K8's branch-free exp16
+    """The plan ``sm``'s constants for the attention kernels' branch-free exp16
     (``_abi.exp16_consts`` with its multiply-high division), packed once
     per plan."""
     from repro_torch.kernels import _abi

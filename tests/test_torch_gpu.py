@@ -629,6 +629,180 @@ def test_engine_int4_cuda_matches_torch_ref(dev):
     assert streams["cuda"] == streams["cuda_online"] == streams["torch_ref"]
 
 
+# K3 (csrc/int_decode_attention.cu): one group of blocks per (lane, KV
+# head), the key range split across a cluster.  A case runs each layout
+# (the contiguous cache, int8 pools, packed int4 pools) on lanes at
+# valid_len 0, 1, the span and a ragged length, a lane on the null page
+
+
+def _k3_operands(rng, dev, layout, b, sq, h, hkv, d, length, ps=16,
+                 off=0):
+    """q8 and the K / V operands of one K3 case and its keyword arguments;
+    ``off``: q and K / V that many bytes off 16-byte alignment."""
+    q8 = _i8(rng, (b, sq, h, d), dev)
+    kw = {}
+    if layout == "contiguous":
+        k8, v8 = _i8(rng, (b, length, hkv, d), dev), _i8(rng, (b, length,
+                                                               hkv, d), dev)
+        span = length
+    else:
+        maxp = -(-length // ps)
+        span, num = maxp * ps, b * maxp + 1
+        pages = rng.permutation(np.arange(1, num)).reshape(b, maxp)
+        pages[min(2, b - 1)] = 0
+        kw = dict(pages=torch.as_tensor(pages.astype(np.int32), device=dev),
+                  page_size=ps)
+        if layout == "kv4":
+            k8, v8, kw["kv_shifts"] = _packed_pools(rng, dev, num, ps, hkv, d)
+        else:
+            k8, v8 = (_i8(rng, (num, ps, hkv, d), dev) for _ in range(2))
+    if off:
+        q8, k8, v8 = (_offset_view(x, off) for x in (q8, k8, v8))
+    lens = [0, 1, span, span // 2 + 3][:b] if b > 1 else [span]
+    vl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return q8, k8, v8, vl, kw, span
+
+
+def _k3_check(q8, k8, v8, plan, vl, kw):
+    """One K3 call: exactly one launch under its counter, the plain
+    version's integers."""
+    name = ("int_decode_attention_kv4" if "kv_shifts" in kw
+            else "int_decode_attention")
+    before = dict(kernels.LAUNCHES)
+    got = int_decode_attention_fused(q8, k8, v8, plan, vl, **kw)
+    assert kernels.LAUNCHES[name] == before[name] + 1
+    assert sum(kernels.LAUNCHES.values()) == sum(before.values()) + 1
+    want = int_decode_attention_plain(q8, k8, v8, plan, vl, **kw)
+    assert torch.equal(got, want), (name, {k: v for k, v in kw.items()
+                                           if k == "requant"})
+
+
+def _k3_plan(dev, q8, k8, v8, kw, span):
+    from repro_torch.kernels.int_decode_attention import k3_launch_plan
+    b, sq, h, d = q8.shape
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return k3_launch_plan(b, sq, h, k8.shape[2], d, span, "pages" in kw,
+                          "kv_shifts" in kw, k8.data_ptr(), v8.data_ptr(),
+                          sms)
+
+
+def _k3_requants(plan, rng, h, d, dev):
+    bvec = _i32(rng, 1000, 20000, (h * d,), dev)
+    return [dict(requant=RequantSpec.per_tensor(plan.dn_out)),
+            dict(requant=RequantSpec.per_channel(22, 8), b_vec=bvec),
+            dict(requant=RequantSpec.raw()),
+            dict(requant=RequantSpec.per_channel(20, 6, out_bits=16),
+                 b_vec=bvec)]
+
+
+@pytest.mark.parametrize("d", [32, 64, 120, 128])
+@pytest.mark.parametrize("sq", range(1, 9))
+@pytest.mark.parametrize("group", [1, 4, 8])
+def test_decode_attention_kernel_shapes(dev, d, sq, group):
+    """K3 at every Sq 1..8, head dim and GQA group 1 / 4 / 8 (G Sq up to
+    64 rows: one or two m16 tiles a block, one or two row blocks), each
+    layout, the four epilogue forms in turn."""
+    rng = np.random.default_rng(1000 * d + 10 * sq + group)
+    plan = iattn.make_iattention(d, 8 / 127, 8 / 127, 4 / 127, 4 / 127)
+    hkv = 2
+    h = group * hkv
+    rqs = _k3_requants(plan, rng, h, d, dev)
+    for i, layout in enumerate(("contiguous", "paged", "kv4")):
+        q8, k8, v8, vl, kw, span = _k3_operands(rng, dev, layout, 4, sq, h,
+                                                hkv, d, 300)
+        p = _k3_plan(dev, q8, k8, v8, kw, span)
+        assert p.mtb == (2 if group * sq > 16 else 1)
+        assert p.grid[1] == -(-group * sq // 32)
+        _k3_check(q8, k8, v8, plan, vl, dict(kw, **rqs[(sq + i) % 4]))
+
+
+# (span, cluster the plan takes on a 132-SM card for 3 lanes x 2 KV heads)
+_K3_CLUSTERS = [(30, 1), (80, 2), (200, 4), (1000, 8)]
+
+
+@pytest.mark.parametrize("span,cluster", _K3_CLUSTERS)
+@pytest.mark.parametrize("layout", ["contiguous", "paged", "kv4"])
+def test_decode_attention_kernel_clusters(dev, span, cluster, layout):
+    """K3 at each cluster size the plan chooses (1, 2, 4, 8 ranks), each
+    layout, Sq 1 and 5, GQA 4."""
+    rng = np.random.default_rng(span + len(layout))
+    plan = iattn.make_iattention(64, 8 / 127, 8 / 127, 4 / 127, 4 / 127)
+    for sq in (1, 5):
+        q8, k8, v8, vl, kw, L = _k3_operands(rng, dev, layout, 3, sq, 8, 2,
+                                             64, span, ps=8)
+        p = _k3_plan(dev, q8, k8, v8, kw, L)
+        if torch.cuda.get_device_properties(dev).multi_processor_count \
+                == 132:
+            assert p.cluster == cluster
+        assert p.resident
+        _k3_check(q8, k8, v8, plan, vl,
+                  dict(kw, requant=RequantSpec.per_tensor(plan.dn_out)))
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "paged", "kv4"])
+@pytest.mark.parametrize("d,sq,group", [(128, 1, 4), (120, 8, 4),
+                                        (64, 3, 8), (32, 2, 1)])
+def test_decode_attention_kernel_streaming(dev, layout, d, sq, group):
+    """K3's streaming route: a 32 768-position span (MAX_ROWSUM_LEN: the
+    longest exact row sum), 8 ranks of 4096 keys streaming through tiles
+    of 128, lanes at the full span and a ragged length; and the resident
+    route at the full 4096-position window beside it (but for packed
+    pools at D 120 with 32 rows, whose resident block needs 232 704
+    bytes, 256 more than a block may have: they stream there too)."""
+    rng = np.random.default_rng(d + sq + group)
+    plan = iattn.make_iattention(d, 8 / 127, 8 / 127, 4 / 127, 4 / 127)
+    hkv = 2
+    too_big = layout == "kv4" and d == 120 and group * sq > 16
+    for span, resident in ((32768, False), (4096, not too_big)):
+        q8, k8, v8, vl, kw, L = _k3_operands(rng, dev, layout, 2, sq,
+                                             group * hkv, hkv, d, span)
+        vl = torch.tensor([L, L // 3 + 5], dtype=torch.int32, device=dev)
+        p = _k3_plan(dev, q8, k8, v8, kw, L)
+        assert p.resident == resident and p.cluster == 8
+        _k3_check(q8, k8, v8, plan, vl,
+                  dict(kw, requant=RequantSpec.per_tensor(plan.dn_out)))
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "paged", "kv4"])
+@pytest.mark.parametrize("d", [32, 64, 120, 128])
+@pytest.mark.parametrize("off", [4, 8])
+def test_decode_attention_kernel_off_alignment(dev, layout, d, off):
+    """q and K / V 4 or 8 bytes off 16-byte alignment: the plan copies in
+    4-byte granules (8-byte where the rows take them), and every lane,
+    valid_len 0 included, stays exact; then a launch with every lane at
+    valid_len 0 writes requant(0) everywhere."""
+    rng = np.random.default_rng(d + off)
+    plan = iattn.make_iattention(d, 8 / 127, 8 / 127, 4 / 127, 4 / 127)
+    q8, k8, v8, vl, kw, L = _k3_operands(rng, dev, layout, 4, 2, 8, 2, d,
+                                         200, ps=8, off=off)
+    p = _k3_plan(dev, q8, k8, v8, kw, L)
+    rb = d // 2 if layout == "kv4" else d
+    wide = 16 if rb % 16 == 0 else 8 if rb % 8 == 0 else 4
+    assert p.copy_bytes == (wide if wide <= off and off % wide == 0 else 4)
+    rq = dict(requant=RequantSpec.per_tensor(plan.dn_out))
+    _k3_check(q8, k8, v8, plan, vl, dict(kw, **rq))
+    _k3_check(q8, k8, v8, plan, torch.zeros_like(vl), dict(kw, **rq))
+
+
+def test_decode_attention_plan_matches_the_library(dev):
+    """The plan's shared memory is the kernel library's own layout
+    (``r8_k3_smem_bytes``) on both routes, every head dim, layout and
+    number of m16 tiles, at the key counts the plan gives a rank."""
+    from repro_torch.kernels._build import library
+    from repro_torch.kernels.int_decode_attention import k3_smem_bytes
+    lib = library()
+    for d in (32, 64, 120, 128):
+        for keys in (64, 128, 512, 1024, 4096):
+            for mtb in (1, 2):
+                for paged, packed in ((False, False), (True, False),
+                                      (True, True)):
+                    for resident in (False, True):
+                        assert k3_smem_bytes(d, keys, mtb, paged, packed,
+                                             resident) == \
+                            lib.r8_k3_smem_bytes(d, keys, mtb, int(paged),
+                                                 int(packed), int(resident))
+
+
 # K5's edge cases: D = 32 / 64 / 128 at S = 1, 37, 100 and 1000, one key,
 # every operand -128 or +127, q/k/v 4 bytes off 16-byte alignment, a
 # window wider than S, Sq > Skv with rows that see no key, and key ranges
