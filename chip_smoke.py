@@ -15,20 +15,30 @@ non-zero before the last line):
            times and the roofline bound: K1-K4 at the serving path's
            full-width llama3-8b shapes (K1 at M = 4 and 16, the decode
            tile, each row with its plan: route, BN, cluster; and 128),
-           K1, K2 (LayerNorm), K5 and K6 at
+           K2 at 4 and 128 rows, its d % 4 != 0 and misaligned rows, an
+           empty launch and K2's sqrt against the 16-step one on every
+           int32, K1, K2 (LayerNorm) at 16 384 and 128 rows, K5 and K6 at
            the encoder path's full-width roberta-base shapes, K7 and K8
            at the ``pallas`` backend's (the full score matrix, the
            encoder's attention at the reference's logical blocks), then
            the edge cases of the tensor-core K4, K5 and K8 and exp16's
            division on its whole domain, then K1, K2, K3 (contiguous and
            paged) and K5 at h2o-danube-3-4b's shapes, head dim 120 (and
-           one K4 and two K8 rows there);
+           one K4 and two K8 rows there; K2 at 4 and 1024 rows);
   k1-decode  (not in the default list) K1's decode rows alone: every
            llama3-8b and h2o-danube-3-4b decode projection at M = 4 and
            16, dense and over nibbles, exact against the plain version,
            device, call and host ms; it calls only the wrappers, so
            the same script times another commit's tree (copy it there
            and run ``--phases build,k1-decode``) on the same operands;
+  k2-norm  (not in the default list) K2's rows alone: every shape a path
+           runs (llama3-8b's RMSNorm at 4 and 128 rows of 4096,
+           h2o-danube-3-4b's at 4 and 1024 of 3840, roberta-base's
+           LayerNorm + beta at 128 and 16 384 of 768), d % 4 != 0 and
+           misaligned rows, exact against the plain version, device, call
+           and host ms, after an empty launch (the latency floor) and the
+           sqrt check; like ``k1-decode`` it calls only the wrappers, so
+           the same script times another tree's K2;
   k3-decode  (not in the default list) K3's rows alone: llama3-8b's serve
            row over int8 and int4 pools (folded and not), the serve
            traffic's decode lengths and the profiled decode window's short
@@ -112,8 +122,8 @@ over the dense delta matrix, a layout the port does not store
 ``sass`` line (per kernel ``IMMA`` / ``IDP`` / ``LDL`` / ``STL``), and
 fails unless every K1 decode-tile, K3, K4, K5, K8 and tensor-core MSR-4
 correction instantiation shows ``IMMA`` and none of the other three, every K1
-tensor-core instantiation ``IMMA``, and no K1 or gather-route correction
-instantiation ``LDL`` / ``STL``.
+tensor-core instantiation ``IMMA``, and no K1, gather-route correction or
+K2 instantiation ``LDL`` / ``STL``.
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit,
 and the final ``{"ok": true, "device": {...}}`` line.  The script imports
@@ -456,8 +466,6 @@ def check_kernels(cfg, plans):
         int_paged_prefill_fused, int_paged_prefill_plain)
     from repro_torch.kernels.int_decode_attention import (
         int_decode_attention_fused, int_decode_attention_plain)
-    from repro_torch.kernels.int_layernorm import (int_layernorm,
-                                                   int_layernorm_plain)
     from repro_torch.ops.spec import QuantLinearParams, RequantSpec
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
@@ -516,19 +524,17 @@ def check_kernels(cfg, plans):
                plan=k1_plan(m, v, d, x8=x8, w=w8))
         del w8
 
-    # K2: RMSNorm rows of the residual stream
-    npl = plans.norm
+    # K2: RMSNorm rows of the residual stream (a decode step, a prefill
+    # chunk), its edges, the empty launch it is judged against at 4 rows
+    # and its sqrt on every int32
     gamma = _randint(gen, 40, 128, (d,), torch.int32)
     for r in (4, 128):
         q = _randint(gen, -cfg.qmax_res, cfg.qmax_res + 1, (r, d),
                      torch.int32)
-        got = int_layernorm(q, gamma, None, npl)
-        want = int_layernorm_plain(q, gamma, None, npl)
-        # per element ~40 int32 ops, far below the bytes at any rate
-        record(rows, "int_layernorm", f"rmsnorm rows={r} d={d}", got,
-               want, lambda: int_layernorm(q, gamma, None, npl),
-               lambda: int_layernorm_plain(q, gamma, None, npl),
-               8 * r * d + 4 * d, 0, rep=(r == 4), iters=50)
+        k2_row(rows, "rmsnorm", q, gamma, None, plans.norm, rep=(r == 4))
+    check_k2_edges(gen, cfg, rows)
+    empty_kernel_row()
+    isqrt_check()
 
     # K3/K4: paged attention over a permuted page table, ragged lengths
     b, ps, maxp = 4, 16, 32
@@ -1033,6 +1039,135 @@ def check_k3_decode(cfg, wcfg, plans, wplans) -> None:
         del q8, k8, v8, args, kw
 
 
+def k2_plan(q, gamma, beta):
+    """K2's launch for these operands (kernels/int_layernorm.py::
+    launch_plan), or None in a tree that has no such plan (the ``k2-norm``
+    phase also times older trees)."""
+    import torch
+    try:
+        from repro_torch.kernels.int_layernorm import launch_plan
+    except ImportError:
+        return None
+    d = q.shape[-1]
+    ops = [t for t in (q, gamma, beta) if t is not None]
+    return launch_plan(
+        q.numel() // d, d,
+        torch.cuda.get_device_properties(0).multi_processor_count,
+        all(t.data_ptr() % 16 == 0 for t in ops)).describe()
+
+
+def k2_row(rows, tag, q, gamma, beta, npl, rep=False, host=False):
+    """One K2 row: exact against its plain version, then timed; the byte
+    bound reads the rows and writes them once and reads gamma (and beta)
+    once.  Per element ~16 int32 operations, far below the bytes at any
+    rate.  ``host``: also the host ms a call (``host_ms``)."""
+    from repro_torch.kernels.int_layernorm import (int_layernorm,
+                                                   int_layernorm_plain)
+    r, d = q.numel() // q.shape[-1], q.shape[-1]
+
+    def fn():
+        return int_layernorm(q, gamma, beta, npl)
+
+    def plain():
+        return int_layernorm_plain(q, gamma, beta, npl)
+
+    record(rows, "int_layernorm", f"{tag} rows={r} d={d}", fn(), plain(),
+           fn, plain, 8 * r * d + 4 * d * (1 + (beta is not None)), 0,
+           rep=rep, iters=50, plan=k2_plan(q, gamma, beta),
+           extra={"host_ms": host_ms(fn, 50)} if host else None)
+
+
+def check_k2_edges(gen, cfg, rows, host=False) -> None:
+    """K2 where its vectors narrow to one int: d % 4 != 0 on the warp
+    route (128 x 1002, LayerNorm + beta) and the block route (4 x 4095,
+    RMSNorm), and rows 4 bytes off 16-byte alignment at the decode and
+    encode shapes (4 x 4096 RMSNorm, 16 384 x 768 LayerNorm + beta)."""
+    import torch
+    from repro_torch.core.norms import make_inorm
+    for r, d, mean, off in ((128, 1002, True, 0), (4, 4095, False, 0),
+                            (4, 4096, False, 1),
+                            (ENCODE_BATCH * ENCODE_SEQ, 768, True, 1)):
+        npl = make_inorm(d, cfg.s_res, cfg.qmax_res, 2.0 / 127.0,
+                         cfg.s_act8, subtract_mean=mean)
+        q = _randint(gen, -cfg.qmax_res, cfg.qmax_res + 1, (r, d),
+                     torch.int32)
+        if off:
+            q = _offset_view(q, off)
+        gamma = _randint(gen, 40, 128, (d,), torch.int32)
+        beta = _randint(gen, -9000, 9000, (d,), torch.int32) if mean else None
+        tag = (f"misaligned {4 * off} B" if off else "d % 4 != 0") + (
+            " layernorm+beta" if mean else " rmsnorm")
+        k2_row(rows, tag, q, gamma, beta, npl, host=host)
+
+
+def empty_kernel_row() -> None:
+    """An empty launch (one CTA of 32 threads, no work: ``r8_empty_kernel``)
+    timed like a kernel row: the floor of a latency-bound launch from the
+    port's wrappers, against which K2's 4-row rows are read.  A tree
+    without it prints nothing."""
+    import torch
+    from repro_torch.kernels._build import library
+    lib = library()
+    if not hasattr(lib, "r8_empty_kernel"):
+        return
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def fn():
+        return lib.r8_empty_kernel(stream)
+
+    emit({"phase": "kernels", "name": "empty_kernel",
+          "case": "one CTA of 32 threads, no work", "ms": device_ms(fn, 50),
+          "call_ms": time_ms(fn, 50), "host_ms": host_ms(fn, 50)})
+
+
+def isqrt_check() -> None:
+    """K2's O(1) integer sqrt against the reference's 16 Newton steps on
+    every n in [-1, 2^31), on the card.  A tree without it prints
+    nothing."""
+    try:
+        from repro_torch.kernels.int_layernorm import isqrt_mismatches
+    except ImportError:
+        return
+    bad = isqrt_mismatches()
+    emit({"phase": "kernels", "name": "int_layernorm",
+          "case": "isqrt_fast == isqrt16 on every n in [-1, 2^31)",
+          "mismatches": bad})
+    if bad:
+        raise AssertionError(f"int_layernorm: isqrt_fast differs from the "
+                             f"16-step sqrt on {bad} values")
+
+
+def check_k2_norm(cfg, ecfg, wcfg) -> None:
+    """The ``k2-norm`` phase: K2's rows alone, at every shape a path runs
+    (llama3-8b's RMSNorm at 4 and 128 rows of 4096, h2o-danube-3-4b's at
+    4 and 1024 of 3840, roberta-base's LayerNorm + beta at 128 and
+    16 384 of 768) and its edges, each exact against its plain version,
+    with device, call and host ms, after the empty launch and the sqrt
+    check.  It calls only the wrappers and their plain versions, so the
+    same script times another tree's kernel on the same seeded operands
+    (an A/B of two commits in one call)."""
+    import torch
+    from repro_torch.quant import plans as qplans
+    gen = torch.Generator(device="cuda").manual_seed(2580)
+    rows = {}
+    empty_kernel_row()
+    isqrt_check()
+    for tag, c, shapes in (("llama3-8b rmsnorm", cfg, (4, 128)),
+                           ("h2o rmsnorm", wcfg, (4, 1024)),
+                           ("roberta-base layernorm+beta", ecfg,
+                            (128, ENCODE_BATCH * ENCODE_SEQ))):
+        npl = qplans.build_layer_plans(c).norm
+        d = c.d_model
+        gamma = _randint(gen, 40, 128, (d,), torch.int32)
+        beta = (_randint(gen, -9000, 9000, (d,), torch.int32)
+                if npl.subtract_mean else None)
+        for r in shapes:
+            q = _randint(gen, -c.qmax_res, c.qmax_res + 1, (r, d),
+                         torch.int32)
+            k2_row(rows, f"k2-norm {tag}", q, gamma, beta, npl, host=True)
+    check_k2_edges(gen, cfg, rows, host=True)
+
+
 def check_msr4_route_edges(gen, rows, pc) -> None:
     """The correction on both routes at their edges: the gather route
     (g = K = 2048) with n_outliers 0, 1 and g at M = 5 and 17; then on
@@ -1206,8 +1341,6 @@ def check_encoder_kernels(cfg, plans, rows) -> None:
     from repro_torch.kernels.int_attention_fused import (
         int_attention_fused, int_attention_fused_plain)
     from repro_torch.kernels.int_gelu import int_gelu, int_gelu_plain
-    from repro_torch.kernels.int_layernorm import (int_layernorm,
-                                                   int_layernorm_plain)
     from repro_torch.ops.spec import RequantSpec
 
     gen = torch.Generator(device="cuda").manual_seed(4321)
@@ -1250,19 +1383,14 @@ def check_encoder_kernels(cfg, plans, rows) -> None:
            plan=k1_plan(ENCODE_BATCH, v, d))
     del w8
 
-    # K2 in LayerNorm mode (mean subtracted, beta added)
-    npl = plans.norm
+    # K2 in LayerNorm mode (mean subtracted, beta added): an encode pass's
+    # rows and 128
     gamma = _randint(gen, 40, 128, (d,), torch.int32)
     beta = _randint(gen, -9000, 9000, (d,), torch.int32)
-    for r in (tokens, ENCODE_BATCH):
+    for r in (tokens, 128):
         q = _randint(gen, -cfg.qmax_res, cfg.qmax_res + 1, (r, d),
                      torch.int32)
-        record(rows, "int_layernorm", f"layernorm+beta rows={r} d={d}",
-               int_layernorm(q, gamma, beta, npl),
-               int_layernorm_plain(q, gamma, beta, npl),
-               lambda: int_layernorm(q, gamma, beta, npl),
-               lambda: int_layernorm_plain(q, gamma, beta, npl),
-               8 * r * d + 8 * d, 0, iters=20)
+        k2_row(rows, "layernorm+beta", q, gamma, beta, plans.norm)
 
     # K5: the encoder's launch, then GQA causal / windowed, the other
     # epilogues and a cross-shaped launch; then the edge cases of the
@@ -1497,8 +1625,6 @@ def check_window_kernels(cfg, plans, rows) -> None:
         int_paged_prefill_fused, int_paged_prefill_plain)
     from repro_torch.kernels.int_decode_attention import (
         int_decode_attention_fused, int_decode_attention_plain)
-    from repro_torch.kernels.int_layernorm import (int_layernorm,
-                                                   int_layernorm_plain)
     from repro_torch.ops.spec import QuantLinearParams, RequantSpec
 
     gen = torch.Generator(device="cuda").manual_seed(5678)
@@ -1540,16 +1666,13 @@ def check_window_kernels(cfg, plans, rows) -> None:
                plan=k1_plan(m, v, d, x8=x8, w=w8))
         del w8, x_cache
 
-    # K2: RMSNorm rows of the residual stream
-    npl = plans.norm
+    # K2: RMSNorm rows of the residual stream (a decode step, a 4 x 256
+    # windowed prefill pass)
     gamma = _randint(gen, 40, 128, (d,), torch.int32)
-    q = _randint(gen, -cfg.qmax_res, cfg.qmax_res + 1, (4, d), torch.int32)
-    record(rows, "int_layernorm", f"h2o rmsnorm rows=4 d={d}",
-           int_layernorm(q, gamma, None, npl),
-           int_layernorm_plain(q, gamma, None, npl),
-           lambda: int_layernorm(q, gamma, None, npl),
-           lambda: int_layernorm_plain(q, gamma, None, npl),
-           8 * 4 * d + 4 * d, 0, iters=50)
+    for r in (4, 1024):
+        q = _randint(gen, -cfg.qmax_res, cfg.qmax_res + 1, (r, d),
+                     torch.int32)
+        k2_row(rows, "h2o rmsnorm", q, gamma, None, plans.norm)
 
     # K3 at D = 120: contiguous caches and pools
     aplan = plans.attn.attn
@@ -2593,11 +2716,11 @@ TENSOR_CORE_KERNELS = ("int8_matmul_decode_kernel",
                        "msr4_correct_mma_kernel")
 
 
-# K1's instantiations (dense and packed, both paths) and the MSR-4
-# correction's gather route: no spill, and K1's tensor-core tiles on the
-# tensor cores
+# K1's instantiations (dense and packed, both paths), the MSR-4
+# correction's gather route and every K2 instantiation (its rows live in
+# registers): no spill, and K1's tensor-core tiles on the tensor cores
 NO_SPILL_KERNELS = ("int8_matmul_decode_kernel", "int8_matmul_mma_kernel",
-                    "msr4_correct_kernel")
+                    "msr4_correct_kernel", "int_layernorm_kernel")
 
 
 def sass_summary(so: str) -> None:
@@ -2707,6 +2830,8 @@ def main(argv=None) -> int:
     if "k3-decode" in phases:
         wcfg = window_config()
         check_k3_decode(cfg, wcfg, plans, qplans.build_layer_plans(wcfg))
+    if "k2-norm" in phases:
+        check_k2_norm(cfg, ecfg, window_config())
     if "parity" in phases:
         phase_parity(cfg)
     if "serve" in phases:

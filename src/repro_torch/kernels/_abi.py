@@ -4,6 +4,7 @@ and the host-side packing of plans and RequantSpecs into those structs."""
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -137,8 +138,12 @@ def declare(lib: ctypes.CDLL) -> None:
                                             _I, _I, _I, _P]
     lib.r8_int8_matmul_msr4_mma.restype = _I
     lib.r8_int_layernorm.argtypes = [_P, _P, _P, ctypes.POINTER(NormConsts),
-                                     _P, _I, _P]
+                                     _P, _I, _I, _I, _I, _I, _I, _P]
     lib.r8_int_layernorm.restype = _I
+    lib.r8_isqrt_check.argtypes = [_P, _I, _P]
+    lib.r8_isqrt_check.restype = _I
+    lib.r8_empty_kernel.argtypes = [_P]
+    lib.r8_empty_kernel.restype = _I
     lib.r8_int_decode_attention.argtypes = [ctypes.POINTER(K3Args), _P]
     lib.r8_int_decode_attention.restype = _I
     lib.r8_k3_smem_bytes.argtypes = [_I, _I, _I, _I, _I, _I]
@@ -229,8 +234,11 @@ def exp16_consts(sm, magic: int, z_shift: int) -> Exp16:
                  shift_struct(de.c - de.pre), magic, z_shift)
 
 
+@functools.lru_cache(maxsize=256)
 def norm_consts(plan, out_bits: int) -> NormConsts:
-    """Pack an INormPlan."""
+    """Pack an INormPlan (a hashable NamedTuple) once per ``(plan,
+    out_bits)``: a llama3-8b decode step normalises 65 times.  The struct
+    is shared between calls and never written after."""
     for dn in (plan.dn_mean, plan.dn_var, plan.dn_out):
         _shifts_ok(dn.b, dn.c, dn.pre)
     if not 0 <= 2 * plan.pre_shift <= 31 or \

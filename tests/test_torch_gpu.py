@@ -214,6 +214,104 @@ def test_int_layernorm_kernel(dev, subtract_mean):
     assert torch.equal(got, int_layernorm_plain(q, g, b, plan))
 
 
+def _k2_operands(rng, rows, d, mean, beta, dev):
+    """A K2 plan and operands: random rows, a constant row (sigma 0) and,
+    past two rows, one just under qmax_in (a large mean) and one
+    alternating +-qmax_in."""
+    plan = inorms.make_inorm(d, 2.0 ** -9, 8192, 2 / 127, 8 / 127, mean)
+    q = _i32(rng, -8192, 8193, (rows, d), dev)
+    q[0] = 17
+    if rows > 2:
+        q[1] = 8192 - _i32(rng, 0, 200, (d,), dev)
+        q[2] = torch.where(torch.arange(d, device=dev) % 2 == 0, 8192,
+                           -8192).to(torch.int32)
+    g = _i32(rng, -127, 128, (d,), dev)
+    b = _i32(rng, -9000, 9000, (d,), dev) if beta else None
+    return plan, q, g, b
+
+
+@pytest.mark.parametrize("d", [64, 384, 768, 1002, 1024, 3840, 4096, 8191])
+@pytest.mark.parametrize("rows", [1, 4, 5, 128, 1031])
+@pytest.mark.parametrize("mean,beta", [(True, True), (True, False),
+                                       (False, False), (False, True)])
+def test_int_layernorm_kernel_shapes(dev, d, rows, mean, beta):
+    """Both routes (a warp a row up to d = 1024, a CTA a row past it), int4
+    and one-int vectors (d % 4 != 0 at 1002 and 8191), a persistent grid
+    that wraps (1031 rows), LayerNorm and RMSNorm with and without beta:
+    one launch, the plain version's integers."""
+    rng = np.random.default_rng(d * 8 + rows)
+    plan, q, g, b = _k2_operands(rng, rows, d, mean, beta, dev)
+    before = kernels.LAUNCHES["int_layernorm"]
+    got = int_layernorm(q, g, b, plan)
+    assert kernels.LAUNCHES["int_layernorm"] == before + 1
+    assert torch.equal(got, int_layernorm_plain(q, g, b, plan))
+
+
+@pytest.mark.parametrize("d", [768, 1024, 3840, 4096])
+@pytest.mark.parametrize("off", [1, 2])
+@pytest.mark.parametrize("which", ["q", "gamma", "beta"])
+def test_int_layernorm_kernel_off_alignment(dev, d, off, which):
+    """An operand 4 or 8 bytes off 16-byte alignment takes the one-int
+    vectors, and stays exact."""
+    from repro_torch.kernels.int_layernorm import launch_plan
+    rng = np.random.default_rng(d + off)
+    plan, q, g, b = _k2_operands(rng, 37, d, True, True, dev)
+    ops = {"q": q, "gamma": g, "beta": b}
+    t = ops[which]
+    flat = torch.empty(t.numel() + 4, dtype=torch.int32, device=dev)
+    view = flat[off:off + t.numel()].view(t.shape)
+    view.copy_(t)
+    ops[which] = view
+    assert view.data_ptr() % 16 == 4 * off
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert launch_plan(37, d, sms, False).vec == 1
+    got = int_layernorm(ops["q"], ops["gamma"], ops["beta"], plan)
+    assert torch.equal(got, int_layernorm_plain(q, g, b, plan))
+
+
+def test_int_layernorm_one_launch_no_workspace(dev, monkeypatch):
+    """A K2 call on either route runs one device kernel and allocates no
+    workspace (``torch.zeros`` raises)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(9)
+    cases = [_k2_operands(rng, 128, d, d == 768, d == 768, dev)
+             for d in (768, 4096)]
+    wants = [int_layernorm_plain(q, g, b, p) for p, q, g, b in cases]
+    for p, q, g, b in cases:
+        int_layernorm(q, g, b, p)
+    torch.cuda.synchronize()
+
+    def refuse(*a, **kw):
+        raise AssertionError("torch.zeros in a K2 launch")
+
+    monkeypatch.setattr(torch, "zeros", refuse)
+    for (p, q, g, b), want in zip(cases, wants):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            got = int_layernorm(q, g, b, p)
+            torch.cuda.synchronize()
+        calls = sum(ev.count for ev in prof.key_averages()
+                    if ev.device_type == DeviceType.CUDA)
+        assert calls == 1
+        assert torch.equal(got, want)
+
+
+def test_int_layernorm_refuses_what_it_cannot_take(dev):
+    """A row longer than the kernel's 8192 raises a ValueError naming it."""
+    plan = inorms.make_inorm(8200, 2.0 ** -9, 4096, 2 / 127, 8 / 127)
+    q = torch.zeros((2, 8200), dtype=torch.int32, device=dev)
+    g = torch.ones(8200, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="8200"):
+        int_layernorm(q, g, None, plan)
+
+
+def test_isqrt_fast_matches_isqrt16_on_every_int32(dev):
+    """The kernel's O(1) sqrt == the reference's 16 Newton steps on every
+    n in [-1, 2^31)."""
+    from repro_torch.kernels.int_layernorm import isqrt_mismatches
+    assert isqrt_mismatches() == 0
+
+
 @pytest.mark.parametrize("hd", [32, 64, 120, 128])
 @pytest.mark.parametrize("fold", [False, True])
 def test_attention_kernels(dev, hd, fold):

@@ -109,6 +109,34 @@ def test_int_layernorm_plain_matches_pallas(layernorm):
     assert np.array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("arch", ["roberta-base", "h2o-danube-3-4b",
+                                  "llama3-8b"])
+def test_int_layernorm_plain_matches_pallas_full_width(arch):
+    """K2 at the full widths the paths run, with the plans the configs
+    build: roberta-base's LayerNorm + beta at d = 768, h2o-danube-3-4b's
+    and llama3-8b's RMSNorm at 3840 and 4096; a random row, +-qmax_res,
+    a constant row (sigma 0) and alternating +-qmax_res."""
+    from repro.configs.registry import get_config
+    from repro.quant.plans import build_layer_plans
+    cfg = get_config(arch)
+    jp = build_layer_plans(cfg).norm
+    assert jp.subtract_mean == (arch == "roberta-base")
+    d, qmax = cfg.d_model, cfg.qmax_res
+    rng = np.random.default_rng(d)
+    q = rng.integers(-qmax, qmax + 1, (5, d)).astype(np.int32)
+    q[1], q[2], q[3] = qmax, -qmax, 77
+    q[4] = np.where(np.arange(d) % 2 == 0, qmax, -qmax)
+    g = rng.integers(-127, 128, (d,)).astype(np.int32)
+    b = rng.integers(-9000, 9000, (d,)).astype(np.int32) \
+        if jp.subtract_mean else None
+    want = int_layernorm_pallas(jnp.asarray(q), jnp.asarray(g),
+                                None if b is None else jnp.asarray(b), jp,
+                                interpret=True)
+    got = int_layernorm_plain(T(q), T(g), None if b is None else T(b),
+                              plan_from_reference(jp))
+    assert np.array_equal(got.numpy(), np.asarray(want))
+
+
 # -------------------------------------------------------------- K3 / K4 ---
 
 def _attn_setup(seed, b=3, h=4, hkv=2, d=32, ps=16, num_pages=13):
