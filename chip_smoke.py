@@ -48,6 +48,15 @@ non-zero before the last line):
            against the plain version, device, call and host ms, each with
            its plan; like ``k1-decode`` it calls only the wrappers, so the
            same script times another commit's tree;
+  k7-softmax  (not in the default list) K7's rows alone: RoBERTa-base's
+           full score matrix (32 x 12 x 512 rows of 512) unmasked and
+           with valid_len 300, 256 x 1024, 4 x 2^15, and the edges
+           (L % 4 != 0, scores 4 bytes off 16-byte alignment, valid_len
+           0 and 1, L = 1, 1024 and 1025, all-equal rows), exact against
+           the plain version, device, call and host ms, each with its
+           plan, after an empty launch and exp16's division on its whole
+           domain; like ``k1-decode`` it calls only the wrappers, so the
+           same script times another commit's tree;
   parity   full-width llama3-8b cut to 2 layers: ServingEngine token
            streams on the ``cuda`` backend must equal ``torch_ref``'s;
   serve    full llama3-8b (32 layers) on the ``cuda`` backend: throughput,
@@ -260,10 +269,14 @@ def host_ms(fn, iters: int) -> float:
     return t
 
 
-def device_ms(fn, iters: int):
-    """Device time per call of everything ``fn`` launches, from
-    ``torch.profiler`` (kernel execution only: no host issue gaps); None
-    where the profiler records no device time."""
+def device_profile(fn, iters: int):
+    """``(ms, events)``: the device time per call of everything ``fn``
+    launches, from ``torch.profiler`` (kernel execution only: no host
+    issue gaps), None where the profiler records no device time; and the
+    device events it recorded over the ``iters`` calls.  The profiler
+    can drop an event: a kernel recorded ``n`` times counts ``ceil(n /
+    iters)`` launches a call at its mean time, so a dropped event does
+    not lower the time (with none dropped, the total over ``iters``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -273,10 +286,19 @@ def device_ms(fn, iters: int):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(getattr(ev, "self_device_time_total", 0.0)
-                   for ev in prof.key_averages()
-                   if ev.device_type == DeviceType.CUDA)
-    return total_us / 1e3 / iters if total_us > 0 else None
+    us, events = 0.0, 0
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", 0.0)
+        if ev.device_type == DeviceType.CUDA and ev.count and t > 0:
+            us += t / ev.count * -(-ev.count // iters)
+            events += ev.count
+    return (us / 1e3 if us > 0 else None), events
+
+
+def device_ms(fn, iters: int):
+    """Device time per call of everything ``fn`` launches
+    (:func:`device_profile`); None where the profiler records none."""
+    return device_profile(fn, iters)[0]
 
 
 def max_abs_diff(a, b) -> int:
@@ -299,7 +321,8 @@ def record(rows, name, case, got, want, kernel, plain, nbytes, ops,
            lib_ms=None, rep=False, iters=20, plain_iters=3, plan=None,
            extra=None):
     """Exactness first, then times: ``ms`` / ``plain_ms`` are device time
-    per call (profiler), ``call_ms`` the kernel wrapper's wall time per
+    per call (profiler; ``device_events`` the kernel events it recorded
+    over ``iters`` calls), ``call_ms`` the kernel wrapper's wall time per
     call on the device timeline (CUDA events, host issue gaps included).
     ``rep``: this case is the kernel's row in the summary line; ``plan``:
     the launch the wrapper chose, printed with the case; ``extra``: more
@@ -307,12 +330,14 @@ def record(rows, name, case, got, want, kernel, plain, nbytes, ops,
     err = max_abs_diff(got, want)
     b_ms, b_by = bound_ms(nbytes, ops)
     call = time_ms(kernel, iters)
+    ms, events = device_profile(kernel, iters)
     row = {"name": name, "case": case, "max_abs_err": err,
-           "ms": device_ms(kernel, iters) or call,
+           "ms": ms or call,
            "plain_ms": (device_ms(plain, plain_iters)
                         or time_ms(plain, plain_iters)),
            "call_ms": call,
-           "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+           "device_events": events, "iters": iters}
     emit({"phase": "kernels", **row, **({"plan": plan} if plan else {}),
           **(extra or {})})
     if err != 0:
@@ -398,9 +423,9 @@ def k8_plan(q8, bkv: int) -> str:
 
 
 def division_check(name: str, aplan) -> None:
-    """exp16's multiply-high division (K5's and K8's) against `/` on its
-    whole domain for the plan ``aplan`` the kernel ``name`` launches
-    with."""
+    """exp16's multiply-high division (K3's, K4's, K5's, K7's and K8's)
+    against `/` on its whole domain for the plan ``aplan`` the kernel
+    ``name`` launches with."""
     from repro_torch.kernels.int_attention_fused import (
         exp16_division_mismatches)
     ie = aplan.sm.iexp
@@ -1166,6 +1191,81 @@ def check_k2_norm(cfg, ecfg, wcfg) -> None:
                          torch.int32)
             k2_row(rows, f"k2-norm {tag}", q, gamma, beta, npl, host=True)
     check_k2_edges(gen, cfg, rows, host=True)
+
+
+def k7_plan(x, valid_len: int):
+    """K7's launch for these scores (kernels/int_softmax.py::launch_plan),
+    or None in a tree that has no such plan (the ``k7-softmax`` phase also
+    times older trees)."""
+    try:
+        from repro_torch.kernels.int_softmax import launch_plan
+    except ImportError:
+        return None
+    L = x.shape[-1]
+    return launch_plan(x.numel() // L, L, valid_len,
+                       x.data_ptr() % 16 == 0).describe()
+
+
+def check_k7_softmax(ecfg) -> None:
+    """The ``k7-softmax`` phase: K7's rows alone, each exact against its
+    plain version, with device, call and host ms and its plan, after the
+    empty launch and exp16's division for the plan every row launches
+    with (roberta-base's attention plan, the ``ops`` phase's).  The byte
+    bound reads a row's live scores once and writes every probability
+    once; ~30 int32 operations an element are not counted.  It calls only
+    the wrappers and their plain versions, so the same script times
+    another tree's kernel on the same seeded scores (an A/B of two
+    commits in one call)."""
+    import torch
+    from repro_torch.kernels.int_softmax import (int_softmax,
+                                                 int_softmax_plain)
+    from repro_torch.quant import plans as qplans
+    aplan = qplans.build_layer_plans(ecfg).attn.attn
+    sm = aplan.sm
+    gen = torch.Generator(device="cuda").manual_seed(2471)
+    rows = {}
+    empty_kernel_row()
+    division_check("int_softmax", aplan)
+    full = (ENCODE_BATCH, ecfg.n_heads, ENCODE_SEQ, ENCODE_SEQ)
+    cases = [
+        # (tag, shape, valid_len, fill: None (random), "equal", or an
+        # element offset off 16-byte alignment)
+        ("roberta-base scores", full, -1, None),
+        ("roberta-base scores, padded", full, 300, None),
+        ("bench_kernels", (256, 1024), -1, None),
+        ("2^15-long rows", (4, 1 << 15), -1, None),
+        ("L % 4 != 0", (1000, 37), -1, None),
+        ("L % 4 != 0", (37, 1023), 500, None),
+        ("misaligned 4 B", (4096, 512), -1, 1),
+        ("misaligned 4 B", (4, 1 << 15), 30000, 1),
+        ("valid_len 0", (256, 512), 0, None),
+        ("valid_len 1", (256, 512), 1, None),
+        ("L = 1", (1024, 1), -1, None),
+        ("L = 1024", (256, 1024), 700, None),
+        ("L = 1025", (64, 1025), -1, None),
+        ("all-equal rows", (256, 512), -1, "equal"),
+    ]
+    for tag, shape, vl, fill in cases:
+        if fill == "equal":
+            x = torch.full(shape, 777, dtype=torch.int32, device="cuda")
+        else:
+            x = _randint(gen, -100000, 100000, shape, torch.int32)
+            if fill:
+                x = _offset_view(x, fill)
+        n, length = x.numel(), shape[-1]
+        read = n if vl < 0 else n // length * min(vl, length)
+
+        def fn():
+            return int_softmax(x, sm, vl)
+
+        def plain():
+            return int_softmax_plain(x, sm, vl)
+
+        record(rows, "int_softmax", f"k7-softmax {tag} "
+               f"{'x'.join(map(str, shape))} valid_len={vl}", fn(), plain(),
+               fn, plain, 4 * read + n, 0, iters=20, plain_iters=2,
+               plan=k7_plan(x, vl), extra={"host_ms": host_ms(fn, 20)})
+        del x
 
 
 def check_msr4_route_edges(gen, rows, pc) -> None:
@@ -2717,10 +2817,12 @@ TENSOR_CORE_KERNELS = ("int8_matmul_decode_kernel",
 
 
 # K1's instantiations (dense and packed, both paths), the MSR-4
-# correction's gather route and every K2 instantiation (its rows live in
-# registers): no spill, and K1's tensor-core tiles on the tensor cores
+# correction's gather route and every K2 and K7 instantiation (their rows
+# live in registers): no spill, and K1's tensor-core tiles on the tensor
+# cores
 NO_SPILL_KERNELS = ("int8_matmul_decode_kernel", "int8_matmul_mma_kernel",
-                    "msr4_correct_kernel", "int_layernorm_kernel")
+                    "msr4_correct_kernel", "int_layernorm_kernel",
+                    "int_softmax_kernel")
 
 
 def sass_summary(so: str) -> None:
@@ -2832,6 +2934,8 @@ def main(argv=None) -> int:
         check_k3_decode(cfg, wcfg, plans, qplans.build_layer_plans(wcfg))
     if "k2-norm" in phases:
         check_k2_norm(cfg, ecfg, window_config())
+    if "k7-softmax" in phases:
+        check_k7_softmax(ecfg)
     if "parity" in phases:
         phase_parity(cfg)
     if "serve" in phases:

@@ -56,14 +56,14 @@
 //   of 4 for every D the kernels take), so the loads are aligned for every
 //   D and every 4-byte aligned pool.
 //
-//   exp16 (exp16_mma) is int_common.cuh's with no branch per pair: the
-//   host resolves each dyadic shift, a launch constant, into a multiply,
-//   a rounding add and a right shift (kernels/_abi.py::exp16_consts),
-//   which the kernel reads from its parameters; the division (-qn) /
-//   q_ln2 is an exact multiply-high: the wrapper finds (magic, shift)
-//   with __umulhi(n, magic) >> shift == n / q_ln2 and checks it on every
-//   n of the domain [0, -neg_zq]; chip_smoke.py checks the same on the
-//   card (r8_exp16_div_check).
+//   exp16 (exp16_mma, in int_common.cuh since K7 shares it) has no
+//   branch per pair: the host resolves each dyadic shift, a launch
+//   constant, into a multiply, a rounding add and a right shift
+//   (kernels/_abi.py::exp16_consts), which the kernel reads from its
+//   parameters; the division (-qn) / q_ln2 is an exact multiply-high: the
+//   wrapper finds (magic, shift) with __umulhi(n, magic) >> shift == n /
+//   q_ln2 and checks it on every n of the domain [0, -neg_zq];
+//   chip_smoke.py checks the same on the card (r8_exp16_div_check).
 #pragma once
 
 #include "int_common.cuh"
@@ -82,46 +82,6 @@ __host__ __device__ constexpr int v_cols(int D) { return 32 * ksteps(D); }
 // 8-byte loads
 __host__ __device__ constexpr int sk_words(int D) {
   return (8 * ksteps(D)) % 16 == 8 ? 8 * ksteps(D) : 8 * ksteps(D) + 8;
-}
-
-__device__ __forceinline__ int div_ln2(int n, unsigned magic, int shift) {
-  return (int)(__umulhi((unsigned)n, magic) >> shift);
-}
-
-// core.dyadic.rshift_round by a launch-constant s, without branches:
-// x * 2^max(-s, 0) + 2^(s-1) (s > 0), wrapping, then >> max(s, 0)
-struct Shift {
-  unsigned mul;
-  unsigned half;
-  int rs;
-};
-
-__device__ __forceinline__ int rshift(int x, const Shift& sh) {
-  return (int)((unsigned)x * sh.mul + sh.half) >> sh.rs;
-}
-
-// the Shiftmax constants with every shift resolved for the launch (by the
-// host: kernels/_abi.py::exp16_consts), read from the kernel's parameters
-struct Exp16 {
-  int q_band, in_b, neg_zq, q_ln2, q_b, q_c, e_b;
-  Shift in_pre, in_post, e_pre, e_post;
-  unsigned magic;           // n / q_ln2 == __umulhi(n, magic) >> z_shift
-  int z_shift;              //   on [0, -neg_zq]
-};
-
-// core.softmax._exp16, as exp16 in int_common.cuh, with the dyadic
-// shifts resolved per launch and the division by q_ln2 a multiply-high
-__device__ __forceinline__ int exp16_mma(int q_sub, const Exp16& p) {
-  int q = max(q_sub, -p.q_band);
-  q = rshift(wmul(rshift(q, p.in_pre), p.in_b), p.in_post);
-  q = min(q, 0);
-  const int qn = max(q, p.neg_zq);
-  const int z = div_ln2(-qn, p.magic, p.z_shift);
-  const int q_p = wadd(qn, wmul(z, p.q_ln2));
-  const int t = wadd(q_p, p.q_b);
-  const int q_l = wadd(wmul(t, t), p.q_c);
-  const int e = q_l >> z;
-  return rshift(wmul(rshift(e, p.e_pre), p.e_b), p.e_post);
 }
 
 // Vᵀ pair swizzle of column d (see the note)

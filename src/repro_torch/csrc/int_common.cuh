@@ -28,15 +28,6 @@ struct Requant {
   int hi;
 };
 
-// The Shiftmax constants of an ISoftmaxPlan (core.softmax._exp16).
-struct SoftmaxConsts {
-  int q_band;                  // clip: q - max >= -q_band
-  int in_b, in_c, in_pre;      // dn_in
-  int q_ln2, q_b, q_c;         // i-exp polynomial
-  int neg_zq;                  // -z_max * q_ln2
-  int e_b, e_c, e_pre;         // dn_e16
-};
-
 __device__ __forceinline__ int wadd(int a, int b) {
   return (int)((unsigned)a + (unsigned)b);
 }
@@ -67,20 +58,58 @@ __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return min(max(x, lo), hi);
 }
 
-// core.softmax._exp16: (score - rowmax) <= 0 -> exp as a 2^-15 fraction
-__device__ __forceinline__ int exp16(int q_sub, const SoftmaxConsts& p) {
+// Shiftmax's exp16 (core.softmax._exp16) with no branch per element, for
+// K3, K4, K5 and K8 (int_attention_tc.cuh's tiles) and K7
+// (int_softmax.cu): the host resolves each dyadic shift, a launch
+// constant, into a multiply, a rounding add and a right shift
+// (kernels/_abi.py::exp16_consts), and the division (-qn) / q_ln2 becomes
+// an exact multiply-high (kernels/int_attention_fused.py::exp16_divisor,
+// checked on its whole domain on the host and on the card by
+// r8_exp16_div_check).
+namespace tc {
+
+__device__ __forceinline__ int div_ln2(int n, unsigned magic, int shift) {
+  return (int)(__umulhi((unsigned)n, magic) >> shift);
+}
+
+// core.dyadic.rshift_round by a launch-constant s, without branches:
+// x * 2^max(-s, 0) + 2^(s-1) (s > 0), wrapping, then >> max(s, 0)
+struct Shift {
+  unsigned mul;
+  unsigned half;
+  int rs;
+};
+
+__device__ __forceinline__ int rshift(int x, const Shift& sh) {
+  return (int)((unsigned)x * sh.mul + sh.half) >> sh.rs;
+}
+
+// the Shiftmax constants with every shift resolved for the launch (by the
+// host: kernels/_abi.py::exp16_consts), read from the kernel's parameters
+struct Exp16 {
+  int q_band, in_b, neg_zq, q_ln2, q_b, q_c, e_b;
+  Shift in_pre, in_post, e_pre, e_post;
+  unsigned magic;           // n / q_ln2 == __umulhi(n, magic) >> z_shift
+  int z_shift;              //   on [0, -neg_zq]
+};
+
+// core.softmax._exp16: (score - rowmax) <= 0 -> exp as a 2^-15 fraction,
+// with the dyadic shifts resolved per launch and the division by q_ln2 a
+// multiply-high
+__device__ __forceinline__ int exp16_mma(int q_sub, const Exp16& p) {
   int q = max(q_sub, -p.q_band);
-  q = dyadic(q, p.in_b, p.in_c, p.in_pre);
+  q = rshift(wmul(rshift(q, p.in_pre), p.in_b), p.in_post);
   q = min(q, 0);
   const int qn = max(q, p.neg_zq);
-  // -qn >= 0 and q_ln2 > 0: truncation == the reference's floor division
-  const int z = (-qn) / p.q_ln2;
+  const int z = div_ln2(-qn, p.magic, p.z_shift);
   const int q_p = wadd(qn, wmul(z, p.q_ln2));
   const int t = wadd(q_p, p.q_b);
   const int q_l = wadd(wmul(t, t), p.q_c);
-  const int e = q_l >> z;                    // 0 <= z <= z_max = 30
-  return dyadic(e, p.e_b, p.e_c, p.e_pre);
+  const int e = q_l >> z;
+  return rshift(wmul(rshift(e, p.e_pre), p.e_b), p.e_post);
 }
+
+}  // namespace tc
 
 // Packed int4 KV (repro/ops/packed.py, the kv_dtype="int4" page tier): a
 // byte holds head-dim lanes 2i (low nibble) and 2i + 1 (high); a lane

@@ -20,12 +20,6 @@ class Requant(ctypes.Structure):
     _fields_ = [(n, _I) for n in ("kind", "b", "c", "pre", "lo", "hi")]
 
 
-class SoftmaxConsts(ctypes.Structure):
-    _fields_ = [(n, _I) for n in ("q_band", "in_b", "in_c", "in_pre",
-                                  "q_ln2", "q_b", "q_c", "neg_zq",
-                                  "e_b", "e_c", "e_pre")]
-
-
 class NormConsts(ctypes.Structure):
     _fields_ = [(n, _I) for n in ("d", "subtract_mean", "mean_b", "mean_c",
                                   "mean_pre", "var_b", "var_c", "var_pre",
@@ -45,7 +39,7 @@ class Shift(ctypes.Structure):
 
 
 class Exp16(ctypes.Structure):
-    """``tc::Exp16`` (``csrc/int_attention_tc.cuh``; K3, K4, K5, K8): the
+    """``tc::Exp16`` (``csrc/int_common.cuh``; K3, K4, K5, K7, K8): the
     Shiftmax constants with every shift resolved."""
     _fields_ = ([(n, _I) for n in ("q_band", "in_b", "neg_zq", "q_ln2",
                                    "q_b", "q_c", "e_b")]
@@ -161,7 +155,8 @@ def declare(lib: ctypes.CDLL) -> None:
                                 ctypes.POINTER(GeluConsts), _I, _P]
     lib.r8_int_gelu.restype = _I
     lib.r8_int_softmax.argtypes = [_P, _P, ctypes.c_longlong, _I, _I, _I,
-                                   ctypes.POINTER(SoftmaxConsts), _P]
+                                   _I, _I, _I, ctypes.c_longlong,
+                                   ctypes.POINTER(Exp16), _P]
     lib.r8_int_softmax.restype = _I
     lib.r8_int_attention_online.argtypes = [ctypes.POINTER(OnlineArgs), _P]
     lib.r8_int_attention_online.restype = _I
@@ -206,16 +201,6 @@ def requant_struct(spec) -> Requant:
     return Requant(RQ_PER_CHANNEL, 0, spec.c, spec.pre, lo, hi)
 
 
-def softmax_consts(sm) -> SoftmaxConsts:
-    """Pack an ISoftmaxPlan's Shiftmax constants."""
-    for dn in (sm.dn_in, sm.dn_e16):
-        _shifts_ok(dn.b, dn.c, dn.pre)
-    ie = sm.iexp
-    return SoftmaxConsts(sm.q_band, sm.dn_in.b, sm.dn_in.c, sm.dn_in.pre,
-                         ie.q_ln2, ie.q_b, ie.q_c, -ie.z_max * ie.q_ln2,
-                         sm.dn_e16.b, sm.dn_e16.c, sm.dn_e16.pre)
-
-
 def shift_struct(s: int) -> Shift:
     """rshift_round by ``s`` (-31..31) without a branch: a left shift as a
     multiply, then the rounding half and the right shift."""
@@ -223,7 +208,7 @@ def shift_struct(s: int) -> Shift:
 
 
 def exp16_consts(sm, magic: int, z_shift: int) -> Exp16:
-    """Pack an ISoftmaxPlan for the attention kernels' branch-free exp16, with
+    """Pack an ISoftmaxPlan for the kernels' branch-free exp16, with
     ``(magic, z_shift)`` its division by q_ln2 as a multiply-high."""
     for dn in (sm.dn_in, sm.dn_e16):
         _shifts_ok(dn.b, dn.c, dn.pre)

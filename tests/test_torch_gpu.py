@@ -1066,11 +1066,14 @@ def test_encoder_prefill_cuda_matches_torch_ref(dev):
     assert torch.equal(logits["cuda"], logits["torch_ref"])
 
 
-@pytest.mark.parametrize("L", [1, 40, 512, 1000, 1025, 4096, 1 << 15])
+@pytest.mark.parametrize("L", [1, 4, 40, 512, 1000, 1023, 1024, 1025, 4096,
+                               4100, 1 << 15])
 def test_int_softmax_kernel(dev, L):
-    """K7 on both of its paths (a warp per row in registers up to 1024,
-    a block per row beyond), with and without the padding mask (0 and
-    past the end included); block_rows never changes the integers."""
+    """K7 on both of its routes (a warp a row up to 1024, a CTA a row
+    beyond, the row in registers; int4 loads where L % 4 == 0, one int
+    where not), with and without the padding mask (0 and past the end
+    included); block_rows never changes the integers; one launch a
+    call."""
     rng = np.random.default_rng(L)
     plan = iattn.make_iattention(64, 8 / 127, 8 / 127, 4 / 127, 4 / 127).sm
     rows = 3 if L == 1 << 15 else 37
@@ -1082,6 +1085,27 @@ def test_int_softmax_kernel(dev, L):
             got = int_softmax(x, plan, vl, block_rows=br)
             assert kernels.LAUNCHES["int_softmax"] == before + 1
             assert torch.equal(got, want), (vl, br)
+
+
+@pytest.mark.parametrize("L", [4, 37, 512, 1024, 4100, 1 << 15])
+def test_int_softmax_kernel_off_alignment(dev, L):
+    """Scores 4 bytes off 16-byte alignment take one int a load and give
+    the same integers; each call counts one launch."""
+    from repro_torch.kernels import int_softmax as K7
+    rng = np.random.default_rng(L + 7)
+    plan = iattn.make_iattention(64, 8 / 127, 8 / 127, 4 / 127, 4 / 127).sm
+    rows = 3 if L == 1 << 15 else 37
+    x = _i32(rng, -90000, 90000, (rows, L), dev)
+    flat = torch.empty(x.numel() + 4, dtype=torch.int32, device=dev)
+    off = flat[1:1 + x.numel()].view(rows, L)
+    off.copy_(x)
+    assert off.data_ptr() % 16 == 4
+    for vl in (-1, 0, 1, L // 3):
+        want = int_softmax_plain(x, plan, vl)
+        assert K7.launch_plan(rows, L, vl, False).vec == 1
+        before = kernels.LAUNCHES["int_softmax"]
+        assert torch.equal(int_softmax(off, plan, vl), want), vl
+        assert kernels.LAUNCHES["int_softmax"] == before + 1
 
 
 # K8's edge cases, at the blocks the cuda_online backend would fit
