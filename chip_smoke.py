@@ -14,7 +14,9 @@ non-zero before the last line):
            inputs (max |diff| must be 0), with kernel / plain / library
            times and the roofline bound: K1-K4 at the serving path's
            full-width llama3-8b shapes (K1 at M = 4 and 16, the decode
-           tile, each row with its plan: route, BN, cluster; and 128),
+           tile, each row with its plan: route, BN, cluster; and 128;
+           K3 at Sq 1 and at the verify step's Sq = spec_k + 1, over
+           int8 and int4 pages),
            K2 at 4 and 128 rows, its d % 4 != 0 and misaligned rows, an
            empty launch and K2's sqrt against the 16-step one on every
            int32, K1, K2 (LayerNorm) at 16 384 and 128 rows, K5 and K6 at
@@ -153,6 +155,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 
+# the speculative engines' draft length: their verify step runs K3 at
+# Sq = spec_k + 1
+SPEC_K = 3
+VERIFY_SQ = SPEC_K + 1
+
 TPU_KERNELS = {
     "int8_matmul": "src/repro/kernels/int8_matmul.py:90",
     "int_layernorm": "src/repro/kernels/int_layernorm.py:73",
@@ -188,6 +195,10 @@ SOURCES = {
 PATH_KERNELS = {
     "serve": ("int8_matmul", "int_layernorm", "int_decode_attention",
               "int_paged_prefill"),
+    "frontend-serve": ("int8_matmul", "int_layernorm",
+                       "int_decode_attention", "int_paged_prefill"),
+    "spec-serve": ("int8_matmul", "int_layernorm", "int_decode_attention",
+                   "int_paged_prefill"),
     "encode": ("int8_matmul", "int_layernorm", "int_attention_fused",
                "int_gelu"),
     "encode-online": ("int8_matmul", "int_layernorm",
@@ -228,8 +239,23 @@ def encode_launches_per_pass(layers: int,
     return per
 
 
+# the card's name and power limit (nvidia-smi), set once the card is found;
+# every phase line carries it
+CARD = {}
+
+
 def emit(obj) -> None:
+    if "phase" in obj and CARD:
+        obj = {**obj, "card": CARD["card"]}
     print(json.dumps(obj), flush=True)
+
+
+def card_line() -> str:
+    """``nvidia-smi --query-gpu=name,power.limit`` of the card."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return smi.stdout.strip()
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -575,11 +601,22 @@ def check_kernels(cfg, plans):
     requant = RequantSpec.per_tensor(aplan.dn_out)
     kv_row = hkv * hd * 2                       # K + V bytes per position
     fold_bytes = h * hd * d + 4 * d
-    for name, fused, plain, sq, lens in (
+    # (name, fused, plain, Sq, valid lengths, case prefix): the decode
+    # step, the verify step of a spec_k = 3 engine (Sq = 4, valid = pos +
+    # n_new: stepped lanes, and a lane at valid 1, as an idle lane or a
+    # first token gives it, whose rows 0..2 see no key), the prefill chunk
+    for name, fused, plain, sq, lens, pre in (
             ("int_decode_attention", int_decode_attention_fused,
-             int_decode_attention_plain, 1, [1, 137, 300, 512]),
+             int_decode_attention_plain, 1, [1, 137, 300, 512], ""),
+            ("int_decode_attention", int_decode_attention_fused,
+             int_decode_attention_plain, VERIFY_SQ, [4, 137, 300, 512],
+             "verify "),
+            ("int_decode_attention", int_decode_attention_fused,
+             int_decode_attention_plain, VERIFY_SQ, [1, 137, 300, 512],
+             "verify "),
             ("int_paged_prefill", int_paged_prefill_fused,
-             int_paged_prefill_plain, 32, [32, 100 + 32, 250 + 32, 512])):
+             int_paged_prefill_plain, 32, [32, 100 + 32, 250 + 32, 512],
+             "")):
         q8 = _randint(gen, -127, 128, (b, sq, h, hd), torch.int8)
         vl = torch.tensor(lens, dtype=torch.int32, device="cuda")
         live = sum(lens)
@@ -598,21 +635,21 @@ def check_kernels(cfg, plans):
             if fold:
                 io += fold_bytes + 4 * b * sq * d - b * sq * h * hd
                 ops += 2 * b * sq * h * hd * d
-            record(rows, name, f"B={b} S={sq} H={h} Hkv={hkv} D={hd} "
-                   f"ps={ps} pages/lane={maxp} valid={lens} fold_wo={fold}",
-                   got, want,
+            record(rows, name, f"{pre}B={b} S={sq} H={h} Hkv={hkv} "
+                   f"D={hd} ps={ps} pages/lane={maxp} valid={lens} "
+                   f"fold_wo={fold}", got, want,
                    lambda: fused(q8, k_pool, v_pool, aplan, vl, pages, ps,
                                  requant=requant, **kw),
                    lambda: plain(q8, k_pool, v_pool, aplan, vl, pages, ps,
                                  requant=requant, **kw),
-                   io, ops, rep=fold,
+                   io, ops, rep=fold and not pre,
                    plan=(k4_plan(q8, k_pool, pages, ps, aplan) if k4 else
                          k3_plan(q8, k_pool, v_pool,
                                  dict(pages=pages, page_size=ps))))
     # K3's and K4's exp16 division on its whole domain for llama's plan
     division_check("int_decode_attention", aplan)
     check_packed_kernels(gen, rows, aplan, requant, wo, wo_spec, h, hkv, hd,
-                         d, "")
+                         d, "", verify=True)
     check_k4_edges(gen, plans, rows)
     return rows
 
@@ -635,13 +672,15 @@ def kv4_bound(lens, sq: int, h: int, hkv: int, d: int, ps: int, maxp: int,
 
 
 def check_packed_kernels(gen, rows, aplan, requant, wo, wo_spec, h: int,
-                         hkv: int, hd: int, d: int, tag: str) -> None:
+                         hkv: int, hd: int, d: int, tag: str,
+                         verify: bool = False) -> None:
     """K3 and K4 over packed int4 pools (``kv_shifts``) at the serve
     shapes: the lanes, lengths and 16-row pages of the int8 rows, pool
     bytes from all 256 values, per-page K and V shifts drawn apart from
-    0..7, wo folded and not.  The folded rows (``tag`` empty) are the
-    summary rows of ``int_decode_attention_kv4`` and
-    ``int_paged_prefill_kv4``."""
+    0..7, wo folded and not; ``verify``: K3 also at the verify step's Sq
+    and lengths (:func:`check_kernels`).  The folded rows (``tag``
+    empty) of Sq 1 and of the prefill chunk are the summary rows of
+    ``int_decode_attention_kv4`` and ``int_paged_prefill_kv4``."""
     import torch
     from repro_torch.kernels.int_attention_fused import (
         int_paged_prefill_fused, int_paged_prefill_plain)
@@ -655,11 +694,18 @@ def check_packed_kernels(gen, rows, aplan, requant, wo, wo_spec, h: int,
                    for _ in range(2))
     pages = (torch.randperm(num_pages - 1, generator=gen, device="cuda")
              + 1).to(torch.int32).reshape(b, maxp)
-    for name, fused, plain, sq, lens in (
-            ("int_decode_attention_kv4", int_decode_attention_fused,
-             int_decode_attention_plain, 1, [1, 137, 300, 512]),
-            ("int_paged_prefill_kv4", int_paged_prefill_fused,
-             int_paged_prefill_plain, 32, [32, 100 + 32, 250 + 32, 512])):
+    k3_cases = [(1, [1, 137, 300, 512], "")]
+    if verify:
+        k3_cases += [(VERIFY_SQ, [4, 137, 300, 512], "verify "),
+                     (VERIFY_SQ, [1, 137, 300, 512], "verify ")]
+    cases = [("int_decode_attention_kv4", int_decode_attention_fused,
+              int_decode_attention_plain, sq, lens, pre)
+             for sq, lens, pre in k3_cases]
+    cases.append(("int_paged_prefill_kv4", int_paged_prefill_fused,
+                  int_paged_prefill_plain, 32, [32, 100 + 32, 250 + 32, 512],
+                  ""))
+    for name, fused, plain, sq, lens, pre in cases:
+        k4 = name == "int_paged_prefill_kv4"
         q8 = _randint(gen, -127, 128, (b, sq, h, hd), torch.int8)
         vl = torch.tensor(lens, dtype=torch.int32, device="cuda")
         for fold in (False, True):
@@ -669,14 +715,15 @@ def check_packed_kernels(gen, rows, aplan, requant, wo, wo_spec, h: int,
             args = (q8, kp, vp, aplan, vl, pages, ps)
             nbytes, ops = kv4_bound(lens, sq, h, hkv, hd, ps, maxp,
                                     d if fold else 0)
-            record(rows, name, f"{tag}B={b} S={sq} H={h} Hkv={hkv} D={hd} "
-                   f"ps={ps} pages/lane={maxp} valid={lens} fold_wo={fold} "
-                   "int4 shifts 0..7", fused(*args, **kw),
+            record(rows, name, f"{tag}{pre}B={b} S={sq} H={h} Hkv={hkv} "
+                   f"D={hd} ps={ps} pages/lane={maxp} valid={lens} "
+                   f"fold_wo={fold} int4 shifts 0..7", fused(*args, **kw),
                    plain(*args, **kw), lambda: fused(*args, **kw),
                    lambda: plain(*args, **kw), nbytes, ops,
-                   rep=fold and not tag, iters=10, plain_iters=2,
+                   rep=fold and not tag and not pre, iters=10,
+                   plain_iters=2,
                    plan=(k4_plan(q8, kp, pages, ps, aplan, packed=True)
-                         if sq > 1 else
+                         if k4 else
                          k3_plan(q8, kp, vp, dict(kw, pages=pages,
                                                   page_size=ps))))
         del q8
@@ -1929,9 +1976,122 @@ def run_engine(qp, plans, cfg, prompts, max_new, backend, **kw):
     return eng, reqs
 
 
+def _repeat_prompt(seed: int, vocab: int, seg: int = 16, times: int = 4):
+    """A prompt that repeats one ``seg``-token segment ``times`` times, so
+    the n-gram proposer drafts from its first verify step."""
+    return _prompts(seed, 1, seg, seg, vocab)[0] * times
+
+
+def drain_streams(eng, reqs):
+    """``run_until_done`` on the card; returns (streams, seconds)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run_until_done()
+    torch.cuda.synchronize()
+    return [r.out_tokens for r in reqs], time.perf_counter() - t0
+
+
+def frontend_streams(eng, prompts, max_new):
+    """Every prompt submitted at once through ``ServingFrontend`` over
+    ``eng``, each stream drained by its own consumer; returns (streams,
+    the front end's ``describe()``, seconds)."""
+    import asyncio
+
+    import torch
+    from repro_torch.serving import ServingFrontend
+    fe = ServingFrontend(eng, max_pending=len(prompts))
+
+    async def serve():
+        runner = asyncio.create_task(fe.run())
+        handles = [fe.submit(p, max_new) for p in prompts]
+        streams = await asyncio.gather(*[h.result() for h in handles])
+        fe.close()
+        await runner
+        if any(h.terminal != "completed" for h in handles):
+            raise AssertionError("frontend: a request did not complete: "
+                                 f"{[h.terminal for h in handles]}")
+        return streams
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streams = asyncio.run(serve())
+    torch.cuda.synchronize()
+    return streams, fe.describe(), time.perf_counter() - t0
+
+
+class StepTimer:
+    """While active, every call of the named ``inttransformer`` steps
+    (``tag=function name``) is timed with CUDA events and its kernel
+    launches counted.  ``ms(tag)``: device ms a call; ``launches(tag)``:
+    the launches of each call."""
+
+    def __init__(self, **steps):
+        self.steps = steps
+        self.events = {tag: [] for tag in steps}
+        self.counts = {tag: [] for tag in steps}
+        self.orig = {}
+
+    def __enter__(self):
+        from repro_torch.models import inttransformer as it
+        for tag, name in self.steps.items():
+            self.orig[name] = getattr(it, name)
+            setattr(it, name, self._timed(self.orig[name], tag))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import inttransformer as it
+        for name, fn in self.orig.items():
+            setattr(it, name, fn)
+
+    def _timed(self, fn, tag):
+        import torch
+        from repro_torch import kernels
+
+        def wrapper(*a, **k):
+            before = dict(kernels.LAUNCHES)
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = fn(*a, **k)
+            e.record()
+            self.events[tag].append((s, e))
+            self.counts[tag].append({n: kernels.LAUNCHES[n] - before[n]
+                                     for n in before})
+            return out
+        return wrapper
+
+    def ms(self, tag):
+        return [s.elapsed_time(e) for s, e in self.events[tag]]
+
+    def launches(self, tag):
+        return self.counts[tag]
+
+
+def _in_ms(pct):
+    """A front end's percentile dict of seconds, in ms."""
+    return {k: v if k == "n" else v * 1e3 for k, v in pct.items()}
+
+
+def _pct_ms(samples):
+    """p50 / p99 / mean of seconds, in ms."""
+    import numpy as np
+    if not samples:
+        return None
+    a = np.asarray(samples, dtype=np.float64) * 1e3
+    return {"n": int(a.size), "mean": float(a.mean()),
+            "p50": float(np.percentile(a, 50)),
+            "p99": float(np.percentile(a, 99))}
+
+
 def phase_parity(cfg_full, kv_dtype: str = "int8"):
     """llama3-8b at full width cut to 2 layers: ``cuda`` token streams
-    equal ``torch_ref``'s, over int8 or packed int4 KV pages."""
+    equal ``torch_ref``'s, over int8 or packed int4 KV pages.  The prompts
+    end with one that repeats a 16-token segment (the n-gram proposer
+    drafts on it).  Over int8 pages the same prompts through
+    ``ServingFrontend`` on ``cuda``, and a ``spec_k = 3`` engine on
+    ``cuda`` and on ``torch_ref``, must give the drain's streams; over
+    int4 pages a ``spec_k = 3`` engine on ``cuda`` must."""
     import dataclasses
     import torch
     from repro_torch.quant import convert
@@ -1940,31 +2100,47 @@ def phase_parity(cfg_full, kv_dtype: str = "int8"):
     qp, plans = convert.init_quantized(
         cfg, seed=0, device="cuda",
         embed_scale=convert.unit_embed_scale(cfg))
-    prompts = _prompts(11, 6, 20, 150, cfg.vocab)
-    streams, secs = {}, {}
+    prompts = _prompts(11, 6, 20, 150, cfg.vocab) \
+        + [_repeat_prompt(17, cfg.vocab)]
+    geom = dict(batch_size=4, cache_len=512, page_size=16, prefill_chunk=32,
+                fold_wo=True, kv_dtype=kv_dtype)
+    streams, secs, spec = {}, {}, {}
     for backend in ("cuda", "torch_ref"):
+        eng, reqs = run_engine(qp, plans, cfg, prompts, 16, backend, **geom)
+        streams[backend], secs[backend] = drain_streams(eng, reqs)
+    if kv_dtype == "int8":
+        eng, _ = run_engine(qp, plans, cfg, [], 16, "cuda", **geom)
+        streams["frontend"], _, secs["frontend"] = frontend_streams(
+            eng, prompts, 16)
+    spec_backends = ("cuda", "torch_ref") if kv_dtype == "int8" \
+        else ("cuda",)
+    for backend in spec_backends:
         eng, reqs = run_engine(qp, plans, cfg, prompts, 16, backend,
-                               batch_size=4, cache_len=512, page_size=16,
-                               prefill_chunk=32, fold_wo=True,
-                               kv_dtype=kv_dtype)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        eng.run_until_done()
-        torch.cuda.synchronize()
-        secs[backend] = time.perf_counter() - t0
-        streams[backend] = [r.out_tokens for r in reqs]
+                               spec_k=SPEC_K, **geom)
+        tag = f"spec_{backend}"
+        streams[tag], secs[tag] = drain_streams(eng, reqs)
+        spec[tag] = eng.describe()["spec"]
+    del eng
     same = streams["cuda"] == streams["torch_ref"]
+    others = {k: v == streams["cuda"] for k, v in streams.items()
+              if k not in ("cuda", "torch_ref")}
     distinct = len({t for s in streams["cuda"] for t in s})
     emit({"phase": phase, "layers": cfg.num_layers, "kv_dtype": kv_dtype,
           "requests": len(prompts), "prompt_lens": [len(p) for p in prompts],
-          "identical": same, "distinct_tokens": distinct,
+          "identical": same, "identical_to_the_drain": others,
+          "distinct_tokens": distinct, "spec": spec,
           "cuda_s": secs["cuda"], "torch_ref_s": secs["torch_ref"],
-          "first_stream": streams["cuda"][0]})
+          "seconds": secs, "first_stream": streams["cuda"][0]})
     if not same:
         raise AssertionError(f"{phase}: cuda and torch_ref token streams "
                              "differ")
+    if not all(others.values()):
+        raise AssertionError(f"{phase}: streams differ from the cuda "
+                             f"drain's: {others}")
     if distinct < 2:
         raise AssertionError("degenerate streams: one token everywhere")
+    if not all(s["drafted"] > 0 for s in spec.values()):
+        raise AssertionError(f"{phase}: the spec engines drafted nothing")
     del qp
 
 
@@ -2062,13 +2238,14 @@ def phase_serve(cfg, kv_dtype: str = "int8", weights: str = "int8"):
     Over int4 pages every step and chunk must launch the packed K3 / K4
     once a layer and the int8 ones never; on msr4 weights every step and
     chunk K1's nibble instantiation and the correction and never the
-    dense K1 (so wo never folded).  Returns the run's launches."""
+    dense K1 (so wo never folded).  ``serve`` then runs
+    :func:`serve_frontend_and_spec` on the same weights.  Returns the
+    launches of each path it drove, by path."""
     import gc
 
     import numpy as np
     import torch
     from repro_torch import kernels
-    from repro_torch.models import inttransformer as it
     from repro_torch.quant import convert
     from repro_torch.quant.pack import pack_tree
     packed = kv_dtype == "int4"
@@ -2076,9 +2253,12 @@ def phase_serve(cfg, kv_dtype: str = "int8", weights: str = "int8"):
     phase = "kv4-serve" if packed else "msr4-serve" if msr4 else "serve"
     k3, k4 = (("int_decode_attention_kv4", "int_paged_prefill_kv4")
               if packed else ("int_decode_attention", "int_paged_prefill"))
-    # an engine is a reference cycle (its allocator's reclaim hook): free
-    # the parity phase's before the peak memory is read
+    # the earlier phases' engines are dropped: with the allocator's
+    # reclaim hook held weakly they are freed before any collection
+    before_gc = torch.cuda.memory_allocated()
     gc.collect()
+    emit({"phase": phase, "memory_allocated_before_gc": before_gc,
+          "memory_allocated_after_gc": torch.cuda.memory_allocated()})
     t0 = time.perf_counter()
     qp, plans = convert.init_quantized(
         cfg, seed=0, device="cuda",
@@ -2101,27 +2281,8 @@ def phase_serve(cfg, kv_dtype: str = "int8", weights: str = "int8"):
                            prefill_chunk=32, fold_wo=True, kv_dtype=kv_dtype)
     # time every prefill chunk and decode step with CUDA events, and
     # count the kernel launches each one makes
-    events = {"decode": [], "prefill": []}
-    per_step = {"decode": [], "prefill": []}
-
-    def timed(fn, tag):
-        def wrapper(*a, **k):
-            before = dict(kernels.LAUNCHES)
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            out = fn(*a, **k)
-            e.record()
-            events[tag].append((s, e))
-            per_step[tag].append({n: kernels.LAUNCHES[n] - before[n]
-                                  for n in before})
-            return out
-        return wrapper
-
-    orig = (it.int_decode_step, it.int_prefill_chunk_step)
-    it.int_decode_step = timed(orig[0], "decode")
-    it.int_prefill_chunk_step = timed(orig[1], "prefill")
-    try:
+    with StepTimer(decode="int_decode_step",
+                   prefill="int_prefill_chunk_step") as timer:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launches()
@@ -2130,12 +2291,10 @@ def phase_serve(cfg, kv_dtype: str = "int8", weights: str = "int8"):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES)
-    finally:
-        it.int_decode_step, it.int_prefill_chunk_step = orig
+    per_step = {k: timer.launches(k) for k in ("decode", "prefill")}
     n_tok = sum(len(r.out_tokens) for r in reqs)
     distinct = len({t for r in reqs for t in r.out_tokens})
-    step_ms = {k: [s.elapsed_time(e) for s, e in v]
-               for k, v in events.items()}
+    step_ms = {k: timer.ms(k) for k in ("decode", "prefill")}
     cache = eng.describe()["cache"]
     emit({"phase": phase, "arch": cfg.name, "layers": cfg.num_layers,
           "kv_dtype": kv_dtype, "describe": eng.describe_str(),
@@ -2181,7 +2340,164 @@ def phase_serve(cfg, kv_dtype: str = "int8", weights: str = "int8"):
         if dense_k1:
             raise AssertionError(f"{phase}: steps with the dense K1 or "
                                  f"without the packed one: {dense_k1[:5]}")
-    return launches
+    out = {phase: launches}
+    if phase == "serve":
+        drained = [r.out_tokens for r in reqs]
+        del eng
+        out.update(serve_frontend_and_spec(qp, plans, cfg, prompts,
+                                           drained))
+    return out
+
+
+def _serve_engine(qp, plans, cfg, **kw):
+    from repro_torch.serving import ServingEngine
+    return ServingEngine(qp, plans, cfg, ops="cuda", device="cuda",
+                         batch_size=4, cache_len=512, page_size=16,
+                         prefill_chunk=32, fold_wo=True, **kw)
+
+
+def serve_frontend_and_spec(qp, plans, cfg, prompts, drained):
+    """``frontend-serve`` and ``spec-serve`` on the ``serve`` phase's
+    weights: its 8 prompts and one that repeats a 16-token segment.
+    ``frontend-serve`` serves them through ``ServingFrontend`` (all
+    submitted at once): the 8 streams equal the timed drain's; tokens/s,
+    TTFT and inter-token p50 / p99, the host ms of each ``dispatch_step``
+    and ``commit_step`` beside each decode step's device ms (CUDA events).
+    ``spec-serve`` drains a ``spec_k = 3`` engine (verify M = 16): all 9
+    streams equal the front end's, drafts > 0, K3 once a layer in every
+    verify step; accepted / drafted, tokens a verify step, a verify
+    step's device ms.  Returns their launches."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.serving import Request
+    prompts = prompts + [_repeat_prompt(21, cfg.vocab)]
+    max_new = 32
+
+    # --- frontend-serve
+    eng = _serve_engine(qp, plans, cfg)
+    host = {"dispatch_step": [], "commit_step": []}
+    lanes = []
+
+    def host_timed(name):
+        fn = getattr(eng, name)
+
+        def wrapper(*a):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            host[name].append(time.perf_counter() - t0)
+            if name == "dispatch_step":
+                lanes.append(len(out.live))
+            return out
+        return wrapper
+    for name in host:
+        setattr(eng, name, host_timed(name))
+    with StepTimer(decode="int_decode_step",
+                   prefill="int_prefill_chunk_step") as timer:
+        kernels.reset_launches()
+        fe_streams, fe_d, fe_s = frontend_streams(eng, prompts, max_new)
+        fe_launches = dict(kernels.LAUNCHES)
+    decode_ms = timer.ms("decode")
+    same = fe_streams[:len(drained)] == drained
+    lat = fe_d["latency"]
+    emit({"phase": "frontend-serve", "arch": cfg.name,
+          "layers": cfg.num_layers, "requests": len(prompts),
+          "max_new": max_new, "identical_to_the_drain": same,
+          "tokens": fe_d["tokens"], "wall_s": fe_s,
+          "tokens_per_s": fe_d["tokens"] / fe_s, "steps": fe_d["steps"],
+          "terminal": fe_d["terminal"],
+          "ttft_ms": _in_ms(lat["ttft_s"]),
+          "inter_token_ms": _in_ms(lat["inter_token_s"]),
+          "queue_wait_ms": _in_ms(lat["queue_wait_s"]),
+          "dispatch_host_ms": _pct_ms(host["dispatch_step"]),
+          "commit_host_ms": _pct_ms(host["commit_step"]),
+          "decode_device_ms": {"n": len(decode_ms),
+                               "mean": float(np.mean(decode_ms)),
+                               "p50": float(np.percentile(decode_ms, 50))},
+          "prefill_chunks": len(timer.ms("prefill")),
+          "occupancy": fe_d["occupancy"], "launches": fe_launches})
+    if not same:
+        raise AssertionError("frontend-serve: streams differ from the "
+                             "drain's")
+    missing = [k for k in PATH_KERNELS["frontend-serve"]
+               if fe_launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"frontend-serve path never launched {missing}")
+    del eng
+
+    # --- spec-serve
+    eng = _serve_engine(qp, plans, cfg, spec_k=SPEC_K)
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=max_new)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    with StepTimer(verify="int_verify_step",
+                   prefill="int_prefill_chunk_step") as timer:
+        kernels.reset_launches()
+        spec_streams, spec_s = drain_streams(eng, reqs)
+        spec_launches = dict(kernels.LAUNCHES)
+    verify_ms = timer.ms("verify")
+    per_verify = timer.launches("verify")
+    spec = eng.describe()["spec"]
+    n_tok = sum(len(st) for st in spec_streams)
+    same = spec_streams == fe_streams
+    emit({"phase": "spec-serve", "arch": cfg.name, "layers": cfg.num_layers,
+          "spec_k": 3, "verify_rows": 4 * 4, "requests": len(prompts),
+          "identical_to_the_frontend": same,
+          "identical_to_the_drain": spec_streams[:len(drained)] == drained,
+          "drafted": spec["drafted"], "accepted": spec["accepted"],
+          "accept_rate": spec["accept_rate"], "tokens": n_tok,
+          "wall_s": spec_s, "tokens_per_s": n_tok / spec_s,
+          "verify_steps": len(verify_ms),
+          "tokens_per_verify_step": n_tok / max(len(verify_ms), 1),
+          "verify_step_device_ms_mean": float(np.mean(verify_ms)),
+          "verify_step_device_ms_p50": float(np.percentile(verify_ms, 50)),
+          "launches_per_verify_step": _mean_counts(per_verify),
+          "launches": spec_launches,
+          "repeat_prompt_stream": spec_streams[-1]})
+    if not same:
+        raise AssertionError("spec-serve: streams differ from the front "
+                             "end's (and so from the drain's)")
+    if spec["drafted"] <= 0:
+        raise AssertionError("spec-serve: the proposer drafted nothing")
+    off = [i for i, c in enumerate(per_verify)
+           if c["int_decode_attention"] != cfg.num_layers]
+    if off or not per_verify:
+        raise AssertionError(f"spec-serve: verify steps without one K3 a "
+                             f"layer: {off[:5]}")
+    missing = [k for k in PATH_KERNELS["spec-serve"]
+               if spec_launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"spec-serve path never launched {missing}")
+    profile_verify(eng, cfg)
+    return {"frontend-serve": fe_launches, "spec-serve": spec_launches}
+
+
+def profile_verify(eng, cfg):
+    """torch.profiler over verify steps of a ``spec_k`` engine (four
+    8-token prompts admitted, then up to four steps): the device ms and
+    busy share a verify step, K3's device ms a step.  The CUDA events
+    around a step span the host's issue time as well, where the step is
+    host-bound; this is the device's own time."""
+    from repro_torch import kernels
+    from repro_torch.serving import Request
+    prompts = _prompts(9, 4, 8, 8, cfg.vocab)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(uid=300 + i, prompt=p, max_new_tokens=16))
+    eng.step()                       # admit + prefill + first verify
+    before = kernels.LAUNCHES["int_decode_attention"]
+
+    def steps():
+        return (kernels.LAUNCHES["int_decode_attention"] - before) \
+            // cfg.num_layers
+
+    def window():
+        for _ in range(4):
+            eng.step()
+    profile_window("spec-profile", "4 verify steps, batch 4, spec_k 3",
+                   window, steps,
+                   (K3_KERNEL_NAMES, lambda: steps() * cfg.num_layers))
+    eng.run_until_done()
 
 
 def window_decode_launches(layers: int) -> dict:
@@ -2904,6 +3220,7 @@ def main(argv=None) -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    CARD["card"] = card_line()
 
     t0 = time.perf_counter()
     so = _build.build(verbose=args.verbose_build)
@@ -2939,7 +3256,7 @@ def main(argv=None) -> int:
     if "parity" in phases:
         phase_parity(cfg)
     if "serve" in phases:
-        launches["serve"] = phase_serve(cfg)
+        launches.update(phase_serve(cfg))
     if phases & {"encode", "encode-online"}:
         model = encoder_model(ecfg)
         if "encode" in phases:
@@ -2958,11 +3275,11 @@ def main(argv=None) -> int:
     if "kv4-parity" in phases:
         phase_parity(cfg, kv_dtype="int4")
     if "kv4-serve" in phases:
-        launches["kv4-serve"] = phase_serve(cfg, kv_dtype="int4")
+        launches.update(phase_serve(cfg, kv_dtype="int4"))
     if "packed-parity" in phases:
         phase_packed_parity(cfg)
     if "msr4-serve" in phases:
-        launches["msr4-serve"] = phase_serve(cfg, weights="msr4")
+        launches.update(phase_serve(cfg, weights="msr4"))
     if rows:
         # each kernel's launches come from the first path of this run
         # that drives it (K1/K2: serve, the first path); every path's
@@ -2983,10 +3300,7 @@ def main(argv=None) -> int:
              "case": r["case"], **({"plan": r["plan"]} if "plan" in r
                                    else {})}
             for name, r in rows.items()]})
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    print(smi.stdout.strip(), flush=True)
+    print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

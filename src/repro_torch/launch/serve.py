@@ -1,10 +1,18 @@
 """Serving driver: random float init -> SwiftTron integer parameters ->
-batched INT8 engine on the card, drained with ``run_until_done``.
+batched INT8 engine on the card behind the asyncio front end.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve \
       [--arch h2o-danube-3-4b] [--reduced] [--cache-mode contiguous] \
-      --requests 8 --max-new 16 [--device cuda]
+      --requests 8 --max-new 16 [--device cuda] [--spec-k 3] \
+      [--max-pending 16] [--timeout-s 30] [--arrival-rate 4]
+
+Requests flow through :class:`repro_torch.serving.ServingFrontend`: an
+open-loop client submits them at ``--arrival-rate`` requests/s (Poisson;
+0 = all at once), with backpressure (``--max-pending``) and per-request
+deadlines (``--timeout-s``); the summary prints terminal counts, TTFT,
+inter-token gap and queue-wait p50 / p99, lane occupancy, the
+speculative accept rate and prefix-cache hits.
 
 The default arch is the reference driver's, sliding-window
 h2o-danube-3-4b, which prefills by token streaming in either cache mode.
@@ -13,15 +21,16 @@ The model is drawn from a seed and quantized layer by layer on the
 device (no weights are downloaded), with the embedding at unit std: the
 reference init's ``1/sqrt(V)`` std leaves the full-width integer residual
 stream below the RMSNorm pre-shift, so every token would come out 0.
-The kernels are built (or loaded) before the timed drain.
-``--device`` defaults to ``cuda``
-and fails without a GPU unless ``--device cpu`` is given (the plain
-versions of every kernel run there).  The asyncio front end of the
-reference driver is not ported yet (ROADMAP §1 item 3).
+The kernels are built (or loaded) before the timed serve.
+``--device`` defaults to ``cuda`` and fails without a GPU unless
+``--device cpu`` is given (the plain versions of every kernel run
+there).  ``--tp`` and ``--ckpt-dir`` of the reference driver are not
+ported yet (ROADMAP §1 items 9 and 12).
 """
 from __future__ import annotations
 
 import argparse
+import asyncio
 import time
 
 import numpy as np
@@ -34,7 +43,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.ops import available_backends, resolve_ops
 from repro_torch.quant import convert
-from repro_torch.serving import Request, ServingEngine
+from repro_torch.serving import QueueFull, ServingEngine, ServingFrontend
+from repro_torch.serving.speculate import validate_spec
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -48,12 +58,17 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--cache-len", type=int, default=128)
+    ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--cache-mode", default="paged",
                     choices=["paged", "contiguous"],
                     help="KV layout: paged pool (memory O(live tokens)) "
                          "or one contiguous slab per lane")
     ap.add_argument("--page-size", type=int, default=16,
                     help="tokens per physical KV page (paged mode)")
+    ap.add_argument("--num-pages", type=int, default=None,
+                    help="physical pool size incl. the null page "
+                         "(default: fully provisioned; smaller values "
+                         "undersubscribe the pool)")
     ap.add_argument("--prefill-chunk", type=int, default=None,
                     help="prompt tokens per batched prefill step (paged "
                          "mode, full-causal archs; must divide or be a "
@@ -66,6 +81,31 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-fold-wo", action="store_true",
                     help="keep the o-projection outside the attention "
                          "calls (numerics identical)")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="disable cross-session prompt-prefix sharing "
+                         "(shared prefixes otherwise map the same "
+                         "physical KV pages)")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="speculative decoding: draft up to K tokens a "
+                         "live lane and verify all K+1 positions in one "
+                         "decode-attention call a layer (greedy "
+                         "acceptance; streams equal --spec-k 0's); at "
+                         "most MAX_SQ - 1; 0 = off")
+    ap.add_argument("--spec-mode", default="ngram",
+                    help="draft proposer (self-speculative, no draft "
+                         "model); 'ngram' = prompt lookup over the "
+                         "session's own context")
+    ap.add_argument("--max-pending", type=int, default=None,
+                    help="admission bound: requests in flight before "
+                         "submit() raises QueueFull (default: 4x batch)")
+    ap.add_argument("--timeout-s", type=float, default=None,
+                    help="per-request deadline in seconds; an expired "
+                         "request is evicted (pages reclaimed) and its "
+                         "stream ends with terminal state 'timeout'")
+    ap.add_argument("--arrival-rate", type=float, default=0.0,
+                    help="open-loop Poisson arrival rate in requests/s "
+                         "(exp-distributed gaps); 0 = submit every "
+                         "request up front")
     ap.add_argument("--backend", default=None,
                     help=f"op backend, one of {available_backends()} "
                          "or a JAX backend name (ref, pallas_fused, "
@@ -75,27 +115,89 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def _fmt_pct(p) -> str:
+    if p is None:
+        return "n/a"
+    return (f"p50 {p['p50'] * 1e3:.1f}ms / p99 {p['p99'] * 1e3:.1f}ms "
+            f"(n={p['n']})")
+
+
+async def _serve(fe: ServingFrontend, prompts, args) -> list:
+    """Open-loop client: submit ``prompts`` at ``--arrival-rate`` req/s
+    (exponential gaps; 0 = all at once), drain every stream, return the
+    handles (None where admission was refused)."""
+    rng = np.random.default_rng(1)
+    runner = asyncio.create_task(fe.run())
+    handles, drains = [], []
+    for prompt in prompts:
+        if args.arrival_rate > 0:
+            await asyncio.sleep(rng.exponential(1.0 / args.arrival_rate))
+        try:
+            h = fe.submit(prompt, args.max_new,
+                          temperature=args.temperature,
+                          deadline_s=args.timeout_s)
+        except QueueFull as e:
+            print(f"  rejected (queue full, {e.pending} in flight)")
+            handles.append(None)
+            continue
+        handles.append(h)
+        drains.append(asyncio.create_task(h.result()))
+    await asyncio.gather(*drains)
+    fe.close()
+    await runner
+    return handles
+
+
+def _check_args(ap, args, cfg) -> None:
+    """The flags' coherence, checked before the (slow) quantization, as
+    argparse errors."""
+    if args.prefill_chunk is not None and args.prefill_chunk > 0:
+        if args.cache_mode != "paged":
+            ap.error("--prefill-chunk needs --cache-mode paged (chunked "
+                     "prefill writes K/V through the page table)")
+        if args.prefill_chunk % args.page_size \
+                and args.page_size % args.prefill_chunk:
+            ap.error(f"--prefill-chunk {args.prefill_chunk} must divide "
+                     f"or be a multiple of --page-size {args.page_size}")
+    if args.prefill_budget is not None and args.prefill_budget < 1:
+        ap.error("--prefill-budget must be >= 1 token/step")
+    if args.num_pages is not None and args.num_pages < 2:
+        ap.error("--num-pages must be >= 2 (page 0 is the null page)")
+    if args.max_pending is not None and args.max_pending < 1:
+        ap.error("--max-pending must be >= 1 request")
+    if args.timeout_s is not None and args.timeout_s <= 0:
+        ap.error("--timeout-s must be > 0 seconds")
+    if args.arrival_rate < 0:
+        ap.error("--arrival-rate must be >= 0 requests/s")
+    if args.spec_k:
+        if args.temperature > 0:
+            ap.error("--spec-k needs --temperature 0: greedy longest-"
+                     "prefix acceptance is exact only against the argmax "
+                     "stream; a sampled stream would silently diverge")
+        try:
+            validate_spec(cfg, args.spec_k, args.spec_mode)
+        except ValueError as e:
+            ap.error(f"--spec-k {args.spec_k}: {e}")
+
+
 def main(argv=None):
+    """Serve ``--requests`` random prompts through the front end; returns
+    the requests that were admitted."""
     ap = build_parser()
     args = ap.parse_args(argv)
     cfg = get_config(args.arch)
     ops = resolve_ops(args.backend, cfg)
-    if args.prefill_chunk is not None and args.prefill_chunk > 0 \
-            and args.prefill_chunk % args.page_size \
-            and args.page_size % args.prefill_chunk:
-        ap.error(f"--prefill-chunk {args.prefill_chunk} must divide or be "
-                 f"a multiple of --page-size {args.page_size}")
-    if args.prefill_budget is not None and args.prefill_budget < 1:
-        ap.error("--prefill-budget must be >= 1 token/step")
     prompt_len = 4
     try:
         contracts.require_request(prompt_len, args.max_new,
                                   args.cache_len, window=cfg.window)
     except contracts.RequestInfeasible as e:
-        ap.error(str(e))
-    dev = resolve_device(args.device)
+        ap.error(f"--max-new {args.max_new} with --cache-len "
+                 f"{args.cache_len}: {e}")
     if args.reduced:
         cfg = M.reduce_config(cfg, dtype="float32", vocab=1024)
+    _check_args(ap, args, cfg)
+    dev = resolve_device(args.device)
     print(f"quantizing {cfg.name} ({cfg.num_layers} layers, d={cfg.d_model})"
           f" on {dev} ...")
     qp, plans = convert.init_quantized(
@@ -104,34 +206,60 @@ def main(argv=None):
     eng = ServingEngine(qp, plans, cfg, batch_size=args.batch,
                         cache_len=args.cache_len, ops=ops,
                         cache_mode=args.cache_mode, page_size=args.page_size,
+                        num_pages=args.num_pages,
                         fold_wo=not args.no_fold_wo,
                         prefill_chunk=args.prefill_chunk,
-                        prefill_budget=args.prefill_budget, device=dev)
+                        prefill_budget=args.prefill_budget,
+                        prefix_cache=not args.no_prefix_cache,
+                        spec_k=args.spec_k, spec_mode=args.spec_mode,
+                        device=dev)
     print(f"engine: {eng.describe_str()}")
+    fe = ServingFrontend(eng, max_pending=args.max_pending)
     rng = np.random.default_rng(0)
-    reqs = [Request(uid=i, prompt=[int(t) for t in rng.integers(
-        1, cfg.vocab, prompt_len)], max_new_tokens=args.max_new)
-        for i in range(args.requests)]
-    for r in reqs:
-        eng.submit(r)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab, prompt_len)]
+               for _ in range(args.requests)]
     if dev.type == "cuda":
         from repro_torch.kernels._build import timed_build
         print(f"kernels ready in {timed_build():.1f}s")
         torch.cuda.synchronize(dev)
     kernels.reset_launches()
     t0 = time.perf_counter()
-    eng.run_until_done()
+    handles = asyncio.run(_serve(fe, prompts, args))
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
-    n_tok = sum(len(r.out_tokens) for r in reqs)
-    distinct = len({t for r in reqs for t in r.out_tokens})
-    print(f"served {len(reqs)} requests / {n_tok} tokens ({distinct} "
-          f"distinct) in {dt:.2f}s ({n_tok / dt:.1f} tok/s on {dev})")
+    d = fe.describe()
+    n_tok = d["tokens"]
+    print(f"served {d['submitted']} requests / {n_tok} tokens in "
+          f"{d['steps']} steps, {dt:.2f}s ({n_tok / dt:.1f} tok/s on {dev})")
+    print("  terminal: " + ", ".join(f"{k}={v}"
+                                     for k, v in d["terminal"].items()))
+    lat = d["latency"]
+    print(f"  ttft: {_fmt_pct(lat['ttft_s'])}   inter-token: "
+          f"{_fmt_pct(lat['inter_token_s'])}   queue-wait: "
+          f"{_fmt_pct(lat['queue_wait_s'])}")
+    print(f"  occupancy: mean {d['occupancy']['mean']:.2f}/{args.batch} "
+          f"lanes, queue depth: mean {d['queue_depth']['mean']:.2f} max "
+          f"{d['queue_depth']['max']}")
+    ed = eng.describe()
+    sp = ed["spec"]
+    if sp["k"]:
+        rate = f"{sp['accept_rate']:.0%}" \
+            if sp["accept_rate"] is not None else "n/a"
+        print(f"speculation ({sp['mode']}, k={sp['k']}): "
+              f"{sp['accepted']}/{sp['drafted']} drafts accepted ({rate}), "
+              f"{sp['wasted']} wasted verify rows")
+    px = ed["cache"].get("prefix")
+    if px:
+        print(f"prefix cache: {px['hits']} hits / {px['misses']} misses, "
+              f"{px['tokens_reused']} prompt tokens reused")
     print(f"kernel launches: {dict(kernels.LAUNCHES)}")
-    for r in reqs[:4]:
-        print(f"  req {r.uid}: {r.prompt} -> {r.out_tokens[:10]}...")
-    return reqs
+    live = [h for h in handles if h is not None]
+    for h in live[:4]:
+        r = h.request
+        print(f"  req {h.uid} [{h.terminal}]: {r.prompt} -> "
+              f"{r.out_tokens[:10]}...")
+    return [h.request for h in live]
 
 
 if __name__ == "__main__":

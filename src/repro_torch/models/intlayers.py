@@ -11,12 +11,15 @@ the same).
 """
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import numpy as np
 import torch
 
 from repro_torch.core import activations as iact
 from repro_torch.core import norms
 from repro_torch.core.dyadic import clip_to_bits, rshift_round
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models.common import ArchConfig
 from repro_torch.ops import (QuantLinearParams, RequantSpec, get_backend,
                              resolve_ops)
@@ -59,29 +62,39 @@ def int_norm(qnorm, q32, plan: norms.INormPlan, ops=None):
 ROPE_FRAC = 14
 
 
-def build_rope_table(max_seq: int, hd: int, theta: float, device="cpu"):
+def build_rope_table(max_seq: int, hd: int, theta: float,
+                     device=DEFAULT_DEVICE):
     """Design-time cos/sin tables at 2^-14 (integer RoPE), int32
     ``(max_seq, hd/2)`` each, computed in float64 exactly as the
-    reference does."""
+    reference does, on ``device`` (the card unless the caller passes
+    ``device="cpu"``)."""
     pos = np.arange(max_seq, dtype=np.float64)[:, None]
     freqs = 1.0 / (theta ** (np.arange(0, hd, 2, dtype=np.float64) / hd))
     ang = pos * freqs[None, :]
     cos = np.round(np.cos(ang) * (1 << ROPE_FRAC)).astype(np.int32)
     sin = np.round(np.sin(ang) * (1 << ROPE_FRAC)).astype(np.int32)
-    return (torch.as_tensor(cos, device=device),
-            torch.as_tensor(sin, device=device))
+    dev = resolve_device(device)
+    return (torch.as_tensor(cos, device=dev),
+            torch.as_tensor(sin, device=dev))
 
 
-def rope_gather(rope_tab, positions):
+def rope_gather(rope_tab, positions, pos_span=None):
     """cos/sin rows for ``positions`` ((B,S) or (S,)), shaped to broadcast
     over (B, S, H, hd/2).  The reference's ``jnp.take`` would clamp an
-    out-of-range position; here one is an error."""
+    out-of-range position; here one raises ``IndexError``.
+
+    ``pos_span``: ``(lo, hi)``, the least and greatest position, known on
+    the host (the serving engine passes it, so a step reads nothing back
+    from the card).  Without it the range is read from ``positions``:
+    free on the CPU, a wait on the device otherwise."""
     cos_t, sin_t = rope_tab
     positions = positions.to(device=cos_t.device, dtype=torch.long)
-    if positions.numel() and (int(positions.min()) < 0
-                              or int(positions.max()) >= cos_t.shape[0]):
-        raise IndexError(f"RoPE position outside the table's "
-                         f"{cos_t.shape[0]} rows")
+    if pos_span is None and positions.numel():
+        pos_span = (int(positions.min()), int(positions.max()))
+    if pos_span is not None and (pos_span[0] < 0
+                                 or pos_span[1] >= cos_t.shape[0]):
+        raise IndexError(f"RoPE positions {pos_span[0]}..{pos_span[1]} "
+                         f"outside the table's {cos_t.shape[0]} rows")
     cos, sin = cos_t[positions], sin_t[positions]
     if cos.dim() == 2:
         cos, sin = cos[None], sin[None]
@@ -168,10 +181,84 @@ def int_attn_fwd(qp, x8, plans: qplans.AttnPlan, cfg: ArchConfig,
                       qp["wo"], plans.out, ops)
 
 
+def verify_positions(pos, n_new, s: int):
+    """The rows of a speculative verify step: lane ``b``'s ``n_new[b]``
+    real tokens sit right-aligned in ``s`` rows, row ``i`` at logical
+    position ``pos[b] + n_new[b] - s + i``.  Returns ``(positions,
+    real)``, both ``(B, s)``: the positions clamped at 0 for the pad rows
+    (a negative index would wrap to the table's last row), and whether
+    each row is real."""
+    rows = torch.arange(s, device=pos.device)[None, :]
+    n = n_new.to(device=pos.device, dtype=torch.long)[:, None]
+    rpos = pos.to(torch.long)[:, None] + n - s + rows
+    return torch.clamp(rpos, min=0), rows >= s - n
+
+
+def real_rows(n_new, s: int) -> np.ndarray:
+    """Flat indices ``b * s + i`` of the real rows of a verify step (``i >=
+    s - n_new[b]``), from ``n_new`` on the host, ascending."""
+    n_new = np.asarray(n_new, dtype=np.int64)
+    return np.concatenate([b * s + np.arange(s - n, s)
+                           for b, n in enumerate(n_new)]).astype(np.int64)
+
+
+class StepRows(NamedTuple):
+    """Where a decode or verify step's rows sit, the same for every layer
+    (:func:`step_rows`): ``positions`` (B, S) long for RoPE; ``where``
+    the index of the K/V rows written into a layer's cache; ``rows`` the
+    flat rows of the step's (B * S) K/V that ``where`` takes, or None for
+    all of them; ``valid`` (B,) int32 the live positions of each lane
+    that decode attention reads."""
+    positions: torch.Tensor
+    where: tuple
+    rows: Optional[torch.Tensor]
+    valid: torch.Tensor
+
+
+def step_rows(pos, length: int, s: int = 1, n_new=None, write_rows=None,
+              pages=None, page_size: int = 0, window: int = 0) -> StepRows:
+    """The rows a step writes and the positions it reads, computed once a
+    step.  A decode step (``s`` 1) writes logical slot ``pos`` (``pos %
+    window`` for a sliding window) and reads ``min(pos + 1, length)``
+    positions when windowed or paged, else ``pos + 1``.  A verify step
+    (``n_new``) writes its real rows (:func:`verify_positions`) and reads
+    ``pos + n_new`` positions (the stepped mask); its pad rows write
+    nothing live: paged, the null page 0; contiguous, they are dropped,
+    and only the rows ``write_rows`` names (flat ``b * s + i``,
+    :func:`real_rows`, built on the host so that nothing waits on the
+    card) are written.  Paged, slot ``t`` of lane ``b`` is ``(pages[b, t
+    // page_size], t % page_size)``; contiguous, ``(b, t)``."""
+    if n_new is None:
+        positions = pos.to(torch.long)[:, None]
+        valid = torch.clamp(pos + 1, max=length) \
+            if window > 0 or pages is not None else pos + 1
+    else:
+        positions, real = verify_positions(pos, n_new, s)
+        valid = pos + n_new.to(pos.dtype)
+    valid = valid.to(torch.int32)
+    slot = positions % window if window > 0 else positions       # (B, S)
+    if pages is not None:
+        page = torch.gather(pages.to(torch.long), 1, slot // page_size)
+        if n_new is not None:
+            page = torch.where(real, page, 0)
+        return StepRows(positions, (page, slot % page_size), None, valid)
+    if n_new is None:
+        lanes = torch.arange(pos.shape[0], device=slot.device)[:, None]
+        return StepRows(positions, (lanes, slot), None, valid)
+    if write_rows is None:
+        raise ValueError("a contiguous verify step needs write_rows (the "
+                         "flat real rows, intlayers.real_rows of n_new "
+                         "built on the host)")
+    rows = write_rows.to(device=slot.device, dtype=torch.long)
+    return StepRows(positions, (rows // s, slot.reshape(-1)[rows]), rows,
+                    valid)
+
+
 def int_attn_decode(qp, x8, cache, pos, plans: qplans.AttnPlan,
                     cfg: ArchConfig, rope_tab=None, window: int = 0,
                     ops=None, pages=None, page_size: int = 0,
-                    max_len: int = 0, fold_wo: bool = False, rope=None):
+                    max_len: int = 0, fold_wo: bool = False, rope=None,
+                    n_new=None, writes=None):
     """One-token decode.  x8: (B,1,D); cache ``{"k8","v8"}``, written in
     place; ``pos``: (B,) position of each lane's token, written at
     logical slot ``pos``, or ``pos % window`` for a sliding window (the
@@ -184,55 +271,63 @@ def int_attn_decode(qp, x8, cache, pos, plans: qplans.AttnPlan,
     unmapped lanes write into the reserved null page 0.  ``max_len``
     bounds the paged occupancy (default: the page-table span).  Live
     positions: ``min(pos + 1, L)`` when windowed or paged, else ``pos +
-    1``.  ``rope``: cos/sin already gathered for ``pos``
-    (:func:`rope_gather`), else gathered here from ``rope_tab``.
-    Returns (out32 (B,1,D), cache)."""
+    1`` (:func:`step_rows`).  ``rope``: cos/sin already gathered for the
+    rows' positions (:func:`rope_gather`), else gathered here from
+    ``rope_tab``; ``writes``: the step's :func:`step_rows`, else built
+    here.
+
+    ``n_new`` (B,): the speculative verify step (full causal attention
+    only).  x8 is then (B, S, D) with each lane's real tokens
+    right-aligned (:func:`verify_positions`); ``valid_len = pos + n_new``
+    gives row ``i`` the stepped mask of positions ``<= pos + n_new - S +
+    i``, what a one-token decode of the same tokens would see (K3 at Sq
+    = S).  Pad rows write nothing live (:func:`step_rows`); the
+    contiguous layout takes ``writes`` built with the host's
+    ``write_rows``.  Precondition (the engine's): ``pos + n_new <= L``.
+    Returns (out32 (B,S,D), cache)."""
     ops = resolve_ops(ops)
-    b = x8.shape[0]
+    b, s = x8.shape[:2]
     paged = pages is not None
     packed_kv = "k_shift" in cache
     if packed_kv and not paged:
         raise ValueError("int4 KV pages (k_shift/v_shift in the cache) "
                          "need the paged layout")
-    L = (max_len or pages.shape[1] * page_size) if paged \
-        else cache["k8"].shape[1]
+    if n_new is not None and window > 0:
+        raise ValueError("speculative verify needs full causal attention "
+                         "(window == 0)")
+    if writes is None:
+        L = (max_len or pages.shape[1] * page_size) if paged \
+            else cache["k8"].shape[1]
+        writes = step_rows(pos, L, s, n_new, pages=pages,
+                           page_size=page_size, window=window)
     q8, k8, v8 = _qkv(qp, x8, plans, cfg, ops)
     if rope is None and rope_tab is not None:
-        rope = rope_gather(rope_tab, pos[:, None])
+        rope = rope_gather(rope_tab, writes.positions)
     if rope is not None:
         q8 = rope_rotate(q8, *rope)
         k8 = rope_rotate(k8, *rope)
-    slot = pos.to(torch.long)
-    if window > 0:
-        slot = slot % window
-    if paged:
-        page = pages.to(torch.long)[torch.arange(b, device=pages.device),
-                                    slot // page_size]
-        where = (page, slot % page_size)
-    else:
-        where = (torch.arange(b, device=slot.device), slot)
-    k_w, v_w = k8[:, 0], v8[:, 0]
+    k_w, v_w = k8, v8
     if packed_kv:
         k_w, v_w = pack_kv(k_w), pack_kv(v_w)
-    cache["k8"].index_put_(where, k_w)
-    cache["v8"].index_put_(where, v_w)
-    valid = torch.clamp(pos + 1, max=L) if (window > 0 or paged) \
-        else pos + 1
-    valid = valid.to(torch.int32)
+    if writes.rows is not None:
+        k_w = k_w.reshape(b * s, *k_w.shape[2:])[writes.rows]
+        v_w = v_w.reshape(b * s, *v_w.shape[2:])[writes.rows]
+    cache["k8"].index_put_(writes.where, k_w)
+    cache["v8"].index_put_(writes.where, v_w)
     kv = dict(pages=pages, page_size=page_size) if paged else {}
     if packed_kv:
         kv.update(kv_shifts=(cache["k_shift"], cache["v_shift"]))
     requant = RequantSpec.per_tensor(plans.attn.dn_out)
     if fold_wo:
         out32 = ops.int_decode_attention(
-            q8, cache["k8"], cache["v8"], plans.attn, valid,
+            q8, cache["k8"], cache["v8"], plans.attn, writes.valid,
             requant=requant, wo=QuantLinearParams.of(qp["wo"]),
             wo_spec=RequantSpec.for_linear(plans.out), **kv)
     else:
         o8 = ops.int_decode_attention(
-            q8, cache["k8"], cache["v8"], plans.attn, valid,
+            q8, cache["k8"], cache["v8"], plans.attn, writes.valid,
             requant=requant, **kv)
-        o8 = o8.to(torch.int8).reshape(b, 1, cfg.n_heads * cfg.hd)
+        o8 = o8.to(torch.int8).reshape(b, s, cfg.n_heads * cfg.hd)
         out32 = int_linear(o8, qp["wo"], plans.out, ops)
     return out32, cache
 

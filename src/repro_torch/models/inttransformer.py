@@ -1,7 +1,8 @@
 """Integer datapath of dense decoders and encoders (the ported subset of
 ``repro.models.inttransformer``): embedding, the full-sequence forward
 (``int_prefill``, which can also build the decode cache), chunked
-prefill, decode over a contiguous or paged cache, logits.
+prefill, decode over a contiguous or paged cache, the speculative verify
+step (``Sq = spec_k + 1`` rows a lane), logits.
 
 Everything from the embedding lookup to the last requant is SwiftTron
 integer arithmetic; only the final logits are dequantized (the host-side
@@ -15,6 +16,7 @@ from typing import Any, Dict, List
 
 import torch
 
+from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import intlayers as il
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.transformer import layer_group_spec
@@ -122,7 +124,7 @@ def int_prefill(qparams, batch, plans: qplans.LayerPlans, cfg: ArchConfig,
                                             cache_len or s)
 
 
-def init_decode_cache(cfg: ArchConfig, layout=None, device="cpu", *,
+def init_decode_cache(cfg: ArchConfig, layout=None, device=DEFAULT_DEVICE, *,
                       batch: int = 0, cache_len: int = 0) -> List[Dict]:
     """Per-sublayer-position int8 K/V caches, zeroed: paged pools ``(ng,
     num_pages, page_size, Hkv, hd)`` for ``layout`` (a
@@ -131,12 +133,14 @@ def init_decode_cache(cfg: ArchConfig, layout=None, device="cpu", *,
     window (the rolling buffer), ``cache_len`` otherwise.  With
     ``layout.kv_dtype == "int4"`` the pools pack two head-dim nibbles a
     byte (last dim ``hd // 2``) and carry per-page shifts ``k_shift`` /
-    ``v_shift`` ``(ng, num_pages)`` int32, all ``ops.packed.KV_SHIFT``."""
+    ``v_shift`` ``(ng, num_pages)`` int32, all ``ops.packed.KV_SHIFT``.
+    On ``device``: the card unless the caller passes ``device="cpu"``."""
     _, ng, kinds = layer_group_spec(cfg)
     packed = layout is not None and layout.kv_dtype == "int4"
     if packed and cfg.hd % 2:
         raise ValueError("int4 KV pages pair head-dim nibbles: hd must "
                          f"be even, got {cfg.hd}")
+    device = resolve_device(device)
     if layout is not None:
         shape = (ng, layout.num_pages, layout.page_size, cfg.n_kv_heads,
                  cfg.hd // 2 if packed else cfg.hd)
@@ -164,19 +168,33 @@ def _sublayers(qparams, caches, cfg: ArchConfig):
                    {key: leaf[g] for key, leaf in caches[j].items()})
 
 
+def _cache_len(caches, pages, page_size: int, max_len: int) -> int:
+    """L of :func:`intlayers.int_attn_decode`: the paged occupancy bound
+    (``max_len``, else the page-table span) or the contiguous length."""
+    if pages is not None:
+        return max_len or pages.shape[1] * page_size
+    return caches[0]["k8"].shape[2]
+
+
 def int_decode_step(qparams, caches, tokens, pos, plans, cfg: ArchConfig,
                     rope_tab=None, ops=None, pages=None, page_size: int = 0,
-                    max_len: int = 0, fold_wo: bool = False):
+                    max_len: int = 0, fold_wo: bool = False, pos_span=None):
     """tokens (B,) int, pos (B,) int32 -> (logits (B, V) float32, caches).
 
     ``caches``: contiguous (:func:`init_decode_cache` without a layout),
     or paged pools with ``pages``/``page_size``/``max_len`` (page table
     int32 (B, max_pages)); a sliding window writes its rolling slot ``pos
     % cfg.window``.  ``fold_wo`` folds each o-projection into the
-    attention call (bit-exact either way)."""
+    attention call (bit-exact either way).  ``pos_span``: the least and
+    greatest of ``pos``, known on the host (:func:`intlayers.rope_gather`:
+    the RoPE range check then reads nothing from the card)."""
     ops = resolve_ops(ops)
     x32 = embed_int(qparams, tokens[:, None], plans, cfg)
-    rope = il.rope_gather(rope_tab, pos[:, None]) \
+    writes = il.step_rows(pos, _cache_len(caches, pages, page_size,
+                                          max_len),
+                          pages=pages, page_size=page_size,
+                          window=cfg.window)
+    rope = il.rope_gather(rope_tab, writes.positions, pos_span) \
         if rope_tab is not None else None
     for qp, cache in _sublayers(qparams, caches, cfg):
         h8 = il.int_norm(qp["norm1"], x32, plans.norm, ops)
@@ -184,13 +202,72 @@ def int_decode_step(qparams, caches, tokens, pos, plans, cfg: ArchConfig,
                                     cfg, window=cfg.window, ops=ops,
                                     pages=pages, page_size=page_size,
                                     max_len=max_len, fold_wo=fold_wo,
-                                    rope=rope)
+                                    rope=rope, writes=writes)
         x32 = _residual_add(x32, a32, cfg)
         h8 = il.int_norm(qp["norm2"], x32, plans.norm, ops)
         x32 = _residual_add(x32, il.int_ffn_fwd(qp["ffn"], h8, plans.ffn,
                                                 cfg, ops), cfg)
     logits = logits_int(qparams, x32, plans, cfg, ops)[:, 0]
     return logits, caches
+
+
+def speculative_decode_supported(cfg: ArchConfig) -> bool:
+    """Whether :func:`int_verify_step` serves this arch: full
+    (non-windowed) causal attention and no cross attention.  A sliding
+    window interleaves rolling-buffer writes and reads token by token,
+    which a batched multi-position write would break."""
+    _, _, kinds = layer_group_spec(cfg)
+    return cfg.is_causal and cfg.window == 0 and all(
+        mix == "attn" and not has_cross for (mix, _, has_cross) in kinds)
+
+
+def int_verify_step(qparams, caches, tokens, pos, n_new, plans,
+                    cfg: ArchConfig, rope_tab=None, ops=None, pages=None,
+                    page_size: int = 0, max_len: int = 0,
+                    fold_wo: bool = False, pos_span=None, write_rows=None):
+    """One speculative verify step: score S = spec_k + 1 candidate
+    positions per lane in a single stepped-mask decode-attention call a
+    layer (K3 at Sq = S on the ``cuda`` backend).
+
+    ``tokens``: (B, S) int, each lane's real tokens (its last committed
+    token and its drafts) right-aligned; ``pos``: (B,) the lane's current
+    position (its first real row writes there); ``n_new``: (B,) real rows,
+    ``1 <= n_new <= S`` with ``pos + n_new <= L`` (idle lanes pass 1 and
+    token 0, the discarded row a plain decode step gives them).  Row ``i``
+    of lane ``b`` covers position ``pos[b] + n_new[b] - S + i`` and sees
+    the positions up to it, as a sequential :func:`int_decode_step` of the
+    same tokens would, so each real row's logits equal that step's.
+    ``pos_span``: the least and greatest row position, known on the host
+    (pad rows clamp to 0); ``write_rows``: the real rows' flat indices
+    (``intlayers.real_rows``, built on the host), which the contiguous
+    layout writes alone and so needs (``ValueError`` without).  The rows'
+    positions and write index are built once a step
+    (:func:`intlayers.step_rows`).  Returns ``(logits (B, S, V) float32,
+    caches)``."""
+    if not speculative_decode_supported(cfg):
+        raise ValueError("speculative verify unsupported for arch "
+                         f"{cfg.name!r} (needs window == 0 and no cross "
+                         "attention)")
+    ops = resolve_ops(ops)
+    x32 = embed_int(qparams, tokens, plans, cfg)
+    writes = il.step_rows(pos, _cache_len(caches, pages, page_size,
+                                          max_len),
+                          tokens.shape[1], n_new, write_rows, pages,
+                          page_size)
+    rope = il.rope_gather(rope_tab, writes.positions, pos_span) \
+        if rope_tab is not None else None
+    for qp, cache in _sublayers(qparams, caches, cfg):
+        h8 = il.int_norm(qp["norm1"], x32, plans.norm, ops)
+        a32, _ = il.int_attn_decode(qp["attn"], h8, cache, pos, plans.attn,
+                                    cfg, ops=ops, pages=pages,
+                                    page_size=page_size, max_len=max_len,
+                                    fold_wo=fold_wo, rope=rope, n_new=n_new,
+                                    writes=writes)
+        x32 = _residual_add(x32, a32, cfg)
+        h8 = il.int_norm(qp["norm2"], x32, plans.norm, ops)
+        x32 = _residual_add(x32, il.int_ffn_fwd(qp["ffn"], h8, plans.ffn,
+                                                cfg, ops), cfg)
+    return logits_int(qparams, x32, plans, cfg, ops), caches
 
 
 def build_cache_from_prefill(qparams, batch, plans, cfg: ArchConfig, ops,
@@ -217,7 +294,7 @@ def build_cache_from_prefill(qparams, batch, plans, cfg: ArchConfig, ops,
 def int_prefill_chunk_step(qparams, caches, tokens, base_pos, plans,
                            cfg: ArchConfig, rope_tab=None, ops=None,
                            pages=None, page_size: int = 0,
-                           fold_wo: bool = False):
+                           fold_wo: bool = False, pos_span=None):
     """Advance every prefilling lane by one C-token prompt chunk, writing
     K/V straight into the paged pools (in place).
 
@@ -226,7 +303,8 @@ def int_prefill_chunk_step(qparams, caches, tokens, base_pos, plans,
     view* of the page table — rows of lanes not being prefilled must be
     nulled, so their discarded writes land on the null page.  Returns the
     caches; the chunk's hidden states are discarded (the engine feeds the
-    prompt's last token through the decode step)."""
+    prompt's last token through the decode step).  ``pos_span``: the
+    least and greatest position the chunk covers, known on the host."""
     ops = resolve_ops(ops)
     if not chunked_prefill_supported(cfg):
         raise ValueError("chunked prefill unsupported for arch "
@@ -238,7 +316,7 @@ def int_prefill_chunk_step(qparams, caches, tokens, base_pos, plans,
     if rope_tab is not None:
         positions = base_pos[:, None] + torch.arange(
             c, dtype=base_pos.dtype, device=base_pos.device)
-        rope = il.rope_gather(rope_tab, positions)
+        rope = il.rope_gather(rope_tab, positions, pos_span)
     for qp, cache in _sublayers(qparams, caches, cfg):
         h8 = il.int_norm(qp["norm1"], x32, plans.norm, ops)
         a32, _ = il.int_attn_prefill_chunk(

@@ -34,17 +34,34 @@ for every lane whose prompt is in, and finished lanes retire.
     head-dim nibbles a byte with a shift per page (``ops.packed``); an
     auto-sized pool has twice the pages in the same bytes, and K3 / K4
     expand the pages inside the kernel.
+  * **Speculative decoding** (``spec_k``, full-causal archs): each step
+    drafts up to ``spec_k`` tokens a live lane (``serving.speculate``,
+    prompt lookup over the lane's own context) and verifies all ``spec_k
+    + 1`` positions in one ``inttransformer.int_verify_step`` (K3 at Sq =
+    spec_k + 1, the stepped mask).  Greedy acceptance commits the longest
+    draft prefix matching the argmax stream plus one bonus token;
+    rejected drafts roll back by ``PagedKVCache.truncate``.  Streams equal
+    ``spec_k = 0``'s.  Greedy requests only.
+  * **Dispatch / commit**: ``step()`` is ``commit_step(dispatch_step())``.
+    ``dispatch_step`` schedules and queues the step on the device without
+    waiting for it: its host inputs (tokens, positions, the page table)
+    are snapshots, copied without blocking from fresh pinned host memory
+    into device buffers allocated once at construction (fixed addresses).
+    ``commit_step`` is where the host waits, on the logits.  Between the
+    two, ``evict`` / ``preempt`` / another dispatch raise
+    :class:`StepInFlight`.
 
 Token streams are bit-identical to the JAX engine's for the same
 weights and schedule.  Not ported yet (each raises
-``NotImplementedError`` naming its ROADMAP item): ``tp > 1``,
-``spec_k > 0``, and SSM / MoE / cross-attention archs.
+``NotImplementedError`` naming its ROADMAP item): ``tp > 1`` and SSM /
+MoE / cross-attention archs.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional
+import weakref
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -57,9 +74,19 @@ from repro_torch.models.common import ArchConfig
 from repro_torch.models.transformer import layer_group_spec
 from repro_torch.ops import OP_NAMES, QuantLinearParams, resolve_ops
 from repro_torch.quant import plans as qplans
+from repro_torch.serving import speculate
 from repro_torch.serving.kvcache import (NULL_PAGE, CacheLayout,
                                          PagePoolExhausted, PagedKVCache,
                                          PrefixIndex, Session)
+
+
+class StepInFlight(RuntimeError):
+    """A lifecycle operation (``evict`` / ``preempt`` / another
+    ``dispatch_step``) was attempted between :meth:`ServingEngine.
+    dispatch_step` and :meth:`ServingEngine.commit_step`, or a step that
+    is not the one in flight was committed.  The scheduler state the
+    pending step will be committed against must not move underneath it:
+    commit it first."""
 
 
 class EngineStalled(RuntimeError):
@@ -92,6 +119,36 @@ class Request:
     done: bool = False
 
 
+@dataclasses.dataclass
+class PendingStep:
+    """An engine step that :meth:`ServingEngine.dispatch_step` queued on
+    the device and :meth:`ServingEngine.commit_step` has not yet
+    committed: ``logits`` is a device tensor ((B, V), or (B, S, V) for a
+    verify step) that may still be computing.  ``kind`` is ``"idle"``
+    (no lane was decoding), ``"decode"`` or ``"verify"``."""
+
+    occupied: int
+    kind: str
+    live: List[int] = dataclasses.field(default_factory=list)
+    sessions: List[Optional[Session]] = dataclasses.field(
+        default_factory=list)
+    logits: object = None
+    n_new: Optional[np.ndarray] = None
+    drafts: Optional[Dict[int, List[int]]] = None
+
+
+def _weak_call(method):
+    """A callable that runs the bound ``method`` while its object lives,
+    without keeping the object alive (a no-op once it is gone)."""
+    ref = weakref.WeakMethod(method)
+
+    def call():
+        fn = ref()
+        if fn is not None:
+            fn()
+    return call
+
+
 def _to_device(tree, dev):
     if isinstance(tree, QuantLinearParams):
         return tree.map(lambda t: t.to(dev))
@@ -111,15 +168,11 @@ class ServingEngine:
                  prefill_chunk: Optional[int] = None,
                  prefill_budget: Optional[int] = None,
                  prefix_cache: bool = True, tp: int = 1, spec_k: int = 0,
-                 device="cuda"):
+                 spec_mode: str = "ngram", device="cuda"):
         if tp != 1:
             raise NotImplementedError(
                 "tensor-parallel serving is not ported yet (ROADMAP §1 "
                 "item 9)")
-        if spec_k:
-            raise NotImplementedError(
-                "speculative decoding is not ported yet (ROADMAP §1 "
-                "item 3, serving/speculate.py)")
         if cache_mode not in ("paged", "contiguous"):
             raise ValueError("cache_mode must be 'paged' or 'contiguous',"
                              f" got {cache_mode!r}")
@@ -140,6 +193,13 @@ class ServingEngine:
         if prefill_budget is not None and prefill_budget < 1:
             raise ValueError("prefill_budget must be >= 1 token/step, "
                              f"got {prefill_budget}")
+        speculate.validate_spec(cfg, spec_k, spec_mode)
+        self.spec_k = spec_k
+        self.spec_mode = spec_mode if spec_k else "off"
+        self.proposer = speculate.get_proposer(spec_mode) if spec_k \
+            else None
+        self._spec_drafted = 0
+        self._spec_accepted = 0
         self.device = resolve_device(device)
         self.cfg = cfg
         self.plans = plans
@@ -180,15 +240,61 @@ class ServingEngine:
         if self._chunkable and prefix_cache:
             self.prefix: Optional[PrefixIndex] = PrefixIndex(
                 self.kv.allocator, self.layout.page_size)
-            self.kv.allocator.reclaim = self._reclaim_prefix
+            # a weak reference: the allocator must not keep the engine
+            # (and its device pools) alive until the cyclic collector runs
+            self.kv.allocator.reclaim = _weak_call(self._reclaim_prefix)
         else:
             self.prefix = None
         self._cow_copies = 0
+        if self.spec_k:
+            self._check_verify_launch()
         self.pos = np.zeros(batch_size, np.int32)
         self.slots: List[Optional[Session]] = [None] * batch_size
         self.queue: List[Session] = []
         self._finished: List[Request] = []
         self._uid = 0
+        self._inflight: Optional[PendingStep] = None
+        self._bufs = self._device_buffers()
+
+    def _check_verify_launch(self):
+        """The verify step's decode-attention launch at Sq = spec_k + 1,
+        checked at construction where a kernel will take it: a backend
+        that consumes the KV layout natively (``paged_decode``) on the
+        card launches K3, whose plan (``k3_launch_plan``: head dim, rows,
+        shared memory) must exist for this cache geometry."""
+        be = self.ops.backend_for("int_decode_attention")
+        if self.device.type != "cuda" or not getattr(be, "paged_decode",
+                                                     False):
+            return
+        from repro_torch.kernels.int_decode_attention import k3_launch_plan
+        length = self.layout.logical_len if self.paged else self.L
+        k3_launch_plan(self.batch, self.spec_k + 1, self.cfg.n_heads,
+                       self.cfg.n_kv_heads, self.cfg.hd, length, self.paged,
+                       self.paged and self.layout.kv_dtype == "int4")
+
+    def _device_buffers(self) -> Dict[str, torch.Tensor]:
+        """The device tensors every step's host inputs are copied into,
+        allocated once (their addresses never change): tokens and
+        positions of the decode step, the page table, the prefill chunk's
+        tokens, base positions and page-table view, and the verify step's
+        (B, S) tokens, ``n_new`` and the flat indices of its real rows."""
+        b = self.batch
+
+        def i32(*shape):
+            return torch.zeros(shape, dtype=torch.int32, device=self.device)
+        bufs = {"toks": i32(b), "pos": i32(b)}
+        if self.paged:
+            bufs["pages"] = i32(b, self.layout.max_pages)
+        if self._use_chunked:
+            bufs.update(chunk_toks=i32(b, self.prefill_chunk),
+                        chunk_base=i32(b),
+                        chunk_pages=i32(b, self.layout.max_pages))
+        if self.spec_k:
+            s = self.spec_k + 1
+            bufs.update(verify_toks=i32(b, s), n_new=i32(b),
+                        rows=torch.zeros(b * s, dtype=torch.int64,
+                                         device=self.device))
+        return bufs
 
     def _resolve_prefill_chunk(self, prefill_chunk: Optional[int]) -> int:
         """Validate/auto-size the prefill chunk: 0 streams, None picks
@@ -224,27 +330,74 @@ class ServingEngine:
 
     # ------------------------------------------------------ device steps --
 
-    def _tensor(self, a: np.ndarray):
-        """A copy of host state on the device (never a view of it: the
-        engine mutates ``pos`` and the page table in place)."""
-        return torch.tensor(a, device=self.device)
+    def _stage(self, name: str, a: np.ndarray) -> torch.Tensor:
+        """Copy host array ``a`` into the fixed device buffer ``name`` (its
+        leading rows, for the variable-length ``rows``) and return that
+        view.  On the card the copy never waits: ``a`` goes into a fresh
+        pinned block (a snapshot, so the engine may mutate ``pos`` and the
+        page table at once), which PyTorch's host allocator does not hand
+        out again before the queued copy has read it."""
+        buf = self._bufs[name]
+        dst = buf[:a.shape[0]] if a.shape != tuple(buf.shape) else buf
+        src = torch.from_numpy(np.ascontiguousarray(
+            a, dtype=np.int64 if buf.dtype == torch.int64 else np.int32))
+        if dst.is_cuda:
+            dst.copy_(src.pin_memory(), non_blocking=True)
+        else:
+            dst.copy_(src)
+        return dst
+
+    def _paged_args(self, name: str = "pages", view=None) -> dict:
+        if not self.paged:
+            return {}
+        table = self.kv.page_table.snapshot() if view is None else view
+        return dict(pages=self._stage(name, table),
+                    page_size=self.layout.page_size)
 
     def _run_decode(self, toks):
-        paged = {}
+        kw = self._paged_args()
         if self.paged:
-            paged = dict(pages=self._tensor(self.kv.page_table.snapshot()),
-                         page_size=self.layout.page_size, max_len=self.L)
+            kw["max_len"] = self.L
         return it.int_decode_step(
-            self.qparams, self.caches, self._tensor(toks),
-            self._tensor(self.pos), self.plans, self.cfg, self.rope_tab,
-            ops=self.ops, fold_wo=self.fold_wo, **paged)
+            self.qparams, self.caches, self._stage("toks", toks),
+            self._stage("pos", self.pos), self.plans, self.cfg,
+            self.rope_tab, ops=self.ops, fold_wo=self.fold_wo,
+            pos_span=(int(self.pos.min()), int(self.pos.max())), **kw)
+
+    def _run_verify(self, toks, n_new):
+        """One verify step over the lanes' right-aligned ``toks`` (B, S);
+        every index it needs (the RoPE span, the real rows the contiguous
+        layout writes) is built here on the host from ``n_new``."""
+        s = self.spec_k + 1
+        rpos = np.maximum(self.pos[:, None] + n_new[:, None] - s
+                          + np.arange(s), 0)
+        kw = self._paged_args()
+        if self.paged:
+            kw["max_len"] = self.L
+        else:
+            kw["write_rows"] = self._stage("rows", il.real_rows(n_new, s))
+        return it.int_verify_step(
+            self.qparams, self.caches, self._stage("verify_toks", toks),
+            self._stage("pos", self.pos), self._stage("n_new", n_new),
+            self.plans, self.cfg, self.rope_tab, ops=self.ops,
+            fold_wo=self.fold_wo,
+            pos_span=(int(rpos.min()), int(rpos.max())), **kw)
 
     # ------------------------------------------------------ scheduling ---
 
     def submit(self, req: Request) -> Session:
         """Queue a request; returns the Session that owns its cache pages.
         Impossible requests (prompt longer than the cache, prompt +
-        max_new_tokens overrunning it) raise ``RequestInfeasible`` here."""
+        max_new_tokens overrunning it) raise ``RequestInfeasible`` here;
+        a ``temperature > 0`` request on a speculative engine raises
+        ``SpeculationUnsupported``."""
+        if self.spec_k and req.temperature > 0:
+            raise speculate.SpeculationUnsupported(
+                f"spec_k={self.spec_k} serves greedy requests only: "
+                "acceptance keeps the longest draft prefix matching the "
+                f"argmax stream, so a temperature={req.temperature} "
+                "sampled stream would silently diverge from the "
+                "non-speculative engine; sample with spec_k=0")
         contracts.require_request(len(req.prompt), req.max_new_tokens,
                                   self.cache_len, window=self.cfg.window)
         sess = Session(uid=self._uid, request=req)
@@ -408,10 +561,11 @@ class ServingEngine:
             if slot not in included:
                 view[slot] = NULL_PAGE
         it.int_prefill_chunk_step(
-            self.qparams, self.caches, self._tensor(toks),
-            self._tensor(base), self.plans, self.cfg, self.rope_tab,
-            ops=self.ops, pages=self._tensor(view), page_size=ps,
-            fold_wo=self.fold_wo)
+            self.qparams, self.caches, self._stage("chunk_toks", toks),
+            self._stage("chunk_base", base), self.plans, self.cfg,
+            self.rope_tab, ops=self.ops, fold_wo=self.fold_wo,
+            pos_span=(int(base.min()), int(base.max()) + C - 1),
+            **self._paged_args("chunk_pages", view))
         for i in included:
             sess = self.slots[i]
             n_pre = self._n_pre(sess)
@@ -460,25 +614,38 @@ class ServingEngine:
             self.kv.page_table.table[sess.slot, blk] = new
         self._cow_copies += 1
 
-    def _ensure_write_pages(self):
+    def _ensure_write_pages(self, n_new=None):
         """Before a decode step, make the page under every occupied
         lane's write slot (``pos``, or ``pos % window``) resident and
-        exclusively owned.  Nothing to do for the contiguous layout."""
+        exclusively owned; ``n_new`` (B,) widens each lane's span to
+        ``[pos, pos + n_new)`` for the verify step, so a draft never
+        writes a page the prefix index or a sibling still reads.
+        Nothing to do for the contiguous layout."""
         if not self.paged:
             return
         for slot, sess in enumerate(self.slots):
             if sess is None:
                 continue
-            q = int(self.pos[slot])
-            wslot = q % self.cfg.window if self.cfg.window > 0 else q
-            wslot = min(wslot, self.L - 1)
-            self.kv.ensure(sess, wslot)
-            blk = wslot // self.layout.page_size
-            if self.kv.allocator.refcount[sess.pages[blk]] > 1:
-                self._cow(sess, blk)
+            p = int(self.pos[slot])
+            span = 1 if n_new is None else int(n_new[slot])
+            for q in range(p, p + span):
+                wslot = q % self.cfg.window if self.cfg.window > 0 else q
+                wslot = min(wslot, self.L - 1)
+                self.kv.ensure(sess, wslot)
+                blk = wslot // self.layout.page_size
+                if self.kv.allocator.refcount[sess.pages[blk]] > 1:
+                    self._cow(sess, blk)
+
+    def _require_committed(self, op: str):
+        if self._inflight is not None:
+            raise StepInFlight(
+                f"{op} while a dispatched step is uncommitted: call "
+                "commit_step(pending) first — the pending step will be "
+                "committed against the sessions it captured")
 
     def evict(self, sess: Session):
         """Cancel a session: free its lane and release its pages."""
+        self._require_committed("evict")
         if sess in self.queue:
             self.queue.remove(sess)
         if sess.slot is not None:
@@ -497,6 +664,7 @@ class ServingEngine:
         """Take a live session off its lane but keep its pages; it goes
         back to the queue head and resumes bit-exactly.  Paged mode only:
         the contiguous layout ties K/V to the lane."""
+        self._require_committed("preempt")
         if not self.paged:
             raise ValueError("preempt needs cache_mode='paged' (the "
                              "contiguous layout ties K/V to the lane)")
@@ -534,22 +702,67 @@ class ServingEngine:
 
     def step(self) -> int:
         """One engine step: admit, advance prefill (budgeted), one batched
-        decode for lanes whose prompt is in, retire finished lanes.
-        Returns the number of occupied lanes."""
+        decode (or, with ``spec_k``, one verify committing up to ``spec_k
+        + 1`` tokens a lane) for lanes whose prompt is in, retire finished
+        lanes.  Returns the number of occupied lanes.  Exactly
+        ``commit_step(dispatch_step())``."""
+        return self.commit_step(self.dispatch_step())
+
+    def dispatch_step(self) -> PendingStep:
+        """The scheduling and dispatch half of :meth:`step`: admit, advance
+        prefill, draft (``spec_k``) and queue the decode or verify step on
+        the device without waiting for it.  Returns the
+        :class:`PendingStep` to pass to :meth:`commit_step`; until then
+        ``evict`` / ``preempt`` / another dispatch raise
+        :class:`StepInFlight`."""
+        self._require_committed("dispatch_step")
         self._admit()
         self._advance_prefill()
         occupied = sum(s is not None for s in self.slots)
         live = [i for i, s in enumerate(self.slots)
                 if s is not None and s.state == "active"]
         if not live:
-            return occupied
-        toks = np.zeros(self.batch, np.int32)
-        for i in live:
-            toks[i] = self.slots[i].last_token
-        self._ensure_write_pages()
-        logits, _ = self._run_decode(toks)
-        logits = logits.cpu().numpy()
-        for i in live:
+            return PendingStep(occupied, "idle")
+        sessions = list(self.slots)
+        if self.spec_k:
+            toks, n_new, drafts = self._build_spec_batch(live)
+            self._ensure_write_pages(n_new)
+            logits, _ = self._run_verify(toks, n_new)
+            pending = PendingStep(occupied, "verify", live, sessions,
+                                  logits, n_new, drafts)
+        else:
+            toks = np.zeros(self.batch, np.int32)
+            for i in live:
+                toks[i] = self.slots[i].last_token
+            self._ensure_write_pages()
+            logits, _ = self._run_decode(toks)
+            pending = PendingStep(occupied, "decode", live, sessions,
+                                  logits)
+        self._inflight = pending
+        return pending
+
+    def commit_step(self, pending: PendingStep) -> int:
+        """The sampling and bookkeeping half of :meth:`step`: read the
+        logits back (the one place the host waits on the device), sample
+        or accept, advance positions, retire finished lanes.  Returns the
+        occupied-lane count."""
+        if pending.kind == "idle":
+            return pending.occupied
+        if self._inflight is not pending:
+            raise StepInFlight(
+                "commit_step got a PendingStep that is not the one in "
+                "flight: each dispatch_step() result is committed exactly "
+                "once, in order")
+        self._inflight = None
+        if pending.kind == "verify":
+            self._commit_spec(pending)
+        else:
+            self._commit_decode(pending)
+        return pending.occupied
+
+    def _commit_decode(self, pending: PendingStep):
+        logits = pending.logits.cpu().numpy()
+        for i in pending.live:
             sess = self.slots[i]
             req = sess.request
             self.pos[i] += 1
@@ -560,7 +773,60 @@ class ServingEngine:
             if len(req.out_tokens) >= req.max_new_tokens \
                     or self._at_cache_end(i):
                 self._retire(i)
-        return occupied
+
+    def _build_spec_batch(self, live: List[int]):
+        """The draft half of a verify step: each live lane drafts ``k_b =
+        min(spec_k, remaining - 1, L - pos - 1)`` tokens (never past its
+        budget or the cache), and ``[last_token, *draft]`` goes
+        right-aligned into the lane's row of the (B, spec_k + 1) tokens;
+        other lanes ride along as the plain step's discarded token-0 row
+        (``n_new = 1``)."""
+        s = self.spec_k + 1
+        toks = np.zeros((self.batch, s), np.int32)
+        n_new = np.ones(self.batch, np.int32)
+        drafts: Dict[int, List[int]] = {}
+        for i in live:
+            sess = self.slots[i]
+            req = sess.request
+            remaining = req.max_new_tokens - len(req.out_tokens)
+            room = self.L - int(self.pos[i]) - 1
+            k_b = max(0, min(self.spec_k, remaining - 1, room))
+            draft = self.proposer.propose(
+                req.prompt + req.out_tokens, k_b) if k_b else []
+            drafts[i] = draft
+            n = 1 + len(draft)
+            n_new[i] = n
+            toks[i, s - n:] = [sess.last_token] + draft
+        return toks, n_new, drafts
+
+    def _commit_spec(self, pending: PendingStep):
+        """The acceptance half: commit the longest draft prefix matching
+        the argmax rows plus the bonus token (equal to ``a + 1`` plain
+        steps), then truncate the page list to the committed positions,
+        releasing the pages only rejected drafts touched."""
+        s = self.spec_k + 1
+        logits = pending.logits.cpu().numpy()
+        for i in pending.live:
+            sess = self.slots[i]
+            req = sess.request
+            draft = pending.drafts[i]
+            n = int(pending.n_new[i])
+            preds = np.argmax(logits[i, s - n:, :self.cfg.vocab], axis=-1)
+            a = 0
+            while a < len(draft) and int(preds[a]) == draft[a]:
+                a += 1
+            commit = [int(t) for t in preds[:a + 1]]
+            self._spec_drafted += len(draft)
+            self._spec_accepted += a
+            req.out_tokens.extend(commit)
+            sess.last_token = commit[-1]
+            self.pos[i] += len(commit)
+            sess.pos = int(self.pos[i])
+            if self.paged and len(commit) < n:
+                self.kv.truncate(sess, int(self.pos[i]))
+            if len(req.out_tokens) >= req.max_new_tokens \
+                    or self._at_cache_end(i):
+                self._retire(i)
 
     def _sample(self, req: Request, row: np.ndarray) -> int:
         """Greedy argmax for ``temperature <= 0``; otherwise a float64
@@ -596,11 +862,21 @@ class ServingEngine:
         cache["kv_bytes"] = int(sum(
             c[key].numel() * c[key].element_size()
             for c in self.caches for key in ("k8", "v8")))
+        drafted, accepted = self._spec_drafted, self._spec_accepted
         return {
             "ops": self.ops.name,
             "backends": {op: self.ops.backend_for(op).name
                          for op in OP_NAMES},
             "device": str(self.device),
+            "spec": {
+                "k": self.spec_k,
+                "mode": self.spec_mode,
+                "drafted": drafted,
+                "accepted": accepted,
+                "accept_rate": round(accepted / drafted, 4) if drafted
+                else None,
+                "wasted": drafted - accepted,
+            },
             "prefill": {
                 "mode": "chunked" if self._use_chunked else "streaming",
                 "chunk": self.prefill_chunk,
@@ -627,8 +903,13 @@ class ServingEngine:
                      f"{c['pages_used']}/{c['num_pages'] - 1} used]")
         else:
             cache = "contiguous"
+        sp = d["spec"]
+        spec = "" if not sp["k"] else (
+            f" spec={sp['mode']}:k{sp['k']}"
+            + (f"@{sp['accept_rate']:.2f}"
+               if sp["accept_rate"] is not None else ""))
         return (f"ops={d['ops']} device={d['device']} prefill={prefill} "
-                f"fold_wo={str(d['fold_wo']).lower()} cache={cache} "
+                f"fold_wo={str(d['fold_wo']).lower()}{spec} cache={cache} "
                 f"batch={d['batch']} cache_len={d['cache_len']}")
 
     def run_until_done(self, max_steps: int = 10000) -> List[Request]:

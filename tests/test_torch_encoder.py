@@ -324,7 +324,8 @@ def test_int_prefill_matches_reference(request, arch, s, j_ops):
     step = make_prefill_step(tc, tp, ops="cuda", device="cpu")
     args = (tq, {"tokens": toks})
     if tc.pos == "rope":
-        args += (til.build_rope_table(s + 1, tc.hd, tc.rope_theta),)
+        args += (til.build_rope_table(s + 1, tc.hd, tc.rope_theta,
+                                        device="cpu"),)
     assert np.array_equal(step(*args).numpy(), want)
 
 

@@ -1499,3 +1499,94 @@ def test_engine_msr4_cuda_matches_torch_ref(dev):
         streams[name] = [r.out_tokens for r in reqs]
     assert streams["cuda"] == streams["cuda_online"] == \
         streams["torch_ref"] == streams["dense"]
+
+
+# ------------------------------------ front end, dispatch / commit, spec --
+
+def _reduced_llama(dev):
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M
+    from repro_torch.quant import convert
+    cfg = M.reduce_config(get_config("llama3-8b"), dtype="float32")
+    qp, plans = convert.init_quantized(
+        cfg, seed=0, device=dev, embed_scale=convert.unit_embed_scale(cfg))
+    return cfg, qp, plans
+
+
+_SERVE_PROMPTS = [[1 + i] * (5 + 9 * i) for i in range(3)] \
+    + [[3, 5, 7, 9, 11, 13] * 4]
+
+
+@pytest.mark.parametrize("mode", ["paged", "contiguous"])
+def test_frontend_and_spec_serve_cuda_match_torch_ref(dev, mode):
+    """A 2-layer engine on the card: streams through ``ServingFrontend``
+    on ``cuda``, and of a ``spec_k = 3`` engine on ``cuda`` (K3 at Sq = 4)
+    and on ``torch_ref``, equal the ``torch_ref`` drain's."""
+    import asyncio
+    from repro_torch.serving import Request, ServingEngine, ServingFrontend
+    cfg, qp, plans = _reduced_llama(dev)
+
+    def engine(backend, **kw):
+        return ServingEngine(qp, plans, cfg, batch_size=2, cache_len=64,
+                             ops=backend, device=dev, cache_mode=mode, **kw)
+
+    def drain(eng):
+        reqs = [Request(uid=i, prompt=list(p), max_new_tokens=8)
+                for i, p in enumerate(_SERVE_PROMPTS)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_done()
+        return [r.out_tokens for r in reqs]
+
+    async def serve(fe):
+        runner = asyncio.create_task(fe.run())
+        handles = [fe.submit(list(p), 8) for p in _SERVE_PROMPTS]
+        streams = await asyncio.gather(*[h.result() for h in handles])
+        fe.close()
+        await runner
+        return streams
+
+    want = drain(engine("torch_ref"))
+    kernels.reset_launches()
+    assert asyncio.run(serve(ServingFrontend(engine("cuda")))) == want
+    assert kernels.LAUNCHES["int_decode_attention"] > 0
+    for backend in ("cuda", "torch_ref"):
+        kernels.reset_launches()
+        eng = engine(backend, spec_k=3)
+        assert drain(eng) == want, backend
+        assert eng.describe()["spec"]["drafted"] > 0
+        assert (kernels.LAUNCHES["int_decode_attention"] > 0) \
+            == (backend == "cuda")
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(spec_k=3),
+                                dict(kv_dtype="int4", spec_k=3),
+                                dict(cache_mode="contiguous"),
+                                dict(cache_mode="contiguous", spec_k=3)],
+                         ids=lambda kw: ",".join(f"{k}={v}"
+                                                 for k, v in kw.items())
+                         or "default")
+def test_dispatch_step_makes_no_synchronizing_copy(dev, kw):
+    """``dispatch_step`` (admission, a prompt's prefill, the decode or
+    verify step) queues its work without waiting on the card: under
+    ``torch.cuda.set_sync_debug_mode("error")`` any synchronizing copy or
+    read of the device raises.  The first step warms the kernels up."""
+    from repro_torch.serving import Request, ServingEngine
+    cfg, qp, plans = _reduced_llama(dev)
+    eng = ServingEngine(qp, plans, cfg, batch_size=4, cache_len=64,
+                        ops="cuda", device=dev, **kw)
+    for i, p in enumerate(_SERVE_PROMPTS[:2]):
+        eng.submit(Request(uid=i, prompt=list(p), max_new_tokens=6))
+    eng.step()
+    for i, p in enumerate(_SERVE_PROMPTS[2:]):     # prefilled in dispatch
+        eng.submit(Request(uid=2 + i, prompt=list(p), max_new_tokens=6))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = eng.dispatch_step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert pending.kind == ("verify" if kw.get("spec_k") else "decode")
+    assert len(pending.live) == 4
+    eng.commit_step(pending)
+    eng.run_until_done()

@@ -3,8 +3,10 @@
   * no module under ``src/repro_torch/`` (nor ``chip_smoke.py``) imports
     ``jax`` or ``repro`` — checked on the AST and by importing every port
     module with both blocked;
-  * entry points default to ``device="cuda"`` and raise on a host without
-    a card instead of falling back to the CPU;
+  * entry points (the engine, the serve driver, ``init_quantized``,
+    ``interop``, ``init_decode_cache``, ``build_rope_table``) default to
+    ``device="cuda"`` and raise on a host without a card instead of
+    falling back to the CPU;
   * each CUDA source carries its note (TPU kernel replaced, bound, design);
   * ``chip_smoke.py`` alone, or without a card, exits non-zero and prints
     no result line.
@@ -92,6 +94,26 @@ def test_entry_points_default_to_the_card(no_gpu):
     reqs = serve.main(["--reduced", "--requests", "2", "--max-new", "3",
                        "--device", "cpu", "--cache-len", "32"])
     assert all(len(r.out_tokens) == 3 for r in reqs)
+
+
+def test_model_helpers_default_to_the_card(no_gpu):
+    """The decode caches and the RoPE table are built on the card unless
+    the caller asks for the CPU."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import intlayers as il
+    from repro_torch.models import inttransformer as it
+    from repro_torch.models import model as M
+    from repro_torch.serving.kvcache import CacheLayout
+    cfg = M.reduce_config(get_config("llama3-8b"), dtype="float32")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        it.init_decode_cache(cfg, CacheLayout.fit(2, 32, 16))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        it.init_decode_cache(cfg, batch=2, cache_len=32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        il.build_rope_table(33, cfg.hd, cfg.rope_theta)
+    cache = it.init_decode_cache(cfg, batch=2, cache_len=32, device="cpu")
+    cos, _ = il.build_rope_table(33, cfg.hd, cfg.rope_theta, device="cpu")
+    assert cache[0]["k8"].device.type == cos.device.type == "cpu"
 
 
 def test_interop_defaults_to_the_card(no_gpu):

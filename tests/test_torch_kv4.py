@@ -254,7 +254,7 @@ def test_init_decode_cache_and_layout_match_reference(llama):
             assert tl.num_pages - 1 == \
                 2 * (TLayout.fit(*args).num_pages - 1)
         jc = jit_.init_decode_cache(jcfg, args[0], args[1], layout=jl)
-        tc = tit.init_decode_cache(tcfg, tl)
+        tc = tit.init_decode_cache(tcfg, tl, device="cpu")
         assert len(tc) == len(jc)
         for t, j in zip(tc, jc):
             assert sorted(t) == sorted(k for k in j if j[k] is not None)
@@ -265,7 +265,8 @@ def test_init_decode_cache_and_layout_match_reference(llama):
             assert t["k_shift"].dtype == torch.int32
     odd = dataclasses.replace(tcfg, head_dim=9)
     with pytest.raises(ValueError, match="even"):
-        tit.init_decode_cache(odd, TLayout.fit(2, 32, 16, kv_dtype="int4"))
+        tit.init_decode_cache(odd, TLayout.fit(2, 32, 16, kv_dtype="int4"),
+                              device="cpu")
 
 
 def test_int4_needs_the_paged_layout(llama):
@@ -274,7 +275,8 @@ def test_int4_needs_the_paged_layout(llama):
         TEngine(tq, tp, tcfg, device="cpu", cache_mode="contiguous",
                 kv_dtype="int4")
     cache = tit.init_decode_cache(tcfg, TLayout.fit(2, 32, 16,
-                                                    kv_dtype="int4"))[0]
+                                                    kv_dtype="int4"),
+                                  device="cpu")[0]
     view = {k: v[0] for k, v in cache.items()}
     x8 = torch.zeros((2, 1, tcfg.d_model), dtype=torch.int8)
     layer = tq["layers"][0]["attn"]

@@ -373,7 +373,8 @@ def test_int_prefill_online_matches_reference(models, arch, blocks):
         step = make_prefill_step(tc, tp, ops="cuda_online", device="cpu")
         args = (tq, {"tokens": toks})
         if tc.pos == "rope":
-            args += (til.build_rope_table(s + 1, tc.hd, tc.rope_theta),)
+            args += (til.build_rope_table(s + 1, tc.hd, tc.rope_theta,
+                                            device="cpu"),)
         assert torch.equal(step(*args), got)
     assert sum(kernels.LAUNCHES.values()) == 0
 

@@ -82,10 +82,11 @@ def test_chunk_and_decode_steps_match_reference(setup, backend, fold_wo):
     jl = JLayout.fit(b, cache_len, ps)
     tl = TLayout.fit(b, cache_len, ps)
     jc = jit_.init_decode_cache(jcfg, b, cache_len, layout=jl)
-    tc = tit.init_decode_cache(tcfg, tl)
+    tc = tit.init_decode_cache(tcfg, tl, device="cpu")
     rope_rows = cache_len + C + 8
     jrope = jil.build_rope_table(rope_rows, jcfg.hd, jcfg.rope_theta)
-    trope = til.build_rope_table(rope_rows, tcfg.hd, tcfg.rope_theta)
+    trope = til.build_rope_table(rope_rows, tcfg.hd, tcfg.rope_theta,
+                                 device="cpu")
     pages = np.array([[1, 2, 3, 4], [5, 6, 7, 8], [9, 10, 11, 12]],
                      np.int32)
     rng = np.random.default_rng(5)
@@ -232,8 +233,9 @@ def test_engine_unported_options_raise(setup):
     """What the port does not serve yet names its ROADMAP §1 item (the
     contiguous cache and sliding windows are served since, their parity
     tests/test_torch_window.py's; int4 KV pages too, tests/
-    test_torch_kv4.py's)."""
+    test_torch_kv4.py's; speculative decoding too, tests/
+    test_torch_speculative.py's)."""
     _, tcfg, _, _, tq, tp = setup
-    for kw, item in ((dict(tp=2), "item 9"), (dict(spec_k=2), "item 3")):
-        with pytest.raises(NotImplementedError, match=item):
-            TEngine(tq, tp, tcfg, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        TEngine(tq, tp, tcfg, device="cpu", tp=2)
+    assert TEngine(tq, tp, tcfg, device="cpu", spec_k=2).spec_k == 2

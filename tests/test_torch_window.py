@@ -205,17 +205,19 @@ def _decode_steps(setup, layout, backend, fold_wo, steps=8):
         ps = 16
         jl, tl = JLayout.fit(b, L, ps), TLayout.fit(b, L, ps)
         jc = jit_.init_decode_cache(jcfg, b, cache_len, layout=jl)
-        tc = tit.init_decode_cache(tcfg, tl)
+        tc = tit.init_decode_cache(tcfg, tl, device="cpu")
         pages = np.arange(1, 1 + b * (L // ps), dtype=np.int32).reshape(b, -1)
         jkw = dict(kw, pages=jnp.asarray(pages), page_size=ps, max_len=L)
         tkw = dict(kw, pages=T(pages), page_size=ps, max_len=L)
     else:
         jc = jit_.init_decode_cache(jcfg, b, cache_len)
-        tc = tit.init_decode_cache(tcfg, batch=b, cache_len=cache_len)
+        tc = tit.init_decode_cache(tcfg, device="cpu", batch=b,
+                                   cache_len=cache_len)
         jkw, tkw = kw, kw
     assert tc[0]["k8"].shape == tuple(jc[0]["k8"].shape)
     jrope = jil.build_rope_table(cache_len + 1, jcfg.hd, jcfg.rope_theta)
-    trope = til.build_rope_table(cache_len + 1, tcfg.hd, tcfg.rope_theta)
+    trope = til.build_rope_table(cache_len + 1, tcfg.hd, tcfg.rope_theta,
+                                 device="cpu")
     rng = np.random.default_rng(3)
     pos = np.array([0, 30, 59], np.int32)
     for _ in range(steps):
@@ -281,7 +283,8 @@ def test_make_decode_step_matches_reference(setup, backend):
     jstep = j_make_decode_step(jcfg, jp, cache_len, ops="ref")
     tstep = make_decode_step(tcfg, tp, cache_len, ops=backend, device="cpu")
     jrope = jil.build_rope_table(cache_len + 1, jcfg.hd, jcfg.rope_theta)
-    trope = til.build_rope_table(cache_len + 1, tcfg.hd, tcfg.rope_theta)
+    trope = til.build_rope_table(cache_len + 1, tcfg.hd, tcfg.rope_theta,
+                                 device="cpu")
     pos = np.full((b,), s, np.int32)
     for t in range(3):
         nxt = toks[:, t]
