@@ -26,7 +26,18 @@ non-zero before the last line):
            the edge cases of the tensor-core K4, K5 and K8 and exp16's
            division on its whole domain, then K1, K2, K3 (contiguous and
            paged) and K5 at h2o-danube-3-4b's shapes, head dim 120 (and
-           one K4 and two K8 rows there; K2 at 4 and 1024 rows);
+           one K4 and two K8 rows there; K2 at 4 and 1024 rows), then
+           the rows of ``zoo-kernels``;
+  zoo-kernels  (not in the default list; part of ``kernels``) K1-K6 at the
+           shapes the four configs of ROADMAP §1 item 1 give them: K1 at
+           codeqwen1.5-7b's QKV with bias (M 4, 16) and w2 (K 13440, M 4)
+           and granite-3-2b's raw tied head (N 49155 at M 4 and 128, and
+           the padded 49168 at M 4), K2's LayerNorm + beta at
+           roberta-large's 16 384 x 1024 and deit-s's 32 x 197 x 384, K3
+           and K4 at codeqwen's MHA serve row (D 128) and granite's (D 64),
+           K5 at roberta-large's B 32 S 512 H 16, deit-s's B 32 S 197 H 6
+           and llama3-8b's long prefill (S 4096, H 32 / 8, causal), K6 at
+           16 384 x 4096, each exact against its plain version;
   k1-decode  (not in the default list) K1's decode rows alone: every
            llama3-8b and h2o-danube-3-4b decode projection at M = 4 and
            16, dense and over nibbles, exact against the plain version,
@@ -114,7 +125,28 @@ non-zero before the last line):
            matmul through K1's nibble instantiation and the MSR-4
            correction kernel (the dense K1 never: a packed wo never
            folds), the packed weight bytes, a profiled decode window and
-           prefill chunks.
+           prefill chunks;
+  zoo-parity     codeqwen1.5-7b (MHA, QKV bias), granite-3-2b (tied head,
+           vocab 49155), roberta-large and deit-s at full width cut to 2
+           layers: the decoders' ServingEngine streams on ``cuda`` equal
+           ``torch_ref``'s (paged, chunked prefill, wo folded), the
+           encoders' ``make_prefill_step`` logits on ``cuda`` equal
+           ``torch_ref``'s at 8 x 512 and 8 x 197;
+  zoo-serve      ``serve`` for full codeqwen1.5-7b (32 layers) and
+           granite-3-2b (40 layers) on the same traffic (phases
+           ``zoo-serve-<arch>``, with their decode and prefill profiles);
+  zoo-encode     full roberta-large (24 layers) at 32 x 512 and deit-s (12
+           layers) at 32 x 197 through ``make_prefill_step`` on ``cuda``:
+           ms a pass, launches per pass (K1, K2, K5, K6), one profiled
+           pass (phases ``zoo-encode-<arch>``);
+  long-prefill   llama3-8b at full width cut to 2 layers, B 1, S 4096,
+           above the reference's full-matrix threshold: under
+           ``ops="ref"`` (``cuda_ref``) the attention streams the
+           reference's chunked two-pass path, K5 never launches, and the
+           logits equal ``torch_ref``'s; under ``"cuda"`` K5 launches and
+           the logits differing from ``ref``'s are counted; the chunked
+           attention at the full head shape on the card equals the same
+           call on the CPU, and its ms stand beside K5's.
 
 The ``kernels`` phase also holds K3's and K4's packed instantiations
 (rows ``int_decode_attention_kv4`` / ``int_paged_prefill_kv4``) against
@@ -214,6 +246,17 @@ PATH_KERNELS = {
                   "int_paged_prefill_kv4"),
     "msr4-serve": ("int8_matmul_packed", "int8_matmul_msr4", "int_layernorm",
                    "int_decode_attention", "int_paged_prefill"),
+    "zoo-serve-codeqwen1.5-7b": ("int8_matmul", "int_layernorm",
+                                 "int_decode_attention", "int_paged_prefill"),
+    "zoo-serve-granite-3-2b": ("int8_matmul", "int_layernorm",
+                               "int_decode_attention", "int_paged_prefill"),
+    "zoo-encode-roberta-large": ("int8_matmul", "int_layernorm",
+                                 "int_attention_fused", "int_gelu"),
+    "zoo-encode-deit-s": ("int8_matmul", "int_layernorm",
+                          "int_attention_fused", "int_gelu"),
+    "long-prefill-ref": ("int8_matmul", "int_layernorm"),
+    "long-prefill-cuda": ("int8_matmul", "int_layernorm",
+                          "int_attention_fused"),
 }
 # the reference serving benchmark's weight tier (pack_tree(qp, "msr4",
 # group=64), benchmarks/bench_serving.py)
@@ -505,6 +548,72 @@ def int_mm_ms(x8, w8):
     return device_ms(lambda: torch._int_mm(x8, w8), 20)
 
 
+def paged_attention_rows(gen, rows, cfg, plans, cases, tag="",
+                         rep=False):
+    """K3 and K4 against their plain versions over paged pools at the
+    serve geometry of ``cfg`` (B 4, pages of 16, 32 pages a lane, a
+    permuted page table), each case ``(kernel, Sq, valid lengths, prefix)``
+    unfolded and with wo folded: ``int_decode_attention`` is K3 (valid =
+    the live positions), ``int_paged_prefill`` K4 with chunk Sq (valid =
+    pos_end).  ``tag`` prefixes each case;
+    ``rep``: the first folded K3 and K4 rows of an unprefixed case are the
+    kernels' summary rows.  Returns ``(wo, wo_spec)``."""
+    import torch
+    from repro_torch.kernels.int_attention_fused import (
+        int_paged_prefill_fused, int_paged_prefill_plain)
+    from repro_torch.kernels.int_decode_attention import (
+        int_decode_attention_fused, int_decode_attention_plain)
+    from repro_torch.ops.spec import QuantLinearParams, RequantSpec
+    d, hd, h, hkv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    b, ps, maxp = 4, 16, 32
+    num_pages = b * maxp + 1
+    k_pool = _randint(gen, -127, 128, (num_pages, ps, hkv, hd), torch.int8)
+    v_pool = _randint(gen, -127, 128, (num_pages, ps, hkv, hd), torch.int8)
+    pages = (torch.randperm(num_pages - 1, generator=gen, device="cuda")
+             + 1).to(torch.int32).reshape(b, maxp)
+    wo = QuantLinearParams(_randint(gen, -127, 128, (h * hd, d), torch.int8),
+                           _randint(gen, 256, 4096, (d,), torch.int32))
+    wo_spec = RequantSpec.for_linear(plans.attn.out)
+    aplan = plans.attn.attn
+    requant = RequantSpec.per_tensor(aplan.dn_out)
+    kv_row = hkv * hd * 2                       # K + V bytes per position
+    fold_bytes = h * hd * d + 4 * d
+    for name, sq, lens, pre in cases:
+        k4 = name == "int_paged_prefill"
+        fused, plain = ((int_paged_prefill_fused, int_paged_prefill_plain)
+                        if k4 else (int_decode_attention_fused,
+                                    int_decode_attention_plain))
+        q8 = _randint(gen, -127, 128, (b, sq, h, hd), torch.int8)
+        vl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        live = sum(lens)
+        # causal work: row i of lane b sees lens[b] - (sq - 1 - i) keys
+        pairs = sum(max(n - (sq - 1 - i), 0) for n in lens
+                    for i in range(sq))
+        for fold in (False, True):
+            kw = dict(wo=wo, wo_spec=wo_spec) if fold else {}
+            got = fused(q8, k_pool, v_pool, aplan, vl, pages, ps,
+                        requant=requant, **kw)
+            want = plain(q8, k_pool, v_pool, aplan, vl, pages, ps,
+                         requant=requant, **kw)
+            io = 2 * b * sq * h * hd + live * kv_row + 4 * b * (maxp + 1)
+            ops = 4 * pairs * h * hd
+            if fold:
+                io += fold_bytes + 4 * b * sq * d - b * sq * h * hd
+                ops += 2 * b * sq * h * hd * d
+            record(rows, name, f"{tag}{pre}B={b} S={sq} H={h} Hkv={hkv} "
+                   f"D={hd} ps={ps} pages/lane={maxp} valid={lens} "
+                   f"fold_wo={fold}", got, want,
+                   lambda: fused(q8, k_pool, v_pool, aplan, vl, pages, ps,
+                                 requant=requant, **kw),
+                   lambda: plain(q8, k_pool, v_pool, aplan, vl, pages, ps,
+                                 requant=requant, **kw),
+                   io, ops, rep=rep and fold and not pre,
+                   plan=(k4_plan(q8, k_pool, pages, ps, aplan) if k4 else
+                         k3_plan(q8, k_pool, v_pool,
+                                 dict(pages=pages, page_size=ps))))
+    return wo, wo_spec
+
+
 def check_kernels(cfg, plans):
     """K1-K4 vs their plain versions at the serving path's shapes.
     Returns the representative measurement of each kernel (the main
@@ -513,11 +622,7 @@ def check_kernels(cfg, plans):
     from repro_torch.core.dyadic import fit_dyadic
     from repro_torch.kernels.int8_matmul import (int8_matmul,
                                                  int8_matmul_plain)
-    from repro_torch.kernels.int_attention_fused import (
-        int_paged_prefill_fused, int_paged_prefill_plain)
-    from repro_torch.kernels.int_decode_attention import (
-        int_decode_attention_fused, int_decode_attention_plain)
-    from repro_torch.ops.spec import QuantLinearParams, RequantSpec
+    from repro_torch.ops.spec import RequantSpec
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
     rows = {}
@@ -587,65 +692,22 @@ def check_kernels(cfg, plans):
     empty_kernel_row()
     isqrt_check()
 
-    # K3/K4: paged attention over a permuted page table, ragged lengths
-    b, ps, maxp = 4, 16, 32
-    num_pages = b * maxp + 1
-    k_pool = _randint(gen, -127, 128, (num_pages, ps, hkv, hd), torch.int8)
-    v_pool = _randint(gen, -127, 128, (num_pages, ps, hkv, hd), torch.int8)
-    pages = (torch.randperm(num_pages - 1, generator=gen, device="cuda")
-             + 1).to(torch.int32).reshape(b, maxp)
-    wo = QuantLinearParams(_randint(gen, -127, 128, (h * hd, d), torch.int8),
-                           _randint(gen, 256, 4096, (d,), torch.int32))
-    wo_spec = RequantSpec.for_linear(plans.attn.out)
+    # K3/K4: paged attention over a permuted page table, ragged lengths:
+    # the decode step, the verify step of a spec_k = 3 engine (Sq = 4,
+    # valid = pos + n_new: stepped lanes, and a lane at valid 1, as an idle
+    # lane or a first token gives it, whose rows 0..2 see no key), the
+    # prefill chunk
     aplan = plans.attn.attn
     requant = RequantSpec.per_tensor(aplan.dn_out)
-    kv_row = hkv * hd * 2                       # K + V bytes per position
-    fold_bytes = h * hd * d + 4 * d
-    # (name, fused, plain, Sq, valid lengths, case prefix): the decode
-    # step, the verify step of a spec_k = 3 engine (Sq = 4, valid = pos +
-    # n_new: stepped lanes, and a lane at valid 1, as an idle lane or a
-    # first token gives it, whose rows 0..2 see no key), the prefill chunk
-    for name, fused, plain, sq, lens, pre in (
-            ("int_decode_attention", int_decode_attention_fused,
-             int_decode_attention_plain, 1, [1, 137, 300, 512], ""),
-            ("int_decode_attention", int_decode_attention_fused,
-             int_decode_attention_plain, VERIFY_SQ, [4, 137, 300, 512],
+    wo, wo_spec = paged_attention_rows(
+        gen, rows, cfg, plans, (
+            ("int_decode_attention", 1, [1, 137, 300, 512], ""),
+            ("int_decode_attention", VERIFY_SQ, [4, 137, 300, 512],
              "verify "),
-            ("int_decode_attention", int_decode_attention_fused,
-             int_decode_attention_plain, VERIFY_SQ, [1, 137, 300, 512],
+            ("int_decode_attention", VERIFY_SQ, [1, 137, 300, 512],
              "verify "),
-            ("int_paged_prefill", int_paged_prefill_fused,
-             int_paged_prefill_plain, 32, [32, 100 + 32, 250 + 32, 512],
-             "")):
-        q8 = _randint(gen, -127, 128, (b, sq, h, hd), torch.int8)
-        vl = torch.tensor(lens, dtype=torch.int32, device="cuda")
-        live = sum(lens)
-        # causal work: row i of lane b sees lens[b] - (sq - 1 - i) keys
-        pairs = sum(max(n - (sq - 1 - i), 0) for n in lens
-                    for i in range(sq))
-        k4 = name == "int_paged_prefill"
-        for fold in (False, True):
-            kw = dict(wo=wo, wo_spec=wo_spec) if fold else {}
-            got = fused(q8, k_pool, v_pool, aplan, vl, pages, ps,
-                        requant=requant, **kw)
-            want = plain(q8, k_pool, v_pool, aplan, vl, pages, ps,
-                         requant=requant, **kw)
-            io = 2 * b * sq * h * hd + live * kv_row + 4 * b * (maxp + 1)
-            ops = 4 * pairs * h * hd
-            if fold:
-                io += fold_bytes + 4 * b * sq * d - b * sq * h * hd
-                ops += 2 * b * sq * h * hd * d
-            record(rows, name, f"{pre}B={b} S={sq} H={h} Hkv={hkv} "
-                   f"D={hd} ps={ps} pages/lane={maxp} valid={lens} "
-                   f"fold_wo={fold}", got, want,
-                   lambda: fused(q8, k_pool, v_pool, aplan, vl, pages, ps,
-                                 requant=requant, **kw),
-                   lambda: plain(q8, k_pool, v_pool, aplan, vl, pages, ps,
-                                 requant=requant, **kw),
-                   io, ops, rep=fold and not pre,
-                   plan=(k4_plan(q8, k_pool, pages, ps, aplan) if k4 else
-                         k3_plan(q8, k_pool, v_pool,
-                                 dict(pages=pages, page_size=ps))))
+            ("int_paged_prefill", 32, [32, 100 + 32, 250 + 32, 512], "")),
+        rep=True)
     # K3's and K4's exp16 division on its whole domain for llama's plan
     division_check("int_decode_attention", aplan)
     check_packed_kernels(gen, rows, aplan, requant, wo, wo_spec, h, hkv, hd,
@@ -1478,6 +1540,37 @@ def _live_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
                for i in range(sq))
 
 
+def k5_row(gen, rows, aplan, b, sq, skv, hq, hkv, dd, causal, window, rq,
+           operands, rep, tag=""):
+    """One K5 row: (B, Sq, H, D) queries over (B, Skv, Hkv, D) keys drawn
+    by :func:`_qkv` (``operands``), the mask and the epilogue ``rq``, exact
+    against its plain version, then timed; the bound reads q, k and v once
+    and writes the output once, and counts the live (query, key) pairs'
+    Q·Kᵀ and P·V operations.  ``tag`` prefixes the case."""
+    import torch
+    from repro_torch.kernels.int_attention_fused import (
+        int_attention_fused, int_attention_fused_plain)
+    q8, k8, v8 = _qkv(gen, operands, b, sq, skv, hq, hkv, dd)
+    bvec = _randint(gen, 1000, 20000, (hq * dd,), torch.int32)
+    out_b = 1 if (not rq.is_raw and rq.out_bits <= 8) else 4
+    nbytes = (b * sq * hq * dd + 2 * b * skv * hkv * dd
+              + out_b * b * sq * hq * dd)
+    ops = 4 * b * hq * dd * _live_pairs(sq, skv, causal, window)
+    record(rows, "int_attention_fused",
+           f"{tag}B={b} Sq={sq} Skv={skv} H={hq} Hkv={hkv} D={dd} "
+           f"causal={causal} window={window} {rq.kind}"
+           f"{'' if rq.is_raw else f' {rq.out_bits}b'} {operands}",
+           int_attention_fused(q8, k8, v8, aplan, rq, bvec, causal, window),
+           int_attention_fused_plain(q8, k8, v8, aplan, rq, bvec, causal,
+                                     window),
+           lambda: int_attention_fused(q8, k8, v8, aplan, rq, bvec, causal,
+                                       window),
+           lambda: int_attention_fused_plain(q8, k8, v8, aplan, rq, bvec,
+                                             causal, window),
+           nbytes, ops, rep=rep, iters=5, plain_iters=2,
+           plan=k5_plan(q8, k8, causal, window, aplan))
+
+
 def check_encoder_kernels(cfg, plans, rows) -> None:
     """K1 and K2 (LayerNorm) at the encoder path's shapes, K5 and K6 vs
     their plain versions.  Adds K5's and K6's representative rows (the
@@ -1485,8 +1578,6 @@ def check_encoder_kernels(cfg, plans, rows) -> None:
     import torch
     from repro_torch.kernels.int8_matmul import (int8_matmul,
                                                  int8_matmul_plain)
-    from repro_torch.kernels.int_attention_fused import (
-        int_attention_fused, int_attention_fused_plain)
     from repro_torch.kernels.int_gelu import int_gelu, int_gelu_plain
     from repro_torch.ops.spec import RequantSpec
 
@@ -1580,29 +1671,8 @@ def check_encoder_kernels(cfg, plans, rows) -> None:
               (1, 64, 3000, 2, 2, 128, False, 0, "random")]
     k5_cases += [(*e[:8], epilogues[i % 4], e[8], False)
                  for i, e in enumerate(edges)]
-    for (b, sq, skv, hq, hkv, dd, causal, window, rq, operands,
-         rep) in k5_cases:
-        q8, k8, v8 = _qkv(gen, operands, b, sq, skv, hq, hkv, dd)
-        bvec = _randint(gen, 1000, 20000, (hq * dd,), torch.int32)
-        out_b = 1 if (not rq.is_raw and rq.out_bits <= 8) else 4
-        nbytes = (b * sq * hq * dd + 2 * b * skv * hkv * dd
-                  + out_b * b * sq * hq * dd)
-        ops = 4 * b * hq * dd * _live_pairs(sq, skv, causal, window)
-        record(rows, "int_attention_fused",
-               f"B={b} Sq={sq} Skv={skv} H={hq} Hkv={hkv} D={dd} "
-               f"causal={causal} window={window} {rq.kind}"
-               f"{'' if rq.is_raw else f' {rq.out_bits}b'} {operands}",
-               int_attention_fused(q8, k8, v8, aplan, rq, bvec, causal,
-                                   window),
-               int_attention_fused_plain(q8, k8, v8, aplan, rq, bvec,
-                                         causal, window),
-               lambda: int_attention_fused(q8, k8, v8, aplan, rq, bvec,
-                                           causal, window),
-               lambda: int_attention_fused_plain(q8, k8, v8, aplan, rq,
-                                                 bvec, causal, window),
-               nbytes, ops, rep=rep, iters=5, plain_iters=2,
-               plan=k5_plan(q8, k8, causal, window, aplan))
-        del q8, k8, v8
+    for case in k5_cases:
+        k5_row(gen, rows, aplan, *case)
 
     # K5's exp16 division (a multiply-high) against `/` on its whole
     # domain (every K5 case above runs the encoder's plan)
@@ -2228,7 +2298,8 @@ def phase_packed_parity(cfg_full):
     del qp
 
 
-def phase_serve(cfg, kv_dtype: str = "int8", weights: str = "int8"):
+def phase_serve(cfg, kv_dtype: str = "int8", weights: str = "int8",
+                label=None):
     """Full llama3-8b on ``cuda`` over int8 (``serve``) or packed int4
     (``kv4-serve``) KV pages, or on msr4 weights (``msr4-serve``, group 64,
     packed on the card and the dense model freed before serving):
@@ -2239,8 +2310,11 @@ def phase_serve(cfg, kv_dtype: str = "int8", weights: str = "int8"):
     once a layer and the int8 ones never; on msr4 weights every step and
     chunk K1's nibble instantiation and the correction and never the
     dense K1 (so wo never folded).  ``serve`` then runs
-    :func:`serve_frontend_and_spec` on the same weights.  Returns the
-    launches of each path it drove, by path."""
+    :func:`serve_frontend_and_spec` on the same weights.  ``label``: the
+    phase's name for another config on int8 pages and weights
+    (``zoo-serve-<arch>``; its profiles are ``<label>-profile`` and
+    ``<label>-prefill-profile``).  Returns the launches of each path it
+    drove, by path."""
     import gc
 
     import numpy as np
@@ -2250,7 +2324,8 @@ def phase_serve(cfg, kv_dtype: str = "int8", weights: str = "int8"):
     from repro_torch.quant.pack import pack_tree
     packed = kv_dtype == "int4"
     msr4 = weights == "msr4"
-    phase = "kv4-serve" if packed else "msr4-serve" if msr4 else "serve"
+    phase = label or ("kv4-serve" if packed else "msr4-serve" if msr4
+                      else "serve")
     k3, k4 = (("int_decode_attention_kv4", "int_paged_prefill_kv4")
               if packed else ("int_decode_attention", "int_paged_prefill"))
     # the earlier phases' engines are dropped: with the allocator's
@@ -2313,9 +2388,11 @@ def phase_serve(cfg, kv_dtype: str = "int8", weights: str = "int8"):
           "quantize_s": quant_s, "weight_bytes": weight_bytes,
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "launches": launches})
-    profile_decode(eng, cfg, "kv4-profile" if packed else
+    profile_decode(eng, cfg, f"{label}-profile" if label else
+                   "kv4-profile" if packed else
                    "msr4-profile" if msr4 else "profile", k3)
-    profile_prefill(eng, cfg, k4, "msr4-prefill-profile" if msr4 else None)
+    profile_prefill(eng, cfg, k4, f"{label}-prefill-profile" if label
+                    else "msr4-prefill-profile" if msr4 else None)
     if not all(len(r.out_tokens) == 32 for r in reqs):
         raise AssertionError("a request came back short")
     vocab_ok = all(0 <= t < cfg.vocab for r in reqs for t in r.out_tokens)
@@ -2761,15 +2838,17 @@ def encoder_config():
                                tie_embeddings=True)
 
 
-def encoder_model(cfg):
-    """Full-width quantized roberta-base on the card (random weights from
-    seed 0, embedding at unit std), shared by the two encoder phases.
-    Returns ``(qparams, plans, seconds to quantize)``."""
+def random_model(cfg):
+    """``cfg`` quantized on the card (random weights from seed 0, the
+    embedding at unit std), once an earlier phase's model is collected;
+    the encoder phases share one.  Returns ``(qparams, plans, seconds to
+    quantize)``."""
     import gc
 
     import torch
     from repro_torch.quant import convert
-    gc.collect()                  # an earlier phase's model, if any
+    gc.collect()
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     qp, plans = convert.init_quantized(
         cfg, seed=0, device="cuda",
@@ -2803,16 +2882,17 @@ def _prefill(cfg, plans, ops, qp, toks, finals=None):
         it.logits_int = orig
 
 
-def _encode_timed(phase, cfg, plans, qp, ops, attention, rng):
-    """Timed passes at the full batch (launches per pass must be exactly
-    ``encode_launches_per_pass``), then one profiled pass.  Returns the
-    launches of the timed run."""
+def _encode_timed(phase, cfg, plans, qp, ops, attention, rng,
+                  seq=ENCODE_SEQ):
+    """Timed passes at the full batch of ``seq`` tokens (launches per pass
+    must be exactly ``encode_launches_per_pass``), then one profiled pass.
+    Returns the launches of the timed run."""
     import torch
     from repro_torch import kernels
     from repro_torch.launch.steps import make_prefill_step
     step = make_prefill_step(cfg, plans, ops=ops, device="cuda")
     batch = {"tokens": torch.as_tensor(
-        rng.integers(0, cfg.vocab, (ENCODE_BATCH, ENCODE_SEQ)),
+        rng.integers(0, cfg.vocab, (ENCODE_BATCH, seq)),
         device="cuda")}
     for _ in range(2):
         step(qp, batch)
@@ -2835,9 +2915,9 @@ def _encode_timed(phase, cfg, plans, qp, ops, attention, rng):
     expect = encode_launches_per_pass(cfg.num_layers, attention)
     emit({"phase": phase, "arch": cfg.name, "layers": cfg.num_layers,
           "ops": ops, "batch": ENCODE_BATCH,
-          "seq": ENCODE_SEQ, "passes": n_pass, "ms_per_pass": pass_ms,
+          "seq": seq, "passes": n_pass, "ms_per_pass": pass_ms,
           "wall_s": wall,
-          "tokens_per_s": ENCODE_BATCH * ENCODE_SEQ / (pass_ms / 1e3),
+          "tokens_per_s": ENCODE_BATCH * seq / (pass_ms / 1e3),
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "launches_per_pass": per_pass, "expected_per_pass": expect,
           "logits_shape": list(out.shape),
@@ -2852,7 +2932,7 @@ def _encode_timed(phase, cfg, plans, qp, ops, attention, rng):
         raise AssertionError(f"{phase}: launches per pass {per_pass} != "
                              f"{expect}")
     profile_window(f"{phase}-profile",
-                   f"1 pass, {ENCODE_BATCH} x {ENCODE_SEQ}",
+                   f"1 pass, {ENCODE_BATCH} x {seq}",
                    lambda: step(qp, batch))
     return launches
 
@@ -2974,6 +3054,318 @@ def phase_ops(cfg, plans):
         raise AssertionError(f"ops: int_softmax launched K7 "
                              f"{launches['int_softmax']} times, not once")
     return launches
+
+
+# ------------------------------------------------------------- the zoo ----
+
+# the configs of the reference's registry ROADMAP §1 item 1 added: the
+# decoders serve (``zoo-parity``, ``zoo-serve``), the encoders run a pass
+# of this many tokens a sequence (roberta-large its longest, deit-s its
+# 196 patches + 1)
+ZOO_DECODERS = ("codeqwen1.5-7b", "granite-3-2b")
+ZOO_ENCODERS = {"roberta-large": 512, "deit-s": 197}
+# llama3-8b's long prefill: above the reference's full-matrix threshold
+# (S * S > 4096^2 / 4), where ``ref`` streams the chunked two-pass path
+LONG_SEQ = 4096
+
+
+def zoo_config(name: str):
+    """Full-width ``name``; an encoder with the tied head its integer path
+    needs (it has no lm_head)."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(name)
+    return cfg if cfg.is_causal else dataclasses.replace(
+        cfg, tie_embeddings=True)
+
+
+def check_zoo_kernels(rows) -> None:
+    """K1-K6 at the shapes the four new configs give them, each exact
+    against its plain version: K1 at codeqwen1.5-7b's QKV with its bias
+    (M 4, 16: the decode tile) and its w2 (K = 13440), granite-3-2b's raw
+    tied head at the odd N = 49155 (M 4: the copy route; 128: a ragged N
+    tile) and at the 49168 columns the padded vocabulary gives it; K2's
+    LayerNorm + beta at roberta-large's (16 384 x 1024, the warp route's
+    widest row) and deit-s's (32 x 197 x 384) passes; K3 and K4 at the
+    serve rows of codeqwen (MHA: one query head a KV head, D 128) and
+    granite (D 64); K5 at roberta-large's (B 32, S 512, H 16) and deit-s's
+    (S 197: ragged last tiles) passes and at llama3-8b's long prefill (S
+    4096, H 32 / 8, causal); K6 at roberta-large's FFN (16 384 x 4096)."""
+    import torch
+    from repro_torch.kernels.int8_matmul import (int8_matmul,
+                                                 int8_matmul_plain)
+    from repro_torch.kernels.int_gelu import int_gelu, int_gelu_plain
+    from repro_torch.ops.spec import RequantSpec
+    from repro_torch.quant import plans as qplans
+    gen = torch.Generator(device="cuda").manual_seed(2718)
+    cfgs = {n: zoo_config(n) for n in (*ZOO_DECODERS, *ZOO_ENCODERS)}
+    plans = {n: qplans.build_layer_plans(c) for n, c in cfgs.items()}
+
+    # K1
+    cq, cqp = cfgs["codeqwen1.5-7b"], plans["codeqwen1.5-7b"]
+    gr = cfgs["granite-3-2b"]
+    mm = [(f"codeqwen wq+bias M={m}", m, cq.d_model, cq.d_model,
+           cqp.attn.qkv, True) for m in (4, 16)]
+    mm += [("codeqwen w2 M=4", 4, cq.d_ff, cq.d_model, cqp.ffn.down, False)]
+    mm += [(f"granite head raw M={m}", m, gr.d_model, n, None, False)
+           for m, n in ((4, gr.vocab), (128, gr.vocab),
+                        (4, gr.padded_vocab()))]
+    for tag, m, k, n, lp, with_bias in mm:
+        x8 = _randint(gen, -127, 128, (m, k), torch.int8)
+        w8 = _randint(gen, -127, 128, (k, n), torch.int8)
+        if lp is None:
+            spec, b_vec, bias, lib = RequantSpec.raw(), None, None, (
+                int_mm_ms(x8, w8) if m > 16 else None)
+        else:
+            spec, lib = RequantSpec.for_linear(lp), None
+            b_vec = _randint(gen, 256, 4096, (n,), torch.int32)
+            bias = _randint(gen, -5000, 5000, (n,), torch.int32) \
+                if with_bias else None
+        out_b = 4 if spec.is_raw or spec.out_bits > 8 else 1
+        epi = 4 * n * ((b_vec is not None) + (bias is not None))
+        record(rows, "int8_matmul", f"{tag} K={k} N={n} {spec.kind}"
+               f"{'+bias' if bias is not None else ''}",
+               int8_matmul(x8, w8, spec, bias32=bias, b_vec=b_vec),
+               int8_matmul_plain(x8, w8, spec, bias32=bias, b_vec=b_vec),
+               lambda: int8_matmul(x8, w8, spec, bias32=bias, b_vec=b_vec),
+               lambda: int8_matmul_plain(x8, w8, spec, bias32=bias,
+                                         b_vec=b_vec),
+               m * k + k * n + epi + out_b * m * n, 2 * m * k * n,
+               lib_ms=lib, iters=10, plan=k1_plan(m, n, k, x8=x8, w=w8))
+        del x8, w8
+
+    # K2: LayerNorm + beta over an encode pass's rows
+    for name, seq in ZOO_ENCODERS.items():
+        c = cfgs[name]
+        gamma = _randint(gen, 40, 128, (c.d_model,), torch.int32)
+        beta = _randint(gen, -9000, 9000, (c.d_model,), torch.int32)
+        q = _randint(gen, -c.qmax_res, c.qmax_res + 1,
+                     (ENCODE_BATCH * seq, c.d_model), torch.int32)
+        k2_row(rows, f"{name} layernorm+beta", q, gamma, beta,
+               plans[name].norm)
+        del q
+
+    # K3 / K4 at the serve rows
+    for name in ZOO_DECODERS:
+        paged_attention_rows(
+            gen, rows, cfgs[name], plans[name],
+            (("int_decode_attention", 1, [1, 137, 300, 512], ""),
+             ("int_paged_prefill", 32, [32, 132, 282, 512], "")),
+            tag=f"{name} ")
+
+    # K5: the encoders' passes, and llama3-8b's long prefill (the shape
+    # ``cuda`` runs where ``ref`` streams the chunked path)
+    for name, seq in ZOO_ENCODERS.items():
+        c, ap = cfgs[name], plans[name].attn.attn
+        k5_row(gen, rows, ap, ENCODE_BATCH, seq, seq, c.n_heads,
+               c.n_kv_heads, c.hd, False, 0, RequantSpec.per_tensor(
+                   ap.dn_out), "random", False, tag=f"{name} ")
+    llama = zoo_config("llama3-8b")
+    ap = qplans.build_layer_plans(llama).attn.attn
+    k5_row(gen, rows, ap, 1, LONG_SEQ, LONG_SEQ, llama.n_heads,
+           llama.n_kv_heads, llama.hd, True, 0,
+           RequantSpec.per_tensor(ap.dn_out), "random", False,
+           tag="llama3-8b long prefill ")
+
+    # K6: roberta-large's FFN
+    rl = cfgs["roberta-large"]
+    gp = plans["roberta-large"].ffn.act_gelu
+    q = _randint(gen, -1024, 1024, (ENCODE_BATCH * 512, rl.d_ff),
+                 torch.int32)
+    record(rows, "int_gelu", f"roberta-large FFN {q.shape[0]}x{rl.d_ff} "
+           "11-bit", int_gelu(q, gp.gelu, gp.dn_out),
+           int_gelu_plain(q, gp.gelu, gp.dn_out),
+           lambda: int_gelu(q, gp.gelu, gp.dn_out),
+           lambda: int_gelu_plain(q, gp.gelu, gp.dn_out),
+           8 * q.numel(), 0, iters=20)
+
+
+def phase_zoo_parity() -> None:
+    """The four new configs at full width cut to 2 layers.  The decoders:
+    ``ServingEngine`` streams on ``cuda`` equal ``torch_ref``'s (paged,
+    chunked prefill 32, wo folded; 6 prompts of 20-150 tokens, 16 new
+    each), and the ``cuda`` run launches K1-K4.  The encoders:
+    ``make_prefill_step`` logits on ``cuda`` equal ``torch_ref``'s at 8 x
+    512 (roberta-large) and 8 x 197 (deit-s)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    for name in ZOO_DECODERS:
+        cfg = dataclasses.replace(zoo_config(name), num_layers=2)
+        qp, plans, quant_s = random_model(cfg)
+        prompts = _prompts(11, 6, 20, 150, cfg.vocab)
+        streams, secs, launches = {}, {}, {}
+        for backend in ("cuda", "torch_ref"):
+            eng, reqs = run_engine(qp, plans, cfg, prompts, 16, backend,
+                                   batch_size=4, cache_len=512,
+                                   page_size=16, prefill_chunk=32,
+                                   fold_wo=True)
+            kernels.reset_launches()
+            streams[backend], secs[backend] = drain_streams(eng, reqs)
+            launches[backend] = dict(kernels.LAUNCHES)
+            del eng
+        same = streams["cuda"] == streams["torch_ref"]
+        distinct = len({t for s in streams["cuda"] for t in s})
+        missing = [k for k in PATH_KERNELS["serve"]
+                   if launches["cuda"][k] <= 0]
+        emit({"phase": "zoo-parity", "arch": name, "layers": 2,
+              "requests": len(prompts),
+              "prompt_lens": [len(p) for p in prompts], "identical": same,
+              "distinct_tokens": distinct, "quantize_s": quant_s,
+              "cuda_s": secs["cuda"], "torch_ref_s": secs["torch_ref"],
+              "cuda_launches": {k: c for k, c in launches["cuda"].items()
+                                if c},
+              "first_stream": streams["cuda"][0]})
+        if not same:
+            raise AssertionError(f"zoo-parity {name}: cuda and torch_ref "
+                                 "token streams differ")
+        if distinct < 2:
+            raise AssertionError(f"zoo-parity {name}: degenerate streams")
+        if missing:
+            raise AssertionError(f"zoo-parity {name}: cuda never launched "
+                                 f"{missing}")
+        del qp
+    rng = np.random.default_rng(23)
+    for name, seq in ZOO_ENCODERS.items():
+        cfg = dataclasses.replace(zoo_config(name), num_layers=2)
+        qp, plans, quant_s = random_model(cfg)
+        toks = rng.integers(0, cfg.vocab, (PARITY_BATCH, seq))
+        logits, secs = {}, {}
+        for backend in ("cuda", "torch_ref"):
+            logits[backend], secs[backend] = _prefill(cfg, plans, backend,
+                                                      qp, toks)
+        same = torch.equal(logits["cuda"], logits["torch_ref"])
+        argmax = logits["cuda"].argmax(dim=-1)
+        emit({"phase": "zoo-parity", "arch": name, "layers": 2,
+              "batch": PARITY_BATCH, "seq": seq, "identical": same,
+              "distinct_argmax": len(set(argmax.tolist())),
+              "finite": bool(torch.isfinite(logits["cuda"]).all()),
+              "quantize_s": quant_s, "cuda_s": secs["cuda"],
+              "torch_ref_s": secs["torch_ref"]})
+        if not same:
+            raise AssertionError(f"zoo-parity {name}: cuda and torch_ref "
+                                 "logits differ")
+        if len(set(argmax.tolist())) < 2:
+            raise AssertionError(f"zoo-parity {name}: one argmax "
+                                 "everywhere")
+        del qp
+
+
+def phase_zoo_encode(name: str, seq: int):
+    """An encoder of the zoo at full depth through ``make_prefill_step``
+    on ``cuda``: timed passes at 32 x ``seq`` with launches per pass (K1,
+    K2, K5, K6), then one profiled pass.  Returns the launches of the
+    timed run."""
+    import numpy as np
+    cfg = zoo_config(name)
+    qp, plans, quant_s = random_model(cfg)
+    emit({"phase": f"zoo-encode-{name}", "quantize_s": quant_s})
+    return _encode_timed(f"zoo-encode-{name}", cfg, plans, qp, "cuda",
+                         "int_attention_fused", np.random.default_rng(24),
+                         seq=seq)
+
+
+def phase_long_prefill(cfg_full):
+    """llama3-8b at full width cut to 2 layers, B 1, S = ``LONG_SEQ``,
+    through ``make_prefill_step``: under ``ops="ref"`` (``cuda_ref``) the
+    attention streams the reference's chunked two-pass path (K5 never
+    launches) and the logits equal ``torch_ref``'s; under ``"cuda"`` (the
+    twin of ``pallas_fused``) K5 launches once a layer, and how many
+    logits differ from ``ref``'s is printed.  Then one layer's attention at
+    the head shape (H 32 / 8, D 128, S 4096, causal): the chunked path on
+    the card equals the same call on the CPU, and its ms (CUDA events and
+    the profiler's device time) stand beside K5's on the same operands.
+    Returns the launches of the ``ref`` and ``cuda`` passes."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.attention import i_attention_chunked
+    from repro_torch.kernels.int_attention_fused import int_attention_fused
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import intlayers as il
+    cfg = dataclasses.replace(cfg_full, num_layers=2)
+    qp, plans, _ = random_model(cfg)
+    toks = np.random.default_rng(25).integers(0, cfg.vocab, (1, LONG_SEQ))
+    rope = il.build_rope_table(LONG_SEQ + 1, cfg.hd, cfg.rope_theta,
+                               device="cuda")
+    logits, secs, launches = {}, {}, {}
+    for backend in ("ref", "torch_ref", "cuda"):
+        step = make_prefill_step(cfg, plans, ops=backend, device="cuda")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        logits[backend] = step(qp, {"tokens": toks}, rope)
+        torch.cuda.synchronize()
+        secs[backend] = time.perf_counter() - t0
+        launches[backend] = dict(kernels.LAUNCHES)
+    same = torch.equal(logits["ref"], logits["torch_ref"])
+    k5 = {b: launches[b]["int_attention_fused"] for b in launches}
+    del qp
+
+    # one layer's attention at the head shape: card against CPU, then times
+    aplan = plans.attn.attn
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    q8, k8, v8 = _qkv(gen, "random", 1, LONG_SEQ, LONG_SEQ, cfg.n_heads,
+                      cfg.n_kv_heads, cfg.hd)
+    rep = cfg.q_group
+    kr, vr = k8.repeat_interleave(rep, 2), v8.repeat_interleave(rep, 2)
+
+    def chunked(q, k, v):
+        return i_attention_chunked(q, k, v, aplan, chunk=1024, causal=True)
+
+    got = chunked(q8, kr, vr)
+    t0 = time.perf_counter()
+    cpu = chunked(q8.cpu(), kr.cpu(), vr.cpu())
+    cpu_s = time.perf_counter() - t0
+    card_equals_cpu = torch.equal(got.cpu(), cpu)
+    del cpu
+    k5_out = int_attention_fused(q8, k8, v8, aplan, causal=True)
+    vs_k5 = got.to(torch.int8) != k5_out
+    chunk_ms = time_ms(lambda: chunked(q8, kr, vr), 3, warmup=1)
+    chunk_dev = device_ms(lambda: chunked(q8, kr, vr), 2)
+    k5_ms = time_ms(lambda: int_attention_fused(q8, k8, v8, aplan,
+                                                causal=True), 10)
+    k5_dev = device_ms(lambda: int_attention_fused(q8, k8, v8, aplan,
+                                                   causal=True), 10)
+    emit({"phase": "long-prefill", "arch": cfg.name, "layers": 2,
+          "batch": 1, "seq": LONG_SEQ,
+          "ref_identical_to_torch_ref": same,
+          "k5_launches": k5,
+          "logits_cuda_differing_from_ref": int(
+              (logits["cuda"] != logits["ref"]).sum()),
+          "logits": logits["ref"].numel(),
+          "argmax": {b: int(x.argmax()) for b, x in logits.items()},
+          "seconds": secs,
+          "attention": {"shape": f"B=1 S={LONG_SEQ} H={cfg.n_heads}/"
+                        f"{cfg.n_kv_heads} D={cfg.hd} causal",
+                        "chunk": 1024, "card_equals_cpu": card_equals_cpu,
+                        "cpu_s": cpu_s,
+                        "outputs_differing_from_k5": int(vs_k5.sum()),
+                        "outputs": vs_k5.numel(),
+                        "chunked_ms": chunk_ms,
+                        "chunked_device_ms": chunk_dev,
+                        "k5_ms": k5_ms, "k5_device_ms": k5_dev}})
+    if not same:
+        raise AssertionError("long-prefill: ref and torch_ref logits "
+                             "differ")
+    if k5["ref"] or k5["torch_ref"] or k5["cuda"] != cfg.num_layers:
+        raise AssertionError(f"long-prefill: K5 launches {k5}: ref must "
+                             "stream the chunked path, cuda run K5")
+    if not card_equals_cpu:
+        raise AssertionError("long-prefill: the chunked path on the card "
+                             "differs from the CPU's")
+    for b in ("ref", "cuda"):
+        missing = [k for k in PATH_KERNELS[f"long-prefill-{b}"]
+                   if launches[b][k] <= 0]
+        if missing:
+            raise AssertionError(f"long-prefill {b} never launched "
+                                 f"{missing}")
+    return {"long-prefill-ref": launches["ref"],
+            "long-prefill-cuda": launches["cuda"]}
 
 
 def _mean_counts(deltas):
@@ -3197,7 +3589,8 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default="build,kernels,parity,serve,encode,"
                     "encode-online,ops,window-parity,window-serve,"
                     "window-prefill,kv4-parity,kv4-serve,packed-parity,"
-                    "msr4-serve")
+                    "msr4-serve,zoo-parity,zoo-serve,zoo-encode,"
+                    "long-prefill")
     ap.add_argument("--verbose-build", action="store_true",
                     help="print nvcc -Xptxas -v (registers, spills) and "
                     "each kernel's IMMA / IDP / LDL / STL count")
@@ -3243,6 +3636,9 @@ def main(argv=None) -> int:
         wcfg = window_config()
         check_window_kernels(wcfg, qplans.build_layer_plans(wcfg), rows)
         check_packed_matmul_kernels(cfg, plans, rows)
+        check_zoo_kernels(rows)
+    elif "zoo-kernels" in phases:
+        check_zoo_kernels(rows)
     if "k1-decode" in phases:
         wcfg = window_config()
         check_k1_decode(cfg, wcfg, plans, qplans.build_layer_plans(wcfg))
@@ -3258,7 +3654,7 @@ def main(argv=None) -> int:
     if "serve" in phases:
         launches.update(phase_serve(cfg))
     if phases & {"encode", "encode-online"}:
-        model = encoder_model(ecfg)
+        model = random_model(ecfg)
         if "encode" in phases:
             launches["encode"] = phase_encode(ecfg, model)
         if "encode-online" in phases:
@@ -3280,6 +3676,17 @@ def main(argv=None) -> int:
         phase_packed_parity(cfg)
     if "msr4-serve" in phases:
         launches.update(phase_serve(cfg, weights="msr4"))
+    if "zoo-parity" in phases:
+        phase_zoo_parity()
+    if "zoo-serve" in phases:
+        for name in ZOO_DECODERS:
+            launches.update(phase_serve(zoo_config(name),
+                                        label=f"zoo-serve-{name}"))
+    if "zoo-encode" in phases:
+        for name, seq in ZOO_ENCODERS.items():
+            launches[f"zoo-encode-{name}"] = phase_zoo_encode(name, seq)
+    if "long-prefill" in phases:
+        launches.update(phase_long_prefill(cfg))
     if rows:
         # each kernel's launches come from the first path of this run
         # that drives it (K1/K2: serve, the first path); every path's

@@ -39,3 +39,10 @@ def static_check(val: int, what: str, budget: int = INT32_MAX) -> int:
     if val > budget:
         raise BitBudgetError(what, val, budget)
     return val
+
+
+def bits_for(v: int) -> int:
+    """Bits needed for magnitude ``v`` (pure-Python twin of
+    ``core.dyadic.bits_for``, kept here so this module stays a leaf)."""
+    v = int(v)
+    return 0 if v <= 0 else v.bit_length()

@@ -1,5 +1,5 @@
-"""The serving request contract and the online attention's launch
-contract.
+"""The serving request contract, the online attention's launch contract
+and the reference's block fitting (``fit_block``).
 
 ``check_request`` / ``require_request`` copy ``repro.analysis.contracts``.
 The reference's tiling predicates (``can_tile*``) are not copied: they
@@ -20,6 +20,16 @@ the CUDA library's: the kernel wrapper asks it and raises
 from __future__ import annotations
 
 from repro_torch.analysis.budgets import MAX_SKV_ONLINE
+
+
+def fit_block(blk: int, dim: int) -> int:
+    """Largest block <= blk that divides dim (the reference's
+    ``_fit_block``: its kernels assert ``dim % blk == 0``, and the online
+    attention's and the chunked attention's integers depend on it)."""
+    blk = min(blk, dim)
+    while dim % blk:
+        blk -= 1
+    return blk
 
 
 class KernelContractError(ValueError):

@@ -1,15 +1,29 @@
 """--arch <id> registry of the configs the port runs so far.
 
 The JAX package's registry holds 13 architectures; the port runs the
-dense GQA decoders, full-causal (llama3-8b) and sliding-window
-(h2o-danube-3-4b, the reference serve driver's default), in serving and
-full-sequence prefill, and the encoder (full-sequence forward); ROADMAP §1
-lists the rest.
+dense decoders, full-causal (llama3-8b, codeqwen1.5-7b: MHA with QKV
+bias, granite-3-2b: a tied head) and sliding-window (h2o-danube-3-4b,
+the reference serve driver's default), in serving and full-sequence
+prefill, and the encoders (roberta-base, roberta-large, deit-s:
+full-sequence forward); ROADMAP §1 lists the rest.  ``ASSIGNED`` and
+``LONG_OK`` are the reference's, for every architecture.
 """
-from repro_torch.configs import h2o_danube_3_4b, llama3_8b, roberta_base
+from repro_torch.configs import (codeqwen1_5_7b, deit_s, granite_3_2b,
+                                 h2o_danube_3_4b, llama3_8b, roberta_base,
+                                 roberta_large)
 
 ARCHS = {m.CONFIG.name: m.CONFIG
-         for m in (llama3_8b, h2o_danube_3_4b, roberta_base)}
+         for m in (llama3_8b, h2o_danube_3_4b, codeqwen1_5_7b, granite_3_2b,
+                   roberta_base, roberta_large, deit_s)}
+
+ASSIGNED = [
+    "h2o-danube-3-4b", "llama3-8b", "codeqwen1.5-7b", "granite-3-2b",
+    "seamless-m4t-large-v2", "llama-3.2-vision-90b", "qwen3-moe-235b-a22b",
+    "qwen2-moe-a2.7b", "mamba2-130m", "jamba-v0.1-52b",
+]
+
+# long_500k applicability: sub-quadratic archs only
+LONG_OK = {"h2o-danube-3-4b", "mamba2-130m", "jamba-v0.1-52b"}
 
 
 def get_config(name: str):

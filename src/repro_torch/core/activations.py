@@ -1,5 +1,6 @@
 """Integer activations (twin of ``repro.core.activations``): the paper's
-i-GELU unit (§III-H) with its output requant, and i-SiLU for SwiGLU FFNs.
+i-GELU unit (§III-H) with its output requant, i-SiLU for SwiGLU FFNs and
+i-softplus (Mamba's Δt).
 
 i-SiLU: sigma(x) = e / (1 + e) with e = i_exp(-|x|), one integer division
 per element; SiLU = x * sigma(x), requantized.  Plain tensor code, not a
@@ -68,3 +69,33 @@ def i_silu(q, plan: ISiluPlan, out_bits: int = 8):
     sig16 = (num * r) >> (RECIP_BITS - SIG_FRAC)      # sigmoid * 2^15
     out = q * sig16                                    # scale s_in * 2^-15
     return clip_to_bits(plan.dn_out(out), out_bits)
+
+
+class ISoftplusPlan(NamedTuple):
+    iexp: intmath.IExpPlan
+    dn_e16: Dyadic
+    ln1p: intmath.ILn1pPlan    # emits directly at s_out (fine grid)
+    s_in: float
+    dn_relu: Dyadic            # s_in -> s_out for the max(x,0) branch
+    s_out: float
+
+
+def make_isoftplus(s_in: float, qmax_in: int, s_out: float) -> ISoftplusPlan:
+    """softplus(x) = max(x, 0) + ln1p(exp(-|x|)), emitted at ``s_out``.
+    Both branches are computed on the (typically much finer) output grid:
+    Mamba's Δt values live in [1e-3, 1], below the input grid's
+    resolution."""
+    iexp = intmath.make_iexp(s_in)
+    dn_e16 = fit_dyadic(iexp.s_out / 2.0 ** -SIG_FRAC, iexp.q_one + 1)
+    ln1p = intmath.make_iln1p(2.0 ** -SIG_FRAC, s_out, 1 << SIG_FRAC)
+    dn_relu = fit_dyadic(s_in / s_out, qmax_in)
+    return ISoftplusPlan(iexp, dn_e16, ln1p, s_in, dn_relu, s_out)
+
+
+def i_softplus(q, plan: ISoftplusPlan, out_bits: int = 16):
+    q = q.to(torch.int32)
+    e = intmath.i_exp(-torch.abs(q), plan.iexp)
+    e16 = torch.clamp(plan.dn_e16(e), 0, 1 << SIG_FRAC)
+    lq = intmath.i_ln1p(e16, plan.ln1p)                # scale s_out
+    out = plan.dn_relu(torch.clamp(q, min=0)) + lq
+    return clip_to_bits(out, out_bits)

@@ -10,6 +10,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.analysis.budgets import INT32_MAX
@@ -30,6 +31,14 @@ def rshift_round(x, s: int):
     if s < 0:
         return x << (-s)
     return (x + (1 << (s - 1))) >> s
+
+
+def rshift_floor(x, s: int):
+    """Arithmetic right shift by static ``s`` (floor); ``s < 0`` is an
+    exact left shift, ``s == 0`` the identity."""
+    if s <= 0:
+        return x if s == 0 else x << (-s)
+    return x >> s
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,6 +93,21 @@ def apply_dyadic(q, dn: Dyadic):
     y = rshift_round(q, dn.pre)
     y = y * dn.b
     return rshift_round(y, dn.c - dn.pre)
+
+
+def apply_dyadic_exact_np(q: np.ndarray, dn: Dyadic) -> np.ndarray:
+    """int64 numpy oracle of the ideal (single-stage) dyadic requant."""
+    q = q.astype(np.int64)
+    half = 1 << (dn.c - 1) if dn.c > 0 else 0
+    return (q * dn.b + half) >> dn.c
+
+
+def requantize(q, ratio: float, qmax_in: int, out_bits: int = 8,
+               mult_bits: int = 15):
+    """One-shot: fit + apply + clip to the signed ``out_bits`` range.
+    Returns int32 values (the consumer casts: matmul inputs to int8)."""
+    dn = fit_dyadic(ratio, qmax_in, mult_bits)
+    return clip_to_bits(apply_dyadic(q, dn), out_bits)
 
 
 def clip_to_bits(q, out_bits: int):

@@ -1,23 +1,30 @@
 """Integer-only math primitives (SwiftTron §III-F/H/I; twin of
-``repro.core.intmath``): i-exp, i-erf / i-GELU and the integer square
-root.
+``repro.core.intmath``): i-exp, i-erf / i-GELU, the integer square root,
+and the generic 2nd-order polynomial i-poly2 with i-ln1p built on it.
 
 Everything operates on int32 tensors with design-time constants.
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.analysis.budgets import static_check
+from repro_torch.core.dyadic import Dyadic, bits_for, fit_dyadic, rshift_round
 
 # I-BERT second-order polynomials a(p+b)^2+c: exp(p) on (-ln2, 0], erf(p)
 # on [0, -b].
 EXP_A, EXP_B, EXP_C = 0.35815147, 1.353, 0.344
 ERF_A, ERF_B, ERF_C = -0.2888, -1.769, 1.0
 LN2 = math.log(2.0)
+
+# ln(1+e) on e in [0, 1]: design-time least-squares fit (i-softplus).
+_e = np.linspace(0.0, 1.0, 4097)
+LN1P_COEFS = tuple(np.polyfit(_e, np.log1p(_e), 2).tolist())  # (a2, a1, a0)
+del _e
 
 
 def _static_check(val: int, what: str):
@@ -155,3 +162,54 @@ def i_gelu(q, plan: IGeluPlan):
     """GELU(x) = x * 0.5 * (1 + erf(x/sqrt(2))) — paper §III-H / Fig. 14."""
     q_erf = i_erf(q, plan.erf)
     return q * (q_erf + plan.q_one)
+
+
+class IPoly2Plan(NamedTuple):
+    d2: Dyadic
+    d1: Dyadic
+    sign1: int
+    c0: int
+    s0: int
+
+
+def make_ipoly2(coeffs: Tuple[float, float, float], s_in: float,
+                s_out: float, qmax_in: int) -> IPoly2Plan:
+    """Generic integer 2nd-order polynomial a2 x^2 + a1 x + a0 evaluated at
+    x = q*s_in, emitted at scale s_out (used for i-ln1p)."""
+    a2, a1, a0 = coeffs
+    s0 = max(0, bits_for(qmax_in) - 15)
+    q_sq_max = (qmax_in >> s0) ** 2
+    d2 = fit_dyadic(abs(a2) * (s_in * (1 << s0)) ** 2 / s_out, q_sq_max) \
+        if a2 != 0 else None
+    d1 = fit_dyadic(abs(a1) * s_in / s_out, qmax_in) if a1 != 0 else None
+    c0 = int(round(a0 / s_out))
+    return IPoly2Plan(d2, d1, 1 if a1 >= 0 else -1, c0, s0)
+
+
+def i_poly2(q, plan: IPoly2Plan, a2_sign: int = 1):
+    qs = rshift_round(q, plan.s0)
+    out = torch.full_like(q, plan.c0)
+    if plan.d2 is not None:
+        out = out + a2_sign * plan.d2(qs * qs)
+    if plan.d1 is not None:
+        out = out + plan.sign1 * plan.d1(q)
+    return out
+
+
+class ILn1pPlan(NamedTuple):
+    poly: IPoly2Plan
+    a2_sign: int
+    s_in: float
+    s_out: float
+
+
+def make_iln1p(s_in: float, s_out: float, qmax_in: int) -> ILn1pPlan:
+    a2, a1, a0 = LN1P_COEFS
+    poly = make_ipoly2((a2, a1, a0), s_in, s_out, qmax_in)
+    return ILn1pPlan(poly, 1 if a2 >= 0 else -1, s_in, s_out)
+
+
+def i_ln1p(q, plan: ILn1pPlan):
+    """ln(1+e) for e = q*s_in in [0, 1]."""
+    q = torch.clamp(q, 0, int(round(1.0 / plan.s_in)))
+    return i_poly2(q, plan.poly, plan.a2_sign)

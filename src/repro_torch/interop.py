@@ -16,10 +16,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.activations import IGeluActPlan, ISiluPlan
+from repro_torch.core.activations import (IGeluActPlan, ISiluPlan,
+                                          ISoftplusPlan)
 from repro_torch.core.attention import IAttnPlan
 from repro_torch.core.dyadic import Dyadic
-from repro_torch.core.intmath import IErfPlan, IExpPlan, IGeluPlan
+from repro_torch.core.intmath import (IErfPlan, IExpPlan, IGeluPlan,
+                                      ILn1pPlan, IPoly2Plan)
 from repro_torch.core.norms import INormPlan
 from repro_torch.core.softmax import ISoftmaxPlan
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
@@ -30,8 +32,8 @@ from repro_torch.quant.plans import (AttnPlan, EmbedPlan, FfnPlan, HeadPlan,
 
 PLAN_TYPES = {t.__name__: t for t in (
     Dyadic, IExpPlan, IErfPlan, IGeluPlan, IGeluActPlan, ISoftmaxPlan,
-    IAttnPlan, INormPlan, ISiluPlan, LinearPlan, AttnPlan, FfnPlan,
-    EmbedPlan, HeadPlan, LayerPlans)}
+    IAttnPlan, INormPlan, ISiluPlan, IPoly2Plan, ILn1pPlan, ISoftplusPlan,
+    LinearPlan, AttnPlan, FfnPlan, EmbedPlan, HeadPlan, LayerPlans)}
 
 
 def plan_from_reference(obj):

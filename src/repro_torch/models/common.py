@@ -1,4 +1,7 @@
-"""Architecture configuration (twin of ``repro.models.common.ArchConfig``)."""
+"""Architecture configuration (twin of ``repro.models.common``):
+``ArchConfig`` with its derived fields (padded sizes, the SSM widths,
+the analytic parameter counts) and the assigned input shapes
+``ShapeConfig`` / ``SHAPES``."""
 from __future__ import annotations
 
 import dataclasses
@@ -86,3 +89,97 @@ class ArchConfig:
 
     def padded_vocab(self, multiple: int = 16) -> int:
         return ((self.vocab + multiple - 1) // multiple) * multiple
+
+    def padded_experts(self, multiple: int = 16) -> int:
+        if self.n_experts == 0:
+            return 0
+        return ((self.n_experts + multiple - 1) // multiple) * multiple
+
+    @property
+    def ssm_d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.ssm_d_inner // self.ssm_head_dim
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding + layers)."""
+        d, v = self.d_model, self.padded_vocab()
+        total = v * d * (1 if self.tie_embeddings else 2)
+        for i in range(self.num_layers):
+            total += self.layer_param_count(i)
+        if self.family == "encdec":
+            total += sum(self.layer_param_count(i, cross=True)
+                         for i in range(self.dec_layers))
+        return total
+
+    def layer_param_count(self, idx: int, cross: bool = False) -> int:
+        d, hd = self.d_model, self.hd
+        n = 0
+        if self._layer_kind(idx) in ("attn", "cross") or cross:
+            n += d * (self.n_heads + 2 * self.n_kv_heads) * hd
+            n += self.n_heads * hd * d
+        if self._layer_kind(idx) == "ssm":
+            di = self.ssm_d_inner
+            n += d * (2 * di + 2 * self.ssm_groups * self.ssm_state
+                      + self.ssm_heads)
+            n += di * d + di * self.ssm_conv
+        if self._is_moe_layer(idx):
+            e = self.n_experts
+            fe = self.moe_d_ff or self.d_ff
+            per = d * fe * (3 if self.activation == "swiglu" else 2)
+            n += e * per + d * e
+            n += self.n_shared_experts * per
+        elif self._layer_kind(idx) != "ssm":
+            n += d * self.d_ff * (3 if self.activation == "swiglu" else 2)
+        n += 2 * d
+        return n
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top_k + shared experts only)."""
+        if self.n_experts == 0:
+            return self.param_count()
+        d = self.d_model
+        fe = self.moe_d_ff or self.d_ff
+        per = d * fe * (3 if self.activation == "swiglu" else 2)
+        inactive = sum((self.n_experts - self.top_k) * per
+                       for i in range(self.num_layers)
+                       if self._is_moe_layer(i))
+        return self.param_count() - inactive
+
+    def _layer_kind(self, idx: int) -> str:
+        if self.family == "hybrid" and self.attn_every > 0:
+            return ("attn" if idx % self.attn_every == self.attn_offset
+                    else "ssm")
+        if self.family == "ssm":
+            return "ssm"
+        if self.family == "vlm" and self.cross_every > 0 \
+                and idx % self.cross_every == self.cross_every - 1:
+            return "cross"
+        return "attn"
+
+    def _is_moe_layer(self, idx: int) -> bool:
+        return (self.n_experts > 0
+                and idx % self.moe_every == self.moe_offset)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One of the assigned input shapes."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str       # train | prefill | decode
+
+    @property
+    def is_serve(self) -> bool:
+        return self.kind in ("prefill", "decode")
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.core import activations as iact
 from repro_torch.core import norms
+from repro_torch.core.attention import i_attention_chunked
 from repro_torch.core.dyadic import clip_to_bits, rshift_round
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models.common import ArchConfig
@@ -141,12 +142,19 @@ def int_attn_fwd(qp, x8, plans: qplans.AttnPlan, cfg: ArchConfig,
                  memory8=None, ops=None, fuse_attention: bool = True):
     """Full-sequence self-attention.  x8: (B,S,D) int8 -> (B,S,D) int32 at
     s_res.  ``rope_tab``: integer RoPE tables (rotated at ``positions``,
-    default ``0..S-1``); ``causal``/``window``: the mask.  A backend with
-    a fused attention kernel takes every length; the full-matrix oracle
-    is called up to the reference's chunking threshold.
-    ``fuse_attention=False`` asks for the exact two-pass integers: a fused
-    backend is then not re-entered, and the exact path runs instead (on
-    ``cuda`` K5, the integers of the reference's oracle)."""
+    default ``0..S-1``); ``causal``/``window``: the mask.
+
+    The branches are the reference's, in its order: a backend with a fused
+    attention kernel (``cuda``, ``cuda_online``) takes every length;
+    otherwise (``cuda_ref`` and ``torch_ref``, the twins of ``ref``, or
+    ``fuse_attention=False``) above ``S * Skv = FULL_MATRIX_MAX`` the
+    chunked two-pass (``core.attention.i_attention_chunked``, chunks of
+    ``min(1024, S)``, the KV heads repeated for GQA; it asserts ``S %
+    1024 == 0`` as the reference does), and at or below it the exact
+    full-matrix integers: the backend's own ``int_attention`` (K5 on
+    ``cuda_ref``), or K5 where the backend is a fused one, which must not
+    be re-entered.  The chunked path is plain PyTorch on the operands'
+    device, as the reference's is plain ``jnp`` outside any kernel."""
     if memory8 is not None:
         raise NotImplementedError("cross attention over an encoder/image "
                                   "memory is not ported yet (ROADMAP §1 "
@@ -160,17 +168,17 @@ def int_attn_fwd(qp, x8, plans: qplans.AttnPlan, cfg: ArchConfig,
         q8 = apply_int_rope(q8, pos, rope_tab)
         k8 = apply_int_rope(k8, pos, rope_tab)
     attn_backend = ops.backend_for("int_attention")
-    fused = fuse_attention and attn_backend.fused_attention
-    if not fused and s * s > FULL_MATRIX_MAX:
-        raise NotImplementedError(
-            "the two-pass chunked attention (core.attention."
-            "i_attention_chunked) the exact path takes above "
-            f"S*Skv = {FULL_MATRIX_MAX} is not ported yet (ROADMAP §1 "
-            "item 5)")
     requant = RequantSpec.per_tensor(plans.attn.dn_out)
-    if fused:
+    if fuse_attention and attn_backend.fused_attention:
         o8 = ops.int_attention(q8, k8, v8, plans.attn, causal=causal,
                                window=window, requant=requant)
+    elif s * s > FULL_MATRIX_MAX:
+        rep = cfg.q_group
+        k8r = k8.repeat_interleave(rep, dim=2) if rep > 1 else k8
+        v8r = v8.repeat_interleave(rep, dim=2) if rep > 1 else v8
+        o8 = i_attention_chunked(q8, k8r, v8r, plans.attn,
+                                 chunk=min(1024, s), causal=causal,
+                                 window=window)
     else:
         # exact numerics: never re-enter a fused (possibly online) kernel
         be = get_backend("cuda") if attn_backend.fused_attention \

@@ -3,9 +3,11 @@
 :class:`RequantSpec` / :class:`QuantLinearParams` / :class:`PackMeta`
 (``ops.spec``), the
 paged-pool utilities (``ops.paged``), the :class:`OpSet` dispatch handle
-with its backends ``"cuda"``, ``"cuda_online"``, ``"cuda_online_tuned"``
-and ``"torch_ref"``, the :func:`use_backend` context and the
-``REPRO_BACKEND`` override (``ops.registry``, ``ops.backends``), and the
+with its backends ``"cuda"``, ``"cuda_ref"``, ``"cuda_online"``,
+``"cuda_online_tuned"`` and ``"torch_ref"``, the :class:`Backend` protocol
+with :func:`register_backend` / :func:`unregister_backend`, the
+:func:`use_backend` context and the ``REPRO_BACKEND`` override
+(``ops.registry``, ``ops.backends``), and the
 module-level entry points below, which dispatch through
 ``resolve_ops(ops)``: an explicit ``ops=``, else the ambient
 ``use_backend`` / ``REPRO_BACKEND`` choice, else ``"cuda"``.
@@ -13,17 +15,20 @@ module-level entry points below, which dispatch through
 from __future__ import annotations
 
 from repro_torch.ops.registry import (DEFAULT_BACKEND, ENV_VAR, OP_NAMES,
-                                      TWINS, OpSet, available_backends,
-                                      current_opset, get_backend,
-                                      register_backend, resolve_ops,
-                                      twin_backend, use_backend)
+                                      REQUIRED_OPS, TWINS, Backend, OpSet,
+                                      available_backends, current_opset,
+                                      get_backend, register_backend,
+                                      resolve_ops, twin_backend,
+                                      unregister_backend, use_backend)
 from repro_torch.ops.spec import (PER_CHANNEL, PER_TENSOR, RAW, PackMeta,
                                   QuantLinearParams, RequantSpec)
 
-__all__ = ["DEFAULT_BACKEND", "ENV_VAR", "OP_NAMES", "OpSet", "PER_CHANNEL",
-           "PER_TENSOR", "PackMeta", "QuantLinearParams", "RAW", "RequantSpec", "TWINS",
+__all__ = ["Backend", "DEFAULT_BACKEND", "ENV_VAR", "OP_NAMES", "OpSet",
+           "PER_CHANNEL", "PER_TENSOR", "PackMeta", "QuantLinearParams", "RAW",
+           "REQUIRED_OPS", "RequantSpec", "TWINS",
            "available_backends", "current_opset", "get_backend",
-           "register_backend", "resolve_ops", "twin_backend", "use_backend",
+           "register_backend", "resolve_ops", "twin_backend",
+           "unregister_backend", "use_backend",
            "int8_matmul", "int8_matmul_packed", "int_softmax", "int_gelu",
            "int_layernorm",
            "int_attention", "int_decode_attention", "int_paged_prefill"]

@@ -11,12 +11,25 @@ int8 or packed int4 pools (``kv_shifts``), K5 for full-sequence attention, K6 fo
 i-GELU and K7 for the row softmax (as the reference's ``pallas_fused``
 inherits ``pallas``'s softmax kernel).  There is no fallback and no tiling predicate: on CPU tensors each
 wrapper runs its plain version; on CUDA tensors it launches its kernel
-or raises for a shape the kernel cannot take (K3, K5: a cache or Skv
-above ``MAX_ROWSUM_LEN``; every attention kernel: a head dim it is not
-compiled for).
+or raises for a shape the kernel cannot take (K3: a cache above
+``MAX_ROWSUM_LEN``; every attention kernel: a head dim it is not compiled
+for).  Full-sequence attention over more than ``MAX_ROWSUM_LEN`` keys,
+whose exact row sum would leave int32, takes the reference's chunked
+two-pass path there, as its ``pallas_fused`` does
+(``PallasFusedBackend._two_pass_fallback``): per-tensor epilogues only.
+
+``cuda_ref`` (:class:`CudaRefBackend`) is the same kernels as the twin
+of the reference's ``ref``: it declares ``fused_attention = False`` as
+``ref`` does, so the model layer streams the chunked attention above the
+reference's full-matrix threshold (``models.intlayers.int_attn_fwd``).
 """
 from __future__ import annotations
 
+import torch
+
+from repro_torch.analysis.budgets import MAX_ROWSUM_LEN
+from repro_torch.analysis.contracts import fit_block
+from repro_torch.core.attention import i_attention_chunked
 from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_packed
 from repro_torch.kernels.int_attention_fused import (int_attention_fused,
                                                      int_paged_prefill_fused)
@@ -26,11 +39,34 @@ from repro_torch.kernels.int_gelu import int_gelu
 from repro_torch.kernels.int_layernorm import int_layernorm
 from repro_torch.kernels.int_softmax import int_softmax
 from repro_torch.ops.paged import scatter_chunk
+from repro_torch.ops.spec import PER_TENSOR, RequantSpec
+
+
+def _chunked_attention(q8, k8, v8, plan, causal: bool, window: int,
+                      requant):
+    """Full-sequence attention past ``MAX_ROWSUM_LEN`` keys: the
+    reference's chunked two-pass path (``core.attention.
+    i_attention_chunked`` over chunks of ``fit_block(1024, Skv)``, the KV
+    heads repeated for GQA), per-tensor epilogue only, as in
+    ``PallasFusedBackend._two_pass_fallback``."""
+    if requant.kind != PER_TENSOR:
+        raise NotImplementedError(
+            f"Skv={k8.shape[1]} needs the chunked streaming path, which "
+            "supports per-tensor requant only")
+    rep = q8.shape[2] // k8.shape[2]
+    if rep > 1:
+        k8 = k8.repeat_interleave(rep, dim=2)
+        v8 = v8.repeat_interleave(rep, dim=2)
+    out = i_attention_chunked(q8, k8, v8, plan._replace(dn_out=requant.dn),
+                              chunk=fit_block(1024, k8.shape[1]),
+                              causal=causal, window=window,
+                              out_bits=requant.out_bits)
+    return out.to(torch.int8) if requant.out_bits <= 8 else out
 
 
 class CudaBackend:
     name = "cuda"
-    fused_attention = True    # K5 streams any length up to 2^15 keys
+    fused_attention = True    # K5 at any length (chunked past 2^15 keys)
     paged_decode = True       # consumes page-table KV pools directly
     decode_wo_fold = True     # the o-projection rides in the decode call
     paged_prefill = True      # chunked prefill straight over the page table
@@ -66,6 +102,11 @@ class CudaBackend:
     def int_attention(self, q8, k8, v8, plan, causal: bool = True,
                       window: int = 0, out_bits: int = 8, requant=None,
                       b_vec=None):
+        if requant is None:
+            requant = RequantSpec.per_tensor(plan.dn_out, out_bits)
+        if k8.shape[1] > MAX_ROWSUM_LEN:
+            return _chunked_attention(q8, k8, v8, plan, causal, window,
+                                     requant)
         return int_attention_fused(q8, k8, v8, plan, requant=requant,
                                    b_vec=b_vec, causal=causal,
                                    window=window, out_bits=out_bits)
@@ -93,3 +134,13 @@ class CudaBackend:
                                     requant=requant, b_vec=b_vec, wo=wo,
                                     wo_spec=wo_spec, kv_shifts=kv_shifts)
         return o, k_pool, v_pool
+
+
+class CudaRefBackend(CudaBackend):
+    """The twin of the reference's ``ref``: the kernels of ``cuda`` in
+    every op, with ``fused_attention = False`` as ``ref`` declares, so the
+    model layer takes the reference's branch for ``ref`` (the chunked
+    two-pass above its full-matrix threshold, K5 at or below it, whose
+    integers are the oracle's there)."""
+    name = "cuda_ref"
+    fused_attention = False

@@ -37,6 +37,7 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
+from repro_torch.analysis.contracts import fit_block as _fit_block
 from repro_torch.kernels.int_attention import (int_attention_online,
                                                int_attention_online_plain)
 from repro_torch.kernels.int_attention_fused import (
@@ -47,14 +48,6 @@ from repro_torch.ops.spec import PER_TENSOR
 #: below these query / key lengths the reference's online backend takes
 #: the exact oracle (``repro/ops/backends/pallas.py``)
 MIN_ONLINE_LEN = 16
-
-
-def _fit_block(blk: int, dim: int) -> int:
-    """Largest block <= blk that divides dim (kernels assert dim % blk)."""
-    blk = min(blk, dim)
-    while dim % blk:
-        blk -= 1
-    return blk
 
 
 class CudaOnlineBackend(CudaBackend):

@@ -1,17 +1,26 @@
-"""Backends, the OpSet dispatch handle and backend resolution (twin of
-``repro.ops.registry``, trimmed to the ported paths).
+"""The backend protocol, the registry, the OpSet dispatch handle and
+backend resolution (twin of ``repro.ops.registry``).
 
-Models receive one resolved :class:`OpSet` and every integer op dispatches
-through it, to one default backend or, per op, to an override.  Four
-backends exist:
+Every integer op is implemented by a *backend*: an object with the six
+methods of :class:`Backend` (``REQUIRED_OPS``), a ``name`` and a
+``fused_attention`` flag.  Backends register under a name
+(:func:`register_backend`, which refuses a non-backend and, unless
+``overwrite``, a name already taken); models receive one resolved
+:class:`OpSet` and every op dispatches through it, to one default
+backend or, per op, to an override.  Five backends are built in:
 
   * ``"cuda"`` (the default) — the counterpart of the JAX package's
     ``pallas_fused``: the hand-written kernels K1–K7, with K5 the exact
-    full-sequence attention;
+    full-sequence attention at any length;
+  * ``"cuda_ref"`` — the counterpart of ``ref``: the same kernels in
+    every op, but, like ``ref``, it declares ``fused_attention = False``,
+    so the model layer takes the reference's chunked two-pass attention
+    (``core.attention.i_attention_chunked``) above its full-matrix
+    threshold and K5 below it (where K5's integers are the oracle's);
   * ``"cuda_online"`` / ``"cuda_online_tuned"`` — the counterparts of
     ``pallas`` / ``pallas_tuned``: K8, the one-pass online attention, at
     the reference's logical blocks (``ops.backends.cuda_online``);
-  * ``"torch_ref"`` — the counterpart of ``ref``: the plain oracles.
+  * ``"torch_ref"`` — the plain oracles, the integers of ``ref``.
 
 Resolution order for ``resolve_ops(spec, cfg)``, as in the reference:
 
@@ -22,18 +31,22 @@ Resolution order for ``resolve_ops(spec, cfg)``, as in the reference:
   5. ``"cuda"``.
 
 Every name passes through one twin table, :data:`TWINS`, so the JAX
-package's backend names select their counterparts here: ``ref`` and
-``pallas_fused`` give ``cuda`` (the same integers as ``ref``), ``pallas``
-gives ``cuda_online``.  ``ArchConfig.kernel_backend`` defaults to
-``"ref"``, which therefore never makes the card run the plain versions:
-``torch_ref`` runs only when named.  One ``REPRO_BACKEND`` selects the
-twin paths in both packages.
+package's backend names select their counterparts here: ``ref`` gives
+``cuda_ref``, ``pallas_fused`` ``cuda``, ``pallas`` ``cuda_online``.  The
+reference's ``ref`` and ``pallas_fused`` give different integers above
+``S * Skv = 4096^2 / 4`` (the chunked path rescales its sums, K5 does
+not), so their twins are two backends; ``cuda_ref`` and ``torch_ref``
+give the integers of ``ref`` everywhere.  ``ArchConfig.kernel_backend``
+defaults to ``"ref"``, which therefore runs the kernels and never the
+plain versions on the card: ``torch_ref`` runs only when named.  One
+``REPRO_BACKEND`` selects the twin paths in both packages.
 
 ``fused_attention`` says whether a backend's ``int_attention`` is one
-streaming kernel (the model layer then calls it at any length) or the
-full-matrix oracle (which the layer calls only up to the reference's
-chunking threshold).  Optional capabilities are negotiated exactly as in
-the reference: a backend advertising ``paged_decode`` / ``decode_wo_fold`` /
+streaming kernel (the model layer then calls it at any length) or stands
+for the full-matrix oracle (which the layer calls only up to the
+reference's chunking threshold, streaming the chunked path above it).
+Optional capabilities are negotiated exactly as in the reference: a
+backend advertising ``paged_decode`` / ``decode_wo_fold`` /
 ``paged_prefill`` / ``prefill_wo_fold`` / ``packed_kv`` /
 ``packed_matmul`` gets the page table, the folded o-projection, packed
 int4 pools (``kv_shifts``) and packed int4 / MSR-4 weights verbatim; for
@@ -52,7 +65,8 @@ from __future__ import annotations
 import contextlib
 import os
 import threading
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional, Protocol, Union, \
+    runtime_checkable
 
 import torch
 
@@ -64,18 +78,100 @@ ENV_VAR = "REPRO_BACKEND"
 DEFAULT_BACKEND = "cuda"
 
 #: the JAX package's backend names -> their counterparts in the port
-TWINS = {"ref": "cuda", "pallas_fused": "cuda", "pallas": "cuda_online",
+TWINS = {"ref": "cuda_ref", "pallas_fused": "cuda", "pallas": "cuda_online",
          "pallas_tuned": "cuda_online_tuned"}
 
-OP_NAMES = ("int8_matmul", "int_softmax", "int_layernorm", "int_gelu",
-            "int_attention", "int_decode_attention", "int_paged_prefill",
-            "int8_matmul_packed")
+# the six methods every backend must implement
+REQUIRED_OPS = ("int8_matmul", "int_softmax", "int_gelu", "int_layernorm",
+                "int_attention", "int_decode_attention")
+# ... plus the ops that are capabilities: a backend advertising the flag
+# implements them, everyone else is served by an exact lowering in OpSet
+# (dispatch and overrides route on OP_NAMES, the protocol demands
+# REQUIRED_OPS)
+OP_NAMES = REQUIRED_OPS + ("int_paged_prefill", "int8_matmul_packed")
 
-_REGISTRY: Dict[str, object] = {}
+
+@runtime_checkable
+class Backend(Protocol):
+    """The six integer ops every backend implements, its ``name`` and its
+    ``fused_attention`` flag (see the module docstring; the optional
+    capability flags are negotiated by :class:`OpSet`)."""
+
+    name: str
+    fused_attention: bool
+
+    def int8_matmul(self, x8, w8, spec, *, bias32=None, b_vec=None): ...
+
+    def int_softmax(self, scores, plan, **opts): ...
+
+    def int_gelu(self, q, plan, dn_out, out_bits: int = 8): ...
+
+    def int_layernorm(self, q, q_gamma, q_beta, plan,
+                      out_bits: int = 8): ...
+
+    def int_attention(self, q8, k8, v8, plan, causal: bool = True,
+                      window: int = 0, out_bits: int = 8, requant=None,
+                      b_vec=None): ...
+
+    def int_decode_attention(self, q8, k8_cache, v8_cache, plan, valid_len,
+                             requant=None, b_vec=None): ...
 
 
-def register_backend(name: str, backend) -> None:
-    _REGISTRY[name] = backend
+def _is_backend(obj) -> bool:
+    """A backend *instance*: the six required ops plus ``name`` and
+    ``fused_attention``.  A class is not one: a registered class is a
+    factory, and calling its unbound methods would misbind ``self``."""
+    if isinstance(obj, type):
+        return False
+    return (all(callable(getattr(obj, op, None)) for op in REQUIRED_OPS)
+            and isinstance(getattr(obj, "name", None), str)
+            and hasattr(obj, "fused_attention"))
+
+
+_REGISTRY: Dict[str, Union[Backend, Callable[[], Backend]]] = {}
+_LOCK = threading.Lock()
+_BUILTIN_LOCK = threading.RLock()
+_builtin = "todo"        # "todo" | "running" (its thread holds the lock) | "done"
+
+
+def _ensure_builtin() -> None:
+    """Register the built-in backends once, before any lookup or
+    registration (so a user's backend never hides them).  The thread that
+    registers them re-enters here from ``register_backend`` and returns;
+    any other thread waits on the lock until they are in."""
+    global _builtin
+    if _builtin == "done":
+        return
+    with _BUILTIN_LOCK:
+        if _builtin != "todo":
+            return
+        _builtin = "running"
+        try:
+            from repro_torch.ops.backends import register_builtin
+            register_builtin()
+        except BaseException:
+            _builtin = "todo"
+            raise
+        _builtin = "done"
+
+
+def register_backend(name: str, backend, *, overwrite: bool = False) -> None:
+    """Register a backend instance or a zero-argument factory of one under
+    ``name``; a name already taken raises unless ``overwrite``."""
+    if not (_is_backend(backend) or callable(backend)):
+        raise TypeError(f"{backend!r} implements neither the Backend "
+                        "protocol nor a factory for one")
+    _ensure_builtin()
+    with _LOCK:
+        if name in _REGISTRY and not overwrite:
+            raise ValueError(f"backend {name!r} already registered "
+                             "(pass overwrite=True to replace)")
+        _REGISTRY[name] = backend
+
+
+def unregister_backend(name: str) -> None:
+    with _LOCK:
+        _REGISTRY.pop(name, None)
 
 
 def twin_backend(name: str) -> str:
@@ -85,23 +181,37 @@ def twin_backend(name: str) -> str:
 
 
 def get_backend(name: str):
-    if not _REGISTRY:
-        from repro_torch.ops.backends import register_builtin
-        register_builtin()
-    try:
-        return _REGISTRY[twin_backend(name)]
-    except KeyError:
+    """Look up a registered backend (through :data:`TWINS`), instantiating
+    a lazy factory once."""
+    _ensure_builtin()
+    key = twin_backend(name)
+    with _LOCK:
+        entry = _REGISTRY.get(key)
+    if entry is None:
         raise KeyError(f"unknown backend {name!r}; registered: "
-                       f"{sorted(_REGISTRY)}") from None
+                       f"{available_backends()}")
+    if not _is_backend(entry):
+        entry = entry()
+        if not _is_backend(entry):
+            raise TypeError(f"factory for {name!r} returned a "
+                            "non-Backend")
+        with _LOCK:
+            _REGISTRY[key] = entry
+    return entry
 
 
 def available_backends():
-    get_backend(DEFAULT_BACKEND)
-    return sorted(_REGISTRY)
+    _ensure_builtin()
+    with _LOCK:
+        return sorted(_REGISTRY)
 
 
 def _as_backend(spec):
-    return get_backend(spec) if isinstance(spec, str) else spec
+    if isinstance(spec, str):
+        return get_backend(spec)
+    if _is_backend(spec):
+        return spec
+    raise TypeError(f"cannot interpret {spec!r} as a backend")
 
 
 class OpSet:

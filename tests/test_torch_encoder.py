@@ -35,6 +35,7 @@ from repro.kernels.int_attention_fused import int_attention_fused as j_k5
 from repro.kernels.int_gelu import int_gelu_pallas
 from repro.kernels.ref import ref_int_attention as j_ref_attention
 from repro.kernels.ref import ref_int_gelu as j_ref_gelu
+from repro.models import intlayers as jil
 from repro.models import inttransformer as jit_
 from repro.models import model as JM
 from repro.models import transformer as jtf
@@ -344,14 +345,27 @@ def test_int_prefill_unported_options_raise(encoder_setup):
 
 def test_non_fused_backend_refuses_the_chunked_length(encoder_setup):
     """Above the reference's full-matrix threshold a non-fused backend
-    would stream ``i_attention_chunked`` (not ported): ``torch_ref``
-    raises there instead of running another algorithm."""
-    tc, tq, tp = encoder_setup[1], encoder_setup[-2], encoder_setup[-1]
+    streams ``i_attention_chunked``: at S = 3072 the port's ``torch_ref``
+    equals JAX ``ref`` (the encoder, unmasked); at S = 2049 the port
+    refuses as the reference asserts (the chunk, ``min(1024, S)``, must
+    divide S)."""
+    jc, tc = encoder_setup[0], encoder_setup[1]
+    jq, jp, tq, tp = encoder_setup[-4:]
+    jqp = jax.tree.map(lambda a: a[0], jq["layers"][0]["attn"])
     qp = tit._layer(tq["layers"][0], 0)["attn"]
+    x8 = _i8(np.random.default_rng(9), (1, 3072, tc.d_model))
+    want = np.asarray(jil.int_attn_fwd(jqp, jnp.asarray(x8), jp.attn, jc,
+                                       causal=False, ops="ref"))
+    got = til.int_attn_fwd(qp, T(x8), tp.attn, tc, causal=False,
+                           ops="torch_ref")
+    assert np.array_equal(got.numpy(), want)
     s = 2049                                  # s * s > 4096 * 4096 / 4
-    x8 = T(np.zeros((1, s, tc.d_model), np.int8))
-    with pytest.raises(NotImplementedError, match="i_attention_chunked"):
-        til.int_attn_fwd(qp, x8, tp.attn, tc, causal=False,
+    x8 = np.zeros((1, s, tc.d_model), np.int8)
+    with pytest.raises(AssertionError):
+        jil.int_attn_fwd(jqp, jnp.asarray(x8), jp.attn, jc, causal=False,
+                         ops="ref")
+    with pytest.raises(AssertionError):
+        til.int_attn_fwd(qp, T(x8), tp.attn, tc, causal=False,
                          ops="torch_ref")
 
 

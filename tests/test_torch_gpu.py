@@ -1590,3 +1590,156 @@ def test_dispatch_step_makes_no_synchronizing_copy(dev, kw):
     assert len(pending.live) == 4
     eng.commit_step(pending)
     eng.run_until_done()
+
+
+# ------------------------------------------------ the new configs' shapes --
+
+@pytest.mark.parametrize("case,m,k,n", [
+    ("codeqwen wq+bias", 4, 4096, 4096), ("codeqwen wq+bias", 16, 4096, 4096),
+    ("codeqwen wq+bias", 128, 4096, 4096), ("codeqwen w2", 4, 13440, 4096),
+    ("codeqwen w2", 16, 13440, 4096), ("granite head", 4, 2048, 49155),
+    ("granite head", 128, 2048, 49155), ("granite head", 4, 2048, 49168)])
+def test_zoo_matmul_shapes(dev, case, m, k, n):
+    """K1 at codeqwen1.5-7b's QKV (per-channel + bias) and w2 (K = 13440)
+    and granite-3-2b's raw tied head (odd N = 49155, and its padded
+    49168), decode tile and tensor-core tiles."""
+    rng = np.random.default_rng(m + k + n)
+    x8, w8 = _i8(rng, (m, k), dev), _i8(rng, (k, n), dev)
+    if case == "granite head":
+        spec, bias, bvec = RequantSpec.raw(), None, None
+    else:
+        spec = RequantSpec.per_channel(24, 10, 8)
+        bvec = _i32(rng, 256, 4096, (n,), dev)
+        bias = _i32(rng, -5000, 5000, (n,), dev) if "bias" in case else None
+    before = kernels.LAUNCHES["int8_matmul"]
+    got = int8_matmul(x8, w8, spec, bias32=bias, b_vec=bvec)
+    assert kernels.LAUNCHES["int8_matmul"] == before + 1
+    assert torch.equal(got, int8_matmul_plain(x8, w8, spec, bias, bvec))
+
+
+@pytest.mark.parametrize("rows,d", [(16384, 1024), (32 * 197, 384)])
+def test_zoo_layernorm_shapes(dev, rows, d):
+    """K2 (LayerNorm + beta) at roberta-large's and deit-s's passes."""
+    rng = np.random.default_rng(rows + d)
+    plan, q, g, b = _k2_operands(rng, rows, d, True, True, dev)
+    before = kernels.LAUNCHES["int_layernorm"]
+    got = int_layernorm(q, g, b, plan)
+    assert kernels.LAUNCHES["int_layernorm"] == before + 1
+    assert torch.equal(got, int_layernorm_plain(q, g, b, plan))
+
+
+@pytest.mark.parametrize("h,hkv,hd", [(32, 32, 128), (32, 8, 64)])
+@pytest.mark.parametrize("fold", [False, True])
+def test_zoo_serve_attention_rows(dev, h, hkv, hd, fold):
+    """K3 and K4 at the serve row of codeqwen1.5-7b (MHA, one query head a
+    KV head) and granite-3-2b (D = 64): B 4, pages of 16, valid 1 / 137 /
+    300 / 512 (K3) and chunks of 32 ending at 32 / 132 / 282 / 512
+    (K4), wo folded and not."""
+    rng = np.random.default_rng(h + hkv + hd + fold)
+    b, ps, maxp, d = 4, 16, 32, 4096
+    plan = iattn.make_iattention(hd, 8 / 127, 8 / 127, 4 / 127, 4 / 127)
+    kp = _i8(rng, (b * maxp + 1, ps, hkv, hd), dev)
+    vp = _i8(rng, (b * maxp + 1, ps, hkv, hd), dev)
+    pages = torch.as_tensor(rng.permutation(np.arange(1, b * maxp + 1))
+                            .reshape(b, maxp).astype(np.int32), device=dev)
+    kw = {}
+    if fold:
+        kw = dict(wo=QuantLinearParams(_i8(rng, (h * hd, d), dev),
+                                       _i32(rng, 256, 4096, (d,), dev)),
+                  wo_spec=RequantSpec.per_channel(24, 10, 14))
+    rq = RequantSpec.per_tensor(plan.dn_out)
+    for sq, fused, plain, name, lens in (
+            (1, int_decode_attention_fused, int_decode_attention_plain,
+             "int_decode_attention", [1, 137, 300, 512]),
+            (32, int_paged_prefill_fused, int_paged_prefill_plain,
+             "int_paged_prefill", [32, 132, 282, 512])):
+        q8 = _i8(rng, (b, sq, h, hd), dev)
+        vl = torch.tensor(lens, dtype=torch.int32, device=dev)
+        before = kernels.LAUNCHES[name]
+        got = fused(q8, kp, vp, plan, vl, pages, ps, requant=rq, **kw)
+        assert kernels.LAUNCHES[name] == before + 1
+        assert torch.equal(got, plain(q8, kp, vp, plan, vl, pages, ps,
+                                      requant=rq, **kw)), name
+
+
+@pytest.mark.parametrize("b,s,h", [(32, 512, 16), (32, 197, 6)])
+def test_zoo_full_sequence_attention(dev, b, s, h):
+    """K5 at roberta-large's (H 16) and deit-s's (S 197: ragged last
+    tiles both ways) encoder passes, unmasked, D = 64."""
+    rng = np.random.default_rng(b + s + h)
+    plan = iattn.make_iattention(64, 8 / 127, 8 / 127, 4 / 127, 4 / 127)
+    q8, k8, v8 = (_i8(rng, (b, s, h, 64), dev) for _ in range(3))
+    before = kernels.LAUNCHES["int_attention_fused"]
+    got = int_attention_fused(q8, k8, v8, plan, causal=False)
+    assert kernels.LAUNCHES["int_attention_fused"] == before + 1
+    assert torch.equal(got, int_attention_fused_plain(q8, k8, v8, plan,
+                                                      causal=False))
+
+
+def test_zoo_gelu_shape(dev):
+    """K6 at roberta-large's FFN, 16 384 x 4096 11-bit inputs."""
+    gp = iact.make_igelu_act(16.0 / 1024.0, 1024, 8.0 / 127.0)
+    q = _i32(np.random.default_rng(8), -1024, 1024, (16384, 4096), dev)
+    before = kernels.LAUNCHES["int_gelu"]
+    got = int_gelu(q, gp.gelu, gp.dn_out)
+    assert kernels.LAUNCHES["int_gelu"] == before + 1
+    assert torch.equal(got, int_gelu_plain(q, gp.gelu, gp.dn_out))
+
+
+# --------------------------------------------- the chunked two-pass path --
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 700),
+                                           (False, 0)])
+def test_chunked_attention_on_the_card_equals_the_cpu(dev, causal, window):
+    """``core.attention.i_attention_chunked`` (plain PyTorch, float64
+    contractions) gives the same integers on the card as on the CPU."""
+    rng = np.random.default_rng(window + causal)
+    plan = iattn.make_iattention(128, 8 / 127, 8 / 127, 4 / 127, 4 / 127)
+    q8 = _i8(rng, (1, 2048, 8, 128), dev)
+    k8, v8 = _i8(rng, (1, 2048, 8, 128), dev), _i8(rng, (1, 2048, 8, 128),
+                                                    dev)
+    got = iattn.i_attention_chunked(q8, k8, v8, plan, 1024, causal, window)
+    want = iattn.i_attention_chunked(q8.cpu(), k8.cpu(), v8.cpu(), plan,
+                                     1024, causal, window)
+    assert got.is_cuda and torch.equal(got.cpu(), want)
+
+
+def test_cuda_attention_past_the_rowsum_budget_on_the_card(dev):
+    """Past MAX_ROWSUM_LEN keys ``cuda``'s ``int_attention`` streams the
+    chunked path on the card (K5 does not launch): the CPU's integers."""
+    from repro_torch.analysis.budgets import MAX_ROWSUM_LEN
+    from repro_torch.ops import get_backend
+    rng = np.random.default_rng(12)
+    plan = iattn.make_iattention(32, 8 / 127, 8 / 127, 4 / 127, 4 / 127)
+    skv = MAX_ROWSUM_LEN + 1024
+    q8 = _i8(rng, (1, 64, 2, 32), dev)
+    k8, v8 = _i8(rng, (1, skv, 1, 32), dev), _i8(rng, (1, skv, 1, 32), dev)
+    be = get_backend("cuda")
+    kernels.reset_launches()
+    got = be.int_attention(q8, k8, v8, plan, causal=False)
+    assert kernels.LAUNCHES["int_attention_fused"] == 0
+    want = be.int_attention(q8.cpu(), k8.cpu(), v8.cpu(), plan, causal=False)
+    assert got.is_cuda and torch.equal(got.cpu(), want)
+
+
+def test_long_prefill_ref_takes_the_chunked_path_on_the_card(dev):
+    """Reduced llama3-8b at S = 3072 (above the full-matrix threshold)
+    through make_prefill_step: ``ref`` (``cuda_ref``) launches K1 and K2
+    but never K5, and equals ``torch_ref`` on the card; ``cuda``
+    (``pallas_fused``'s twin) launches K5."""
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import intlayers as il
+    cfg, qp, plans = _reduced_llama(dev)
+    toks = np.random.default_rng(5).integers(0, cfg.vocab, (1, 3072))
+    rope = il.build_rope_table(3073, cfg.hd, cfg.rope_theta, device=dev)
+    logits = {}
+    for backend in ("ref", "torch_ref", "cuda"):
+        kernels.reset_launches()
+        logits[backend] = make_prefill_step(cfg, plans, ops=backend,
+                                            device=dev)(qp, {"tokens": toks},
+                                                        rope)
+        fused = kernels.LAUNCHES["int_attention_fused"]
+        if backend == "ref":
+            assert fused == 0 and kernels.LAUNCHES["int8_matmul"] > 0
+        assert (fused == cfg.num_layers) == (backend == "cuda")
+    assert torch.equal(logits["ref"], logits["torch_ref"])

@@ -407,7 +407,8 @@ def test_twin_table_covers_the_reference_backends():
     assert set(tops.TWINS) <= set(jops.available_backends())
     for jname, tname in tops.TWINS.items():
         assert tops.get_backend(jname) is tops.get_backend(tname)
-    assert tops.get_backend("ref").name == "cuda"
+    assert tops.get_backend("ref").name == "cuda_ref"
+    assert tops.get_backend("pallas_fused").name == "cuda"
     assert tops.get_backend("pallas").name == "cuda_online"
     tuned = tops.get_backend("pallas_tuned")
     assert tuned.blocks["int_attention"] == \
@@ -441,16 +442,17 @@ def test_resolution_order_and_the_config_twin(monkeypatch):
     tc = TM.reduce_config(t_get_config("llama3-8b"), dtype="float32")
     assert tc.kernel_backend == "ref"
     monkeypatch.delenv(tops.ENV_VAR, raising=False)
-    # the config's default "ref" is the exact kernels, never torch_ref
-    assert tops.resolve_ops(None, tc).name == "cuda"
-    for jname, tname in (("ref", "cuda"), ("pallas_fused", "cuda"),
+    # the config's default "ref" is the kernels (with ref's chunked
+    # attention above the threshold), never torch_ref
+    assert tops.resolve_ops(None, tc).name == "cuda_ref"
+    for jname, tname in (("ref", "cuda_ref"), ("pallas_fused", "cuda"),
                          ("pallas", "cuda_online"),
                          ("pallas_tuned", "cuda_online_tuned")):
         cfg = dataclasses.replace(tc, kernel_backend=jname)
         assert tops.resolve_ops(None, cfg).name == tname
     cfg_p = dataclasses.replace(tc, kernel_backend="pallas")
     monkeypatch.setenv(tops.ENV_VAR, "ref")
-    assert tops.resolve_ops(None, cfg_p).name == "cuda"      # env > cfg
+    assert tops.resolve_ops(None, cfg_p).name == "cuda_ref"  # env > cfg
     monkeypatch.setenv(tops.ENV_VAR, "pallas")
     assert tops.resolve_ops().name == "cuda_online"
     with tops.use_backend("torch_ref"):
