@@ -146,7 +146,29 @@ non-zero before the last line):
            logits equal ``torch_ref``'s; under ``"cuda"`` K5 launches and
            the logits differing from ``ref``'s are counted; the chunked
            attention at the full head shape on the card equals the same
-           call on the CPU, and its ms stand beside K5's.
+           call on the CPU, and its ms stand beside K5's;
+  moe-kernels  (not in the default list; part of ``kernels``) the kernels
+           at the MoE configs' shapes: K1's grouped instantiation (rows
+           ``int8_matmul_grouped``: the experts of qwen2-moe-a2.7b's w1 /
+           w2 at a decode step of 4 tokens, spread over 16 experts and
+           all in 4, and at a 4 x 512 pass on its routing, beside a loop
+           of torch._int_mm over the experts that got rows; qwen3-moe's
+           w1 at E 128), K1 for the raw routers and qwen2's QKV + bias,
+           K3 at qwen2's MHA 16 / 16 and qwen3's GQA 64 / 4 (serve row,
+           verify Sq 4);
+  moe-parity     qwen2-moe-a2.7b and qwen3-moe-235b-a22b at full width cut
+           to 2 layers: ServingEngine streams on ``cuda`` equal
+           ``torch_ref``'s (paged, token-streaming prefill, wo folded,
+           spec_k 0 and 3), and ``make_prefill_step`` logits at 4 x 512,
+           with the dropped (token, slot) pairs of each layer;
+  moe-serve      full qwen2-moe-a2.7b (24 layers) on the ``serve`` traffic:
+           tokens/s, device ms a step, peak memory, weight bytes, launches
+           by kernel (K1, K2, K3 and the grouped K1 > 0) and a profiled
+           window (device ms by kernel, the port's kernels against the
+           glue);
+  moe-prefill    full qwen2-moe-a2.7b through ``make_prefill_step`` at 4 x
+           512 (K5): ms a pass, launches, drops per layer, a profiled
+           pass.
 
 The ``kernels`` phase also holds K3's and K4's packed instantiations
 (rows ``int_decode_attention_kv4`` / ``int_paged_prefill_kv4``) against
@@ -206,6 +228,9 @@ TPU_KERNELS = {
     "int_paged_prefill_kv4": "src/repro/kernels/int_attention_fused.py:398",
     "int8_matmul_packed": "src/repro/kernels/int8_matmul.py:90",
     "int8_matmul_msr4": "src/repro/kernels/int8_matmul.py:90",
+    # K1's grouped instantiation: the reference runs the expert products
+    # outside any kernel (intlayers.py:101, int_expert_linear)
+    "int8_matmul_grouped": "src/repro/kernels/int8_matmul.py:90",
 }
 # the summary rows of K1 (the raw head, and packed int4 w1, at M = 4) run
 # its decode tile; its M > 16 tiles are in csrc/int8_matmul.cu
@@ -222,6 +247,7 @@ SOURCES = {
     "int_paged_prefill_kv4": "src/repro_torch/csrc/int_paged_prefill.cu",
     "int8_matmul_packed": "src/repro_torch/csrc/int8_matmul_decode.cu",
     "int8_matmul_msr4": "src/repro_torch/csrc/int8_matmul_msr4.cu",
+    "int8_matmul_grouped": "src/repro_torch/csrc/int8_matmul_grouped.cu",
 }
 # the kernels each driven path must launch
 PATH_KERNELS = {
@@ -257,6 +283,10 @@ PATH_KERNELS = {
     "long-prefill-ref": ("int8_matmul", "int_layernorm"),
     "long-prefill-cuda": ("int8_matmul", "int_layernorm",
                           "int_attention_fused"),
+    "moe-serve": ("int8_matmul", "int_layernorm", "int_decode_attention",
+                  "int8_matmul_grouped"),
+    "moe-prefill": ("int8_matmul", "int_layernorm", "int_attention_fused",
+                    "int8_matmul_grouped"),
 }
 # the reference serving benchmark's weight tier (pack_tree(qp, "msr4",
 # group=64), benchmarks/bench_serving.py)
@@ -3368,6 +3398,402 @@ def phase_long_prefill(cfg_full):
             "long-prefill-cuda": launches["cuda"]}
 
 
+# ------------------------------------------------ mixtures of experts ----
+
+# ROADMAP §1 item 6: the two MoE configs of the reference's registry, served
+# by token streaming (as the reference serves MoE); their full-sequence
+# pass at 4 x 512 (one routing group of 512 tokens a sequence)
+MOE_ARCHS = ("qwen2-moe-a2.7b", "qwen3-moe-235b-a22b")
+MOE_BATCH, MOE_SEQ = 4, 512
+
+
+def moe_config(name: str, layers: int = 0):
+    """Full-width ``name``, cut to ``layers`` layers where given."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(name)
+    return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
+
+
+def _valid_rows(out, counts):
+    """Expert e's first counts[e] rows of an (E, R, N) result, stacked:
+    the rows the grouped kernel writes."""
+    import torch
+    return torch.cat([out[e, :c] for e, c in enumerate(counts)])
+
+
+def grouped_row(gen, rows, tag, r, k, n, lp, counts, library=False,
+                rep=False):
+    """K1's grouped instantiation at (E, R, K) x (E, K, N) with expert
+    row counts ``counts`` (host ints), against its plain version on the
+    rows it writes.  The bound counts the packed x rows, the weights and
+    multiplier rows of the experts that got rows, ``rows`` and the
+    output rows.  ``library``: a loop of ``torch._int_mm`` (raw, cuBLAS)
+    over the experts that got rows (each at least 17 rows, its minimum),
+    a yardstick the port does not call."""
+    import torch
+    from repro_torch.kernels.int8_matmul import (grouped_live_blocks,
+                                                 grouped_plan,
+                                                 int8_matmul_grouped,
+                                                 int8_matmul_grouped_plain)
+    from repro_torch.ops.spec import RequantSpec
+    e = len(counts)
+    x8 = _randint(gen, -127, 128, (e, r, k), torch.int8)
+    w8 = _randint(gen, -127, 128, (e, k, n), torch.int8)
+    b_vec = _randint(gen, 256, 4096, (e, n), torch.int32)
+    rws = torch.tensor(counts, dtype=torch.int32, device="cuda")
+    spec = RequantSpec.for_linear(lp)
+    got = int8_matmul_grouped(x8, w8, rws, spec, b_vec=b_vec)
+    want = int8_matmul_grouped_plain(x8, w8, rws, spec, b_vec=b_vec)
+    live = [i for i, c in enumerate(counts) if c]
+    m = sum(counts)
+    out_b = 1 if spec.out_bits <= 8 else 4
+    nbytes = m * k + len(live) * (k * n + 4 * n) + 4 * e + out_b * m * n
+    lib = None
+    if library:
+        xs = [x8[i, :max(counts[i], 17)] for i in live]
+
+        def int_mm_loop():
+            for xi, i in zip(xs, live):
+                torch._int_mm(xi, w8[i])
+        lib = device_ms(int_mm_loop, 5) or time_ms(int_mm_loop, 5)
+    plan = grouped_plan(e, r, n)
+    record(rows, "int8_matmul_grouped",
+           f"{tag} E={e} R={r} K={k} N={n} out_bits={spec.out_bits} "
+           f"rows={m} experts_with_rows={len(live)}",
+           _valid_rows(got, counts), _valid_rows(want, counts),
+           lambda: int8_matmul_grouped(x8, w8, rws, spec, b_vec=b_vec),
+           lambda: int8_matmul_grouped_plain(x8, w8, rws, spec,
+                                             b_vec=b_vec),
+           nbytes, 2 * m * k * n, lib_ms=lib, rep=rep, iters=10,
+           plain_iters=2,
+           plan=f"bm={plan.bm} grid={list(plan.grid)} live_blocks="
+                f"{grouped_live_blocks(plan, counts)}")
+    del x8, w8
+
+
+def prefill_routing_counts(gen, cfg, plans):
+    """Expert row counts of a 4 x 512 pass's routing (``moe_route`` of K1's
+    raw router logits over random activations and router weights; one
+    group a sequence, capacity counted over the padded experts): the R
+    = 4 * cap rows an expert has, and the kept rows of each."""
+    import torch
+    from repro_torch.kernels.int8_matmul import int8_matmul
+    from repro_torch.models import intlayers as il
+    from repro_torch.ops.spec import RequantSpec
+    e = cfg.padded_experts()
+    cap = il.moe_capacity(cfg, MOE_SEQ)
+    x8 = _randint(gen, -127, 128, (MOE_BATCH * MOE_SEQ, cfg.d_model),
+                  torch.int8)
+    w8 = _randint(gen, -127, 128, (cfg.d_model, e), torch.int8)
+    logits = int8_matmul(x8, w8, RequantSpec.raw()).reshape(
+        MOE_BATCH, MOE_SEQ, e)
+    route = il.moe_route(logits, plans.moe, cfg, cap)
+    return MOE_BATCH * cap, route.kept.sum(dim=0).tolist()
+
+
+def check_moe_kernels(rows) -> None:
+    """The kernels at the MoE configs' shapes, each exact against its
+    plain version: the grouped K1 at qwen2-moe-a2.7b's w1 (K 2048, N
+    1408) and w2 (K 1408, N 2048) for a decode step of 4 tokens (R = 16:
+    16 (token, expert) pairs in 16 distinct experts, then all four tokens
+    in the same 4 experts) and for a 4 x 512 pass on its routing (R =
+    160, beside a loop of torch._int_mm over the experts that got rows),
+    and at qwen3-moe-235b-a22b's w1 (K 4096, N 1536, E 128; 32 pairs in
+    32 experts); K1 for the raw routers at M 4 (N 64 / 128) and qwen2's
+    QKV with its bias; K3 at qwen2's MHA 16 / 16 serve row and at qwen3's
+    GQA 64 / 4 serve row and verify step (Sq 4: 64 rows a KV head)."""
+    import torch
+    from repro_torch.kernels.int8_matmul import (int8_matmul,
+                                                 int8_matmul_plain)
+    from repro_torch.ops.spec import RequantSpec
+    from repro_torch.quant import plans as qplans
+    gen = torch.Generator(device="cuda").manual_seed(4242)
+    cfgs = {n: moe_config(n) for n in MOE_ARCHS}
+    plans = {n: qplans.build_layer_plans(c) for n, c in cfgs.items()}
+    q2, q3 = cfgs["qwen2-moe-a2.7b"], cfgs["qwen3-moe-235b-a22b"]
+    p2, p3 = plans["qwen2-moe-a2.7b"], plans["qwen3-moe-235b-a22b"]
+
+    def spread(c, pairs):
+        """One row in each of ``pairs`` distinct real experts."""
+        ids = torch.randperm(c.n_experts, generator=gen,
+                             device="cuda")[:pairs].tolist()
+        return [int(i in ids) for i in range(c.padded_experts())]
+
+    e2, f2, d2 = q2.padded_experts(), q2.moe_d_ff, q2.d_model
+    dec = {"16 pairs in 16 experts": spread(q2, 16),
+           "4 tokens in the same 4 experts": [4] * 4 + [0] * (e2 - 4)}
+    r_pre, pre_counts = prefill_routing_counts(gen, q2, p2)
+    for lin, k, n, lp in (("w1", d2, f2, p2.moe.expert.up),
+                          ("w2", f2, d2, p2.moe.expert.down)):
+        for pattern, counts in dec.items():
+            grouped_row(gen, rows, f"qwen2-moe {lin} decode B=4 k=4 "
+                        f"{pattern}", 16, k, n, lp, counts,
+                        rep=(lin == "w1" and pattern.startswith("16")))
+        grouped_row(gen, rows, f"qwen2-moe {lin} prefill {MOE_BATCH}x"
+                    f"{MOE_SEQ} routed", r_pre, k, n, lp, pre_counts,
+                    library=True)
+    grouped_row(gen, rows, "qwen3-moe w1 decode B=4 k=8 32 pairs in 32 "
+                "experts", 16, q3.d_model, q3.moe_d_ff, p3.moe.expert.up,
+                spread(q3, 32))
+
+    # K1: the raw routers, qwen2's QKV with its bias
+    for name, c in cfgs.items():
+        x8 = _randint(gen, -127, 128, (4, c.d_model), torch.int8)
+        w8 = _randint(gen, -127, 128, (c.d_model, c.padded_experts()),
+                      torch.int8)
+        raw = RequantSpec.raw()
+        record(rows, "int8_matmul", f"{name} router raw M=4 K={c.d_model} "
+               f"N={c.padded_experts()}", int8_matmul(x8, w8, raw),
+               int8_matmul_plain(x8, w8, raw),
+               lambda: int8_matmul(x8, w8, raw),
+               lambda: int8_matmul_plain(x8, w8, raw),
+               4 * c.d_model + c.d_model * c.padded_experts()
+               + 16 * c.padded_experts(), 8 * c.d_model * c.padded_experts(),
+               plan=k1_plan(4, c.padded_experts(), c.d_model, x8=x8, w=w8))
+    x8 = _randint(gen, -127, 128, (4, d2), torch.int8)
+    w8 = _randint(gen, -127, 128, (d2, q2.n_heads * q2.hd), torch.int8)
+    n = q2.n_heads * q2.hd
+    b_vec = _randint(gen, 256, 4096, (n,), torch.int32)
+    bias = _randint(gen, -5000, 5000, (n,), torch.int32)
+    spec = RequantSpec.for_linear(p2.attn.qkv)
+    record(rows, "int8_matmul", f"qwen2-moe wq+bias M=4 K={d2} N={n}",
+           int8_matmul(x8, w8, spec, bias32=bias, b_vec=b_vec),
+           int8_matmul_plain(x8, w8, spec, bias32=bias, b_vec=b_vec),
+           lambda: int8_matmul(x8, w8, spec, bias32=bias, b_vec=b_vec),
+           lambda: int8_matmul_plain(x8, w8, spec, bias32=bias,
+                                     b_vec=b_vec),
+           4 * d2 + d2 * n + 8 * n + 4 * n, 8 * d2 * n,
+           plan=k1_plan(4, n, d2, x8=x8, w=w8))
+
+    # K3 at the serve rows (and qwen3's verify step)
+    paged_attention_rows(gen, rows, q2, p2, (
+        ("int_decode_attention", 1, [1, 137, 300, 512], ""),),
+        tag="qwen2-moe ")
+    paged_attention_rows(gen, rows, q3, p3, (
+        ("int_decode_attention", 1, [1, 137, 300, 512], ""),
+        ("int_decode_attention", VERIFY_SQ, [4, 137, 300, 512],
+         "verify ")), tag="qwen3-moe ")
+
+
+class MoeDrops:
+    """While active, the dropped (token, slot) pairs of every
+    ``intlayers.moe_route`` call (one a MoE layer) are kept as 0-d
+    tensors on the card; ``per_layer(n)`` reads the last ``n``."""
+
+    def __enter__(self):
+        from repro_torch.models import intlayers as il
+        self.orig, self.counts = il.moe_route, []
+
+        def spy(*a, **k):
+            route = self.orig(*a, **k)
+            self.counts.append((~route.keep).sum())
+            return route
+        il.moe_route = spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import intlayers as il
+        il.moe_route = self.orig
+
+    def per_layer(self, layers: int):
+        return [int(t) for t in self.counts[-layers:]]
+
+
+def phase_moe_parity() -> None:
+    """Both MoE configs at full width cut to 2 layers: ``ServingEngine``
+    streams on ``cuda`` equal ``torch_ref``'s (paged, token-streaming
+    prefill, wo folded), with ``spec_k`` 0 and 3 on each; then
+    ``make_prefill_step`` logits at 4 x 512 on ``cuda`` equal
+    ``torch_ref``'s, and the dropped (token, slot) pairs of each layer
+    (equal on both)."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import intlayers as il
+    for name in MOE_ARCHS:
+        cfg = moe_config(name, 2)
+        qp, plans, quant_s = random_model(cfg)
+        # every prompt token is a step (token streaming): short prompts
+        prompts = _prompts(31, 5, 12, 30, cfg.vocab) \
+            + [_repeat_prompt(37, cfg.vocab, seg=8, times=3)]
+        geom = dict(batch_size=4, cache_len=256, page_size=16, fold_wo=True)
+        streams, secs, launches, spec = {}, {}, {}, {}
+        for backend in ("cuda", "torch_ref"):
+            for k in (0, SPEC_K):
+                eng, reqs = run_engine(qp, plans, cfg, prompts, 8, backend,
+                                       spec_k=k, **geom)
+                tag = f"{backend}_spec{k}"
+                kernels.reset_launches()
+                streams[tag], secs[tag] = drain_streams(eng, reqs)
+                launches[tag] = dict(kernels.LAUNCHES)
+                spec[tag] = eng.describe()["spec"]
+                mode = eng.describe()["prefill"]["mode"]
+                del eng
+        same = {t: s == streams["cuda_spec0"] for t, s in streams.items()}
+        distinct = len({t for s in streams["cuda_spec0"] for t in s})
+        missing = [k for k in PATH_KERNELS["moe-serve"]
+                   if launches["cuda_spec0"][k] <= 0]
+        emit({"phase": "moe-parity", "arch": name, "layers": 2,
+              "prefill": mode, "requests": len(prompts),
+              "prompt_lens": [len(p) for p in prompts],
+              "identical": same, "distinct_tokens": distinct,
+              "quantize_s": quant_s, "seconds": secs,
+              "spec": {t: s for t, s in spec.items() if s["k"]},
+              "cuda_launches": {k: c for k, c in
+                                launches["cuda_spec0"].items() if c},
+              "first_stream": streams["cuda_spec0"][0]})
+        if not all(same.values()) or distinct < 2 or missing \
+                or mode != "streaming":
+            raise AssertionError(f"moe-parity {name}: streams {same}, "
+                                 f"{distinct} distinct tokens, prefill "
+                                 f"{mode}, never launched {missing}")
+        toks = np.random.default_rng(41).integers(
+            0, cfg.vocab, (MOE_BATCH, MOE_SEQ))
+        rope = il.build_rope_table(MOE_SEQ + 1, cfg.hd, cfg.rope_theta)
+        logits, drops, secs = {}, {}, {}
+        for backend in ("cuda", "torch_ref"):
+            step = make_prefill_step(cfg, plans, ops=backend, device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with MoeDrops() as rec:
+                logits[backend] = step(qp, {"tokens": toks}, rope)
+            torch.cuda.synchronize()
+            secs[backend] = time.perf_counter() - t0
+            drops[backend] = rec.per_layer(cfg.num_layers)
+        same = torch.equal(logits["cuda"], logits["torch_ref"])
+        argmax = logits["cuda"].argmax(dim=-1)
+        emit({"phase": "moe-parity", "arch": name, "layers": 2,
+              "batch": MOE_BATCH, "seq": MOE_SEQ, "identical": same,
+              "dropped_pairs_per_layer": drops["cuda"],
+              "of_pairs": MOE_BATCH * MOE_SEQ * cfg.top_k,
+              "distinct_argmax": len(set(argmax.tolist())),
+              "finite": bool(torch.isfinite(logits["cuda"]).all()),
+              "cuda_s": secs["cuda"], "torch_ref_s": secs["torch_ref"]})
+        if not same or drops["cuda"] != drops["torch_ref"]:
+            raise AssertionError(f"moe-parity {name}: prefill logits or "
+                                 "drops differ between cuda and torch_ref")
+        del qp
+
+
+def phase_moe_serve(cfg, model):
+    """Full qwen2-moe-a2.7b on ``cuda`` on the ``serve`` phase's traffic
+    (8 requests, prompts of 32-200 tokens from seed 5, 32 new tokens,
+    batch 4), token-streaming prefill: tokens/s, device ms a step (CUDA
+    events), peak memory, weight bytes, launches by kernel (K1, K2, K3
+    and the grouped K1 > 0; every step K3 once and the grouped K1 three
+    times a layer), then one profiled window of decode steps (device ms
+    by kernel, the port's kernels against the glue, the grouped K1's
+    share).  Returns the launches."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    qp, plans, quant_s = model
+    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(qp))
+    prompts = _prompts(5, 8, 32, 200, cfg.vocab)
+    eng, reqs = run_engine(qp, plans, cfg, prompts, 32, "cuda",
+                           batch_size=4, cache_len=512, page_size=16,
+                           fold_wo=True)
+    with StepTimer(decode="int_decode_step") as timer:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        eng.run_until_done()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+    per_step = timer.launches("decode")
+    step_ms = timer.ms("decode")
+    n_tok = sum(len(r.out_tokens) for r in reqs)
+    emit({"phase": "moe-serve", "arch": cfg.name, "layers": cfg.num_layers,
+          "describe": eng.describe_str(), "requests": len(reqs),
+          "prompt_lens": [len(p) for p in prompts], "max_new": 32,
+          "batch": 4, "cache_len": 512, "tokens": n_tok,
+          "distinct_tokens": len({t for r in reqs for t in r.out_tokens}),
+          "wall_s": wall, "tokens_per_s": n_tok / wall,
+          "decode_steps": len(step_ms),
+          "decode_step_ms_mean": float(np.mean(step_ms)),
+          "decode_step_ms_p50": float(np.median(step_ms)),
+          "launches_per_decode_step": _mean_counts(per_step),
+          "quantize_s": quant_s, "weight_bytes": weight_bytes,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "launches": launches})
+    if not all(len(r.out_tokens) == 32 for r in reqs):
+        raise AssertionError("moe-serve: a request came back short")
+    if not all(0 <= t < cfg.vocab for r in reqs for t in r.out_tokens):
+        raise AssertionError("moe-serve: token outside the vocabulary")
+    missing = [k for k in PATH_KERNELS["moe-serve"] if launches[k] <= 0]
+    off = [i for i, c in enumerate(per_step)
+           if c["int_decode_attention"] != cfg.num_layers
+           or c["int8_matmul_grouped"] != 3 * cfg.num_layers]
+    if missing or off:
+        raise AssertionError(f"moe-serve never launched {missing}; steps "
+                             f"without K3 once and the grouped K1 three "
+                             f"times a layer: {off[:5]}")
+    before = kernels.LAUNCHES["int8_matmul_grouped"]
+    profile_decode(eng, cfg, "moe-serve-profile")
+    emit({"phase": "moe-serve-profile", "grouped_launches":
+          kernels.LAUNCHES["int8_matmul_grouped"] - before})
+    return launches
+
+
+def phase_moe_prefill(cfg, model):
+    """Full qwen2-moe-a2.7b through ``make_prefill_step`` on ``cuda`` at 4
+    x 512 (K5: S * Skv <= 2^22): ms a pass (CUDA events), launches a
+    pass, the dropped (token, slot) pairs of each layer, then one profiled
+    pass.  Returns the launches of the timed passes."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import intlayers as il
+    qp, plans, _ = model
+    step = make_prefill_step(cfg, plans, ops="cuda", device="cuda")
+    rope = il.build_rope_table(MOE_SEQ + 1, cfg.hd, cfg.rope_theta)
+    batch = {"tokens": torch.as_tensor(np.random.default_rng(43).integers(
+        0, cfg.vocab, (MOE_BATCH, MOE_SEQ)), device="cuda")}
+    with MoeDrops() as rec:
+        out = step(qp, batch, rope)
+    drops = rec.per_layer(cfg.num_layers)
+    n_pass = 3
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n_pass):
+        out = step(qp, batch, rope)
+    end.record()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    pass_ms = start.elapsed_time(end) / n_pass
+    emit({"phase": "moe-prefill", "arch": cfg.name,
+          "layers": cfg.num_layers, "batch": MOE_BATCH, "seq": MOE_SEQ,
+          "passes": n_pass, "ms_per_pass": pass_ms,
+          "tokens_per_s": MOE_BATCH * MOE_SEQ / (pass_ms / 1e3),
+          "dropped_pairs_per_layer": drops,
+          "of_pairs": MOE_BATCH * MOE_SEQ * cfg.top_k,
+          "launches_per_pass": {n: c / n_pass for n, c in launches.items()
+                                if c},
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "logits_shape": list(out.shape),
+          "finite": bool(torch.isfinite(out).all())})
+    if tuple(out.shape) != (MOE_BATCH, cfg.padded_vocab()) \
+            or not bool(torch.isfinite(out).all()):
+        raise AssertionError("moe-prefill: logits not finite (B, V)")
+    missing = [k for k in PATH_KERNELS["moe-prefill"] if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"moe-prefill never launched {missing}")
+    profile_window("moe-prefill-profile", f"1 pass, {MOE_BATCH} x "
+                   f"{MOE_SEQ}", lambda: step(qp, batch, rope), lambda: 1,
+                   (("int8_matmul_grouped_kernel",),
+                    lambda: cfg.num_layers * 3))
+    return launches
+
+
 def _mean_counts(deltas):
     return {n: float(sum(d[n] for d in deltas)) / max(len(deltas), 1)
             for n in (deltas[0] if deltas else {})}
@@ -3477,18 +3903,20 @@ def profile_window(phase, what, fn, units=None, focus=None):
             rows.append((ev.key, dev_us, ev.count))
     busy_ms = sum(r[1] for r in rows) / 1e3
     rows.sort(key=lambda r: -r[1])
-    extra = {}
+    # the port's kernels (namespace r8) against everything else: PyTorch's
+    # own kernels, the glue between them
+    port_ms = sum(r[1] for r in rows if "r8::" in r[0]) / 1e3
+    extra = {"port_kernels_ms": port_ms if rows else None,
+             "glue_ms": busy_ms - port_ms if rows else None}
     if units is not None:
         n = units()
         calls = sum(r[2] for r in rows)
         fills = sum(r[2] for r in rows if "FillFunctor" in r[0])
-        extra = {"steps": n, "wall_ms_per_step": wall_ms / max(n, 1),
-                 "device_ms_per_step": busy_ms / max(n, 1) if rows
-                 else None,
-                 "kernel_calls_per_step": calls / max(n, 1) if rows
-                 else None,
-                 "fill_calls_per_step": fills / max(n, 1) if rows
-                 else None}
+        extra.update({
+            "steps": n, "wall_ms_per_step": wall_ms / max(n, 1),
+            "device_ms_per_step": busy_ms / max(n, 1) if rows else None,
+            "kernel_calls_per_step": calls / max(n, 1) if rows else None,
+            "fill_calls_per_step": fills / max(n, 1) if rows else None})
     mismatch = None
     if focus is not None and rows:
         names, launched = focus
@@ -3513,15 +3941,16 @@ def profile_window(phase, what, fn, units=None, focus=None):
 
 
 # the kernels that must run on the int8 tensor cores with no spill: every
-# instantiation of K1's decode tile, K3's, K5's, K4's, K8's and the MSR-4
-# correction's tensor-core route
+# instantiation of K1's decode tile, K3's, K5's, K4's, K8's, the MSR-4
+# correction's tensor-core route and K1's grouped instantiation
 TENSOR_CORE_KERNELS = ("int8_matmul_decode_kernel",
                        "int_decode_attention_kernel",
                        "int_attention_mma_kernel",
                        "int_paged_prefill_mma_kernel",
                        "int_paged_prefill_kv4_kernel",
                        "int_attention_online_kernel",
-                       "msr4_correct_mma_kernel")
+                       "msr4_correct_mma_kernel",
+                       "int8_matmul_grouped_kernel")
 
 
 # K1's instantiations (dense and packed, both paths), the MSR-4
@@ -3590,7 +4019,7 @@ def main(argv=None) -> int:
                     "encode-online,ops,window-parity,window-serve,"
                     "window-prefill,kv4-parity,kv4-serve,packed-parity,"
                     "msr4-serve,zoo-parity,zoo-serve,zoo-encode,"
-                    "long-prefill")
+                    "long-prefill,moe-parity,moe-serve,moe-prefill")
     ap.add_argument("--verbose-build", action="store_true",
                     help="print nvcc -Xptxas -v (registers, spills) and "
                     "each kernel's IMMA / IDP / LDL / STL count")
@@ -3637,8 +4066,12 @@ def main(argv=None) -> int:
         check_window_kernels(wcfg, qplans.build_layer_plans(wcfg), rows)
         check_packed_matmul_kernels(cfg, plans, rows)
         check_zoo_kernels(rows)
-    elif "zoo-kernels" in phases:
-        check_zoo_kernels(rows)
+        check_moe_kernels(rows)
+    else:
+        if "zoo-kernels" in phases:
+            check_zoo_kernels(rows)
+        if "moe-kernels" in phases:
+            check_moe_kernels(rows)
     if "k1-decode" in phases:
         wcfg = window_config()
         check_k1_decode(cfg, wcfg, plans, qplans.build_layer_plans(wcfg))
@@ -3687,6 +4120,16 @@ def main(argv=None) -> int:
             launches[f"zoo-encode-{name}"] = phase_zoo_encode(name, seq)
     if "long-prefill" in phases:
         launches.update(phase_long_prefill(cfg))
+    if "moe-parity" in phases:
+        phase_moe_parity()
+    if phases & {"moe-serve", "moe-prefill"}:
+        mcfg = moe_config("qwen2-moe-a2.7b")
+        model = random_model(mcfg)
+        if "moe-serve" in phases:
+            launches["moe-serve"] = phase_moe_serve(mcfg, model)
+        if "moe-prefill" in phases:
+            launches["moe-prefill"] = phase_moe_prefill(mcfg, model)
+        del model
     if rows:
         # each kernel's launches come from the first path of this run
         # that drives it (K1/K2: serve, the first path); every path's

@@ -28,12 +28,17 @@ from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.ops.packed import msr4_lanes_distinct
 from repro_torch.ops.spec import PackMeta, QuantLinearParams
 from repro_torch.quant.plans import (AttnPlan, EmbedPlan, FfnPlan, HeadPlan,
-                                     LayerPlans, LinearPlan)
+                                     LayerPlans, LinearPlan, MoePlan)
 
 PLAN_TYPES = {t.__name__: t for t in (
     Dyadic, IExpPlan, IErfPlan, IGeluPlan, IGeluActPlan, ISoftmaxPlan,
     IAttnPlan, INormPlan, ISiluPlan, IPoly2Plan, ILn1pPlan, ISoftplusPlan,
-    LinearPlan, AttnPlan, FfnPlan, EmbedPlan, HeadPlan, LayerPlans)}
+    LinearPlan, AttnPlan, FfnPlan, MoePlan, EmbedPlan, HeadPlan,
+    LayerPlans)}
+
+#: the expert leaves of an MoE subtree: dense int8 only (the reference's
+#: ``int_expert_linear`` reads ``w8``)
+EXPERT_LEAVES = ("w1", "w2", "w3")
 
 
 def plan_from_reference(obj):
@@ -71,7 +76,9 @@ def qparams_from_reference(tree, device=DEFAULT_DEVICE):
     ``PackMeta`` read field by field.  A packed msr4 leaf whose in-range
     lanes repeat a row within a group of a column raises ``ValueError``
     (``ops.packed.msr4_lanes_distinct``: the correction kernel's
-    precondition), checked once per leaf."""
+    precondition), checked once per leaf.  Expert leaves (``w1`` / ``w2``
+    / ``w3`` of a ``"moe"`` subtree: w8 (..., E, K, N), b_mult (..., E,
+    N)) must be dense: a packed one raises ``ValueError``."""
     device = resolve_device(device)
     if tree is None:
         return None
@@ -89,8 +96,16 @@ def qparams_from_reference(tree, device=DEFAULT_DEVICE):
                 "tile needs distinct rows (pack_msr4 writes them so)")
         return qw
     if isinstance(tree, dict):
-        return {k: qparams_from_reference(v, device)
-                for k, v in tree.items()}
+        out = {k: qparams_from_reference(v, device)
+               for k, v in tree.items()}
+        moe = out.get("moe")
+        if isinstance(moe, dict) and any(
+                isinstance(moe.get(k), QuantLinearParams)
+                and moe[k].is_packed for k in EXPERT_LEAVES):
+            raise ValueError("packed expert weights are out of scope: the "
+                             "reference's int_expert_linear reads dense "
+                             "w8 (E, K, N)")
+        return out
     if isinstance(tree, (list, tuple)):
         return [qparams_from_reference(v, device) for v in tree]
     return _tensor(tree, device)

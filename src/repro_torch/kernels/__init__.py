@@ -7,7 +7,10 @@ paths, and their oracles.
     (K1 over packed int4 / MSR-4 weights, ``int8_matmul.int8_matmul_packed``,
     launches its nibble instantiation, counted as ``int8_matmul_packed``,
     and for MSR-4 the outlier-correction kernel of
-    csrc/int8_matmul_msr4.cu, counted as ``int8_matmul_msr4``)
+    csrc/int8_matmul_msr4.cu, counted as ``int8_matmul_msr4``; the
+    expert products of an MoE, ``int8_matmul.int8_matmul_grouped``, launch
+    its grouped instantiation, csrc/int8_matmul_grouped.cu, counted as
+    ``int8_matmul_grouped``)
   * K2 ``int_layernorm.int_layernorm``                 (csrc/int_layernorm.cu)
   * K3 ``int_decode_attention.int_decode_attention_fused``
                                                  (csrc/int_decode_attention.cu)
@@ -36,7 +39,7 @@ KERNELS = ("int8_matmul", "int_layernorm", "int_decode_attention",
            "int_paged_prefill", "int_attention_fused", "int_gelu",
            "int_softmax", "int_attention_online",
            "int_decode_attention_kv4", "int_paged_prefill_kv4",
-           "int8_matmul_packed", "int8_matmul_msr4")
+           "int8_matmul_packed", "int8_matmul_msr4", "int8_matmul_grouped")
 
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 

@@ -113,11 +113,23 @@ class DecodeArgs(ctypes.Structure):
                                      "vec_w")])
 
 
+class GroupedArgs(ctypes.Structure):
+    """``csrc/int8_matmul_grouped.cu``'s ``grp::Args`` (K1's grouped
+    instantiation: the expert products)."""
+    _fields_ = ([(n, _P) for n in ("x", "w", "rows", "bias", "bvec", "out")]
+                + [("rq", Requant)]
+                + [(n, _I) for n in ("out_is_int8", "E", "R", "N", "K",
+                                     "vec_x", "vec_w")])
+
+
 def declare(lib: ctypes.CDLL) -> None:
     lib.r8_int8_matmul.argtypes = [
         _P, _P, _P, _P, ctypes.POINTER(Requant), _P, _I, _I, _I, _I, _I,
         _I, _I, _P, _P, _I, _I, _I, _P]
     lib.r8_int8_matmul.restype = _I
+    lib.r8_int8_matmul_grouped.argtypes = [ctypes.POINTER(GroupedArgs),
+                                           _I, _P]
+    lib.r8_int8_matmul_grouped.restype = _I
     lib.r8_int8_matmul_decode.argtypes = [ctypes.POINTER(DecodeArgs), _P,
                                           _P, _I, _I, _I, _P]
     lib.r8_int8_matmul_decode.restype = _I

@@ -9,10 +9,15 @@ workspace) and ``csrc/int8_matmul.cu`` beyond, the nibble layout a
 template argument of both (:func:`launch_plan` chooses).  MSR-4
 weights take a raw packed launch plus the outlier-correction kernel of
 ``csrc/int8_matmul_msr4.cu``, which also runs the staged epilogue (the
-split of ``repro/ops/backends/pallas_fused.py:118-134``).  Beside each
+split of ``repro/ops/backends/pallas_fused.py:118-134``).  The expert
+products of a mixture of experts (the reference's
+``repro/models/intlayers.py::int_expert_linear``, an einsum outside any
+Pallas kernel) are K1's grouped instantiation, ``csrc/int8_matmul_grouped.cu``
+(:func:`int8_matmul_grouped`: every expert in one launch).  Beside each
 wrapper its plain PyTorch version with the same arithmetic:
 :func:`int8_matmul_plain`, :func:`int8_matmul_nibbles_plain`,
-:func:`msr4_correct_plain` and :func:`int8_matmul_packed_plain`.
+:func:`msr4_correct_plain`, :func:`int8_matmul_packed_plain` and
+:func:`int8_matmul_grouped_plain`.
 """
 from __future__ import annotations
 
@@ -23,7 +28,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.dyadic import (apply_dyadic, apply_dyadic_perchannel,
-                                     clip_to_bits)
+                                     clip_to_bits, rshift_round)
+from repro_torch.core.intmath import int_einsum
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels import ref as _ref
 from repro_torch.ops.packed import (msr4_correction, nibble_unpack,
@@ -571,3 +577,115 @@ def int8_matmul_packed(x8, qw, spec):
                                    qw.b_mult)
     acc = int8_matmul_nibbles(x8, qw.w_packed, RequantSpec.raw())
     return msr4_correct(acc, x8, qw, spec)
+
+
+# -------------------------------------------------- grouped (experts) --
+
+#: the grouped instantiation's row tiles (R <= 16: decode) and columns a
+#: block; experts a call of its plain version
+GROUPED_BM = (16, 64)
+GROUPED_BN = 128
+GROUPED_PLAIN_SLICE = 16
+
+
+class GroupedPlan(NamedTuple):
+    """One launch of K1's grouped instantiation: the row tile ``bm`` and
+    the CUDA grid ``(N tiles, row tiles, experts)``, from the shape alone
+    (never from ``rows``: a block reads its expert's count on the card
+    and returns before any weight load where its row tile is empty)."""
+    bm: int
+    grid: tuple
+
+
+def grouped_plan(e: int, r: int, n: int) -> GroupedPlan:
+    """The grouped launch of ``e`` experts of ``r`` rows each against (K,
+    ``n``) weights: 16-row tiles for r <= 16, else 64."""
+    bm = GROUPED_BM[0] if r <= GROUPED_BM[0] else GROUPED_BM[1]
+    return GroupedPlan(bm, (-(-n // GROUPED_BN), -(-r // bm), e))
+
+
+def grouped_live_blocks(plan: GroupedPlan, rows) -> int:
+    """The blocks of ``plan`` that pass the early exit for expert counts
+    ``rows`` (host ints): ceil(rows[e] / bm) row tiles an expert, each
+    across the N tiles."""
+    gx, gy, _ = plan.grid
+    return gx * sum(min(gy, -(-min(int(r), gy * plan.bm) // plan.bm))
+                    for r in rows)
+
+
+def int8_matmul_grouped_plain(x8, w8, rows, spec, bias32=None, b_vec=None):
+    """The plain version of :func:`int8_matmul_grouped`, as the
+    reference's ``int_expert_linear`` computes it: each expert's exact
+    contraction (``core.intmath.int_einsum``: float64 holds every partial
+    sum exactly; the int32 accumulator wraps as the reference's),
+    ``GROUPED_PLAIN_SLICE`` experts a call, plus expert e's bias row, then
+    ``rshift_round(rshift_round(acc, pre) * b_vec[e], c - pre)`` clipped
+    (a per-tensor or raw spec as K1's).  Every row is computed, also past
+    ``rows[e]``."""
+    e = x8.shape[0]
+    out = torch.empty((e, x8.shape[1], w8.shape[2]), dtype=_out_dtype(spec),
+                      device=x8.device)
+    for i in range(0, e, GROUPED_PLAIN_SLICE):
+        sl = slice(i, i + GROUPED_PLAIN_SLICE)
+        acc = int_einsum("erk,ekn->ern", x8[sl], w8[sl])
+        if bias32 is not None:
+            acc = acc + bias32[sl, None, :]
+        if spec.is_raw or spec.kind == PER_TENSOR:
+            out[sl] = _epilogue_plain(acc, spec, None)
+        else:
+            acc = rshift_round(rshift_round(acc, spec.pre)
+                               * b_vec[sl, None, :], spec.c - spec.pre)
+            out[sl] = clip_to_bits(acc, spec.out_bits)
+    return out
+
+
+def int8_matmul_grouped(x8, w8, rows, spec, bias32=None, b_vec=None):
+    """Every expert's product in one launch: x8 (E, R, K) int8 @ w8 (E,
+    K, N) int8 -> (E, R, N) with the ``spec`` epilogue, expert e's
+    ``bias32[e]`` / ``b_vec[e]`` rows ((E, N) int32; ``b_vec`` iff
+    per-channel).  ``rows`` (E,) int32 on the operands' device: expert
+    e's first ``rows[e]`` rows are its tokens; the kernel writes only
+    those (the rest of ``out`` is left as allocated).  ``rows`` is read
+    on the card, never on the host.
+
+    CPU tensors take :func:`int8_matmul_grouped_plain`; CUDA tensors
+    launch ``csrc/int8_matmul_grouped.cu`` (:func:`grouped_plan`) or
+    raise."""
+    if not x8.is_cuda:
+        return int8_matmul_grouped_plain(x8, w8, rows, spec, bias32, b_vec)
+    from repro_torch.kernels import _abi
+    from repro_torch.kernels._build import library
+    what = "int8_matmul_grouped"
+    if x8.dim() != 3 or w8.dim() != 3 or x8.shape[0] != w8.shape[0] \
+            or x8.shape[2] != w8.shape[1]:
+        raise ValueError(f"{what}: x {tuple(x8.shape)} vs w "
+                         f"{tuple(w8.shape)}: need (E, R, K) and (E, K, N)")
+    e, r, k = x8.shape
+    n = w8.shape[2]
+    _check(what, x8.device, x8=(x8, torch.int8, None),
+           w8=(w8, torch.int8, None), rows=(rows, torch.int32, (e,)),
+           bias32=(bias32, torch.int32, (e, n)),
+           b_vec=(b_vec, torch.int32, (e, n)))
+    if not spec.is_raw and spec.kind != PER_TENSOR and b_vec is None:
+        raise ValueError("per-channel RequantSpec needs the b_vec "
+                         "multiplier rows")
+    dt = _out_dtype(spec)
+    out = torch.empty((e, r, n), dtype=dt, device=x8.device)
+    if e == 0 or r == 0 or n == 0:
+        return out
+    if k == 0:
+        raise ValueError(f"{what}: empty contraction (K == 0)")
+    plan = grouped_plan(e, r, n)
+    bvec = b_vec if spec.kind != PER_TENSOR else None
+    args = _abi.GroupedArgs(
+        x8.data_ptr(), w8.data_ptr(), rows.data_ptr(), _abi.ptr(bias32),
+        _abi.ptr(bvec), out.data_ptr(), _abi.requant_struct(spec),
+        int(dt == torch.int8), e, r, n, k,
+        int(k % 16 == 0 and x8.data_ptr() % 16 == 0),
+        int(n % 8 == 0 and w8.data_ptr() % 8 == 0))
+    lib = library()
+    rc = lib.r8_int8_matmul_grouped(ctypes.byref(args), plan.bm,
+                                    _abi.stream_of(x8))
+    LAUNCHES[what] += 1
+    _abi.check(lib, rc, what)
+    return out

@@ -1,6 +1,6 @@
 """Integer-path transformer layers of the serving path and the
-full-sequence forward (the dense-decoder and encoder subset of
-``repro.models.intlayers``).
+full-sequence forward (the dense-decoder, encoder and mixture-of-experts
+subset of ``repro.models.intlayers``).
 
 Every function consumes int8/int32 tensors and the design-time plans of
 ``repro_torch.quant.plans``.  Residual stream: int32 at ``cfg.s_res``
@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.core import activations as iact
 from repro_torch.core import norms
+from repro_torch.core import softmax as ism
 from repro_torch.core.attention import i_attention_chunked
 from repro_torch.core.dyadic import clip_to_bits, rshift_round
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
@@ -401,3 +402,141 @@ def int_ffn_fwd(qp, x8, plans: qplans.FfnPlan, cfg: ArchConfig, ops=None):
                          out_bits=8)
         h = a.to(torch.int8)
     return int_linear(h, qp["w2"], plans.down, ops)
+
+
+# --------------------------------------------------------------- moe ------
+
+class MoeRoute(NamedTuple):
+    """One routing of :func:`moe_route`, per (group, token, slot):
+    ``expert_ids`` (long) the slot's expert, in ``jax.lax.top_k``'s order;
+    ``gates8`` int8 at 2^-7, the i-softmax over the k selected logits;
+    ``pos`` (int32) the token's place among its expert's assignments in
+    its group, counted slot after slot; ``keep`` ``pos < cap``.  ``kept``
+    (G, E) int32: the assignments each (group, expert) keeps."""
+    expert_ids: torch.Tensor
+    gates8: torch.Tensor
+    pos: torch.Tensor
+    keep: torch.Tensor
+    kept: torch.Tensor
+
+
+def moe_capacity(cfg: ArchConfig, tg: int) -> int:
+    """Places an expert has in a group of ``tg`` tokens, counted over the
+    *padded* experts, as the reference counts them."""
+    return max(4, int(cfg.capacity_factor * tg * cfg.top_k
+                      / cfg.padded_experts()))
+
+
+def moe_route(logits, plans: qplans.MoePlan, cfg: ArchConfig,
+              cap: int) -> MoeRoute:
+    """The reference's routing of int32 router logits (G, T, E): padding
+    experts at ``-(2**30)``, the top k, i-softmax gates over the k
+    logits, and the capacity positions.  The top k are the first k of a
+    stable descending sort: ``jax.lax.top_k`` puts the lower index first
+    among equal logits, ``torch.topk`` need not, and the slot order
+    decides the positions and which gate goes with which expert.
+
+    The reference counts positions slot after slot (``pos = counts +
+    cumsum(a) - a`` over the tokens of one slot, ``counts`` the
+    assignments of the earlier slots): a (token, slot)'s place is the
+    number of assignments to its expert before it in slot-major order.
+    That is one running count over the k * T assignments, taken here
+    along the last axis of an (G, E, k * T) one-hot.  Nothing is read
+    back to the host."""
+    e, k = cfg.padded_experts(), cfg.top_k
+    g, t = logits.shape[:2]
+    experts = torch.arange(e, device=logits.device)
+    if e != cfg.n_experts:
+        logits = torch.where(experts >= cfg.n_experts,
+                             torch.full_like(logits, ism.NEG), logits)
+    ids = torch.sort(logits, dim=-1, descending=True,
+                     stable=True).indices[..., :k]
+    gates8 = ism.i_softmax(torch.gather(logits, -1, ids), plans.gate_sm)
+    order = ids.transpose(1, 2).reshape(g, 1, k * t)          # slot-major
+    seen = torch.cumsum((order == experts[:, None]).to(torch.int32),
+                        dim=-1, dtype=torch.int32)           # (G, E, k*T)
+    pos = (torch.gather(seen, 1, order) - 1).reshape(g, k, t
+                                                     ).transpose(1, 2)
+    return MoeRoute(ids, gates8, pos, pos < cap,
+                    torch.clamp(seen[..., -1], max=cap))
+
+
+def _expert_linear(x8, qw, rows, plan: qplans.LinearPlan, ops):
+    """The experts' products (E, R, K) -> (E, R, N), K1's grouped
+    instantiation on ``cuda``: the reference's ``int_expert_linear``."""
+    out = ops.int8_matmul_grouped(x8, qw.w8, rows,
+                                  RequantSpec.for_linear(plan),
+                                  bias32=qw.bias32, b_vec=qw.b_mult)
+    return out.to(torch.int8) if plan.out_bits <= 8 else out
+
+
+def int_moe_fwd(qp, x8, plans: qplans.MoePlan, cfg: ArchConfig, ops=None,
+                group_size: int = 512):
+    """Integer MoE: x8 (B, S, D) int8 -> int32 at s_res, the reference's
+    integers.  Int32 router logits (K1, raw) over ``g = max(1, S //
+    group_size)`` groups of ``S // g`` tokens, the routing of
+    :func:`moe_route` with :func:`moe_capacity` places an expert, the
+    expert FFNs, the combine ``sum_slot rshift_round(y * gate,
+    PROB_SHIFT)``, plus the shared experts' FFN.
+
+    Each (group, expert, place) holds at most one token, so the
+    reference's one-hot dispatch and combine einsums are selections here:
+    expert e's kept tokens are packed into the first ``rows[e]`` rows of
+    its (G * cap) rows, group after group, and every linear of the
+    experts is one :func:`_expert_linear` (one launch for all experts).
+    A dropped (token, slot) adds ``rshift_round(0 * gate, 7) = 0``.  The
+    shapes depend on B, S, E, k and cap only, and nothing is read back to
+    the host.  Prefill routes groups of ``group_size`` = 512 tokens
+    (capacity drops tokens); decode and verify ``group_size = 1`` (never
+    drops)."""
+    ops = resolve_ops(ops, cfg)
+    w1, w2 = QuantLinearParams.of(qp["w1"]), QuantLinearParams.of(qp["w2"])
+    w3 = QuantLinearParams.of(qp["w3"]) if "w3" in qp else None
+    if any(q is not None and q.is_packed for q in (w1, w2, w3)):
+        raise ValueError("packed expert weights are out of scope: the "
+                         "reference's int_expert_linear reads dense w8")
+    b, s, d = x8.shape
+    e = cfg.padded_experts()
+    k = cfg.top_k
+    g = max(1, s // group_size)
+    tg = s // g          # g * tg < s: the reshape fails, as the reference's
+    cap = moe_capacity(cfg, tg)
+    xg = x8.reshape(b * g, tg, d)
+    groups = b * g
+    logits = int_linear(xg, qp["router"], plans.router, ops)     # int32
+    route = moe_route(logits, plans, cfg, cap)
+
+    # kept (group, token, slot) -> row of expert e's packed rows
+    r = groups * cap
+    rows = route.kept.sum(dim=0).to(torch.int32)                  # (E,)
+    off = torch.cumsum(route.kept, dim=0) - route.kept            # (G, E)
+    place = torch.gather(off, 1, route.expert_ids.reshape(groups, -1)
+                         ).reshape(route.pos.shape) + route.pos
+    flat = torch.where(route.keep, route.expert_ids * r + place,
+                       torch.full_like(place, e * r))             # e*r: drop
+    buf = torch.zeros((e * r + 1, d), dtype=torch.int8, device=x8.device)
+    buf[flat.reshape(-1)] = xg[:, :, None, :].expand(groups, tg, k, d
+                                                     ).reshape(-1, d)
+    xe = buf[:e * r].view(e, r, d)
+
+    h1 = _expert_linear(xe, w1, rows, plans.expert.up, ops)
+    if cfg.activation == "swiglu":
+        h3 = _expert_linear(xe, w3, rows, plans.expert.up, ops)
+        a8 = iact.i_silu(h1, plans.expert.act_silu, out_bits=8)
+        h = clip_to_bits(plans.expert.dn_gate(a8 * h3), 8).to(torch.int8)
+    else:
+        h = ops.int_gelu(h1, plans.expert.act_gelu.gelu,
+                         plans.expert.act_gelu.dn_out,
+                         out_bits=8).to(torch.int8)
+    y = _expert_linear(h, w2, rows, plans.expert.down, ops)      # s_res
+    yf = y.reshape(e * r, d)
+
+    y_all = torch.where(route.keep[..., None],
+                        yf[torch.where(route.keep, flat, 0)], 0)  # (G,T,k,D)
+    gated = rshift_round(y_all * route.gates8[..., None].to(torch.int32),
+                         ism.PROB_SHIFT)
+    out32 = gated.sum(dim=2, dtype=torch.int32).reshape(b, s, d)
+    if plans.shared is not None:
+        out32 = out32 + int_ffn_fwd(qp["shared"], x8, plans.shared, cfg,
+                                    ops)
+    return out32

@@ -1,5 +1,6 @@
-"""Integer datapath of dense decoders and encoders (the ported subset of
-``repro.models.inttransformer``): embedding, the full-sequence forward
+"""Integer datapath of dense decoders, encoders and mixtures of experts
+(the ported subset of ``repro.models.inttransformer``): embedding, the
+full-sequence forward
 (``int_prefill``, which can also build the decode cache), chunked
 prefill, decode over a contiguous or paged cache, the speculative verify
 step (``Sq = spec_k + 1`` rows a lane), logits.
@@ -41,28 +42,44 @@ def _layer(tree, g: int):
 
 
 def chunked_prefill_supported(cfg: ArchConfig) -> bool:
-    """Full (non-windowed) causal attention + dense FFN sublayers only."""
+    """Full (non-windowed) causal attention + dense FFN sublayers only:
+    an MoE's capacity routing drops tokens per group, so a chunked
+    grouping would route otherwise than token streaming (the
+    reference's rule)."""
     _, _, kinds = layer_group_spec(cfg)
     return cfg.is_causal and cfg.window == 0 and all(
         kind == ("attn", "ffn", False) for kind in kinds)
 
 
+def _ffn_sublayer(qp, x32, plans: qplans.LayerPlans, cfg: ArchConfig, ops,
+                  group_size: int):
+    """The second half of a sublayer: norm, then the dense FFN or the MoE
+    (routing groups of ``group_size`` tokens), then the residual add."""
+    h8 = il.int_norm(qp["norm2"], x32, plans.norm, ops)
+    if "moe" in qp:
+        f32 = il.int_moe_fwd(qp["moe"], h8, plans.moe, cfg, ops,
+                             group_size=group_size)
+    else:
+        f32 = il.int_ffn_fwd(qp["ffn"], h8, plans.ffn, cfg, ops)
+    return _residual_add(x32, f32, cfg)
+
+
 def _int_sublayer_fwd(qp, x32, plans: qplans.LayerPlans, cfg: ArchConfig,
                       kind, rope_tab, positions, causal, ops):
-    """Pre-norm integer sublayer of kind ``("attn", "ffn", False)``.  x32:
-    (B,S,D) int32 at s_res.  The reference's integer path is pre-norm
-    whatever ``cfg.post_norm`` says, and so is this."""
-    if kind != ("attn", "ffn", False):
+    """Pre-norm integer sublayer of kind ``("attn", "ffn", False)`` or
+    ``("attn", "moe", False)`` (routing groups of 512 tokens, as the
+    reference's prefill).  x32: (B,S,D) int32 at s_res.  The reference's
+    integer path is pre-norm whatever ``cfg.post_norm`` says, and so is
+    this."""
+    if kind not in (("attn", "ffn", False), ("attn", "moe", False)):
         raise NotImplementedError(f"sublayer {kind} is not ported yet "
-                                  "(ROADMAP §1 items 6-8)")
+                                  "(ROADMAP §1 items 7-8)")
     h8 = il.int_norm(qp["norm1"], x32, plans.norm, ops)
     a32 = il.int_attn_fwd(qp["attn"], h8, plans.attn, cfg, rope_tab,
                           positions, causal=causal, window=cfg.window,
                           ops=ops)
     x32 = _residual_add(x32, a32, cfg)
-    h8 = il.int_norm(qp["norm2"], x32, plans.norm, ops)
-    return _residual_add(x32, il.int_ffn_fwd(qp["ffn"], h8, plans.ffn, cfg,
-                                             ops), cfg)
+    return _ffn_sublayer(qp, x32, plans, cfg, ops, group_size=512)
 
 
 def embed_int(qparams, tokens, plans: qplans.LayerPlans, cfg: ArchConfig):
@@ -204,9 +221,7 @@ def int_decode_step(qparams, caches, tokens, pos, plans, cfg: ArchConfig,
                                     max_len=max_len, fold_wo=fold_wo,
                                     rope=rope, writes=writes)
         x32 = _residual_add(x32, a32, cfg)
-        h8 = il.int_norm(qp["norm2"], x32, plans.norm, ops)
-        x32 = _residual_add(x32, il.int_ffn_fwd(qp["ffn"], h8, plans.ffn,
-                                                cfg, ops), cfg)
+        x32 = _ffn_sublayer(qp, x32, plans, cfg, ops, group_size=1)
     logits = logits_int(qparams, x32, plans, cfg, ops)[:, 0]
     return logits, caches
 
@@ -215,7 +230,9 @@ def speculative_decode_supported(cfg: ArchConfig) -> bool:
     """Whether :func:`int_verify_step` serves this arch: full
     (non-windowed) causal attention and no cross attention.  A sliding
     window interleaves rolling-buffer writes and reads token by token,
-    which a batched multi-position write would break."""
+    which a batched multi-position write would break.  Dense FFN and MoE
+    sublayers both verify: the MoE routes each verify row alone
+    (``group_size=1``), as a decode step does."""
     _, _, kinds = layer_group_spec(cfg)
     return cfg.is_causal and cfg.window == 0 and all(
         mix == "attn" and not has_cross for (mix, _, has_cross) in kinds)
@@ -264,9 +281,7 @@ def int_verify_step(qparams, caches, tokens, pos, n_new, plans,
                                     fold_wo=fold_wo, rope=rope, n_new=n_new,
                                     writes=writes)
         x32 = _residual_add(x32, a32, cfg)
-        h8 = il.int_norm(qp["norm2"], x32, plans.norm, ops)
-        x32 = _residual_add(x32, il.int_ffn_fwd(qp["ffn"], h8, plans.ffn,
-                                                cfg, ops), cfg)
+        x32 = _ffn_sublayer(qp, x32, plans, cfg, ops, group_size=1)
     return logits_int(qparams, x32, plans, cfg, ops), caches
 
 

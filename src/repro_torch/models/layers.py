@@ -1,6 +1,6 @@
 """Float-parameter init helpers (twin of the init half of
-``repro.models.layers``): the random float model the serving driver
-quantizes.  Draws come from an explicit ``torch.Generator``; they are not
+``repro.models.layers``, MoE included): the random float model the
+serving driver quantizes.  Draws come from an explicit ``torch.Generator``; they are not
 the JAX package's draws (tests carry JAX's float params across instead).
 """
 from __future__ import annotations
@@ -55,4 +55,22 @@ def init_ffn(gen, cfg: ArchConfig, dtype, d_ff: Optional[int] = None):
     else:
         p["b1"] = torch.zeros((f,), dtype=dtype, device=gen.device)
         p["b2"] = torch.zeros((d,), dtype=dtype, device=gen.device)
+    return p
+
+
+def init_moe(gen, cfg: ArchConfig, dtype):
+    """The router (D, E), the experts' w1 / w3 (E, D, F) and w2 (E, F, D)
+    over the padded expert count E, and the shared experts' FFN, drawn
+    in the reference's order."""
+    d = cfg.d_model
+    e = cfg.padded_experts()
+    f = cfg.moe_d_ff or cfg.d_ff
+    p = {"router": _init(gen, (d, e), dtype),
+         "w1": _init(gen, (e, d, f), dtype),
+         "w2": _init(gen, (e, f, d), dtype)}
+    if cfg.activation == "swiglu":
+        p["w3"] = _init(gen, (e, d, f), dtype)
+    if cfg.n_shared_experts:
+        p["shared"] = init_ffn(gen, cfg, dtype,
+                               d_ff=f * cfg.n_shared_experts)
     return p

@@ -1,5 +1,6 @@
-"""Layer grouping and the float init of dense decoders and encoders (twin
-of the matching parts of ``repro.models.transformer``)."""
+"""Layer grouping and the float init of dense decoders, encoders and
+mixtures of experts (twin of the matching parts of
+``repro.models.transformer``)."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -40,28 +41,36 @@ def layer_group_spec(cfg: ArchConfig):
     return gl, n // gl, kinds
 
 
-PORTED_FAMILIES = ("dense", "encoder")
+PORTED_FAMILIES = ("dense", "encoder", "moe")
+#: the sublayer kinds the port runs: attention + a dense FFN or an MoE
+PORTED_KINDS = (("attn", "ffn", False), ("attn", "moe", False))
 
 
 def require_dense(cfg: ArchConfig) -> None:
-    """The port runs attention+FFN stacks only so far: dense decoders and
-    encoders."""
+    """The port runs stacks of one attention sublayer kind so far: dense
+    decoders and encoders (attention + FFN) and mixtures of experts
+    (attention + MoE)."""
     _, _, kinds = layer_group_spec(cfg)
-    if cfg.family not in PORTED_FAMILIES \
-            or kinds != [("attn", "ffn", False)]:
+    if cfg.family not in PORTED_FAMILIES or len(kinds) != 1 \
+            or kinds[0] not in PORTED_KINDS:
         raise NotImplementedError(
             f"arch {cfg.name!r} ({cfg.family}) is not ported yet: the port "
-            "runs dense attention+FFN decoders and encoders (ROADMAP §1 "
-            "items 6-8)")
+            "runs attention + FFN / MoE decoders and encoders (SSM and "
+            "hybrid: ROADMAP §1 item 7; cross attention: item 8)")
 
 
 def init_layer(gen: torch.Generator, cfg: ArchConfig, dtype) -> Pytree:
-    """One attention+FFN sublayer's float params (unstacked)."""
+    """One attention + FFN (or MoE) sublayer's float params (unstacked),
+    drawn in the reference's order: attention, then the FFN / MoE."""
     dev = gen.device
-    return {"norm1": fl.init_norm(cfg, dtype, dev),
-            "attn": fl.init_attn(gen, cfg, dtype),
-            "norm2": fl.init_norm(cfg, dtype, dev),
-            "ffn": fl.init_ffn(gen, cfg, dtype)}
+    _, _, kinds = layer_group_spec(cfg)
+    ff = kinds[0][1]
+    p = {"norm1": fl.init_norm(cfg, dtype, dev),
+         "attn": fl.init_attn(gen, cfg, dtype),
+         "norm2": fl.init_norm(cfg, dtype, dev)}
+    p[ff] = fl.init_moe(gen, cfg, dtype) if ff == "moe" \
+        else fl.init_ffn(gen, cfg, dtype)
+    return p
 
 
 def _stack(trees):

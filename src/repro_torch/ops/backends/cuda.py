@@ -4,7 +4,7 @@ the JAX package's ``pallas_fused`` backend, and the port's default).
 A thin shim over the kernel wrappers of ``repro_torch.kernels``: K1 for
 all matmuls (the raw logits head included; over packed int4 / MSR-4
 weights its nibble instantiation, MSR-4 with the outlier-correction
-kernel), K2 for the norms, K3 for
+kernel; an MoE's experts its grouped instantiation), K2 for the norms, K3 for
 decode attention over paged pools or a contiguous cache, K4 for paged
 chunked prefill, the last two with the o-projection folded in and over
 int8 or packed int4 pools (``kv_shifts``), K5 for full-sequence attention, K6 for
@@ -30,7 +30,9 @@ import torch
 from repro_torch.analysis.budgets import MAX_ROWSUM_LEN
 from repro_torch.analysis.contracts import fit_block
 from repro_torch.core.attention import i_attention_chunked
-from repro_torch.kernels.int8_matmul import int8_matmul, int8_matmul_packed
+from repro_torch.kernels.int8_matmul import (int8_matmul,
+                                             int8_matmul_grouped,
+                                             int8_matmul_packed)
 from repro_torch.kernels.int_attention_fused import (int_attention_fused,
                                                      int_paged_prefill_fused)
 from repro_torch.kernels.int_decode_attention import \
@@ -81,6 +83,13 @@ class CudaBackend:
         """K1 over the nibbles (one launch; MSR-4: a raw launch and the
         outlier-correction kernel)."""
         return int8_matmul_packed(x8, qw, spec)
+
+    def int8_matmul_grouped(self, x8, w8, rows, spec, *, bias32=None,
+                            b_vec=None):
+        """K1's grouped instantiation: every expert's product in one
+        launch (the MoE experts)."""
+        return int8_matmul_grouped(x8, w8, rows, spec, bias32=bias32,
+                                   b_vec=b_vec)
 
     def int_softmax(self, scores, plan, valid_len: int = -1,
                     block_rows: int = 8, where=None):

@@ -9,6 +9,7 @@ lowering the reference's ``ref`` backend takes.
 from __future__ import annotations
 
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.int8_matmul import int8_matmul_grouped_plain
 from repro_torch.kernels.int_softmax import int_softmax_plain
 from repro_torch.ops.spec import PER_TENSOR
 
@@ -33,6 +34,12 @@ class TorchRefBackend:
         return _ref.ref_int8_matmul_perchannel(x8, w8, bias32, b_vec,
                                                spec.c, spec.pre,
                                                spec.out_bits)
+
+    def int8_matmul_grouped(self, x8, w8, rows, spec, *, bias32=None,
+                            b_vec=None):
+        """The expert products, expert by expert (the grouped kernel's
+        plain version)."""
+        return int8_matmul_grouped_plain(x8, w8, rows, spec, bias32, b_vec)
 
     def int_softmax(self, scores, plan, valid_len: int = -1,
                     block_rows: int = 8, where=None):

@@ -257,6 +257,24 @@ class OpSet:
         return self.backend_for("int8_matmul").int8_matmul(
             x8, w8, spec, bias32=bias32, b_vec=b_vec)
 
+    def int8_matmul_grouped(self, x8, w8, rows, spec, *, bias32=None,
+                            b_vec=None):
+        """Every expert's product at once (an MoE's experts): x8 (E, R,
+        K), w8 (E, K, N), ``rows`` (E,) int32 (expert e's tokens are its
+        first ``rows[e]`` rows), expert e's ``bias32`` / ``b_vec`` rows.
+        It is an instantiation of ``int8_matmul`` and routes with it: the
+        backend serving ``int8_matmul`` must implement
+        ``int8_matmul_grouped`` (every built-in one does), else an MoE
+        arch cannot run on it."""
+        be = self.backend_for("int8_matmul")
+        fn = getattr(be, "int8_matmul_grouped", None)
+        if fn is None:
+            raise NotImplementedError(
+                f"backend {be.name!r} has no int8_matmul_grouped (the "
+                "expert products of a mixture of experts); MoE archs need "
+                "a backend that implements it")
+        return fn(x8, w8, rows, spec, bias32=bias32, b_vec=b_vec)
+
     def int_softmax(self, scores, plan, **opts):
         """Row Shiftmax of int32 scores -> int8 probabilities; ``opts``:
         ``valid_len`` (a static padding mask), ``block_rows``, ``where``

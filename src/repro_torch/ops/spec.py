@@ -137,7 +137,9 @@ class QuantLinearParams(NamedTuple):
     Dense: ``w8`` int8 ``(..., K, N)``; ``b_mult`` int32 per-out-channel
     requant multipliers ``(..., N)`` (present iff the layer's plan
     requantizes); ``bias32`` int32 bias at the accumulator scale ``(...,
-    N)``.
+    N)``.  The leading axes are the layer stack and, for an MoE's experts,
+    the expert: ``w8`` ``(E, K, N)`` with ``b_mult`` ``(E, N)`` a layer,
+    each expert with its own per-channel scales (dense only).
 
     Packed (``quant.pack.pack_linear``; ``w8`` is None): ``w_packed`` int8
     nibble pairs ``(..., K // 2, N)`` (value ``2i`` in the low nibble of

@@ -1,5 +1,5 @@
-"""Float params -> SwiftTron integer parameters (the dense-decoder and
-encoder subset of ``repro.quant.convert``).
+"""Float params -> SwiftTron integer parameters (the dense-decoder,
+encoder and mixture-of-experts subset of ``repro.quant.convert``).
 
 Every weight becomes int8 with per-out-channel scales folded into int32
 dyadic multiplier vectors; norm gammas become the i-norm unit's integer
@@ -72,22 +72,72 @@ def _q_ffn(p, plans: qplans.FfnPlan):
     return out
 
 
-def _q_sublayer(p, plans: qplans.LayerPlans):
-    return {"norm1": _q_norm(p["norm1"], plans.norm),
-            "attn": _q_attn(p["attn"], plans.attn),
-            "norm2": _q_norm(p["norm2"], plans.norm),
-            "ffn": _q_ffn(p["ffn"], plans.ffn)}
+#: experts quantized at a time (their scales are per expert, so slicing
+#: changes no integer): bounds the float64 temporaries of a wide layer
+#: (qwen3-moe's w1: 128 x 4096 x 1536)
+EXPERT_SLICE = 16
 
 
-def _q_embed(emb, cfg: ArchConfig):
-    """-> (embed_w8, plans): the dense plans need only the embedding's
-    measured scale."""
+def _q_experts(w, plan: qplans.LinearPlan) -> QuantLinearParams:
+    """(..., E, K, N) float -> per-expert per-channel int8 (b_mult (...,
+    E, N)), ``EXPERT_SLICE`` experts at a time."""
+    parts = [_q_linear(w[..., i:i + EXPERT_SLICE, :, :], plan)
+             for i in range(0, w.shape[-3], EXPERT_SLICE)]
+    b_mult = None if parts[0].b_mult is None \
+        else torch.cat([q.b_mult for q in parts], dim=-2)
+    return QuantLinearParams(torch.cat([q.w8 for q in parts], dim=-3),
+                             b_mult)
+
+
+def _router_scale(w) -> float:
+    """The per-tensor router scale: max |w| / 127 in float64 over ``w``
+    (one layer's router, or the whole stack)."""
+    return float(w.to(torch.float64).abs().max()) / 127.0
+
+
+def _q_router(w, s_router: float) -> QuantLinearParams:
+    """Router weights at one per-tensor scale, no multiplier (the plan is
+    raw: the logits stay int32)."""
+    w = w.to(torch.float64)
+    return QuantLinearParams(torch.clamp(torch.round(w / s_router), -127,
+                                         127).to(torch.int8))
+
+
+def _q_moe(p, plans: qplans.MoePlan, s_router=None):
+    """The MoE sublayer: experts per expert (w8 (E, K, N), b_mult (E,
+    N)), the shared experts' FFN, and the router at ``s_router`` (the
+    reference's: the maximum over the whole layer stack), left out where
+    None (:func:`init_quantized` quantizes the routers last)."""
+    out = {"w1": _q_experts(p["w1"], plans.expert.up)}
+    if "w3" in p:
+        out["w3"] = _q_experts(p["w3"], plans.expert.up)
+    out["w2"] = _q_experts(p["w2"], plans.expert.down)
+    if "shared" in p:
+        out["shared"] = _q_ffn(p["shared"], plans.shared)
+    if s_router is not None:
+        out["router"] = _q_router(p["router"], s_router)
+    return out
+
+
+def _q_sublayer(p, plans: qplans.LayerPlans, s_router=None):
+    out = {"norm1": _q_norm(p["norm1"], plans.norm),
+           "attn": _q_attn(p["attn"], plans.attn),
+           "norm2": _q_norm(p["norm2"], plans.norm)}
+    if "moe" in p:
+        out["moe"] = _q_moe(p["moe"], plans.moe, s_router)
+    else:
+        out["ffn"] = _q_ffn(p["ffn"], plans.ffn)
+    return out
+
+
+def _embed_scale(emb) -> float:
+    return float(emb.to(torch.float64).abs().max()) / 127.0
+
+
+def _q_embed(emb, plans: qplans.LayerPlans):
     emb = emb.to(torch.float64)
-    s_emb = float(emb.abs().max()) / 127.0
-    plans = qplans.build_layer_plans(cfg, {"s_emb": s_emb})
-    w8 = torch.clamp(torch.round(emb / plans.embed.s_emb), -127, 127
-                     ).to(torch.int8)
-    return w8, plans
+    return torch.clamp(torch.round(emb / plans.embed.s_emb), -127, 127
+                       ).to(torch.int8)
 
 
 def _head_weight(params, cfg: ArchConfig):
@@ -118,16 +168,28 @@ def quantize_params(params: Pytree, cfg: ArchConfig
                     ) -> Tuple[Pytree, qplans.LayerPlans]:
     """Float params (the reference layout, any device) -> (qparams,
     plans), integer-identical to ``repro.quant.convert.quantize_params``
-    on the same floats."""
+    on the same floats.
+
+    A mixture of experts takes the reference's two passes: the plans'
+    ``s_router`` (the gate softmax's input scale) is layer 0's router
+    scale, while every router is quantized at the scale of the whole
+    stack (ROADMAP §3)."""
     require_dense(cfg)
-    embed_w8, plans = _q_embed(params["embed"], cfg)
+    calib = {"s_emb": _embed_scale(params["embed"])}
+    layers = params["layers"][0]
+    s_router = None
+    if "moe" in layers:
+        router = layers["moe"]["router"]
+        calib["s_router"] = _router_scale(router[:1])
+        s_router = _router_scale(router)
+    plans = qplans.build_layer_plans(cfg, calib)
     head, head_scale = _q_head(_head_weight(params, cfg))
     qparams = {
-        "embed_w8": embed_w8,
+        "embed_w8": _q_embed(params["embed"], plans),
         "final_norm": _q_norm(params["final_norm"], plans.final_norm),
         "head": head,
         "head_scale": head_scale,
-        "layers": [_q_sublayer(params["layers"][0], plans)],
+        "layers": [_q_sublayer(layers, plans, s_router)],
     }
     return qparams, plans
 
@@ -151,14 +213,24 @@ def init_quantized(cfg: ArchConfig, seed: int = 0, device="cuda",
     init's ``1/sqrt(V)``).  At full width that std puts the int32 residual
     stream at a few LSBs, below the integer RMSNorm's pre-shift, so every
     normalised row is zero; :func:`unit_embed_scale` draws a unit-std
-    embedding whose integer datapath carries signal."""
+    embedding whose integer datapath carries signal.
+
+    A mixture of experts keeps every layer's router floats (qwen3-moe:
+    94 x 4096 x 128) until the last layer is drawn, then quantizes them
+    at the whole stack's scale and builds the plans with layer 0's, as
+    :func:`quantize_params` does; the experts are quantized
+    ``EXPERT_SLICE`` at a time."""
     require_dense(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dtype = getattr(torch, cfg.dtype)
     v = cfg.padded_vocab()
     embed = fl._init(gen, (v, cfg.d_model), dtype, scale=embed_scale)
-    embed_w8, plans = _q_embed(embed, cfg)
+    calib = {"s_emb": _embed_scale(embed)}
+    # the other plans do not read s_router: the layers are quantized
+    # with these, the plans returned carry layer 0's router scale
+    plans = qplans.build_layer_plans(cfg, calib)
+    embed_w8 = _q_embed(embed, plans)
     final_norm = _q_norm(fl.init_norm(cfg, dtype, dev), plans.final_norm)
     if not cfg.tie_embeddings and cfg.family != "encoder":
         head_w = fl._init(gen, (cfg.d_model, v), dtype)
@@ -168,8 +240,21 @@ def init_quantized(cfg: ArchConfig, seed: int = 0, device="cuda",
     head, head_scale = _q_head(head_w)
     del head_w
     _, ng, _ = layer_group_spec(cfg)
-    layers = [_q_sublayer(init_layer(gen, cfg, dtype), plans)
-              for _ in range(ng)]
+    layers, routers = [], []
+    for _ in range(ng):
+        p = init_layer(gen, cfg, dtype)
+        if "moe" in p:
+            routers.append(p["moe"]["router"])
+        layers.append(_q_sublayer(p, plans))
+        del p
+    if routers:
+        router = torch.stack(routers)
+        calib["s_router"] = _router_scale(router[:1])
+        plans = qplans.build_layer_plans(cfg, calib)
+        s_all = _router_scale(router)
+        for q, w in zip(layers, routers):
+            q["moe"]["router"] = _q_router(w, s_all)
+        del router, routers
     qparams = {
         "embed_w8": embed_w8,
         "final_norm": final_norm,

@@ -1,5 +1,5 @@
-"""Design-time quantization plans (SwiftTron §III-A; the dense-decoder and
-encoder subset of ``repro.quant.plans``).
+"""Design-time quantization plans (SwiftTron §III-A; the dense-decoder,
+encoder and mixture-of-experts subset of ``repro.quant.plans``).
 
 A *plan* is the frozen set of integer constants one layer kind needs:
 dyadic requant pairs, i-exp constants, reciprocal widths — plain
@@ -14,6 +14,7 @@ from typing import NamedTuple, Optional
 from repro_torch.core import activations as iact
 from repro_torch.core import attention as iattn
 from repro_torch.core import norms
+from repro_torch.core import softmax as ism
 from repro_torch.core.dyadic import Dyadic, fit_dyadic
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.transformer import require_dense
@@ -57,6 +58,14 @@ class FfnPlan(NamedTuple):
     down: LinearPlan         # w2: s_act8 -> s_res
 
 
+class MoePlan(NamedTuple):
+    router: LinearPlan       # s_act8 -> int32 logits (raw)
+    gate_sm: ism.ISoftmaxPlan
+    expert: FfnPlan
+    dn_combine: Dyadic       # sum_k gate*y (s_act8 * 2^-7) -> s_res
+    shared: Optional[FfnPlan]
+
+
 class EmbedPlan(NamedTuple):
     s_emb: float             # int8 embedding table scale
     dn_res: Dyadic           # s_emb -> s_res
@@ -74,7 +83,7 @@ class LayerPlans(NamedTuple):
     norm: norms.INormPlan
     attn: Optional[AttnPlan]
     ffn: Optional[FfnPlan]
-    moe: Optional[object]
+    moe: Optional[MoePlan]
     mamba: Optional[object]
     cross: Optional[AttnPlan]
     head: HeadPlan
@@ -101,9 +110,9 @@ def _ffn_plan(cfg: ArchConfig, d_in: int, d_ff: int) -> FfnPlan:
 
 def build_layer_plans(cfg: ArchConfig, calib: Optional[dict] = None
                       ) -> LayerPlans:
-    """``calib``: measured per-tensor scales from ``quant.convert`` (a
-    dense decoder or an encoder reads ``s_emb`` only; the default is the
-    design nominal)."""
+    """``calib``: measured per-tensor scales from ``quant.convert``:
+    ``s_emb``, and ``s_router`` for a mixture of experts (its router
+    logits' scale; the defaults are the design nominals)."""
     require_dense(cfg)
     calib = dict(calib or {})
     s8 = cfg.s_act8
@@ -118,6 +127,20 @@ def build_layer_plans(cfg: ArchConfig, calib: Optional[dict] = None
     out = make_linear_plan(s8, S_W8, cfg.s_res, cfg.n_heads * cfg.hd,
                            out_bits=14)
     attn = AttnPlan(qkv, ia, out)
-    ffn = _ffn_plan(cfg, d, cfg.d_ff)
-    return LayerPlans(cfg.name, embed, norm_plan, attn, ffn, None, None,
+    ffn = moe = None
+    if cfg.n_experts > 0:
+        router = make_linear_plan(s8, S_W8, 0.0, d)
+        # router logits int32 at s8 * s_router (per-tensor router weights)
+        s_router = calib.get("s_router", S_W8)
+        gate_sm = ism.make_isoftmax(s8 * s_router, router.acc_qmax)
+        f = cfg.moe_d_ff or cfg.d_ff
+        expert = _ffn_plan(cfg, d, f)
+        dn_combine = fit_dyadic(s8 * ism.S_PROB / cfg.s_res,
+                                cfg.top_k * 127 * 127)
+        shared = _ffn_plan(cfg, d, f * cfg.n_shared_experts) \
+            if cfg.n_shared_experts else None
+        moe = MoePlan(router, gate_sm, expert, dn_combine, shared)
+    if not (cfg.n_experts and cfg.moe_every == 1):
+        ffn = _ffn_plan(cfg, d, cfg.d_ff)
+    return LayerPlans(cfg.name, embed, norm_plan, attn, ffn, moe, None,
                       None, HeadPlan(s8), norm_plan)

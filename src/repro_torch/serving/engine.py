@@ -51,10 +51,17 @@ for every lane whose prompt is in, and finished lanes retire.
     two, ``evict`` / ``preempt`` / another dispatch raise
     :class:`StepInFlight`.
 
+  * **Mixtures of experts** (qwen2-moe-a2.7b, qwen3-moe-235b-a22b):
+    token-streaming prefill only, as in the reference (capacity routing
+    drops tokens per group, so a chunk would route otherwise), hence no
+    prefix sharing; every decode and verify step routes each row alone
+    (``group_size=1``), and the experts run as one grouped K1 launch a
+    linear.
+
 Token streams are bit-identical to the JAX engine's for the same
 weights and schedule.  Not ported yet (each raises
 ``NotImplementedError`` naming its ROADMAP item): ``tp > 1`` and SSM /
-MoE / cross-attention archs.
+cross-attention archs.
 """
 from __future__ import annotations
 
@@ -71,7 +78,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import intlayers as il
 from repro_torch.models import inttransformer as it
 from repro_torch.models.common import ArchConfig
-from repro_torch.models.transformer import layer_group_spec
+from repro_torch.models.transformer import PORTED_KINDS, layer_group_spec
 from repro_torch.ops import OP_NAMES, QuantLinearParams, resolve_ops
 from repro_torch.quant import plans as qplans
 from repro_torch.serving import speculate
@@ -185,11 +192,10 @@ class ServingEngine:
                 f"arch {cfg.name!r} is an encoder: it has no autoregressive "
                 "serving; run it through launch.steps.make_prefill_step")
         _, _, kinds = layer_group_spec(cfg)
-        if any(kind != ("attn", "ffn", False) for kind in kinds):
+        if any(kind not in PORTED_KINDS for kind in kinds):
             raise NotImplementedError(
-                f"arch {cfg.name!r} has SSM / MoE / cross-attention "
-                "sublayers, which are not ported yet (ROADMAP §1 items "
-                "6-8)")
+                f"arch {cfg.name!r} has SSM / cross-attention sublayers, "
+                "which are not ported yet (ROADMAP §1 items 7-8)")
         if prefill_budget is not None and prefill_budget < 1:
             raise ValueError("prefill_budget must be >= 1 token/step, "
                              f"got {prefill_budget}")
@@ -317,8 +323,9 @@ class ServingEngine:
         if not self._chunkable:
             raise ValueError(
                 "chunked prefill is unsupported for arch "
-                f"{self.cfg.name!r}: it needs window == 0 (a sliding "
-                "window keeps token-streaming prefill); pass "
+                f"{self.cfg.name!r}: it needs window == 0 and dense FFN "
+                "sublayers (a sliding window and an MoE's capacity "
+                "routing keep token-streaming prefill); pass "
                 "prefill_chunk=0")
         ps = self.layout.page_size
         if prefill_chunk % ps and ps % prefill_chunk:

@@ -124,7 +124,7 @@ def validate_spec(cfg: ArchConfig, spec_k: int, spec_mode: str) -> None:
         raise SpeculationUnsupported(
             f"speculative decoding is unsupported for arch "
             f"{cfg.name!r}: the batched verify step needs full (window == "
-            "0) causal attention and attention+ffn sublayers only — "
+            "0) causal attention and attention+ffn/moe sublayers only — "
             "sliding-window caches interleave rolling-buffer writes and "
             "reads token by token; serve with spec_k=0")
     get_proposer(spec_mode)

@@ -1743,3 +1743,169 @@ def test_long_prefill_ref_takes_the_chunked_path_on_the_card(dev):
             assert fused == 0 and kernels.LAUNCHES["int8_matmul"] > 0
         assert (fused == cfg.num_layers) == (backend == "cuda")
     assert torch.equal(logits["ref"], logits["torch_ref"])
+
+
+# ------------------------------------------ the grouped K1 (MoE experts) --
+
+def _grouped_rows(case, e, r):
+    """Expert row counts: 'spread' one to a few rows an expert, 'empty' an
+    expert with none, 'one' every row in expert 0, 'full' every expert
+    full."""
+    if case == "one":
+        return [r] + [0] * (e - 1)
+    if case == "full":
+        return [r] * e
+    rows = [min(r, 1 + (3 * i) % (r + 1)) for i in range(e)]
+    if case == "empty":
+        rows[1] = 0
+    return rows
+
+
+@pytest.mark.parametrize("r", [1, 16, 17, 160])
+@pytest.mark.parametrize("k,n", [(2048, 1408), (200, 1410), (301, 96)])
+@pytest.mark.parametrize("case", ["spread", "empty", "one", "full"])
+def test_int8_matmul_grouped_kernel(dev, r, k, n, case):
+    """K1's grouped instantiation against its plain version on every
+    packed row: R 1, 16 (the 16-row tile), 17 and 160 (64-row tiles), N
+    1408 and one not a multiple of 8 (scalar weight loads), K not a
+    multiple of 32 (and 301: scalar x loads), an empty expert and all
+    rows in one expert; raw int32, int32 at 14 bits and int8 outputs,
+    with a bias; one launch each, and the rows past ``rows[e]`` stay
+    unwritten."""
+    from repro_torch.kernels.int8_matmul import (int8_matmul_grouped,
+                                                 int8_matmul_grouped_plain)
+    e = 6
+    rng = np.random.default_rng(r + k + n)
+    x8, w8 = _i8(rng, (e, r, k), dev), _i8(rng, (e, k, n), dev)
+    rows = torch.tensor(_grouped_rows(case, e, r), dtype=torch.int32,
+                        device=dev)
+    bvec = _i32(rng, 256, 4096, (e, n), dev)
+    bias = _i32(rng, -5000, 5000, (e, n), dev)
+    for spec in (RequantSpec.raw(), RequantSpec.per_channel(24, 10, 14),
+                 RequantSpec.per_channel(26, 10, 8)):
+        before = kernels.LAUNCHES["int8_matmul_grouped"]
+        got = int8_matmul_grouped(x8, w8, rows, spec, bias32=bias,
+                                  b_vec=bvec)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["int8_matmul_grouped"] == before + 1
+        want = int8_matmul_grouped_plain(x8, w8, rows, spec, bias, bvec)
+        assert got.dtype == want.dtype
+        for ex, c in enumerate(rows.tolist()):
+            assert torch.equal(got[ex, :c], want[ex, :c]), (spec, ex)
+
+
+def test_int8_matmul_grouped_skips_empty_tiles(dev):
+    """Rows past ``rows[e]`` (and every row of an empty expert) keep what
+    the output buffer held: a block whose row tile is empty returns
+    before it writes or reads a weight."""
+    from repro_torch.kernels.int8_matmul import int8_matmul_grouped
+    rng = np.random.default_rng(11)
+    e, r, k, n = 4, 160, 256, 300
+    x8, w8 = _i8(rng, (e, r, k), dev), _i8(rng, (e, k, n), dev)
+    rows = torch.tensor([0, 64, 65, 3], dtype=torch.int32, device=dev)
+    spec = RequantSpec.raw()
+    orig = torch.empty
+    sentinel = []
+
+    def filled(*a, **kw):
+        t = orig(*a, **kw)
+        t.fill_(-7)
+        sentinel.append(t)
+        return t
+
+    torch.empty = filled
+    try:
+        got = int8_matmul_grouped(x8, w8, rows, spec)
+    finally:
+        torch.empty = orig
+    assert got is sentinel[-1]
+    for ex, c in enumerate(rows.tolist()):
+        assert bool((got[ex, c:] == -7).all())
+        if c:
+            assert not bool((got[ex, :c] == -7).all())
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "qwen3-moe-235b-a22b"])
+@pytest.mark.parametrize("s,group_size", [(1, 1), (4, 1), (64, 512),
+                                          (600, 512)])
+def test_int_moe_fwd_card_equals_cpu(dev, arch, s, group_size):
+    """``int_moe_fwd`` of reduced qwen2-moe / qwen3-moe on the card
+    (``cuda``: K1 for the router and the shared experts, the grouped K1
+    for the experts) equals the same call on the CPU, and
+    reads nothing back to the host (``set_sync_debug_mode("error")``);
+    the routing keeps the same (token, slot) pairs on both."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import intlayers as il
+    from repro_torch.models import inttransformer as it
+    from repro_torch.models import model as M
+    from repro_torch.quant import convert
+    cfg = M.reduce_config(get_config(arch), dtype="float32")
+    qp, plans = convert.init_quantized(cfg, seed=1, device="cpu")
+    moe_cpu = it._layer(qp["layers"][0]["moe"], 0)
+    moe_dev = it._layer(_to(qp["layers"][0]["moe"], dev), 0)
+    x = np.random.default_rng(s).integers(-127, 128, (2, s, cfg.d_model))
+    x8 = torch.as_tensor(x.astype(np.int8))
+    x8_dev = x8.to(dev)
+    routes, route = [], il.moe_route
+
+    def spy(*a, **k):
+        routes.append(route(*a, **k))
+        return routes[-1]
+
+    il.moe_route = spy
+    try:
+        want = il.int_moe_fwd(moe_cpu, x8, plans.moe, cfg, ops="cuda",
+                              group_size=group_size)
+        il.int_moe_fwd(moe_dev, x8_dev, plans.moe, cfg, ops="cuda",
+                       group_size=group_size)           # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = il.int_moe_fwd(moe_dev, x8_dev, plans.moe, cfg,
+                                 ops="cuda", group_size=group_size)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    finally:
+        il.moe_route = route
+    assert kernels.LAUNCHES["int8_matmul_grouped"] == 3
+    assert kernels.LAUNCHES["int8_matmul"] >= 1
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(routes[2].keep.cpu(), routes[0].keep)
+
+
+def _to(tree, dev):
+    if isinstance(tree, QuantLinearParams):
+        return tree.map(lambda t: t.to(dev))
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def test_moe_engine_cuda_matches_torch_ref(dev):
+    """Reduced qwen2-moe-a2.7b served on the card: ``cuda`` streams (paged
+    and with ``spec_k = 3``) equal ``torch_ref``'s, and every step
+    launched the grouped K1."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M
+    from repro_torch.quant import convert
+    from repro_torch.serving import Request, ServingEngine
+    cfg = M.reduce_config(get_config("qwen2-moe-a2.7b"), dtype="float32")
+    qp, plans = convert.init_quantized(
+        cfg, seed=0, device=dev, embed_scale=convert.unit_embed_scale(cfg))
+    streams = {}
+    for backend, kw in (("torch_ref", {}), ("cuda", {}),
+                        ("cuda", dict(spec_k=3))):
+        eng = ServingEngine(qp, plans, cfg, batch_size=4, cache_len=64,
+                            ops=backend, device=dev, **kw)
+        reqs = [Request(uid=i, prompt=list(p), max_new_tokens=6)
+                for i, p in enumerate(_SERVE_PROMPTS)]
+        for q in reqs:
+            eng.submit(q)
+        kernels.reset_launches()
+        eng.run_until_done()
+        streams[backend, bool(kw)] = [q.out_tokens for q in reqs]
+        if backend == "cuda":
+            assert kernels.LAUNCHES["int8_matmul_grouped"] > 0
+    assert streams["cuda", False] == streams["torch_ref", False]
+    assert streams["cuda", True] == streams["torch_ref", False]

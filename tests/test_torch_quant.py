@@ -101,4 +101,4 @@ def test_layer_by_layer_init_equals_whole_model_quantization():
 def test_unported_families_raise():
     with pytest.raises(NotImplementedError, match="not ported"):
         t_plans.build_layer_plans(dataclasses.replace(
-            t_get_config("llama3-8b"), family="moe", n_experts=4))
+            t_get_config("llama3-8b"), family="ssm", ssm_state=16))
