@@ -103,9 +103,10 @@ non-zero before the last line):
            cache mode, token-streaming prefill: throughput, step times,
            peak memory, launches per decode step (K1, K2, K3; no K4) and a
            profiled decode window;
-  window-prefill full h2o-danube-3-4b through ``make_prefill_step`` and
-           ``int_prefill(return_cache=True)`` at 4 x 256 tokens: logits and
-           the built contiguous caches of ``cuda`` equal ``torch_ref``'s;
+  window-prefill full h2o-danube-3-4b through ``make_prefill_step`` at 4
+           x 256 tokens and ``int_prefill(return_cache=True)`` over their
+           first 64: logits and the built contiguous caches of ``cuda``
+           equal ``torch_ref``'s;
            the pass time and its launches (K5 at D = 120, windowed);
   kv4-parity     ``parity`` over int4 KV pages (``kv_dtype="int4"``):
            llama3-8b at full width cut to 2 layers, ``cuda`` streams equal
@@ -132,8 +133,8 @@ non-zero before the last line):
            ``torch_ref``'s (paged, chunked prefill, wo folded), the
            encoders' ``make_prefill_step`` logits on ``cuda`` equal
            ``torch_ref``'s at 8 x 512 and 8 x 197;
-  zoo-serve      ``serve`` for full codeqwen1.5-7b (32 layers) and
-           granite-3-2b (40 layers) on the same traffic (phases
+  zoo-serve      ``serve`` for codeqwen1.5-7b and granite-3-2b at full width
+           cut to 16 layers (of 32 and 40) on the same traffic (phases
            ``zoo-serve-<arch>``, with their decode and prefill profiles);
   zoo-encode     full roberta-large (24 layers) at 32 x 512 and deit-s (12
            layers) at 32 x 197 through ``make_prefill_step`` on ``cuda``:
@@ -161,14 +162,39 @@ non-zero before the last line):
            ``torch_ref``'s (paged, token-streaming prefill, wo folded,
            spec_k 0 and 3), and ``make_prefill_step`` logits at 4 x 512,
            with the dropped (token, slot) pairs of each layer;
-  moe-serve      full qwen2-moe-a2.7b (24 layers) on the ``serve`` traffic:
+  moe-serve      qwen2-moe-a2.7b at full width cut to 12 of its 24 layers
+           on the ``serve`` traffic:
            tokens/s, device ms a step, peak memory, weight bytes, launches
            by kernel (K1, K2, K3 and the grouped K1 > 0) and a profiled
            window (device ms by kernel, the port's kernels against the
            glue);
-  moe-prefill    full qwen2-moe-a2.7b through ``make_prefill_step`` at 4 x
+  moe-prefill    the same 12 layers through ``make_prefill_step`` at 4 x
            512 (K5): ms a pass, launches, drops per layer, a profiled
-           pass.
+           pass;
+  ssm-kernels  (not in the default list; part of ``kernels``) the kernels
+           at the state-space configs' shapes: K1 at mamba2-130m's and
+           jamba-v0.1-52b's in_proj, raw Δt projection (N 24: the decode
+           tile's copy route) and out_proj at M 4 and 2048, K2's RMSNorm
+           over d_inner (1536, 8192) with the Mamba plan, the grouped K1 at
+           jamba's 16 experts of 4096 x 14336;
+  ssm-parity     full mamba2-130m (24 layers, attention-free): ServingEngine
+           streams on ``cuda`` equal ``torch_ref``'s in both cache modes
+           (6 prompts on 4 lanes, token-streaming prefill),
+           ``make_prefill_step`` logits at 4 x 512 equal, and the prefill's
+           last logits at 4 x 64 equal the token-streamed decode's; the
+           ``cuda`` pass at 4 x 512 is the timed ``ssm-prefill`` path (ms,
+           launches, peak memory);
+  ssm-serve      full mamba2-130m on the ``serve`` traffic: tokens/s, device
+           and wall ms a step, launches a step (K1 three a layer and the
+           head, K2 two a layer and the final norm), a profiled decode
+           window (the busy share, the port's kernels against the
+           recurrence glue), then ``ssm-prefill-profile``: a profiled 4 x
+           16 pass;
+  hybrid-parity, hybrid-serve  the same for jamba-v0.1-52b at full width
+           cut to one layer group (8 sublayers: attention without RoPE at
+           position 4 through K3 / K5, seven Mamba, MoE at the odd
+           positions through the grouped K1), ``hybrid-prefill`` its pass.
+  Each of the four ends with a ``<ssm|hybrid>-seconds`` line.
 
 The ``kernels`` phase also holds K3's and K4's packed instantiations
 (rows ``int_decode_attention_kv4`` / ``int_paged_prefill_kv4``) against
@@ -190,13 +216,16 @@ correction instantiation shows ``IMMA`` and none of the other three, every K1
 tensor-core instantiation ``IMMA``, and no K1, gather-route correction or
 K2 instantiation ``LDL`` / ``STL``.
 
-Then one ``{"kernels": [...]}`` line, the card's name and power limit,
+Every phase line carries the card's name and power limit (``card``) and
+the seconds since the script started (``t_s``).  Then one ``{"kernels":
+[...]}`` line, the card's name and power limit,
 and the final ``{"ok": true, "device": {...}}`` line.  The script imports
 only torch, numpy and the port; it needs the repository's ``src/``.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -287,6 +316,12 @@ PATH_KERNELS = {
                   "int8_matmul_grouped"),
     "moe-prefill": ("int8_matmul", "int_layernorm", "int_attention_fused",
                     "int8_matmul_grouped"),
+    "ssm-serve": ("int8_matmul", "int_layernorm"),
+    "ssm-prefill": ("int8_matmul", "int_layernorm"),
+    "hybrid-serve": ("int8_matmul", "int_layernorm", "int_decode_attention",
+                     "int8_matmul_grouped"),
+    "hybrid-prefill": ("int8_matmul", "int_layernorm", "int_attention_fused",
+                       "int8_matmul_grouped"),
 }
 # the reference serving benchmark's weight tier (pack_tree(qp, "msr4",
 # group=64), benchmarks/bench_serving.py)
@@ -317,9 +352,14 @@ def encode_launches_per_pass(layers: int,
 CARD = {}
 
 
+# the script's start: every phase line carries its seconds since then
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
     if "phase" in obj and CARD:
-        obj = {**obj, "card": CARD["card"]}
+        obj = {**obj, "card": CARD["card"],
+               "t_s": round(time.perf_counter() - T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -2778,12 +2818,18 @@ def phase_window_serve(cfg):
     return out
 
 
+# the prompt prefix whose decode caches ``window-prefill`` builds
+RETURN_CACHE_SEQ = 64
+
+
 def phase_window_prefill(cfg):
-    """Full h2o-danube-3-4b through ``launch.steps.make_prefill_step`` and
-    ``int_prefill(return_cache=True)`` at 4 x 256 tokens (seed 23): the
-    logits of both and the contiguous caches ``cuda`` builds equal
-    ``torch_ref``'s; the timed pass's launches (K5 one a layer), then one
-    profiled pass.  Returns the launches of the timed passes."""
+    """Full h2o-danube-3-4b through ``launch.steps.make_prefill_step`` at
+    4 x 256 tokens (seed 23) and ``int_prefill(return_cache=True)`` over
+    their first ``RETURN_CACHE_SEQ`` (its caches are built token by token
+    through the decode step: 256 would be ~75 s of the run): the logits of
+    both and the contiguous caches ``cuda`` builds equal ``torch_ref``'s;
+    the timed pass's launches (K5 one a layer), then one profiled pass.
+    Returns the launches of the timed passes."""
     import gc
 
     import numpy as np
@@ -2803,17 +2849,18 @@ def phase_window_prefill(cfg):
         0, cfg.vocab, (b, s)), device="cuda")
     rope = il.build_rope_table(s + 1, cfg.hd, cfg.rope_theta, device="cuda")
     logits, caches, secs = {}, {}, {}
+    prefix = toks[:, :RETURN_CACHE_SEQ]
     for backend in ("cuda", "torch_ref"):
         step = make_prefill_step(cfg, plans, ops=backend, device="cuda")
         logits[backend] = step(qp, {"tokens": toks}, rope)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        lg, caches[backend] = it.int_prefill(qp, {"tokens": toks}, plans,
+        lg, caches[backend] = it.int_prefill(qp, {"tokens": prefix}, plans,
                                              cfg, ops=backend,
                                              return_cache=True)
         torch.cuda.synchronize()
         secs[backend] = time.perf_counter() - t0
-        if not torch.equal(lg, logits[backend]):
+        if not torch.equal(lg, step(qp, {"tokens": prefix}, rope)):
             raise AssertionError(f"window-prefill {backend}: int_prefill "
                                  "and make_prefill_step logits differ")
     same_logits = torch.equal(logits["cuda"], logits["torch_ref"])
@@ -2843,7 +2890,8 @@ def phase_window_prefill(cfg):
           "finite": bool(torch.isfinite(out).all()),
           "pass_ms": start.elapsed_time(end) / n_pass,
           "launches_per_pass": per_pass,
-          "return_cache_s": secs, "seconds": time.perf_counter() - t_phase})
+          "return_cache_seq": RETURN_CACHE_SEQ, "return_cache_s": secs,
+          "seconds": time.perf_counter() - t_phase})
     profile_window("window-prefill-profile", f"1 pass, {b} x {s}",
                    lambda: step(qp, {"tokens": toks}, rope))
     if not (same_logits and same_cache):
@@ -3093,6 +3141,9 @@ def phase_ops(cfg, plans):
 # of this many tokens a sequence (roberta-large its longest, deit-s its
 # 196 patches + 1)
 ZOO_DECODERS = ("codeqwen1.5-7b", "granite-3-2b")
+# zoo-serve: the decoders at full width cut to 16 layers (to
+# keep the whole script within its time)
+ZOO_SERVE_LAYERS = 16
 ZOO_ENCODERS = {"roberta-large": 512, "deit-s": 197}
 # llama3-8b's long prefill: above the reference's full-matrix threshold
 # (S * S > 4096^2 / 4), where ``ref`` streams the chunked two-pass path
@@ -3405,6 +3456,9 @@ def phase_long_prefill(cfg_full):
 # pass at 4 x 512 (one routing group of 512 tokens a sequence)
 MOE_ARCHS = ("qwen2-moe-a2.7b", "qwen3-moe-235b-a22b")
 MOE_BATCH, MOE_SEQ = 4, 512
+# moe-serve / moe-prefill: qwen2-moe-a2.7b at full width cut to 12 of its
+# 24 layers (to keep the whole script within its time)
+MOE_SERVE_LAYERS = 12
 
 
 def moe_config(name: str, layers: int = 0):
@@ -3794,6 +3848,309 @@ def phase_moe_prefill(cfg, model):
     return launches
 
 
+# ------------------------------------------------ state-space models -----
+
+SSM_ARCHS = ("mamba2-130m", "jamba-v0.1-52b")
+# jamba runs one layer group (8 sublayers: every kind of the model); all
+# 32 layers would be ~51.5 GB of int8 and their set-up in every run
+SSM_LAYERS = {"mamba2-130m": 0, "jamba-v0.1-52b": 8}
+SSM_PHASES = {"mamba2-130m": "ssm", "jamba-v0.1-52b": "hybrid"}
+SSM_BATCH, SSM_SEQ, SSM_STREAM_SEQ, SSM_PROFILE_SEQ = 4, 512, 64, 16
+
+
+def ssm_config(name: str):
+    """Full-width ``name``; jamba cut to one layer group."""
+    return moe_config(name, SSM_LAYERS[name])
+
+
+def ssm_decode_launches(cfg) -> dict:
+    """A decode step's launches: K1 three a Mamba sublayer (in_proj, the
+    raw Δt projection, out_proj), four an attention one (q, k, v, and wo
+    after K3), three a SwiGLU FFN, the router an MoE, and the head; K2
+    norm1 a layer, norm2 a layer with an FFN or MoE, the gated norm a
+    Mamba sublayer, and the final norm; K3 one an attention sublayer;
+    the grouped K1 three an MoE."""
+    from repro_torch.models.transformer import layer_group_spec
+    _, ng, kinds = layer_group_spec(cfg)
+    n = {k: ng * sum(kind[i] == k for kind in kinds)
+         for i, k in ((0, "ssm"), (0, "attn"), (1, "ffn"), (1, "moe"))}
+    return {"int8_matmul": 3 * n["ssm"] + 4 * n["attn"] + 3 * n["ffn"]
+            + n["moe"] + 1,
+            "int_layernorm": cfg.num_layers + n["ffn"] + n["moe"]
+            + n["ssm"] + 1,
+            "int_decode_attention": n["attn"],
+            "int8_matmul_grouped": 3 * n["moe"]}
+
+
+def check_ssm_kernels(rows) -> None:
+    """The kernels at the state-space configs' shapes, each exact against
+    its plain version: K1 at both configs' in_proj (to int8), Δt
+    projection (raw int32; mamba2's N = 24 takes the decode tile's copy
+    route) and out_proj (14 bits) for a decode step (M 4) and a 4 x 512
+    prefill (M 2048, beside ``torch._int_mm``); K2's RMSNorm over d_inner
+    with the Mamba plan (s_in 1, qmax_in 2^11, no mean) at 1536 and at
+    8192 (its longest row), 4 and 2048 rows; the grouped K1 at jamba's
+    experts (16 of 4096 x 14336 and 14336 x 4096) for a decode step of 4
+    tokens, top-2."""
+    import torch
+    from repro_torch.kernels.int8_matmul import (int8_matmul,
+                                                 int8_matmul_plain)
+    from repro_torch.models.mamba import proj_width
+    from repro_torch.ops.spec import RequantSpec
+    from repro_torch.quant import plans as qplans
+    gen = torch.Generator(device="cuda").manual_seed(5151)
+    for name in SSM_ARCHS:
+        cfg = ssm_config(name)
+        mp = qplans.build_layer_plans(cfg).mamba
+        d, di, h = cfg.d_model, cfg.ssm_d_inner, cfg.ssm_heads
+        linears = (("in_proj", d, proj_width(cfg) - h, mp.in_proj),
+                   ("dt_proj", d, h, qplans.LinearPlan(
+                       mp.in_proj.s_in, 0.0, 32, 0, 0, d)),
+                   ("out_proj", di, d, mp.out_proj))
+        for m in (4, SSM_BATCH * SSM_SEQ):
+            for lin, k, n, lp in linears:
+                x8 = _randint(gen, -127, 128, (m, k), torch.int8)
+                w8 = _randint(gen, -127, 128, (k, n), torch.int8)
+                spec = RequantSpec.for_linear(lp)
+                bv = None if spec.is_raw else _randint(gen, 256, 4096, (n,),
+                                                       torch.int32)
+                out_b = 4 if spec.is_raw or spec.out_bits > 8 else 1
+                record(rows, "int8_matmul",
+                       f"{name} {lin} M={m} K={k} N={n} "
+                       f"{'raw' if spec.is_raw else spec.out_bits}",
+                       int8_matmul(x8, w8, spec, b_vec=bv),
+                       int8_matmul_plain(x8, w8, spec, b_vec=bv),
+                       lambda: int8_matmul(x8, w8, spec, b_vec=bv),
+                       lambda: int8_matmul_plain(x8, w8, spec, b_vec=bv),
+                       m * k + k * n + (0 if bv is None else 4 * n)
+                       + out_b * m * n, 2 * m * k * n,
+                       lib_ms=int_mm_ms(x8, w8) if m > 16 else None,
+                       plain_iters=2, plan=k1_plan(m, n, k, x8=x8, w=w8))
+                del x8, w8
+        for r in (4, SSM_BATCH * SSM_SEQ):
+            q = _randint(gen, -2048, 2049, (r, di), torch.int32)
+            q[0] = 2048
+            g = _randint(gen, -127, 128, (di,), torch.int32)
+            k2_row(rows, f"{name} gated RMSNorm (s_in 1, qmax 2^11)", q, g,
+                   None, mp.norm)
+    cfg = ssm_config("jamba-v0.1-52b")
+    plans = qplans.build_layer_plans(cfg)
+    e = cfg.padded_experts()
+    ids = torch.randperm(e, generator=gen, device="cuda")[:8].tolist()
+    spread = [int(i in ids) for i in range(e)]
+    for lin, k, n, lp in (("w1", cfg.d_model, cfg.moe_d_ff,
+                           plans.moe.expert.up),
+                          ("w2", cfg.moe_d_ff, cfg.d_model,
+                           plans.moe.expert.down)):
+        for pattern, counts in (("8 pairs in 8 experts", spread),
+                                ("4 tokens in the same 2 experts",
+                                 [4, 4] + [0] * (e - 2))):
+            grouped_row(gen, rows, f"jamba {lin} decode B=4 k=2 {pattern}",
+                        16, k, n, lp, counts)
+
+
+def _ssm_streams(qp, plans, cfg, prompts, backend, cache_mode):
+    """A ServingEngine run (batch 4, token-streaming prefill): streams,
+    seconds, launches, the engine's description."""
+    from repro_torch import kernels
+    eng, reqs = run_engine(qp, plans, cfg, prompts, 8, backend,
+                           batch_size=SSM_BATCH, cache_len=256,
+                           page_size=16, fold_wo=True,
+                           cache_mode=cache_mode)
+    kernels.reset_launches()
+    streams, secs = drain_streams(eng, reqs)
+    return streams, secs, dict(kernels.LAUNCHES), eng.describe()
+
+
+def phase_ssm_parity(name, model):
+    """``<ssm|hybrid>-parity``: mamba2-130m (24 layers) or jamba-v0.1-52b
+    (one group of 8) at full width.  ``ServingEngine`` streams (6 prompts
+    of 8-24 tokens on 4 lanes: two lanes recycled, their state zeroed)
+    on ``cuda`` equal ``torch_ref``'s, in the paged and the contiguous
+    layout; ``make_prefill_step`` logits at 4 x 512 on ``cuda`` equal
+    ``torch_ref``'s; ``int_prefill``'s last logits at 4 x 64 equal the
+    token-streamed decode's (``make_decode_step``; jamba at capacity
+    factor 8, where no prefill group drops a token, as the reference's
+    own check runs).  The ``cuda`` pass at 4 x 512 is also the timed
+    ``<ssm|hybrid>-prefill`` path (CUDA events, launches, peak memory):
+    its launches are returned."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import inttransformer as it
+    phase = f"{SSM_PHASES[name]}-parity"
+    qp, plans, quant_s = model
+    cfg = ssm_config(name)
+    prompts = _prompts(47, 6, 4, 12, cfg.vocab)
+    streams, secs, launches = {}, {}, {}
+    for mode in ("paged", "contiguous"):
+        for backend in ("cuda", "torch_ref"):
+            tag = f"{backend}_{mode}"
+            streams[tag], secs[tag], launches[tag], d = _ssm_streams(
+                qp, plans, cfg, prompts, backend, mode)
+            if d["prefill"]["mode"] != "streaming":
+                raise AssertionError(f"{phase}: prefill {d['prefill']}")
+    same = {t: s == streams["cuda_paged"] for t, s in streams.items()}
+    distinct = len({t for s in streams["cuda_paged"] for t in s})
+    missing = [k for k in PATH_KERNELS[f"{SSM_PHASES[name]}-serve"]
+               if launches["cuda_paged"][k] <= 0]
+    emit({"phase": phase, "arch": name, "layers": cfg.num_layers,
+          "requests": len(prompts), "lanes": SSM_BATCH,
+          "prompt_lens": [len(p) for p in prompts], "identical": same,
+          "distinct_tokens": distinct, "quantize_s": quant_s,
+          "seconds": secs,
+          "cuda_launches": {k: c for k, c in launches["cuda_paged"].items()
+                            if c},
+          "first_stream": streams["cuda_paged"][0]})
+    if not all(same.values()) or distinct < 2 or missing:
+        raise AssertionError(f"{phase}: streams {same}, {distinct} distinct "
+                             f"tokens, never launched {missing}")
+    toks = np.random.default_rng(53).integers(0, cfg.vocab,
+                                              (SSM_BATCH, SSM_SEQ))
+    logits, secs = {}, {}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for backend in ("torch_ref", "cuda"):
+        step = make_prefill_step(cfg, plans, ops=backend, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        start.record()
+        logits[backend] = step(qp, {"tokens": toks})
+        end.record()
+        torch.cuda.synchronize()
+        secs[backend] = time.perf_counter() - t0
+    pre_launches = dict(kernels.LAUNCHES)
+    pass_ms = start.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated()
+    same = torch.equal(logits["cuda"], logits["torch_ref"])
+    # the reference's own check: prefill == the same tokens streamed
+    roomy = dataclasses.replace(cfg, capacity_factor=8.0)
+    short = toks[:, :SSM_STREAM_SEQ]
+    pre = make_prefill_step(roomy, plans, ops="cuda", device="cuda")(
+        qp, {"tokens": short})
+    caches = it.init_decode_cache(cfg, device="cuda", batch=SSM_BATCH,
+                                  cache_len=SSM_STREAM_SEQ)
+    decode = make_decode_step(cfg, plans, SSM_STREAM_SEQ, ops="cuda",
+                              device="cuda")
+    kernels.reset_launches()
+    for t in range(SSM_STREAM_SEQ):
+        last, caches = decode(qp, caches, short[:, t],
+                              np.full(SSM_BATCH, t, np.int32))
+    streamed = torch.equal(pre, last)
+    argmax = logits["cuda"].argmax(dim=-1)
+    emit({"phase": phase, "arch": name, "layers": cfg.num_layers,
+          "batch": SSM_BATCH, "seq": SSM_SEQ, "identical": same,
+          "prefill_equals_streamed_decode": streamed,
+          "streamed_seq": SSM_STREAM_SEQ,
+          "decode_launches": {k: c / SSM_STREAM_SEQ
+                              for k, c in kernels.LAUNCHES.items() if c},
+          "distinct_argmax": len(set(argmax.tolist())),
+          "finite": bool(torch.isfinite(logits["cuda"]).all()),
+          "cuda_s": secs["cuda"], "torch_ref_s": secs["torch_ref"]})
+    if not same or not streamed:
+        raise AssertionError(f"{phase}: prefill logits differ between "
+                             f"cuda and torch_ref ({same}) or from the "
+                             f"streamed decode ({streamed})")
+    prefill = f"{SSM_PHASES[name]}-prefill"
+    emit({"phase": prefill, "arch": name, "layers": cfg.num_layers,
+          "batch": SSM_BATCH, "seq": SSM_SEQ, "ms_per_pass": pass_ms,
+          "wall_s": secs["cuda"],
+          "tokens_per_s": SSM_BATCH * SSM_SEQ / (pass_ms / 1e3),
+          "launches_per_pass": {n: c for n, c in pre_launches.items() if c},
+          "max_memory_allocated": peak})
+    missing = [k for k in PATH_KERNELS[prefill] if pre_launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"{prefill} never launched {missing}")
+    return {prefill: pre_launches}
+
+
+def phase_ssm_serve(name, model):
+    """``<ssm|hybrid>-serve``: mamba2-130m (24 layers) or jamba-v0.1-52b
+    (one group) on ``cuda`` on the ``serve`` phase's traffic (8 requests,
+    prompts of 32-200 tokens from seed 5, 32 new tokens, batch 4,
+    cache_len 512), token-streaming prefill: tokens/s, device ms a step
+    (CUDA events), wall ms a step, peak memory, weight bytes, launches a
+    step (each as :func:`ssm_decode_launches` counts), then a profiled
+    decode window (the busy share, the port's kernels against the glue:
+    the recurrence, conv, Δt and gate code, and for jamba the MoE
+    routing) and a profiled 4 x 16 prefill pass (its sequential state
+    updates, one a token and a Mamba sublayer).  Returns the launches of
+    the serve run, by path."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch.steps import make_prefill_step
+    phase = f"{SSM_PHASES[name]}-serve"
+    qp, plans, quant_s = model
+    cfg = ssm_config(name)
+    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(qp))
+    prompts = _prompts(5, 8, 32, 200, cfg.vocab)
+    eng, reqs = run_engine(qp, plans, cfg, prompts, 32, "cuda",
+                           batch_size=4, cache_len=512, page_size=16,
+                           fold_wo=True)
+    state_bytes = sum(c[k].numel() * c[k].element_size()
+                      for c in eng.caches for k in ("h", "conv") if k in c)
+    with StepTimer(decode="int_decode_step") as timer:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        eng.run_until_done()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+    per_step = timer.launches("decode")
+    step_ms = timer.ms("decode")
+    n_tok = sum(len(r.out_tokens) for r in reqs)
+    want = ssm_decode_launches(cfg)
+    emit({"phase": phase, "arch": cfg.name, "layers": cfg.num_layers,
+          "describe": eng.describe_str(), "requests": len(reqs),
+          "prompt_lens": [len(p) for p in prompts], "max_new": 32,
+          "batch": 4, "cache_len": 512, "tokens": n_tok,
+          "distinct_tokens": len({t for r in reqs for t in r.out_tokens}),
+          "wall_s": wall, "tokens_per_s": n_tok / wall,
+          "decode_steps": len(step_ms),
+          "wall_ms_per_step": wall * 1e3 / max(len(step_ms), 1),
+          "decode_step_ms_mean": float(np.mean(step_ms)),
+          "decode_step_ms_p50": float(np.median(step_ms)),
+          "launches_per_decode_step": _mean_counts(per_step),
+          "expected_launches_per_step": want,
+          "quantize_s": quant_s, "weight_bytes": weight_bytes,
+          "mamba_state_bytes": state_bytes,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "launches": launches})
+    if not all(len(r.out_tokens) == 32 for r in reqs):
+        raise AssertionError(f"{phase}: a request came back short")
+    if not all(0 <= t < cfg.vocab for r in reqs for t in r.out_tokens):
+        raise AssertionError(f"{phase}: token outside the vocabulary")
+    missing = [k for k in PATH_KERNELS[phase] if launches[k] <= 0]
+    off = [i for i, c in enumerate(per_step)
+           if any(c[k] != v for k, v in want.items())]
+    if missing or off:
+        raise AssertionError(f"{phase} never launched {missing}; steps "
+                             f"off {want}: {off[:5]} "
+                             f"{per_step[off[0]] if off else ''}")
+    profile_decode(eng, cfg, f"{phase}-profile", "int_decode_attention")
+    del eng
+    # a profiled prefill pass (the profiler's post-processing takes ~0.5
+    # ms an event: 4 x 512 is ~780 000 kernel calls for mamba2-130m, so a
+    # short pass stands in for it; its sequential part is ~45 launches a
+    # token and a Mamba sublayer either way)
+    step = make_prefill_step(cfg, plans, ops="cuda", device="cuda")
+    batch = {"tokens": torch.as_tensor(np.random.default_rng(59).integers(
+        0, cfg.vocab, (SSM_BATCH, SSM_PROFILE_SEQ)), device="cuda")}
+    step(qp, batch)
+    profile_window(f"{SSM_PHASES[name]}-prefill-profile", f"1 pass, "
+                   f"{SSM_BATCH} x {SSM_PROFILE_SEQ}", lambda: step(qp, batch),
+                   lambda: 1)
+    return {phase: launches}
+
+
 def _mean_counts(deltas):
     return {n: float(sum(d[n] for d in deltas)) / max(len(deltas), 1)
             for n in (deltas[0] if deltas else {})}
@@ -4019,7 +4376,8 @@ def main(argv=None) -> int:
                     "encode-online,ops,window-parity,window-serve,"
                     "window-prefill,kv4-parity,kv4-serve,packed-parity,"
                     "msr4-serve,zoo-parity,zoo-serve,zoo-encode,"
-                    "long-prefill,moe-parity,moe-serve,moe-prefill")
+                    "long-prefill,moe-parity,moe-serve,moe-prefill,"
+                    "ssm-parity,ssm-serve,hybrid-parity,hybrid-serve")
     ap.add_argument("--verbose-build", action="store_true",
                     help="print nvcc -Xptxas -v (registers, spills) and "
                     "each kernel's IMMA / IDP / LDL / STL count")
@@ -4067,11 +4425,14 @@ def main(argv=None) -> int:
         check_packed_matmul_kernels(cfg, plans, rows)
         check_zoo_kernels(rows)
         check_moe_kernels(rows)
+        check_ssm_kernels(rows)
     else:
         if "zoo-kernels" in phases:
             check_zoo_kernels(rows)
         if "moe-kernels" in phases:
             check_moe_kernels(rows)
+        if "ssm-kernels" in phases:
+            check_ssm_kernels(rows)
     if "k1-decode" in phases:
         wcfg = window_config()
         check_k1_decode(cfg, wcfg, plans, qplans.build_layer_plans(wcfg))
@@ -4113,8 +4474,10 @@ def main(argv=None) -> int:
         phase_zoo_parity()
     if "zoo-serve" in phases:
         for name in ZOO_DECODERS:
-            launches.update(phase_serve(zoo_config(name),
-                                        label=f"zoo-serve-{name}"))
+            launches.update(phase_serve(
+                dataclasses.replace(zoo_config(name),
+                                    num_layers=ZOO_SERVE_LAYERS),
+                label=f"zoo-serve-{name}"))
     if "zoo-encode" in phases:
         for name, seq in ZOO_ENCODERS.items():
             launches[f"zoo-encode-{name}"] = phase_zoo_encode(name, seq)
@@ -4123,13 +4486,26 @@ def main(argv=None) -> int:
     if "moe-parity" in phases:
         phase_moe_parity()
     if phases & {"moe-serve", "moe-prefill"}:
-        mcfg = moe_config("qwen2-moe-a2.7b")
+        mcfg = moe_config("qwen2-moe-a2.7b", MOE_SERVE_LAYERS)
         model = random_model(mcfg)
         if "moe-serve" in phases:
             launches["moe-serve"] = phase_moe_serve(mcfg, model)
         if "moe-prefill" in phases:
             launches["moe-prefill"] = phase_moe_prefill(mcfg, model)
         del model
+    for name in SSM_ARCHS:
+        kind = SSM_PHASES[name]
+        if not phases & {f"{kind}-parity", f"{kind}-serve"}:
+            continue
+        t_phase = time.perf_counter()
+        model = random_model(ssm_config(name))
+        if f"{kind}-parity" in phases:
+            launches.update(phase_ssm_parity(name, model))
+        if f"{kind}-serve" in phases:
+            launches.update(phase_ssm_serve(name, model))
+        del model
+        emit({"phase": f"{kind}-seconds", "arch": name,
+              "seconds": time.perf_counter() - t_phase})
     if rows:
         # each kernel's launches come from the first path of this run
         # that drives it (K1/K2: serve, the first path); every path's

@@ -7,19 +7,23 @@ the reference serve driver's default), in serving and full-sequence
 prefill, and the encoders (roberta-base, roberta-large, deit-s:
 full-sequence forward), and the mixtures of experts (qwen2-moe-a2.7b:
 60 experts top-4 and 4 shared ones; qwen3-moe-235b-a22b: 128 experts
-top-8, GQA 64 / 4), served with token-streaming prefill; ROADMAP §1
-lists the rest.  ``ASSIGNED`` and ``LONG_OK`` are the reference's, for
+top-8, GQA 64 / 4), served with token-streaming prefill, and the
+state-space models (mamba2-130m: attention-free Mamba-2; jamba-v0.1-52b:
+groups of 8 sublayers, one attention and seven Mamba, MoE on the odd
+positions), served with token-streaming prefill; ROADMAP §1 lists the
+rest.  ``ASSIGNED`` and ``LONG_OK`` are the reference's, for
 every architecture.
 """
 from repro_torch.configs import (codeqwen1_5_7b, deit_s, granite_3_2b,
-                                 h2o_danube_3_4b, llama3_8b,
-                                 qwen2_moe_a2_7b, qwen3_moe_235b_a22b,
-                                 roberta_base, roberta_large)
+                                 h2o_danube_3_4b, jamba_v0_1_52b, llama3_8b,
+                                 mamba2_130m, qwen2_moe_a2_7b,
+                                 qwen3_moe_235b_a22b, roberta_base,
+                                 roberta_large)
 
 ARCHS = {m.CONFIG.name: m.CONFIG
          for m in (llama3_8b, h2o_danube_3_4b, codeqwen1_5_7b, granite_3_2b,
-                   qwen3_moe_235b_a22b, qwen2_moe_a2_7b, roberta_base,
-                   roberta_large, deit_s)}
+                   qwen3_moe_235b_a22b, qwen2_moe_a2_7b, mamba2_130m,
+                   jamba_v0_1_52b, roberta_base, roberta_large, deit_s)}
 
 ASSIGNED = [
     "h2o-danube-3-4b", "llama3-8b", "codeqwen1.5-7b", "granite-3-2b",

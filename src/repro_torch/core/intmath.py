@@ -45,16 +45,21 @@ def int_einsum(eq: str, a, b):
     return out.to(torch.int64).to(torch.int32)
 
 
+_POW2 = {}
+
+
 def int_bit_length(n):
-    """Vectorised bit length of non-negative int32 ``n`` (integer-only)."""
-    b = torch.zeros_like(n)
-    v = n
-    for s in (16, 8, 4, 2, 1):
-        t = v >> s
-        go = t > 0
-        b = torch.where(go, b + s, b)
-        v = torch.where(go, t, v)
-    return b + (v > 0).to(n.dtype)
+    """Vectorised bit length of non-negative int32 ``n`` (integer-only;
+    0 for ``n <= 0``, as the reference's five halving steps give): the
+    count of powers 2^0 .. 2^30 at or below ``n``, one comparison against
+    a cached table and one sum (two launches on the card where the
+    halving steps take ~28).  It holds 31 booleans an element for the
+    moment: the callers pass row maxima and variances."""
+    key = (n.device, n.dtype)
+    if key not in _POW2:
+        _POW2[key] = torch.ones(31, dtype=n.dtype, device=n.device) << \
+            torch.arange(31, dtype=n.dtype, device=n.device)
+    return (n[..., None] >= _POW2[key]).sum(dim=-1, dtype=n.dtype)
 
 
 def i_sqrt(n, iters: int = 16):

@@ -28,12 +28,13 @@ from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.ops.packed import msr4_lanes_distinct
 from repro_torch.ops.spec import PackMeta, QuantLinearParams
 from repro_torch.quant.plans import (AttnPlan, EmbedPlan, FfnPlan, HeadPlan,
-                                     LayerPlans, LinearPlan, MoePlan)
+                                     LayerPlans, LinearPlan, MambaPlan,
+                                     MoePlan)
 
 PLAN_TYPES = {t.__name__: t for t in (
     Dyadic, IExpPlan, IErfPlan, IGeluPlan, IGeluActPlan, ISoftmaxPlan,
     IAttnPlan, INormPlan, ISiluPlan, IPoly2Plan, ILn1pPlan, ISoftplusPlan,
-    LinearPlan, AttnPlan, FfnPlan, MoePlan, EmbedPlan, HeadPlan,
+    LinearPlan, AttnPlan, FfnPlan, MoePlan, MambaPlan, EmbedPlan, HeadPlan,
     LayerPlans)}
 
 #: the expert leaves of an MoE subtree: dense int8 only (the reference's

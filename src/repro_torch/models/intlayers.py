@@ -1,13 +1,14 @@
 """Integer-path transformer layers of the serving path and the
-full-sequence forward (the dense-decoder, encoder and mixture-of-experts
-subset of ``repro.models.intlayers``).
+full-sequence forward (the dense-decoder, encoder, mixture-of-experts and
+Mamba subset of ``repro.models.intlayers``).
 
 Every function consumes int8/int32 tensors and the design-time plans of
 ``repro_torch.quant.plans``.  Residual stream: int32 at ``cfg.s_res``
 clipped to ``cfg.qmax_res``; matmul operands int8.  KV caches, contiguous
 ``(B, L, Hkv, hd)`` or paged pools ``(num_pages, page_size, Hkv, hd)``,
 are updated **in place** (the reference returns new arrays; the bytes are
-the same).
+the same).  A Mamba block's state (the int32 SSD state ``h`` and the
+int8 conv tail) is returned new, as in the reference.
 """
 from __future__ import annotations
 
@@ -17,10 +18,11 @@ import numpy as np
 import torch
 
 from repro_torch.core import activations as iact
+from repro_torch.core import intmath
 from repro_torch.core import norms
 from repro_torch.core import softmax as ism
 from repro_torch.core.attention import i_attention_chunked
-from repro_torch.core.dyadic import clip_to_bits, rshift_round
+from repro_torch.core.dyadic import Dyadic, clip_to_bits, rshift_round
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models.common import ArchConfig
 from repro_torch.ops import (QuantLinearParams, RequantSpec, get_backend,
@@ -540,3 +542,213 @@ def int_moe_fwd(qp, x8, plans: qplans.MoePlan, cfg: ArchConfig, ops=None,
         out32 = out32 + int_ffn_fwd(qp["shared"], x8, plans.shared, cfg,
                                     ops)
     return out32
+
+
+# -------------------------------------------------------------- mamba -----
+
+class IntMambaState(NamedTuple):
+    h: torch.Tensor        # (B, H, N, P) int32 at s_h
+    conv: torch.Tensor     # (B, K-1, C) int8
+
+
+def init_int_mamba_state(cfg: ArchConfig, batch: int,
+                         device=DEFAULT_DEVICE) -> IntMambaState:
+    """A zero state for ``batch`` lanes, on ``device`` (the card unless the
+    caller passes ``device="cpu"``)."""
+    dev = resolve_device(device)
+    h = torch.zeros((batch, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim),
+                    dtype=torch.int32, device=dev)
+    conv_ch = cfg.ssm_d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+    conv = torch.zeros((batch, cfg.ssm_conv - 1, conv_ch), dtype=torch.int8,
+                       device=dev)
+    return IntMambaState(h, conv)
+
+
+def _INT32_PLAN(mp: qplans.MambaPlan) -> qplans.LinearPlan:
+    """The Δt projection keeps the raw int32 accumulator (its requant
+    comes after the dt_bias add): K1's raw epilogue."""
+    return qplans.LinearPlan(mp.in_proj.s_in, 0.0, 32, 0, 0,
+                             mp.in_proj.k_dim)
+
+
+def _int_conv_step(xbc8_t, conv_state, qconv_w8, mp: qplans.MambaPlan):
+    """Depthwise causal conv, one step.  xbc8_t: (B, C) int8 ->
+    (out8 (B, C) int8, the new tail (B, K-1, C))."""
+    window = torch.cat([conv_state, xbc8_t[:, None, :]], dim=1)
+    acc = (window.to(torch.int32) * qconv_w8.to(torch.int32)[None]).sum(
+        dim=1, dtype=torch.int32)
+    h10 = clip_to_bits(mp.dn_conv(acc), 11)
+    out8 = iact.i_silu(h10, mp.silu_conv, out_bits=8).to(torch.int8)
+    return out8, window[:, 1:]
+
+
+def _silu16(zq, plan: iact.ISiluPlan):
+    """sigmoid(z) as a 2^-15 fraction (int32), z int32 at plan.s_in."""
+    q = zq.to(torch.int32)
+    e = intmath.i_exp(-torch.abs(q), plan.iexp)
+    e16 = torch.clamp(plan.dn_e16(e), 0, 1 << 15)
+    one16 = torch.full_like(e16, 1 << 15)
+    den = one16 + e16
+    r = torch.div(torch.full_like(den, 1 << 30), den, rounding_mode="floor")
+    num = torch.where(q >= 0, one16, e16)
+    return (num * r) >> 15
+
+
+def _round_shift(x, sd):
+    """``(x + half) >> sd`` with ``half = 1 << (sd - 1)`` where ``sd > 0``,
+    else 0 (``(1 << sd) >> 1``): the rounded arithmetic shift of a
+    block-floating-point exponent ``sd`` (a tensor, ``0 <= sd < 31``,
+    that broadcasts against ``x``)."""
+    return (x + ((1 << sd) >> 1)) >> sd
+
+
+def _ssd_readout(h, c8, x8, d_q, mp: qplans.MambaPlan):
+    """The read-out of one token from the state ``h`` (B, H, N, P): h as
+    int8 on one block-floating-point exponent a lane (shared across the
+    heads, so the RMSNorm after cancels it), ``y = C . h8`` over the
+    state (``int_einsum``: exact float64 on the card) plus ``D * x`` on
+    the same shifted grid.  c8 (B, H or 1, N), x8 (B, H, P) int8 ->
+    int32 (B, H, P)."""
+    h_max = torch.abs(h).amax(dim=(1, 2, 3), keepdim=True)
+    sd = torch.clamp(intmath.int_bit_length(h_max) - 7, min=0)   # (B,1,1,1)
+    h8 = torch.clamp(_round_shift(h, sd), -127, 127)
+    y = intmath.int_einsum("bhn,bhnp->bhp", c8.expand(h.shape[:3]), h8)
+    # D*x on the same (shifted) h grid: D_q at 2^-16, >> sd
+    return y + ((d_q[None, :, None] * x8.to(torch.int32)) >> sd[:, :, 0])
+
+
+def _gate_norm_out(qp, y32, z8, mp: qplans.MambaPlan, ops):
+    """y * sigmoid(z), then a per-row block-floating-point shift to <= 12
+    bits into the RMSNorm over d_inner (K2 on the ``cuda`` backend; the
+    norm is scale-invariant, so the row shift cancels), then out_proj
+    (K1) -> int32 at s_res."""
+    sig16 = _silu16(mp.dn_z10(z8.to(torch.int32)), mp.silu_z)
+    gated = ism.rescale_sum(y32, sig16)          # y * sigmoid(z), int32
+    row_max = torch.abs(gated).amax(dim=-1, keepdim=True)
+    s_dyn = torch.clamp(intmath.int_bit_length(row_max) - 11, min=0)
+    y12 = _round_shift(gated, s_dyn)
+    y8 = int_norm({"gamma_q": qp["norm_gamma_q"]}, y12, mp.norm, ops)
+    return int_linear(y8, qp["out_proj"], mp.out_proj, ops)
+
+
+def _dt_decay(dt_acc, qp, mp: qplans.MambaPlan):
+    """Δt and the decay from the raw Δt accumulator (..., H): Δt =
+    i-softplus(dt_acc + dt_bias) at s_dt (13 bits), decay = i-exp(-Δt *
+    A) as a 2^-15 fraction.  Returns (dt, decay16), both int32."""
+    dt_in = clip_to_bits(mp.dn_dt_in(dt_acc + qp["dt_bias_q"]), 11)
+    dt = iact.i_softplus(dt_in, mp.softplus, out_bits=13)
+    dtA = mp.dn_dtA(dt * qp["A_q"])                          # -> 2^-14
+    decay16 = torch.clamp(mp.dn_decay16(intmath.i_exp(-dtA,
+                                                      mp.iexp_decay)),
+                          0, 1 << 15)
+    return dt, decay16
+
+
+def _split_xbc(xbc8, cfg: ArchConfig):
+    """x (..., H, P), B and C (..., G, N) of the conv's output."""
+    di, gq, n = cfg.ssm_d_inner, cfg.ssm_groups, cfg.ssm_state
+    lead = xbc8.shape[:-1]
+    x8 = xbc8[..., :di].reshape(*lead, cfg.ssm_heads, cfg.ssm_head_dim)
+    b8 = xbc8[..., di:di + gq * n].reshape(*lead, gq, n)
+    c8 = xbc8[..., di + gq * n:].reshape(*lead, gq, n)
+    return x8, b8, c8
+
+
+def _per_head(t, cfg: ArchConfig, dim: int):
+    """A group's B or C for each of its heads (``jnp.repeat`` over the
+    groups); one group broadcasts as it is."""
+    rep = cfg.ssm_heads // cfg.ssm_groups
+    return t.repeat_interleave(rep, dim=dim) if cfg.ssm_groups > 1 else t
+
+
+def int_mamba_step(qp, u8_t, state: IntMambaState, mp: qplans.MambaPlan,
+                   cfg: ArchConfig, ops=None):
+    """One token.  u8_t: (B, D) int8 -> (out32 (B, D) at s_res, the new
+    state).  in_proj and out_proj are K1 launches, the Δt projection K1's
+    raw epilogue, the gated norm K2; the conv, Δt, the decay and the
+    state update are plain tensor code, as the reference's are plain
+    ``jnp``."""
+    ops = resolve_ops(ops, cfg)
+    b = u8_t.shape[0]
+    di = cfg.ssm_d_inner
+    zxbc8 = int_linear(u8_t, qp["in_proj"], mp.in_proj, ops)
+    dt_acc = int_linear(u8_t, qp["dt_proj"], _INT32_PLAN(mp), ops)
+    z8, xbc8 = zxbc8[:, :di], zxbc8[:, di:]
+    xbc8, conv_new = _int_conv_step(xbc8, state.conv, qp["conv_w8"], mp)
+    x8, b8, c8 = _split_xbc(xbc8, cfg)
+    dt, decay16 = _dt_decay(dt_acc, qp, mp)                  # (B, H)
+    # contribution dt * B * x (s_dt * s_xbc * s_xbc) -> s_h
+    b8h = _per_head(b8, cfg, 1)
+    contrib = mp.dn_h(dt[:, :, None, None] * (
+        b8h[:, :, :, None].to(torch.int32) * x8[:, :, None, :].to(
+            torch.int32)))
+    h = ism.rescale_sum(state.h, decay16[:, :, None, None]) + contrib
+    h = torch.clamp(h, -mp.qmax_h, mp.qmax_h)
+    y = _ssd_readout(h, _per_head(c8, cfg, 1), x8, qp["D_q"], mp)
+    out32 = _gate_norm_out(qp, y.reshape(b, di), z8, mp, ops)
+    return out32, IntMambaState(h, conv_new)
+
+
+def _rshift_round_(x, s: int):
+    """:func:`rshift_round` in place on an int32 tensor the caller owns."""
+    if s > 0:
+        return x.add_(1 << (s - 1)).bitwise_right_shift_(s)
+    return x.bitwise_left_shift_(-s) if s < 0 else x
+
+
+def _dyadic_(q, dn: Dyadic):
+    """``dn(q)`` in place (the same three stages as
+    :func:`core.dyadic.apply_dyadic`)."""
+    _rshift_round_(q, dn.pre)
+    q.mul_(dn.b)
+    return _rshift_round_(q, dn.c - dn.pre)
+
+
+def int_mamba_prefill(qp, u8, mp: qplans.MambaPlan, cfg: ArchConfig,
+                      state: Optional[IntMambaState] = None, ops=None):
+    """Integer prefill with the token-parallel stages hoisted out of the
+    recurrence (the reference's): the projections (K1), the conv, Δt, the
+    decays and the contributions over the whole sequence, then L
+    sequential state updates and read-outs, then the gate, the norm (K2)
+    and out_proj (K1) over the sequence.  u8: (B, L, D) int8; ``state``
+    the carried-in state (default zero).  Returns (out32 (B, L, D) at
+    s_res, the state after the last token).
+
+    The contributions are one (B, L, H, N, P) int32 tensor (4 x 512 at
+    mamba2-130m's widths: 1.61 GB), built in place so that no second
+    copy of it exists."""
+    ops = resolve_ops(ops, cfg)
+    b, l, _ = u8.shape
+    di = cfg.ssm_d_inner
+    if state is None:
+        state = init_int_mamba_state(cfg, b, u8.device)
+    zxbc8 = int_linear(u8, qp["in_proj"], mp.in_proj, ops)        # (B,L,*)
+    dt_acc = int_linear(u8, qp["dt_proj"], _INT32_PLAN(mp), ops)
+    z8, xbc8 = zxbc8[..., :di], zxbc8[..., di:]
+    # causal depthwise conv over the sequence, seeded by the carried tail
+    km1 = state.conv.shape[1]
+    full = torch.cat([state.conv, xbc8], dim=1)
+    w = qp["conv_w8"].to(torch.int32)
+    acc = sum(full[:, i:i + l].to(torch.int32) * w[i]
+              for i in range(km1 + 1))
+    conv_tail = full[:, -km1:]
+    h10 = clip_to_bits(mp.dn_conv(acc), 11)
+    xbc8a = iact.i_silu(h10, mp.silu_conv, out_bits=8).to(torch.int8)
+    x8, b8, c8 = _split_xbc(xbc8a, cfg)
+    dt, decay16 = _dt_decay(dt_acc, qp, mp)                      # (B,L,H)
+    contrib = _per_head(b8, cfg, 2)[..., :, None].to(torch.int32) \
+        * x8[..., None, :].to(torch.int32)                       # (B,L,H,N,P)
+    _dyadic_(contrib.mul_(dt[..., None, None]), mp.dn_h)
+    c8h = _per_head(c8, cfg, 2)
+
+    # the sequential state recurrence + read-out
+    h = state.h
+    y32 = torch.empty((b, l, cfg.ssm_heads, cfg.ssm_head_dim),
+                      dtype=torch.int32, device=u8.device)
+    for t in range(l):
+        h = ism.rescale_sum(h, decay16[:, t, :, None, None]) + contrib[:, t]
+        h = torch.clamp(h, -mp.qmax_h, mp.qmax_h)
+        y32[:, t] = _ssd_readout(h, c8h[:, t], x8[:, t], qp["D_q"], mp)
+    del contrib
+    out32 = _gate_norm_out(qp, y32.reshape(b, l, di), z8, mp, ops)
+    return out32, IntMambaState(h, conv_tail)

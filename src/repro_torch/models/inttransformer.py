@@ -1,6 +1,6 @@
-"""Integer datapath of dense decoders, encoders and mixtures of experts
-(the ported subset of ``repro.models.inttransformer``): embedding, the
-full-sequence forward
+"""Integer datapath of dense decoders, encoders, mixtures of experts and
+state-space models (the ported subset of ``repro.models.inttransformer``):
+embedding, the full-sequence forward
 (``int_prefill``, which can also build the decode cache), chunked
 prefill, decode over a contiguous or paged cache, the speculative verify
 step (``Sq = spec_k + 1`` rows a lane), logits.
@@ -8,8 +8,10 @@ step (``Sq = spec_k + 1`` rows a lane), logits.
 Everything from the embedding lookup to the last requant is SwiftTron
 integer arithmetic; only the final logits are dequantized (the host-side
 sampling boundary).  Where the reference scans over the stacked layers
-with ``lax.scan``, this is a Python loop over views of the stacks.  The
-KV caches are written in place.
+with ``lax.scan``, this is a Python loop over views of the stacks, each
+group's positions in architectural order.  The KV caches and the Mamba
+state (the int32 SSD state ``h`` and the int8 conv tail, one a lane) are
+written in place.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import torch
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import intlayers as il
 from repro_torch.models.common import ArchConfig
-from repro_torch.models.transformer import layer_group_spec
+from repro_torch.models.transformer import PORTED_KINDS, layer_group_spec
 from repro_torch.ops import QuantLinearParams, resolve_ops
 from repro_torch.ops.packed import KV_SHIFT
 from repro_torch.quant import plans as qplans
@@ -42,10 +44,10 @@ def _layer(tree, g: int):
 
 
 def chunked_prefill_supported(cfg: ArchConfig) -> bool:
-    """Full (non-windowed) causal attention + dense FFN sublayers only:
-    an MoE's capacity routing drops tokens per group, so a chunked
-    grouping would route otherwise than token streaming (the
-    reference's rule)."""
+    """Full (non-windowed) causal attention + dense FFN sublayers only
+    (the reference's rule): an MoE's capacity routing drops tokens per
+    group, so a chunked grouping would route otherwise than token
+    streaming, and a Mamba state advances token by token."""
     _, _, kinds = layer_group_spec(cfg)
     return cfg.is_causal and cfg.window == 0 and all(
         kind == ("attn", "ffn", False) for kind in kinds)
@@ -66,19 +68,25 @@ def _ffn_sublayer(qp, x32, plans: qplans.LayerPlans, cfg: ArchConfig, ops,
 
 def _int_sublayer_fwd(qp, x32, plans: qplans.LayerPlans, cfg: ArchConfig,
                       kind, rope_tab, positions, causal, ops):
-    """Pre-norm integer sublayer of kind ``("attn", "ffn", False)`` or
-    ``("attn", "moe", False)`` (routing groups of 512 tokens, as the
-    reference's prefill).  x32: (B,S,D) int32 at s_res.  The reference's
-    integer path is pre-norm whatever ``cfg.post_norm`` says, and so is
-    this."""
-    if kind not in (("attn", "ffn", False), ("attn", "moe", False)):
+    """Pre-norm integer sublayer of ``kind``: attention or a Mamba block
+    (``int_mamba_prefill`` from a zero state), then a dense FFN, an MoE
+    (routing groups of 512 tokens, as the reference's prefill) or nothing
+    (``ff`` None).  x32: (B,S,D) int32 at s_res.  The reference's integer
+    path is pre-norm whatever ``cfg.post_norm`` says, and so is this."""
+    if kind not in PORTED_KINDS:
         raise NotImplementedError(f"sublayer {kind} is not ported yet "
-                                  "(ROADMAP §1 items 7-8)")
+                                  "(ROADMAP §1 item 8)")
     h8 = il.int_norm(qp["norm1"], x32, plans.norm, ops)
-    a32 = il.int_attn_fwd(qp["attn"], h8, plans.attn, cfg, rope_tab,
-                          positions, causal=causal, window=cfg.window,
-                          ops=ops)
+    if kind[0] == "attn":
+        a32 = il.int_attn_fwd(qp["attn"], h8, plans.attn, cfg, rope_tab,
+                              positions, causal=causal, window=cfg.window,
+                              ops=ops)
+    else:
+        a32, _ = il.int_mamba_prefill(qp["ssm"], h8, plans.mamba, cfg,
+                                      ops=ops)
     x32 = _residual_add(x32, a32, cfg)
+    if kind[1] is None:
+        return x32
     return _ffn_sublayer(qp, x32, plans, cfg, ops, group_size=512)
 
 
@@ -143,15 +151,18 @@ def int_prefill(qparams, batch, plans: qplans.LayerPlans, cfg: ArchConfig,
 
 def init_decode_cache(cfg: ArchConfig, layout=None, device=DEFAULT_DEVICE, *,
                       batch: int = 0, cache_len: int = 0) -> List[Dict]:
-    """Per-sublayer-position int8 K/V caches, zeroed: paged pools ``(ng,
-    num_pages, page_size, Hkv, hd)`` for ``layout`` (a
-    ``serving.kvcache.CacheLayout``), else contiguous ``(ng, batch, L,
-    Hkv, hd)`` with ``L = min(cache_len, cfg.window)`` for a sliding
-    window (the rolling buffer), ``cache_len`` otherwise.  With
+    """Per-sublayer-position caches, zeroed.  An attention position holds
+    int8 K/V: paged pools ``(ng, num_pages, page_size, Hkv, hd)`` for
+    ``layout`` (a ``serving.kvcache.CacheLayout``), else contiguous ``(ng,
+    batch, L, Hkv, hd)`` with ``L = min(cache_len, cfg.window)`` for a
+    sliding window (the rolling buffer), ``cache_len`` otherwise.  With
     ``layout.kv_dtype == "int4"`` the pools pack two head-dim nibbles a
     byte (last dim ``hd // 2``) and carry per-page shifts ``k_shift`` /
     ``v_shift`` ``(ng, num_pages)`` int32, all ``ops.packed.KV_SHIFT``.
-    On ``device``: the card unless the caller passes ``device="cpu"``."""
+    A Mamba position holds lane-indexed state in either layout (``batch``
+    lanes, or the layout's ``num_slots``): ``h`` ``(ng, B, H, N, P)``
+    int32 and ``conv`` ``(ng, B, K-1, C)`` int8.  On ``device``: the card
+    unless the caller passes ``device="cpu"``."""
     _, ng, kinds = layer_group_spec(cfg)
     packed = layout is not None and layout.kv_dtype == "int4"
     if packed and cfg.hd % 2:
@@ -161,11 +172,18 @@ def init_decode_cache(cfg: ArchConfig, layout=None, device=DEFAULT_DEVICE, *,
     if layout is not None:
         shape = (ng, layout.num_pages, layout.page_size, cfg.n_kv_heads,
                  cfg.hd // 2 if packed else cfg.hd)
+        batch = layout.num_slots
     else:
         L = min(cache_len, cfg.window) if cfg.window > 0 else cache_len
         shape = (ng, batch, L, cfg.n_kv_heads, cfg.hd)
     caches = []
-    for _ in kinds:
+    for mix, _, _ in kinds:
+        if mix == "ssm":
+            st = il.init_int_mamba_state(cfg, batch, device)
+            caches.append({"h": st.h.expand(ng, *st.h.shape).clone(),
+                           "conv": st.conv.expand(ng, *st.conv.shape
+                                                  ).clone()})
+            continue
         c = {"k8": torch.zeros(shape, dtype=torch.int8, device=device),
              "v8": torch.zeros(shape, dtype=torch.int8, device=device)}
         if packed:
@@ -177,20 +195,49 @@ def init_decode_cache(cfg: ArchConfig, layout=None, device=DEFAULT_DEVICE, *,
 
 
 def _sublayers(qparams, caches, cfg: ArchConfig):
-    """(layer params, layer cache) views in architectural order."""
+    """(layer params, layer cache, kind) views in architectural order."""
     _, ng, kinds = layer_group_spec(cfg)
     for g in range(ng):
-        for j in range(len(kinds)):
+        for j, kind in enumerate(kinds):
             yield (_layer(qparams["layers"][j], g),
-                   {key: leaf[g] for key, leaf in caches[j].items()})
+                   {key: leaf[g] for key, leaf in caches[j].items()}, kind)
 
 
 def _cache_len(caches, pages, page_size: int, max_len: int) -> int:
     """L of :func:`intlayers.int_attn_decode`: the paged occupancy bound
-    (``max_len``, else the page-table span) or the contiguous length."""
+    (``max_len``, else the page-table span) or the contiguous length of
+    the first attention position's cache."""
     if pages is not None:
         return max_len or pages.shape[1] * page_size
-    return caches[0]["k8"].shape[2]
+    return next(c["k8"].shape[2] for c in caches if "k8" in c)
+
+
+def _has_attention(cfg: ArchConfig) -> bool:
+    return any(mix == "attn" for mix, _, _ in layer_group_spec(cfg)[2])
+
+
+def _int_sublayer_decode(qp, cache, x32, pos, plans: qplans.LayerPlans,
+                         cfg: ArchConfig, kind, ops, **attn_kw):
+    """One token through a sublayer of ``kind``: attention over the KV
+    cache (``attn_kw``: the layout's operands, the step's rows and RoPE),
+    or one Mamba step whose new state is written over the lane-indexed
+    ``h`` / ``conv`` in place, then the FFN / MoE (one-token routing
+    groups) where the sublayer has one."""
+    h8 = il.int_norm(qp["norm1"], x32, plans.norm, ops)
+    if kind[0] == "attn":
+        a32, _ = il.int_attn_decode(qp["attn"], h8, cache, pos, plans.attn,
+                                    cfg, window=cfg.window, ops=ops,
+                                    **attn_kw)
+    else:
+        a32, st = il.int_mamba_step(qp["ssm"], h8[:, 0], il.IntMambaState(
+            cache["h"], cache["conv"]), plans.mamba, cfg, ops)
+        cache["h"].copy_(st.h)
+        cache["conv"].copy_(st.conv)
+        a32 = a32[:, None]
+    x32 = _residual_add(x32, a32, cfg)
+    if kind[1] is None:
+        return x32
+    return _ffn_sublayer(qp, x32, plans, cfg, ops, group_size=1)
 
 
 def int_decode_step(qparams, caches, tokens, pos, plans, cfg: ArchConfig,
@@ -201,27 +248,27 @@ def int_decode_step(qparams, caches, tokens, pos, plans, cfg: ArchConfig,
     ``caches``: contiguous (:func:`init_decode_cache` without a layout),
     or paged pools with ``pages``/``page_size``/``max_len`` (page table
     int32 (B, max_pages)); a sliding window writes its rolling slot ``pos
-    % cfg.window``.  ``fold_wo`` folds each o-projection into the
-    attention call (bit-exact either way).  ``pos_span``: the least and
-    greatest of ``pos``, known on the host (:func:`intlayers.rope_gather`:
-    the RoPE range check then reads nothing from the card)."""
+    % cfg.window``.  A Mamba position advances every lane's state by its
+    token (an idle lane's by token 0, as in the reference), in place.
+    ``fold_wo`` folds each o-projection into the attention call
+    (bit-exact either way).  ``pos_span``: the least and greatest of
+    ``pos``, known on the host (:func:`intlayers.rope_gather`: the RoPE
+    range check then reads nothing from the card)."""
     ops = resolve_ops(ops)
     x32 = embed_int(qparams, tokens[:, None], plans, cfg)
-    writes = il.step_rows(pos, _cache_len(caches, pages, page_size,
-                                          max_len),
-                          pages=pages, page_size=page_size,
-                          window=cfg.window)
-    rope = il.rope_gather(rope_tab, writes.positions, pos_span) \
-        if rope_tab is not None else None
-    for qp, cache in _sublayers(qparams, caches, cfg):
-        h8 = il.int_norm(qp["norm1"], x32, plans.norm, ops)
-        a32, _ = il.int_attn_decode(qp["attn"], h8, cache, pos, plans.attn,
-                                    cfg, window=cfg.window, ops=ops,
-                                    pages=pages, page_size=page_size,
-                                    max_len=max_len, fold_wo=fold_wo,
-                                    rope=rope, writes=writes)
-        x32 = _residual_add(x32, a32, cfg)
-        x32 = _ffn_sublayer(qp, x32, plans, cfg, ops, group_size=1)
+    attn_kw = {}
+    if _has_attention(cfg):
+        writes = il.step_rows(pos, _cache_len(caches, pages, page_size,
+                                              max_len),
+                              pages=pages, page_size=page_size,
+                              window=cfg.window)
+        rope = il.rope_gather(rope_tab, writes.positions, pos_span) \
+            if rope_tab is not None else None
+        attn_kw = dict(pages=pages, page_size=page_size, max_len=max_len,
+                       fold_wo=fold_wo, rope=rope, writes=writes)
+    for qp, cache, kind in _sublayers(qparams, caches, cfg):
+        x32 = _int_sublayer_decode(qp, cache, x32, pos, plans, cfg, kind,
+                                   ops, **attn_kw)
     logits = logits_int(qparams, x32, plans, cfg, ops)[:, 0]
     return logits, caches
 
@@ -230,9 +277,11 @@ def speculative_decode_supported(cfg: ArchConfig) -> bool:
     """Whether :func:`int_verify_step` serves this arch: full
     (non-windowed) causal attention and no cross attention.  A sliding
     window interleaves rolling-buffer writes and reads token by token,
-    which a batched multi-position write would break.  Dense FFN and MoE
-    sublayers both verify: the MoE routes each verify row alone
-    (``group_size=1``), as a decode step does."""
+    which a batched multi-position write would break, and a Mamba state
+    advances destructively token by token, so a rejected draft could not
+    be rolled back.  Dense FFN and MoE sublayers both verify: the MoE
+    routes each verify row alone (``group_size=1``), as a decode step
+    does."""
     _, _, kinds = layer_group_spec(cfg)
     return cfg.is_causal and cfg.window == 0 and all(
         mix == "attn" and not has_cross for (mix, _, has_cross) in kinds)
@@ -263,8 +312,8 @@ def int_verify_step(qparams, caches, tokens, pos, n_new, plans,
     caches)``."""
     if not speculative_decode_supported(cfg):
         raise ValueError("speculative verify unsupported for arch "
-                         f"{cfg.name!r} (needs window == 0 and no cross "
-                         "attention)")
+                         f"{cfg.name!r} (needs window == 0 and "
+                         "attention+ffn/moe sublayers only)")
     ops = resolve_ops(ops)
     x32 = embed_int(qparams, tokens, plans, cfg)
     writes = il.step_rows(pos, _cache_len(caches, pages, page_size,
@@ -273,7 +322,7 @@ def int_verify_step(qparams, caches, tokens, pos, n_new, plans,
                           page_size)
     rope = il.rope_gather(rope_tab, writes.positions, pos_span) \
         if rope_tab is not None else None
-    for qp, cache in _sublayers(qparams, caches, cfg):
+    for qp, cache, _ in _sublayers(qparams, caches, cfg):
         h8 = il.int_norm(qp["norm1"], x32, plans.norm, ops)
         a32, _ = il.int_attn_decode(qp["attn"], h8, cache, pos, plans.attn,
                                     cfg, ops=ops, pages=pages,
@@ -332,7 +381,7 @@ def int_prefill_chunk_step(qparams, caches, tokens, base_pos, plans,
         positions = base_pos[:, None] + torch.arange(
             c, dtype=base_pos.dtype, device=base_pos.device)
         rope = il.rope_gather(rope_tab, positions, pos_span)
-    for qp, cache in _sublayers(qparams, caches, cfg):
+    for qp, cache, _ in _sublayers(qparams, caches, cfg):
         h8 = il.int_norm(qp["norm1"], x32, plans.norm, ops)
         a32, _ = il.int_attn_prefill_chunk(
             qp["attn"], h8, cache, base_pos, plans.attn, cfg, ops=ops,

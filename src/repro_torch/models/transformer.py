@@ -1,6 +1,6 @@
-"""Layer grouping and the float init of dense decoders, encoders and
-mixtures of experts (twin of the matching parts of
-``repro.models.transformer``)."""
+"""Layer grouping and the float init of dense decoders, encoders,
+mixtures of experts and state-space models (twin of the matching parts
+of ``repro.models.transformer``)."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -9,6 +9,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as fl
+from repro_torch.models import mamba as mb
 from repro_torch.models.common import ArchConfig
 
 Pytree = Any
@@ -41,35 +42,43 @@ def layer_group_spec(cfg: ArchConfig):
     return gl, n // gl, kinds
 
 
-PORTED_FAMILIES = ("dense", "encoder", "moe")
-#: the sublayer kinds the port runs: attention + a dense FFN or an MoE
-PORTED_KINDS = (("attn", "ffn", False), ("attn", "moe", False))
+PORTED_FAMILIES = ("dense", "encoder", "moe", "ssm", "hybrid")
+#: the sublayer kinds the port runs: attention or Mamba, then a dense
+#: FFN, an MoE or (attention-free Mamba) nothing
+PORTED_KINDS = (("attn", "ffn", False), ("attn", "moe", False),
+                ("ssm", None, False), ("ssm", "ffn", False),
+                ("ssm", "moe", False))
 
 
-def require_dense(cfg: ArchConfig) -> None:
-    """The port runs stacks of one attention sublayer kind so far: dense
-    decoders and encoders (attention + FFN) and mixtures of experts
-    (attention + MoE)."""
+def require_ported(cfg: ArchConfig) -> None:
+    """The port runs every family but the cross-attention ones: dense
+    decoders and encoders, mixtures of experts, and the state-space
+    models (attention-free Mamba-2 and the attention / Mamba hybrid)."""
     _, _, kinds = layer_group_spec(cfg)
-    if cfg.family not in PORTED_FAMILIES or len(kinds) != 1 \
-            or kinds[0] not in PORTED_KINDS:
+    if cfg.family not in PORTED_FAMILIES \
+            or any(kind not in PORTED_KINDS for kind in kinds):
         raise NotImplementedError(
-            f"arch {cfg.name!r} ({cfg.family}) is not ported yet: the port "
-            "runs attention + FFN / MoE decoders and encoders (SSM and "
-            "hybrid: ROADMAP §1 item 7; cross attention: item 8)")
+            f"arch {cfg.name!r} ({cfg.family}) is not ported yet: cross "
+            "attention over an encoder / image memory is ROADMAP §1 item 8")
 
 
-def init_layer(gen: torch.Generator, cfg: ArchConfig, dtype) -> Pytree:
-    """One attention + FFN (or MoE) sublayer's float params (unstacked),
-    drawn in the reference's order: attention, then the FFN / MoE."""
+def init_layer(gen: torch.Generator, cfg: ArchConfig, dtype,
+               kind=None) -> Pytree:
+    """One sublayer's float params (unstacked) of ``kind`` (default the
+    first of the group), drawn in the reference's order: the mixer
+    (attention or Mamba), then the FFN / MoE.  A Mamba sublayer without
+    an FFN has no ``norm2``."""
     dev = gen.device
-    _, _, kinds = layer_group_spec(cfg)
-    ff = kinds[0][1]
-    p = {"norm1": fl.init_norm(cfg, dtype, dev),
-         "attn": fl.init_attn(gen, cfg, dtype),
-         "norm2": fl.init_norm(cfg, dtype, dev)}
-    p[ff] = fl.init_moe(gen, cfg, dtype) if ff == "moe" \
-        else fl.init_ffn(gen, cfg, dtype)
+    mix, ff, _ = kind or layer_group_spec(cfg)[2][0]
+    p = {"norm1": fl.init_norm(cfg, dtype, dev)}
+    if mix == "attn":
+        p["attn"] = fl.init_attn(gen, cfg, dtype)
+    else:
+        p["ssm"] = mb.init_mamba(gen, cfg, dtype)
+    if ff is not None:
+        p["norm2"] = fl.init_norm(cfg, dtype, dev)
+        p[ff] = fl.init_moe(gen, cfg, dtype) if ff == "moe" \
+            else fl.init_ffn(gen, cfg, dtype)
     return p
 
 
@@ -84,12 +93,14 @@ def init_params(cfg: ArchConfig, seed: int = 0,
                 device="cuda") -> Pytree:
     """Random float params in the reference layout: ``embed`` (V, D),
     ``final_norm``, ``lm_head`` (D, V; absent for an encoder or tied
-    embeddings), ``layers`` — one dict whose leaves carry a leading layer
-    axis — and, for ``pos="learned"``, ``pos_embed`` (65536, D), which the
-    integer path does not read (drawn last, so the other draws equal
-    ``quant.convert.init_quantized``'s).  Holds the whole float model at
-    once; ``init_quantized`` draws and quantizes layer by layer instead."""
-    require_dense(cfg)
+    embeddings), ``layers`` — one dict a position of the layer group, whose
+    leaves carry a leading group axis — and, for ``pos="learned"``,
+    ``pos_embed`` (65536, D), which the integer path does not read (drawn
+    last, so the other draws equal ``quant.convert.init_quantized``'s).
+    Sublayers are drawn in architectural order: group after group, each
+    group's positions in turn.  Holds the whole float model at once;
+    ``init_quantized`` draws and quantizes layer by layer instead."""
+    require_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dtype = getattr(torch, cfg.dtype)
@@ -100,9 +111,11 @@ def init_params(cfg: ArchConfig, seed: int = 0,
     }
     if not cfg.tie_embeddings and cfg.family != "encoder":
         params["lm_head"] = fl._init(gen, (cfg.d_model, v), dtype)
-    _, ng, _ = layer_group_spec(cfg)
-    params["layers"] = [_stack([init_layer(gen, cfg, dtype)
-                                for _ in range(ng)])]
+    _, ng, kinds = layer_group_spec(cfg)
+    drawn = [[init_layer(gen, cfg, dtype, kind) for kind in kinds]
+             for _ in range(ng)]
+    params["layers"] = [_stack([group[j] for group in drawn])
+                        for j in range(len(kinds))]
     if cfg.pos == "learned":
         params["pos_embed"] = fl._init(gen, (65536, cfg.d_model), dtype)
     return params

@@ -1,5 +1,6 @@
 """Float params -> SwiftTron integer parameters (the dense-decoder,
-encoder and mixture-of-experts subset of ``repro.quant.convert``).
+encoder, mixture-of-experts and state-space subset of
+``repro.quant.convert``).
 
 Every weight becomes int8 with per-out-channel scales folded into int32
 dyadic multiplier vectors; norm gammas become the i-norm unit's integer
@@ -19,7 +20,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import layers as fl
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.transformer import (_stack, init_layer,
-                                            layer_group_spec, require_dense)
+                                            layer_group_spec, require_ported)
 from repro_torch.ops.spec import QuantLinearParams
 from repro_torch.quant import plans as qplans
 
@@ -89,18 +90,22 @@ def _q_experts(w, plan: qplans.LinearPlan) -> QuantLinearParams:
                              b_mult)
 
 
-def _router_scale(w) -> float:
-    """The per-tensor router scale: max |w| / 127 in float64 over ``w``
-    (one layer's router, or the whole stack)."""
+def _tensor_scale(w) -> float:
+    """A per-tensor scale: max |w| / 127 in float64 over ``w`` (one
+    layer's tensor, or the whole stack of a position)."""
     return float(w.to(torch.float64).abs().max()) / 127.0
+
+
+def _q_per_tensor(w, s: float):
+    """int8 of ``w`` at the one scale ``s``."""
+    return torch.clamp(torch.round(w.to(torch.float64) / s), -127, 127
+                       ).to(torch.int8)
 
 
 def _q_router(w, s_router: float) -> QuantLinearParams:
     """Router weights at one per-tensor scale, no multiplier (the plan is
     raw: the logits stay int32)."""
-    w = w.to(torch.float64)
-    return QuantLinearParams(torch.clamp(torch.round(w / s_router), -127,
-                                         127).to(torch.int8))
+    return QuantLinearParams(_q_per_tensor(w, s_router))
 
 
 def _q_moe(p, plans: qplans.MoePlan, s_router=None):
@@ -119,14 +124,96 @@ def _q_moe(p, plans: qplans.MoePlan, s_router=None):
     return out
 
 
-def _q_sublayer(p, plans: qplans.LayerPlans, s_router=None):
-    out = {"norm1": _q_norm(p["norm1"], plans.norm),
-           "attn": _q_attn(p["attn"], plans.attn),
-           "norm2": _q_norm(p["norm2"], plans.norm)}
-    if "moe" in p:
-        out["moe"] = _q_moe(p["moe"], plans.moe, s_router)
+def _dt_weight(in_proj, cfg: ArchConfig):
+    """The Δt columns of a Mamba block's in_proj (its last ``ssm_heads``)."""
+    return in_proj[..., in_proj.shape[-1] - cfg.ssm_heads:]
+
+
+def _q_mamba(p, mp: qplans.MambaPlan, cfg: ArchConfig, scales=None):
+    """A Mamba block: in_proj's z / x / B / C columns and out_proj per
+    channel, A on ``s_A``, D on the 2^-16 state grid, the norm's gamma.
+    ``scales``: ``(s_dtw, s_conv)``, the per-tensor scales of the Δt
+    projection and the conv (the reference's: the maximum over the whole
+    stack of the position, :func:`_stack_scales`), which also set
+    ``dt_bias_q``'s grid; where None those three leaves are left out
+    (:func:`init_quantized` adds them last)."""
+    w = p["in_proj"]
+    out = {"in_proj": _q_linear(w[..., :w.shape[-1] - cfg.ssm_heads],
+                                mp.in_proj),
+           "A_q": torch.round(torch.exp(p["A_log"].to(torch.float64))
+                              / mp.s_A).to(torch.int32),
+           # D on the 2^-16 state grid (D*x enters y in h units)
+           "D_q": torch.round(p["D"].to(torch.float64) / mp.s_h
+                              ).to(torch.int32),
+           "norm_gamma_q": norms.quantize_norm_weights(
+               p["norm_gamma"], None, mp.norm)[0],
+           "out_proj": _q_linear(p["out_proj"], mp.out_proj)}
+    if scales is not None:
+        out.update(_q_mamba_scaled(p, mp, cfg, *scales))
+    return out
+
+
+def _q_mamba_scaled(p, mp: qplans.MambaPlan, cfg: ArchConfig, s_dtw: float,
+                    s_conv: float):
+    """The leaves of a Mamba block at the per-tensor scales: ``dt_proj``
+    (w8 only: its plan is raw), ``conv_w8`` and ``dt_bias_q`` (int32 at
+    the Δt accumulator's scale ``s_in * s_dtw``)."""
+    return {"dt_proj": QuantLinearParams(_q_per_tensor(
+                _dt_weight(p["in_proj"], cfg), s_dtw)),
+            "conv_w8": _q_per_tensor(p["conv_w"], s_conv),
+            "dt_bias_q": torch.round(p["dt_bias"].to(torch.float64)
+                                     / (mp.in_proj.s_in * s_dtw)
+                                     ).to(torch.int32)}
+
+
+def _stack_scales(p, kind, cfg: ArchConfig) -> dict:
+    """The per-tensor scales the reference's second pass quantizes a
+    position with: the maximum over that position's whole stack (``p``'s
+    leaves carry the group axis) of its Δt projection and conv
+    (``"ssm"``) and of its router (``"router"``)."""
+    mix, ff, _ = kind
+    out = {}
+    if mix == "ssm":
+        out["ssm"] = (_tensor_scale(_dt_weight(p["ssm"]["in_proj"], cfg)),
+                      _tensor_scale(p["ssm"]["conv_w"]))
+    if ff == "moe":
+        out["router"] = _tensor_scale(p["moe"]["router"])
+    return out
+
+
+def _probe_calib(first, kinds, cfg: ArchConfig) -> dict:
+    """The reference's first pass (``quantize_params``'s probe of each
+    position's group 0, ``t[:1]``, into one shared dict): ``first[j]`` is
+    position j's group-0 sublayer.  Later positions overwrite earlier
+    ones, so ``s_dtw`` / ``s_conv`` are the last Mamba position's and
+    ``s_router`` the last MoE position's (jamba: position 7 for both)."""
+    sink = {}
+    for p, kind in zip(first, kinds):
+        group0 = _stack_scales(p, kind, cfg)
+        if "ssm" in group0:
+            sink["s_dtw"], sink["s_conv"] = group0["ssm"]
+        if "router" in group0:
+            sink["s_router"] = group0["router"]
+    return sink
+
+
+def _q_sublayer(p, plans: qplans.LayerPlans, cfg: ArchConfig, kind,
+                scales=None):
+    """One sublayer of ``kind``; ``scales`` (:func:`_stack_scales`) where
+    its per-tensor leaves are quantized now, None where they come last."""
+    mix, ff, _ = kind
+    scales = scales or {}
+    out = {"norm1": _q_norm(p["norm1"], plans.norm)}
+    if mix == "attn":
+        out["attn"] = _q_attn(p["attn"], plans.attn)
     else:
-        out["ffn"] = _q_ffn(p["ffn"], plans.ffn)
+        out["ssm"] = _q_mamba(p["ssm"], plans.mamba, cfg, scales.get("ssm"))
+    if ff is not None:
+        out["norm2"] = _q_norm(p["norm2"], plans.norm)
+        if ff == "moe":
+            out["moe"] = _q_moe(p["moe"], plans.moe, scales.get("router"))
+        else:
+            out["ffn"] = _q_ffn(p["ffn"], plans.ffn)
     return out
 
 
@@ -170,18 +257,18 @@ def quantize_params(params: Pytree, cfg: ArchConfig
     plans), integer-identical to ``repro.quant.convert.quantize_params``
     on the same floats.
 
-    A mixture of experts takes the reference's two passes: the plans'
-    ``s_router`` (the gate softmax's input scale) is layer 0's router
-    scale, while every router is quantized at the scale of the whole
-    stack (ROADMAP §3)."""
-    require_dense(cfg)
+    The per-tensor scales take the reference's two passes (ROADMAP §3):
+    the plans' ``s_router`` (the gate softmax's input scale) and ``s_dtw``
+    / ``s_conv`` (the Mamba Δt and conv requants) come from a probe of
+    group 0 of each position in turn, so from the last MoE and the last
+    Mamba position (:func:`_probe_calib`), while every router, Δt
+    projection, conv and ``dt_bias`` is quantized at the scale of its
+    position's whole stack (:func:`_stack_scales`)."""
+    require_ported(cfg)
+    _, _, kinds = layer_group_spec(cfg)
     calib = {"s_emb": _embed_scale(params["embed"])}
-    layers = params["layers"][0]
-    s_router = None
-    if "moe" in layers:
-        router = layers["moe"]["router"]
-        calib["s_router"] = _router_scale(router[:1])
-        s_router = _router_scale(router)
+    layers = params["layers"]
+    calib.update(_probe_calib([_group(p, 0) for p in layers], kinds, cfg))
     plans = qplans.build_layer_plans(cfg, calib)
     head, head_scale = _q_head(_head_weight(params, cfg))
     qparams = {
@@ -189,9 +276,19 @@ def quantize_params(params: Pytree, cfg: ArchConfig
         "final_norm": _q_norm(params["final_norm"], plans.final_norm),
         "head": head,
         "head_scale": head_scale,
-        "layers": [_q_sublayer(layers, plans, s_router)],
+        "layers": [_q_sublayer(p, plans, cfg, kind,
+                               _stack_scales(p, kind, cfg))
+                   for p, kind in zip(layers, kinds)],
     }
     return qparams, plans
+
+
+def _group(tree, g: int):
+    """Group ``g``'s slice ``t[g:g+1]`` of a position's stacked floats
+    (the leading axis kept, as the reference's ``t[:1]``)."""
+    if isinstance(tree, dict):
+        return {k: _group(v, g) for k, v in tree.items()}
+    return tree[g:g + 1]
 
 
 def unit_embed_scale(cfg: ArchConfig) -> float:
@@ -215,20 +312,23 @@ def init_quantized(cfg: ArchConfig, seed: int = 0, device="cuda",
     normalised row is zero; :func:`unit_embed_scale` draws a unit-std
     embedding whose integer datapath carries signal.
 
-    A mixture of experts keeps every layer's router floats (qwen3-moe:
-    94 x 4096 x 128) until the last layer is drawn, then quantizes them
-    at the whole stack's scale and builds the plans with layer 0's, as
-    :func:`quantize_params` does; the experts are quantized
-    ``EXPERT_SLICE`` at a time."""
-    require_dense(cfg)
+    The per-tensor scales (ROADMAP §3): every router (an MoE, qwen3-moe:
+    94 x 4096 x 128) and every Mamba block's Δt columns, conv and
+    ``dt_bias`` are kept as floats until the last group is drawn, then
+    quantized at the scale of their position's whole stack; the plans
+    take the probe's (:func:`_probe_calib`: the last MoE and the last
+    Mamba position of group 0), as :func:`quantize_params` does.  The
+    experts are quantized ``EXPERT_SLICE`` at a time."""
+    require_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dtype = getattr(torch, cfg.dtype)
     v = cfg.padded_vocab()
     embed = fl._init(gen, (v, cfg.d_model), dtype, scale=embed_scale)
     calib = {"s_emb": _embed_scale(embed)}
-    # the other plans do not read s_router: the layers are quantized
-    # with these, the plans returned carry layer 0's router scale
+    # the layers' other leaves read neither s_router nor s_dtw / s_conv:
+    # they are quantized with these plans, the plans returned carry the
+    # probe's scales
     plans = qplans.build_layer_plans(cfg, calib)
     embed_w8 = _q_embed(embed, plans)
     final_norm = _q_norm(fl.init_norm(cfg, dtype, dev), plans.final_norm)
@@ -239,30 +339,51 @@ def init_quantized(cfg: ArchConfig, seed: int = 0, device="cuda",
     del embed
     head, head_scale = _q_head(head_w)
     del head_w
-    _, ng, _ = layer_group_spec(cfg)
-    layers, routers = [], []
+    _, ng, kinds = layer_group_spec(cfg)
+    layers = [[] for _ in kinds]
+    kept = [[] for _ in kinds]       # each layer's per-tensor floats
     for _ in range(ng):
-        p = init_layer(gen, cfg, dtype)
-        if "moe" in p:
-            routers.append(p["moe"]["router"])
-        layers.append(_q_sublayer(p, plans))
-        del p
-    if routers:
-        router = torch.stack(routers)
-        calib["s_router"] = _router_scale(router[:1])
-        plans = qplans.build_layer_plans(cfg, calib)
-        s_all = _router_scale(router)
-        for q, w in zip(layers, routers):
-            q["moe"]["router"] = _q_router(w, s_all)
-        del router, routers
+        for j, kind in enumerate(kinds):
+            p = init_layer(gen, cfg, dtype, kind)
+            kept[j].append(_per_tensor_floats(p, kind, cfg))
+            layers[j].append(_q_sublayer(p, plans, cfg, kind))
+            del p
+    calib.update(_probe_calib([f[0] for f in kept], kinds, cfg))
+    plans = qplans.build_layer_plans(cfg, calib)
+    for j, kind in enumerate(kinds):
+        scales = _stack_scales(_stack(kept[j]), kind, cfg)
+        for q, f in zip(layers[j], kept[j]):
+            if "router" in scales:
+                q["moe"]["router"] = _q_router(f["moe"]["router"],
+                                               scales["router"])
+            if "ssm" in scales:
+                q["ssm"].update(_q_mamba_scaled(f["ssm"], plans.mamba, cfg,
+                                                *scales["ssm"]))
+    del kept
     qparams = {
         "embed_w8": embed_w8,
         "final_norm": final_norm,
         "head": head,
         "head_scale": head_scale,
-        "layers": [_stack_q(layers)],
+        "layers": [_stack_q(q) for q in layers],
     }
     return qparams, plans
+
+
+def _per_tensor_floats(p, kind, cfg: ArchConfig):
+    """The floats of one sublayer that wait for their stack's scale, in
+    the layout :func:`_stack_scales` and :func:`_q_mamba_scaled` read: a
+    router, a Mamba block's Δt columns (as ``in_proj``, copied out so the
+    rest of in_proj is freed), conv and ``dt_bias``."""
+    mix, ff, _ = kind
+    out = {}
+    if mix == "ssm":
+        out["ssm"] = {"in_proj": _dt_weight(p["ssm"]["in_proj"], cfg).clone(),
+                      "conv_w": p["ssm"]["conv_w"],
+                      "dt_bias": p["ssm"]["dt_bias"]}
+    if ff == "moe":
+        out["moe"] = {"router": p["moe"]["router"]}
+    return out
 
 
 def _stack_q(trees):

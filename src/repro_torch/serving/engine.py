@@ -1,6 +1,7 @@
 """Batched integer serving engine over a paged or contiguous KV cache
 (the port of ``repro.serving.engine.ServingEngine`` for dense decoders,
-full-causal or sliding-window).
+full-causal or sliding-window, mixtures of experts and state-space
+models).
 
 A continuous-batching scheduler: requests are admitted into fixed batch
 *lanes*, prompts prefill into the KV cache, every step decodes one token
@@ -57,10 +58,18 @@ for every lane whose prompt is in, and finished lanes retire.
     prefix sharing; every decode and verify step routes each row alone
     (``group_size=1``), and the experts run as one grouped K1 launch a
     linear.
+  * **State-space models** (mamba2-130m, jamba-v0.1-52b): each Mamba
+    sublayer keeps its int32 SSD state and int8 conv tail a lane, in
+    either cache mode.  Token-streaming prefill only, hence no prefix
+    sharing, no speculation and no ``preempt`` (the state is
+    lane-indexed).  Every decode step advances every lane's state,
+    an idle lane's by token 0, as the reference's does; a recycled lane's
+    state is zeroed at admission, which queues behind any step already
+    on the device.
 
 Token streams are bit-identical to the JAX engine's for the same
 weights and schedule.  Not ported yet (each raises
-``NotImplementedError`` naming its ROADMAP item): ``tp > 1`` and SSM /
+``NotImplementedError`` naming its ROADMAP item): ``tp > 1`` and
 cross-attention archs.
 """
 from __future__ import annotations
@@ -78,7 +87,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import intlayers as il
 from repro_torch.models import inttransformer as it
 from repro_torch.models.common import ArchConfig
-from repro_torch.models.transformer import PORTED_KINDS, layer_group_spec
+from repro_torch.models.transformer import layer_group_spec
 from repro_torch.ops import OP_NAMES, QuantLinearParams, resolve_ops
 from repro_torch.quant import plans as qplans
 from repro_torch.serving import speculate
@@ -192,10 +201,10 @@ class ServingEngine:
                 f"arch {cfg.name!r} is an encoder: it has no autoregressive "
                 "serving; run it through launch.steps.make_prefill_step")
         _, _, kinds = layer_group_spec(cfg)
-        if any(kind not in PORTED_KINDS for kind in kinds):
+        if any(mix == "cross" or has_cross for mix, _, has_cross in kinds):
             raise NotImplementedError(
-                f"arch {cfg.name!r} has SSM / cross-attention sublayers, "
-                "which are not ported yet (ROADMAP §1 items 7-8)")
+                f"arch {cfg.name!r} has cross-attention sublayers, which "
+                "are not ported yet (ROADMAP §1 item 8)")
         if prefill_budget is not None and prefill_budget < 1:
             raise ValueError("prefill_budget must be >= 1 token/step, "
                              f"got {prefill_budget}")
@@ -217,6 +226,7 @@ class ServingEngine:
         self.rng = np.random.default_rng(seed)
         # logical per-session cache length: the window bounds it
         self.L = min(cache_len, cfg.window) if cfg.window > 0 else cache_len
+        self._has_ssm = any(mix == "ssm" for mix, _, _ in kinds)
         self.paged = cache_mode == "paged"
         if self.paged:
             self.layout = CacheLayout.fit(batch_size, self.L, page_size,
@@ -324,9 +334,9 @@ class ServingEngine:
             raise ValueError(
                 "chunked prefill is unsupported for arch "
                 f"{self.cfg.name!r}: it needs window == 0 and dense FFN "
-                "sublayers (a sliding window and an MoE's capacity "
-                "routing keep token-streaming prefill); pass "
-                "prefill_chunk=0")
+                "sublayers (a sliding window, an MoE's capacity "
+                "routing and a Mamba state keep token-streaming prefill); "
+                "pass prefill_chunk=0")
         ps = self.layout.page_size
         if prefill_chunk % ps and ps % prefill_chunk:
             raise ValueError(
@@ -584,13 +594,18 @@ class ServingEngine:
         return max(spent, 1)
 
     def _reset_slot_cache(self, slot: int):
-        """Zero a recycled lane's contiguous K/V slab, as the reference
-        does.  Paged pools are not lane-indexed and are never zeroed:
-        ``valid_len`` masking makes stale page contents unobservable."""
-        if self.paged:
-            return
+        """Zero a recycled lane's lane-indexed cache state, as the
+        reference does: its Mamba state (``h``, ``conv``) in either mode,
+        its contiguous K/V slab.  Paged pools are not lane-indexed and are
+        never zeroed: ``valid_len`` masking makes stale page contents
+        unobservable.  The zeroing is queued on the card's stream: it
+        runs after every step already dispatched (whose commit came
+        first: admission happens in :meth:`dispatch_step` alone) and
+        before the lane's first prompt token."""
         for c in self.caches:
-            for key in ("k8", "v8"):
+            keys = ("h", "conv") if "h" in c \
+                else () if self.paged else ("k8", "v8")
+            for key in keys:
                 c[key][:, slot].zero_()
 
     # --------------------------------------------------- paged bookkeeping
@@ -670,11 +685,15 @@ class ServingEngine:
     def preempt(self, sess: Session):
         """Take a live session off its lane but keep its pages; it goes
         back to the queue head and resumes bit-exactly.  Paged mode only:
-        the contiguous layout ties K/V to the lane."""
+        the contiguous layout ties K/V to the lane; and not for an arch
+        with Mamba sublayers, whose state is tied to the lane."""
         self._require_committed("preempt")
         if not self.paged:
             raise ValueError("preempt needs cache_mode='paged' (the "
                              "contiguous layout ties K/V to the lane)")
+        if self._has_ssm:
+            raise ValueError("preempt is unsupported for SSM/hybrid "
+                             "archs: Mamba state is lane-indexed")
         if sess.state not in ("active", "prefilling") or sess.slot is None:
             raise ValueError("cannot preempt session in state "
                              f"{sess.state!r}")
@@ -868,7 +887,7 @@ class ServingEngine:
         # the pools' bytes: packed int4 pools hold half of int8's a token
         cache["kv_bytes"] = int(sum(
             c[key].numel() * c[key].element_size()
-            for c in self.caches for key in ("k8", "v8")))
+            for c in self.caches for key in ("k8", "v8") if key in c))
         drafted, accepted = self._spec_drafted, self._spec_accepted
         return {
             "ops": self.ops.name,

@@ -37,9 +37,10 @@ class SpeculationError(ValueError):
 class SpeculationUnsupported(SpeculationError):
     """Speculative decoding cannot serve this request or arch: sliding-
     window archs (a batched multi-position write would clobber rolling
-    slots earlier verify rows still read) and ``temperature > 0``
-    requests (greedy acceptance is exact only against the argmax
-    stream)."""
+    slots earlier verify rows still read), archs with Mamba sublayers
+    (their lane-indexed state cannot roll back a rejected draft) and
+    ``temperature > 0`` requests (greedy acceptance is exact only against
+    the argmax stream)."""
 
 
 class Proposer(Protocol):
@@ -123,10 +124,12 @@ def validate_spec(cfg: ArchConfig, spec_k: int, spec_mode: str) -> None:
     if not speculative_decode_supported(cfg):
         raise SpeculationUnsupported(
             f"speculative decoding is unsupported for arch "
-            f"{cfg.name!r}: the batched verify step needs full (window == "
-            "0) causal attention and attention+ffn/moe sublayers only — "
-            "sliding-window caches interleave rolling-buffer writes and "
-            "reads token by token; serve with spec_k=0")
+            f"{cfg.name!r}: the batched verify step needs full "
+            "(window == 0) causal attention and attention+ffn/moe "
+            "sublayers only — sliding-window caches interleave rolling-"
+            "buffer writes and reads token-by-token, and SSM / cross-"
+            "attention archs carry lane-indexed state a rejected draft "
+            "cannot roll back; serve with spec_k=0")
     get_proposer(spec_mode)
 
 

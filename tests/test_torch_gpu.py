@@ -1909,3 +1909,167 @@ def test_moe_engine_cuda_matches_torch_ref(dev):
             assert kernels.LAUNCHES["int8_matmul_grouped"] > 0
     assert streams["cuda", False] == streams["torch_ref", False]
     assert streams["cuda", True] == streams["torch_ref", False]
+
+
+# --------------------------------------- the state-space models' shapes --
+
+def _i8_on(seed, shape, dev):
+    """int8 in [-127, 127] drawn on the card (the experts' 940 MB would
+    take seconds on the host)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                         dtype=torch.int8)
+
+
+@pytest.mark.parametrize("m", [4, 2048])
+@pytest.mark.parametrize("case,k,n", [
+    ("mamba2 in_proj", 768, 3328), ("mamba2 dt_proj", 768, 24),
+    ("mamba2 out_proj", 1536, 768), ("jamba in_proj", 4096, 16416),
+    ("jamba dt_proj", 4096, 128), ("jamba out_proj", 8192, 4096)])
+def test_ssm_matmul_shapes(dev, case, m, k, n):
+    """K1 at the Mamba blocks' linears of mamba2-130m and jamba-v0.1-52b,
+    a decode step (M 4) and a 4 x 512 prefill (M 2048): in_proj to int8,
+    out_proj to 14 bits (per channel), and the Δt projection's raw int32
+    (N 24: the decode tile's copy route)."""
+    rng = np.random.default_rng(m + k + n)
+    x8, w8 = _i8_on(m + k, (m, k), dev), _i8_on(k + n, (k, n), dev)
+    bvec = None
+    if "dt_proj" in case:
+        spec = RequantSpec.raw()
+    else:
+        spec = RequantSpec.per_channel(
+            24, 10, 8 if "in_proj" in case else 14)
+        bvec = _i32(rng, 256, 4096, (n,), dev)
+    before = kernels.LAUNCHES["int8_matmul"]
+    got = int8_matmul(x8, w8, spec, b_vec=bvec)
+    assert kernels.LAUNCHES["int8_matmul"] == before + 1
+    assert torch.equal(got, int8_matmul_plain(x8, w8, spec, None, bvec))
+
+
+@pytest.mark.parametrize("d", [1536, 8192])
+@pytest.mark.parametrize("rows", [4, 2048])
+def test_ssm_gated_norm_shapes(dev, d, rows):
+    """K2 at the Mamba blocks' RMSNorm over d_inner (1536; 8192, the
+    kernel's longest row) with its plan: s_in 1.0, qmax_in 2^11 (the
+    block-floating-point input), no mean; rows at the edges of the
+    12-bit input range included."""
+    plan = inorms.make_inorm(d, 1.0, 1 << 11, 2 / 127, 8 / 127, False)
+    rng = np.random.default_rng(d + rows)
+    q = _i32(rng, -2048, 2049, (rows, d), dev)
+    q[0] = 2048
+    q[1] = torch.where(torch.arange(d, device=dev) % 3 == 0, -2048,
+                       2047).to(torch.int32)
+    q[2] = 0
+    g = _i32(rng, -127, 128, (d,), dev)
+    before = kernels.LAUNCHES["int_layernorm"]
+    got = int_layernorm(q, g, None, plan)
+    assert kernels.LAUNCHES["int_layernorm"] == before + 1
+    assert torch.equal(got, int_layernorm_plain(q, g, None, plan))
+
+
+@pytest.mark.parametrize("lin,k,n", [("w1", 4096, 14336),
+                                     ("w2", 14336, 4096)])
+@pytest.mark.parametrize("counts", [[1, 0, 1, 0, 1, 1, 0, 0, 1, 0, 0, 1,
+                                     0, 1, 0, 1], [4] * 2 + [0] * 14])
+def test_jamba_expert_shapes(dev, lin, k, n, counts):
+    """K1's grouped instantiation at jamba-v0.1-52b's experts (16 of 4096
+    x 14336 and 14336 x 4096) for a decode step of 4 tokens, top-2: eight
+    (token, expert) pairs in eight experts, then all four tokens in the
+    same two."""
+    from repro_torch.kernels.int8_matmul import (int8_matmul_grouped,
+                                                 int8_matmul_grouped_plain)
+    rng = np.random.default_rng(k + sum(counts))
+    e, r = len(counts), 16
+    x8, w8 = _i8_on(k, (e, r, k), dev), _i8_on(n, (e, k, n), dev)
+    rows = torch.tensor(counts, dtype=torch.int32, device=dev)
+    bvec = _i32(rng, 256, 4096, (e, n), dev)
+    spec = RequantSpec.per_channel(24, 10, 11 if lin == "w1" else 14)
+    before = kernels.LAUNCHES["int8_matmul_grouped"]
+    got = int8_matmul_grouped(x8, w8, rows, spec, b_vec=bvec)
+    assert kernels.LAUNCHES["int8_matmul_grouped"] == before + 1
+    want = int8_matmul_grouped_plain(x8, w8, rows, spec, None, bvec)
+    for ex, c in enumerate(counts):
+        assert torch.equal(got[ex, :c], want[ex, :c]), ex
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "jamba-v0.1-52b"])
+def test_int_mamba_card_equals_cpu(dev, arch):
+    """Reduced configs' Mamba block on the card (``cuda``: K1 for the
+    projections, K2 for the gated norm) equals the same calls on the CPU,
+    a step from a carried-in state and a 9-token prefill, and the step
+    reads nothing back to the host (``set_sync_debug_mode("error")``)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import intlayers as il
+    from repro_torch.models import inttransformer as it
+    from repro_torch.models import model as M
+    from repro_torch.quant import convert
+    cfg = M.reduce_config(get_config(arch), dtype="float32")
+    qp, plans = convert.init_quantized(cfg, seed=1, device="cpu")
+    mp = plans.mamba
+    ssm_cpu = it._layer(qp["layers"][0]["ssm"], 1)
+    ssm_dev = it._layer(_to(qp["layers"][0]["ssm"], dev), 1)
+    rng = np.random.default_rng(3)
+    st = il.init_int_mamba_state(cfg, 3, "cpu")
+    h = torch.as_tensor(rng.integers(-(1 << 22), 1 << 22, st.h.shape
+                                     ).astype(np.int32))
+    conv = torch.as_tensor(rng.integers(-127, 128, st.conv.shape
+                                        ).astype(np.int8))
+    u = torch.as_tensor(rng.integers(-127, 128, (3, 9, cfg.d_model)
+                                     ).astype(np.int8))
+    want, wst = il.int_mamba_step(ssm_cpu, u[:, 0], il.IntMambaState(
+        h, conv), mp, cfg, ops="cuda")
+    args = (u[:, 0].to(dev), il.IntMambaState(h.to(dev), conv.to(dev)))
+    il.int_mamba_step(ssm_dev, *args, mp, cfg, ops="cuda")   # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got, gst = il.int_mamba_step(ssm_dev, *args, mp, cfg, ops="cuda")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert kernels.LAUNCHES["int8_matmul"] == 3
+    assert kernels.LAUNCHES["int_layernorm"] == 1
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(gst.h.cpu(), wst.h)
+    assert torch.equal(gst.conv.cpu(), wst.conv)
+    want, wst = il.int_mamba_prefill(ssm_cpu, u, mp, cfg, il.IntMambaState(
+        h, conv), ops="cuda")
+    got, gst = il.int_mamba_prefill(ssm_dev, u.to(dev), mp, cfg,
+                                    il.IntMambaState(h.to(dev),
+                                                     conv.to(dev)),
+                                    ops="cuda")
+    assert torch.equal(got.cpu(), want) and torch.equal(gst.h.cpu(), wst.h)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "jamba-v0.1-52b"])
+@pytest.mark.parametrize("mode", ["paged", "contiguous"])
+def test_ssm_engine_cuda_matches_torch_ref(dev, arch, mode):
+    """Reduced mamba2-130m and jamba-v0.1-52b served on the card, six
+    requests on four lanes (recycled lanes start from a zeroed state):
+    ``cuda`` streams equal ``torch_ref``'s, and the path launched K1 and
+    K2 (jamba also K3 and the grouped K1)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M
+    from repro_torch.quant import convert
+    from repro_torch.serving import Request, ServingEngine
+    cfg = M.reduce_config(get_config(arch), dtype="float32")
+    qp, plans = convert.init_quantized(
+        cfg, seed=0, device=dev, embed_scale=convert.unit_embed_scale(cfg))
+    prompts = _SERVE_PROMPTS + [[7, 1, 7, 2], [9] * 11]
+    streams = {}
+    for backend in ("torch_ref", "cuda"):
+        eng = ServingEngine(qp, plans, cfg, batch_size=4, cache_len=48,
+                            ops=backend, cache_mode=mode, device=dev)
+        reqs = [Request(uid=i, prompt=list(p), max_new_tokens=5)
+                for i, p in enumerate(prompts)]
+        for q in reqs:
+            eng.submit(q)
+        kernels.reset_launches()
+        eng.run_until_done()
+        streams[backend] = [q.out_tokens for q in reqs]
+    launched = {n for n, c in kernels.LAUNCHES.items() if c}
+    want = {"int8_matmul", "int_layernorm"}
+    if arch.startswith("jamba"):
+        want |= {"int_decode_attention", "int8_matmul_grouped"}
+    assert want <= launched
+    assert streams["cuda"] == streams["torch_ref"]

@@ -99,6 +99,11 @@ def test_layer_by_layer_init_equals_whole_model_quantization():
 
 
 def test_unported_families_raise():
+    """Cross attention (an encoder-decoder's memory) is the family the
+    port does not run yet; the state-space ones it does."""
     with pytest.raises(NotImplementedError, match="not ported"):
         t_plans.build_layer_plans(dataclasses.replace(
-            t_get_config("llama3-8b"), family="ssm", ssm_state=16))
+            t_get_config("llama3-8b"), family="encdec", enc_layers=2,
+            dec_layers=2))
+    assert t_plans.build_layer_plans(dataclasses.replace(
+        t_get_config("llama3-8b"), family="ssm", ssm_state=16)).attn is None
