@@ -195,6 +195,29 @@ non-zero before the last line):
            position 4 through K3 / K5, seven Mamba, MoE at the odd
            positions through the grouped K1), ``hybrid-prefill`` its pass.
   Each of the four ends with a ``<ssm|hybrid>-seconds`` line.
+  cross-kernels  (not in the default list; part of ``kernels``) the
+           kernels at the cross attention configs' shapes: K1 at
+           seamless's raw head (N 256 208), the VLM's wq / w1 / w2 at M 4
+           and its cross K/V projection over 4 x 1600 image tokens (beside
+           ``torch._int_mm``), K2's residual norm at d 1024 (LayerNorm +
+           beta) and 8192 (RMSNorm), K5 over seamless's encoder and cross
+           at 4 x 64 x 512 and 4 x 64 x 1600 (GQA 64 / 8), K6 at 256 x
+           8192, K3 over the whole memory (valid = Skv 512 / 1600);
+  encdec-parity  seamless-m4t-large-v2 at full depth (24 encoder and 24
+           decoder layers) over 4 x 512 source frames (float32 embeddings
+           of unit std): ``make_prefill_step`` logits at 4 x 64 on
+           ``cuda`` equal ``torch_ref``'s; ``int_prefill(return_cache=
+           True)`` of 63 tokens and one decode step equal the 64-token
+           prefill on both; the caches (``ck8`` / ``cv8`` included) equal;
+  encdec-decode  the same model: 4 prompts of 64 tokens (seed 5), 32
+           greedy tokens through ``make_decode_step``, the streams of
+           ``cuda`` equal ``torch_ref``'s; tokens/s, device and wall ms a
+           step, launches a step (K1, K2, K3, K6), the memory's and the
+           cross K/V set-up's device ms, a profiled decode window;
+  vlm-parity, vlm-decode  the same for llama-3.2-vision-90b at full width
+           cut to one group of five sublayers (4 self attention with RoPE,
+           1 cross attention) over 4 x 1600 image tokens (K1, K2, K3, K5).
+  Each model ends with an ``<encdec|vlm>-seconds`` line.
 
 The ``kernels`` phase also holds K3's and K4's packed instantiations
 (rows ``int_decode_attention_kv4`` / ``int_paged_prefill_kv4``) against
@@ -322,6 +345,14 @@ PATH_KERNELS = {
                      "int8_matmul_grouped"),
     "hybrid-prefill": ("int8_matmul", "int_layernorm", "int_attention_fused",
                        "int8_matmul_grouped"),
+    "encdec-parity": ("int8_matmul", "int_layernorm", "int_attention_fused",
+                      "int_gelu", "int_decode_attention"),
+    "encdec-decode": ("int8_matmul", "int_layernorm", "int_attention_fused",
+                      "int_gelu", "int_decode_attention"),
+    "vlm-parity": ("int8_matmul", "int_layernorm", "int_attention_fused",
+                   "int_decode_attention"),
+    "vlm-decode": ("int8_matmul", "int_layernorm", "int_attention_fused",
+                   "int_decode_attention"),
 }
 # the reference serving benchmark's weight tier (pack_tree(qp, "msr4",
 # group=64), benchmarks/bench_serving.py)
@@ -4151,6 +4182,351 @@ def phase_ssm_serve(name, model):
     return {phase: launches}
 
 
+# ---------------------------------------- cross attention over a memory --
+
+CROSS_ARCHS = ("seamless-m4t-large-v2", "llama-3.2-vision-90b")
+CROSS_PHASES = {"seamless-m4t-large-v2": "encdec",
+                "llama-3.2-vision-90b": "vlm"}
+# seamless at full depth (24 encoder + 24 decoder layers); the VLM at
+# full width cut to one group of five sublayers (4 self, 1 cross): 100
+# layers would be ~86 GB of int8 linears, more than the card holds
+CROSS_LAYERS = {"seamless-m4t-large-v2": 0, "llama-3.2-vision-90b": 5}
+# the memory: seamless's source frames, the VLM's image tokens
+CROSS_MEMORY = {"seamless-m4t-large-v2": 512, "llama-3.2-vision-90b": 1600}
+CROSS_BATCH, CROSS_SEQ, CROSS_NEW, CROSS_PROFILE_STEPS = 4, 64, 32, 4
+
+
+def cross_config(name: str):
+    """Full-width ``name``; the VLM cut to one group of five."""
+    return moe_config(name, CROSS_LAYERS[name])
+
+
+def cross_batch(cfg, seed: int):
+    """``CROSS_BATCH`` prompts of ``CROSS_SEQ`` tokens (from ``seed``) and the
+    float32 memory (unit std, drawn on the card from ``seed``):
+    ``src_embeds`` (B, 512, D) or ``img_embeds`` (B, 1600, D)."""
+    import numpy as np
+    import torch
+    key = "src_embeds" if cfg.family == "encdec" else "img_embeds"
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    mem = torch.randn((CROSS_BATCH, CROSS_MEMORY[cfg.name], cfg.d_model),
+                      generator=gen, device="cuda", dtype=torch.float32)
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab,
+                                                (CROSS_BATCH, CROSS_SEQ))
+    return {"tokens": torch.as_tensor(toks, device="cuda"), key: mem}
+
+
+def cross_decode_launches(cfg) -> dict:
+    """A decode step's launches: K1 four a self attention (q, k, v, and wo
+    after K3), two a cross attention (q and wo: its K/V are the cache's),
+    two a GELU FFN (w1, w2; K6 between) or three a SwiGLU one, and the
+    head; K2 a norm each (norm1, norm_cross, norm2) and the final norm;
+    K3 one an attention; K6 one a GELU FFN."""
+    from repro_torch.models.transformer import layer_group_spec
+    _, ng, kinds = layer_group_spec(cfg)
+    self_ = ng * sum(mix == "attn" for mix, _, _ in kinds)
+    cross = ng * sum(mix == "cross" or c for mix, _, c in kinds)
+    ffn = ng * len(kinds)
+    gelu = cfg.activation == "gelu"
+    return {"int8_matmul": 4 * self_ + 2 * cross + (2 if gelu else 3) * ffn
+            + 1,
+            "int_layernorm": ng * sum(1 + c + (ff is not None)
+                                      for _, ff, c in kinds) + 1,
+            "int_decode_attention": self_ + cross,
+            "int_gelu": ffn if gelu else 0}
+
+
+def check_cross_kernels(rows) -> None:
+    """The kernels at the cross attention paths' full-width shapes, each
+    exact against its plain version: K1 at seamless's raw head (1024 x
+    256 208, the widest N of any path) and the VLM's wq, w1 and w2 at M 4,
+    and the VLM's cross K/V projection over its memory (M 4 x 1600, K
+    8192, N 1024) beside ``torch._int_mm``; K2's residual norm: seamless's
+    LayerNorm + beta at d 1024 and the VLM's RMSNorm at d 8192 (``MAX_D``),
+    4 and 2048 rows; K5 over seamless's encoder (B 4, S 512, H 16, D 64,
+    no mask) and cross at seamless's 4 x 64 x 512 and the VLM's 4 x 64 x
+    1600 (GQA 64 / 8, D 128: a partial last key tile); K6 over seamless's
+    decoder FFN at a 4 x 64 prefill (256 x 8192); K3 as ``_cross_decode``
+    runs it, one query over the whole contiguous memory (``valid = Skv``)
+    at seamless's 512 (MHA 16 / 16, D 64) and the VLM's 1600 (GQA 64 /
+    8, D 128)."""
+    import torch
+    from repro_torch.kernels.int8_matmul import (int8_matmul,
+                                                 int8_matmul_plain)
+    from repro_torch.kernels.int_decode_attention import (
+        int_decode_attention_fused, int_decode_attention_plain)
+    from repro_torch.kernels.int_gelu import int_gelu, int_gelu_plain
+    from repro_torch.ops.spec import RequantSpec
+    from repro_torch.quant import plans as qplans
+    gen = torch.Generator(device="cuda").manual_seed(8080)
+    sm, vl = (cross_config(n) for n in CROSS_ARCHS)
+    smp, vlp = (qplans.build_layer_plans(c) for c in (sm, vl))
+    raw = RequantSpec.raw()
+
+    # K1
+    mm = [("seamless head", 4, sm.d_model, sm.padded_vocab(), None),
+          ("vlm wq", 4, vl.d_model, vl.n_heads * vl.hd, vlp.attn.qkv),
+          ("vlm w1", 4, vl.d_model, vl.d_ff, vlp.ffn.up),
+          ("vlm w2", 4, vl.d_ff, vl.d_model, vlp.ffn.down),
+          ("vlm cross wk over the memory",
+           CROSS_BATCH * CROSS_MEMORY[vl.name], vl.d_model,
+           vl.n_kv_heads * vl.hd, vlp.cross.qkv)]
+    for tag, m, k, n, lp in mm:
+        x8 = _randint(gen, -127, 128, (m, k), torch.int8)
+        w8 = _randint(gen, -127, 128, (k, n), torch.int8)
+        spec = raw if lp is None else RequantSpec.for_linear(lp)
+        b_vec = None if lp is None else _randint(gen, 256, 4096, (n,),
+                                                 torch.int32)
+        out_b = 4 if spec.is_raw or spec.out_bits > 8 else 1
+        record(rows, "int8_matmul", f"{tag} M={m} K={k} N={n} "
+               f"{'raw' if spec.is_raw else spec.out_bits}",
+               int8_matmul(x8, w8, spec, b_vec=b_vec),
+               int8_matmul_plain(x8, w8, spec, b_vec=b_vec),
+               lambda: int8_matmul(x8, w8, spec, b_vec=b_vec),
+               lambda: int8_matmul_plain(x8, w8, spec, b_vec=b_vec),
+               m * k + k * n + (0 if b_vec is None else 4 * n)
+               + out_b * m * n, 2 * m * k * n,
+               lib_ms=int_mm_ms(x8, w8) if m > 16 else None, iters=10,
+               plain_iters=2, plan=k1_plan(m, n, k, x8=x8, w=w8))
+        del x8, w8
+
+    # K2: the residual norm (norm1 / norm_cross / norm2 / the final norm)
+    for c, p, beta in ((sm, smp, True), (vl, vlp, False)):
+        gamma = _randint(gen, 40, 128, (c.d_model,), torch.int32)
+        bvec = _randint(gen, -9000, 9000, (c.d_model,), torch.int32) \
+            if beta else None
+        for r in (CROSS_BATCH, 2048):
+            q = _randint(gen, -c.qmax_res, c.qmax_res + 1, (r, c.d_model),
+                         torch.int32)
+            k2_row(rows, f"{CROSS_PHASES[c.name]} "
+                   f"{'layernorm+beta' if beta else 'rmsnorm'}", q, gamma,
+                   bvec, p.norm)
+            del q
+
+    # K5: seamless's encoder, then cross attention over both memories
+    m_sm, m_vl = CROSS_MEMORY[sm.name], CROSS_MEMORY[vl.name]
+    for tag, c, p, sq, skv in (("seamless encoder ", sm, smp, m_sm, m_sm),
+                               ("seamless cross ", sm, smp, CROSS_SEQ, m_sm),
+                               ("vlm cross ", vl, vlp, CROSS_SEQ, m_vl)):
+        ap = p.cross.attn
+        k5_row(gen, rows, ap, CROSS_BATCH, sq, skv, c.n_heads, c.n_kv_heads,
+               c.hd, False, 0, RequantSpec.per_tensor(ap.dn_out), "random",
+               False, tag=tag)
+
+    # K6: seamless's decoder FFN at a 4 x 64 prefill
+    gp = smp.ffn.act_gelu
+    q = _randint(gen, -1024, 1024, (CROSS_BATCH * CROSS_SEQ, sm.d_ff),
+                 torch.int32)
+    record(rows, "int_gelu", f"seamless FFN {q.shape[0]}x{sm.d_ff} 11-bit",
+           int_gelu(q, gp.gelu, gp.dn_out),
+           int_gelu_plain(q, gp.gelu, gp.dn_out),
+           lambda: int_gelu(q, gp.gelu, gp.dn_out),
+           lambda: int_gelu_plain(q, gp.gelu, gp.dn_out),
+           8 * q.numel(), 0, iters=20)
+
+    # K3: one query over the whole memory
+    for c, p in ((sm, smp), (vl, vlp)):
+        skv, b = CROSS_MEMORY[c.name], CROSS_BATCH
+        ap = p.cross.attn
+        q8 = _randint(gen, -127, 128, (b, 1, c.n_heads, c.hd), torch.int8)
+        k8 = _randint(gen, -127, 128, (b, skv, c.n_kv_heads, c.hd),
+                      torch.int8)
+        v8 = _randint(gen, -127, 128, (b, skv, c.n_kv_heads, c.hd),
+                      torch.int8)
+        lens = [skv] * b
+        valid = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        kw = dict(requant=RequantSpec.per_tensor(ap.dn_out))
+        nbytes, ops = k4_bound(lens, 1, c.n_heads, c.n_kv_heads, c.hd, 0, 1)
+        args = (q8, k8, v8, ap, valid)
+        record(rows, "int_decode_attention",
+               f"{CROSS_PHASES[c.name]} cross decode B={b} Sq=1 "
+               f"H={c.n_heads} Hkv={c.n_kv_heads} D={c.hd} contiguous "
+               f"L={skv} valid={skv}",
+               int_decode_attention_fused(*args, **kw),
+               int_decode_attention_plain(*args, **kw),
+               lambda: int_decode_attention_fused(*args, **kw),
+               lambda: int_decode_attention_plain(*args, **kw),
+               nbytes, ops, iters=10, plain_iters=2,
+               plan=k3_plan(q8, k8, v8, kw))
+        del q8, k8, v8, args
+
+
+def _rope(cfg, length: int):
+    """The integer RoPE tables of ``cfg`` on the card (None without)."""
+    from repro_torch.models import intlayers as il
+    return (il.build_rope_table(length + 1, cfg.hd, cfg.rope_theta,
+                                device="cuda"),) if cfg.pos == "rope" else ()
+
+
+def _caches_same(a, b):
+    """Whether two cache lists hold the same keys and equal tensors."""
+    import torch
+    return len(a) == len(b) and all(
+        set(x) == set(y) and all(torch.equal(x[k], y[k]) for k in x)
+        for x, y in zip(a, b))
+
+
+def phase_cross_parity(name, model):
+    """``<encdec|vlm>-parity``: seamless-m4t-large-v2 (24 + 24 layers) or
+    llama-3.2-vision-90b (one group of five) at full width over a memory
+    of 4 x 512 frames / 4 x 1600 image tokens.  ``make_prefill_step``
+    logits at 4 x 64 on ``cuda`` equal ``torch_ref``'s;
+    ``int_prefill(return_cache=True)`` of the first 63 tokens, then one
+    ``make_decode_step`` of token 63, equals the 64-token prefill on both
+    backends (the reference's own check); the caches built (self K/V and
+    the memory's ``ck8`` / ``cv8``) are equal on both.  The path's
+    launches on ``cuda`` (prefill, cache build, decode step) are
+    returned."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import inttransformer as it
+    phase = f"{CROSS_PHASES[name]}-parity"
+    qp, plans, quant_s = model
+    cfg = cross_config(name)
+    batch = cross_batch(cfg, 61)
+    s = CROSS_SEQ
+    logits, stepped, caches, secs = {}, {}, {}, {}
+    launches = {}
+    for backend in ("cuda", "torch_ref"):
+        prefill = make_prefill_step(cfg, plans, ops=backend, device="cuda")
+        decode = make_decode_step(cfg, plans, s, ops=backend, device="cuda")
+        short = dict(batch, tokens=batch["tokens"][:, :s - 1])
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        logits[backend] = prefill(qp, batch, *_rope(cfg, s))
+        _, cache = it.int_prefill(qp, short, plans, cfg, ops=backend,
+                                  return_cache=True, cache_len=s)
+        stepped[backend], caches[backend] = decode(
+            qp, cache, batch["tokens"][:, s - 1],
+            np.full(CROSS_BATCH, s - 1, np.int32), *_rope(cfg, s))
+        torch.cuda.synchronize()
+        secs[backend] = time.perf_counter() - t0
+        launches[backend] = dict(kernels.LAUNCHES)
+    same = torch.equal(logits["cuda"], logits["torch_ref"])
+    consistent = {b: torch.equal(stepped[b], logits[b]) for b in stepped}
+    same_caches = _caches_same(caches["cuda"], caches["torch_ref"])
+    keys = sorted({k for c in caches["cuda"] for k in c})
+    argmax = logits["cuda"].argmax(dim=-1)
+    missing = [k for k in PATH_KERNELS[phase] if launches["cuda"][k] <= 0]
+    emit({"phase": phase, "arch": name, "layers": cfg.num_layers,
+          "enc_layers": cfg.enc_layers, "batch": CROSS_BATCH, "seq": s,
+          "memory": CROSS_MEMORY[name], "identical": same,
+          "prefill_63_plus_decode_equals_64": consistent,
+          "caches_identical": same_caches, "cache_keys": keys,
+          "distinct_argmax": len(set(argmax.tolist())),
+          "finite": bool(torch.isfinite(logits["cuda"]).all()),
+          "quantize_s": quant_s, "seconds": secs,
+          "cuda_launches": {k: c for k, c in launches["cuda"].items()
+                            if c}})
+    if not same or not all(consistent.values()) or not same_caches \
+            or "ck8" not in keys or missing:
+        raise AssertionError(f"{phase}: logits {same}, 63 + 1 == 64 "
+                             f"{consistent}, caches {same_caches} {keys}, "
+                             f"never launched {missing}")
+    return {phase: launches["cuda"]}
+
+
+def phase_cross_decode(name, model):
+    """``<encdec|vlm>-decode``: 4 requests with 64-token prompts (seed 5)
+    over their memory, ``int_prefill(return_cache=True)``, then 32 greedy
+    tokens through ``make_decode_step``: the streams of ``cuda`` equal
+    ``torch_ref``'s.  Reports tokens/s, device (CUDA events) and wall ms a
+    decode step, launches a step (as :func:`cross_decode_launches`
+    counts), the device ms of the memory (the encoder, or the image
+    embeddings' quantization) and of the cross K/V set-up a request
+    (``init_decode_cache(memory8=)``), then a profiled window of decode
+    steps (the busy share).  Returns the path's launches on ``cuda``."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models import inttransformer as it
+    from repro_torch.ops import resolve_ops
+    phase = f"{CROSS_PHASES[name]}-decode"
+    qp, plans, _ = model
+    cfg = cross_config(name)
+    batch = cross_batch(cfg, 5)
+    L = CROSS_SEQ + CROSS_NEW
+    rope = _rope(cfg, L)
+    streams, walls, out = {}, {}, {}
+    for backend in ("cuda", "torch_ref"):
+        decode = make_decode_step(cfg, plans, L, ops=backend, device="cuda")
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        logits, caches = it.int_prefill(qp, batch, plans, cfg, ops=backend,
+                                        return_cache=True, cache_len=L)
+        tok, toks = logits.argmax(-1), []
+        with StepTimer(decode="int_decode_step") as timer:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for t in range(CROSS_NEW):
+                toks.append(tok)
+                logits, caches = decode(
+                    qp, caches, tok,
+                    np.full(CROSS_BATCH, CROSS_SEQ + t, np.int32), *rope)
+                tok = logits.argmax(-1)
+            torch.cuda.synchronize()
+            walls[backend] = time.perf_counter() - t0
+        streams[backend] = torch.stack(toks, 1).tolist()
+        out[backend] = (timer, dict(kernels.LAUNCHES), caches)
+    timer, launches, caches = out["cuda"]
+    same = streams["cuda"] == streams["torch_ref"]
+    per_step, step_ms = timer.launches("decode"), timer.ms("decode")
+    want = cross_decode_launches(cfg)
+    off = [i for i, c in enumerate(per_step)
+           if any(c[k] != v for k, v in want.items())]
+    missing = [k for k in PATH_KERNELS[phase] if launches[k] <= 0]
+    # the memory and the cross K/V set-up, timed alone on the card
+    ops = resolve_ops("cuda", cfg)
+    start = torch.cuda.Event(enable_timing=True)
+    mid = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    mem8 = it._memory(qp, batch, plans, cfg, ops)
+    mid.record()
+    it.init_decode_cache(cfg, device="cuda", batch=CROSS_BATCH,
+                         cache_len=L, memory8=mem8, qparams=qp, plans=plans,
+                         ops=ops)
+    end.record()
+    torch.cuda.synchronize()
+    n_tok = CROSS_BATCH * CROSS_NEW
+    emit({"phase": phase, "arch": name, "layers": cfg.num_layers,
+          "enc_layers": cfg.enc_layers, "requests": CROSS_BATCH,
+          "prompt_len": CROSS_SEQ, "memory": CROSS_MEMORY[name],
+          "new_tokens": CROSS_NEW, "identical": same,
+          "distinct_tokens": len({t for s in streams["cuda"] for t in s}),
+          "tokens_per_s": n_tok / walls["cuda"],
+          "wall_ms_per_step": walls["cuda"] * 1e3 / CROSS_NEW,
+          "decode_step_ms_mean": float(np.mean(step_ms)),
+          "decode_step_ms_p50": float(np.median(step_ms)),
+          "torch_ref_wall_s": walls["torch_ref"],
+          "launches_per_decode_step": _mean_counts(per_step),
+          "expected_launches_per_step": want,
+          "memory_ms": start.elapsed_time(mid),
+          "cross_kv_ms_per_request": mid.elapsed_time(end) / CROSS_BATCH,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "first_stream": streams["cuda"][0]})
+    if not same or missing or off:
+        raise AssertionError(f"{phase}: streams identical {same}, never "
+                             f"launched {missing}, steps off {want}: "
+                             f"{off[:5]} {per_step[off[0]] if off else ''}")
+    decode = make_decode_step(cfg, plans, L, ops="cuda", device="cuda")
+    tok = torch.as_tensor(streams["cuda"], device="cuda")[:, -1]
+
+    def window():
+        for t in range(CROSS_PROFILE_STEPS):
+            decode(qp, caches, tok, np.full(CROSS_BATCH, CROSS_SEQ + t,
+                                            np.int32), *rope)
+    profile_window(f"{phase}-profile", f"{CROSS_PROFILE_STEPS} decode steps,"
+                   f" batch {CROSS_BATCH}", window,
+                   lambda: CROSS_PROFILE_STEPS)
+    return {phase: launches}
+
+
 def _mean_counts(deltas):
     return {n: float(sum(d[n] for d in deltas)) / max(len(deltas), 1)
             for n in (deltas[0] if deltas else {})}
@@ -4377,7 +4753,8 @@ def main(argv=None) -> int:
                     "window-prefill,kv4-parity,kv4-serve,packed-parity,"
                     "msr4-serve,zoo-parity,zoo-serve,zoo-encode,"
                     "long-prefill,moe-parity,moe-serve,moe-prefill,"
-                    "ssm-parity,ssm-serve,hybrid-parity,hybrid-serve")
+                    "ssm-parity,ssm-serve,hybrid-parity,hybrid-serve,"
+                    "encdec-parity,encdec-decode,vlm-parity,vlm-decode")
     ap.add_argument("--verbose-build", action="store_true",
                     help="print nvcc -Xptxas -v (registers, spills) and "
                     "each kernel's IMMA / IDP / LDL / STL count")
@@ -4426,6 +4803,7 @@ def main(argv=None) -> int:
         check_zoo_kernels(rows)
         check_moe_kernels(rows)
         check_ssm_kernels(rows)
+        check_cross_kernels(rows)
     else:
         if "zoo-kernels" in phases:
             check_zoo_kernels(rows)
@@ -4433,6 +4811,8 @@ def main(argv=None) -> int:
             check_moe_kernels(rows)
         if "ssm-kernels" in phases:
             check_ssm_kernels(rows)
+        if "cross-kernels" in phases:
+            check_cross_kernels(rows)
     if "k1-decode" in phases:
         wcfg = window_config()
         check_k1_decode(cfg, wcfg, plans, qplans.build_layer_plans(wcfg))
@@ -4505,6 +4885,21 @@ def main(argv=None) -> int:
             launches.update(phase_ssm_serve(name, model))
         del model
         emit({"phase": f"{kind}-seconds", "arch": name,
+              "seconds": time.perf_counter() - t_phase})
+    for name in CROSS_ARCHS:
+        kind = CROSS_PHASES[name]
+        if not phases & {f"{kind}-parity", f"{kind}-decode"}:
+            continue
+        t_phase = time.perf_counter()
+        model = random_model(cross_config(name))
+        quantize_s = model[2]
+        if f"{kind}-parity" in phases:
+            launches.update(phase_cross_parity(name, model))
+        if f"{kind}-decode" in phases:
+            launches.update(phase_cross_decode(name, model))
+        del model
+        emit({"phase": f"{kind}-seconds", "arch": name,
+              "quantize_s": quantize_s,
               "seconds": time.perf_counter() - t_phase})
     if rows:
         # each kernel's launches come from the first path of this run

@@ -25,7 +25,9 @@ The kernels are built (or loaded) before the timed serve.
 ``--device`` defaults to ``cuda`` and fails without a GPU unless
 ``--device cpu`` is given (the plain versions of every kernel run
 there).  ``--tp`` and ``--ckpt-dir`` of the reference driver are not
-ported yet (ROADMAP §1 items 9 and 12).
+ported yet (ROADMAP §1 items 9 and 12).  The cross attention archs
+(seamless-m4t-large-v2, llama-3.2-vision-90b) are refused, as the engine
+refuses them (``serving.engine.refuse_cross_attention``).
 """
 from __future__ import annotations
 
@@ -44,6 +46,7 @@ from repro_torch.models import model as M
 from repro_torch.ops import available_backends, resolve_ops
 from repro_torch.quant import convert
 from repro_torch.serving import QueueFull, ServingEngine, ServingFrontend
+from repro_torch.serving.engine import refuse_cross_attention
 from repro_torch.serving.speculate import validate_spec
 
 
@@ -150,7 +153,12 @@ async def _serve(fe: ServingFrontend, prompts, args) -> list:
 
 def _check_args(ap, args, cfg) -> None:
     """The flags' coherence, checked before the (slow) quantization, as
-    argparse errors."""
+    argparse errors; the engine's refusal of the cross attention archs
+    too."""
+    try:
+        refuse_cross_attention(cfg)
+    except ValueError as e:
+        ap.error(f"--arch {args.arch}: {e}")
     if args.prefill_chunk is not None and args.prefill_chunk > 0:
         if args.cache_mode != "paged":
             ap.error("--prefill-chunk needs --cache-mode paged (chunked "

@@ -2,7 +2,8 @@
 
 ``make_prefill_step`` closes over the config, the plans and the op set
 and returns the full-sequence integer forward: the paper's encoder path
-(RoBERTa-base) and the full-sequence prefill of every ported decoder.
+(RoBERTa-base) and the full-sequence prefill of every decoder, over an
+encoder's or an image memory too.
 ``make_decode_step`` returns one decode step over contiguous caches
 (``inttransformer.init_decode_cache`` without a layout).
 """
@@ -17,21 +18,32 @@ from repro_torch.ops import resolve_ops
 from repro_torch.quant import plans as qplans
 
 
+#: the batch's float memory inputs: the frame embeddings of an
+#: encoder-decoder, the image embeddings of a VLM
+MEMORY_KEYS = ("src_embeds", "img_embeds")
+
+
 def make_prefill_step(cfg: ArchConfig, plans: qplans.LayerPlans, ops=None,
                       device="cuda"):
     """Returns ``prefill(qparams, batch[, rope_tab]) -> (B, V)`` float32
-    last-position logits.  ``batch["tokens"]``: (B, S) token ids, moved
-    to ``device`` (default the card; raises without one unless given
-    ``device="cpu"``).  With ``cfg.pos == "rope"`` the integer RoPE
-    tables are an argument, as in the reference.  ``ops``: as
+    last-position logits.  ``batch["tokens"]``: (B, S) token ids, and an
+    encoder-decoder's ``src_embeds`` / a VLM's ``img_embeds`` (B, Sm, D)
+    as float32, moved to ``device`` (default the card; raises without one
+    unless given ``device="cpu"``).  With ``cfg.pos == "rope"`` the
+    integer RoPE tables are an argument, as in the reference.  ``ops``: as
     ``ops.resolve_ops(ops, cfg)`` (e.g. ``"cuda_online"`` for the online
     attention)."""
     ops = resolve_ops(ops, cfg)
     dev = resolve_device(device)
 
     def _batch(batch):
-        return {**batch, "tokens": torch.as_tensor(batch["tokens"],
-                                                   device=dev)}
+        out = {**batch, "tokens": torch.as_tensor(batch["tokens"],
+                                                  device=dev)}
+        for key in MEMORY_KEYS:
+            if key in batch:
+                out[key] = torch.as_tensor(batch[key], dtype=torch.float32,
+                                           device=dev)
+        return out
 
     if cfg.pos == "rope":
         def prefill(qparams, batch, rope_tab):

@@ -123,14 +123,18 @@ def apply_int_rope(q8, positions, rope_tab):
 
 # --------------------------------------------------------- attention ------
 
-def _qkv(qp, x8, plans: qplans.AttnPlan, cfg: ArchConfig, ops):
+def _qkv(qp, x8, plans: qplans.AttnPlan, cfg: ArchConfig, ops, kv_src=None):
+    """Q of ``x8``, K and V of ``kv_src`` (a cross attention's memory;
+    default ``x8``), each (B, S, heads, hd) int8."""
     b, s, _ = x8.shape
+    kv_src = x8 if kv_src is None else kv_src
+    sk = kv_src.shape[1]
     q8 = int_linear(x8, qp["wq"], plans.qkv, ops) \
         .reshape(b, s, cfg.n_heads, cfg.hd)
-    k8 = int_linear(x8, qp["wk"], plans.qkv, ops) \
-        .reshape(b, s, cfg.n_kv_heads, cfg.hd)
-    v8 = int_linear(x8, qp["wv"], plans.qkv, ops) \
-        .reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    k8 = int_linear(kv_src, qp["wk"], plans.qkv, ops) \
+        .reshape(b, sk, cfg.n_kv_heads, cfg.hd)
+    v8 = int_linear(kv_src, qp["wv"], plans.qkv, ops) \
+        .reshape(b, sk, cfg.n_kv_heads, cfg.hd)
     return q8, k8, v8
 
 
@@ -143,29 +147,32 @@ FULL_MATRIX_MAX = (4096 * 4096) // 4
 def int_attn_fwd(qp, x8, plans: qplans.AttnPlan, cfg: ArchConfig,
                  rope_tab=None, positions=None, causal=True, window: int = 0,
                  memory8=None, ops=None, fuse_attention: bool = True):
-    """Full-sequence self-attention.  x8: (B,S,D) int8 -> (B,S,D) int32 at
-    s_res.  ``rope_tab``: integer RoPE tables (rotated at ``positions``,
-    default ``0..S-1``); ``causal``/``window``: the mask.
+    """Full-sequence self or cross attention.  x8: (B,S,D) int8 -> (B,S,D)
+    int32 at s_res.  ``rope_tab``: integer RoPE tables (rotated at
+    ``positions``, default ``0..S-1``); ``causal``/``window``: the mask.
+    ``memory8`` (B, Skv, D) int8: cross attention, K and V projected from
+    the memory, unmasked (``causal`` is ignored) and never rotated.
 
     The branches are the reference's, in its order: a backend with a fused
     attention kernel (``cuda``, ``cuda_online``) takes every length;
     otherwise (``cuda_ref`` and ``torch_ref``, the twins of ``ref``, or
-    ``fuse_attention=False``) above ``S * Skv = FULL_MATRIX_MAX`` the
-    chunked two-pass (``core.attention.i_attention_chunked``, chunks of
-    ``min(1024, S)``, the KV heads repeated for GQA; it asserts ``S %
-    1024 == 0`` as the reference does), and at or below it the exact
-    full-matrix integers: the backend's own ``int_attention`` (K5 on
-    ``cuda_ref``), or K5 where the backend is a fused one, which must not
-    be re-entered.  The chunked path is plain PyTorch on the operands'
-    device, as the reference's is plain ``jnp`` outside any kernel."""
-    if memory8 is not None:
-        raise NotImplementedError("cross attention over an encoder/image "
-                                  "memory is not ported yet (ROADMAP §1 "
-                                  "item 8)")
+    ``fuse_attention=False``) self attention above ``S * Skv =
+    FULL_MATRIX_MAX`` streams the chunked two-pass
+    (``core.attention.i_attention_chunked``, chunks of ``min(1024,
+    Skv)``, the KV heads repeated for GQA; it asserts ``S % 1024 == 0``
+    as the reference does), and at or below it, and cross attention at
+    every length, take the exact full-matrix integers: the backend's own
+    ``int_attention`` (K5 on ``cuda_ref``), or K5 where the backend is a
+    fused one, which must not be re-entered.  The chunked path is plain
+    PyTorch on the operands' device, as the reference's is plain ``jnp``
+    outside any kernel."""
     ops = resolve_ops(ops, cfg)
     b, s, _ = x8.shape
-    q8, k8, v8 = _qkv(qp, x8, plans, cfg, ops)
-    if rope_tab is not None:
+    q8, k8, v8 = _qkv(qp, x8, plans, cfg, ops, memory8)
+    sk = k8.shape[1]
+    cross = memory8 is not None
+    causal = causal and not cross
+    if rope_tab is not None and not cross:
         pos = positions if positions is not None else torch.arange(
             s, device=x8.device)
         q8 = apply_int_rope(q8, pos, rope_tab)
@@ -175,12 +182,12 @@ def int_attn_fwd(qp, x8, plans: qplans.AttnPlan, cfg: ArchConfig,
     if fuse_attention and attn_backend.fused_attention:
         o8 = ops.int_attention(q8, k8, v8, plans.attn, causal=causal,
                                window=window, requant=requant)
-    elif s * s > FULL_MATRIX_MAX:
+    elif s * sk > FULL_MATRIX_MAX and not cross:
         rep = cfg.q_group
         k8r = k8.repeat_interleave(rep, dim=2) if rep > 1 else k8
         v8r = v8.repeat_interleave(rep, dim=2) if rep > 1 else v8
         o8 = i_attention_chunked(q8, k8r, v8r, plans.attn,
-                                 chunk=min(1024, s), causal=causal,
+                                 chunk=min(1024, sk), causal=causal,
                                  window=window)
     else:
         # exact numerics: never re-enter a fused (possibly online) kernel

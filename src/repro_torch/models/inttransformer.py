@@ -1,9 +1,9 @@
-"""Integer datapath of dense decoders, encoders, mixtures of experts and
-state-space models (the ported subset of ``repro.models.inttransformer``):
-embedding, the full-sequence forward
+"""Integer datapath of every family (twin of
+``repro.models.inttransformer``): embedding, the full-sequence forward
 (``int_prefill``, which can also build the decode cache), chunked
 prefill, decode over a contiguous or paged cache, the speculative verify
-step (``Sq = spec_k + 1`` rows a lane), logits.
+step (``Sq = spec_k + 1`` rows a lane), logits; an encoder-decoder's
+encoder and the int8 memory a cross attention sublayer reads.
 
 Everything from the embedding lookup to the last requant is SwiftTron
 integer arithmetic; only the final logits are dequantized (the host-side
@@ -11,7 +11,9 @@ sampling boundary).  Where the reference scans over the stacked layers
 with ``lax.scan``, this is a Python loop over views of the stacks, each
 group's positions in architectural order.  The KV caches and the Mamba
 state (the int32 SSD state ``h`` and the int8 conv tail, one a lane) are
-written in place.
+written in place.  A cross attention position's K/V of the memory
+(``ck8`` / ``cv8``, one a lane) are computed once, when the cache is
+built (:func:`init_decode_cache`), and only read by decode.
 """
 from __future__ import annotations
 
@@ -19,10 +21,12 @@ from typing import Any, Dict, List
 
 import torch
 
+from repro_torch.core.dyadic import fit_dyadic
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.models import intlayers as il
 from repro_torch.models.common import ArchConfig
-from repro_torch.models.transformer import PORTED_KINDS, layer_group_spec
+from repro_torch.models.transformer import (ENCODER_KIND, PORTED_KINDS,
+                                            layer_group_spec)
 from repro_torch.ops import QuantLinearParams, resolve_ops
 from repro_torch.ops.packed import KV_SHIFT
 from repro_torch.quant import plans as qplans
@@ -67,25 +71,39 @@ def _ffn_sublayer(qp, x32, plans: qplans.LayerPlans, cfg: ArchConfig, ops,
 
 
 def _int_sublayer_fwd(qp, x32, plans: qplans.LayerPlans, cfg: ArchConfig,
-                      kind, rope_tab, positions, causal, ops):
-    """Pre-norm integer sublayer of ``kind``: attention or a Mamba block
-    (``int_mamba_prefill`` from a zero state), then a dense FFN, an MoE
-    (routing groups of 512 tokens, as the reference's prefill) or nothing
-    (``ff`` None).  x32: (B,S,D) int32 at s_res.  The reference's integer
-    path is pre-norm whatever ``cfg.post_norm`` says, and so is this."""
+                      kind, rope_tab, positions, causal, ops, memory8=None):
+    """Pre-norm integer sublayer of ``kind``: self attention, cross
+    attention over ``memory8`` (the ``cross`` mixer: unmasked, no RoPE,
+    ``plans.cross``) or a Mamba block (``int_mamba_prefill`` from a zero
+    state); for a decoder sublayer (``has_cross``) then its own norm and
+    cross attention; then a dense FFN, an MoE (routing groups of 512
+    tokens, as the reference's prefill) or nothing (``ff`` None).  x32:
+    (B,S,D) int32 at s_res.  The reference's integer path is pre-norm
+    whatever ``cfg.post_norm`` says, and so is this."""
     if kind not in PORTED_KINDS:
-        raise NotImplementedError(f"sublayer {kind} is not ported yet "
-                                  "(ROADMAP §1 item 8)")
+        raise NotImplementedError(f"sublayer {kind} is no kind of the "
+                                  "reference's")
+    mix, ff, has_cross = kind
     h8 = il.int_norm(qp["norm1"], x32, plans.norm, ops)
-    if kind[0] == "attn":
+    if mix == "attn":
         a32 = il.int_attn_fwd(qp["attn"], h8, plans.attn, cfg, rope_tab,
                               positions, causal=causal, window=cfg.window,
+                              ops=ops)
+    elif mix == "cross":
+        a32 = il.int_attn_fwd(qp["attn"], h8, plans.cross, cfg, None,
+                              positions, causal=False, memory8=memory8,
                               ops=ops)
     else:
         a32, _ = il.int_mamba_prefill(qp["ssm"], h8, plans.mamba, cfg,
                                       ops=ops)
     x32 = _residual_add(x32, a32, cfg)
-    if kind[1] is None:
+    if has_cross:
+        h8 = il.int_norm(qp["norm_cross"], x32, plans.norm, ops)
+        c32 = il.int_attn_fwd(qp["cross"], h8, plans.cross, cfg, None,
+                              positions, causal=False, memory8=memory8,
+                              ops=ops)
+        x32 = _residual_add(x32, c32, cfg)
+    if ff is None:
         return x32
     return _ffn_sublayer(qp, x32, plans, cfg, ops, group_size=512)
 
@@ -93,6 +111,52 @@ def _int_sublayer_fwd(qp, x32, plans: qplans.LayerPlans, cfg: ArchConfig,
 def embed_int(qparams, tokens, plans: qplans.LayerPlans, cfg: ArchConfig):
     e8 = qparams["embed_w8"][tokens.to(torch.long)].to(torch.int32)
     return plans.embed.dn_res(e8)
+
+
+def quantize_memory(mem_f, cfg: ArchConfig):
+    """The float boundary of the stubbed frontends: frame / image
+    embeddings (B, Sm, D) -> int8 at ``s_act8``, ``round(mem / s_act8)``
+    in float32 (half to even, as ``jnp.round``), clipped to ±127.  The
+    scale is a float32 tensor on the operand's device, so the division
+    is the IEEE one on the card too (a CPU scalar divisor would become a
+    multiply by its reciprocal there)."""
+    s = torch.tensor(cfg.s_act8, dtype=torch.float32, device=mem_f.device)
+    q = torch.round(mem_f.to(torch.float32) / s)
+    return torch.clamp(q, -127, 127).to(torch.int8)
+
+
+def _int_encoder(qparams, src_embeds, plans: qplans.LayerPlans,
+                 cfg: ArchConfig, ops):
+    """An encoder-decoder's encoder over the frame embeddings: the int8
+    memory brought onto the residual bus (``fit_dyadic(s_act8 / s_res,
+    127)``), the ``enc_layers`` stack non-causal without RoPE, then
+    ``enc_final_norm`` on ``plans.norm``.  Returns the (B, Sm, D) int8
+    memory the decoder's cross attention reads."""
+    mem8 = quantize_memory(src_embeds, cfg)
+    x32 = fit_dyadic(cfg.s_act8 / cfg.s_res, 127)(mem8.to(torch.int32))
+    positions = torch.arange(mem8.shape[1], device=mem8.device)
+    enc = qparams["enc_layers"]
+    stack = enc[0] if isinstance(enc, (list, tuple)) else enc
+    for g in range(stack["norm1"]["gamma_q"].shape[0]):
+        x32 = _int_sublayer_fwd(_layer(stack, g), x32, plans, cfg,
+                                ENCODER_KIND, None, positions, False, ops)
+    return il.int_norm(qparams["enc_final_norm"], x32, plans.norm, ops)
+
+
+def _memory(qparams, batch, plans: qplans.LayerPlans, cfg: ArchConfig, ops):
+    """The int8 memory the cross attention reads, on the params' device:
+    the encoder's output over ``batch["src_embeds"]`` (``encdec``), the
+    quantized ``batch["img_embeds"]`` (``vlm``); None for the families
+    without one."""
+    dev = qparams["embed_w8"].device
+    if cfg.family == "encdec":
+        return _int_encoder(qparams, torch.as_tensor(batch["src_embeds"],
+                                                     device=dev),
+                            plans, cfg, ops)
+    if cfg.family == "vlm":
+        return quantize_memory(torch.as_tensor(batch["img_embeds"],
+                                               device=dev), cfg)
+    return None
 
 
 def logits_int(qparams, x32, plans: qplans.LayerPlans, cfg: ArchConfig,
@@ -118,28 +182,27 @@ def int_prefill(qparams, batch, plans: qplans.LayerPlans, cfg: ArchConfig,
 
     ``rope_tab``: the int32 (cos, sin) tables (built here for ``pos ==
     "rope"`` when not given).  Causal per ``cfg.is_causal``, windowed per
-    ``cfg.window``; an encoder adds no position embedding, as in the
-    reference's integer path.  The encoder-decoder / VLM memory is not
-    ported yet."""
-    if cfg.family in ("encdec", "vlm"):
-        raise NotImplementedError(f"the {cfg.family} memory (encoder / "
-                                  "image tokens) is not ported yet "
-                                  "(ROADMAP §1 item 8)")
+    ``cfg.window``; the integer path adds no position embedding for
+    ``pos`` "learned" or "sinusoidal", as the reference's does not.  An
+    encoder-decoder runs its encoder over ``batch["src_embeds"]`` (B, Sm,
+    D) float, a VLM quantizes ``batch["img_embeds"]``; the cross
+    attention sublayers read that int8 memory (:func:`_memory`)."""
     ops = resolve_ops(ops, cfg)
     _, ng, kinds = layer_group_spec(cfg)
-    tokens = batch["tokens"]
-    s = tokens.shape[1]
     dev = qparams["embed_w8"].device
+    tokens = torch.as_tensor(batch["tokens"], device=dev)
+    s = tokens.shape[1]
     if rope_tab is None and cfg.pos == "rope":
         rope_tab = il.build_rope_table(max(s, cache_len) + 1, cfg.hd,
                                        cfg.rope_theta, device=dev)
+    memory8 = _memory(qparams, batch, plans, cfg, ops)
     positions = torch.arange(s, device=dev)
     x32 = embed_int(qparams, tokens, plans, cfg)
     for g in range(ng):
         for j, kind in enumerate(kinds):
             x32 = _int_sublayer_fwd(_layer(qparams["layers"][j], g), x32,
                                     plans, cfg, kind, rope_tab, positions,
-                                    cfg.is_causal, ops)
+                                    cfg.is_causal, ops, memory8)
     # the kernels take contiguous operands: copy out the last position
     last = x32[:, -1:, :].contiguous()
     logits = logits_int(qparams, last, plans, cfg, ops)[:, 0]
@@ -150,19 +213,27 @@ def int_prefill(qparams, batch, plans: qplans.LayerPlans, cfg: ArchConfig,
 
 
 def init_decode_cache(cfg: ArchConfig, layout=None, device=DEFAULT_DEVICE, *,
-                      batch: int = 0, cache_len: int = 0) -> List[Dict]:
-    """Per-sublayer-position caches, zeroed.  An attention position holds
-    int8 K/V: paged pools ``(ng, num_pages, page_size, Hkv, hd)`` for
-    ``layout`` (a ``serving.kvcache.CacheLayout``), else contiguous ``(ng,
-    batch, L, Hkv, hd)`` with ``L = min(cache_len, cfg.window)`` for a
-    sliding window (the rolling buffer), ``cache_len`` otherwise.  With
-    ``layout.kv_dtype == "int4"`` the pools pack two head-dim nibbles a
-    byte (last dim ``hd // 2``) and carry per-page shifts ``k_shift`` /
+                      batch: int = 0, cache_len: int = 0, memory8=None,
+                      qparams=None, plans=None, ops=None) -> List[Dict]:
+    """Per-sublayer-position caches.  A self attention position holds
+    int8 K/V, zeroed: paged pools ``(ng, num_pages, page_size, Hkv, hd)``
+    for ``layout`` (a ``serving.kvcache.CacheLayout``), else contiguous
+    ``(ng, batch, L, Hkv, hd)`` with ``L = min(cache_len, cfg.window)``
+    for a sliding window (the rolling buffer), ``cache_len`` otherwise.
+    With ``layout.kv_dtype == "int4"`` the pools pack two head-dim nibbles
+    a byte (last dim ``hd // 2``) and carry per-page shifts ``k_shift`` /
     ``v_shift`` ``(ng, num_pages)`` int32, all ``ops.packed.KV_SHIFT``.
     A Mamba position holds lane-indexed state in either layout (``batch``
     lanes, or the layout's ``num_slots``): ``h`` ``(ng, B, H, N, P)``
-    int32 and ``conv`` ``(ng, B, K-1, C)`` int8.  On ``device``: the card
-    unless the caller passes ``device="cpu"``."""
+    int32 and ``conv`` ``(ng, B, K-1, C)`` int8.
+
+    A cross attention position (the ``cross`` mixer, or a decoder
+    sublayer's ``has_cross``) holds, given ``memory8`` (B, Sm, D) int8
+    with ``qparams`` / ``plans`` / ``ops``, the K/V of the memory, lane
+    indexed in either layout: ``ck8`` / ``cv8`` ``(ng, B, Sm, Hkv, hd)``
+    int8, computed here once for every group (``plans.cross.qkv``), as
+    the reference's does; a ``cross`` mixer holds no self K/V.  On
+    ``device``: the card unless the caller passes ``device="cpu"``."""
     _, ng, kinds = layer_group_spec(cfg)
     packed = layout is not None and layout.kv_dtype == "int4"
     if packed and cfg.hd % 2:
@@ -176,22 +247,45 @@ def init_decode_cache(cfg: ArchConfig, layout=None, device=DEFAULT_DEVICE, *,
     else:
         L = min(cache_len, cfg.window) if cfg.window > 0 else cache_len
         shape = (ng, batch, L, cfg.n_kv_heads, cfg.hd)
+    if memory8 is not None and memory8.shape[0] != batch:
+        raise ValueError(f"the memory has {memory8.shape[0]} lanes, the "
+                         f"cache {batch}")
     caches = []
-    for mix, _, _ in kinds:
+    for j, (mix, _, has_cross) in enumerate(kinds):
+        c = {}
         if mix == "ssm":
             st = il.init_int_mamba_state(cfg, batch, device)
-            caches.append({"h": st.h.expand(ng, *st.h.shape).clone(),
-                           "conv": st.conv.expand(ng, *st.conv.shape
-                                                  ).clone()})
-            continue
-        c = {"k8": torch.zeros(shape, dtype=torch.int8, device=device),
-             "v8": torch.zeros(shape, dtype=torch.int8, device=device)}
-        if packed:
-            for key in ("k_shift", "v_shift"):
-                c[key] = torch.full((ng, layout.num_pages), KV_SHIFT,
-                                    dtype=torch.int32, device=device)
+            c = {"h": st.h.expand(ng, *st.h.shape).clone(),
+                 "conv": st.conv.expand(ng, *st.conv.shape).clone()}
+        elif mix == "attn":
+            c = {"k8": torch.zeros(shape, dtype=torch.int8, device=device),
+                 "v8": torch.zeros(shape, dtype=torch.int8, device=device)}
+            if packed:
+                for key in ("k_shift", "v_shift"):
+                    c[key] = torch.full((ng, layout.num_pages), KV_SHIFT,
+                                        dtype=torch.int32, device=device)
+        if (mix == "cross" or has_cross) and memory8 is not None:
+            c.update(_cross_kv(qparams["layers"][j], memory8, plans, cfg,
+                               resolve_ops(ops, cfg), ng, has_cross))
         caches.append(c)
     return caches
+
+
+def _cross_kv(stack, memory8, plans: qplans.LayerPlans, cfg: ArchConfig,
+              ops, ng: int, has_cross: bool) -> Dict:
+    """``ck8`` / ``cv8`` ``(ng, B, Sm, Hkv, hd)`` of one position: each
+    group's K/V projections of the memory (the ``cross`` leaves of a
+    decoder sublayer, a ``cross`` mixer's ``attn``)."""
+    b, sm = memory8.shape[:2]
+    k, v = [], []
+    for g in range(ng):
+        qp = _layer(stack, g)
+        src = qp["cross"] if has_cross else qp["attn"]
+        k.append(il.int_linear(memory8, src["wk"], plans.cross.qkv, ops)
+                 .reshape(b, sm, cfg.n_kv_heads, cfg.hd))
+        v.append(il.int_linear(memory8, src["wv"], plans.cross.qkv, ops)
+                 .reshape(b, sm, cfg.n_kv_heads, cfg.hd))
+    return {"ck8": torch.stack(k), "cv8": torch.stack(v)}
 
 
 def _sublayers(qparams, caches, cfg: ArchConfig):
@@ -218,16 +312,20 @@ def _has_attention(cfg: ArchConfig) -> bool:
 
 def _int_sublayer_decode(qp, cache, x32, pos, plans: qplans.LayerPlans,
                          cfg: ArchConfig, kind, ops, **attn_kw):
-    """One token through a sublayer of ``kind``: attention over the KV
-    cache (``attn_kw``: the layout's operands, the step's rows and RoPE),
-    or one Mamba step whose new state is written over the lane-indexed
-    ``h`` / ``conv`` in place, then the FFN / MoE (one-token routing
-    groups) where the sublayer has one."""
+    """One token through a sublayer of ``kind``: self attention over the
+    KV cache (``attn_kw``: the layout's operands, the step's rows and
+    RoPE), cross attention over the memory's ``ck8`` / ``cv8``, or one
+    Mamba step whose new state is written over the lane-indexed ``h`` /
+    ``conv`` in place; a decoder sublayer's cross attention; then the FFN
+    / MoE (one-token routing groups) where the sublayer has one."""
+    mix, ff, has_cross = kind
     h8 = il.int_norm(qp["norm1"], x32, plans.norm, ops)
-    if kind[0] == "attn":
+    if mix == "attn":
         a32, _ = il.int_attn_decode(qp["attn"], h8, cache, pos, plans.attn,
                                     cfg, window=cfg.window, ops=ops,
                                     **attn_kw)
+    elif mix == "cross":
+        a32 = _cross_decode(qp["attn"], h8, cache, plans, cfg, ops)
     else:
         a32, st = il.int_mamba_step(qp["ssm"], h8[:, 0], il.IntMambaState(
             cache["h"], cache["conv"]), plans.mamba, cfg, ops)
@@ -235,9 +333,31 @@ def _int_sublayer_decode(qp, cache, x32, pos, plans: qplans.LayerPlans,
         cache["conv"].copy_(st.conv)
         a32 = a32[:, None]
     x32 = _residual_add(x32, a32, cfg)
-    if kind[1] is None:
+    if has_cross:
+        h8 = il.int_norm(qp["norm_cross"], x32, plans.norm, ops)
+        x32 = _residual_add(x32, _cross_decode(qp["cross"], h8, cache,
+                                               plans, cfg, ops), cfg)
+    if ff is None:
         return x32
     return _ffn_sublayer(qp, x32, plans, cfg, ops, group_size=1)
+
+
+def _cross_decode(qp, h8, cache, plans: qplans.LayerPlans, cfg: ArchConfig,
+                  ops):
+    """One token's cross attention over the whole memory: decode attention
+    (K3 on ``cuda``) with ``valid_len`` the memory's length Sm, over the
+    contiguous ``ck8`` / ``cv8`` (B, Sm, Hkv, hd), equal to unmasked
+    full-sequence attention over the same K/V.  h8 (B, 1, D) -> int32 (B,
+    1, D) at s_res."""
+    b = h8.shape[0]
+    sm = cache["ck8"].shape[1]
+    q8 = il.int_linear(h8, qp["wq"], plans.cross.qkv, ops) \
+        .reshape(b, 1, cfg.n_heads, cfg.hd)
+    valid = torch.full((b,), sm, dtype=torch.int32, device=h8.device)
+    o8 = ops.int_decode_attention(q8, cache["ck8"], cache["cv8"],
+                                  plans.cross.attn, valid)
+    return il.int_linear(o8.to(torch.int8).reshape(b, 1, -1), qp["wo"],
+                         plans.cross.out, ops)
 
 
 def int_decode_step(qparams, caches, tokens, pos, plans, cfg: ArchConfig,
@@ -249,7 +369,9 @@ def int_decode_step(qparams, caches, tokens, pos, plans, cfg: ArchConfig,
     or paged pools with ``pages``/``page_size``/``max_len`` (page table
     int32 (B, max_pages)); a sliding window writes its rolling slot ``pos
     % cfg.window``.  A Mamba position advances every lane's state by its
-    token (an idle lane's by token 0, as in the reference), in place.
+    token (an idle lane's by token 0, as in the reference), in place; a
+    cross attention position reads the memory's ``ck8`` / ``cv8`` the
+    caches were built with (:func:`init_decode_cache`).
     ``fold_wo`` folds each o-projection into the attention call
     (bit-exact either way).  ``pos_span``: the least and greatest of
     ``pos``, known on the host (:func:`intlayers.rope_gather`: the RoPE
@@ -338,14 +460,20 @@ def build_cache_from_prefill(qparams, batch, plans, cfg: ArchConfig, ops,
                              cache_len: int):
     """The contiguous decode caches of ``batch["tokens"]`` (B, S), built
     token by token through :func:`int_decode_step` at positions ``0 ..
-    S-1`` (as the reference's helper does; a sliding window rolls)."""
+    S-1`` (as the reference's helper does; a sliding window rolls).  A
+    cross attention arch's memory is made again from the batch (the
+    encoder rerun, as in the reference) and its ``ck8`` / ``cv8`` put in
+    the caches (:func:`init_decode_cache`)."""
     ops = resolve_ops(ops, cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
     dev = qparams["embed_w8"].device
     tokens = torch.as_tensor(tokens, device=dev)
     caches = init_decode_cache(cfg, device=dev, batch=b,
-                               cache_len=cache_len)
+                               cache_len=cache_len,
+                               memory8=_memory(qparams, batch, plans, cfg,
+                                               ops),
+                               qparams=qparams, plans=plans, ops=ops)
     rope_tab = il.build_rope_table(cache_len + 1, cfg.hd, cfg.rope_theta,
                                    device=dev) if cfg.pos == "rope" else None
     for t in range(s):

@@ -1,6 +1,7 @@
-"""Layer grouping and the float init of dense decoders, encoders,
-mixtures of experts and state-space models (twin of the matching parts
-of ``repro.models.transformer``)."""
+"""Layer grouping and the float init of every family: dense decoders,
+encoders, mixtures of experts, state-space models, the encoder-decoder
+and the VLM (twin of the matching parts of
+``repro.models.transformer``)."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -42,39 +43,54 @@ def layer_group_spec(cfg: ArchConfig):
     return gl, n // gl, kinds
 
 
-PORTED_FAMILIES = ("dense", "encoder", "moe", "ssm", "hybrid")
-#: the sublayer kinds the port runs: attention or Mamba, then a dense
-#: FFN, an MoE or (attention-free Mamba) nothing
+PORTED_FAMILIES = ("dense", "encoder", "moe", "ssm", "hybrid", "encdec",
+                   "vlm")
+#: the sublayer kinds the port runs: self attention (with cross attention
+#: over a memory after it, an encoder-decoder's decoder sublayer), cross
+#: attention over a memory, or Mamba, then a dense FFN, an MoE or
+#: (attention-free Mamba) nothing
 PORTED_KINDS = (("attn", "ffn", False), ("attn", "moe", False),
+                ("attn", "ffn", True), ("cross", "ffn", False),
                 ("ssm", None, False), ("ssm", "ffn", False),
                 ("ssm", "moe", False))
 
 
 def require_ported(cfg: ArchConfig) -> None:
-    """The port runs every family but the cross-attention ones: dense
-    decoders and encoders, mixtures of experts, and the state-space
-    models (attention-free Mamba-2 and the attention / Mamba hybrid)."""
+    """The port runs every family of the reference: dense decoders and
+    encoders, mixtures of experts, the state-space models (attention-free
+    Mamba-2 and the attention / Mamba hybrid), the encoder-decoder and
+    the VLM; a config whose family or sublayer kind is none of these
+    raises."""
     _, _, kinds = layer_group_spec(cfg)
     if cfg.family not in PORTED_FAMILIES \
             or any(kind not in PORTED_KINDS for kind in kinds):
         raise NotImplementedError(
-            f"arch {cfg.name!r} ({cfg.family}) is not ported yet: cross "
-            "attention over an encoder / image memory is ROADMAP §1 item 8")
+            f"arch {cfg.name!r} ({cfg.family}, sublayers {kinds}) is no "
+            "family of the reference's")
+
+
+#: an encoder-decoder's encoder sublayer: self attention, then the FFN
+ENCODER_KIND = ("attn", "ffn", False)
 
 
 def init_layer(gen: torch.Generator, cfg: ArchConfig, dtype,
                kind=None) -> Pytree:
     """One sublayer's float params (unstacked) of ``kind`` (default the
     first of the group), drawn in the reference's order: the mixer
-    (attention or Mamba), then the FFN / MoE.  A Mamba sublayer without
-    an FFN has no ``norm2``."""
+    (attention, cross attention over a memory, whose leaves are self
+    attention's, or Mamba), then a decoder sublayer's cross attention
+    (``cross`` and ``norm_cross``), then the FFN / MoE.  A Mamba sublayer
+    without an FFN has no ``norm2``."""
     dev = gen.device
-    mix, ff, _ = kind or layer_group_spec(cfg)[2][0]
+    mix, ff, has_cross = kind or layer_group_spec(cfg)[2][0]
     p = {"norm1": fl.init_norm(cfg, dtype, dev)}
-    if mix == "attn":
+    if mix in ("attn", "cross"):
         p["attn"] = fl.init_attn(gen, cfg, dtype)
     else:
         p["ssm"] = mb.init_mamba(gen, cfg, dtype)
+    if has_cross:
+        p["cross"] = fl.init_attn(gen, cfg, dtype)
+        p["norm_cross"] = fl.init_norm(cfg, dtype, dev)
     if ff is not None:
         p["norm2"] = fl.init_norm(cfg, dtype, dev)
         p[ff] = fl.init_moe(gen, cfg, dtype) if ff == "moe" \
@@ -94,12 +110,18 @@ def init_params(cfg: ArchConfig, seed: int = 0,
     """Random float params in the reference layout: ``embed`` (V, D),
     ``final_norm``, ``lm_head`` (D, V; absent for an encoder or tied
     embeddings), ``layers`` — one dict a position of the layer group, whose
-    leaves carry a leading group axis — and, for ``pos="learned"``,
-    ``pos_embed`` (65536, D), which the integer path does not read (drawn
-    last, so the other draws equal ``quant.convert.init_quantized``'s).
-    Sublayers are drawn in architectural order: group after group, each
-    group's positions in turn.  Holds the whole float model at once;
-    ``init_quantized`` draws and quantizes layer by layer instead."""
+    leaves carry a leading group axis — and, for an encoder-decoder,
+    ``enc_layers`` (a list of one stack of ``enc_layers`` encoder
+    sublayers) and ``enc_final_norm``; for ``pos="learned"``,
+    ``pos_embed`` (65536, D), which the integer path does not read.
+
+    The draw order (``quant.convert.init_quantized`` draws in the same
+    order, so that it equals ``quantize_params`` of these floats for the
+    same seed): the embedding, ``lm_head``, the decoder's sublayers in
+    architectural order (group after group, each group's positions in
+    turn), the encoder's sublayers in order, ``pos_embed``.  Holds the
+    whole float model at once; ``init_quantized`` draws and quantizes
+    layer by layer instead."""
     require_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -116,6 +138,11 @@ def init_params(cfg: ArchConfig, seed: int = 0,
              for _ in range(ng)]
     params["layers"] = [_stack([group[j] for group in drawn])
                         for j in range(len(kinds))]
+    if cfg.family == "encdec":
+        params["enc_layers"] = [_stack([
+            init_layer(gen, cfg, dtype, ENCODER_KIND)
+            for _ in range(cfg.enc_layers)])]
+        params["enc_final_norm"] = fl.init_norm(cfg, dtype, dev)
     if cfg.pos == "learned":
         params["pos_embed"] = fl._init(gen, (65536, cfg.d_model), dtype)
     return params

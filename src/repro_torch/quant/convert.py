@@ -1,6 +1,5 @@
-"""Float params -> SwiftTron integer parameters (the dense-decoder,
-encoder, mixture-of-experts and state-space subset of
-``repro.quant.convert``).
+"""Float params -> SwiftTron integer parameters (twin of
+``repro.quant.convert``, every family).
 
 Every weight becomes int8 with per-out-channel scales folded into int32
 dyadic multiplier vectors; norm gammas become the i-norm unit's integer
@@ -19,8 +18,9 @@ from repro_torch.core import norms
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as fl
 from repro_torch.models.common import ArchConfig
-from repro_torch.models.transformer import (_stack, init_layer,
-                                            layer_group_spec, require_ported)
+from repro_torch.models.transformer import (ENCODER_KIND, _stack,
+                                            init_layer, layer_group_spec,
+                                            require_ported)
 from repro_torch.ops.spec import QuantLinearParams
 from repro_torch.quant import plans as qplans
 
@@ -200,14 +200,20 @@ def _probe_calib(first, kinds, cfg: ArchConfig) -> dict:
 def _q_sublayer(p, plans: qplans.LayerPlans, cfg: ArchConfig, kind,
                 scales=None):
     """One sublayer of ``kind``; ``scales`` (:func:`_stack_scales`) where
-    its per-tensor leaves are quantized now, None where they come last."""
-    mix, ff, _ = kind
+    its per-tensor leaves are quantized now, None where they come last.
+    A cross-attention mixer's ``attn`` and a decoder sublayer's ``cross``
+    take ``plans.cross``, its ``norm_cross`` ``plans.norm``."""
+    mix, ff, has_cross = kind
     scales = scales or {}
     out = {"norm1": _q_norm(p["norm1"], plans.norm)}
-    if mix == "attn":
-        out["attn"] = _q_attn(p["attn"], plans.attn)
+    if mix in ("attn", "cross"):
+        out["attn"] = _q_attn(p["attn"], plans.attn if mix == "attn"
+                              else plans.cross)
     else:
         out["ssm"] = _q_mamba(p["ssm"], plans.mamba, cfg, scales.get("ssm"))
+    if has_cross:
+        out["cross"] = _q_attn(p["cross"], plans.cross)
+        out["norm_cross"] = _q_norm(p["norm_cross"], plans.norm)
     if ff is not None:
         out["norm2"] = _q_norm(p["norm2"], plans.norm)
         if ff == "moe":
@@ -215,6 +221,15 @@ def _q_sublayer(p, plans: qplans.LayerPlans, cfg: ArchConfig, kind,
         else:
             out["ffn"] = _q_ffn(p["ffn"], plans.ffn)
     return out
+
+
+def _q_encoder(params, plans: qplans.LayerPlans, cfg: ArchConfig) -> dict:
+    """An encoder-decoder's encoder: ``enc_layers`` (a list of one stack)
+    and ``enc_final_norm``, which takes ``plans.norm`` (the reference's,
+    not ``final_norm``; the two are one plan)."""
+    return {"enc_layers": [_q_sublayer(params["enc_layers"][0], plans, cfg,
+                                       ENCODER_KIND)],
+            "enc_final_norm": _q_norm(params["enc_final_norm"], plans.norm)}
 
 
 def _embed_scale(emb) -> float:
@@ -280,6 +295,8 @@ def quantize_params(params: Pytree, cfg: ArchConfig
                                _stack_scales(p, kind, cfg))
                    for p, kind in zip(layers, kinds)],
     }
+    if cfg.family == "encdec":
+        qparams.update(_q_encoder(params, plans, cfg))
     return qparams, plans
 
 
@@ -311,6 +328,10 @@ def init_quantized(cfg: ArchConfig, seed: int = 0, device="cuda",
     stream at a few LSBs, below the integer RMSNorm's pre-shift, so every
     normalised row is zero; :func:`unit_embed_scale` draws a unit-std
     embedding whose integer datapath carries signal.
+
+    The draws are ``transformer.init_params``'s, in its order: the
+    embedding, ``lm_head``, the decoder's sublayers group after group,
+    an encoder-decoder's encoder sublayers.
 
     The per-tensor scales (ROADMAP §3): every router (an MoE, qwen3-moe:
     94 x 4096 x 128) and every Mamba block's Δt columns, conv and
@@ -367,6 +388,13 @@ def init_quantized(cfg: ArchConfig, seed: int = 0, device="cuda",
         "head_scale": head_scale,
         "layers": [_stack_q(q) for q in layers],
     }
+    if cfg.family == "encdec":
+        qparams["enc_layers"] = [_stack_q([
+            _q_sublayer(init_layer(gen, cfg, dtype, ENCODER_KIND), plans,
+                        cfg, ENCODER_KIND)
+            for _ in range(cfg.enc_layers)])]
+        qparams["enc_final_norm"] = _q_norm(fl.init_norm(cfg, dtype, dev),
+                                            plans.norm)
     return qparams, plans
 
 

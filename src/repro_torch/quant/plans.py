@@ -1,5 +1,4 @@
-"""Design-time quantization plans (SwiftTron §III-A; the dense-decoder,
-encoder, mixture-of-experts and state-space subset of
+"""Design-time quantization plans (SwiftTron §III-A; twin of
 ``repro.quant.plans``).
 
 A *plan* is the frozen set of integer constants one layer kind needs:
@@ -107,8 +106,9 @@ class MambaPlan(NamedTuple):
 
 class LayerPlans(NamedTuple):
     """Everything the integer path of one architecture needs (the
-    reference's field set; cross attention, not ported yet, stays
-    None)."""
+    reference's field set).  ``cross``: the cross attention's plans of
+    an encoder-decoder or a VLM, the self attention's own (the
+    reference's ``cross = attn``), else None."""
     cfg_name: str
     embed: EmbedPlan
     norm: norms.INormPlan
@@ -161,6 +161,7 @@ def build_layer_plans(cfg: ArchConfig, calib: Optional[dict] = None
         out = make_linear_plan(s8, S_W8, cfg.s_res, cfg.n_heads * cfg.hd,
                                out_bits=14)
         attn = AttnPlan(qkv, ia, out)
+    cross = attn if cfg.family in ("encdec", "vlm") else None
     ffn = moe = None
     if cfg.n_experts > 0:
         router = make_linear_plan(s8, S_W8, 0.0, d)
@@ -179,7 +180,7 @@ def build_layer_plans(cfg: ArchConfig, calib: Optional[dict] = None
     mamba = _mamba_plan(cfg, calib) if cfg.family in ("ssm", "hybrid") \
         else None
     return LayerPlans(cfg.name, embed, norm_plan, attn, ffn, moe, mamba,
-                      None, HeadPlan(s8), norm_plan)
+                      cross, HeadPlan(s8), norm_plan)
 
 
 def _mamba_plan(cfg: ArchConfig, calib: Optional[dict] = None) -> MambaPlan:

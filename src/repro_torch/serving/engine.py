@@ -68,9 +68,12 @@ for every lane whose prompt is in, and finished lanes retire.
     on the device.
 
 Token streams are bit-identical to the JAX engine's for the same
-weights and schedule.  Not ported yet (each raises
-``NotImplementedError`` naming its ROADMAP item): ``tp > 1`` and
-cross-attention archs.
+weights and schedule.  Not ported yet (``NotImplementedError`` naming
+its ROADMAP item): ``tp > 1``.  Refused on purpose (``ValueError``,
+:func:`refuse_cross_attention`): the cross attention archs
+(seamless-m4t-large-v2, llama-3.2-vision-90b), which the reference's
+engine cannot serve; they run through ``int_prefill(return_cache=True)``
+and ``int_decode_step``.
 """
 from __future__ import annotations
 
@@ -94,6 +97,23 @@ from repro_torch.serving import speculate
 from repro_torch.serving.kvcache import (NULL_PAGE, CacheLayout,
                                          PagePoolExhausted, PagedKVCache,
                                          PrefixIndex, Session)
+
+
+def refuse_cross_attention(cfg: ArchConfig) -> None:
+    """Raise ``ValueError`` for an arch with cross attention sublayers (an
+    encoder-decoder, a VLM).  The reference's ``ServingEngine`` builds its
+    caches without a memory and its first step fails with ``KeyError:
+    'ck8'`` (ROADMAP §3), so it has no streams to hold this engine's
+    against; the port refuses at construction instead."""
+    _, _, kinds = layer_group_spec(cfg)
+    if any(mix == "cross" or has_cross for mix, _, has_cross in kinds):
+        raise ValueError(
+            f"arch {cfg.name!r} has cross attention sublayers: the "
+            "reference's ServingEngine builds its caches without the "
+            "memory and fails at its first step (KeyError: 'ck8'; ROADMAP "
+            "§3), so this engine refuses it; run it through "
+            "inttransformer.int_prefill(return_cache=True) and "
+            "int_decode_step (launch.steps)")
 
 
 class StepInFlight(RuntimeError):
@@ -200,11 +220,8 @@ class ServingEngine:
             raise ValueError(
                 f"arch {cfg.name!r} is an encoder: it has no autoregressive "
                 "serving; run it through launch.steps.make_prefill_step")
+        refuse_cross_attention(cfg)
         _, _, kinds = layer_group_spec(cfg)
-        if any(mix == "cross" or has_cross for mix, _, has_cross in kinds):
-            raise NotImplementedError(
-                f"arch {cfg.name!r} has cross-attention sublayers, which "
-                "are not ported yet (ROADMAP §1 item 8)")
         if prefill_budget is not None and prefill_budget < 1:
             raise ValueError("prefill_budget must be >= 1 token/step, "
                              f"got {prefill_budget}")

@@ -331,16 +331,36 @@ def test_int_prefill_matches_reference(request, arch, s, j_ops):
 
 
 def test_int_prefill_unported_options_raise(encoder_setup):
-    jc, tc, *_, tq, tp = encoder_setup
-    toks = {"tokens": T(np.ones((1, 8), np.int32))}
-    for fam in ("encdec", "vlm"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            tit.int_prefill(tq, toks, tp, dataclasses.replace(tc,
-                                                              family=fam))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        til.int_attn_fwd(tit._layer(tq["layers"][0], 0)["attn"], T(_i8(
-            np.random.default_rng(0), (1, 8, tc.d_model))), tp.attn, tc,
-            memory8=T(np.zeros((1, 4, tc.d_model), np.int8)))
+    """The options this test saw refused, a memory for ``int_prefill`` and
+    ``memory8=`` for ``int_attn_fwd``, now run and equal JAX: a reduced
+    VLM of one group of five (JAX's own init) over 8 image embeddings,
+    and one roberta layer's attention over an int8 memory."""
+    over = dict(dtype="float32", num_layers=5, n_img_tokens=8)
+    jc = JM.reduce_config(j_get_config("llama-3.2-vision-90b"), **over)
+    tc = TM.reduce_config(t_get_config("llama-3.2-vision-90b"), **over)
+    jq, jp = j_convert.quantize_params(jtf.init_params(jax.random.key(2),
+                                                       jc), jc)
+    tq, tp = from_reference(jax.tree.map(np.array, jq), jp, device="cpu")
+    rng = np.random.default_rng(8)
+    batch = {"tokens": rng.integers(0, jc.vocab, (2, 6)).astype(np.int32),
+             "img_embeds": rng.standard_normal((2, 8, jc.d_model)
+                                               ).astype(np.float32)}
+    want = np.asarray(jit_.int_prefill(jq, {k: jnp.asarray(v) for k, v
+                                            in batch.items()}, jp, jc,
+                                       ops="ref"))
+    for backend in ("torch_ref", "cuda"):
+        got = tit.int_prefill(tq, {k: T(v) for k, v in batch.items()}, tp,
+                              tc, ops=backend)
+        assert np.array_equal(got.numpy(), want), backend
+    jc, tc, jq, jp, tq, tp = (encoder_setup[0], encoder_setup[1],
+                              *encoder_setup[-4:])
+    x8, mem8 = _i8(rng, (1, 8, tc.d_model)), _i8(rng, (1, 5, tc.d_model))
+    want = np.asarray(jil.int_attn_fwd(
+        jax.tree.map(lambda a: a[0], jq["layers"][0]["attn"]),
+        jnp.asarray(x8), jp.attn, jc, memory8=jnp.asarray(mem8), ops="ref"))
+    got = til.int_attn_fwd(tit._layer(tq["layers"][0], 0)["attn"], T(x8),
+                           tp.attn, tc, memory8=T(mem8), ops="torch_ref")
+    assert np.array_equal(got.numpy(), want)
 
 
 def test_non_fused_backend_refuses_the_chunked_length(encoder_setup):

@@ -2073,3 +2073,119 @@ def test_ssm_engine_cuda_matches_torch_ref(dev, arch, mode):
         want |= {"int_decode_attention", "int8_matmul_grouped"}
     assert want <= launched
     assert streams["cuda"] == streams["torch_ref"]
+
+
+# ------------------------------------------ cross attention over a memory --
+
+@pytest.mark.parametrize("b,sq,skv,h,hkv,d", [
+    (4, 64, 512, 16, 16, 64),          # seamless's decoder over its frames
+    (4, 64, 1600, 64, 8, 128),         # the VLM over 1600 image tokens
+    (2, 37, 1600, 8, 1, 128),          # ragged queries, one KV head
+    (4, 512, 512, 16, 16, 64)])        # seamless's encoder (no mask)
+def test_cross_attention_kernel(dev, b, sq, skv, h, hkv, d):
+    """K5 at the cross attention paths' shapes, unmasked: Skv 1600 is no
+    multiple of the key tile (its last tile is partial), GQA 64 / 8."""
+    rng = np.random.default_rng(sq + skv + h)
+    plan = iattn.make_iattention(d, 8 / 127, 8 / 127, 8 / 127, 8 / 127)
+    q8 = _i8(rng, (b, sq, h, d), dev)
+    k8 = _i8(rng, (b, skv, hkv, d), dev)
+    v8 = _i8(rng, (b, skv, hkv, d), dev)
+    rq = RequantSpec.per_tensor(plan.dn_out)
+    before = kernels.LAUNCHES["int_attention_fused"]
+    got = int_attention_fused(q8, k8, v8, plan, rq, None, False, 0)
+    assert kernels.LAUNCHES["int_attention_fused"] == before + 1
+    assert torch.equal(got, int_attention_fused_plain(q8, k8, v8, plan, rq,
+                                                      None, False, 0))
+
+
+@pytest.mark.parametrize("b,skv,h,hkv,d", [(4, 512, 16, 16, 64),
+                                           (4, 1600, 64, 8, 128),
+                                           (3, 1601, 64, 8, 128)])
+def test_cross_decode_attention_kernel(dev, b, skv, h, hkv, d):
+    """K3 as ``_cross_decode`` runs it: one query over a contiguous (B,
+    Skv, Hkv, D) memory with every position valid (``valid = Skv``),
+    across the cluster ``k3_launch_plan`` picks (a tail rank holds fewer
+    keys at 1600 and 1601)."""
+    from repro_torch.kernels.int_decode_attention import k3_launch_plan
+    rng = np.random.default_rng(skv + h)
+    plan = iattn.make_iattention(d, 8 / 127, 8 / 127, 8 / 127, 8 / 127)
+    q8 = _i8(rng, (b, 1, h, d), dev)
+    k8 = _i8(rng, (b, skv, hkv, d), dev)
+    v8 = _i8(rng, (b, skv, hkv, d), dev)
+    vl = torch.full((b,), skv, dtype=torch.int32, device=dev)
+    k3_launch_plan(b, 1, h, hkv, d, skv, False, False, k8.data_ptr(),
+                   v8.data_ptr(),
+                   torch.cuda.get_device_properties(0).multi_processor_count)
+    rq = RequantSpec.per_tensor(plan.dn_out)
+    before = kernels.LAUNCHES["int_decode_attention"]
+    got = int_decode_attention_fused(q8, k8, v8, plan, vl, requant=rq)
+    assert kernels.LAUNCHES["int_decode_attention"] == before + 1
+    assert torch.equal(got, int_decode_attention_plain(q8, k8, v8, plan, vl,
+                                                       requant=rq))
+
+
+@pytest.mark.parametrize("d,rows,mean,beta", [(1024, 4, True, True),
+                                              (1024, 2048, True, True),
+                                              (8192, 4, False, False),
+                                              (8192, 2048, False, False)])
+def test_residual_norm_at_the_cross_configs(dev, d, rows, mean, beta):
+    """K2 with the residual ``norm`` plan (s_gamma 2/127, input up to
+    qmax_res): seamless's LayerNorm with beta at d 1024, the VLM's
+    RMSNorm at d 8192 (``MAX_D``)."""
+    rng = np.random.default_rng(d + rows)
+    plan, q, g, b = _k2_operands(rng, rows, d, mean, beta, dev)
+    before = kernels.LAUNCHES["int_layernorm"]
+    got = int_layernorm(q, g, b, plan)
+    assert kernels.LAUNCHES["int_layernorm"] == before + 1
+    assert torch.equal(got, int_layernorm_plain(q, g, b, plan))
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2",
+                                  "llama-3.2-vision-90b"])
+def test_cross_model_cuda_matches_torch_ref(dev, arch):
+    """Reduced seamless-m4t-large-v2 (2 + 2 layers) and
+    llama-3.2-vision-90b (one group of five, 16 image tokens) on the card:
+    ``int_prefill`` logits, the caches of ``return_cache`` (``ck8`` /
+    ``cv8`` included) and four greedy decode steps on ``cuda`` equal
+    ``torch_ref``'s; the path launched K1, K2, K3 and K5 (and K6 for the
+    GELU FFN)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import intlayers as il
+    from repro_torch.models import inttransformer as it
+    from repro_torch.models import model as M
+    from repro_torch.quant import convert
+    cfg = M.reduce_config(get_config(arch), dtype="float32", num_layers=5)
+    qp, plans = convert.init_quantized(
+        cfg, seed=0, device=dev, embed_scale=convert.unit_embed_scale(cfg))
+    rng = np.random.default_rng(12)
+    key = "src_embeds" if cfg.family == "encdec" else "img_embeds"
+    sm = 40 if cfg.family == "encdec" else cfg.n_img_tokens
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (3, 11)),
+                                       device=dev),
+             key: torch.as_tensor(rng.standard_normal(
+                 (3, sm, cfg.d_model)).astype(np.float32), device=dev)}
+    out = {}
+    for backend in ("torch_ref", "cuda"):
+        kernels.reset_launches()
+        logits, caches = it.int_prefill(qp, batch, plans, cfg, ops=backend,
+                                        return_cache=True, cache_len=16)
+        rope = il.build_rope_table(17, cfg.hd, cfg.rope_theta, device=dev) \
+            if cfg.pos == "rope" else None
+        toks, steps = logits.argmax(-1), [logits]
+        for t in range(4):
+            pos = torch.full((3,), 11 + t, dtype=torch.int32, device=dev)
+            lg, caches = it.int_decode_step(qp, caches, toks, pos, plans,
+                                            cfg, rope, ops=backend)
+            steps.append(lg)
+            toks = lg.argmax(-1)
+        out[backend] = (steps, caches)
+    want = {"int8_matmul", "int_layernorm", "int_decode_attention",
+            "int_attention_fused"} | (
+        {"int_gelu"} if cfg.activation == "gelu" else set())
+    assert want <= {n for n, c in kernels.LAUNCHES.items() if c}
+    for a, b in zip(out["cuda"][0], out["torch_ref"][0]):
+        assert torch.equal(a, b)
+    for ca, cb in zip(out["cuda"][1], out["torch_ref"][1]):
+        assert set(ca) == set(cb)
+        for k in ca:
+            assert torch.equal(ca[k], cb[k]), k

@@ -99,11 +99,21 @@ def test_layer_by_layer_init_equals_whole_model_quantization():
 
 
 def test_unported_families_raise():
-    """Cross attention (an encoder-decoder's memory) is the family the
-    port does not run yet; the state-space ones it does."""
-    with pytest.raises(NotImplementedError, match="not ported"):
-        t_plans.build_layer_plans(dataclasses.replace(
-            t_get_config("llama3-8b"), family="encdec", enc_layers=2,
-            dec_layers=2))
+    """Every family of the reference is ported now: the cross attention
+    ones take the self attention's plans as their ``cross`` (the
+    reference's ``cross = attn``), the state-space one has no attention,
+    and a family the reference does not know raises."""
+    for fam, over in (("encdec", dict(enc_layers=2, dec_layers=2)),
+                      ("vlm", dict(cross_every=4, n_img_tokens=16))):
+        cfg = dataclasses.replace(t_get_config("llama3-8b"), family=fam,
+                                  **over)
+        got = t_plans.build_layer_plans(cfg)
+        assert got.cross == got.attn is not None
+        assert got == plan_from_reference(j_plans.build_layer_plans(
+            dataclasses.replace(j_get_config("llama3-8b"), family=fam,
+                                **over)))
     assert t_plans.build_layer_plans(dataclasses.replace(
         t_get_config("llama3-8b"), family="ssm", ssm_state=16)).attn is None
+    with pytest.raises(NotImplementedError, match="no family"):
+        t_plans.build_layer_plans(dataclasses.replace(
+            t_get_config("llama3-8b"), family="rnn"))

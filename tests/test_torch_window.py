@@ -194,40 +194,92 @@ def _caches_equal(tcaches, jcaches, paged):
             assert np.array_equal(t, j), key
 
 
-def _decode_steps(setup, layout, backend, fold_wo, steps=8):
-    """Lanes at positions 0, 30 and 59 of a 64-position window (cache_len
-    80): lane 2 wraps on its sixth step (slot = pos % 64 returns to 0)."""
-    jcfg, tcfg, jq, jp, tq, tp = setup
-    b, cache_len = 3, 80
-    L = min(cache_len, jcfg.window)
-    kw = dict(fold_wo=fold_wo)
+#: lanes at positions 0, 30 and 59 of a 64-position window (cache_len 80)
+DECODE_POS, DECODE_LANES = (0, 30, 59), 3
+DECODE_CACHE_LEN, DECODE_PAGE = 80, 16
+
+#: the JAX package's logits and caches after every step of
+#: :func:`_decode_steps`, by (setup, layout, fold_wo, steps): computed once
+#: and held against each backend of the port
+_JAX_STEPS = {}
+
+
+def _decode_inputs(steps, vocab):
+    """The tokens of every step (seeded) and the lanes' first positions."""
+    rng = np.random.default_rng(3)
+    return ([rng.integers(1, vocab, (DECODE_LANES,)).astype(np.int32)
+             for _ in range(steps)], np.array(DECODE_POS, np.int32))
+
+
+def _decode_layout(cfg, layout):
+    L = min(DECODE_CACHE_LEN, cfg.window)
+    if layout != "paged":
+        return L, None
+    pages = np.arange(1, 1 + DECODE_LANES * (L // DECODE_PAGE),
+                      dtype=np.int32).reshape(DECODE_LANES, -1)
+    return L, pages
+
+
+def _jax_decode_steps(setup, layout, fold_wo, steps):
+    """JAX ``int_decode_step`` under ``ref`` through the steps, one jitted
+    step (the same function the eager call runs, compiled once)."""
+    key = (id(setup), layout, fold_wo, steps)
+    if key in _JAX_STEPS:
+        return _JAX_STEPS[key]
+    jcfg, _, jq, jp = setup[:4]
+    b, cache_len = DECODE_LANES, DECODE_CACHE_LEN
+    L, pages = _decode_layout(jcfg, layout)
     if layout == "paged":
-        ps = 16
-        jl, tl = JLayout.fit(b, L, ps), TLayout.fit(b, L, ps)
+        jl = JLayout.fit(b, L, DECODE_PAGE)
         jc = jit_.init_decode_cache(jcfg, b, cache_len, layout=jl)
-        tc = tit.init_decode_cache(tcfg, tl, device="cpu")
-        pages = np.arange(1, 1 + b * (L // ps), dtype=np.int32).reshape(b, -1)
-        jkw = dict(kw, pages=jnp.asarray(pages), page_size=ps, max_len=L)
-        tkw = dict(kw, pages=T(pages), page_size=ps, max_len=L)
+        kw = dict(page_size=DECODE_PAGE, max_len=L)
     else:
         jc = jit_.init_decode_cache(jcfg, b, cache_len)
+        kw = {}
+    jrope = jil.build_rope_table(cache_len + 1, jcfg.hd, jcfg.rope_theta)
+
+    @jax.jit
+    def step(q, caches, toks, pos, rope, pages):
+        return jit_.int_decode_step(q, caches, toks, pos, jp, jcfg, rope,
+                                    ops="ref", pages=pages, fold_wo=fold_wo,
+                                    **kw)
+
+    toks_all, pos = _decode_inputs(steps, jcfg.vocab)
+    jpages = None if pages is None else jnp.asarray(pages)
+    out = []
+    for toks in toks_all:
+        jlog, jc = step(jq, jc, jnp.asarray(toks), jnp.asarray(pos), jrope,
+                        jpages)
+        out.append((np.asarray(jlog), jax.tree.map(np.asarray, jc)))
+        pos = pos + 1
+    _JAX_STEPS[key] = out
+    return out
+
+
+def _decode_steps(setup, layout, backend, fold_wo, steps=8):
+    """Lanes at positions 0, 30 and 59 of a 64-position window (cache_len
+    80): lane 2 wraps on its sixth step (slot = pos % 64 returns to 0).
+    Logits and caches after every step equal JAX's."""
+    _, tcfg, _, _, tq, tp = setup
+    want = _jax_decode_steps(setup, layout, fold_wo, steps)
+    b, cache_len = DECODE_LANES, DECODE_CACHE_LEN
+    L, pages = _decode_layout(tcfg, layout)
+    kw = dict(fold_wo=fold_wo)
+    if layout == "paged":
+        tc = tit.init_decode_cache(tcfg, TLayout.fit(b, L, DECODE_PAGE),
+                                   device="cpu")
+        kw.update(pages=T(pages), page_size=DECODE_PAGE, max_len=L)
+    else:
         tc = tit.init_decode_cache(tcfg, device="cpu", batch=b,
                                    cache_len=cache_len)
-        jkw, tkw = kw, kw
-    assert tc[0]["k8"].shape == tuple(jc[0]["k8"].shape)
-    jrope = jil.build_rope_table(cache_len + 1, jcfg.hd, jcfg.rope_theta)
+    assert tc[0]["k8"].shape == want[0][1][0]["k8"].shape
     trope = til.build_rope_table(cache_len + 1, tcfg.hd, tcfg.rope_theta,
                                  device="cpu")
-    rng = np.random.default_rng(3)
-    pos = np.array([0, 30, 59], np.int32)
-    for _ in range(steps):
-        toks = rng.integers(1, tcfg.vocab, (b,)).astype(np.int32)
-        jlog, jc = jit_.int_decode_step(
-            jq, jc, jnp.asarray(toks), jnp.asarray(pos), jp, jcfg, jrope,
-            ops="ref", **jkw)
+    toks_all, pos = _decode_inputs(steps, tcfg.vocab)
+    for toks, (jlog, jc) in zip(toks_all, want):
         tlog, tc = tit.int_decode_step(
-            tq, tc, T(toks), T(pos), tp, tcfg, trope, ops=backend, **tkw)
-        assert np.array_equal(tlog.numpy(), np.asarray(jlog))
+            tq, tc, T(toks), T(pos), tp, tcfg, trope, ops=backend, **kw)
+        assert np.array_equal(tlog.numpy(), jlog)
         _caches_equal(tc, jc, layout == "paged")
         pos = pos + 1
     assert pos[2] > L                                # the window wrapped
@@ -267,32 +319,47 @@ def test_int_prefill_return_cache_matches_reference(request, which, s,
         _caches_equal(tc, jc, paged=False)
 
 
+#: the JAX side of :func:`test_make_decode_step_matches_reference` (the
+#: logits and caches after each step), computed once for both backends
+_JAX_MAKE_DECODE = []
+
+
+def _jax_make_decode_steps(setup, toks, cache_len, s, pos):
+    if not _JAX_MAKE_DECODE:
+        jcfg, _, jq, jp = setup[:4]
+        _, jc = jit_.int_prefill(jq, {"tokens": jnp.asarray(toks)}, jp,
+                                 jcfg, ops="ref", return_cache=True,
+                                 cache_len=cache_len)
+        jstep = j_make_decode_step(jcfg, jp, cache_len, ops="ref")
+        jrope = jil.build_rope_table(cache_len + 1, jcfg.hd,
+                                     jcfg.rope_theta)
+        for t in range(3):
+            jlog, jc = jstep(jq, jc, jnp.asarray(toks[:, t]),
+                             jnp.asarray(pos + t), jrope)
+            _JAX_MAKE_DECODE.append((np.asarray(jlog),
+                                     jax.tree.map(np.asarray, jc)))
+    return _JAX_MAKE_DECODE
+
+
 @pytest.mark.parametrize("backend", BACKENDS)
 def test_make_decode_step_matches_reference(setup, backend):
     """Prefill a cache, then three decode steps through each package's
     ``make_decode_step``."""
-    jcfg, tcfg, jq, jp, tq, tp = setup
+    _, tcfg, _, _, tq, tp = setup
     cache_len, b, s = 40, 2, 12
     toks = np.random.default_rng(9).integers(1, tcfg.vocab, (b, s)) \
         .astype(np.int32)
-    _, jc = jit_.int_prefill(jq, {"tokens": jnp.asarray(toks)}, jp, jcfg,
-                             ops="ref", return_cache=True,
-                             cache_len=cache_len)
+    pos = np.full((b,), s, np.int32)
+    want = _jax_make_decode_steps(setup, toks, cache_len, s, pos)
     _, tc = tit.int_prefill(tq, {"tokens": T(toks)}, tp, tcfg, ops=backend,
                             return_cache=True, cache_len=cache_len)
-    jstep = j_make_decode_step(jcfg, jp, cache_len, ops="ref")
     tstep = make_decode_step(tcfg, tp, cache_len, ops=backend, device="cpu")
-    jrope = jil.build_rope_table(cache_len + 1, jcfg.hd, jcfg.rope_theta)
     trope = til.build_rope_table(cache_len + 1, tcfg.hd, tcfg.rope_theta,
                                  device="cpu")
-    pos = np.full((b,), s, np.int32)
-    for t in range(3):
-        nxt = toks[:, t]
-        jlog, jc = jstep(jq, jc, jnp.asarray(nxt), jnp.asarray(pos), jrope)
-        tlog, tc = tstep(tq, tc, nxt, pos, trope)
-        assert np.array_equal(tlog.numpy(), np.asarray(jlog))
+    for t, (jlog, jc) in enumerate(want):
+        tlog, tc = tstep(tq, tc, toks[:, t], pos + t, trope)
+        assert np.array_equal(tlog.numpy(), jlog)
         _caches_equal(tc, jc, paged=False)
-        pos = pos + 1
 
 
 def test_make_decode_step_defaults_to_the_card(setup, monkeypatch):
