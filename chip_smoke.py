@@ -218,6 +218,28 @@ non-zero before the last line):
            cut to one group of five sublayers (4 self attention with RoPE,
            1 cross attention) over 4 x 1600 image tokens (K1, K2, K3, K5).
   Each model ends with an ``<encdec|vlm>-seconds`` line.
+  tp-kernels  (not in the default list; part of ``kernels``) the kernels
+           at the shapes one tensor-parallel rank of llama3-8b gives them
+           (tp 2 and 4: 16 / 4 and 8 / 2 heads): K1's decode tile at wq's
+           and wk's column slices and wo's row slice (raw, the partial the
+           group sums; and at M 128), K3 (serve row, verify Sq 4) and K4
+           at the local heads;
+  tp-parity  llama3-8b at full width cut to 2 layers: chunked, streaming,
+           contiguous, int4 pages and ``spec_k = 3`` at tp = 1 on ``cuda``
+           here, then ``ServingEngine(tp=N)`` in gloo worlds of 2 and 4
+           processes on the one card (``distributed.world.run_world``;
+           NCCL refuses two ranks on one device), and qwen2-moe-a2.7b at 2
+           layers in the 2-rank world: every rank ``sharded``, its streams
+           equal to tp = 1's, K3 / K4 at the local heads;
+  tp-serve  full llama3-8b (32 layers) at tp 2 on the ``serve`` traffic
+           (run with ``serve``): every rank's streams equal ``serve``'s;
+           per rank step and chunk device ms, the collective's ms a step
+           (CUDA events around each ``psum_int32``), launches a step by
+           kernel and the wo partials, weight and KV bytes, peak memory
+           and whether ``dispatch_step`` returned before the device
+           finished.  The ranks time-share the card: their times are a
+           record, not a tensor-parallel speed.  Both phases end with a
+           ``<phase>-seconds`` line.
 
 The ``kernels`` phase also holds K3's and K4's packed instantiations
 (rows ``int_decode_attention_kv4`` / ``int_paged_prefill_kv4``) against
@@ -353,6 +375,11 @@ PATH_KERNELS = {
                    "int_decode_attention"),
     "vlm-decode": ("int8_matmul", "int_layernorm", "int_attention_fused",
                    "int_decode_attention"),
+    "tp-parity": ("int8_matmul", "int_layernorm", "int_decode_attention",
+                  "int_paged_prefill", "int_decode_attention_kv4",
+                  "int_paged_prefill_kv4", "int8_matmul_grouped"),
+    "tp-serve": ("int8_matmul", "int_layernorm", "int_decode_attention",
+                 "int_paged_prefill"),
 }
 # the reference serving benchmark's weight tier (pack_tree(qp, "msr4",
 # group=64), benchmarks/bench_serving.py)
@@ -650,9 +677,9 @@ def int_mm_ms(x8, w8):
 
 
 def paged_attention_rows(gen, rows, cfg, plans, cases, tag="",
-                         rep=False):
+                         rep=False, maxp: int = 32):
     """K3 and K4 against their plain versions over paged pools at the
-    serve geometry of ``cfg`` (B 4, pages of 16, 32 pages a lane, a
+    serve geometry of ``cfg`` (B 4, pages of 16, ``maxp`` pages a lane, a
     permuted page table), each case ``(kernel, Sq, valid lengths, prefix)``
     unfolded and with wo folded: ``int_decode_attention`` is K3 (valid =
     the live positions), ``int_paged_prefill`` K4 with chunk Sq (valid =
@@ -666,7 +693,7 @@ def paged_attention_rows(gen, rows, cfg, plans, cases, tag="",
         int_decode_attention_fused, int_decode_attention_plain)
     from repro_torch.ops.spec import QuantLinearParams, RequantSpec
     d, hd, h, hkv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    b, ps, maxp = 4, 16, 32
+    b, ps = 4, 16
     num_pages = b * maxp + 1
     k_pool = _randint(gen, -127, 128, (num_pages, ps, hkv, hd), torch.int8)
     v_pool = _randint(gen, -127, 128, (num_pages, ps, hkv, hd), torch.int8)
@@ -836,12 +863,13 @@ def kv4_bound(lens, sq: int, h: int, hkv: int, d: int, ps: int, maxp: int,
 
 def check_packed_kernels(gen, rows, aplan, requant, wo, wo_spec, h: int,
                          hkv: int, hd: int, d: int, tag: str,
-                         verify: bool = False) -> None:
+                         verify: bool = False,
+                         folds=(False, True)) -> None:
     """K3 and K4 over packed int4 pools (``kv_shifts``) at the serve
     shapes: the lanes, lengths and 16-row pages of the int8 rows, pool
     bytes from all 256 values, per-page K and V shifts drawn apart from
-    0..7, wo folded and not; ``verify``: K3 also at the verify step's Sq
-    and lengths (:func:`check_kernels`).  The folded rows (``tag``
+    0..7, wo folded and not (``folds``); ``verify``: K3 also at the verify
+    step's Sq and lengths (:func:`check_kernels`).  The folded rows (``tag``
     empty) of Sq 1 and of the prefill chunk are the summary rows of
     ``int_decode_attention_kv4`` and ``int_paged_prefill_kv4``."""
     import torch
@@ -871,7 +899,7 @@ def check_packed_kernels(gen, rows, aplan, requant, wo, wo_spec, h: int,
         k4 = name == "int_paged_prefill_kv4"
         q8 = _randint(gen, -127, 128, (b, sq, h, hd), torch.int8)
         vl = torch.tensor(lens, dtype=torch.int32, device="cuda")
-        for fold in (False, True):
+        for fold in folds:
             kw = dict(requant=requant, kv_shifts=shifts)
             if fold:
                 kw.update(wo=wo, wo_spec=wo_spec)
@@ -2521,6 +2549,7 @@ def phase_serve(cfg, kv_dtype: str = "int8", weights: str = "int8",
     out = {phase: launches}
     if phase == "serve":
         drained = [r.out_tokens for r in reqs]
+        SERVE_STREAMS["serve"] = drained
         del eng
         out.update(serve_frontend_and_spec(qp, plans, cfg, prompts,
                                            drained))
@@ -4527,6 +4556,392 @@ def phase_cross_decode(name, model):
     return {phase: launches}
 
 
+# ------------------------------------------------- tensor parallelism ----
+
+# tp-parity: llama3-8b at full width cut to 2 layers (and qwen2-moe-a2.7b
+# in the 2-rank world), each mode at tp = 1 in this process and sharded in
+# worlds of 2 and 4 ranks on the one card
+TP_LAYERS = 2
+TP_MODES = {"chunked": dict(prefill_chunk=32),
+            "streaming": dict(prefill_chunk=0),
+            "contiguous": dict(cache_mode="contiguous"),
+            "int4": dict(prefill_chunk=32, kv_dtype="int4"),
+            "spec": dict(prefill_chunk=32, spec_k=SPEC_K)}
+TP_GEOM = dict(batch_size=4, cache_len=512, page_size=16, fold_wo=True)
+TP_MOE_GEOM = dict(batch_size=4, cache_len=256, page_size=16, fold_wo=True)
+# the ranks' process group: NCCL refuses two ranks on one card, gloo
+# takes CUDA tensors (through host memory)
+TP_BACKEND = "gloo"
+TP_WORLD_TIMEOUT_S = 420
+# the stream and launch tags each tp-parity run must show: K3 in every
+# mode (its int4 instantiation over int4 pages), K4 wherever the prefill
+# is chunked, the grouped K1 for the MoE
+TP_RUN_KERNELS = {
+    "chunked": ("int_decode_attention", "int_paged_prefill"),
+    "streaming": ("int_decode_attention",),
+    "contiguous": ("int_decode_attention",),
+    "int4": ("int_decode_attention_kv4", "int_paged_prefill_kv4"),
+    "spec": ("int_decode_attention", "int_paged_prefill"),
+    "moe": ("int_decode_attention", "int8_matmul_grouped")}
+# the serve phase's streams, which tp-serve must give
+SERVE_STREAMS = {}
+
+
+def check_tp_kernels(rows) -> None:
+    """The kernels at every shape a tensor-parallel rank of ``tp-parity``
+    and ``tp-serve`` gives them, each exact against its plain version.
+    llama3-8b at tp 2 and 4 (16 / 4 and 8 / 2 heads): K1 at wq's and
+    wk's (= wv's) column slices (N 4096 / tp, 1024 / tp, per-channel) and
+    wo's row slice (K 4096 / tp, raw: the partial the group sums), each at
+    M 4 (a decode step), 16 (a verify step of 4 x 4 rows) and 128 (a 4 x
+    32 chunk, beside ``torch._int_mm``); K3 at the local heads over pages
+    (serve row, verify Sq 4) and over the contiguous cache (L 512), K4 (C
+    32), over int8 pages unfolded as a sharded engine runs them (and
+    folded, for the record), and over int4 pages unfolded.
+    qwen2-moe-a2.7b at tp 2 (8 / 8 heads, M 4: its prompts stream): K1
+    at wq's / wk's / wv's column slice with the QKV bias (K 2048, N 1024)
+    and wo's raw row slice (K 1024, N 2048), K3 over its 16 pages a
+    lane."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed.tp_serving import local_cfg
+    from repro_torch.kernels.int8_matmul import (int8_matmul,
+                                                 int8_matmul_plain)
+    from repro_torch.kernels.int_decode_attention import (
+        int_decode_attention_fused, int_decode_attention_plain)
+    from repro_torch.ops.spec import RequantSpec
+    from repro_torch.quant import plans as qplans
+    gen = torch.Generator(device="cuda").manual_seed(3232)
+    raw = RequantSpec.raw()
+
+    def k1_row(case, m, k, n, spec, bias=False):
+        x8 = _randint(gen, -127, 128, (m, k), torch.int8)
+        w8 = _randint(gen, -127, 128, (k, n), torch.int8)
+        kw = {}
+        if not spec.is_raw:
+            kw["b_vec"] = _randint(gen, 256, 4096, (n,), torch.int32)
+        if bias:
+            kw["bias32"] = _randint(gen, -5000, 5000, (n,), torch.int32)
+        out_bytes = (4 if spec.is_raw else 1) * m * n
+        record(rows, "int8_matmul", f"{case} M={m} K={k} N={n}",
+               int8_matmul(x8, w8, spec, **kw),
+               int8_matmul_plain(x8, w8, spec, **kw),
+               lambda: int8_matmul(x8, w8, spec, **kw),
+               lambda: int8_matmul_plain(x8, w8, spec, **kw),
+               m * k + k * n + 4 * n * len(kw) + out_bytes, 2 * m * k * n,
+               lib_ms=int_mm_ms(x8, w8) if m > 16 else None,
+               plan=k1_plan(m, n, k, x8=x8, w=w8))
+
+    cfg = get_config("llama3-8b")
+    plans = qplans.build_layer_plans(cfg)
+    d = cfg.d_model
+    qkv_spec = RequantSpec.for_linear(plans.attn.qkv)
+    aplan = plans.attn.attn
+    requant = RequantSpec.per_tensor(aplan.dn_out)
+    for tp in (2, 4):
+        lc = local_cfg(cfg, tp)
+        h, hkv, hd = lc.n_heads, lc.n_kv_heads, lc.hd
+        for m in (4, 16, 128):
+            k1_row(f"tp={tp} wq cols per-ch", m, d, h * hd, qkv_spec)
+            k1_row(f"tp={tp} wk/wv cols per-ch", m, d, hkv * hd, qkv_spec)
+            k1_row(f"tp={tp} wo rows raw", m, h * hd, d, raw)
+        tag = f"tp={tp} local heads "
+        wo, wo_spec = paged_attention_rows(gen, rows, lc, plans, (
+            ("int_decode_attention", 1, [1, 137, 300, 512], ""),
+            ("int_decode_attention", VERIFY_SQ, [4, 137, 300, 512],
+             "verify "),
+            ("int_paged_prefill", 32, [32, 132, 282, 512], "")), tag=tag)
+        check_packed_kernels(gen, rows, aplan, requant, wo, wo_spec, h, hkv,
+                             hd, d, tag, verify=True, folds=(False,))
+        # the contiguous cache (B 4, L = cache_len 512)
+        b, L, lens = 4, 512, [1, 137, 300, 512]
+        q8 = _randint(gen, -127, 128, (b, 1, h, hd), torch.int8)
+        k8 = _randint(gen, -127, 128, (b, L, hkv, hd), torch.int8)
+        v8 = _randint(gen, -127, 128, (b, L, hkv, hd), torch.int8)
+        vl = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        args, kw = (q8, k8, v8, aplan, vl), dict(requant=requant)
+        nbytes, ops = k4_bound(lens, 1, h, hkv, hd, 0, 1)
+        record(rows, "int_decode_attention",
+               f"{tag}B={b} Sq=1 H={h} Hkv={hkv} D={hd} contiguous L={L} "
+               f"valid={lens} fold_wo=False",
+               int_decode_attention_fused(*args, **kw),
+               int_decode_attention_plain(*args, **kw),
+               lambda: int_decode_attention_fused(*args, **kw),
+               lambda: int_decode_attention_plain(*args, **kw),
+               nbytes, ops, iters=10, plain_iters=2,
+               plan=k3_plan(q8, k8, v8, kw))
+        del q8, k8, v8, args, wo
+
+    q2 = get_config("qwen2-moe-a2.7b")
+    p2 = qplans.build_layer_plans(q2)
+    lc = local_cfg(q2, 2)
+    d2, n2 = q2.d_model, lc.n_heads * lc.hd
+    spec = RequantSpec.for_linear(p2.attn.qkv)
+    k1_row("tp=2 qwen2-moe wq/wk/wv cols per-ch+bias", 4, d2, n2, spec,
+           bias=True)
+    k1_row("tp=2 qwen2-moe wo rows raw", 4, n2, d2, raw)
+    paged_attention_rows(gen, rows, lc, p2, (
+        ("int_decode_attention", 1, [1, 37, 130, 256], ""),),
+        tag="tp=2 qwen2-moe local heads ",
+        maxp=TP_MOE_GEOM["cache_len"] // TP_MOE_GEOM["page_size"])
+
+
+def _rank_model(cfg):
+    """The model a rank draws: the parent's (seed 0, on the card, the
+    unit-std embedding)."""
+    from repro_torch.quant import convert
+    return convert.init_quantized(cfg, seed=0, device="cuda",
+                                  embed_scale=convert.unit_embed_scale(cfg))
+
+
+def tp_rank_streams(cfg, prompts, max_new, geom, runs):
+    """A rank of ``tp-parity``: each run (engine arguments over ``geom``)
+    served on ``cuda`` with tp = the world's size over its default group;
+    per run the streams, ``describe()["tp"]``, ``fold_wo``, seconds and
+    the launches of its drain."""
+    import torch.distributed as dist
+    from repro_torch import kernels
+    qp, plans = _rank_model(cfg)
+    out = {}
+    for tag, kw in runs.items():
+        eng, reqs = run_engine(qp, plans, cfg, prompts, max_new, "cuda",
+                               tp=dist.get_world_size(), **geom, **kw)
+        kernels.reset_launches()
+        streams, secs = drain_streams(eng, reqs)
+        out[tag] = {"streams": streams, "tp": eng.describe()["tp"],
+                    "fold_wo": eng.fold_wo, "seconds": secs,
+                    "launches": dict(kernels.LAUNCHES)}
+        del eng
+    return out
+
+
+def phase_tp_parity(cfg_full):
+    """llama3-8b at full width cut to 2 layers: each of ``TP_MODES`` at tp
+    = 1 on ``cuda`` here, then sharded over gloo worlds of 2 and 4 ranks
+    on the one card (and qwen2-moe-a2.7b at 2 layers in the 2-rank
+    world): every rank's streams must equal tp = 1's, with ``mode ==
+    "sharded"``, ``fold_wo`` off and the path's kernels launched.  Returns
+    the launches of the 2-rank world's rank 0 over its runs."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.distributed.world import run_world
+    cfg = dataclasses.replace(cfg_full, num_layers=TP_LAYERS)
+    mcfg = moe_config("qwen2-moe-a2.7b", TP_LAYERS)
+    prompts = _prompts(11, 6, 20, 150, cfg.vocab) \
+        + [_repeat_prompt(17, cfg.vocab)]
+    mprompts = _prompts(31, 5, 12, 30, mcfg.vocab) \
+        + [_repeat_prompt(37, mcfg.vocab, seg=8, times=3)]
+    want = {}
+    qp, plans, _ = random_model(cfg)
+    for tag, kw in TP_MODES.items():
+        eng, reqs = run_engine(qp, plans, cfg, prompts, 16, "cuda",
+                               **TP_GEOM, **kw)
+        want[tag], _ = drain_streams(eng, reqs)
+        del eng
+    qp, plans, _ = random_model(mcfg)
+    eng, reqs = run_engine(qp, plans, mcfg, mprompts, 8, "cuda",
+                           **TP_MOE_GEOM)
+    want["moe"], _ = drain_streams(eng, reqs)
+    del eng, qp
+    gc.collect()
+    torch.cuda.empty_cache()
+    distinct = {tag: len({t for s in w for t in s}) for tag, w in want.items()}
+    if min(distinct.values()) < 2:
+        raise AssertionError(f"tp-parity: degenerate streams {distinct}")
+    launches = None
+    for world in (2, 4):
+        calls = [(tp_rank_streams, (cfg, prompts, 16, TP_GEOM, TP_MODES))]
+        if world == 2:
+            calls.append((tp_rank_streams, (mcfg, mprompts, 8, TP_MOE_GEOM,
+                                            {"moe": {}})))
+        t0 = time.perf_counter()
+        ranks = run_world(world, calls, backend=TP_BACKEND,
+                          timeout_s=TP_WORLD_TIMEOUT_S)
+        secs = time.perf_counter() - t0
+        for rank, res in enumerate(ranks):
+            got = {tag: run for call in res for tag, run in call.items()}
+            same = {tag: run["streams"] == want[tag]
+                    for tag, run in got.items()}
+            modes = {tag: run["tp"]["mode"] for tag, run in got.items()}
+            missing = {tag: [k for k in TP_RUN_KERNELS[tag]
+                             if run["launches"][k] <= 0]
+                       for tag, run in got.items()}
+            emit({"phase": "tp-parity", "world": world, "rank": rank,
+                  "backend": TP_BACKEND, "layers": TP_LAYERS,
+                  "identical": same, "modes": modes,
+                  "mesh": got["chunked"]["tp"]["mesh"],
+                  "per_device_kv_bytes": {tag: run["tp"][
+                      "per_device_kv_bytes"] for tag, run in got.items()},
+                  "fold_wo": {tag: run["fold_wo"] for tag, run in
+                              got.items()},
+                  "seconds": {tag: run["seconds"] for tag, run in
+                              got.items()},
+                  "world_s": secs, "distinct_tokens": distinct,
+                  "launches_chunked": {k: c for k, c in got["chunked"][
+                      "launches"].items() if c}})
+            if not all(same.values()) or set(modes.values()) != {"sharded"} \
+                    or any(run["fold_wo"] for run in got.values()) \
+                    or any(missing.values()):
+                raise AssertionError(
+                    f"tp-parity world {world} rank {rank}: identical "
+                    f"{same}, modes {modes}, never launched {missing}")
+            if world == 2 and rank == 0:
+                launches = {k: sum(run["launches"][k] for run in got.values())
+                            for k in got["chunked"]["launches"]}
+    return {"tp-parity": launches}
+
+
+def tp_rank_serve(cfg, prompts, max_new, geom):
+    """A rank of ``tp-serve``: full ``cfg`` drawn, served sharded through
+    ``dispatch_step`` / ``commit_step`` until drained, every decode step
+    and prefill chunk timed with CUDA events (``StepTimer``), every
+    ``psum_int32`` too (the collective on the device timeline: from the
+    stream reaching it to the summed partials back), the partial
+    o-projections counted, and after each dispatch whether the device was
+    still busy (dispatch returned before the step's work ended)."""
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.distributed import collectives
+    from repro_torch.models import intlayers as il
+    t0 = time.perf_counter()
+    qp, plans = _rank_model(cfg)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    eng, reqs = run_engine(qp, plans, cfg, prompts, max_new, "cuda",
+                           tp=dist.get_world_size(), **geom)
+    del qp                       # the engine keeps this rank's shard
+    gc.collect()
+    torch.cuda.empty_cache()
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in _leaves(eng.qparams))
+    colls, wo_calls, busy = [], [0], []
+    psum, wo = collectives.psum_int32, il._tp_wo_project
+
+    def timed_psum(x, group=None):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = psum(x, group)
+        e.record()
+        colls.append((x.shape[0], s, e))
+        return out
+
+    def counted_wo(*a, **k):
+        wo_calls[0] += 1
+        return wo(*a, **k)
+    collectives.psum_int32, il._tp_wo_project = timed_psum, counted_wo
+    try:
+        with StepTimer(decode="int_decode_step",
+                       prefill="int_prefill_chunk_step") as timer:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            while eng.queue or any(s is not None for s in eng.slots):
+                pending = eng.dispatch_step()
+                ev = torch.cuda.Event()
+                ev.record()
+                if pending.kind != "idle":
+                    busy.append(not ev.query())
+                eng.commit_step(pending)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES)
+    finally:
+        collectives.psum_int32, il._tp_wo_project = psum, wo
+    step_ms = {k: timer.ms(k) for k in ("decode", "prefill")}
+    per_step = {k: timer.launches(k) for k in ("decode", "prefill")}
+    decode_rows = geom["batch_size"]
+    coll = {"decode": [s.elapsed_time(e) for r, s, e in colls
+                       if r == decode_rows],
+            "prefill": [s.elapsed_time(e) for r, s, e in colls
+                        if r != decode_rows]}
+    n_tok = sum(len(r.out_tokens) for r in reqs)
+    d = eng.describe()
+    return {"streams": [r.out_tokens for r in reqs], "tp": d["tp"],
+            "describe": eng.describe_str(), "quantize_s": quant_s,
+            "wall_s": wall, "tokens": n_tok, "tokens_per_s": n_tok / wall,
+            "decode_steps": len(step_ms["decode"]),
+            "decode_step_ms_mean": float(np.mean(step_ms["decode"])),
+            "prefill_chunks": len(step_ms["prefill"]),
+            "prefill_chunk_ms_mean": float(np.mean(step_ms["prefill"])),
+            "collective_calls": len(colls),
+            "collective_ms_per_decode_step":
+                float(np.sum(coll["decode"])) / len(step_ms["decode"]),
+            "collective_ms_per_prefill_chunk":
+                float(np.sum(coll["prefill"])) / len(step_ms["prefill"]),
+            "collective_ms_per_call_mean": float(np.mean(
+                coll["decode"] + coll["prefill"])),
+            "wo_partials": wo_calls[0],
+            "launches_per_decode_step": _mean_counts(per_step["decode"]),
+            "launches_per_prefill_chunk": _mean_counts(per_step["prefill"]),
+            "dispatch_returned_before_device_done": float(np.mean(busy)),
+            "weight_bytes": weight_bytes,
+            "per_device_kv_bytes": d["tp"]["per_device_kv_bytes"],
+            "kv_bytes": d["cache"]["kv_bytes"],
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "launches": launches}
+
+
+def phase_tp_serve(cfg):
+    """Full llama3-8b at tp 2 (a gloo world of 2 ranks on the one card) on
+    the ``serve`` phase's traffic: every rank sharded, its streams equal to
+    the ``serve`` phase's (tp = 1), each layer's wo through one partial
+    product and one psum in every step and chunk, K3 / K4 once a layer at
+    the local heads; a line a rank with its step, chunk and collective
+    device ms, launches a step, weight and KV bytes and peak memory (the
+    ranks time-share the card: a record, not a tensor-parallel speed).
+    Returns rank 0's launches."""
+    import gc
+
+    import torch
+    from repro_torch.distributed.world import run_world
+    if "serve" not in SERVE_STREAMS:
+        raise AssertionError("tp-serve holds its streams against the serve "
+                             "phase's: run it with serve")
+    prompts = _prompts(5, 8, 32, 200, cfg.vocab)
+    geom = dict(batch_size=4, cache_len=512, page_size=16, prefill_chunk=32,
+                fold_wo=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_world(2, [(tp_rank_serve, (cfg, prompts, 32, geom))],
+                      backend=TP_BACKEND, timeout_s=TP_WORLD_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    layers = cfg.num_layers
+    for rank, (res,) in enumerate(ranks):
+        same = res["streams"] == SERVE_STREAMS["serve"]
+        per = {"decode": res["launches_per_decode_step"],
+               "prefill": res["launches_per_prefill_chunk"]}
+        missing = [k for k in PATH_KERNELS["tp-serve"]
+                   if res["launches"][k] <= 0]
+        emit({"phase": "tp-serve", "rank": rank, "backend": TP_BACKEND,
+              "layers": layers, "identical_to_serve": same, "world_s": secs,
+              **{k: v for k, v in res.items()
+                 if k not in ("streams", "launches")},
+              "launches": {k: c for k, c in res["launches"].items() if c}})
+        steps = res["decode_steps"] + res["prefill_chunks"]
+        if not same or res["tp"]["mode"] != "sharded" or missing \
+                or res["wo_partials"] != layers * steps \
+                or res["collective_calls"] != layers * steps \
+                or per["decode"]["int_decode_attention"] != layers \
+                or per["prefill"]["int_paged_prefill"] != layers:
+            raise AssertionError(
+                f"tp-serve rank {rank}: identical {same}, mode "
+                f"{res['tp']['mode']}, never launched {missing}, wo "
+                f"partials {res['wo_partials']} / collectives "
+                f"{res['collective_calls']} for {layers} x {steps}, K3 / K4 "
+                f"a step {per['decode']['int_decode_attention']} / "
+                f"{per['prefill']['int_paged_prefill']}")
+    return {"tp-serve": ranks[0][0]["launches"]}
+
+
 def _mean_counts(deltas):
     return {n: float(sum(d[n] for d in deltas)) / max(len(deltas), 1)
             for n in (deltas[0] if deltas else {})}
@@ -4754,7 +5169,8 @@ def main(argv=None) -> int:
                     "msr4-serve,zoo-parity,zoo-serve,zoo-encode,"
                     "long-prefill,moe-parity,moe-serve,moe-prefill,"
                     "ssm-parity,ssm-serve,hybrid-parity,hybrid-serve,"
-                    "encdec-parity,encdec-decode,vlm-parity,vlm-decode")
+                    "encdec-parity,encdec-decode,vlm-parity,vlm-decode,"
+                    "tp-parity,tp-serve")
     ap.add_argument("--verbose-build", action="store_true",
                     help="print nvcc -Xptxas -v (registers, spills) and "
                     "each kernel's IMMA / IDP / LDL / STL count")
@@ -4804,6 +5220,7 @@ def main(argv=None) -> int:
         check_moe_kernels(rows)
         check_ssm_kernels(rows)
         check_cross_kernels(rows)
+        check_tp_kernels(rows)
     else:
         if "zoo-kernels" in phases:
             check_zoo_kernels(rows)
@@ -4813,6 +5230,8 @@ def main(argv=None) -> int:
             check_ssm_kernels(rows)
         if "cross-kernels" in phases:
             check_cross_kernels(rows)
+        if "tp-kernels" in phases:
+            check_tp_kernels(rows)
     if "k1-decode" in phases:
         wcfg = window_config()
         check_k1_decode(cfg, wcfg, plans, qplans.build_layer_plans(wcfg))
@@ -4900,6 +5319,16 @@ def main(argv=None) -> int:
         del model
         emit({"phase": f"{kind}-seconds", "arch": name,
               "quantize_s": quantize_s,
+              "seconds": time.perf_counter() - t_phase})
+    if "tp-parity" in phases:
+        t_phase = time.perf_counter()
+        launches.update(phase_tp_parity(cfg))
+        emit({"phase": "tp-parity-seconds",
+              "seconds": time.perf_counter() - t_phase})
+    if "tp-serve" in phases:
+        t_phase = time.perf_counter()
+        launches.update(phase_tp_serve(cfg))
+        emit({"phase": "tp-serve-seconds",
               "seconds": time.perf_counter() - t_phase})
     if rows:
         # each kernel's launches come from the first path of this run

@@ -5,7 +5,19 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve \
       [--arch h2o-danube-3-4b] [--reduced] [--cache-mode contiguous] \
       --requests 8 --max-new 16 [--device cuda] [--spec-k 3] \
-      [--max-pending 16] [--timeout-s 30] [--arrival-rate 4]
+      [--max-pending 16] [--timeout-s 30] [--arrival-rate 4] [--tp 2]
+
+Tensor-parallel serving (``--tp N``) shards the attention heads over a
+world of N processes, one a rank, each started with this same command
+line (``python -m torch.distributed.run --standalone --nproc-per-node N
+-m repro_torch.launch.serve --tp N ...``: its ``RANK`` / ``WORLD_SIZE``
+environment makes the ``gloo`` group, which takes CUDA tensors and lets
+the N ranks share one card).  Every rank draws the same weights and the
+same prompts, and rank 0 prints.  The ranks step in lock step, so the
+wall-clock options that would make them diverge (``--arrival-rate``,
+``--timeout-s``) are refused there.  Started as one process, ``--tp N``
+serves through the exact single-device lowering and says so, as the
+reference's CLI does without the devices.
 
 Requests flow through :class:`repro_torch.serving.ServingFrontend`: an
 open-loop client submits them at ``--arrival-rate`` requests/s (Poisson;
@@ -24,8 +36,8 @@ stream below the RMSNorm pre-shift, so every token would come out 0.
 The kernels are built (or loaded) before the timed serve.
 ``--device`` defaults to ``cuda`` and fails without a GPU unless
 ``--device cpu`` is given (the plain versions of every kernel run
-there).  ``--tp`` and ``--ckpt-dir`` of the reference driver are not
-ported yet (ROADMAP §1 items 9 and 12).  The cross attention archs
+there).  ``--ckpt-dir`` of the reference's CLI is not ported yet
+(ROADMAP §1 item 12).  The cross attention archs
 (seamless-m4t-large-v2, llama-3.2-vision-90b) are refused, as the engine
 refuses them (``serving.engine.refuse_cross_attention``).
 """
@@ -33,15 +45,18 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import kernels
 from repro_torch.analysis import contracts
 from repro_torch.configs.registry import ARCHS, get_config
 from repro_torch.device import resolve_device
+from repro_torch.distributed import tp_serving
 from repro_torch.models import model as M
 from repro_torch.ops import available_backends, resolve_ops
 from repro_torch.quant import convert
@@ -88,6 +103,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="disable cross-session prompt-prefix sharing "
                          "(shared prefixes otherwise map the same "
                          "physical KV pages)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel degree: shard attention heads "
+                         "over a world of --tp processes (must divide "
+                         "the arch's KV head count); one process serves "
+                         "through the exact single-device lowering")
     ap.add_argument("--spec-k", type=int, default=0,
                     help="speculative decoding: draft up to K tokens a "
                          "live lane and verify all K+1 positions in one "
@@ -188,6 +208,40 @@ def _check_args(ap, args, cfg) -> None:
             ap.error(f"--spec-k {args.spec_k}: {e}")
 
 
+#: the length of every random prompt this command serves
+PROMPT_LEN = 4
+
+
+def _tp_world(ap, args):
+    """``(sharded, made)``: whether this process is a rank of a world of
+    ``--tp`` processes (an initialized default group of that size, or
+    the ``RANK`` / ``WORLD_SIZE`` environment a launcher such as
+    ``torchrun`` sets, from which the ``gloo`` group is made here), and
+    whether the group was made here (``main`` then destroys it).  A world
+    of more than one process and another size than ``--tp`` is refused:
+    each process would serve alone and print the same output.  In a
+    world the wall-clock options are refused: the ranks must admit and
+    step alike."""
+    world = tp_serving.tp_group_size(None)
+    made = False
+    if not world and "RANK" in os.environ:
+        world = int(os.environ.get("WORLD_SIZE", "1"))
+        made = world > 1
+    if world > 1 and world != args.tp:
+        ap.error(f"--tp {args.tp} in a world of {world} processes: start "
+                 f"{args.tp} processes for --tp {args.tp}, or one")
+    if world != args.tp or args.tp == 1:
+        return False, False
+    if args.arrival_rate > 0 or args.timeout_s is not None:
+        ap.error("--tp across processes needs --arrival-rate 0 and no "
+                 "--timeout-s: the ranks admit and step in lock step, and "
+                 "wall-clock arrivals or deadlines would differ between "
+                 "them")
+    if made:
+        dist.init_process_group("gloo")
+    return True, made
+
+
 def main(argv=None):
     """Serve ``--requests`` random prompts through the front end; returns
     the requests that were admitted."""
@@ -195,19 +249,40 @@ def main(argv=None):
     args = ap.parse_args(argv)
     cfg = get_config(args.arch)
     ops = resolve_ops(args.backend, cfg)
-    prompt_len = 4
     try:
-        contracts.require_request(prompt_len, args.max_new,
+        contracts.require_request(PROMPT_LEN, args.max_new,
                                   args.cache_len, window=cfg.window)
     except contracts.RequestInfeasible as e:
         ap.error(f"--max-new {args.max_new} with --cache-len "
                  f"{args.cache_len}: {e}")
     if args.reduced:
         cfg = M.reduce_config(cfg, dtype="float32", vocab=1024)
+    # --tp validates against the final config (--reduced shrinks heads)
+    try:
+        tp_serving.validate_tp(cfg, args.tp)
+    except ValueError as e:
+        ap.error(f"--tp {args.tp}: {e}")
     _check_args(ap, args, cfg)
+    sharded, made = _tp_world(ap, args)
+    try:
+        return _serve_main(args, cfg, ops, sharded)
+    finally:
+        if made:
+            dist.destroy_process_group()
+
+
+def _serve_main(args, cfg, ops, sharded: bool):
+    """``main`` past its checks: quantize, build the engine, serve."""
+    # in a world, rank 0 prints alone
+    say = print if not sharded or dist.get_rank() == 0 \
+        else (lambda *a, **k: None)
+    if args.tp > 1 and not sharded:
+        say(f"--tp {args.tp}: this process is not one of a world of "
+            f"{args.tp} ranks; serving through the exact single-device "
+            "lowering (gathered mode)")
     dev = resolve_device(args.device)
-    print(f"quantizing {cfg.name} ({cfg.num_layers} layers, d={cfg.d_model})"
-          f" on {dev} ...")
+    say(f"quantizing {cfg.name} ({cfg.num_layers} layers, d={cfg.d_model})"
+        f" on {dev} ...")
     qp, plans = convert.init_quantized(
         cfg, seed=0, device=dev,
         embed_scale=convert.unit_embed_scale(cfg))
@@ -220,15 +295,20 @@ def main(argv=None):
                         prefill_budget=args.prefill_budget,
                         prefix_cache=not args.no_prefix_cache,
                         spec_k=args.spec_k, spec_mode=args.spec_mode,
-                        device=dev)
-    print(f"engine: {eng.describe_str()}")
+                        tp=args.tp, device=dev)
+    say(f"engine: {eng.describe_str()}")
+    if args.tp > 1:
+        t = eng.describe()["tp"]
+        say(f"tensor parallel: tp={t['tp']} mode={t['mode']}"
+            + (f" over {t['mesh']['backend']} ranks {t['mesh']['ranks']}"
+               if t["mesh"] else ""))
     fe = ServingFrontend(eng, max_pending=args.max_pending)
     rng = np.random.default_rng(0)
-    prompts = [[int(t) for t in rng.integers(1, cfg.vocab, prompt_len)]
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab, PROMPT_LEN)]
                for _ in range(args.requests)]
     if dev.type == "cuda":
         from repro_torch.kernels._build import timed_build
-        print(f"kernels ready in {timed_build():.1f}s")
+        say(f"kernels ready in {timed_build():.1f}s")
         torch.cuda.synchronize(dev)
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -238,35 +318,35 @@ def main(argv=None):
     dt = time.perf_counter() - t0
     d = fe.describe()
     n_tok = d["tokens"]
-    print(f"served {d['submitted']} requests / {n_tok} tokens in "
-          f"{d['steps']} steps, {dt:.2f}s ({n_tok / dt:.1f} tok/s on {dev})")
-    print("  terminal: " + ", ".join(f"{k}={v}"
-                                     for k, v in d["terminal"].items()))
+    say(f"served {d['submitted']} requests / {n_tok} tokens in "
+        f"{d['steps']} steps, {dt:.2f}s ({n_tok / dt:.1f} tok/s on {dev})")
+    say("  terminal: " + ", ".join(f"{k}={v}"
+                                   for k, v in d["terminal"].items()))
     lat = d["latency"]
-    print(f"  ttft: {_fmt_pct(lat['ttft_s'])}   inter-token: "
-          f"{_fmt_pct(lat['inter_token_s'])}   queue-wait: "
-          f"{_fmt_pct(lat['queue_wait_s'])}")
-    print(f"  occupancy: mean {d['occupancy']['mean']:.2f}/{args.batch} "
-          f"lanes, queue depth: mean {d['queue_depth']['mean']:.2f} max "
-          f"{d['queue_depth']['max']}")
+    say(f"  ttft: {_fmt_pct(lat['ttft_s'])}   inter-token: "
+        f"{_fmt_pct(lat['inter_token_s'])}   queue-wait: "
+        f"{_fmt_pct(lat['queue_wait_s'])}")
+    say(f"  occupancy: mean {d['occupancy']['mean']:.2f}/{args.batch} "
+        f"lanes, queue depth: mean {d['queue_depth']['mean']:.2f} max "
+        f"{d['queue_depth']['max']}")
     ed = eng.describe()
     sp = ed["spec"]
     if sp["k"]:
         rate = f"{sp['accept_rate']:.0%}" \
             if sp["accept_rate"] is not None else "n/a"
-        print(f"speculation ({sp['mode']}, k={sp['k']}): "
-              f"{sp['accepted']}/{sp['drafted']} drafts accepted ({rate}), "
-              f"{sp['wasted']} wasted verify rows")
+        say(f"speculation ({sp['mode']}, k={sp['k']}): "
+            f"{sp['accepted']}/{sp['drafted']} drafts accepted ({rate}), "
+            f"{sp['wasted']} wasted verify rows")
     px = ed["cache"].get("prefix")
     if px:
-        print(f"prefix cache: {px['hits']} hits / {px['misses']} misses, "
-              f"{px['tokens_reused']} prompt tokens reused")
-    print(f"kernel launches: {dict(kernels.LAUNCHES)}")
+        say(f"prefix cache: {px['hits']} hits / {px['misses']} misses, "
+            f"{px['tokens_reused']} prompt tokens reused")
+    say(f"kernel launches: {dict(kernels.LAUNCHES)}")
     live = [h for h in handles if h is not None]
     for h in live[:4]:
         r = h.request
-        print(f"  req {h.uid} [{h.terminal}]: {r.prompt} -> "
-              f"{r.out_tokens[:10]}...")
+        say(f"  req {h.uid} [{h.terminal}]: {r.prompt} -> "
+            f"{r.out_tokens[:10]}...")
     return [h.request for h in live]
 
 

@@ -22,8 +22,10 @@ from repro_torch.core import intmath
 from repro_torch.core import norms
 from repro_torch.core import softmax as ism
 from repro_torch.core.attention import i_attention_chunked
-from repro_torch.core.dyadic import Dyadic, clip_to_bits, rshift_round
+from repro_torch.core.dyadic import (Dyadic, apply_dyadic_perchannel,
+                                     clip_to_bits, rshift_round)
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
+from repro_torch.distributed import collectives
 from repro_torch.models.common import ArchConfig
 from repro_torch.ops import (QuantLinearParams, RequantSpec, get_backend,
                              resolve_ops)
@@ -51,6 +53,40 @@ def int_linear(x8, qw, plan: qplans.LinearPlan, ops=None):
     if not spec.is_raw and plan.out_bits <= 8:
         out = out.to(torch.int8)
     return out
+
+
+def _tp_wo_project(o8, qw, plan: qplans.LinearPlan, group, ops=None):
+    """Head-sharded o-projection (tensor-parallel serving).
+
+    ``o8``: (..., H_local·hd) int8, this rank's slice of the attention
+    output; ``qw.w8``: the matching *row* slice of wo, ``qw.b_mult`` /
+    ``qw.bias32`` whole.  Each rank computes the raw int32 partial
+    product (K1 with ``RequantSpec.raw()``, no bias),
+    :func:`~repro_torch.distributed.collectives.psum_int32` sums the
+    partials over ``group`` exactly, and only then do the bias and the
+    per-channel requant apply, once, on the full-sum accumulator: the
+    requant rounds as it would on a single device."""
+    ops = resolve_ops(ops)
+    qw = QuantLinearParams.of(qw)
+    if qw.is_packed:
+        raise ValueError("the tensor-parallel o-projection takes a dense "
+                         "wo row slice: packed weights do not shard "
+                         "(ROADMAP §3)")
+    lead = o8.shape[:-1]
+    acc = ops.int8_matmul(o8.reshape(-1, o8.shape[-1]), qw.w8,
+                          RequantSpec.raw())
+    acc = collectives.psum_int32(acc, group)
+    if qw.bias32 is not None:
+        acc = acc + qw.bias32
+    spec = RequantSpec.for_linear(plan)
+    out = acc
+    if not spec.is_raw:
+        out = clip_to_bits(apply_dyadic_perchannel(acc, qw.b_mult, spec.c,
+                                                   spec.pre, axis=-1),
+                           spec.out_bits)
+        if spec.out_bits <= 8:
+            out = out.to(torch.int8)
+    return out.reshape(*lead, qw.n_dim)
 
 
 def int_norm(qnorm, q32, plan: norms.INormPlan, ops=None):
@@ -272,11 +308,26 @@ def step_rows(pos, length: int, s: int = 1, n_new=None, write_rows=None,
                     valid)
 
 
+def _refuse_tp_fold(tp_group, fold_wo: bool) -> None:
+    if tp_group is not None and fold_wo:
+        raise ValueError("fold_wo cannot cross the tensor-parallel "
+                         "all-reduce: the wo requant must round once, "
+                         "after psum (pass fold_wo=False under tp)")
+
+
+def _wo(o8, qw, plan: qplans.LinearPlan, tp_group, ops):
+    """The unfolded o-projection: summed over the tensor-parallel group
+    when there is one."""
+    if tp_group is not None:
+        return _tp_wo_project(o8, qw, plan, tp_group, ops)
+    return int_linear(o8, qw, plan, ops)
+
+
 def int_attn_decode(qp, x8, cache, pos, plans: qplans.AttnPlan,
                     cfg: ArchConfig, rope_tab=None, window: int = 0,
                     ops=None, pages=None, page_size: int = 0,
                     max_len: int = 0, fold_wo: bool = False, rope=None,
-                    n_new=None, writes=None):
+                    n_new=None, writes=None, tp_group=None):
     """One-token decode.  x8: (B,1,D); cache ``{"k8","v8"}``, written in
     place; ``pos``: (B,) position of each lane's token, written at
     logical slot ``pos``, or ``pos % window`` for a sliding window (the
@@ -302,7 +353,14 @@ def int_attn_decode(qp, x8, cache, pos, plans: qplans.AttnPlan,
     = S).  Pad rows write nothing live (:func:`step_rows`); the
     contiguous layout takes ``writes`` built with the host's
     ``write_rows``.  Precondition (the engine's): ``pos + n_new <= L``.
-    Returns (out32 (B,S,D), cache)."""
+
+    ``tp_group``: tensor-parallel serving over that process group:
+    ``cfg`` has the rank's local heads (``distributed.tp_serving.
+    local_cfg``), ``qp`` its shard, and the o-projection is a partial
+    product summed over the group before its one requant
+    (:func:`_tp_wo_project`); ``fold_wo`` must be off (a folded epilogue
+    would requant each rank's partial).  Returns (out32 (B,S,D), cache)."""
+    _refuse_tp_fold(tp_group, fold_wo)
     ops = resolve_ops(ops)
     b, s = x8.shape[:2]
     paged = pages is not None
@@ -346,24 +404,27 @@ def int_attn_decode(qp, x8, cache, pos, plans: qplans.AttnPlan,
             q8, cache["k8"], cache["v8"], plans.attn, writes.valid,
             requant=requant, **kv)
         o8 = o8.to(torch.int8).reshape(b, s, cfg.n_heads * cfg.hd)
-        out32 = int_linear(o8, qp["wo"], plans.out, ops)
+        out32 = _wo(o8, qp["wo"], plans.out, tp_group, ops)
     return out32, cache
 
 
 def int_attn_prefill_chunk(qp, x8, cache, base_pos, plans: qplans.AttnPlan,
                            cfg: ArchConfig, rope_tab=None, ops=None,
                            pages=None, page_size: int = 0,
-                           fold_wo: bool = False, rope=None):
+                           fold_wo: bool = False, rope=None,
+                           tp_group=None):
     """Chunked prefill attention over a paged pool.  x8: (B, C, D), lane
     ``b`` covering logical positions ``[base_pos[b], base_pos[b] + C)``.
     Writes the chunk's K/V through the table (in place; packed int4 pools,
     ``k_shift``/``v_shift`` in the cache, take them quantized and packed
     by the dispatch layer) and runs causal attention over history +
     chunk.  ``rope``: cos/sin already gathered for those positions.
+    ``tp_group``: tensor-parallel serving, as in :func:`int_attn_decode`.
     Returns (out32 (B, C, D), cache)."""
     if cfg.window:
         raise NotImplementedError("chunked prefill needs full causal "
                                   "attention")
+    _refuse_tp_fold(tp_group, fold_wo)
     ops = resolve_ops(ops)
     b, c, _ = x8.shape
     q8, k8, v8 = _qkv(qp, x8, plans, cfg, ops)
@@ -389,7 +450,7 @@ def int_attn_prefill_chunk(qp, x8, cache, base_pos, plans: qplans.AttnPlan,
             q8, k8, v8, cache["k8"], cache["v8"], plans.attn, base_pos,
             pages, page_size, requant=requant, **kw)
         o8 = o8.to(torch.int8).reshape(b, c, cfg.n_heads * cfg.hd)
-        out32 = int_linear(o8, qp["wo"], plans.out, ops)
+        out32 = _wo(o8, qp["wo"], plans.out, tp_group, ops)
     return out32, {"k8": k_pool, "v8": v_pool}
 
 

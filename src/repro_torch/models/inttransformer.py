@@ -362,7 +362,8 @@ def _cross_decode(qp, h8, cache, plans: qplans.LayerPlans, cfg: ArchConfig,
 
 def int_decode_step(qparams, caches, tokens, pos, plans, cfg: ArchConfig,
                     rope_tab=None, ops=None, pages=None, page_size: int = 0,
-                    max_len: int = 0, fold_wo: bool = False, pos_span=None):
+                    max_len: int = 0, fold_wo: bool = False, pos_span=None,
+                    tp_group=None):
     """tokens (B,) int, pos (B,) int32 -> (logits (B, V) float32, caches).
 
     ``caches``: contiguous (:func:`init_decode_cache` without a layout),
@@ -375,7 +376,9 @@ def int_decode_step(qparams, caches, tokens, pos, plans, cfg: ArchConfig,
     ``fold_wo`` folds each o-projection into the attention call
     (bit-exact either way).  ``pos_span``: the least and greatest of
     ``pos``, known on the host (:func:`intlayers.rope_gather`: the RoPE
-    range check then reads nothing from the card)."""
+    range check then reads nothing from the card).  ``tp_group``:
+    tensor-parallel serving over that process group (``cfg`` the rank's
+    local heads, ``qparams`` its shard; :func:`intlayers.int_attn_decode`)."""
     ops = resolve_ops(ops)
     x32 = embed_int(qparams, tokens[:, None], plans, cfg)
     attn_kw = {}
@@ -387,7 +390,8 @@ def int_decode_step(qparams, caches, tokens, pos, plans, cfg: ArchConfig,
         rope = il.rope_gather(rope_tab, writes.positions, pos_span) \
             if rope_tab is not None else None
         attn_kw = dict(pages=pages, page_size=page_size, max_len=max_len,
-                       fold_wo=fold_wo, rope=rope, writes=writes)
+                       fold_wo=fold_wo, rope=rope, writes=writes,
+                       tp_group=tp_group)
     for qp, cache, kind in _sublayers(qparams, caches, cfg):
         x32 = _int_sublayer_decode(qp, cache, x32, pos, plans, cfg, kind,
                                    ops, **attn_kw)
@@ -412,7 +416,8 @@ def speculative_decode_supported(cfg: ArchConfig) -> bool:
 def int_verify_step(qparams, caches, tokens, pos, n_new, plans,
                     cfg: ArchConfig, rope_tab=None, ops=None, pages=None,
                     page_size: int = 0, max_len: int = 0,
-                    fold_wo: bool = False, pos_span=None, write_rows=None):
+                    fold_wo: bool = False, pos_span=None, write_rows=None,
+                    tp_group=None):
     """One speculative verify step: score S = spec_k + 1 candidate
     positions per lane in a single stepped-mask decode-attention call a
     layer (K3 at Sq = S on the ``cuda`` backend).
@@ -430,7 +435,8 @@ def int_verify_step(qparams, caches, tokens, pos, n_new, plans,
     (``intlayers.real_rows``, built on the host), which the contiguous
     layout writes alone and so needs (``ValueError`` without).  The rows'
     positions and write index are built once a step
-    (:func:`intlayers.step_rows`).  Returns ``(logits (B, S, V) float32,
+    (:func:`intlayers.step_rows`).  ``tp_group``: as in
+    :func:`int_decode_step`.  Returns ``(logits (B, S, V) float32,
     caches)``."""
     if not speculative_decode_supported(cfg):
         raise ValueError("speculative verify unsupported for arch "
@@ -450,7 +456,7 @@ def int_verify_step(qparams, caches, tokens, pos, n_new, plans,
                                     cfg, ops=ops, pages=pages,
                                     page_size=page_size, max_len=max_len,
                                     fold_wo=fold_wo, rope=rope, n_new=n_new,
-                                    writes=writes)
+                                    writes=writes, tp_group=tp_group)
         x32 = _residual_add(x32, a32, cfg)
         x32 = _ffn_sublayer(qp, x32, plans, cfg, ops, group_size=1)
     return logits_int(qparams, x32, plans, cfg, ops), caches
@@ -486,7 +492,8 @@ def build_cache_from_prefill(qparams, batch, plans, cfg: ArchConfig, ops,
 def int_prefill_chunk_step(qparams, caches, tokens, base_pos, plans,
                            cfg: ArchConfig, rope_tab=None, ops=None,
                            pages=None, page_size: int = 0,
-                           fold_wo: bool = False, pos_span=None):
+                           fold_wo: bool = False, pos_span=None,
+                           tp_group=None):
     """Advance every prefilling lane by one C-token prompt chunk, writing
     K/V straight into the paged pools (in place).
 
@@ -496,7 +503,8 @@ def int_prefill_chunk_step(qparams, caches, tokens, base_pos, plans,
     nulled, so their discarded writes land on the null page.  Returns the
     caches; the chunk's hidden states are discarded (the engine feeds the
     prompt's last token through the decode step).  ``pos_span``: the
-    least and greatest position the chunk covers, known on the host."""
+    least and greatest position the chunk covers, known on the host.
+    ``tp_group``: as in :func:`int_decode_step`."""
     ops = resolve_ops(ops)
     if not chunked_prefill_supported(cfg):
         raise ValueError("chunked prefill unsupported for arch "
@@ -513,7 +521,8 @@ def int_prefill_chunk_step(qparams, caches, tokens, base_pos, plans,
         h8 = il.int_norm(qp["norm1"], x32, plans.norm, ops)
         a32, _ = il.int_attn_prefill_chunk(
             qp["attn"], h8, cache, base_pos, plans.attn, cfg, ops=ops,
-            pages=pages, page_size=page_size, fold_wo=fold_wo, rope=rope)
+            pages=pages, page_size=page_size, fold_wo=fold_wo, rope=rope,
+            tp_group=tp_group)
         x32 = _residual_add(x32, a32, cfg)
         h8 = il.int_norm(qp["norm2"], x32, plans.norm, ops)
         x32 = _residual_add(x32, il.int_ffn_fwd(qp["ffn"], h8, plans.ffn,

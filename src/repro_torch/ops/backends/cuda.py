@@ -75,6 +75,7 @@ class CudaBackend:
     prefill_wo_fold = True    # ... with the o-projection folded in too
     packed_kv = True          # int4 KV pages expanded inside K3 and K4
     packed_matmul = True      # int4 / MSR-4 weights expanded inside K1
+    tp_serving = True         # kernels launch per shard at local heads
 
     def int8_matmul(self, x8, w8, spec, *, bias32=None, b_vec=None):
         return int8_matmul(x8, w8, spec, bias32=bias32, b_vec=b_vec)

@@ -52,6 +52,9 @@ MIN_ONLINE_LEN = 16
 
 class CudaOnlineBackend(CudaBackend):
     fused_attention = True    # one streaming kernel at any length
+    # not inherited from ``cuda``: the reference's ``pallas`` does not
+    # advertise it, so a tp > 1 engine over it takes the gathered mode
+    tp_serving = False
     #: the two attention functions the routing below calls
     #: (:class:`PlainOnlineBackend` names their plain versions)
     online_attention = staticmethod(int_attention_online)

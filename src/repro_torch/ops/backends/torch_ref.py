@@ -21,6 +21,7 @@ class TorchRefBackend:
     decode_wo_fold = False
     paged_prefill = False
     prefill_wo_fold = False
+    tp_serving = True
 
     def int8_matmul(self, x8, w8, spec, *, bias32=None, b_vec=None):
         if spec.is_raw:

@@ -58,7 +58,12 @@ integers.  A packed wo never folds into an attention launch: it takes the
 unfolded composition through ``int8_matmul_packed``, as in the
 reference.  A prefill chunk bound for packed pools is quantized
 and packed here (``ops.packed.pack_kv``) for every backend, so the pool
-bytes never depend on the backend.
+bytes never depend on the backend.  ``tp_serving`` is negotiated by the
+serving engine (``distributed.tp_serving.backends_support_tp``): a
+``tp > 1`` engine shards its heads over a process group only when every
+backend of the OpSet advertises it (``cuda``, ``cuda_ref``,
+``torch_ref``; not ``cuda_online``, as the reference's ``pallas`` does
+not), and takes the exact single-device (gathered) lowering otherwise.
 """
 from __future__ import annotations
 

@@ -58,6 +58,22 @@ for every lane whose prompt is in, and finished lanes retire.
     prefix sharing; every decode and verify step routes each row alone
     (``group_size=1``), and the experts run as one grouped K1 launch a
     linear.
+  * **Tensor parallelism** (``tp``): with a ``torch.distributed`` group
+    of exactly ``tp`` ranks (the default group, or ``group=``) and every
+    backend advertising ``tp_serving``, each rank (one process, SPMD)
+    builds the engine from the same full parameters and keeps its shard
+    (``distributed.tp_serving``): ``Hkv/tp`` KV heads of every page and
+    the matching ``H/tp`` query heads; ``wo``'s int32 partials are summed
+    over the group before its one requant, so ``fold_wo`` is forced off.
+    Embedding, norms, FFN / MoE, logits, the scheduler, the allocator,
+    the page table and the prefix index are replicated, and every rank
+    makes the same decisions (a rank must drive the same calls in the
+    same order as the others: a rank that skips a step stalls the
+    group).  Otherwise a ``tp > 1`` engine serves through the exact
+    single-device lowering (``describe()["tp"]["mode"] == "gathered"``).
+    Either way the streams equal ``tp = 1``'s.  SSM and cross attention
+    archs are refused (``ValueError``), as are packed attention weights
+    when sharding.
   * **State-space models** (mamba2-130m, jamba-v0.1-52b): each Mamba
     sublayer keeps its int32 SSD state and int8 conv tail a lane, in
     either cache mode.  Token-streaming prefill only, hence no prefix
@@ -68,8 +84,7 @@ for every lane whose prompt is in, and finished lanes retire.
     on the device.
 
 Token streams are bit-identical to the JAX engine's for the same
-weights and schedule.  Not ported yet (``NotImplementedError`` naming
-its ROADMAP item): ``tp > 1``.  Refused on purpose (``ValueError``,
+weights and schedule.  Refused on purpose (``ValueError``,
 :func:`refuse_cross_attention`): the cross attention archs
 (seamless-m4t-large-v2, llama-3.2-vision-90b), which the reference's
 engine cannot serve; they run through ``int_prefill(return_cache=True)``
@@ -84,9 +99,11 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.analysis import contracts
 from repro_torch.device import resolve_device
+from repro_torch.distributed import tp_serving
 from repro_torch.models import intlayers as il
 from repro_torch.models import inttransformer as it
 from repro_torch.models.common import ArchConfig
@@ -204,11 +221,8 @@ class ServingEngine:
                  prefill_chunk: Optional[int] = None,
                  prefill_budget: Optional[int] = None,
                  prefix_cache: bool = True, tp: int = 1, spec_k: int = 0,
-                 spec_mode: str = "ngram", device="cuda"):
-        if tp != 1:
-            raise NotImplementedError(
-                "tensor-parallel serving is not ported yet (ROADMAP §1 "
-                "item 9)")
+                 spec_mode: str = "ngram", device="cuda", group=None):
+        tp_serving.validate_tp(cfg, tp)
         if cache_mode not in ("paged", "contiguous"):
             raise ValueError("cache_mode must be 'paged' or 'contiguous',"
                              f" got {cache_mode!r}")
@@ -235,11 +249,23 @@ class ServingEngine:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.plans = plans
-        self.qparams = _to_device(qparams, self.device)
         self.batch = batch_size
         self.cache_len = cache_len
         self.fold_wo = fold_wo
         self.ops = resolve_ops(ops, cfg)
+        self.tp = tp
+        self.tp_group = self._negotiate_tp(group)
+        self.tp_sharded = self.tp_group is not None
+        # the steps' view of the arch: this rank's heads when sharded
+        self.local_cfg = tp_serving.local_cfg(cfg, tp) if self.tp_sharded \
+            else cfg
+        if self.tp_sharded:
+            # a folded epilogue would requant each rank's partial wo
+            # product before the sum: the requant must round once
+            self.fold_wo = False
+            qparams = tp_serving.shard_qparams(
+                qparams, dist.get_rank(self.tp_group), tp)
+        self.qparams = _to_device(qparams, self.device)
         self.rng = np.random.default_rng(seed)
         # logical per-session cache length: the window bounds it
         self.L = min(cache_len, cfg.window) if cfg.window > 0 else cache_len
@@ -249,13 +275,13 @@ class ServingEngine:
             self.layout = CacheLayout.fit(batch_size, self.L, page_size,
                                           num_pages, kv_dtype=kv_dtype)
             self.kv = PagedKVCache(self.layout)
-            self.caches = it.init_decode_cache(cfg, self.layout,
+            self.caches = it.init_decode_cache(self.local_cfg, self.layout,
                                                self.device)
         else:
             self.layout = None
             self.kv = None
             self.caches = it.init_decode_cache(
-                cfg, device=self.device, batch=batch_size,
+                self.local_cfg, device=self.device, batch=batch_size,
                 cache_len=cache_len)
         self._chunkable = self.paged and it.chunked_prefill_supported(cfg)
         self.prefill_chunk = self._resolve_prefill_chunk(prefill_chunk)
@@ -279,8 +305,7 @@ class ServingEngine:
         else:
             self.prefix = None
         self._cow_copies = 0
-        if self.spec_k:
-            self._check_verify_launch()
+        self._check_launches()
         self.pos = np.zeros(batch_size, np.int32)
         self.slots: List[Optional[Session]] = [None] * batch_size
         self.queue: List[Session] = []
@@ -289,21 +314,52 @@ class ServingEngine:
         self._inflight: Optional[PendingStep] = None
         self._bufs = self._device_buffers()
 
-    def _check_verify_launch(self):
-        """The verify step's decode-attention launch at Sq = spec_k + 1,
-        checked at construction where a kernel will take it: a backend
-        that consumes the KV layout natively (``paged_decode``) on the
-        card launches K3, whose plan (``k3_launch_plan``: head dim, rows,
-        shared memory) must exist for this cache geometry."""
-        be = self.ops.backend_for("int_decode_attention")
-        if self.device.type != "cuda" or not getattr(be, "paged_decode",
-                                                     False):
+    def _negotiate_tp(self, group):
+        """The process group the engine shards over, or None (tp = 1, or
+        the gathered mode): sharded when tp > 1, every backend advertises
+        ``tp_serving`` and the group (``group``, else the default group)
+        has exactly ``tp`` ranks.  A ``group`` passed with another size
+        raises."""
+        if self.tp == 1 or not tp_serving.backends_support_tp(self.ops):
+            return None
+        size = tp_serving.tp_group_size(group)
+        if group is not None and size != self.tp:
+            raise ValueError(f"tp={self.tp} but the process group passed "
+                             f"has {size} ranks")
+        if size != self.tp:
+            return None
+        return dist.group.WORLD if group is None else group
+
+    def _check_launches(self):
+        """The attention launches' plans, checked at construction where a
+        kernel will take them (a backend that consumes the KV layout
+        natively, on the card): K3 (``k3_launch_plan``: head dim, rows,
+        shared memory) at the verify step's Sq = spec_k + 1, and when
+        sharded at the rank's local heads for Sq = 1 and, chunked, K4
+        (``k4_launch_plan``).  The counterpart of the reference's
+        ``_check_tp_launches``."""
+        if self.device.type != "cuda":
             return
+        from repro_torch.kernels.int_attention_fused import k4_launch_plan
         from repro_torch.kernels.int_decode_attention import k3_launch_plan
-        length = self.layout.logical_len if self.paged else self.L
-        k3_launch_plan(self.batch, self.spec_k + 1, self.cfg.n_heads,
-                       self.cfg.n_kv_heads, self.cfg.hd, length, self.paged,
-                       self.paged and self.layout.kv_dtype == "int4")
+        cfg = self.local_cfg
+        int4 = self.paged and self.layout.kv_dtype == "int4"
+        if getattr(self.ops.backend_for("int_decode_attention"),
+                   "paged_decode", False):
+            length = self.layout.logical_len if self.paged else self.L
+            sqs = {1} if self.tp_sharded else set()
+            if self.spec_k:
+                sqs.add(self.spec_k + 1)
+            for sq in sorted(sqs):
+                k3_launch_plan(self.batch, sq, cfg.n_heads, cfg.n_kv_heads,
+                               cfg.hd, length, self.paged, int4)
+        if self.tp_sharded and self._use_chunked and getattr(
+                self.ops.backend_for("int_paged_prefill"), "paged_prefill",
+                False):
+            k4_launch_plan(self.batch, self.prefill_chunk, cfg.n_heads,
+                           cfg.n_kv_heads, cfg.hd, self.layout.max_pages,
+                           self.layout.page_size,
+                           self.caches[0]["k8"].data_ptr(), packed=int4)
 
     def _device_buffers(self) -> Dict[str, torch.Tensor]:
         """The device tensors every step's host inputs are copied into,
@@ -394,9 +450,10 @@ class ServingEngine:
             kw["max_len"] = self.L
         return it.int_decode_step(
             self.qparams, self.caches, self._stage("toks", toks),
-            self._stage("pos", self.pos), self.plans, self.cfg,
+            self._stage("pos", self.pos), self.plans, self.local_cfg,
             self.rope_tab, ops=self.ops, fold_wo=self.fold_wo,
-            pos_span=(int(self.pos.min()), int(self.pos.max())), **kw)
+            pos_span=(int(self.pos.min()), int(self.pos.max())),
+            tp_group=self.tp_group, **kw)
 
     def _run_verify(self, toks, n_new):
         """One verify step over the lanes' right-aligned ``toks`` (B, S);
@@ -413,9 +470,10 @@ class ServingEngine:
         return it.int_verify_step(
             self.qparams, self.caches, self._stage("verify_toks", toks),
             self._stage("pos", self.pos), self._stage("n_new", n_new),
-            self.plans, self.cfg, self.rope_tab, ops=self.ops,
+            self.plans, self.local_cfg, self.rope_tab, ops=self.ops,
             fold_wo=self.fold_wo,
-            pos_span=(int(rpos.min()), int(rpos.max())), **kw)
+            pos_span=(int(rpos.min()), int(rpos.max())),
+            tp_group=self.tp_group, **kw)
 
     # ------------------------------------------------------ scheduling ---
 
@@ -596,10 +654,10 @@ class ServingEngine:
                 view[slot] = NULL_PAGE
         it.int_prefill_chunk_step(
             self.qparams, self.caches, self._stage("chunk_toks", toks),
-            self._stage("chunk_base", base), self.plans, self.cfg,
+            self._stage("chunk_base", base), self.plans, self.local_cfg,
             self.rope_tab, ops=self.ops, fold_wo=self.fold_wo,
             pos_span=(int(base.min()), int(base.max()) + C - 1),
-            **self._paged_args("chunk_pages", view))
+            tp_group=self.tp_group, **self._paged_args("chunk_pages", view))
         for i in included:
             sess = self.slots[i]
             n_pre = self._n_pre(sess)
@@ -901,10 +959,27 @@ class ServingEngine:
                 if self.prefix is not None else None
         else:
             cache = {"mode": "contiguous", "kv_pack": "int8"}
-        # the pools' bytes: packed int4 pools hold half of int8's a token
-        cache["kv_bytes"] = int(sum(
+        # the pools' bytes: packed int4 pools hold half of int8's a token;
+        # a sharded rank holds 1/tp of every page
+        local_kv = int(sum(
             c[key].numel() * c[key].element_size()
             for c in self.caches for key in ("k8", "v8") if key in c))
+        cache["kv_bytes"] = local_kv * (self.tp if self.tp_sharded else 1)
+        tp = {
+            "tp": self.tp,
+            # "sharded": heads over the process group; "gathered": tp > 1
+            # without such a group (or a backend without tp_serving), the
+            # exact single-device lowering; "off": tp == 1
+            "mode": ("sharded" if self.tp_sharded
+                     else "gathered" if self.tp > 1 else "off"),
+            "mesh": None if not self.tp_sharded else {
+                "axis": tp_serving.TP_AXIS,
+                "shape": [self.tp],
+                "ranks": dist.get_process_group_ranks(self.tp_group),
+                "backend": str(dist.get_backend(self.tp_group)),
+            },
+            "per_device_kv_bytes": local_kv,
+        }
         drafted, accepted = self._spec_drafted, self._spec_accepted
         return {
             "ops": self.ops.name,
@@ -926,6 +1001,7 @@ class ServingEngine:
                 "budget": self.prefill_budget,
             },
             "fold_wo": self.fold_wo,
+            "tp": tp,
             "batch": self.batch,
             "cache_len": self.cache_len,
             "cache": cache,
@@ -946,14 +1022,17 @@ class ServingEngine:
                      f"{c['pages_used']}/{c['num_pages'] - 1} used]")
         else:
             cache = "contiguous"
+        tp = "" if d["tp"]["tp"] == 1 \
+            else f" tp={d['tp']['tp']}:{d['tp']['mode']}"
         sp = d["spec"]
         spec = "" if not sp["k"] else (
             f" spec={sp['mode']}:k{sp['k']}"
             + (f"@{sp['accept_rate']:.2f}"
                if sp["accept_rate"] is not None else ""))
         return (f"ops={d['ops']} device={d['device']} prefill={prefill} "
-                f"fold_wo={str(d['fold_wo']).lower()}{spec} cache={cache} "
-                f"batch={d['batch']} cache_len={d['cache_len']}")
+                f"fold_wo={str(d['fold_wo']).lower()}{tp}{spec} "
+                f"cache={cache} batch={d['batch']} "
+                f"cache_len={d['cache_len']}")
 
     def run_until_done(self, max_steps: int = 10000) -> List[Request]:
         """Step until queue and lanes drain; returns the requests that

@@ -3,7 +3,8 @@
 A copy of ``repro/serving/kvcache.py`` (numpy only, no framework code):
 the port keeps its own so it imports nothing of the JAX package.  The
 ``int4`` storage tier and tensor-parallel pools are described here as in
-the reference; the port's engine serves ``kv_dtype="int8"`` on one device.
+the reference; the port's engine serves both tiers, and a tensor-parallel
+rank builds its pools at its ``Hkv/tp`` heads.
 
 The serving engine's cache abstraction (the "block-sparse paged KV
 cache" the ROADMAP queued on top of PR 3's valid_len machinery).  A

@@ -2189,3 +2189,90 @@ def test_cross_model_cuda_matches_torch_ref(dev, arch):
         assert set(ca) == set(cb)
         for k in ca:
             assert torch.equal(ca[k], cb[k]), k
+
+
+# ------------------------------------------- tensor-parallel shards -----
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("pool", ["int8", "int4", "contiguous"])
+def test_tp_shard_attention_rows(dev, tp, pool):
+    """K3 (Sq 1, and the verify step's 4) and K4 (chunks of 32) at the
+    heads one tensor-parallel rank of llama3-8b holds (H 32 / Hkv 8 over
+    tp: 16 / 4, 8 / 2), D 128, B 4, over int8 pages, int4 pages (shifts
+    0..7) or a contiguous cache (K3 only), unfolded as a sharded engine
+    runs them: each launches once and equals its plain version."""
+    rng = np.random.default_rng(tp * 10 + len(pool))
+    b, ps, maxp, hd = 4, 16, 32, 128
+    h, hkv = 32 // tp, 8 // tp
+    plan = iattn.make_iattention(hd, 8 / 127, 8 / 127, 4 / 127, 4 / 127)
+    rq = RequantSpec.per_tensor(plan.dn_out)
+    kv, suffix = {}, ""
+    if pool == "contiguous":
+        kp = _i8(rng, (b, ps * maxp, hkv, hd), dev)
+        vp = _i8(rng, (b, ps * maxp, hkv, hd), dev)
+    elif pool == "int8":
+        kp = _i8(rng, (b * maxp + 1, ps, hkv, hd), dev)
+        vp = _i8(rng, (b * maxp + 1, ps, hkv, hd), dev)
+    else:
+        kp, vp, shifts = _packed_pools(rng, dev, b * maxp + 1, ps, hkv, hd)
+        kv, suffix = dict(kv_shifts=shifts), "_kv4"
+    if pool != "contiguous":
+        kv.update(pages=torch.as_tensor(
+            rng.permutation(np.arange(1, b * maxp + 1)).reshape(b, maxp)
+            .astype(np.int32), device=dev), page_size=ps)
+    launches = [(sq, int_decode_attention_fused, int_decode_attention_plain,
+                 "int_decode_attention", [1, 137, 300, 512])
+                for sq in (1, 4)]
+    if pool != "contiguous":
+        launches.append((32, int_paged_prefill_fused,
+                         int_paged_prefill_plain, "int_paged_prefill",
+                         [32, 132, 282, 512]))
+    for sq, fused, plain, name, lens in launches:
+        q8 = _i8(rng, (b, sq, h, hd), dev)
+        vl = torch.tensor(lens, dtype=torch.int32, device=dev)
+        before = kernels.LAUNCHES[name + suffix]
+        got = fused(q8, kp, vp, plan, vl, requant=rq, **kv)
+        assert kernels.LAUNCHES[name + suffix] == before + 1
+        assert torch.equal(got, plain(q8, kp, vp, plan, vl, requant=rq,
+                                      **kv)), (name, sq)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("m", [4, 16, 128])
+def test_tp_shard_projections(dev, tp, m):
+    """K1 at a llama3-8b rank's projections: wq's and wk's column slices
+    (N 4096 / tp, 1024 / tp) with their per-channel epilogue, and wo's
+    row slice (K 4096 / tp) raw, at M 4 and 16 (the decode tile) and 128
+    (a 4 x 32 chunk): each equals its plain version, and the tp raw
+    partials summed, plus the bias, requantized once, equal the unsharded
+    per-channel product."""
+    from repro_torch.core.dyadic import apply_dyadic_perchannel, clip_to_bits
+    rng = np.random.default_rng(tp * 1000 + m)
+    d = 4096
+    spec = RequantSpec.per_channel(24, 10, 8)
+    x8 = _i8(rng, (m, d), dev)
+    for n in (d // tp, 1024 // tp):
+        w8 = _i8(rng, (d, n), dev)
+        bvec = _i32(rng, 256, 4096, (n,), dev)
+        before = kernels.LAUNCHES["int8_matmul"]
+        got = int8_matmul(x8, w8, spec, b_vec=bvec)
+        assert kernels.LAUNCHES["int8_matmul"] == before + 1
+        assert torch.equal(got, int8_matmul_plain(x8, w8, spec, None, bvec))
+    wo = _i8(rng, (d, d), dev)
+    bvec = _i32(rng, 256, 4096, (d,), dev)
+    bias = _i32(rng, -5000, 5000, (d,), dev)
+    k = d // tp
+    total = torch.zeros(m, d, dtype=torch.int32, device=dev)
+    for r in range(tp):
+        xs, ws = x8[:, r * k:(r + 1) * k].contiguous(), \
+            wo[r * k:(r + 1) * k].contiguous()
+        part = int8_matmul(xs, ws, RequantSpec.raw())
+        assert part.dtype == torch.int32
+        assert torch.equal(part, int8_matmul_plain(xs, ws, RequantSpec.raw(),
+                                                   None, None))
+        total += part
+    once = clip_to_bits(apply_dyadic_perchannel(total + bias, bvec, spec.c,
+                                                spec.pre), spec.out_bits)
+    assert torch.equal(once.to(torch.int8),
+                       int8_matmul(x8, wo, spec, bias32=bias,
+                                   b_vec=bvec).to(torch.int8))

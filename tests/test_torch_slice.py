@@ -230,12 +230,18 @@ def test_engine_evict_and_preempt(setup):
 
 
 def test_engine_unported_options_raise(setup):
-    """What the port does not serve yet names its ROADMAP §1 item (the
-    contiguous cache and sliding windows are served since, their parity
-    tests/test_torch_window.py's; int4 KV pages too, tests/
-    test_torch_kv4.py's; speculative decoding too, tests/
-    test_torch_speculative.py's)."""
+    """Every option of the reference's engine is served (the contiguous
+    cache and sliding windows: tests/test_torch_window.py; int4 KV pages:
+    tests/test_torch_kv4.py; speculative decoding:
+    tests/test_torch_speculative.py; tensor parallelism:
+    tests/test_torch_tp.py).  Without a process group ``tp=2`` takes the
+    gathered mode, as the reference does without the devices; a tp that
+    does not divide the KV heads raises the reference's ValueError."""
     _, tcfg, _, _, tq, tp = setup
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TEngine(tq, tp, tcfg, device="cpu", tp=2)
+    eng = TEngine(tq, tp, tcfg, device="cpu", tp=2)
+    assert eng.describe()["tp"] == {"tp": 2, "mode": "gathered",
+                                    "mesh": None, "per_device_kv_bytes":
+                                    eng.describe()["cache"]["kv_bytes"]}
+    with pytest.raises(ValueError, match="tp=3 must divide"):
+        TEngine(tq, tp, tcfg, device="cpu", tp=3)
     assert TEngine(tq, tp, tcfg, device="cpu", spec_k=2).spec_k == 2
