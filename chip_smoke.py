@@ -93,17 +93,34 @@ non-zero before the last line):
   ops      ``repro_torch.ops.int_softmax``, the module-level entry point,
            under ``use_backend("cuda_online")`` on the full score matrix of
            a roberta-base batch (K7 must launch);
+  analysis ``repro_torch.analysis`` on the card: ``certify_config`` of all
+           13 configs at (4096, 32768); ``check_launch`` of every
+           main-path launch (:func:`main_path_reports`: ``serve``,
+           ``tp-serve`` at tp 2, ``encode`` / ``encode-online``, ``ops``,
+           qwen2-moe's grouped K1), each ``ok``, and for every distinct
+           kernel instantiation the card's registers, spills,
+           ``maxThreadsPerBlock`` and occupancy at the report's threads,
+           shared memory and cluster (``analysis-kernel`` rows; the
+           shared memory within ``shared_memory_per_block_optin``,
+           occupancy >= 1); llama3-8b's decode, chunk and verify steps (2
+           layers) and a roberta-base pass on ``cuda`` and
+           ``cuda_online`` under ``kernels.record_launches``, every
+           recorded launch equal to its ``ok`` report's route, grid,
+           cluster and shared memory; and the refused shapes (D 96, K2 d
+           8200, decode Sq 9, H 30 over Hkv 8) raising
+           ``KernelContractError`` with ``kernels.LAUNCHES`` unchanged;
   window-parity  h2o-danube-3-4b (the reference serve driver's default:
            sliding window 4096, head dim 120) at full widths cut to 2
            layers: ServingEngine streams on ``cuda`` equal ``torch_ref``'s
            in both cache modes (paged folded, contiguous unfolded), then
            through the rolling window's wrap (window cut to 64, cache_len
            160, 150 new tokens a lane);
-  window-serve   full h2o-danube-3-4b (24 layers) on ``cuda``, once per
+  window-serve   h2o-danube-3-4b at full width cut to 4 of its 24 layers
+           on ``cuda``, once per
            cache mode, token-streaming prefill: throughput, step times,
            peak memory, launches per decode step (K1, K2, K3; no K4) and a
            profiled decode window;
-  window-prefill full h2o-danube-3-4b through ``make_prefill_step`` at 4
+  window-prefill the same 4 layers through ``make_prefill_step`` at 4
            x 256 tokens and ``int_prefill(return_cache=True)`` over their
            first 64: logits and the built contiguous caches of ``cuda``
            equal ``torch_ref``'s;
@@ -111,7 +128,8 @@ non-zero before the last line):
   kv4-parity     ``parity`` over int4 KV pages (``kv_dtype="int4"``):
            llama3-8b at full width cut to 2 layers, ``cuda`` streams equal
            ``torch_ref``'s;
-  kv4-serve      ``serve`` over int4 KV pages: full llama3-8b, the same
+  kv4-serve      ``serve`` over int4 KV pages: llama3-8b at full width
+           cut to 8 of its 32 layers, the same
            traffic, K3 and K4 launching their packed instantiations
            (``*_kv4``) in every decode step and prefill chunk, and the
            pool's pages and bytes;
@@ -122,7 +140,8 @@ non-zero before the last line):
            every linear weight clamped to [-7, 7], packed int4: ``cuda``
            equals ``torch_ref`` and the clamped dense model;
   msr4-serve     ``serve`` on msr4 weights (group 64, the reference serving
-           benchmark's tier): full llama3-8b, the same traffic, every
+           benchmark's tier): llama3-8b cut to 8 layers, the same
+           traffic, every
            matmul through K1's nibble instantiation and the MSR-4
            correction kernel (the dense K1 never: a packed wo never
            folds), the packed weight bytes, a profiled decode window and
@@ -134,7 +153,7 @@ non-zero before the last line):
            encoders' ``make_prefill_step`` logits on ``cuda`` equal
            ``torch_ref``'s at 8 x 512 and 8 x 197;
   zoo-serve      ``serve`` for codeqwen1.5-7b and granite-3-2b at full width
-           cut to 16 layers (of 32 and 40) on the same traffic (phases
+           cut to 4 layers (of 32 and 40) on the same traffic (phases
            ``zoo-serve-<arch>``, with their decode and prefill profiles);
   zoo-encode     full roberta-large (24 layers) at 32 x 512 and deit-s (12
            layers) at 32 x 197 through ``make_prefill_step`` on ``cuda``:
@@ -162,13 +181,13 @@ non-zero before the last line):
            ``torch_ref``'s (paged, token-streaming prefill, wo folded,
            spec_k 0 and 3), and ``make_prefill_step`` logits at 4 x 512,
            with the dropped (token, slot) pairs of each layer;
-  moe-serve      qwen2-moe-a2.7b at full width cut to 12 of its 24 layers
+  moe-serve      qwen2-moe-a2.7b at full width cut to 4 of its 24 layers
            on the ``serve`` traffic:
            tokens/s, device ms a step, peak memory, weight bytes, launches
            by kernel (K1, K2, K3 and the grouped K1 > 0) and a profiled
            window (device ms by kernel, the port's kernels against the
            glue);
-  moe-prefill    the same 12 layers through ``make_prefill_step`` at 4 x
+  moe-prefill    the same 4 layers through ``make_prefill_step`` at 4 x
            512 (K5): ms a pass, launches, drops per layer, a profiled
            pass;
   ssm-kernels  (not in the default list; part of ``kernels``) the kernels
@@ -177,14 +196,15 @@ non-zero before the last line):
            tile's copy route) and out_proj at M 4 and 2048, K2's RMSNorm
            over d_inner (1536, 8192) with the Mamba plan, the grouped K1 at
            jamba's 16 experts of 4096 x 14336;
-  ssm-parity     full mamba2-130m (24 layers, attention-free): ServingEngine
+  ssm-parity     mamba2-130m at full width cut to 4 of its 24 layers
+           (attention-free): ServingEngine
            streams on ``cuda`` equal ``torch_ref``'s in both cache modes
            (6 prompts on 4 lanes, token-streaming prefill),
            ``make_prefill_step`` logits at 4 x 512 equal, and the prefill's
            last logits at 4 x 64 equal the token-streamed decode's; the
            ``cuda`` pass at 4 x 512 is the timed ``ssm-prefill`` path (ms,
            launches, peak memory);
-  ssm-serve      full mamba2-130m on the ``serve`` traffic: tokens/s, device
+  ssm-serve      the same 4 layers on the ``serve`` traffic: tokens/s, device
            and wall ms a step, launches a step (K1 three a layer and the
            head, K2 two a layer and the final norm), a profiled decode
            window (the busy share, the port's kernels against the
@@ -203,12 +223,13 @@ non-zero before the last line):
            beta) and 8192 (RMSNorm), K5 over seamless's encoder and cross
            at 4 x 64 x 512 and 4 x 64 x 1600 (GQA 64 / 8), K6 at 256 x
            8192, K3 over the whole memory (valid = Skv 512 / 1600);
-  encdec-parity  seamless-m4t-large-v2 at full depth (24 encoder and 24
-           decoder layers) over 4 x 512 source frames (float32 embeddings
-           of unit std): ``make_prefill_step`` logits at 4 x 64 on
-           ``cuda`` equal ``torch_ref``'s; ``int_prefill(return_cache=
-           True)`` of 63 tokens and one decode step equal the 64-token
-           prefill on both; the caches (``ck8`` / ``cv8`` included) equal;
+  encdec-parity  seamless-m4t-large-v2 at full width cut to 4 encoder and
+           4 decoder layers (of 24 and 24) over 4 x 512 source frames
+           (float32 embeddings of unit std): ``make_prefill_step``
+           logits at 4 x 64 on ``cuda`` equal ``torch_ref``'s;
+           ``int_prefill(return_cache=True)`` of 63 tokens and one decode
+           step equal the 64-token prefill on both; the caches (``ck8``
+           / ``cv8`` included) equal;
   encdec-decode  the same model: 4 prompts of 64 tokens (seed 5), 32
            greedy tokens through ``make_decode_step``, the streams of
            ``cuda`` equal ``torch_ref``'s; tokens/s, device and wall ms a
@@ -336,6 +357,9 @@ PATH_KERNELS = {
     "encode-online": ("int8_matmul", "int_layernorm",
                       "int_attention_online", "int_gelu"),
     "ops": ("int_softmax",),
+    "analysis": ("int8_matmul", "int_layernorm", "int_decode_attention",
+                 "int_paged_prefill", "int_attention_fused",
+                 "int_attention_online", "int_gelu"),
     "window-serve-paged": ("int8_matmul", "int_layernorm",
                            "int_decode_attention"),
     "window-serve-contiguous": ("int8_matmul", "int_layernorm",
@@ -388,6 +412,11 @@ PACK_GROUP = 64
 # tokens from seed 5, 16 new tokens each, batch 4, cache_len 512
 WINDOW_SERVE = dict(requests=8, lo=16, hi=64, max_new=16, batch=4,
                     cache_len=512)
+# window-serve / window-prefill: h2o-danube-3-4b at full width cut to 4
+# of its 24 layers, and kv4-serve / msr4-serve: llama3-8b cut to 8 of its
+# 32 (``serve`` and ``tp-serve`` keep all 32; to keep the whole script
+# within its time)
+WINDOW_LAYERS, SERVE_VARIANT_LAYERS = 4, 8
 # the encode path's traffic: RoBERTa's longest sequence at a GLUE
 # inference batch; the cuda == torch_ref parity batch
 ENCODE_BATCH, ENCODE_SEQ, PARITY_BATCH = 32, 512, 8
@@ -780,6 +809,7 @@ def check_kernels(cfg, plans):
                    lambda: int8_matmul(x8, w8, spec, b_vec=b_vec),
                    lambda: int8_matmul_plain(x8, w8, spec, b_vec=b_vec),
                    m * k + k * n + 4 * n + out_b * m * n, 2 * m * k * n,
+                   lib_ms=int_mm_ms(x8, w8) if m > 16 else None,
                    plan=k1_plan(m, n, k, x8=x8, w=w8))
         # per-tensor epilogue with a bias (not on the llama path; the
         # epilogue form the kernel must still get exactly right)
@@ -1735,7 +1765,8 @@ def check_encoder_kernels(cfg, plans, rows) -> None:
                lambda: int8_matmul_plain(x8, w8, spec, bias32=bias,
                                          b_vec=b_vec),
                tokens * k + k * n + 8 * n + out_b * tokens * n,
-               2 * tokens * k * n, iters=10, plan=k1_plan(tokens, n, k))
+               2 * tokens * k * n, lib_ms=int_mm_ms(x8, w8), iters=10,
+               plan=k1_plan(tokens, n, k))
     del x_cache
     x8 = _randint(gen, -127, 128, (ENCODE_BATCH, d), torch.int8)
     w8 = _randint(gen, -127, 128, (d, v), torch.int8)
@@ -2429,7 +2460,8 @@ def phase_packed_parity(cfg_full):
 
 def phase_serve(cfg, kv_dtype: str = "int8", weights: str = "int8",
                 label=None):
-    """Full llama3-8b on ``cuda`` over int8 (``serve``) or packed int4
+    """llama3-8b (``cfg``: all 32 layers for ``serve``, 8 for the others)
+    on ``cuda`` over int8 (``serve``) or packed int4
     (``kv4-serve``) KV pages, or on msr4 weights (``msr4-serve``, group 64,
     packed on the card and the dense model freed before serving):
     throughput, step times, peak memory, the pool's pages and bytes, the
@@ -2781,7 +2813,7 @@ def phase_window_parity(cfg_full):
 
 
 def phase_window_serve(cfg):
-    """Full h2o-danube-3-4b (24 layers) on ``cuda``, once per cache mode,
+    """h2o-danube-3-4b (``WINDOW_LAYERS``) on ``cuda``, once per cache mode,
     token-streaming prefill: throughput, step times, peak memory and the
     launches of each decode step (K1, K2, K3 and nothing else), then a
     profiled decode window.  Returns the launches of each mode's run."""
@@ -2883,7 +2915,8 @@ RETURN_CACHE_SEQ = 64
 
 
 def phase_window_prefill(cfg):
-    """Full h2o-danube-3-4b through ``launch.steps.make_prefill_step`` at
+    """h2o-danube-3-4b (``WINDOW_LAYERS``) through
+    ``launch.steps.make_prefill_step`` at
     4 x 256 tokens (seed 23) and ``int_prefill(return_cache=True)`` over
     their first ``RETURN_CACHE_SEQ`` (its caches are built token by token
     through the decode step: 256 would be ~75 s of the run): the logits of
@@ -3183,7 +3216,8 @@ def phase_ops(cfg, plans):
           "shape": list(scores.shape), "valid_len": 300,
           "call_ms": start.elapsed_time(end), "launches": launches,
           "max_abs_err": err,
-          "row_sum_min": int(row_sums.min()), "row_sum_max": int(row_sums.max()),
+          "row_sum_min": int(row_sums.min()),
+          "row_sum_max": int(row_sums.max()),
           "masked_nonzero": int(p8[..., 300:].ne(0).sum())})
     if err != 0 or p8[..., 300:].any():
         raise AssertionError("ops: int_softmax differs from its plain "
@@ -3194,6 +3228,288 @@ def phase_ops(cfg, plans):
     return launches
 
 
+# ------------------------------------------------------- analysis ----
+
+def main_path_reports(cfg, ecfg, sms: int):
+    """``analysis.contracts.check_launch`` of every launch the main paths
+    make, at their shapes: llama3-8b ``serve`` (K1 at every projection
+    and the head at M 4 / 16 / 128, dense, int4 nibbles and the MSR-4
+    correction at group 64; K2 at 4 and 128 rows; K3 at Sq 1 and
+    ``VERIFY_SQ``, unfolded and folded, over int8 and int4 pages; K4 at a
+    32-token chunk over both), a ``tp-serve`` rank at tp 2
+    (``check_tp_launch`` for K3 / K4, K1 at the rank's slices),
+    roberta-base ``encode`` / ``encode-online`` (K1 at 32 x 512 tokens
+    and the tied head, K2 LayerNorm + beta, K5, K8 at 128 x 128), the
+    ``ops`` phase's K7, and qwen2-moe-a2.7b's grouped K1 at a decode step
+    and a 4 x 512 pass.  Returns ``[(label, LaunchReport)]``."""
+    from repro_torch.analysis import contracts as C
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.intlayers import moe_capacity
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.padded_vocab()
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    out = []
+
+    def add(label, rep):
+        out.append((label, rep))
+
+    proj = (("wq", d, h * hd), ("wk", d, hkv * hd), ("wo", h * hd, d),
+            ("w1", d, f), ("w2", f, d), ("head", d, v))
+    for m in (4, 16, 128):
+        for tag, k, n in proj:
+            add(f"serve {tag} M={m}", C.check_launch(
+                "int8_matmul", m=m, n=n, k=k, sms=sms))
+            add(f"msr4 {tag} M={m} nibbles", C.check_launch(
+                "int8_matmul_packed", m=m, n=n, k=k, sms=sms))
+            add(f"msr4 {tag} M={m} correction", C.check_launch(
+                "int8_matmul_msr4", m=m, n=n, k=k, group=PACK_GROUP,
+                n_out=PACK_GROUP, sms=sms))
+        for tag, k, n in (("wq", d, h * hd // 2), ("wk", d, hkv * hd // 2),
+                          ("wo", h * hd // 2, d)):
+            add(f"tp-serve {tag} slice M={m}", C.check_launch(
+                "int8_matmul", m=m, n=n, k=k, sms=sms))
+    for rows_ in (4, 128):
+        add(f"serve rmsnorm {rows_} rows", C.check_launch(
+            "int_layernorm", rows=rows_, d=d, sms=sms))
+    batch, maxp, ps = 4, 512 // 16, 16
+    heads = dict(h=h, hkv=hkv, d=hd)
+    for kv4 in (False, True):
+        pool = dict(max_pages=maxp, page_size=ps, kv_pack=kv4,
+                    num_pages=batch * maxp + 1)
+        tier = "int4" if kv4 else "int8"
+        for sq in (1, VERIFY_SQ):
+            for fold in (False, True):
+                add(f"serve K3 {tier} Sq={sq}{' folded' if fold else ''}",
+                    C.check_launch("int_decode_attention", b=batch, sq=sq,
+                                   fold=fold, n_out=d, sms=sms, **heads,
+                                   **pool))
+            add(f"tp-serve K3 {tier} Sq={sq} tp=2", C.check_tp_launch(
+                "int_decode_attention", tp=2, b=batch, sq=sq, sms=sms,
+                **heads, **pool))
+        add(f"serve K4 {tier} C=32", C.check_launch(
+            "int_paged_prefill", b=batch, c=32, **heads, **pool))
+        add(f"tp-serve K4 {tier} C=32 tp=2", C.check_tp_launch(
+            "int_paged_prefill", tp=2, b=batch, c=32, **heads, **pool))
+    ed, ef, ev = ecfg.d_model, ecfg.d_ff, ecfg.padded_vocab()
+    tokens = ENCODE_BATCH * ENCODE_SEQ
+    for tag, k, n in (("wq", ed, ed), ("w1", ed, ef), ("w2", ef, ed)):
+        add(f"encode {tag} M={tokens}", C.check_launch(
+            "int8_matmul", m=tokens, n=n, k=k, sms=sms))
+    add(f"encode tied head M={ENCODE_BATCH}", C.check_launch(
+        "int8_matmul", m=ENCODE_BATCH, n=ev, k=ed, sms=sms))
+    add(f"encode layernorm {tokens} rows", C.check_launch(
+        "int_layernorm", rows=tokens, d=ed, subtract_mean=True, beta=True,
+        sms=sms))
+    enc = dict(b=ENCODE_BATCH, sq=ENCODE_SEQ, skv=ENCODE_SEQ,
+               h=ecfg.n_heads, hkv=ecfg.n_kv_heads, d=ecfg.hd)
+    add("encode K5", C.check_launch("int_attention", causal=False, **enc))
+    add("encode-online K8 128x128", C.check_launch(
+        "int_attention", online=True, bq=128, bkv=128, causal=False, **enc))
+    score_rows = ENCODE_BATCH * ecfg.n_heads * ENCODE_SEQ
+    for vl in (-1, 300):
+        add(f"ops K7 valid_len={vl}", C.check_launch(
+            "int_softmax", rows=score_rows, L=ENCODE_SEQ, valid_len=vl))
+    mcfg = get_config("qwen2-moe-a2.7b")
+    e, mf = mcfg.padded_experts(), mcfg.moe_d_ff or mcfg.d_ff
+    for tag, r in (("decode", 4 * moe_capacity(mcfg, 1)),
+                   ("4x512 pass", 160)):
+        for w, k, n in (("w1", mcfg.d_model, mf), ("w2", mf, mcfg.d_model)):
+            add(f"qwen2-moe grouped {w} {tag} R={r}", C.check_launch(
+                "int8_matmul_grouped", e=e, r=r, n=n, k=k))
+    return out
+
+
+def _drive_recorded(cfg, ecfg):
+    """Inside ``kernels.record_launches``: llama3-8b at full width cut to
+    2 layers through ``ServingEngine`` on ``cuda`` (one 40-token prompt:
+    two prefill chunks of 32, then decode steps), a ``spec_k = 3`` engine
+    on a repeating prompt (verify steps), and one roberta-base pass (2
+    layers, 4 x 512) on ``cuda`` and on ``cuda_online``.  Returns
+    ``(records, launches)``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.quant import convert
+    lcfg = dataclasses.replace(cfg, num_layers=2)
+    qp, plans = convert.init_quantized(
+        lcfg, seed=0, device="cuda",
+        embed_scale=convert.unit_embed_scale(lcfg))
+    geom = dict(batch_size=4, cache_len=512, page_size=16, prefill_chunk=32,
+                fold_wo=True)
+    e2 = dataclasses.replace(ecfg, num_layers=2)
+    eqp, eplans = convert.init_quantized(
+        e2, seed=0, device="cuda", embed_scale=convert.unit_embed_scale(e2))
+    toks = np.random.default_rng(23).integers(0, e2.vocab, (4, ENCODE_SEQ))
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    with kernels.record_launches() as rec:
+        eng, reqs = run_engine(qp, plans, lcfg,
+                               _prompts(31, 1, 40, 40, lcfg.vocab), 3,
+                               "cuda", **geom)
+        drain_streams(eng, reqs)
+        eng, reqs = run_engine(qp, plans, lcfg,
+                               [_repeat_prompt(17, lcfg.vocab)], 8, "cuda",
+                               spec_k=SPEC_K, **geom)
+        drain_streams(eng, reqs)
+        for ops in ("cuda", "cuda_online"):
+            _prefill(e2, eplans, ops, eqp, toks)
+        torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    del eng, qp, eqp
+    return rec, launches
+
+
+def _refusals():
+    """Shapes the contract refuses, launched on the card: each wrapper must
+    raise ``KernelContractError`` before launching (``kernels.LAUNCHES``
+    unchanged).  Returns the number of cases."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.analysis.contracts import KernelContractError
+    from repro_torch.core import attention as iattn
+    from repro_torch.core import norms as inorms
+    from repro_torch.kernels.int_attention import int_attention_online
+    from repro_torch.kernels.int_attention_fused import (
+        int_attention_fused, int_paged_prefill_fused)
+    from repro_torch.kernels.int_decode_attention import \
+        int_decode_attention_fused
+    from repro_torch.kernels.int_layernorm import int_layernorm
+
+    def i8(*shape):
+        return torch.zeros(shape, dtype=torch.int8, device="cuda")
+
+    def i32(*vals):
+        return torch.tensor(vals, dtype=torch.int32, device="cuda")
+
+    def attn_plan(dd):
+        return iattn.make_iattention(dd, 8 / 127, 8 / 127, 4 / 127, 4 / 127)
+
+    p96, p128 = attn_plan(96), attn_plan(128)
+    norm = inorms.make_inorm(8200, 2.0 ** -9, 4096, 2 / 127, 8 / 127)
+    pages = i32(1, 2)[None, :]
+    cases = {
+        "D 96 K5": lambda: int_attention_fused(i8(1, 64, 2, 96),
+                                               i8(1, 64, 2, 96),
+                                               i8(1, 64, 2, 96), p96),
+        "D 96 K3": lambda: int_decode_attention_fused(
+            i8(1, 1, 2, 96), i8(1, 64, 2, 96), i8(1, 64, 2, 96), p96,
+            i32(5)),
+        "D 96 K4": lambda: int_paged_prefill_fused(
+            i8(1, 16, 2, 96), i8(3, 16, 2, 96), i8(3, 16, 2, 96), p96,
+            i32(16), pages, 16),
+        "D 96 K8": lambda: int_attention_online(
+            i8(1, 64, 2, 96), i8(1, 64, 2, 96), i8(1, 64, 2, 96), p96,
+            bq=64, bkv=64),
+        "K2 d 8200": lambda: int_layernorm(
+            torch.zeros((2, 8200), dtype=torch.int32, device="cuda"),
+            torch.ones(8200, dtype=torch.int32, device="cuda"), None, norm),
+        "decode Sq 9": lambda: int_decode_attention_fused(
+            i8(1, 9, 32, 128), i8(1, 64, 8, 128), i8(1, 64, 8, 128), p128,
+            i32(64)),
+        "H 30 / Hkv 8 K3": lambda: int_decode_attention_fused(
+            i8(1, 1, 30, 128), i8(1, 64, 8, 128), i8(1, 64, 8, 128), p128,
+            i32(64)),
+        "H 30 / Hkv 8 K5": lambda: int_attention_fused(
+            i8(1, 64, 30, 128), i8(1, 64, 8, 128), i8(1, 64, 8, 128), p128),
+    }
+    for name, call in cases.items():
+        before = dict(kernels.LAUNCHES)
+        try:
+            call()
+        except KernelContractError as e:
+            reason = "; ".join(e.reasons)
+        else:
+            raise AssertionError(f"analysis: {name} launched; the contract "
+                                 "refuses it")
+        torch.cuda.synchronize()
+        if kernels.LAUNCHES != before:
+            raise AssertionError(f"analysis: {name} counted a launch")
+        emit({"phase": "analysis-refusal", "case": name, "raised":
+              "KernelContractError", "reason": reason})
+    return len(cases)
+
+
+def phase_analysis(cfg, ecfg) -> dict:
+    """The analysis layer on the card: ``certify_config`` of all 13
+    configs at (4096, 32768); the ``check_launch`` report of every
+    main-path launch (:func:`main_path_reports`), each ``ok``, and for
+    every distinct instantiation they name the card's registers, spills,
+    ``maxThreadsPerBlock`` and occupancy at the report's threads, shared
+    memory and cluster (``kernels._abi.kernel_attributes``): the shared
+    memory within ``shared_memory_per_block_optin``, the threads within
+    ``maxThreadsPerBlock``, occupancy >= 1 (K6, which has no contract, at
+    its 256 threads too); the launches of llama3-8b's decode, chunk and
+    verify steps and a roberta-base pass recorded and each equal to an
+    ``ok`` report's route, grid, cluster and shared memory; and the
+    refused shapes (:func:`_refusals`).  Returns the driven launches."""
+    import torch
+    from repro_torch.analysis import contracts
+    from repro_torch.analysis.interpret import certify_config
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.kernels._abi import kernel_attributes
+    t0 = time.perf_counter()
+    for name in sorted(ARCHS):
+        r = certify_config(ARCHS[name], seq_len=4096, cache_len=32768)
+        emit({"phase": "analysis-certify", "arch": name,
+              "worst_bits": r.worst_bits,
+              "min_headroom_bits": r.min_headroom_bits,
+              "n_ops": len(r.ops), "n_dyadics": r.n_dyadics})
+    props = torch.cuda.get_device_properties(0)
+    sms, optin = props.multi_processor_count, \
+        props.shared_memory_per_block_optin
+    reports = main_path_reports(cfg, ecfg, sms)
+    bad = [(label, rep.reasons) for label, rep in reports if not rep.ok]
+    if bad:
+        raise AssertionError(f"analysis: main-path launches refused: {bad}")
+    users = {}
+    for label, rep in reports:
+        key = (rep.kernel, rep.threads, rep.smem_bytes, rep.cluster)
+        users.setdefault(key, []).append(label)
+    users[(("int_gelu",), 256, 0, 1)] = ["encode K6 (no contract)"]
+    for (kernel, threads, smem, cluster), labels in sorted(
+            users.items(), key=str):
+        a = kernel_attributes(kernel, threads, smem, cluster)
+        row = {"phase": "analysis-kernel", "kernel": list(kernel),
+               "threads": threads, "smem_bytes": smem, "cluster": cluster,
+               **a, "optin_smem": optin, "reports": len(labels),
+               "first": labels[0]}
+        emit(row)
+        if smem + a["static_smem"] > optin or threads > a["max_threads"] \
+                or a["occupancy"] < 1:
+            raise AssertionError(f"analysis: {kernel} does not fit the card "
+                                 f"at {threads} threads, {smem} B: {row}")
+    records, launches = _drive_recorded(cfg, ecfg)
+    missing = [k for k in PATH_KERNELS["analysis"] if launches[k] <= 0]
+    if missing:
+        raise AssertionError(
+            f"analysis: the driven steps launched no {missing}")
+    seen = {}
+    for op, params, launched in records:
+        rep = contracts.check_launch(op, **params)
+        got = {k: getattr(rep, k) for k in launched}
+        if not rep.ok or got != launched:
+            raise AssertionError(f"analysis: {op} {params} launched "
+                                 f"{launched}, the contract says {got} "
+                                 f"(ok={rep.ok})")
+        tag = op if op != "int_decode_attention" else f"{op} Sq={params['sq']}"
+        tag = f"{tag} online" if params.get("online") else tag
+        seen[tag] = seen.get(tag, 0) + 1
+    want = {"int8_matmul", "int_layernorm", "int_decode_attention Sq=1",
+            f"int_decode_attention Sq={VERIFY_SQ}", "int_paged_prefill",
+            "int_attention", "int_attention online"}
+    if not want <= set(seen):
+        raise AssertionError(f"analysis: no recorded launch of "
+                             f"{sorted(want - set(seen))}")
+    refused = _refusals()
+    emit({"phase": "analysis", "configs": len(ARCHS),
+          "reports": len(reports), "instantiations": len(users),
+          "recorded": len(records), "recorded_by_op": seen,
+          "refusals": refused, "launches": launches,
+          "seconds": time.perf_counter() - t0})
+    return launches
+
+
 # ------------------------------------------------------------- the zoo ----
 
 # the configs of the reference's registry ROADMAP §1 item 1 added: the
@@ -3201,9 +3517,9 @@ def phase_ops(cfg, plans):
 # of this many tokens a sequence (roberta-large its longest, deit-s its
 # 196 patches + 1)
 ZOO_DECODERS = ("codeqwen1.5-7b", "granite-3-2b")
-# zoo-serve: the decoders at full width cut to 16 layers (to
+# zoo-serve: the decoders at full width cut to 4 layers (to
 # keep the whole script within its time)
-ZOO_SERVE_LAYERS = 16
+ZOO_SERVE_LAYERS = 4
 ZOO_ENCODERS = {"roberta-large": 512, "deit-s": 197}
 # llama3-8b's long prefill: above the reference's full-matrix threshold
 # (S * S > 4096^2 / 4), where ``ref`` streams the chunked two-pass path
@@ -3516,9 +3832,9 @@ def phase_long_prefill(cfg_full):
 # pass at 4 x 512 (one routing group of 512 tokens a sequence)
 MOE_ARCHS = ("qwen2-moe-a2.7b", "qwen3-moe-235b-a22b")
 MOE_BATCH, MOE_SEQ = 4, 512
-# moe-serve / moe-prefill: qwen2-moe-a2.7b at full width cut to 12 of its
+# moe-serve / moe-prefill: qwen2-moe-a2.7b at full width cut to 4 of its
 # 24 layers (to keep the whole script within its time)
-MOE_SERVE_LAYERS = 12
+MOE_SERVE_LAYERS = 4
 
 
 def moe_config(name: str, layers: int = 0):
@@ -3792,7 +4108,8 @@ def phase_moe_parity() -> None:
 
 
 def phase_moe_serve(cfg, model):
-    """Full qwen2-moe-a2.7b on ``cuda`` on the ``serve`` phase's traffic
+    """qwen2-moe-a2.7b (``MOE_SERVE_LAYERS``) on ``cuda`` on the ``serve``
+    phase's traffic
     (8 requests, prompts of 32-200 tokens from seed 5, 32 new tokens,
     batch 4), token-streaming prefill: tokens/s, device ms a step (CUDA
     events), peak memory, weight bytes, launches by kernel (K1, K2, K3
@@ -3854,10 +4171,11 @@ def phase_moe_serve(cfg, model):
 
 
 def phase_moe_prefill(cfg, model):
-    """Full qwen2-moe-a2.7b through ``make_prefill_step`` on ``cuda`` at 4
-    x 512 (K5: S * Skv <= 2^22): ms a pass (CUDA events), launches a
-    pass, the dropped (token, slot) pairs of each layer, then one profiled
-    pass.  Returns the launches of the timed passes."""
+    """qwen2-moe-a2.7b (``MOE_SERVE_LAYERS``) through
+    ``make_prefill_step`` on ``cuda`` at 4 x 512 (K5: S * Skv <= 2^22):
+    ms a pass (CUDA events), launches a pass, the dropped (token, slot)
+    pairs of each layer, then one profiled pass.  Returns the launches of
+    the timed passes."""
     import numpy as np
     import torch
     from repro_torch import kernels
@@ -3911,15 +4229,18 @@ def phase_moe_prefill(cfg, model):
 # ------------------------------------------------ state-space models -----
 
 SSM_ARCHS = ("mamba2-130m", "jamba-v0.1-52b")
-# jamba runs one layer group (8 sublayers: every kind of the model); all
-# 32 layers would be ~51.5 GB of int8 and their set-up in every run
-SSM_LAYERS = {"mamba2-130m": 0, "jamba-v0.1-52b": 8}
+# mamba2-130m cut to 4 of its 24 layers (every layer is the same Mamba
+# sublayer; to keep the whole script within its time); jamba runs one
+# layer group (8 sublayers: every kind of the model); all 32 layers would
+# be ~51.5 GB of int8 and their set-up in every run
+SSM_LAYERS = {"mamba2-130m": 4, "jamba-v0.1-52b": 8}
 SSM_PHASES = {"mamba2-130m": "ssm", "jamba-v0.1-52b": "hybrid"}
 SSM_BATCH, SSM_SEQ, SSM_STREAM_SEQ, SSM_PROFILE_SEQ = 4, 512, 64, 16
 
 
 def ssm_config(name: str):
-    """Full-width ``name``; jamba cut to one layer group."""
+    """Full-width ``name`` cut to ``SSM_LAYERS``; jamba to one layer
+    group."""
     return moe_config(name, SSM_LAYERS[name])
 
 
@@ -4023,17 +4344,16 @@ def _ssm_streams(qp, plans, cfg, prompts, backend, cache_mode):
 
 
 def phase_ssm_parity(name, model):
-    """``<ssm|hybrid>-parity``: mamba2-130m (24 layers) or jamba-v0.1-52b
-    (one group of 8) at full width.  ``ServingEngine`` streams (6 prompts
-    of 8-24 tokens on 4 lanes: two lanes recycled, their state zeroed)
-    on ``cuda`` equal ``torch_ref``'s, in the paged and the contiguous
-    layout; ``make_prefill_step`` logits at 4 x 512 on ``cuda`` equal
-    ``torch_ref``'s; ``int_prefill``'s last logits at 4 x 64 equal the
-    token-streamed decode's (``make_decode_step``; jamba at capacity
-    factor 8, where no prefill group drops a token, as the reference's
-    own check runs).  The ``cuda`` pass at 4 x 512 is also the timed
-    ``<ssm|hybrid>-prefill`` path (CUDA events, launches, peak memory):
-    its launches are returned."""
+    """``<ssm|hybrid>-parity``: mamba2-130m (4 of 24 layers) or jamba-v0.1-52b
+    (one group of 8) at full width.  ``ServingEngine`` streams (6 prompts of
+    8-24 tokens on 4 lanes: two lanes recycled, their state zeroed) on ``cuda``
+    equal ``torch_ref``'s, in the paged and the contiguous layout;
+    ``make_prefill_step`` logits at 4 x 512 on ``cuda`` equal ``torch_ref``'s;
+    ``int_prefill``'s last logits at 4 x 64 equal the token-streamed decode's
+    (``make_decode_step``; jamba at capacity factor 8, where no prefill group
+    drops a token, as the reference's own check runs).  The ``cuda`` pass at 4
+    x 512 is also the timed ``<ssm|hybrid>-prefill`` path (CUDA events,
+    launches, peak memory): its launches are returned."""
     import dataclasses
 
     import numpy as np
@@ -4130,17 +4450,17 @@ def phase_ssm_parity(name, model):
 
 
 def phase_ssm_serve(name, model):
-    """``<ssm|hybrid>-serve``: mamba2-130m (24 layers) or jamba-v0.1-52b
-    (one group) on ``cuda`` on the ``serve`` phase's traffic (8 requests,
-    prompts of 32-200 tokens from seed 5, 32 new tokens, batch 4,
-    cache_len 512), token-streaming prefill: tokens/s, device ms a step
-    (CUDA events), wall ms a step, peak memory, weight bytes, launches a
-    step (each as :func:`ssm_decode_launches` counts), then a profiled
-    decode window (the busy share, the port's kernels against the glue:
-    the recurrence, conv, Δt and gate code, and for jamba the MoE
-    routing) and a profiled 4 x 16 prefill pass (its sequential state
-    updates, one a token and a Mamba sublayer).  Returns the launches of
-    the serve run, by path."""
+    """``<ssm|hybrid>-serve``: mamba2-130m (4 of 24 layers) or
+    jamba-v0.1-52b (one group) on ``cuda`` on the ``serve`` phase's
+    traffic (8 requests, prompts of 32-200 tokens from seed 5, 32 new
+    tokens, batch 4, cache_len 512), token-streaming prefill: tokens/s,
+    device ms a step (CUDA events), wall ms a step, peak memory, weight
+    bytes, launches a step (each as :func:`ssm_decode_launches` counts),
+    then a profiled decode window (the busy share, the port's kernels
+    against the glue: the recurrence, conv, Δt and gate code, and for
+    jamba the MoE routing) and a profiled 4 x 16 prefill pass (its
+    sequential state updates, one a token and a Mamba sublayer).  Returns
+    the launches of the serve run, by path."""
     import numpy as np
     import torch
     from repro_torch import kernels
@@ -4216,18 +4536,25 @@ def phase_ssm_serve(name, model):
 CROSS_ARCHS = ("seamless-m4t-large-v2", "llama-3.2-vision-90b")
 CROSS_PHASES = {"seamless-m4t-large-v2": "encdec",
                 "llama-3.2-vision-90b": "vlm"}
-# seamless at full depth (24 encoder + 24 decoder layers); the VLM at
-# full width cut to one group of five sublayers (4 self, 1 cross): 100
-# layers would be ~86 GB of int8 linears, more than the card holds
-CROSS_LAYERS = {"seamless-m4t-large-v2": 0, "llama-3.2-vision-90b": 5}
+# seamless at full width cut to 4 encoder + 4 decoder layers of its 24 +
+# 24 (to keep the whole script within its time); the VLM at full width
+# cut to one group of five sublayers (4 self, 1 cross): 100 layers would
+# be ~86 GB of int8 linears, more than the card holds
+CROSS_LAYERS = {"seamless-m4t-large-v2": 4, "llama-3.2-vision-90b": 5}
 # the memory: seamless's source frames, the VLM's image tokens
 CROSS_MEMORY = {"seamless-m4t-large-v2": 512, "llama-3.2-vision-90b": 1600}
 CROSS_BATCH, CROSS_SEQ, CROSS_NEW, CROSS_PROFILE_STEPS = 4, 64, 32, 4
 
 
 def cross_config(name: str):
-    """Full-width ``name``; the VLM cut to one group of five."""
-    return moe_config(name, CROSS_LAYERS[name])
+    """Full-width ``name`` cut to ``CROSS_LAYERS`` (an encoder-decoder's
+    encoder and decoder stacks both); the VLM to one group of five."""
+    import dataclasses
+    cfg = moe_config(name, CROSS_LAYERS[name])
+    if cfg.family == "encdec":
+        cfg = dataclasses.replace(cfg, enc_layers=CROSS_LAYERS[name],
+                                  dec_layers=CROSS_LAYERS[name])
+    return cfg
 
 
 def cross_batch(cfg, seed: int):
@@ -4396,10 +4723,10 @@ def _caches_same(a, b):
 
 
 def phase_cross_parity(name, model):
-    """``<encdec|vlm>-parity``: seamless-m4t-large-v2 (24 + 24 layers) or
-    llama-3.2-vision-90b (one group of five) at full width over a memory
-    of 4 x 512 frames / 4 x 1600 image tokens.  ``make_prefill_step``
-    logits at 4 x 64 on ``cuda`` equal ``torch_ref``'s;
+    """``<encdec|vlm>-parity``: seamless-m4t-large-v2 (4 + 4 of 24 + 24
+    layers) or llama-3.2-vision-90b (one group of five) at full width
+    over a memory of 4 x 512 frames / 4 x 1600 image tokens.
+    ``make_prefill_step`` logits at 4 x 64 on ``cuda`` equal ``torch_ref``'s;
     ``int_prefill(return_cache=True)`` of the first 63 tokens, then one
     ``make_decode_step`` of token 63, equals the 64-token prefill on both
     backends (the reference's own check); the caches built (self K/V and
@@ -5164,7 +5491,7 @@ def _leaves(tree):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="build,kernels,parity,serve,encode,"
-                    "encode-online,ops,window-parity,window-serve,"
+                    "encode-online,ops,analysis,window-parity,window-serve,"
                     "window-prefill,kv4-parity,kv4-serve,packed-parity,"
                     "msr4-serve,zoo-parity,zoo-serve,zoo-encode,"
                     "long-prefill,moe-parity,moe-serve,moe-prefill,"
@@ -5255,20 +5582,24 @@ def main(argv=None) -> int:
         del model
     if "ops" in phases:
         launches["ops"] = phase_ops(ecfg, qplans.build_layer_plans(ecfg))
+    if "analysis" in phases:
+        launches["analysis"] = phase_analysis(cfg, ecfg)
     if "window-parity" in phases:
         phase_window_parity(window_config())
+    wcut = dataclasses.replace(window_config(), num_layers=WINDOW_LAYERS)
     if "window-serve" in phases:
-        launches.update(phase_window_serve(window_config()))
+        launches.update(phase_window_serve(wcut))
     if "window-prefill" in phases:
-        launches["window-prefill"] = phase_window_prefill(window_config())
+        launches["window-prefill"] = phase_window_prefill(wcut)
     if "kv4-parity" in phases:
         phase_parity(cfg, kv_dtype="int4")
+    vcut = dataclasses.replace(cfg, num_layers=SERVE_VARIANT_LAYERS)
     if "kv4-serve" in phases:
-        launches.update(phase_serve(cfg, kv_dtype="int4"))
+        launches.update(phase_serve(vcut, kv_dtype="int4"))
     if "packed-parity" in phases:
         phase_packed_parity(cfg)
     if "msr4-serve" in phases:
-        launches.update(phase_serve(cfg, weights="msr4"))
+        launches.update(phase_serve(vcut, weights="msr4"))
     if "zoo-parity" in phases:
         phase_zoo_parity()
     if "zoo-serve" in phases:

@@ -21,23 +21,35 @@ MAX_SQ = 8
 
 
 class BitBudgetError(ValueError):
-    """A worst-case integer range left its budget (a ``ValueError``)."""
+    """A worst-case integer range left its budget (a ``ValueError``).
 
-    def __init__(self, what: str, value: int, budget: int = INT32_MAX):
+    Fields: ``what`` (the intermediate), ``value`` (its worst case),
+    ``budget`` (the bound it had to stay under), ``op`` (the ops-API op
+    being certified, or None) and ``layer`` (the model-walk location,
+    e.g. ``"ffn.down"``, or None); the message names both where given."""
+
+    def __init__(self, what: str, value: int, budget: int = INT32_MAX,
+                 op: str | None = None, layer: str | None = None):
         self.what = what
         self.value = int(value)
         self.budget = int(budget)
+        self.op = op
+        self.layer = layer
+        where = "".join(
+            f" [{k}={v}]" for k, v in (("op", op), ("layer", layer)) if v)
         if budget == INT32_MAX:
-            msg = f"int32 overflow in {what}: worst case {value} > 2^31-1"
+            msg = (f"int32 overflow in {what}: worst case {value} > "
+                   f"2^31-1{where}")
         else:
-            msg = f"budget exceeded in {what}: {value} > {budget}"
+            msg = f"budget exceeded in {what}: {value} > {budget}{where}"
         super().__init__(msg)
 
 
-def static_check(val: int, what: str, budget: int = INT32_MAX) -> int:
+def static_check(val: int, what: str, budget: int = INT32_MAX,
+                 op: str | None = None, layer: str | None = None) -> int:
     """Design-time bound check; returns ``val`` so checks can inline."""
     if val > budget:
-        raise BitBudgetError(what, val, budget)
+        raise BitBudgetError(what, val, budget, op=op, layer=layer)
     return val
 
 

@@ -94,6 +94,7 @@
 #include "int_common.cuh"
 #include "int_mma.cuh"
 #include "int8_mma_tile.cuh"
+#include "int_attrs.cuh"
 
 namespace r8 {
 namespace tc {
@@ -324,4 +325,23 @@ extern "C" int r8_int8_matmul(const void* x, const void* w, const void* bias,
 
 extern "C" const char* r8_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
+}
+
+// The card's attributes of one instantiation at a launch's threads, shared
+// memory and cluster (int_attrs.cuh; sel: BM 64 or 128, packed); out[6]
+extern "C" int r8_attrs_int8_matmul(const int* sel, int threads, int smem,
+                                    int cluster, int* out) {
+  if (cluster != 1) return (int)cudaErrorInvalidValue;
+  const bool packed = sel[1] != 0;
+  if (sel[0] == 64)
+    return packed ? r8::attrs(r8::tc::int8_matmul_mma_kernel<64, true>,
+                              threads, smem, 1, 1, out)
+                  : r8::attrs(r8::tc::int8_matmul_mma_kernel<64, false>,
+                              threads, smem, 1, 1, out);
+  if (sel[0] == 128)
+    return packed ? r8::attrs(r8::tc::int8_matmul_mma_kernel<128, true>,
+                              threads, smem, 1, 1, out)
+                  : r8::attrs(r8::tc::int8_matmul_mma_kernel<128, false>,
+                              threads, smem, 1, 1, out);
+  return (int)cudaErrorInvalidValue;
 }

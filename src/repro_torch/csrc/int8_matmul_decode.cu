@@ -91,6 +91,7 @@
 #include "int_cluster.cuh"
 #include "int_common.cuh"
 #include "int_mma.cuh"
+#include "int_attrs.cuh"
 
 namespace r8 {
 namespace dec {
@@ -577,5 +578,26 @@ extern "C" int r8_int8_matmul_decode(const r8::dec::Args* a, const void* wmap,
   if (bn == 64)
     return packed ? r8::dec::launch<64, true>(*a, wmap, xmap, cluster, s)
                   : r8::dec::launch<64, false>(*a, wmap, xmap, cluster, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The card's attributes of one instantiation at a launch's threads, shared
+// memory and cluster (int_attrs.cuh; sel: BN 128 or 64, packed; the cluster
+// splits K along grid z); out[6]
+extern "C" int r8_attrs_int8_matmul_decode(const int* sel, int threads,
+                                           int smem, int cluster, int* out) {
+  const bool packed = sel[1] != 0;
+  if (sel[0] == 128)
+    return packed
+               ? r8::attrs(r8::dec::int8_matmul_decode_kernel<128, true>,
+                           threads, smem, 1, cluster, out)
+               : r8::attrs(r8::dec::int8_matmul_decode_kernel<128, false>,
+                           threads, smem, 1, cluster, out);
+  if (sel[0] == 64)
+    return packed
+               ? r8::attrs(r8::dec::int8_matmul_decode_kernel<64, true>,
+                           threads, smem, 1, cluster, out)
+               : r8::attrs(r8::dec::int8_matmul_decode_kernel<64, false>,
+                           threads, smem, 1, cluster, out);
   return (int)cudaErrorInvalidValue;
 }

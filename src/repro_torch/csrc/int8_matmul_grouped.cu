@@ -45,6 +45,7 @@
 #include "int_common.cuh"
 #include "int_mma.cuh"
 #include "int8_mma_tile.cuh"
+#include "int_attrs.cuh"
 
 namespace r8 {
 namespace grp {
@@ -255,5 +256,19 @@ extern "C" int r8_int8_matmul_grouped(const r8::grp::Args* a, int bm,
   const cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (bm == 16) return r8::grp::launch<16>(*a, s);
   if (bm == 64) return r8::grp::launch<64>(*a, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The card's attributes of one instantiation at a launch's threads, shared
+// memory and cluster (int_attrs.cuh; sel: BM 16 or 64); out[6]
+extern "C" int r8_attrs_int8_matmul_grouped(const int* sel, int threads,
+                                            int smem, int cluster, int* out) {
+  if (cluster != 1) return (int)cudaErrorInvalidValue;
+  if (sel[0] == 16)
+    return r8::attrs(r8::grp::int8_matmul_grouped_kernel<16>, threads, smem,
+                     1, 1, out);
+  if (sel[0] == 64)
+    return r8::attrs(r8::grp::int8_matmul_grouped_kernel<64>, threads, smem,
+                     1, 1, out);
   return (int)cudaErrorInvalidValue;
 }

@@ -97,6 +97,7 @@
 // with no int32 round trip, is a later, smaller speed item.
 #include "int_common.cuh"
 #include "int_mma.cuh"
+#include "int_attrs.cuh"
 
 namespace r8 {
 namespace msr4 {
@@ -600,5 +601,29 @@ extern "C" int r8_int8_matmul_msr4_mma(const r8::msr4::MmaArgs* a, int bm,
   if (bm == 16) return r8::msr4::launch_mma<16>(*a, splits, smem, s);
   if (bm == 64) return r8::msr4::launch_mma<64>(*a, splits, smem, s);
   if (bm == 128) return r8::msr4::launch_mma<128>(*a, splits, smem, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The card's attributes of one instantiation at a launch's threads, shared
+// memory and cluster (int_attrs.cuh; sel: route (1 the tensor cores, 0 the
+// gather), rows a block); out[6]
+extern "C" int r8_attrs_int8_matmul_msr4(const int* sel, int threads,
+                                         int smem, int cluster, int* out) {
+  using namespace r8::msr4;
+  if (cluster != 1) return (int)cudaErrorInvalidValue;
+  if (sel[0]) {
+    if (sel[1] == 16)
+      return r8::attrs(msr4_correct_mma_kernel<16>, threads, smem, 1, 1, out);
+    if (sel[1] == 64)
+      return r8::attrs(msr4_correct_mma_kernel<64>, threads, smem, 1, 1, out);
+    if (sel[1] == 128)
+      return r8::attrs(msr4_correct_mma_kernel<128>, threads, smem, 1, 1,
+                       out);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (sel[1] == 4)
+    return r8::attrs(msr4_correct_kernel<4>, threads, smem, 1, 1, out);
+  if (sel[1] == 16)
+    return r8::attrs(msr4_correct_kernel<16>, threads, smem, 1, 1, out);
   return (int)cudaErrorInvalidValue;
 }

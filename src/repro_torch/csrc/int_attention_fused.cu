@@ -28,6 +28,7 @@
 // zero past D, in registers), K tiles come in 8-byte granules (a head's
 // row is 120 bytes, 8-byte aligned), and P·V keeps 15 output n-tiles.
 #include "int_attention_mma.cuh"
+#include "int_attrs.cuh"
 
 // the dynamic shared memory of a K5 block (head dim D, `tiles` key tiles
 // of e16 store when `store`), or -1 for a head dim the kernel is not
@@ -87,4 +88,38 @@ extern "C" int r8_exp16_div_check(int n_max, int q_ln2, unsigned magic,
   r8::k5::div_check_kernel<<<blocks < 4096 ? blocks : 4096, 256, 0, s>>>(
       n_max, q_ln2, magic, shift, bad);
   return (int)cudaGetLastError();
+}
+
+namespace r8 {
+namespace k5 {
+
+template <int D>
+int attrs_d(int lo, int store, int threads, int smem, int* out) {
+  if (lo)
+    return store ? attrs(int_attention_mma_kernel<D, true, true>, threads,
+                         smem, 1, 1, out)
+                 : attrs(int_attention_mma_kernel<D, true, false>, threads,
+                         smem, 1, 1, out);
+  return store ? attrs(int_attention_mma_kernel<D, false, true>, threads,
+                       smem, 1, 1, out)
+               : attrs(int_attention_mma_kernel<D, false, false>, threads,
+                       smem, 1, 1, out);
+}
+
+}  // namespace k5
+}  // namespace r8
+
+// The card's attributes of one instantiation at a launch's threads, shared
+// memory and cluster (int_attrs.cuh; sel: D, LO (a window), STORE); out[6]
+extern "C" int r8_attrs_int_attention_fused(const int* sel, int threads,
+                                            int smem, int cluster, int* out) {
+  using namespace r8::k5;
+  if (cluster != 1) return (int)cudaErrorInvalidValue;
+  switch (sel[0]) {
+    case 32: return attrs_d<32>(sel[1], sel[2], threads, smem, out);
+    case 64: return attrs_d<64>(sel[1], sel[2], threads, smem, out);
+    case 120: return attrs_d<120>(sel[1], sel[2], threads, smem, out);
+    case 128: return attrs_d<128>(sel[1], sel[2], threads, smem, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -58,6 +58,7 @@
 // multiple of 32 takes K5's zero-padded k-steps and 8-byte K copies
 // (int_attention_tc.cuh).
 #include "int_attention_tc.cuh"
+#include "int_attrs.cuh"
 
 namespace r8 {
 namespace k8 {
@@ -366,6 +367,31 @@ extern "C" int r8_int_attention_online(const r8::k8::Args* a, void* stream) {
       return r8::k8::launch<120>(*a, s);
     case 128:
       return r8::k8::launch<128>(*a, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The card's attributes of one instantiation at a launch's threads, shared
+// memory and cluster (int_attrs.cuh; sel: D); out[6]
+extern "C" int r8_attrs_int_attention_online(const int* sel, int threads,
+                                             int smem, int cluster,
+                                             int* out) {
+  using r8::k8::int_attention_online_kernel;
+  if (cluster != 1) return (int)cudaErrorInvalidValue;
+  switch (sel[0]) {
+    case 32:
+      return r8::attrs(int_attention_online_kernel<32>, threads, smem, 1, 1,
+                       out);
+    case 64:
+      return r8::attrs(int_attention_online_kernel<64>, threads, smem, 1, 1,
+                       out);
+    case 120:
+      return r8::attrs(int_attention_online_kernel<120>, threads, smem, 1, 1,
+                       out);
+    case 128:
+      return r8::attrs(int_attention_online_kernel<128>, threads, smem, 1, 1,
+                       out);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -86,6 +86,7 @@
 // Hkv * C blocks, more than the 8 (16) a cluster may have.
 #include "int_attention_tc.cuh"
 #include "int_cluster.cuh"
+#include "int_attrs.cuh"
 
 namespace r8 {
 namespace k3 {
@@ -791,6 +792,58 @@ extern "C" int r8_int_decode_attention(const r8::k3::Args* a, void* stream) {
       return launch_d<120>(*a, s);
     case 128:
       return launch_d<128>(*a, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+namespace r8 {
+namespace k3 {
+
+template <int D>
+int attrs_d(int paged, int packed, int resident, int threads, int smem,
+            int cluster, int* out) {
+  if (packed && !paged) return (int)cudaErrorInvalidValue;
+  if (packed)
+    return resident
+               ? attrs(int_decode_attention_kernel<D, true, true, true>,
+                       threads, smem, cluster, 1, out)
+               : attrs(int_decode_attention_kernel<D, true, true, false>,
+                       threads, smem, cluster, 1, out);
+  if (paged)
+    return resident
+               ? attrs(int_decode_attention_kernel<D, true, false, true>,
+                       threads, smem, cluster, 1, out)
+               : attrs(int_decode_attention_kernel<D, true, false, false>,
+                       threads, smem, cluster, 1, out);
+  return resident
+             ? attrs(int_decode_attention_kernel<D, false, false, true>,
+                     threads, smem, cluster, 1, out)
+             : attrs(int_decode_attention_kernel<D, false, false, false>,
+                     threads, smem, cluster, 1, out);
+}
+
+}  // namespace k3
+}  // namespace r8
+
+// The card's attributes of one instantiation at a launch's threads, shared
+// memory and cluster (int_attrs.cuh; sel: D, paged, packed, resident; the
+// cluster splits the keys along grid x); out[6]
+extern "C" int r8_attrs_int_decode_attention(const int* sel, int threads,
+                                             int smem, int cluster,
+                                             int* out) {
+  using namespace r8::k3;
+  switch (sel[0]) {
+    case 32:
+      return attrs_d<32>(sel[1], sel[2], sel[3], threads, smem, cluster, out);
+    case 64:
+      return attrs_d<64>(sel[1], sel[2], sel[3], threads, smem, cluster, out);
+    case 120:
+      return attrs_d<120>(sel[1], sel[2], sel[3], threads, smem, cluster,
+                          out);
+    case 128:
+      return attrs_d<128>(sel[1], sel[2], sel[3], threads, smem, cluster,
+                          out);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -19,6 +19,7 @@
 // helpers of int_common.cuh; `>>` is arithmetic.  The output is int32
 // clipped to out_bits, as on the TPU.
 #include "int_common.cuh"
+#include "int_attrs.cuh"
 
 namespace r8 {
 
@@ -61,4 +62,13 @@ extern "C" int r8_int_gelu(const void* q, void* out, long long n,
   r8::int_gelu_kernel<<<blocks, r8::GELU_THREADS, 0, s>>>(
       (const int*)q, (int*)out, n, *p);
   return (int)cudaGetLastError();
+}
+
+// The card's attributes of one instantiation at a launch's threads, shared
+// memory and cluster (int_attrs.cuh; sel: none); out[6]
+extern "C" int r8_attrs_int_gelu(const int* sel, int threads, int smem,
+                                 int cluster, int* out) {
+  (void)sel;
+  if (cluster != 1) return (int)cudaErrorInvalidValue;
+  return r8::attrs(r8::int_gelu_kernel, threads, smem, 1, 1, out);
 }

@@ -41,6 +41,7 @@
 // 16-step Newton sqrt (isqrt16, kept as its yardstick) on every int32,
 // which r8_isqrt_check proves on the card.
 #include "int_common.cuh"
+#include "int_attrs.cuh"
 
 namespace r8 {
 
@@ -374,4 +375,54 @@ extern "C" int r8_isqrt_check(int* bad, int blocks, void* stream) {
 extern "C" int r8_empty_kernel(void* stream) {
   r8::k2::empty_kernel<<<1, 32, 0, reinterpret_cast<cudaStream_t>(stream)>>>();
   return (int)cudaGetLastError();
+}
+
+namespace r8 {
+namespace k2 {
+
+template <bool WARP, int VEC, int VPL>
+int attrs_mb(int mean, int beta, int threads, int* out) {
+  if (mean)
+    return beta ? attrs(int_layernorm_kernel<WARP, VEC, VPL, true, true>,
+                        threads, 0, 1, 1, out)
+                : attrs(int_layernorm_kernel<WARP, VEC, VPL, true, false>,
+                        threads, 0, 1, 1, out);
+  return beta ? attrs(int_layernorm_kernel<WARP, VEC, VPL, false, true>,
+                      threads, 0, 1, 1, out)
+              : attrs(int_layernorm_kernel<WARP, VEC, VPL, false, false>,
+                      threads, 0, 1, 1, out);
+}
+
+template <int VEC>
+int attrs_warp(int vpl, int mean, int beta, int threads, int* out) {
+  switch (vpl) {
+    case 4: return attrs_mb<true, VEC, 4>(mean, beta, threads, out);
+    case 8: return attrs_mb<true, VEC, 8>(mean, beta, threads, out);
+    case 12: return attrs_mb<true, VEC, 12>(mean, beta, threads, out);
+    case 16: return attrs_mb<true, VEC, 16>(mean, beta, threads, out);
+    case 24: return attrs_mb<true, VEC, 24>(mean, beta, threads, out);
+    case 32: return attrs_mb<true, VEC, 32>(mean, beta, threads, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace k2
+}  // namespace r8
+
+// The card's attributes of one instantiation at a launch's threads, shared
+// memory and cluster (int_attrs.cuh; sel: warp route, VEC, VPL, MEAN, BETA);
+// out[6]
+extern "C" int r8_attrs_int_layernorm(const int* sel, int threads, int smem,
+                                      int cluster, int* out) {
+  using namespace r8::k2;
+  const int warp = sel[0], vec = sel[1], vpl = sel[2], mean = sel[3],
+            beta = sel[4];
+  if (smem != 0 || cluster != 1 || (vec != 1 && vec != 4))
+    return (int)cudaErrorInvalidValue;
+  if (warp)
+    return vec == 4 ? attrs_warp<4>(vpl, mean, beta, threads, out)
+                    : attrs_warp<1>(vpl, mean, beta, threads, out);
+  if (vpl != BLOCK_VPL) return (int)cudaErrorInvalidValue;
+  return vec == 4 ? attrs_mb<false, 4, BLOCK_VPL>(mean, beta, threads, out)
+                  : attrs_mb<false, 1, BLOCK_VPL>(mean, beta, threads, out);
 }

@@ -44,6 +44,7 @@
 // launch's int8 tile (blocks of different heads run in parallel, so no
 // accumulator can be carried across the head axis as on the TPU).
 #include "int_attention_mma.cuh"
+#include "int_attrs.cuh"
 
 namespace r8 {
 namespace k4 {
@@ -115,5 +116,39 @@ extern "C" int r8_int_paged_prefill(const r8::k5::Args* a, void* stream) {
       return r8::k4::launch_d<128>(*a, s);
     default:
       return (int)cudaErrorInvalidValue;
+  }
+}
+
+namespace r8 {
+namespace k4 {
+
+template <int D>
+int attrs_d(int store, int packed, int threads, int smem, int* out) {
+  if (packed)
+    return store ? attrs(int_paged_prefill_kv4_kernel<D, true>, threads,
+                         smem, 1, 1, out)
+                 : attrs(int_paged_prefill_kv4_kernel<D, false>, threads,
+                         smem, 1, 1, out);
+  return store ? attrs(int_paged_prefill_mma_kernel<D, true>, threads, smem,
+                       1, 1, out)
+               : attrs(int_paged_prefill_mma_kernel<D, false>, threads, smem,
+                       1, 1, out);
+}
+
+}  // namespace k4
+}  // namespace r8
+
+// The card's attributes of one instantiation at a launch's threads, shared
+// memory and cluster (int_attrs.cuh; sel: D, STORE, packed); out[6]
+extern "C" int r8_attrs_int_paged_prefill(const int* sel, int threads,
+                                          int smem, int cluster, int* out) {
+  using namespace r8::k4;
+  if (cluster != 1) return (int)cudaErrorInvalidValue;
+  switch (sel[0]) {
+    case 32: return attrs_d<32>(sel[1], sel[2], threads, smem, out);
+    case 64: return attrs_d<64>(sel[1], sel[2], threads, smem, out);
+    case 120: return attrs_d<120>(sel[1], sel[2], threads, smem, out);
+    case 128: return attrs_d<128>(sel[1], sel[2], threads, smem, out);
+    default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -52,6 +52,7 @@
 // one reciprocal 2^30 // max(s, 1) a row, and
 // clip(rshift_round(e16 * r, 23), 0, 127) an element.
 #include "int_common.cuh"
+#include "int_attrs.cuh"
 
 namespace r8 {
 namespace k7 {
@@ -329,4 +330,52 @@ extern "C" int r8_int_softmax(const void* scores, void* out, long long rows,
                                     *ex, s)
              : launch_vpt<false, 1>(vpt, x, o, rows, L, vl, threads, grid,
                                     *ex, s);
+}
+
+namespace r8 {
+namespace k7 {
+
+// the instantiations of launch_vpt
+template <bool WARP, int VEC>
+int attrs_vpt(int vpt, int threads, int* out) {
+  switch (vpt) {
+    case 1:
+      if constexpr (WARP && VEC == 1)
+        return attrs(int_softmax_kernel<WARP, VEC, 1>, threads, 0, 1, 1, out);
+      break;
+    case 2:
+      if constexpr (WARP && VEC == 1)
+        return attrs(int_softmax_kernel<WARP, VEC, 2>, threads, 0, 1, 1, out);
+      break;
+    case 4:
+      if constexpr (WARP)
+        return attrs(int_softmax_kernel<WARP, VEC, 4>, threads, 0, 1, 1, out);
+      break;
+    case 8:
+      return attrs(int_softmax_kernel<WARP, VEC, 8>, threads, 0, 1, 1, out);
+    case 16:
+      return attrs(int_softmax_kernel<WARP, VEC, 16>, threads, 0, 1, 1, out);
+    case 32:
+      return attrs(int_softmax_kernel<WARP, VEC, 32>, threads, 0, 1, 1, out);
+    default:
+      break;
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace k7
+}  // namespace r8
+
+// The card's attributes of one instantiation at a launch's threads, shared
+// memory and cluster (int_attrs.cuh; sel: warp route, VEC, VPT); out[6]
+extern "C" int r8_attrs_int_softmax(const int* sel, int threads, int smem,
+                                    int cluster, int* out) {
+  using namespace r8::k7;
+  if (smem != 0 || cluster != 1 || (sel[1] != 1 && sel[1] != 4))
+    return (int)cudaErrorInvalidValue;
+  if (sel[0])
+    return sel[1] == 4 ? attrs_vpt<true, 4>(sel[2], threads, out)
+                       : attrs_vpt<true, 1>(sel[2], threads, out);
+  return sel[1] == 4 ? attrs_vpt<false, 4>(sel[2], threads, out)
+                     : attrs_vpt<false, 1>(sel[2], threads, out);
 }

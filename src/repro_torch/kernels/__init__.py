@@ -29,11 +29,18 @@ paths, and their oracles.
 
 Each wrapper takes its plain PyTorch version (beside it, in the same
 module) for a tensor on the CPU, and launches its CUDA kernel — or raises
-— for a tensor on the card.  ``LAUNCHES`` counts kernel launches per
-wrapper: a wrapper adds one exactly where it launches its kernel, so a
-run can show that the main path went through the kernels.
+— for a tensor on the card.  On the card it first holds the launch to
+its contract (``analysis.contracts``: one cached report a shape, whose
+plan it launches with) and raises ``KernelContractError`` for a shape the
+kernel does not take, before launching.  ``LAUNCHES`` counts kernel
+launches per wrapper: a wrapper adds one exactly where it launches its
+kernel, so a run can show that the main path went through the kernels.
+Inside :func:`record_launches`, each wrapper that has a contract also
+notes what it launched.
 """
 from __future__ import annotations
+
+import contextlib
 
 KERNELS = ("int8_matmul", "int_layernorm", "int_decode_attention",
            "int_paged_prefill", "int_attention_fused", "int_gelu",
@@ -47,3 +54,32 @@ LAUNCHES = dict.fromkeys(KERNELS, 0)
 def reset_launches() -> None:
     for name in KERNELS:
         LAUNCHES[name] = 0
+
+
+#: the lists of the active :func:`record_launches` blocks, innermost last;
+#: empty outside one, which is all a wrapper tests
+RECORDERS: list = []
+
+
+@contextlib.contextmanager
+def record_launches():
+    """Collect the launches made inside the block: a list of ``(op,
+    params, launched)``, where ``op`` and the keyword ``params`` are the
+    ``analysis.contracts.check_launch`` call that describes the launch and
+    ``launched`` holds the route, grid, cluster and dynamic shared memory
+    the wrapper passed to the kernel (keys as ``LaunchReport``'s)."""
+    rec = []
+    RECORDERS.append(rec)
+    try:
+        yield rec
+    finally:
+        RECORDERS.remove(rec)
+
+
+def note_launch(op: str, params: dict, route: str, grid, cluster: int,
+                smem: int) -> None:
+    """Add one launch to the innermost :func:`record_launches` list (the
+    wrappers call this only while one is active)."""
+    RECORDERS[-1].append((op, params, dict(
+        route=route, grid=tuple(grid), cluster=int(cluster),
+        smem_bytes=int(smem))))

@@ -122,6 +122,17 @@ class GroupedArgs(ctypes.Structure):
                                      "vec_x", "vec_w")])
 
 
+#: the kernel files' attribute entries (``r8_attrs_<name>``,
+#: ``csrc/int_attrs.cuh``), each picking an instantiation by its template
+#: selectors; ``analysis.contracts.LaunchReport.kernel`` names one
+ATTR_ENTRIES = ("int8_matmul", "int8_matmul_decode", "int8_matmul_grouped",
+                "int8_matmul_msr4", "int_layernorm", "int_softmax",
+                "int_decode_attention", "int_paged_prefill",
+                "int_attention_fused", "int_attention_online", "int_gelu")
+ATTR_FIELDS = ("registers", "spill_bytes", "max_threads", "static_smem",
+               "occupancy", "max_dynamic_smem")
+
+
 def declare(lib: ctypes.CDLL) -> None:
     lib.r8_int8_matmul.argtypes = [
         _P, _P, _P, _P, ctypes.POINTER(Requant), _P, _I, _I, _I, _I, _I,
@@ -176,6 +187,10 @@ def declare(lib: ctypes.CDLL) -> None:
     lib.r8_online_smem_bytes.restype = ctypes.c_longlong
     lib.r8_error_string.argtypes = [_I]
     lib.r8_error_string.restype = ctypes.c_char_p
+    for name in ATTR_ENTRIES:
+        fn = getattr(lib, f"r8_attrs_{name}")
+        fn.argtypes = [ctypes.POINTER(_I), _I, _I, _I, ctypes.POINTER(_I)]
+        fn.restype = _I
 
 
 def check(lib, rc: int, what: str) -> None:
@@ -259,3 +274,23 @@ def gelu_consts(plan, dn_out, out_bits: int) -> GeluConsts:
     lo, hi = -(1 << (out_bits - 1)), (1 << (out_bits - 1)) - 1
     return GeluConsts(erf.q_clip, erf.q_bneg, erf.q_c, plan.q_one, dn_out.b,
                       dn_out.c, dn_out.pre, lo, hi)
+
+
+def kernel_attributes(kernel: tuple, threads: int, smem: int,
+                      cluster: int = 1) -> dict:
+    """On the card: what CUDA says of the instantiation ``kernel`` (an
+    entry of :data:`ATTR_ENTRIES` and its template selectors, as
+    ``LaunchReport.kernel``) at CTAs of ``threads`` threads with ``smem``
+    bytes of dynamic shared memory in clusters of ``cluster``: registers
+    a thread, spill (local) bytes a thread, the kernel's
+    ``maxThreadsPerBlock``, its static shared bytes, the occupancy (CTAs
+    an SM, or, for a cluster of more than one CTA, clusters on the card)
+    and the dynamic shared memory it may now take.  Launches nothing."""
+    from repro_torch.kernels._build import library
+    entry, *sel = kernel
+    lib = library()
+    out = (_I * len(ATTR_FIELDS))()
+    rc = getattr(lib, f"r8_attrs_{entry}")(
+        (_I * max(1, len(sel)))(*sel), threads, smem, cluster, out)
+    check(lib, rc, f"attributes of {kernel}")
+    return dict(zip(ATTR_FIELDS, out))

@@ -27,10 +27,12 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.analysis.contracts import (grouped_report, matmul_report,
+                                            msr4_report, require_launch)
 from repro_torch.core.dyadic import (apply_dyadic, apply_dyadic_perchannel,
                                      clip_to_bits, rshift_round)
 from repro_torch.core.intmath import int_einsum
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, RECORDERS, note_launch
 from repro_torch.kernels import ref as _ref
 from repro_torch.ops.packed import (msr4_correction, nibble_unpack,
                                     unpack_weights)
@@ -41,6 +43,11 @@ from repro_torch.ops.spec import PER_TENSOR, RequantSpec
 #: csrc/int8_matmul_decode.cu (M <= SMALL_M_MAX, :func:`decode_plan`)
 TILES = {1: (64, 128, 64), 2: (128, 128, 64)}
 SMALL_M_MAX = 16
+#: threads a CTA of the tensor-core tiles (csrc/int8_mma_tile.cuh's
+#: ``THREADS``, also the grouped instantiation's) and of the decode tile
+#: (four consumer warps and a producer warp)
+MMA_THREADS = 256
+DECODE_THREADS = 160
 
 #: the decode tile: rows a block (all of M); the weight tile rows a ring
 #: stage (K rows, or byte rows of packed nibbles); the bytes of an x box
@@ -251,13 +258,19 @@ def _launch(what, x8, w, spec, bias32, b_vec, packed: bool):
     out = torch.empty((m, n), dtype=dt, device=x8.device)
     if m == 0 or n == 0:
         return out
-    if k == 0:
-        raise ValueError(f"{what}: empty contraction (K == 0)")
     sms = torch.cuda.get_device_properties(x8.device).multi_processor_count
-    plan = launch_plan(m, n, k, sms, packed, x8.data_ptr(), w.data_ptr())
+    plan = require_launch(matmul_report(m, n, k, packed, sms,
+                                        x8.data_ptr() % 16,
+                                        w.data_ptr() % 16)).plan
     rq = _abi.requant_struct(spec)
     lib = library()
     bvec = b_vec if spec.kind != PER_TENSOR else None
+    if RECORDERS:
+        note_launch(what, dict(m=m, n=n, k=k, sms=sms, x_addr=x8.data_ptr(),
+                               w_addr=w.data_ptr()),
+                    plan.route if plan.tile == 0
+                    else f"mma{TILES[plan.tile][0]}", plan.grid,
+                    plan.cluster, plan.smem)
     if plan.tile == 0:
         _decode_launch(what, lib, plan, x8, w, bias32, bvec, rq, out, dt,
                        packed)
@@ -313,7 +326,8 @@ def int8_matmul(x8, w8, spec, bias32=None, b_vec=None):
     ``spec.out_dtype``.  ``b_vec`` (N,) int32 is required iff per-channel.
 
     CPU tensors take :func:`int8_matmul_plain`; CUDA tensors launch the
-    kernel (ragged M, N, K masked in-kernel) or raise."""
+    kernel (ragged M, N, K masked in-kernel; :func:`launch_plan` through
+    the contract ``analysis.contracts.matmul_report``) or raise."""
     if not x8.is_cuda:
         return int8_matmul_plain(x8, w8, spec, bias32, b_vec)
     return _launch("int8_matmul", x8, w8, spec, bias32, b_vec, packed=False)
@@ -343,10 +357,12 @@ def int8_matmul_nibbles(x8, w_packed, spec, bias32=None, b_vec=None):
 #: block (MT) by the size of the product; bytes of x a block stages at a
 #: time, as whole groups; the shared memory a block may take (H100)
 MSR4_THREADS = 128
+MSR4_MMA_THREADS = 256
 MSR4_CHUNK = 16384
 MSR4_MAX_SMEM = 232448
 
-#: the tensor-core route: columns a block; K rows a step takes at least
+#: the tensor-core route (``MSR4_MMA_THREADS`` a CTA): columns a block; K
+#: rows a step takes at least
 #: (whole groups: max(1, 64 // g) of them); lane rows a staged chunk at
 #: most; bytes a staged lane row (int16 index + int8 delta, 128 columns);
 #: slots of the copy ring (lane chunks and x tiles)
@@ -478,7 +494,8 @@ def msr4_correct(acc, x8, qw, spec):
     tile with one delta per row and column).  ``quant.pack.pack_msr4``
     and the reference's guarantee it (a stable-sort prefix), and
     ``interop.qparams_from_reference`` checks it once per leaf; no call
-    checks it.  The route is :func:`msr4_plan`'s, from the shape."""
+    checks it.  The route is :func:`msr4_plan`'s, from the shape, through
+    the contract (``analysis.contracts.msr4_report``)."""
     if not x8.is_cuda:
         return msr4_correct_plain(acc, x8, qw, spec)
     meta = qw.pack_meta
@@ -490,8 +507,13 @@ def msr4_correct(acc, x8, qw, spec):
                          f"{tuple(x8.shape)} vs a 2-D msr4 weight of k="
                          f"{getattr(meta, 'k', None)}, n={n}")
     sms = torch.cuda.get_device_properties(x8.device).multi_processor_count
-    return _msr4_launch(acc, x8, qw, spec, msr4_plan(
-        m, n, k, meta.group, meta.n_outliers, sms))
+    plan = require_launch(msr4_report(m, n, k, meta.group, meta.n_outliers,
+                                      sms)).plan
+    if RECORDERS:
+        note_launch("int8_matmul_msr4", dict(
+            m=m, n=n, k=k, group=meta.group, n_out=meta.n_outliers,
+            sms=sms), plan.route, plan.grid, 1, plan.smem)
+    return _msr4_launch(acc, x8, qw, spec, plan)
 
 
 def _msr4_launch(acc, x8, qw, spec, plan: Msr4Plan):
@@ -585,6 +607,7 @@ def int8_matmul_packed(x8, qw, spec):
 #: block; experts a call of its plain version
 GROUPED_BM = (16, 64)
 GROUPED_BN = 128
+GROUPED_THREADS = MMA_THREADS
 GROUPED_PLAIN_SLICE = 16
 
 
@@ -649,8 +672,8 @@ def int8_matmul_grouped(x8, w8, rows, spec, bias32=None, b_vec=None):
     on the card, never on the host.
 
     CPU tensors take :func:`int8_matmul_grouped_plain`; CUDA tensors
-    launch ``csrc/int8_matmul_grouped.cu`` (:func:`grouped_plan`) or
-    raise."""
+    launch ``csrc/int8_matmul_grouped.cu`` (:func:`grouped_plan`, through
+    the contract ``analysis.contracts.grouped_report``) or raise."""
     if not x8.is_cuda:
         return int8_matmul_grouped_plain(x8, w8, rows, spec, bias32, b_vec)
     from repro_torch.kernels import _abi
@@ -673,9 +696,10 @@ def int8_matmul_grouped(x8, w8, rows, spec, bias32=None, b_vec=None):
     out = torch.empty((e, r, n), dtype=dt, device=x8.device)
     if e == 0 or r == 0 or n == 0:
         return out
-    if k == 0:
-        raise ValueError(f"{what}: empty contraction (K == 0)")
-    plan = grouped_plan(e, r, n)
+    plan = require_launch(grouped_report(e, r, n, k)).plan
+    if RECORDERS:
+        note_launch(what, dict(e=e, r=r, n=n, k=k), f"mma{plan.bm}",
+                    plan.grid, 1, 0)
     bvec = b_vec if spec.kind != PER_TENSOR else None
     args = _abi.GroupedArgs(
         x8.data_ptr(), w8.data_ptr(), rows.data_ptr(), _abi.ptr(bias32),

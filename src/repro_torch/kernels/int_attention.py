@@ -26,12 +26,13 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.analysis.contracts import (KernelContractError,
+                                            online_report, require_launch,
                                             require_online_launch)
 from repro_torch.core.dyadic import apply_dyadic, clip_to_bits
 from repro_torch.core.intmath import int_einsum
 from repro_torch.core.softmax import (NEG, _exp16, combine_correction,
                                       rescale_sum)
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, RECORDERS, note_launch
 from repro_torch.kernels.int_attention_fused import (HEAD_DIMS, exp16_args,
                                                      sk_words, v_cols)
 
@@ -47,8 +48,9 @@ def _blocks(q8, k8, bq: int, bkv: int):
     return bq, bkv
 
 
-#: K8's block (csrc/int_attention_online.cu): query rows, keys a tile
-K8_ROWS, K8_KEYS = 64, 64
+#: K8's block (csrc/int_attention_online.cu): query rows, keys a tile,
+#: threads
+K8_ROWS, K8_KEYS, K8_THREADS = 64, 64, 128
 
 
 class K8Plan(NamedTuple):
@@ -149,8 +151,9 @@ def int_attention_online(q8, k8, v8, plan, causal: bool = True,
     ``dn_out`` clipped to ``out_bits``; the result is int8 (B, Sq, H, D)
     as in the reference, whose int8 store wraps a wider clip.  CPU
     tensors take the plain version; CUDA tensors launch the tensor-core
-    kernel (:func:`k8_launch_plan`) or raise (Skv > 2^16, a head dim
-    outside ``HEAD_DIMS``)."""
+    kernel (:func:`k8_launch_plan`, through the contract
+    ``analysis.contracts.online_report``) or raise (Skv > 2^16, a head
+    dim outside ``HEAD_DIMS``)."""
     if not q8.is_cuda:
         return int_attention_online_plain(q8, k8, v8, plan, causal, window,
                                           bq, bkv, out_bits)
@@ -166,10 +169,15 @@ def int_attention_online(q8, k8, v8, plan, causal: bool = True,
                              "contiguous, 16-byte aligned int8 tensor on "
                              f"{q8.device}")
     b, sq, h, d = q8.shape
-    kp = k8_launch_plan(b, sq, h, d, bkv)
+    skv, hkv = k8.shape[1], k8.shape[2]
+    kp = require_launch(online_report(b, sq, skv, h, hkv, d, bq, bkv)).plan
     out = torch.empty((b, sq, h, d), dtype=torch.int8, device=q8.device)
     if b == 0 or sq == 0:
         return out
+    if RECORDERS:
+        note_launch("int_attention", dict(
+            b=b, sq=sq, skv=skv, h=h, hkv=hkv, d=d, bq=bq, bkv=bkv,
+            online=True), "online", kp.grid, 1, kp.smem)
     dn = plan.dn_out
     _abi._shifts_ok(dn.b, dn.c, dn.pre)
     args = _abi.OnlineArgs(

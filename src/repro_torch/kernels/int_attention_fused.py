@@ -18,9 +18,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.analysis.budgets import MAX_ROWSUM_LEN
+from repro_torch.analysis.contracts import (attention_report,
+                                            prefill_report, require_launch)
 from repro_torch.core.softmax import _exp16
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, RECORDERS, note_launch
 from repro_torch.kernels import ref as _ref
 from repro_torch.ops.packed import unpack_kv_pool
 from repro_torch.ops.spec import PER_CHANNEL, QuantLinearParams, RequantSpec
@@ -139,16 +140,17 @@ def paged_operands(q8, k_pool, v_pool, pos_end, pages, page_size: int,
     on the card (converted there: nothing is read back to the host).
     ``kv_shifts``: the ``(k_shift, v_shift)`` pair of ``(num_pages,)``
     per-page shifts of packed int4 pools ``(num_pages, page_size, Hkv, D
-    // 2)``; ``shifts`` is then that pair, else None."""
+    // 2)``; ``shifts`` is then that pair, else None.  The kernels' own
+    clauses (GQA, head dim, the table's span) are the contract's, which
+    the caller checks next."""
     b, s, h, d = q8.shape
     dev = q8.device
     if k_pool.shape != v_pool.shape or k_pool.dim() != 4:
         raise ValueError("paged attention: k/v pools must both be "
                          "(num_pages, page_size, Hkv, D)")
-    ps, hkv = k_pool.shape[1], k_pool.shape[2]
+    ps = k_pool.shape[1]
     width = d if kv_shifts is None else d // 2
-    if ps != page_size or k_pool.shape[3] != width or h % hkv \
-            or (kv_shifts is not None and d % 2):
+    if ps != page_size or k_pool.shape[3] != width:
         raise ValueError(f"paged attention: pool {tuple(k_pool.shape)} vs "
                          f"q {tuple(q8.shape)}, page_size={page_size}"
                          f"{'' if kv_shifts is None else ' (int4 packed)'}")
@@ -161,11 +163,6 @@ def paged_operands(q8, k_pool, v_pool, pos_end, pages, page_size: int,
             or tuple(pos_end.shape) != (b,):
         raise ValueError("paged attention: pages must be (B, max_pages) "
                          "and valid_len (B,)")
-    if pages.shape[1] * page_size > MAX_ROWSUM_LEN:
-        raise ValueError(f"paged attention: a {pages.shape[1]} x "
-                         f"{page_size} page table spans more than the "
-                         f"{MAX_ROWSUM_LEN} positions an exact int32 row "
-                         "sum allows")
     shifts = None
     if kv_shifts is not None:
         shifts = tuple(torch.as_tensor(x, dtype=torch.int32,
@@ -322,7 +319,8 @@ def int_attention_fused(q8, k8, v8, plan, requant=None, b_vec=None,
     (B, Sq, H, D): int8 when the epilogue clips to <= 8 bits, int32
     otherwise.  Any Sq and Skv up to ``MAX_ROWSUM_LEN``; Sq != Skv is a
     cross-shaped launch.  CPU tensors take the plain version; CUDA tensors
-    launch the tensor-core kernel (:func:`k5_launch_plan`) or raise."""
+    launch the tensor-core kernel (:func:`k5_launch_plan`, through the
+    contract ``analysis.contracts.attention_report``) or raise."""
     if not q8.is_cuda:
         return int_attention_fused_plain(q8, k8, v8, plan, requant, b_vec,
                                          causal, window, out_bits)
@@ -332,22 +330,25 @@ def int_attention_fused(q8, k8, v8, plan, requant=None, b_vec=None,
         requant = RequantSpec.per_tensor(plan.dn_out, out_bits)
     b, sq, h, d = q8.shape
     if k8.shape != v8.shape or k8.dim() != 4 or k8.shape[0] != b \
-            or k8.shape[3] != d or h % k8.shape[2]:
+            or k8.shape[3] != d:
         raise ValueError(f"int_attention_fused: k/v {tuple(k8.shape)} vs "
                          f"q {tuple(q8.shape)}")
     skv, hkv = k8.shape[1], k8.shape[2]
-    if skv > MAX_ROWSUM_LEN:
-        raise ValueError(f"int_attention_fused: Skv={skv} exceeds the "
-                         f"{MAX_ROWSUM_LEN} positions an exact int32 row "
-                         "sum allows")
     _check_int8(q8.device, q8=q8, k8=k8, v8=v8)
+    sm = plan.sm
+    causal, window = bool(causal) or window > 0, max(window, 0)
+    e16_fits = e16_fits_16_bits(sm)
+    kp = require_launch(attention_report(
+        b, max(sq, 1), skv, h, hkv, d, causal, window, k8.data_ptr() % 16,
+        e16_fits)).plan
     bvec, out = _epilogue_operands(q8, requant, b_vec)
     if b == 0 or sq == 0:
         return out
-    sm = plan.sm
-    causal, window = bool(causal) or window > 0, max(window, 0)
-    kp = k5_launch_plan(b, sq, skv, h, hkv, d, causal, window,
-                        k8.data_ptr(), e16_fits_16_bits(sm))
+    if RECORDERS:
+        note_launch("int_attention", dict(
+            b=b, sq=sq, skv=skv, h=h, hkv=hkv, d=d, causal=causal,
+            window=window, k_addr=k8.data_ptr(), e16_fits=e16_fits),
+            "store" if kp.store_e16 else "recompute", kp.grid, 1, kp.smem)
     args = _abi.MmaAttnArgs(
         q8.data_ptr(), k8.data_ptr(), v8.data_ptr(), _abi.ptr(bvec),
         out.data_ptr(), b, sq, skv, h, hkv, d, int(causal), window,
@@ -423,19 +424,21 @@ def k4_launch_plan(b: int, c: int, h: int, hkv: int, d: int,
 
 def k4_args(q8, k_pool, v_pool, plan, pos_end, pages, page_size: int,
             requant, b_vec, kv_shifts=None):
-    """Check the operands and pack one K4 launch, on the host alone:
-    ``(args, out, K5Plan)``.  ``pos_end``, ``pages`` and the shifts of
-    packed pools (``kv_shifts``) travel as device pointers and are never
-    read here."""
+    """Check the operands and the contract (``analysis.contracts.
+    prefill_report``: :func:`k4_launch_plan`) and pack one K4 launch, on
+    the host alone: ``(args, out, K5Plan)``.  ``pos_end``, ``pages`` and
+    the shifts of packed pools (``kv_shifts``) travel as device pointers
+    and are never read here."""
     from repro_torch.kernels import _abi
     pages, pos_end, shifts = paged_operands(q8, k_pool, v_pool, pos_end,
                                             pages, page_size, kv_shifts)
     b, c, h, d = q8.shape
     hkv, maxp = k_pool.shape[2], pages.shape[1]
-    bvec, out = _epilogue_operands(q8, requant, b_vec)
     sm = plan.sm
-    kp = k4_launch_plan(b, c, h, hkv, d, maxp, page_size, k_pool.data_ptr(),
-                        e16_fits_16_bits(sm), packed=shifts is not None)
+    kp = require_launch(prefill_report(
+        b, max(c, 1), h, hkv, d, maxp, page_size, shifts is not None,
+        k_pool.shape[0], k_pool.data_ptr() % 16, e16_fits_16_bits(sm))).plan
+    bvec, out = _epilogue_operands(q8, requant, b_vec)
     k_shift, v_shift = shifts if shifts is not None else (None, None)
     args = _abi.MmaAttnArgs(
         q8.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), _abi.ptr(bvec),
@@ -456,10 +459,18 @@ def k4_launch(q8, k_pool, v_pool, plan, pos_end, pages, page_size: int,
     attention tile."""
     from repro_torch.kernels import _abi
     from repro_torch.kernels._build import library
-    args, out, _ = k4_args(q8, k_pool, v_pool, plan, pos_end, pages,
-                           page_size, requant, b_vec, kv_shifts)
+    args, out, kp = k4_args(q8, k_pool, v_pool, plan, pos_end, pages,
+                            page_size, requant, b_vec, kv_shifts)
     if out.numel() == 0:
         return out
+    if RECORDERS:
+        note_launch("int_paged_prefill", dict(
+            b=args.B, c=args.Sq, h=args.H, hkv=args.Hkv, d=args.D,
+            max_pages=args.max_pages, page_size=page_size,
+            kv_pack=kv_shifts is not None, num_pages=k_pool.shape[0],
+            k_addr=k_pool.data_ptr(), e16_fits=e16_fits_16_bits(plan.sm)),
+            "store" if args.store_e16 else "recompute", kp.grid, 1,
+            args.smem)
     lib = library()
     rc = lib.r8_int_paged_prefill(ctypes.byref(args), _abi.stream_of(q8))
     LAUNCHES["int_paged_prefill" if kv_shifts is None

@@ -18,8 +18,9 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.analysis.budgets import MAX_ROWSUM_LEN, MAX_SQ
-from repro_torch.kernels import LAUNCHES
+from repro_torch.analysis.budgets import MAX_SQ
+from repro_torch.analysis.contracts import decode_report, require_launch
+from repro_torch.kernels import LAUNCHES, RECORDERS, note_launch
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.int_attention_fused import (K5_SMEM_LIMIT,
                                                      _check_int8,
@@ -34,8 +35,9 @@ from repro_torch.kernels.int_attention_fused import (K5_SMEM_LIMIT,
 
 #: K3's block (csrc/int_decode_attention.cu): query rows (two m16 tiles),
 #: keys of a chunk (ranks split the keys in chunks) and of a streaming
-#: tile, the most blocks a cluster, the fewest keys a rank holds
+#: tile, the most blocks a cluster, the fewest keys a rank holds; threads
 K3_ROWS, K3_CHUNK, K3_TILE, K3_CMAX, K3_MIN_KEYS = 32, 32, 128, 8, 64
+K3_THREADS = 128
 
 
 def _require_paged(pages, kv_shifts) -> None:
@@ -67,17 +69,14 @@ def int_decode_attention_plain(q8, k8, v8, plan, valid_len, pages=None,
 def contiguous_operands(q8, k8, v8, valid_len):
     """Check the operands of a contiguous K3 launch on the card: K/V ``(B,
     L, Hkv, D)``; returns ``valid_len`` as a contiguous int32 tensor on
-    the card (converted there: nothing is read back to the host)."""
+    the card (converted there: nothing is read back to the host).  GQA
+    and the cache's length are the contract's clauses."""
     b, _, h, d = q8.shape
     if k8.shape != v8.shape or k8.dim() != 4 or k8.shape[0] != b \
-            or k8.shape[3] != d or h % k8.shape[2]:
+            or k8.shape[3] != d:
         raise ValueError(f"decode attention: k/v {tuple(k8.shape)} vs "
                          f"q {tuple(q8.shape)}: the contiguous cache is "
                          "(B, L, Hkv, D)")
-    if k8.shape[1] > MAX_ROWSUM_LEN:
-        raise ValueError(f"decode attention: a cache of {k8.shape[1]} "
-                         f"positions is longer than the {MAX_ROWSUM_LEN} an "
-                         "exact int32 row sum allows")
     _check_int8(q8.device, q8=q8, k8=k8, v8=v8)
     vlen = torch.as_tensor(valid_len, dtype=torch.int32,
                            device=q8.device).contiguous()
@@ -104,16 +103,13 @@ def int_decode_attention_fused(q8, k8, v8, plan, valid_len, pages=None,
     per-tensor ``dn_out``).  ``wo``/``wo_spec``: fold the o-projection in;
     the return becomes ``(B, Sq, N)``.  CPU tensors take the plain
     version; CUDA tensors launch the kernel (and, folded, one K1 launch)
-    or raise."""
+    or raise (a shape outside the contract, ``analysis.contracts.
+    decode_report``: ``KernelContractError``, before any launch)."""
     _require_paged(pages, kv_shifts)
     if not q8.is_cuda:
         return int_decode_attention_plain(q8, k8, v8, plan, valid_len,
                                           pages, page_size, requant, b_vec,
                                           wo, wo_spec, kv_shifts)
-    if q8.shape[1] > MAX_SQ:
-        raise ValueError(f"decode attention takes at most {MAX_SQ} query "
-                         f"rows, got {q8.shape[1]}")
-    require_head_dim("int_decode_attention", q8.shape[3])
     requant, wo = epilogue_setup(requant, plan, wo, wo_spec)
     o = _launch(q8, k8, v8, plan, valid_len, pages, page_size, requant,
                 b_vec, kv_shifts)
@@ -255,10 +251,11 @@ def k3_launch_plan(b: int, sq: int, h: int, hkv: int, d: int, length: int,
 
 def k3_args(q8, k8, v8, plan, valid_len, pages, page_size: int, requant,
             b_vec, kv_shifts=None, sms: int = 132):
-    """Check the operands and pack one K3 launch on a card of ``sms`` SMs,
-    on the host alone: ``(args, out, K3Plan)``.  ``valid_len``, the page
-    table and the shifts of packed pools (``kv_shifts``) travel as device
-    pointers and are never read here."""
+    """Check the operands and the contract (``analysis.contracts.
+    decode_report``: :func:`k3_launch_plan`) and pack one K3 launch on a
+    card of ``sms`` SMs, on the host alone: ``(args, out, K3Plan)``.
+    ``valid_len``, the page table and the shifts of packed pools
+    (``kv_shifts``) travel as device pointers and are never read here."""
     from repro_torch.kernels import _abi
     shifts = None
     if pages is not None:
@@ -270,10 +267,11 @@ def k3_args(q8, k8, v8, plan, valid_len, pages, page_size: int, requant,
         vlen = contiguous_operands(q8, k8, v8, valid_len)
         length, maxp, page_size = k8.shape[1], 0, 0
     b, s, h, d = q8.shape
+    kp = require_launch(decode_report(
+        b, max(s, 1), h, k8.shape[2], d, length, maxp, shifts is not None,
+        k8.shape[0] if maxp else 0, k8.data_ptr() % 16, v8.data_ptr() % 16,
+        sms)).plan
     bvec, out = _epilogue_operands(q8, requant, b_vec)
-    kp = k3_launch_plan(b, max(s, 1), h, k8.shape[2], d, length,
-                        pages is not None, shifts is not None,
-                        k8.data_ptr(), v8.data_ptr(), sms)
     k_shift, v_shift = shifts if shifts is not None else (None, None)
     args = _abi.K3Args(
         q8.data_ptr(), k8.data_ptr(), v8.data_ptr(), _abi.ptr(pages),
@@ -294,12 +292,21 @@ def _launch(q8, k8, v8, plan, valid_len, pages, page_size: int, requant,
     returns ``(B, Sq, H, D)``."""
     from repro_torch.kernels import _abi
     from repro_torch.kernels._build import library
-    args, out, _ = k3_args(
-        q8, k8, v8, plan, valid_len, pages, page_size, requant, b_vec,
-        kv_shifts,
-        torch.cuda.get_device_properties(q8.device).multi_processor_count)
+    sms = torch.cuda.get_device_properties(q8.device).multi_processor_count
+    args, out, kp = k3_args(q8, k8, v8, plan, valid_len, pages, page_size,
+                            requant, b_vec, kv_shifts, sms)
     if out.numel() == 0:
         return out
+    if RECORDERS:
+        geom = dict(max_pages=args.max_pages, page_size=page_size,
+                    kv_pack=kv_shifts is not None,
+                    num_pages=k8.shape[0]) if pages is not None \
+            else dict(L=args.L)
+        note_launch("int_decode_attention", dict(
+            b=args.B, sq=args.S, h=args.H, hkv=args.Hkv, d=args.D,
+            k_addr=k8.data_ptr(), v_addr=v8.data_ptr(), sms=sms, **geom),
+            "resident" if args.resident else "streaming", kp.grid,
+            args.cluster, args.smem)
     lib = library()
     rc = lib.r8_int_decode_attention(ctypes.byref(args), _abi.stream_of(q8))
     LAUNCHES["int_decode_attention" if kv_shifts is None

@@ -13,7 +13,8 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import LAUNCHES
+from repro_torch.analysis.contracts import layernorm_report, require_launch
+from repro_torch.kernels import LAUNCHES, RECORDERS, note_launch
 from repro_torch.kernels import ref as _ref
 
 # mirrored by csrc/int_layernorm.cu (namespace k2)
@@ -78,15 +79,17 @@ def int_layernorm_plain(q, q_gamma, q_beta, plan, out_bits: int = 8):
 def int_layernorm(q, q_gamma, q_beta, plan, out_bits: int = 8):
     """q (..., d) int32 at plan.s_in -> int32 (..., d) clipped to
     ``out_bits``.  CPU tensors take the plain version; CUDA tensors launch
-    the kernel or raise."""
+    the kernel (:func:`launch_plan`, through the contract
+    ``analysis.contracts.layernorm_report``: ``KernelContractError`` past
+    ``MAX_D``) or raise."""
     if not q.is_cuda:
         return int_layernorm_plain(q, q_gamma, q_beta, plan, out_bits)
     from repro_torch.kernels import _abi
     from repro_torch.kernels._build import library
     d = q.shape[-1]
-    if d != plan.d or d > MAX_D:
-        raise ValueError(f"int_layernorm: row length {d} (plan d={plan.d},"
-                         f" kernel max {MAX_D})")
+    if d != plan.d:
+        raise ValueError(f"int_layernorm: row length {d} != plan d="
+                         f"{plan.d}")
     for name, t in (("q", q), ("q_gamma", q_gamma), ("q_beta", q_beta)):
         if t is None:
             continue
@@ -102,10 +105,16 @@ def int_layernorm(q, q_gamma, q_beta, plan, out_bits: int = 8):
     if rows == 0:
         return out
     ops = (q, q_gamma, out) if q_beta is None else (q, q_gamma, q_beta, out)
-    kp = launch_plan(rows, d,
-                     torch.cuda.get_device_properties(q.device)
-                     .multi_processor_count,
-                     all(t.data_ptr() % 16 == 0 for t in ops))
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    aligned = all(t.data_ptr() % 16 == 0 for t in ops)
+    kp = require_launch(layernorm_report(rows, d, aligned,
+                                         plan.subtract_mean,
+                                         q_beta is not None, sms)).plan
+    if RECORDERS:
+        note_launch("int_layernorm", dict(
+            rows=rows, d=d, aligned=aligned, sms=sms,
+            subtract_mean=plan.subtract_mean, beta=q_beta is not None),
+            kp.route, (kp.grid,), 1, 0)
     consts = _abi.norm_consts(plan, out_bits)
     lib = library()
     rc = lib.r8_int_layernorm(q.data_ptr(), q_gamma.data_ptr(),

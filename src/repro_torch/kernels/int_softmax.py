@@ -14,7 +14,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.analysis.budgets import MAX_ROWSUM_LEN
-from repro_torch.kernels import LAUNCHES
+from repro_torch.analysis.contracts import require_launch, softmax_report
+from repro_torch.kernels import LAUNCHES, RECORDERS, note_launch
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.int_attention_fused import exp16_args
 
@@ -104,7 +105,8 @@ def int_softmax(scores, plan, valid_len: int = -1, block_rows: int = 8):
     probabilities at 2^-7, same shape.  ``valid_len`` >= 0 masks trailing
     positions (a static padding mask).  ``block_rows`` sets the rows of a
     CUDA block (at most 16) and never the integers.  CPU tensors take the
-    plain version; CUDA tensors launch the kernel (:func:`launch_plan`,
+    plain version; CUDA tensors launch the kernel (:func:`launch_plan`
+    through the contract ``analysis.contracts.softmax_report``,
     exp16's division a multiply-high: ``exp16_args``, which refuses a plan
     without one, as K3, K4, K5 and K8 do) or raise."""
     if block_rows < 1:
@@ -124,9 +126,13 @@ def int_softmax(scores, plan, valid_len: int = -1, block_rows: int = 8):
     rows = scores.numel() // L if L else 0
     if rows == 0:
         return out
-    kp = launch_plan(rows, L, int(valid_len),
-                     scores.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0,
-                     block_rows)
+    aligned = scores.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    kp = require_launch(softmax_report(rows, L, int(valid_len), aligned,
+                                       block_rows)).plan
+    if RECORDERS:
+        note_launch("int_softmax", dict(
+            rows=rows, L=L, valid_len=int(valid_len), aligned=aligned,
+            block_rows=block_rows), kp.route, (kp.grid,), 1, 0)
     return _launch(scores, out, kp, exp16_args(plan))
 
 

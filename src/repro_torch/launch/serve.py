@@ -58,7 +58,7 @@ from repro_torch.configs.registry import ARCHS, get_config
 from repro_torch.device import resolve_device
 from repro_torch.distributed import tp_serving
 from repro_torch.models import model as M
-from repro_torch.ops import available_backends, resolve_ops
+from repro_torch.ops import available_backends, build_kernels, resolve_ops
 from repro_torch.quant import convert
 from repro_torch.serving import QueueFull, ServingEngine, ServingFrontend
 from repro_torch.serving.engine import refuse_cross_attention
@@ -307,8 +307,7 @@ def _serve_main(args, cfg, ops, sharded: bool):
     prompts = [[int(t) for t in rng.integers(1, cfg.vocab, PROMPT_LEN)]
                for _ in range(args.requests)]
     if dev.type == "cuda":
-        from repro_torch.kernels._build import timed_build
-        say(f"kernels ready in {timed_build():.1f}s")
+        say(f"kernels ready in {build_kernels():.1f}s")
         torch.cuda.synchronize(dev)
     kernels.reset_launches()
     t0 = time.perf_counter()

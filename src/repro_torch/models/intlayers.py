@@ -17,6 +17,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.analysis import contracts
 from repro_torch.core import activations as iact
 from repro_torch.core import intmath
 from repro_torch.core import norms
@@ -176,8 +177,8 @@ def _qkv(qp, x8, plans: qplans.AttnPlan, cfg: ArchConfig, ops, kv_src=None):
 
 #: the reference's threshold (``intlayers.int_attn_fwd``) above which a
 #: backend without a fused attention kernel streams the two-pass chunked
-#: attention instead of the full-matrix oracle
-FULL_MATRIX_MAX = (4096 * 4096) // 4
+#: attention (the contract that routes on it owns it)
+FULL_MATRIX_MAX = contracts.FULL_MATRIX_MAX
 
 
 def int_attn_fwd(qp, x8, plans: qplans.AttnPlan, cfg: ArchConfig,
@@ -193,7 +194,8 @@ def int_attn_fwd(qp, x8, plans: qplans.AttnPlan, cfg: ArchConfig,
     attention kernel (``cuda``, ``cuda_online``) takes every length;
     otherwise (``cuda_ref`` and ``torch_ref``, the twins of ``ref``, or
     ``fuse_attention=False``) self attention above ``S * Skv =
-    FULL_MATRIX_MAX`` streams the chunked two-pass
+    FULL_MATRIX_MAX`` (``analysis.contracts.ref_streams_chunked``)
+    streams the chunked two-pass
     (``core.attention.i_attention_chunked``, chunks of ``min(1024,
     Skv)``, the KV heads repeated for GQA; it asserts ``S % 1024 == 0``
     as the reference does), and at or below it, and cross attention at
@@ -218,7 +220,7 @@ def int_attn_fwd(qp, x8, plans: qplans.AttnPlan, cfg: ArchConfig,
     if fuse_attention and attn_backend.fused_attention:
         o8 = ops.int_attention(q8, k8, v8, plans.attn, causal=causal,
                                window=window, requant=requant)
-    elif s * sk > FULL_MATRIX_MAX and not cross:
+    elif contracts.ref_streams_chunked(s, sk, cross):
         rep = cfg.q_group
         k8r = k8.repeat_interleave(rep, dim=2) if rep > 1 else k8
         v8r = v8.repeat_interleave(rep, dim=2) if rep > 1 else v8

@@ -11,9 +11,12 @@ with :func:`register_backend` / :func:`unregister_backend`, the
 module-level entry points below, which dispatch through
 ``resolve_ops(ops)``: an explicit ``ops=``, else the ambient
 ``use_backend`` / ``REPRO_BACKEND`` choice, else ``"cuda"``.
+:func:`build_kernels` builds the card backends' kernel library ahead of a
+timed run.
 """
 from __future__ import annotations
 
+from repro_torch.ops.backends import build_kernels
 from repro_torch.ops.registry import (DEFAULT_BACKEND, ENV_VAR, OP_NAMES,
                                       REQUIRED_OPS, TWINS, Backend, OpSet,
                                       available_backends, current_opset,
@@ -26,7 +29,8 @@ from repro_torch.ops.spec import (PER_CHANNEL, PER_TENSOR, RAW, PackMeta,
 __all__ = ["Backend", "DEFAULT_BACKEND", "ENV_VAR", "OP_NAMES", "OpSet",
            "PER_CHANNEL", "PER_TENSOR", "PackMeta", "QuantLinearParams", "RAW",
            "REQUIRED_OPS", "RequantSpec", "TWINS",
-           "available_backends", "current_opset", "get_backend",
+           "available_backends", "build_kernels", "current_opset",
+           "get_backend",
            "register_backend", "resolve_ops", "twin_backend",
            "unregister_backend", "use_backend",
            "int8_matmul", "int8_matmul_packed", "int_softmax", "int_gelu",

@@ -22,3 +22,11 @@ def register_builtin() -> None:
                     "int_attention": dict(bq=256, bkv=256),
                     "int_softmax": dict(block_rows=16)}))):
         register_backend(name, backend)
+
+
+def build_kernels() -> float:
+    """Build (or load) the CUDA kernel library the card backends launch,
+    before a timed run; returns the seconds it took
+    (``kernels._build.timed_build``)."""
+    from repro_torch.kernels._build import timed_build
+    return timed_build()

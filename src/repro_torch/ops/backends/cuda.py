@@ -27,8 +27,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.analysis.budgets import MAX_ROWSUM_LEN
-from repro_torch.analysis.contracts import fit_block
+from repro_torch.analysis.contracts import (fit_block,
+                                            fused_attention_takes)
 from repro_torch.core.attention import i_attention_chunked
 from repro_torch.kernels.int8_matmul import (int8_matmul,
                                              int8_matmul_grouped,
@@ -114,7 +114,7 @@ class CudaBackend:
                       b_vec=None):
         if requant is None:
             requant = RequantSpec.per_tensor(plan.dn_out, out_bits)
-        if k8.shape[1] > MAX_ROWSUM_LEN:
+        if not fused_attention_takes(k8.shape[1]):
             return _chunked_attention(q8, k8, v8, plan, causal, window,
                                      requant)
         return int_attention_fused(q8, k8, v8, plan, requant=requant,

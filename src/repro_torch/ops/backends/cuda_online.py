@@ -12,9 +12,10 @@ both packages run the same blocks on the same shapes.
 
 Routing, op by op:
 
-  * ``int_attention`` — K8 for ``Sq >= 16`` and ``Skv >= 16``; below that
-    K5, which gives the integers of the exact oracle the reference calls
-    there, so no plain version runs on the card.  Per-tensor requant only
+  * ``int_attention`` — K8 for ``Sq >= 16`` and ``Skv >= 16``
+    (``analysis.contracts.online_takes``); below that K5, which gives the
+    integers of the exact oracle the reference calls there, so no plain
+    version runs on the card.  Per-tensor requant only
     (the plan's ``dn_out`` replaced by ``requant.dn``, ``out_bits`` from
     the spec); per-channel and raw raise ``NotImplementedError``, as on
     the reference;
@@ -38,16 +39,13 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 from repro_torch.analysis.contracts import fit_block as _fit_block
+from repro_torch.analysis.contracts import online_takes
 from repro_torch.kernels.int_attention import (int_attention_online,
                                                int_attention_online_plain)
 from repro_torch.kernels.int_attention_fused import (
     int_attention_fused, int_attention_fused_plain)
 from repro_torch.ops.backends.cuda import CudaBackend
 from repro_torch.ops.spec import PER_TENSOR
-
-#: below these query / key lengths the reference's online backend takes
-#: the exact oracle (``repro/ops/backends/pallas.py``)
-MIN_ONLINE_LEN = 16
 
 
 class CudaOnlineBackend(CudaBackend):
@@ -89,7 +87,7 @@ class CudaOnlineBackend(CudaBackend):
             plan = plan._replace(dn_out=requant.dn)
             out_bits = requant.out_bits
         sq, skv = q8.shape[1], k8.shape[1]
-        if sq < MIN_ONLINE_LEN or skv < MIN_ONLINE_LEN:
+        if not online_takes(sq, skv):
             return self.exact_attention(q8, k8, v8, plan, causal=causal,
                                         window=window, out_bits=out_bits)
         bq = _fit_block(opts.pop("bq", 128), sq)

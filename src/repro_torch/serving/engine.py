@@ -331,35 +331,40 @@ class ServingEngine:
         return dist.group.WORLD if group is None else group
 
     def _check_launches(self):
-        """The attention launches' plans, checked at construction where a
-        kernel will take them (a backend that consumes the KV layout
-        natively, on the card): K3 (``k3_launch_plan``: head dim, rows,
-        shared memory) at the verify step's Sq = spec_k + 1, and when
-        sharded at the rank's local heads for Sq = 1 and, chunked, K4
-        (``k4_launch_plan``).  The counterpart of the reference's
-        ``_check_tp_launches``."""
+        """The attention launches' contracts, checked at construction where
+        a kernel will take them (a backend that consumes the KV layout
+        natively, on the card): K3 at the verify step's Sq = spec_k + 1
+        and, when sharded, at Sq = 1, and K4 for a sharded chunked
+        prefill, each through :func:`~repro_torch.analysis.contracts.
+        check_tp_launch` at the rank's heads (``tp`` 1 unless sharded) and
+        ``require_launch``, which raises ``KernelContractError`` (a
+        ``ValueError``: head dim, query rows, shared memory, head counts).
+        The counterpart of the reference's ``_check_tp_launches``."""
         if self.device.type != "cuda":
             return
-        from repro_torch.kernels.int_attention_fused import k4_launch_plan
-        from repro_torch.kernels.int_decode_attention import k3_launch_plan
-        cfg = self.local_cfg
+        cfg = self.cfg
+        tp = self.tp if self.tp_sharded else 1
+        heads = dict(h=cfg.n_heads, hkv=cfg.n_kv_heads, d=cfg.hd)
         int4 = self.paged and self.layout.kv_dtype == "int4"
+        pool = dict(max_pages=self.layout.max_pages,
+                    page_size=self.layout.page_size, kv_pack=int4,
+                    num_pages=self.layout.num_pages) if self.paged else {}
         if getattr(self.ops.backend_for("int_decode_attention"),
                    "paged_decode", False):
-            length = self.layout.logical_len if self.paged else self.L
             sqs = {1} if self.tp_sharded else set()
             if self.spec_k:
                 sqs.add(self.spec_k + 1)
             for sq in sorted(sqs):
-                k3_launch_plan(self.batch, sq, cfg.n_heads, cfg.n_kv_heads,
-                               cfg.hd, length, self.paged, int4)
+                contracts.require_launch(contracts.check_tp_launch(
+                    "int_decode_attention", tp=tp, b=self.batch, sq=sq,
+                    **heads, **(pool or dict(L=self.L))))
         if self.tp_sharded and self._use_chunked and getattr(
                 self.ops.backend_for("int_paged_prefill"), "paged_prefill",
                 False):
-            k4_launch_plan(self.batch, self.prefill_chunk, cfg.n_heads,
-                           cfg.n_kv_heads, cfg.hd, self.layout.max_pages,
-                           self.layout.page_size,
-                           self.caches[0]["k8"].data_ptr(), packed=int4)
+            contracts.require_launch(contracts.check_tp_launch(
+                "int_paged_prefill", tp=tp, b=self.batch,
+                c=self.prefill_chunk, **heads, **pool,
+                k_addr=self.caches[0]["k8"].data_ptr()))
 
     def _device_buffers(self) -> Dict[str, torch.Tensor]:
         """The device tensors every step's host inputs are copied into,
