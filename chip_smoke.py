@@ -261,6 +261,36 @@ non-zero before the last line):
            finished.  The ranks time-share the card: their times are a
            record, not a tensor-parallel speed.  Both phases end with a
            ``<phase>-seconds`` line.
+  train-parity  the float / QAT training path (no kernel: the reference's
+           float path reaches no Pallas kernel) on the card against the
+           CPU, from the same params and batch: one reduced float32
+           config a family (llama3-8b, roberta-base with its tied head,
+           qwen2-moe-a2.7b, mamba2-130m, jamba-v0.1-52b,
+           seamless-m4t-large-v2, llama-3.2-vision-90b) at B 2 x S 16,
+           TF32 off: ``forward_float``'s logits and ``loss_fn`` with its
+           gradients at qat False and True, and one ``adamw_update``,
+           within the CPU tests' tolerances; at qat=True the card replays
+           the CPU's fake-quant codes (``FakeQuantTape``: each code that
+           differs must be a rounding tie), and the line gives the tie
+           flips and the errors without the replay;
+  train    llama3-8b at full width cut to 2 of its 32 layers (bfloat16
+           params, float32 moments: 1.49 B params, ~15 GB of params and
+           moments), 8 QAT steps of ``launch.steps.make_train_step`` at
+           B 4 x S 256 of the synthetic language under
+           ``linear_warmup_cosine(1, 8)``, lr 1e-3: each step's loss and
+           CUDA-event ms, tokens/s, peak memory; then ``quantize_params``
+           of the trained weights and one ``int_prefill`` through ``cuda``
+           and ``torch_ref`` on the card (logits identical; K1, K2, K5
+           launched: the ``launches_by_path`` entry ``train``);
+  train-entry  ``python -m repro_torch.launch.train --arch llama3-8b
+           --reduced --steps 6 --batch 4 --seq 64 --ckpt-every 2
+           --int-eval`` (on the card by default; started in the
+           background before ``train-parity``), then the same with
+           ``--steps 8``, which resumes at step 6; each int-eval prefill
+           launches K1, K2 and K5 (the driver prints its launches); then
+           a ``FaultTolerantLoop`` of reduced llama3-8b failing once at
+           step 3 restarts once, its losses those of an uninterrupted
+           run (within 1e-4; whether bit-equal is printed).
 
 The ``kernels`` phase also holds K3's and K4's packed instantiations
 (rows ``int_decode_attention_kv4`` / ``int_paged_prefill_kv4``) against
@@ -404,6 +434,10 @@ PATH_KERNELS = {
                   "int_paged_prefill_kv4", "int8_matmul_grouped"),
     "tp-serve": ("int8_matmul", "int_layernorm", "int_decode_attention",
                  "int_paged_prefill"),
+    # the int-eval prefill of the trained weights (K5: full-sequence
+    # attention), in this process and in the driver's
+    "train": ("int8_matmul", "int_layernorm", "int_attention_fused"),
+    "train-entry": ("int8_matmul", "int_layernorm", "int_attention_fused"),
 }
 # the reference serving benchmark's weight tier (pack_tree(qp, "msr4",
 # group=64), benchmarks/bench_serving.py)
@@ -5269,6 +5303,457 @@ def phase_tp_serve(cfg):
     return {"tp-serve": ranks[0][0]["launches"]}
 
 
+# ============================================================ training ====
+
+#: ``train-parity``: every family's reduced config, one arch a family
+#: (the encoder's with its tied head: an encoder has no ``lm_head``),
+#: B 2 x S 16
+TRAIN_PARITY_ARCHS = ("llama3-8b", "roberta-base", "qwen2-moe-a2.7b",
+                      "mamba2-130m", "jamba-v0.1-52b",
+                      "seamless-m4t-large-v2", "llama-3.2-vision-90b")
+TRAIN_PARITY_SHAPE = (2, 16)
+#: how far (in grid steps) from the rounding midpoint a fake-quant code
+#: that differs between the card and the CPU may be: a rounding tie
+TIE_TOLERANCE = 1e-3
+#: ``train``: llama3-8b at full width cut to 2 of its 32 layers (the
+#: params, grads and float32 moments of 32 would not fit one card),
+#: B 4 x S 256 of the synthetic language, 8 steps at lr 1e-3
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 4, 256, 8
+TRAIN_LR = 1e-3
+#: ``train-entry``: the driver's command line (``--steps`` 6, then 8)
+TRAIN_ENTRY_ARGS = ("--arch", "llama3-8b", "--reduced", "--batch", "4",
+                    "--seq", "64", "--ckpt-every", "2", "--int-eval")
+#: the step at which ``train-entry``'s fault-tolerant loop fails once
+TRAIN_FAIL_STEP = 3
+
+
+class FakeQuantTape:
+    """The integer codes of every QAT fake quant, recorded on one device
+    and replayed on another.
+
+    Under QAT a value within float rounding of a code's midpoint rounds
+    to either neighbour, and the card and the CPU sum in different
+    orders: one such tie (an MoE router's input, a Mamba x / B / C) flips
+    a routing choice or a whole grid step downstream.  ``record`` keeps
+    each call's codes and its ``x / scale``; ``replay`` computes its own,
+    counts the codes that differ, requires each to be a tie (one step
+    apart, both sides within ``TIE_TOLERANCE`` of the midpoint) and then
+    takes the recorded code, so both devices make the same quantization
+    decisions.  Inside ``with`` it stands in for
+    ``models.layers.fake_quant``, which every ``maybe_fq`` / ``fq_weight``
+    calls; leaving the first ``with`` turns recording into replay."""
+
+    def __init__(self):
+        self.codes, self.mode, self.i = [], "record", 0
+        self.flips, self.worst = 0, 0.0
+
+    def __call__(self, x, scale, bits=8, device=None):
+        import torch
+        from repro_torch.core.quant import qrange
+        lo, hi = qrange(bits)
+        xc = torch.clamp(x / scale, lo, hi)
+        q = torch.round(xc)
+        if self.mode == "record":
+            self.codes.append((q.detach(), xc.detach()))
+        else:
+            q_ref, xc_ref = (t.to(x.device) for t in self.codes[self.i])
+            self.i += 1
+            if q_ref.shape != q.shape:
+                raise AssertionError("the fake-quant calls differ between "
+                                     "the devices")
+            q = q.detach()
+            diff = q_ref != q
+            if bool(diff.any()):
+                mid = (q_ref[diff] + q[diff]) / 2
+                dist = torch.maximum((xc.detach()[diff] - mid).abs(),
+                                     (xc_ref[diff] - mid).abs())
+                self.flips += int(diff.sum())
+                self.worst = max(self.worst, float(dist.max()))
+                if bool(((q_ref[diff] - q[diff]).abs() != 1).any()) \
+                        or self.worst > TIE_TOLERANCE:
+                    raise AssertionError(
+                        f"a fake-quant code differs by more than a "
+                        f"rounding tie ({self.worst} grid steps)")
+            q = q_ref
+        return (x + ((q - xc) * scale + (xc * scale - x)).detach()
+                ).to(x.dtype)
+
+    def __enter__(self):
+        from repro_torch.models import layers
+        self._orig, layers.fake_quant = layers.fake_quant, self
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers
+        layers.fake_quant = self._orig
+        self.mode, self.i = "replay", 0
+
+
+def _train_flat(tree) -> dict:
+    from repro_torch.core.treepath import path_parts, tree_flatten_with_path
+    return {"|".join(path_parts(p)): leaf
+            for p, leaf in tree_flatten_with_path(tree)}
+
+
+def _train_err(got, want, l2: bool) -> float:
+    """max |Δ| / max |want|, or ||Δ||₂ / ||want||₂, in float64."""
+    got, want = got.double().cpu(), want.double().cpu()
+    if l2:
+        return float((got - want).norm()) / max(float(want.norm()), 1e-30)
+    return float((got - want).abs().max()) / max(
+        float(want.abs().max()), 1e-30)
+
+
+def _train_grads(params, batch, cfg, qat: bool, dev, tape=None):
+    """(logits, loss, {path: grad}) of ``qat.loss_fn`` on ``dev``, under
+    ``tape`` (a :class:`FakeQuantTape`) where one is given."""
+    import contextlib
+
+    import torch
+    from repro_torch.core.treepath import tree_map
+    from repro_torch.models import transformer as tf
+    from repro_torch.quant import qat as qat_mod
+    leaves = tree_map(lambda t: t.detach().to(dev).requires_grad_(True),
+                      params)
+    b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    with tape or contextlib.nullcontext():
+        with torch.no_grad():
+            logits, _ = tf.forward_float(leaves, b, cfg, qat=qat)
+        loss, _ = qat_mod.loss_fn(leaves, b, cfg, qat=qat)
+        flat = _train_flat(leaves)
+        grads = torch.autograd.grad(loss, list(flat.values()))
+    return logits, loss.detach(), dict(zip(flat, grads))
+
+
+def phase_train_parity() -> None:
+    """Every family's reduced float32 config from the same params and
+    batch on the card and on the CPU (TF32 off): ``forward_float``'s
+    logits and ``loss_fn`` with its gradients at qat False and True, then
+    one ``adamw_update`` of the CPU's qat gradients on both, within the
+    CPU tests' tolerances (qat=False: max |Δ| <= 1e-4 max |ref|; qat=True:
+    the loss 1e-4 relative, the logits and gradients ||Δ||₂ <= 1e-3
+    ||ref||₂; AdamW 1e-6 a leaf).  At qat=True the card replays the CPU's
+    fake-quant codes (:class:`FakeQuantTape`: every code that differs
+    must be a rounding tie); the line also gives the tie flips and the
+    errors without the replay."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.treepath import tree_map
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw_init, adamw_update
+    from repro_torch.optim.adamw import AdamWConfig
+    assert not torch.backends.cuda.matmul.allow_tf32
+    b, s = TRAIN_PARITY_SHAPE
+    failures = []
+    for name in TRAIN_PARITY_ARCHS:
+        t_arch = time.perf_counter()
+        cfg = M.reduce_config(get_config(name), dtype="float32")
+        if cfg.family == "encoder":
+            cfg = dataclasses.replace(cfg, tie_embeddings=True)
+        host = tf.init_params(cfg, seed=1, device="cpu")
+        rng = np.random.default_rng(0)
+        batch = {"tokens": rng.integers(0, cfg.vocab, (b, s)),
+                 "labels": rng.integers(0, cfg.vocab, (b, s))}
+        if cfg.family == "encdec":
+            batch["src_embeds"] = rng.standard_normal(
+                (b, s, cfg.d_model)).astype(np.float32)
+        if cfg.family == "vlm":
+            batch["img_embeds"] = rng.standard_normal(
+                (b, cfg.n_img_tokens, cfg.d_model)).astype(np.float32)
+        errs, host_grads = {}, None
+        for qat in (False, True):
+            tape = FakeQuantTape() if qat else None
+            lc, loss_c, gc_ = _train_grads(host, batch, cfg, qat, "cpu",
+                                           tape)
+            lg, loss_g, gg = _train_grads(host, batch, cfg, qat, "cuda",
+                                          tape)
+            tag = "qat" if qat else "float"
+            errs[f"{tag}_loss"] = abs(float(loss_g) - float(loss_c)) / \
+                abs(float(loss_c))
+            errs[f"{tag}_logits"] = _train_err(lg, lc, l2=qat)
+            errs[f"{tag}_grads"] = max(_train_err(gg[k], gc_[k], l2=qat)
+                                       for k in gc_)
+            limit = 1e-3 if qat else 1e-4
+            if errs[f"{tag}_loss"] > 1e-4 or errs[f"{tag}_logits"] > limit \
+                    or errs[f"{tag}_grads"] > limit \
+                    or not bool(torch.isfinite(lg).all()):
+                failures.append(f"{name} {tag}")
+            if qat:
+                errs["qat_tie_flips"] = tape.flips
+                errs["qat_tie_worst_steps"] = tape.worst
+                # the same comparison without the replayed codes, for the
+                # record (a tie flip cascades: no tolerance applies)
+                lr_, loss_r, _ = _train_grads(host, batch, cfg, qat, "cuda")
+                errs["qat_unreplayed_loss"] = abs(
+                    float(loss_r) - float(loss_c)) / abs(float(loss_c))
+                errs["qat_unreplayed_logits"] = _train_err(lr_, lc, l2=True)
+            host_grads = gc_
+        opt_cfg = AdamWConfig(lr=1e-3)
+        grads = _tree_like(host, host_grads)
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            p = tree_map(lambda t: t.to(dev), host)
+            outs[dev] = adamw_update(tree_map(lambda t: t.to(dev), grads),
+                                     adamw_init(p, opt_cfg), p, opt_cfg)
+        pairs = [(_train_flat(g), _train_flat(c)) for g, c in (
+            (outs["cuda"][0], outs["cpu"][0]),
+            (outs["cuda"][1].m, outs["cpu"][1].m),
+            (outs["cuda"][1].v, outs["cpu"][1].v))]
+        errs["adamw"] = max(_train_err(g[k], c[k], l2=False)
+                            for g, c in pairs for k in c)
+        if errs["adamw"] > 1e-6:
+            failures.append(f"{name} adamw")
+        emit({"phase": "train-parity", "arch": name, "family": cfg.family,
+              "batch": b, "seq": s, "max_err": errs,
+              "seconds": time.perf_counter() - t_arch})
+    if failures:
+        raise AssertionError(f"train-parity: the card and the CPU differ "
+                             f"past the tolerance: {failures}")
+
+
+def _tree_like(tree, by_path: dict):
+    """``tree``'s structure with the leaf at each path from ``by_path``."""
+    from repro_torch.core.treepath import path_parts, tree_unflatten_like
+    return tree_unflatten_like(
+        tree, lambda path, _: by_path["|".join(path_parts(path))])
+
+
+def phase_train(cfg_full) -> dict:
+    """llama3-8b at full width (d 4096, 32 / 8 heads, d_ff 14 336, vocab
+    128 256) cut to ``TRAIN_LAYERS`` layers, bfloat16 params and float32
+    moments: ``TRAIN_STEPS`` QAT steps of ``make_train_step`` under
+    ``linear_warmup_cosine(1, TRAIN_STEPS)`` on the synthetic language,
+    each step's loss and CUDA-event ms, tokens/s and peak memory; then
+    ``quantize_params`` of the trained weights and one ``int_prefill`` of
+    a batch through ``cuda`` and ``torch_ref`` on the card: the logits
+    identical, K1, K2 and K5 launched.  The embedding is drawn at unit
+    std (the reference init's 1/sqrt(V) quantizes to zero at full
+    width).  Returns the ``cuda`` prefill's launches."""
+    import gc
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.treepath import tree_leaves
+    from repro_torch.data.pipeline import make_train_iterator
+    from repro_torch.launch import steps
+    from repro_torch.models import inttransformer as it
+    from repro_torch.models import transformer as tf
+    from repro_torch.ops import resolve_ops
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.schedule import linear_warmup_cosine
+    from repro_torch.quant import convert
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(cfg_full, num_layers=TRAIN_LAYERS)
+    params = tf.init_params(cfg, seed=0, device="cuda")
+    params["embed"].mul_(convert.unit_embed_scale(cfg))
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    opt_cfg = AdamWConfig(lr=TRAIN_LR)
+    opt = adamw_init(params, opt_cfg)
+    step = steps.make_train_step(cfg, opt_cfg,
+                                 linear_warmup_cosine(1, TRAIN_STEPS),
+                                 device="cuda")
+    data = make_train_iterator(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_phase
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        batch = next(data)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        params, opt, metrics = step(params, opt, batch)
+        ev[1].record()
+        torch.cuda.synchronize()
+        step_ms.append(ev[0].elapsed_time(ev[1]))
+        losses.append(float(metrics["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    steady = sum(step_ms[1:]) / (len(step_ms) - 1)
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves((params, opt.m, opt.v)))
+    del opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_q = time.perf_counter()
+    with torch.no_grad():
+        qp, plans = convert.quantize_params(params, cfg)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t_q
+    del params
+    toks = torch.as_tensor(next(data)["tokens"], device="cuda")
+    logits, counts = {}, {}
+    for backend in ("cuda", "torch_ref"):
+        kernels.reset_launches()
+        logits[backend] = it.int_prefill(qp, {"tokens": toks}, plans, cfg,
+                                         ops=resolve_ops(backend, cfg))
+        torch.cuda.synchronize()
+        counts[backend] = dict(kernels.LAUNCHES)
+    same = torch.equal(logits["cuda"], logits["torch_ref"])
+    argmax = logits["cuda"].argmax(dim=-1).tolist()
+    missing = [k for k in PATH_KERNELS["train"] if counts["cuda"][k] <= 0]
+    finite = all(x == x and abs(x) != float("inf") for x in losses)
+    emit({"phase": "train", "arch": cfg.name, "layers": TRAIN_LAYERS,
+          "of_layers": cfg_full.num_layers, "dtype": cfg.dtype,
+          "moments": opt_cfg.moment_dtype, "params": n_params,
+          "state_bytes": state_bytes, "batch": TRAIN_BATCH,
+          "seq": TRAIN_SEQ, "lr": TRAIN_LR, "losses": losses,
+          "step_ms": step_ms, "steady_step_ms": steady,
+          "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ * 1e3 / steady,
+          "max_memory_allocated": peak, "init_s": init_s,
+          "quantize_s": quantize_s, "int_eval_identical": same,
+          "int_eval_argmax": argmax,
+          "int_eval_launches": {k: c for k, c in counts["cuda"].items()
+                                if c},
+          "torch_ref_launches": sum(counts["torch_ref"].values()),
+          "seconds": time.perf_counter() - t_phase})
+    if not finite:
+        raise AssertionError(f"train: a loss is not finite: {losses}")
+    if not same:
+        raise AssertionError("train: the int-eval logits of cuda and "
+                             "torch_ref differ")
+    if missing or sum(counts["torch_ref"].values()):
+        raise AssertionError(f"train: cuda never launched {missing}, or "
+                             "torch_ref launched a kernel")
+    return counts["cuda"]
+
+
+def _fault_run(cfg, fail: bool):
+    """Six QAT steps of reduced ``cfg`` on the card through a
+    ``FaultTolerantLoop`` (a checkpoint every step, so one is on disk
+    when the loop looks for it); ``fail``: the step function fails once
+    at ``TRAIN_FAIL_STEP``.  Returns (losses, restarts)."""
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.data.pipeline import make_train_iterator
+    from repro_torch.distributed.fault import FaultTolerantLoop
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.schedule import linear_warmup_cosine
+    params = tf.init_params(cfg, seed=0, device="cuda")
+    opt_cfg = AdamWConfig(lr=TRAIN_LR)
+    step = steps.make_train_step(cfg, opt_cfg, linear_warmup_cosine(1, 6),
+                                 device="cuda")
+    failed = []
+
+    def injector(s):
+        if fail and s == TRAIN_FAIL_STEP and not failed:
+            failed.append(s)
+            raise RuntimeError("injected failure")
+
+    def step_fn(state, batch):
+        p, o, m = step(*state, batch)
+        return (p, o), m
+
+    with tempfile.TemporaryDirectory() as d:
+        loop = FaultTolerantLoop(step_fn, CheckpointManager(d),
+                                 make_train_iterator(cfg, 64, 4, seed=0),
+                                 ckpt_every=1, fail_injector=injector)
+        _, log = loop.run((params, adamw_init(params, opt_cfg)), 6)
+    return [m["loss"] for m in log], loop.restarts
+
+
+class TrainEntry:
+    """The driver's two runs into one checkpoint folder: ``--steps 6``
+    starts in the background when this is made (it overlaps
+    ``train-parity``: each process pays the card's start-up again);
+    :meth:`first` waits for it, :meth:`second` runs ``--steps 8``, which
+    resumes at step 6.  :meth:`close` stops a run still going and removes
+    the folder."""
+
+    def __init__(self):
+        import tempfile
+        self.ckpt = tempfile.mkdtemp(prefix="train_entry_")
+        self.env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+        self.runs = []
+        self.proc, self.t0 = self._start(6), time.perf_counter()
+
+    def _start(self, steps: int):
+        return subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.train",
+             *TRAIN_ENTRY_ARGS, "--steps", str(steps), "--ckpt-dir",
+             self.ckpt], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, env=self.env, cwd=ROOT)
+
+    def _finish(self, steps: int) -> None:
+        stdout, stderr = self.proc.communicate(timeout=300)
+        lines = stdout.splitlines()
+
+        def first(prefix):
+            return next((x for x in lines if x.startswith(prefix)), None)
+        launches = first("int-eval launches:")
+        resumed = first("resuming from step")
+        self.runs.append({
+            "steps": steps, "rc": self.proc.returncode,
+            "seconds": time.perf_counter() - self.t0,
+            "resumed_from": int(resumed.rsplit(" ", 1)[1]) if resumed else 0,
+            "summary": first("steps "), "int_eval": first("int-eval ("),
+            "int_eval_launches": json.loads(launches.split(":", 1)[1])
+            if launches else {},
+            "stderr_tail": stderr[-2000:] if self.proc.returncode else ""})
+        self.proc = None
+
+    def first(self) -> None:
+        self._finish(6)
+
+    def second(self) -> None:
+        self.proc, self.t0 = self._start(8), time.perf_counter()
+        self._finish(8)
+
+    def close(self) -> None:
+        import shutil
+        if self.proc is not None:
+            self.proc.kill()
+            self.proc.communicate()
+        shutil.rmtree(self.ckpt, ignore_errors=True)
+
+
+def phase_train_entry(entry: TrainEntry) -> None:
+    """``python -m repro_torch.launch.train`` on the card (its default
+    device): ``TRAIN_ENTRY_ARGS`` with ``--steps 6`` (``entry``'s first
+    run), then ``--steps 8`` into the same checkpoint folder, which
+    resumes at step 6; each ``--int-eval`` prefill launches K1, K2 and
+    K5.  Then a ``FaultTolerantLoop`` failing once at step
+    ``TRAIN_FAIL_STEP`` restarts once and its losses equal an
+    uninterrupted run's (within 1e-4: the card's embedding backward adds
+    with atomics, so two runs need not be bit-equal; whether they are is
+    printed)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M
+    t_phase = time.perf_counter()
+    entry.second()
+    runs = entry.runs
+    cfg = M.reduce_config(get_config("llama3-8b"), dtype="float32",
+                          vocab=1024)
+    clean, r_clean = _fault_run(cfg, fail=False)
+    faulted, r_fault = _fault_run(cfg, fail=True)
+    diff = max(abs(a - b) / abs(b) for a, b in zip(faulted, clean))
+    emit({"phase": "train-entry", "runs": runs,
+          "fault": {"fail_at": TRAIN_FAIL_STEP, "restarts": r_fault,
+                    "losses": faulted, "uninterrupted": clean,
+                    "max_rel_diff": diff, "bit_equal": faulted == clean},
+          "seconds": time.perf_counter() - t_phase})
+    for r, start in zip(runs, (0, 6)):
+        missing = [k for k in PATH_KERNELS["train-entry"]
+                   if r["int_eval_launches"].get(k, 0) <= 0]
+        if r["rc"] != 0 or r["resumed_from"] != start or missing \
+                or not (r["summary"] or "").startswith(
+                    f"steps {start} -> {r['steps']}:"):
+            raise AssertionError(f"train-entry: --steps {r['steps']} "
+                                 f"failed, did not resume at {start} or "
+                                 f"never launched {missing}")
+    if r_fault != 1 or r_clean != 0 or len(faulted) != len(clean) \
+            or diff > 1e-4:
+        raise AssertionError("train-entry: the fault-tolerant loop did not "
+                             "restart once to the uninterrupted losses")
+
+
 def _mean_counts(deltas):
     return {n: float(sum(d[n] for d in deltas)) / max(len(deltas), 1)
             for n in (deltas[0] if deltas else {})}
@@ -5497,7 +5982,7 @@ def main(argv=None) -> int:
                     "long-prefill,moe-parity,moe-serve,moe-prefill,"
                     "ssm-parity,ssm-serve,hybrid-parity,hybrid-serve,"
                     "encdec-parity,encdec-decode,vlm-parity,vlm-decode,"
-                    "tp-parity,tp-serve")
+                    "tp-parity,tp-serve,train-parity,train,train-entry")
     ap.add_argument("--verbose-build", action="store_true",
                     help="print nvcc -Xptxas -v (registers, spills) and "
                     "each kernel's IMMA / IDP / LDL / STL count")
@@ -5661,6 +6146,19 @@ def main(argv=None) -> int:
         launches.update(phase_tp_serve(cfg))
         emit({"phase": "tp-serve-seconds",
               "seconds": time.perf_counter() - t_phase})
+    entry = TrainEntry() if "train-entry" in phases else None
+    try:
+        if "train-parity" in phases:
+            phase_train_parity()
+        if entry is not None:
+            entry.first()
+        if "train" in phases:
+            launches["train"] = phase_train(cfg)
+        if entry is not None:
+            phase_train_entry(entry)
+    finally:
+        if entry is not None:
+            entry.close()
     if rows:
         # each kernel's launches come from the first path of this run
         # that drives it (K1/K2: serve, the first path); every path's

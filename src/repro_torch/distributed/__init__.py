@@ -1,2 +1,3 @@
-"""Quantized collectives and tensor-parallel serving on ``torch.distributed``
-(the port of ``repro.distributed``'s ``collectives`` and ``tp_serving``)."""
+"""Quantized collectives and tensor-parallel serving on ``torch.distributed``,
+and the fault-tolerant training loop (the port of ``repro.distributed``'s
+``collectives``, ``tp_serving`` and ``fault``)."""

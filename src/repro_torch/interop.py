@@ -1,7 +1,9 @@
-"""Carry quantized weights and plans from the JAX package into the port.
+"""Carry weights, optimizer state and plans from the JAX package into the
+port.
 
-:func:`from_reference` turns the reference's ``(qparams, plans)`` into
-the port's: arrays (already numpy, e.g. after ``jax.tree.map(np.asarray,
+:func:`params_from_reference` turns the reference's float params (and
+its ``AdamWState``) into the port's trees; :func:`from_reference` turns
+the reference's ``(qparams, plans)`` into the port's: arrays (already numpy, e.g. after ``jax.tree.map(np.asarray,
 qparams)``) become torch tensors on ``device`` (the card unless the
 caller passes ``device="cpu"``, as at every entry point of the port),
 and plan objects are read by field name (``_fields`` /
@@ -26,6 +28,7 @@ from repro_torch.core.norms import INormPlan
 from repro_torch.core.softmax import ISoftmaxPlan
 from repro_torch.device import DEFAULT_DEVICE, resolve_device
 from repro_torch.ops.packed import msr4_lanes_distinct
+from repro_torch.optim.adamw import AdamWState
 from repro_torch.ops.spec import PackMeta, QuantLinearParams
 from repro_torch.quant.plans import (AttnPlan, EmbedPlan, FfnPlan, HeadPlan,
                                      LayerPlans, LinearPlan, MambaPlan,
@@ -116,3 +119,47 @@ def from_reference(qparams, plans, device=DEFAULT_DEVICE):
     """``(qparams, plans)`` of the JAX package -> the port's."""
     return (qparams_from_reference(qparams, device),
             plan_from_reference(plans))
+
+
+#: the reference's NamedTuples of float training state, by class name
+STATE_TYPES = {"AdamWState": AdamWState}
+
+
+def _float_leaf(a, device):
+    """A numpy array (a bfloat16 one too: ``ml_dtypes``' or the
+    checkpoint's ``|V2`` bytes) as a tensor of the same dtype, bit for
+    bit."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16" or a.dtype == np.dtype("V2"):
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.as_tensor(np.array(a), device=device)
+
+
+def params_from_reference(tree, device=DEFAULT_DEVICE):
+    """The reference's float params or training state (numpy leaves,
+    e.g. after ``jax.tree.map(np.asarray, params)``) -> the port's tree
+    of tensors on ``device`` (default the card; raises without one), of
+    the same dtypes.  Dicts and lists keep their structure, a tuple stays
+    a tuple, and the reference's ``AdamWState`` becomes the port's
+    (``optim.AdamWState``: ``step`` a 0-d int32, ``m`` and ``v`` trees of
+    the params' structure); ``None`` stays ``None``."""
+    device = resolve_device(device)
+
+    def carry(t):
+        if t is None:
+            return None
+        name = type(t).__name__
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            if name not in STATE_TYPES:
+                raise NotImplementedError(
+                    f"state type {name} has no counterpart in the port")
+            return STATE_TYPES[name](*(carry(getattr(t, f))
+                                       for f in t._fields))
+        if isinstance(t, dict):
+            return {k: carry(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(carry(v) for v in t)
+        return _float_leaf(t, device)
+
+    return carry(tree)

@@ -5,7 +5,8 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve \
       [--arch h2o-danube-3-4b] [--reduced] [--cache-mode contiguous] \
       --requests 8 --max-new 16 [--device cuda] [--spec-k 3] \
-      [--max-pending 16] [--timeout-s 30] [--arrival-rate 4] [--tp 2]
+      [--max-pending 16] [--timeout-s 30] [--arrival-rate 4] [--tp 2] \
+      [--ckpt-dir DIR]
 
 Tensor-parallel serving (``--tp N``) shards the attention heads over a
 world of N processes, one a rank, each started with this same command
@@ -36,8 +37,11 @@ stream below the RMSNorm pre-shift, so every token would come out 0.
 The kernels are built (or loaded) before the timed serve.
 ``--device`` defaults to ``cuda`` and fails without a GPU unless
 ``--device cpu`` is given (the plain versions of every kernel run
-there).  ``--ckpt-dir`` of the reference's CLI is not ported yet
-(ROADMAP §1 item 12).  The cross attention archs
+there).  ``--ckpt-dir`` serves the float params of the latest
+checkpoint there (as ``repro_torch.launch.train`` or the reference's
+driver writes them) instead of a random draw: the whole float model is
+drawn, its leaves replaced by the checkpoint's, then quantized with
+``quant.convert.quantize_params``.  The cross attention archs
 (seamless-m4t-large-v2, llama-3.2-vision-90b) are refused, as the engine
 refuses them (``serving.engine.refuse_cross_attention``).
 """
@@ -54,10 +58,12 @@ import torch.distributed as dist
 
 from repro_torch import kernels
 from repro_torch.analysis import contracts
+from repro_torch.checkpoint import load_checkpoint
 from repro_torch.configs.registry import ARCHS, get_config
 from repro_torch.device import resolve_device
 from repro_torch.distributed import tp_serving
 from repro_torch.models import model as M
+from repro_torch.models import transformer as tf
 from repro_torch.ops import available_backends, build_kernels, resolve_ops
 from repro_torch.quant import convert
 from repro_torch.serving import QueueFull, ServingEngine, ServingFrontend
@@ -135,6 +141,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "pallas, pallas_tuned: their twins here); "
                          "default: REPRO_BACKEND, else cuda")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="serve the float params of this training "
+                         "checkpoint folder's latest step")
     return ap
 
 
@@ -283,9 +292,17 @@ def _serve_main(args, cfg, ops, sharded: bool):
     dev = resolve_device(args.device)
     say(f"quantizing {cfg.name} ({cfg.num_layers} layers, d={cfg.d_model})"
         f" on {dev} ...")
-    qp, plans = convert.init_quantized(
-        cfg, seed=0, device=dev,
-        embed_scale=convert.unit_embed_scale(cfg))
+    if args.ckpt_dir:
+        params = tf.init_params(cfg, seed=0, device=dev)
+        (params, _), meta = load_checkpoint(args.ckpt_dir, (params, None))
+        say(f"restored step {meta['step']} from {args.ckpt_dir}")
+        with torch.no_grad():
+            qp, plans = convert.quantize_params(params, cfg)
+        del params
+    else:
+        qp, plans = convert.init_quantized(
+            cfg, seed=0, device=dev,
+            embed_scale=convert.unit_embed_scale(cfg))
     eng = ServingEngine(qp, plans, cfg, batch_size=args.batch,
                         cache_len=args.cache_len, ops=ops,
                         cache_mode=args.cache_mode, page_size=args.page_size,

@@ -1,10 +1,14 @@
 """Architecture configuration (twin of ``repro.models.common``):
 ``ArchConfig`` with its derived fields (padded sizes, the SSM widths,
-the analytic parameter counts) and the assigned input shapes
-``ShapeConfig`` / ``SHAPES``."""
+the analytic parameter counts), the assigned input shapes
+``ShapeConfig`` / ``SHAPES``, and the float path's positions (RoPE and
+the sinusoidal table)."""
 from __future__ import annotations
 
 import dataclasses
+import math
+
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,3 +187,35 @@ SHAPES = {
     "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
     "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
 }
+
+
+def rope_freqs(hd: int, theta: float, device=None):
+    """The (hd / 2,) float32 RoPE frequencies ``theta ** (-2i / hd)``."""
+    i = torch.arange(0, hd, 2, dtype=torch.float32, device=device)
+    return 1.0 / (theta ** (i / hd))
+
+
+def apply_rope(x, positions, theta: float = 10000.0):
+    """Rotate halves of ``x`` (..., S, H, hd) by ``positions``
+    (broadcastable to (..., S)); computed in float32, returned in
+    ``x``'s dtype."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, device=x.device)
+    angles = positions[..., None].to(torch.float32) * freqs
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def sinusoidal_pos(seq: int, d: int, dtype=torch.float32, device=None):
+    """The (seq, d) sinusoidal position table: sin on even columns, cos
+    on odd ones."""
+    pos = torch.arange(seq, device=device)[:, None].to(torch.float32)
+    div = torch.exp(torch.arange(0, d, 2, device=device).to(torch.float32)
+                    * (-math.log(10000.0) / d))
+    pe = torch.zeros((seq, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe.to(dtype)

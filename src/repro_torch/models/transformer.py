@@ -1,17 +1,18 @@
-"""Layer grouping and the float init of every family: dense decoders,
-encoders, mixtures of experts, state-space models, the encoder-decoder
-and the VLM (twin of the matching parts of
-``repro.models.transformer``)."""
+"""Layer grouping, the float init and the float / QAT forward of every
+family: dense decoders, encoders, mixtures of experts, state-space
+models, the encoder-decoder and the VLM (twin of
+``repro.models.transformer``'s init and float halves)."""
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as fl
 from repro_torch.models import mamba as mb
-from repro_torch.models.common import ArchConfig
+from repro_torch.models.common import ArchConfig, sinusoidal_pos
 
 Pytree = Any
 
@@ -146,3 +147,147 @@ def init_params(cfg: ArchConfig, seed: int = 0,
     if cfg.pos == "learned":
         params["pos_embed"] = fl._init(gen, (65536, cfg.d_model), dtype)
     return params
+
+
+# ===================================================== float forward ======
+
+def _sublayer_fwd_float(p, x, cfg: ArchConfig, kind, positions, qat,
+                        causal=True, memory=None):
+    """One sublayer, pre-norm (or post-norm for ``cfg.post_norm``);
+    returns (x, the MoE's aux loss or 0)."""
+    mix, ff, has_cross = kind
+    window = cfg.window if mix == "attn" else 0
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def mixer(h):
+        if mix in ("attn", "cross"):
+            return fl.attn_fwd(p["attn"], h, cfg, positions, causal=causal,
+                               window=window,
+                               memory=memory if mix == "cross" else None,
+                               qat=qat)
+        return mb.mamba_fwd(p["ssm"], h, cfg, qat=qat)
+
+    def ffn(h):
+        if ff == "moe":
+            return fl.moe_fwd(p["moe"], h, cfg, qat=qat)
+        return fl.ffn_fwd(p["ffn"], h, cfg, qat=qat), None
+
+    if cfg.post_norm:
+        x = fl.norm_fwd(p["norm1"], x + mixer(x), cfg)
+        if has_cross:
+            c = fl.attn_fwd(p["cross"], x, cfg, positions, causal=False,
+                            memory=memory, qat=qat)
+            x = fl.norm_fwd(p["norm_cross"], x + c, cfg)
+        if ff is not None:
+            f, a = ffn(x)
+            x = fl.norm_fwd(p["norm2"], x + f, cfg)
+            if a is not None:
+                aux = aux + a
+        return x, aux
+    x = x + mixer(fl.norm_fwd(p["norm1"], x, cfg))
+    if has_cross:
+        h = fl.norm_fwd(p["norm_cross"], x, cfg)
+        x = x + fl.attn_fwd(p["cross"], h, cfg, positions, causal=False,
+                            memory=memory, qat=qat)
+    if ff is not None:
+        f, a = ffn(fl.norm_fwd(p["norm2"], x, cfg))
+        x = x + f
+        if a is not None:
+            aux = aux + a
+    return x, aux
+
+
+def _group_params(tree, i: int):
+    """Group ``i``'s slice of a position's stacked params."""
+    if isinstance(tree, dict):
+        return {k: _group_params(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _run_stack_float(layer_params: List, x, cfg: ArchConfig, kinds,
+                     positions, qat, causal=True, memory=None):
+    """The layer groups in order (the reference's ``lax.scan``); with
+    ``cfg.remat`` each group is recomputed in the backward
+    (``torch.utils.checkpoint``, as ``jax.remat`` over the scan body).
+    Returns (x, the summed aux loss)."""
+
+    def body(x, aux, xs):
+        for j, kind in enumerate(kinds):
+            x, a = _sublayer_fwd_float(xs[j], x, cfg, kind, positions, qat,
+                                       causal=causal, memory=memory)
+            aux = aux + a
+        return x, aux
+
+    ng = _first_leaf(layer_params[0]).shape[0]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(ng):
+        xs = [_group_params(lp, i) for lp in layer_params]
+        if cfg.remat:
+            x, aux = checkpoint(body, x, aux, xs, use_reentrant=False)
+        else:
+            x, aux = body(x, aux, xs)
+    return x, aux
+
+
+def _first_leaf(tree):
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree
+
+
+def embed_tokens(params, tokens, cfg: ArchConfig):
+    """The embedding rows of ``tokens`` (B, S), plus the learned or
+    sinusoidal positions."""
+    x = params["embed"][tokens]
+    if cfg.pos == "learned":
+        s = tokens.shape[1]
+        x = x + params["pos_embed"][:s][None]
+    elif cfg.pos == "sinusoidal":
+        x = x + sinusoidal_pos(tokens.shape[1], cfg.d_model, x.dtype,
+                               device=x.device)[None]
+    return x
+
+
+def logits_fwd(params, x, cfg: ArchConfig, qat=False):
+    """Final norm, then the (tied or separate) head: (B, S, V)."""
+    x = fl.norm_fwd(params["final_norm"], x, cfg)
+    x = fl.maybe_fq(x, cfg.s_act8, enabled=qat)
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return x @ fl.fq_weight(w, 1, qat)
+
+
+def forward_float(params, batch, cfg: ArchConfig, qat: bool = False,
+                  return_hidden: bool = False):
+    """Returns (logits | final hidden, aux_loss) for every family.
+
+    batch: tokens (B,S) [+ img_embeds (B,Ni,D) | src_embeds (B,Sf,D)],
+    tensors on the params' device."""
+    _, _, kinds = layer_group_spec(cfg)
+    dtype = getattr(torch, cfg.dtype)
+    tokens = batch["tokens"]
+    memory = None
+    if cfg.family == "encdec":
+        src = batch["src_embeds"].to(dtype)
+        epos = torch.arange(src.shape[1], device=src.device)[None]
+        enc_x, _ = _run_stack_float(params["enc_layers"], src, cfg,
+                                    [ENCODER_KIND], epos, qat, causal=False)
+        memory = fl.norm_fwd(params["enc_final_norm"], enc_x, cfg)
+    elif cfg.family == "vlm":
+        memory = batch["img_embeds"].to(dtype)
+    x = embed_tokens(params, tokens, cfg)
+    positions = torch.arange(x.shape[1], device=x.device)[None]
+    x, aux = _run_stack_float(params["layers"], x, cfg, kinds, positions,
+                              qat, causal=cfg.is_causal, memory=memory)
+    if return_hidden:
+        return x, aux
+    return logits_fwd(params, x, cfg, qat), aux
+
+
+def encoder_fwd_float(params, embeds, cfg: ArchConfig, qat: bool = False):
+    """Encoder-only forward from pre-embedded inputs (RoBERTa / DeiT):
+    the stack without a causal mask, then the final norm."""
+    _, _, kinds = layer_group_spec(cfg)
+    positions = torch.arange(embeds.shape[1], device=embeds.device)[None]
+    x, _ = _run_stack_float(params["layers"], embeds, cfg, kinds,
+                            positions, qat, causal=False)
+    return fl.norm_fwd(params["final_norm"], x, cfg)

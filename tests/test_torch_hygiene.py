@@ -3,9 +3,10 @@
   * no module under ``src/repro_torch/`` (nor ``chip_smoke.py``) imports
     ``jax`` or ``repro`` — checked on the AST and by importing every port
     module with both blocked;
-  * entry points (the engine, the serve driver, ``init_quantized``,
-    ``interop``, ``init_decode_cache``, ``build_rope_table``) default to
-    ``device="cuda"`` and raise on a host without a card instead of
+  * entry points (the engine, the serve and train drivers,
+    ``init_quantized``, ``interop``, ``init_decode_cache``,
+    ``build_rope_table``, ``make_train_step``, ``init_mamba_state``)
+    default to ``device="cuda"`` and raise on a host without a card instead of
     falling back to the CPU;
   * each CUDA source carries its note (TPU kernel replaced, bound, design);
   * ``chip_smoke.py`` alone, or without a card, exits non-zero and prints
@@ -129,6 +130,33 @@ def test_interop_defaults_to_the_card(no_gpu):
     qp, plans = from_reference(tree, None, device="cpu")
     assert qp["w"].device.type == "cpu" and qp["b"][0].device.type == "cpu"
     assert plans is None
+
+
+def test_training_entry_points_default_to_the_card(no_gpu, tmp_path):
+    """The train driver, the train step, the float Mamba state and the
+    float params carried over from the reference are on the card unless
+    the caller asks for the CPU."""
+    import numpy as np
+    from repro_torch.configs.registry import get_config
+    from repro_torch.interop import params_from_reference
+    from repro_torch.launch import steps, train
+    from repro_torch.models import mamba as mb
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import AdamWConfig
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--reduced", "--steps", "1", "--ckpt-dir",
+                    str(tmp_path)])
+    assert not any(tmp_path.iterdir())
+    cfg = M.reduce_config(get_config("llama3-8b"), dtype="float32")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        steps.make_train_step(cfg, AdamWConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mb.init_mamba_state(M.reduce_config(get_config("mamba2-130m")), 2)
+    tree = {"w": np.ones((2, 3), dtype=np.float32), "b": [np.zeros(3)]}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        params_from_reference(tree)
+    out = params_from_reference(tree, device="cpu")
+    assert out["w"].device.type == "cpu" and out["w"].dtype == torch.float32
 
 
 def test_default_backend_is_cuda():
