@@ -282,12 +282,31 @@ non-zero before the last line):
            of the trained weights and one ``int_prefill`` through ``cuda``
            and ``torch_ref`` on the card (logits identical; K1, K2, K5
            launched: the ``launches_by_path`` entry ``train``);
-  train-entry  ``python -m repro_torch.launch.train --arch llama3-8b
-           --reduced --steps 6 --batch 4 --seq 64 --ckpt-every 2
-           --int-eval`` (on the card by default; started in the
-           background before ``train-parity``), then the same with
-           ``--steps 8``, which resumes at step 6; each int-eval prefill
-           launches K1, K2 and K5 (the driver prints its launches); then
+  train-mesh  the ``train`` model (llama3-8b full width, 2 of 32
+           layers, bfloat16 params, float32 moments) on a gloo world of
+           4 ranks sharing the card, mesh (2, 2), ZeRO-1: 4 QAT steps of
+           ``make_train_step(param_specs=, mesh=)`` at B 4 x S 256 of the
+           synthetic language (each rank its rows and sequence block;
+           tensor-parallel attention / FFN behind the int8 sequence
+           gather); per rank the step ms and the collective ms a step
+           (CUDA events around each collective, by kind), the int8 bytes
+           of ``comm_quant_gather``, its param / moment bytes and peak
+           memory (below ``train``'s single-rank peak); the losses
+           against a (1, 1)-mesh run of the same params and batches in
+           this process (within 1e-4 relative at the first step, 1e-3
+           after); then rank 0 gathers the weights, quantizes them and
+           runs one ``int_prefill`` through ``cuda`` and ``torch_ref``
+           (identical; K1, K2, K5 launched: ``launches_by_path``
+           ``train-mesh``);
+  train-entry  ``python -m torch.distributed.run --standalone
+           --nproc-per-node 2 -m repro_torch.launch.train --dist-backend
+           gloo --arch llama3-8b --reduced --steps 6 --batch 4 --seq 64
+           --ckpt-every 2 --int-eval`` (a world of 2 ranks on the card,
+           ``choose_mesh``: (1, 2); started in the background before
+           ``train-parity``), then one process with ``--steps 8``, which
+           resumes at step 6 from the world's checkpoint; each int-eval
+           prefill launches K1, K2 and K5 (the driver prints its
+           launches); then
            a ``FaultTolerantLoop`` of reduced llama3-8b failing once at
            step 3 restarts once, its losses those of an uninterrupted
            run (within 1e-4; whether bit-equal is printed).
@@ -438,6 +457,7 @@ PATH_KERNELS = {
     # attention), in this process and in the driver's
     "train": ("int8_matmul", "int_layernorm", "int_attention_fused"),
     "train-entry": ("int8_matmul", "int_layernorm", "int_attention_fused"),
+    "train-mesh": ("int8_matmul", "int_layernorm", "int_attention_fused"),
 }
 # the reference serving benchmark's weight tier (pack_tree(qp, "msr4",
 # group=64), benchmarks/bench_serving.py)
@@ -5325,6 +5345,14 @@ TRAIN_ENTRY_ARGS = ("--arch", "llama3-8b", "--reduced", "--batch", "4",
                     "--seq", "64", "--ckpt-every", "2", "--int-eval")
 #: the step at which ``train-entry``'s fault-tolerant loop fails once
 TRAIN_FAIL_STEP = 3
+#: ``train-entry``'s first run: a world of this many gloo ranks on the
+#: card (``torchrun``); the second run, one process, resumes its
+#: checkpoint
+TRAIN_ENTRY_WORLD = 2
+#: ``train-mesh``: ``train``'s model and batches on a gloo world of 4
+#: ranks sharing the card, mesh (2, 2), ZeRO-1, 4 steps
+TRAIN_MESH_SHAPE, TRAIN_MESH_STEPS = (2, 2), 4
+TRAIN_MESH_TIMEOUT_S = 600
 
 
 class FakeQuantTape:
@@ -5621,6 +5649,233 @@ def phase_train(cfg_full) -> dict:
     return counts["cuda"]
 
 
+def _train_state(cfg, mesh):
+    """``train``'s model drawn from seed 0 on the card (the embedding at
+    unit std), this rank's blocks of ``param_pspecs`` over ``mesh``,
+    ZeRO-1 moments, the step and ``train``'s batches: (params, moments,
+    specs, step, data)."""
+    import gc
+
+    import torch
+    from repro_torch.data.pipeline import make_train_iterator
+    from repro_torch.launch import shardings as shd
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.schedule import linear_warmup_cosine
+    from repro_torch.quant import convert
+    params = tf.init_params(cfg, seed=0, device="cuda")
+    params["embed"].mul_(convert.unit_embed_scale(cfg))
+    specs = shd.param_pspecs(params, mesh)
+    local = shd.shard_tree(params, specs, mesh)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, zero1=True)
+    step = steps_mod.make_train_step(cfg, opt_cfg,
+                                     linear_warmup_cosine(1, TRAIN_STEPS),
+                                     device="cuda", param_specs=specs,
+                                     mesh=mesh)
+    return (local, adamw_init(local, opt_cfg, specs, mesh), specs, step,
+            make_train_iterator(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=0))
+
+
+def train_mesh_rank(cfg, mesh_shape, steps):
+    """A rank of ``train-mesh``: :func:`_train_state` over a mesh of
+    ``mesh_shape``; ``steps`` QAT steps, each timed with CUDA events and
+    every collective too (``sharding.EVENTS``); then the whole params
+    gathered and, on rank 0, quantized and one ``int_prefill`` through
+    ``cuda`` and ``torch_ref``."""
+    import gc
+
+    import torch
+    from repro_torch import kernels
+    from repro_torch.core.treepath import tree_leaves
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import _build
+    from repro_torch.launch import shardings as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import inttransformer as it
+    from repro_torch.ops import resolve_ops
+    from repro_torch.quant import convert
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    mesh = make_mesh(mesh_shape, ("data", "model"))
+    local, opt, specs, step, data = _train_state(cfg, mesh)
+    state_bytes = {
+        "params": sum(t.numel() * t.element_size()
+                      for t in tree_leaves(local)),
+        "moments": sum(t.numel() * t.element_size()
+                       for t in tree_leaves((opt.m, opt.v)))}
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, coll_ms, comm_bytes = [], [], [], []
+    sh.EVENTS = []
+    try:
+        for _ in range(steps):
+            batch = next(data)
+            sh.EVENTS.clear()
+            sh.reset_traffic()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            local, opt, metrics = step(local, opt, batch)
+            ev[1].record()
+            torch.cuda.synchronize()
+            step_ms.append(ev[0].elapsed_time(ev[1]))
+            by_kind = {}
+            for kind, a, b in sh.EVENTS:
+                by_kind[kind] = by_kind.get(kind, 0.0) + a.elapsed_time(b)
+            coll_ms.append(by_kind)
+            comm_bytes.append({k: v["bytes"] for k, v in sh.TRAFFIC.items()})
+            losses.append(float(metrics["loss"]))
+    finally:
+        sh.EVENTS = None
+    traffic = {k: dict(v) for k, v in sh.TRAFFIC.items()}
+    peak = torch.cuda.max_memory_allocated()
+    del opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    whole = shd.gather_tree(local, specs, mesh)
+    del local
+    out = {"rank": mesh.rank, "coords": mesh.coords, "losses": losses,
+           "step_ms": step_ms, "collective_ms": coll_ms,
+           "collective_ms_per_step": [sum(c.values()) for c in coll_ms],
+           "bytes_per_step": comm_bytes, "last_step_traffic": traffic,
+           "state_bytes": state_bytes, "max_memory_allocated": peak,
+           "init_s": init_s}
+    if mesh.rank == 0:
+        _build.library()
+        with torch.no_grad():
+            qp, plans = convert.quantize_params(whole, cfg)
+        del whole
+        toks = torch.as_tensor(next(data)["tokens"], device="cuda")
+        logits, counts = {}, {}
+        for backend in ("cuda", "torch_ref"):
+            kernels.reset_launches()
+            logits[backend] = it.int_prefill(
+                qp, {"tokens": toks}, plans, cfg,
+                ops=resolve_ops(backend, cfg))
+            torch.cuda.synchronize()
+            counts[backend] = dict(kernels.LAUNCHES)
+        out.update({
+            "int_eval_identical": torch.equal(logits["cuda"],
+                                              logits["torch_ref"]),
+            "int_eval_argmax": logits["cuda"].argmax(dim=-1).tolist(),
+            "launches": counts["cuda"],
+            "torch_ref_launches": sum(counts["torch_ref"].values())})
+    return out
+
+
+def _train_reference_losses(cfg, steps):
+    """``steps`` QAT steps of :func:`_train_state` on a (1, 1) mesh in
+    this process (the single-rank run the world is held against): the
+    losses."""
+    import gc
+
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    params, opt, _, step, data = _train_state(
+        cfg, make_mesh((1, 1), ("data", "model")))
+    losses = []
+    for _ in range(steps):
+        params, opt, metrics = step(params, opt, next(data))
+        losses.append(float(metrics["loss"]))
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses
+
+
+def phase_train_mesh(cfg_full) -> dict:
+    """``train``'s model (llama3-8b full width, ``TRAIN_LAYERS`` layers,
+    bfloat16 params, float32 moments) on a gloo world of 4 ranks sharing
+    the card (``TRAIN_MESH_SHAPE``, ZeRO-1), ``TRAIN_MESH_STEPS`` steps of
+    ``train``'s batches: a line a rank (step and collective ms, the int8
+    bytes of the sequence gather, param / moment bytes, peak memory),
+    then the losses against a (1, 1) run of the same params and batches
+    in this process (the first step's, before any update, within 1e-4
+    relative; the later ones within 1e-3: Adam's first steps normalise
+    each gradient element, so a rounding difference of a near-zero
+    gradient moves its weight by a whole lr step) and rank 0's int-eval
+    (``cuda`` == ``torch_ref``, K1 / K2 / K5 launched).  The ranks
+    time-share the card: their times are a record, not a data / tensor
+    parallel speed.  Returns rank 0's launches."""
+    import gc
+    import math
+
+    import torch
+    from repro_torch.distributed.world import run_world
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(cfg_full, num_layers=TRAIN_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    world = TRAIN_MESH_SHAPE[0] * TRAIN_MESH_SHAPE[1]
+    held = torch.cuda.memory_reserved()
+    # the four ranks share the card: segments that grow in place keep a
+    # rank's reserved-but-free memory from fragmenting (set for the
+    # ranks only: they read it when they start)
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ranks = run_world(world, [(train_mesh_rank, (cfg, TRAIN_MESH_SHAPE,
+                                                     TRAIN_MESH_STEPS))],
+                          backend=TP_BACKEND,
+                          timeout_s=TRAIN_MESH_TIMEOUT_S)
+    finally:
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    world_s = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    ref = _train_reference_losses(cfg, TRAIN_MESH_STEPS)
+    ref_s = time.perf_counter() - t0
+    res = [r[0] for r in ranks]
+    for r in res:
+        emit({"phase": "train-mesh", "backend": TP_BACKEND,
+              "mesh": dict(zip(("data", "model"), TRAIN_MESH_SHAPE)),
+              "layers": TRAIN_LAYERS, "batch": TRAIN_BATCH,
+              "seq": TRAIN_SEQ,
+              **{k: v for k, v in r.items() if k not in (
+                  "launches", "int_eval_argmax")},
+              **({"launches": {k: c for k, c in r["launches"].items()
+                               if c}} if "launches" in r else {})})
+    lead = res[0]
+    losses = lead["losses"]
+    errs = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+    missing = [k for k in PATH_KERNELS["train-mesh"]
+               if lead["launches"].get(k, 0) <= 0]
+    emit({"phase": "train-mesh-summary", "losses": losses,
+          "one_rank_losses": ref, "loss_rel_err": errs,
+          "ranks_agree": all(r["losses"] == losses for r in res),
+          "max_rank_peak_memory": max(r["max_memory_allocated"]
+                                      for r in res),
+          "int_eval_identical": lead["int_eval_identical"],
+          "int_eval_argmax": lead["int_eval_argmax"],
+          "one_rank_s": ref_s, "world_s": world_s,
+          "parent_reserved_before_world": held,
+          "seconds": time.perf_counter() - t_phase})
+    if not all(r["losses"] == losses for r in res) \
+            or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train-mesh: the ranks' losses differ or are "
+                             f"not finite: {[r['losses'] for r in res]}")
+    if errs[0] > 1e-4 or max(errs) > 1e-3:
+        raise AssertionError(f"train-mesh: losses {losses} against the "
+                             f"(1, 1) run's {ref}")
+    if not lead["int_eval_identical"] or missing \
+            or lead["torch_ref_launches"]:
+        raise AssertionError(f"train-mesh: int-eval identical "
+                             f"{lead['int_eval_identical']}, cuda never "
+                             f"launched {missing}, or torch_ref launched")
+    if not all(r["last_step_traffic"].get("comm_quant", {}).get("bytes")
+               for r in res):
+        raise AssertionError("train-mesh: a rank ran no int8 sequence "
+                             "gather")
+    return lead["launches"]
+
+
 def _fault_run(cfg, fail: bool):
     """Six QAT steps of reduced ``cfg`` on the card through a
     ``FaultTolerantLoop`` (a checkpoint every step, so one is on disk
@@ -5672,14 +5927,20 @@ class TrainEntry:
         self.ckpt = tempfile.mkdtemp(prefix="train_entry_")
         self.env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
         self.runs = []
-        self.proc, self.t0 = self._start(6), time.perf_counter()
+        self.proc = self._start(6, world=TRAIN_ENTRY_WORLD)
+        self.t0 = time.perf_counter()
 
-    def _start(self, steps: int):
+    def _start(self, steps: int, world: int = 1):
+        head = [sys.executable, "-m", "repro_torch.launch.train"]
+        if world > 1:
+            head = [sys.executable, "-m", "torch.distributed.run",
+                    "--standalone", "--nproc-per-node", str(world), "-m",
+                    "repro_torch.launch.train", "--dist-backend", "gloo"]
         return subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.train",
-             *TRAIN_ENTRY_ARGS, "--steps", str(steps), "--ckpt-dir",
-             self.ckpt], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True, env=self.env, cwd=ROOT)
+            [*head, *TRAIN_ENTRY_ARGS, "--steps", str(steps),
+             "--ckpt-dir", self.ckpt], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, env=self.env, cwd=ROOT,
+            start_new_session=True)
 
     def _finish(self, steps: int) -> None:
         stdout, stderr = self.proc.communicate(timeout=300)
@@ -5689,8 +5950,11 @@ class TrainEntry:
             return next((x for x in lines if x.startswith(prefix)), None)
         launches = first("int-eval launches:")
         resumed = first("resuming from step")
+        mesh = first("arch=")
         self.runs.append({
             "steps": steps, "rc": self.proc.returncode,
+            "mesh": mesh.split("mesh=", 1)[1].split(" device=")[0]
+            if mesh else None,
             "seconds": time.perf_counter() - self.t0,
             "resumed_from": int(resumed.rsplit(" ", 1)[1]) if resumed else 0,
             "summary": first("steps "), "int_eval": first("int-eval ("),
@@ -5701,25 +5965,29 @@ class TrainEntry:
 
     def first(self) -> None:
         self._finish(6)
+        self.runs[-1]["world"] = TRAIN_ENTRY_WORLD
 
     def second(self) -> None:
         self.proc, self.t0 = self._start(8), time.perf_counter()
         self._finish(8)
+        self.runs[-1]["world"] = 1
 
     def close(self) -> None:
         import shutil
         if self.proc is not None:
-            self.proc.kill()
+            # the run's session: torchrun and the ranks it started
+            os.killpg(self.proc.pid, 9)
             self.proc.communicate()
         shutil.rmtree(self.ckpt, ignore_errors=True)
 
 
 def phase_train_entry(entry: TrainEntry) -> None:
     """``python -m repro_torch.launch.train`` on the card (its default
-    device): ``TRAIN_ENTRY_ARGS`` with ``--steps 6`` (``entry``'s first
-    run), then ``--steps 8`` into the same checkpoint folder, which
-    resumes at step 6; each ``--int-eval`` prefill launches K1, K2 and
-    K5.  Then a ``FaultTolerantLoop`` failing once at step
+    device): ``TRAIN_ENTRY_ARGS`` with ``--steps 6`` in a world of
+    ``TRAIN_ENTRY_WORLD`` gloo ranks (``entry``'s first run, mesh (1, 2)),
+    then ``--steps 8`` in one process (mesh (1, 1)) into the same
+    checkpoint folder, which resumes at step 6 from the world's
+    checkpoint; each ``--int-eval`` prefill launches K1, K2 and K5.  Then a ``FaultTolerantLoop`` failing once at step
     ``TRAIN_FAIL_STEP`` restarts once and its losses equal an
     uninterrupted run's (within 1e-4: the card's embedding backward adds
     with atomics, so two runs need not be bit-equal; whether they are is
@@ -5739,10 +6007,13 @@ def phase_train_entry(entry: TrainEntry) -> None:
                     "losses": faulted, "uninterrupted": clean,
                     "max_rel_diff": diff, "bit_equal": faulted == clean},
           "seconds": time.perf_counter() - t_phase})
-    for r, start in zip(runs, (0, 6)):
+    meshes = ({"data": 1, "model": TRAIN_ENTRY_WORLD},
+              {"data": 1, "model": 1})
+    for r, start, mesh in zip(runs, (0, 6), meshes):
         missing = [k for k in PATH_KERNELS["train-entry"]
                    if r["int_eval_launches"].get(k, 0) <= 0]
         if r["rc"] != 0 or r["resumed_from"] != start or missing \
+                or r["mesh"] != str(mesh) \
                 or not (r["summary"] or "").startswith(
                     f"steps {start} -> {r['steps']}:"):
             raise AssertionError(f"train-entry: --steps {r['steps']} "
@@ -5982,7 +6253,8 @@ def main(argv=None) -> int:
                     "long-prefill,moe-parity,moe-serve,moe-prefill,"
                     "ssm-parity,ssm-serve,hybrid-parity,hybrid-serve,"
                     "encdec-parity,encdec-decode,vlm-parity,vlm-decode,"
-                    "tp-parity,tp-serve,train-parity,train,train-entry")
+                    "tp-parity,tp-serve,train-parity,train,train-mesh,"
+                    "train-entry")
     ap.add_argument("--verbose-build", action="store_true",
                     help="print nvcc -Xptxas -v (registers, spills) and "
                     "each kernel's IMMA / IDP / LDL / STL count")
@@ -6154,6 +6426,8 @@ def main(argv=None) -> int:
             entry.first()
         if "train" in phases:
             launches["train"] = phase_train(cfg)
+        if "train-mesh" in phases:
+            launches["train-mesh"] = phase_train_mesh(cfg)
         if entry is not None:
             phase_train_entry(entry)
     finally:

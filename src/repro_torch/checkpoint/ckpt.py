@@ -176,3 +176,67 @@ class CheckpointManager:
 
     def latest_step(self) -> Optional[int]:
         return latest_step(self.directory)
+
+
+class ShardedCheckpointManager(CheckpointManager):
+    """A world's checkpoints in the single-process format: each leaf the
+    whole (global) array, so one process, another mesh or the JAX
+    package restores them.
+
+    ``specs``: the spec tree of the state (``launch.shardings``), whose
+    leaves each rank holds as its blocks over ``mesh``.  ``save``
+    all-gathers every leaf (every rank calls it), then rank 0 writes,
+    off-thread as its parent does; ``latest_step`` and ``restore`` first
+    wait for rank 0's last write (a barrier of the world), then every
+    rank reads the whole arrays and keeps its blocks."""
+
+    def __init__(self, directory: str, specs: Pytree, mesh, keep: int = 3):
+        super().__init__(directory, keep)
+        self.specs, self.mesh = specs, mesh
+
+    def save(self, step: int, tree: Pytree, extra: Optional[Dict] = None):
+        from repro_torch.launch.shardings import gather_tree
+        full = gather_tree(tree, self.specs, self.mesh)
+        if self.mesh.rank == 0:
+            super().save(step, full, extra)
+
+    def _settle(self):
+        import torch.distributed as dist
+        self.wait()
+        if self.mesh.size > 1:
+            dist.barrier()
+
+    def latest_step(self) -> Optional[int]:
+        self._settle()
+        return latest_step(self.directory)
+
+    def restore(self, template: Pytree, step: Optional[int] = None):
+        """(the rank's blocks of the stored state, on the template
+        leaves' devices in the stored dtypes; the meta dict)."""
+        from repro_torch.distributed.sharding import _is_spec
+        from repro_torch.launch.shardings import global_shape, local_shard
+        self._settle()
+        step = latest_step(self.directory) if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {self.directory}")
+        d = os.path.join(self.directory, f"step_{step:012d}")
+        with np.load(os.path.join(d, "arrays.npz")) as z:
+            flat = {k: z[k] for k in z.files}
+        with open(os.path.join(d, "meta.json")) as f:
+            meta = json.load(f)
+        specs = {_key_of(p): s for p, s in tree_flatten_with_path(
+            self.specs, is_leaf=_is_spec)}
+
+        def leaf(path, like):
+            key = _key_of(path)
+            if key not in flat:
+                raise KeyError(f"checkpoint missing leaf {key}")
+            want = global_shape(like.shape, specs[key], self.mesh)
+            if tuple(flat[key].shape) != want:
+                raise ValueError(f"shape mismatch for {key}: "
+                                 f"{flat[key].shape} vs {want}")
+            whole = _from_file(flat[key], torch.empty(0))
+            return local_shard(whole, specs[key], self.mesh) \
+                .contiguous().to(like.device)
+
+        return tree_unflatten_like(template, leaf), meta

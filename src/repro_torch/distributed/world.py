@@ -1,5 +1,5 @@
-"""A world of processes, one a tensor-parallel rank, started from one
-process (the tests, ``chip_smoke.py``), and the serving rank body they
+"""A world of processes, one a rank, started from one process (the
+tests, ``chip_smoke.py``), and the serving and training rank bodies they
 run.
 
 :func:`run_world` spawns ``world_size`` processes, gives them a
@@ -166,3 +166,39 @@ def serve_replay(model, runs: Sequence[dict], device: str = DEFAULT_DEVICE
                     "describe": eng.describe_str(), "fold_wo": eng.fold_wo,
                     "marks": marks})
     return out
+
+
+def train_replay(cfg, params, batches, *, mesh_shape, opt_cfg,
+                 fsdp: bool = False, accum_steps: int = 1, qat: bool = True,
+                 device: str = DEFAULT_DEVICE) -> dict:
+    """The training rank body: a ``(data, model)`` mesh of ``mesh_shape``
+    on the default group, the rank's blocks of ``params`` (the whole
+    float tree, on any device) under ``param_pspecs(params, mesh,
+    fsdp)``, moments from ``adamw_init`` (ZeRO-1 slices where
+    ``opt_cfg.zero1``), then one ``make_train_step`` step a global batch
+    of ``batches``.  Returns the metrics of each step (floats) and the
+    whole params and moments after the last step (CPU tensors; every
+    rank gathers them)."""
+    from repro_torch.core.treepath import tree_map
+    from repro_torch.launch import shardings as shd
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import moment_specs
+    mesh = make_mesh(mesh_shape, ("data", "model"))
+    specs = shd.param_pspecs(params, mesh, fsdp=fsdp)
+    local = tree_map(lambda t: t.to(device), shd.shard_tree(params, specs,
+                                                             mesh))
+    opt = adamw_init(local, opt_cfg, specs, mesh)
+    step = steps_mod.make_train_step(cfg, opt_cfg, device=device,
+                                     qat_enabled=qat,
+                                     accum_steps=accum_steps,
+                                     param_specs=specs, mesh=mesh)
+    metrics = []
+    for batch in batches:
+        local, opt, m = step(local, opt, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+    mspecs = moment_specs(local, specs, mesh, opt_cfg.zero1)
+    return {"metrics": metrics, "state": tuple(
+        tree_map(lambda t: t.cpu(), shd.gather_tree(tree, sp, mesh))
+        for tree, sp in ((local, specs), (opt.m, mspecs), (opt.v, mspecs)))}

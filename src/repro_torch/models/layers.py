@@ -8,11 +8,23 @@ package's draws (tests carry JAX's float params across instead).
 
 Under QAT every tensor the accelerator sees in INT8 / INT10 is
 fake-quantized with a straight-through gradient, as in the reference.
-On one device the reference's ``comm_quant_gather`` (its int8 transport
-of a sequence-parallel gather) is the identity even under QAT, so
-``attn_fwd`` and ``ffn_fwd`` do not fake-quantize their inputs there;
-``moe_fwd`` and ``mamba_fwd`` do, through :func:`maybe_fq`.  The port
-runs on one device and keeps exactly that.
+``attn_fwd`` and ``ffn_fwd`` take their inputs through
+``distributed.sharding.comm_quant_gather`` (the int8 transport of the
+sequence-parallel gather): under any mesh, a ``(1, 1)`` one included, it
+puts them on the int8 grid, as the reference's does; without a mesh it
+is the identity, even under QAT.  ``moe_fwd`` and ``mamba_fwd``
+fake-quantize theirs through :func:`maybe_fq`.
+
+Under a mesh of more than one rank (``launch.mesh``) each layer takes
+the rank's block of the residual stream — its batch rows, and its
+sequence block over ``model`` where ``seq_len`` (the whole length) is
+given — and returns the same block.  Attention (self and cross) and the
+dense FFN are tensor-parallel when their weights hold the rank's heads
+/ ``d_ff`` columns (column-parallel ``wq`` / ``wk`` / ``wv`` / ``w1`` /
+``w3``, row-parallel ``wo`` / ``w2`` whose partial sums are
+reduce-scattered into the residual's block, the per-channel absmax of
+``wo`` / ``w2`` reduced over ``model``); the MoE and Mamba gather the
+whole sequence and run whole on every model rank.
 """
 from __future__ import annotations
 
@@ -24,6 +36,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.quant import fake_quant, per_channel_absmax
+from repro_torch.distributed import sharding as sh
+from repro_torch.launch.mesh import current_mesh, data_axes
 from repro_torch.models.common import ArchConfig, apply_rope
 
 
@@ -96,11 +110,17 @@ def maybe_fq(x, scale, bits=8, enabled=False):
     return fake_quant(x, scale, bits) if enabled else x
 
 
-def fq_weight(w, axis=-1, enabled=False):
-    """Per-out-channel fake quant (axis = out-channel dim)."""
+def fq_weight(w, axis=-1, enabled=False, max_over=None):
+    """Per-out-channel fake quant (axis = out-channel dim).  ``max_over``:
+    the mesh axis a reduced dim of ``w`` is sharded over (a row-parallel
+    weight): the absmax is then all-reduced (MAX) over it, so every rank
+    quantizes on the whole weight's grid."""
     if not enabled:
         return w
-    s = torch.clamp(per_channel_absmax(w, axis), min=1e-6) / 127.0
+    amax = per_channel_absmax(w, axis)
+    if max_over is not None:
+        amax = sh.all_reduce_max_(amax.detach().clone(), max_over)
+    s = torch.clamp(amax, min=1e-6) / 127.0
     shape = [1] * w.dim()
     shape[axis] = -1
     return fake_quant(w, s.reshape(shape), 8)
@@ -136,7 +156,8 @@ def _repeat_kv(k, group: int):
 
 
 def attn_fwd(p, x, cfg: ArchConfig, positions=None, causal=True,
-             window: int = 0, memory=None, qat=False, q_chunk: int = 1024):
+             window: int = 0, memory=None, qat=False, q_chunk: int = 1024,
+             seq_len=None):
     """Self- or cross-attention. x: (B,S,D); memory: (B,Sm,D) for cross.
 
     The query rows run in chunks of at most ``q_chunk`` (the largest
@@ -144,21 +165,43 @@ def attn_fwd(p, x, cfg: ArchConfig, positions=None, causal=True,
     recomputed in the backward (``torch.utils.checkpoint``) instead of
     keeping every chunk's (B, H, qc, Sk) scores, as the reference's
     per-chunk ``jax.remat``.  The scores are float32 (the reference's
-    ``preferred_element_type``), the probabilities in ``x``'s dtype."""
-    b, s, d = x.shape
-    kv_src = memory if memory is not None else x
-    sk = kv_src.shape[1]
-    # comm_quant_gather: the identity on one device, even under QAT
-    q = _linear(x, fq_weight(p["wq"], 1, qat))
-    k = _linear(kv_src, fq_weight(p["wk"], 1, qat))
-    v = _linear(kv_src, fq_weight(p["wv"], 1, qat))
+    ``preferred_element_type``), the probabilities in ``x``'s dtype.
+
+    Under a mesh, ``x`` is the rank's sequence block when ``seq_len`` is
+    given (gathered at the input, its output reduce-scattered back), and
+    ``wq`` holding fewer than ``n_heads`` heads makes the layer
+    tensor-parallel: the rank's query heads, their kv heads (``wk`` /
+    ``wv`` sharded alike, or whole where ``n_kv_heads`` does not divide,
+    the rank then taking the kv heads of its query heads), and ``wo``'s
+    rows of them; ``memory`` is whole."""
+    b, d = x.shape[0], x.shape[-1]
+    xq = sh.comm_quant_gather(x, cfg.s_act8, True, seq_len) if qat \
+        else sh.gather_seq(x, seq_len)
+    s = xq.shape[1]
+    if memory is None:
+        kq = xq
+    else:
+        kq = sh.comm_quant_gather(memory, cfg.s_act8, enabled=qat)
+    sk = kq.shape[1]
+    hl = p["wq"].shape[1]
+    tp = hl < cfg.n_heads
+    q = _linear(xq, fq_weight(p["wq"], 1, qat))
+    k = _linear(kq, fq_weight(p["wk"], 1, qat))
+    v = _linear(kq, fq_weight(p["wv"], 1, qat))
     if cfg.attn_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     if cfg.pos == "rope" and memory is None and positions is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    k = _repeat_kv(k, cfg.q_group)
-    v = _repeat_kv(v, cfg.q_group)
+    if tp and k.shape[2] == cfg.n_kv_heads:
+        # kv heads replicated: the kv head of each of the rank's heads
+        h0 = current_mesh().index("model") * hl
+        kv_of = torch.div(torch.arange(h0, h0 + hl, device=x.device),
+                          cfg.q_group, rounding_mode="floor")
+        k, v = k.index_select(2, kv_of), v.index_select(2, kv_of)
+    else:
+        k = _repeat_kv(k, cfg.q_group)
+        v = _repeat_kv(v, cfg.q_group)
 
     scale = 1.0 / math.sqrt(cfg.hd)
     qc = min(q_chunk, s)
@@ -190,30 +233,45 @@ def attn_fwd(p, x, cfg: ArchConfig, positions=None, causal=True,
                                   use_reentrant=False)
                        for i in range(n_chunks)], dim=1)
     o = maybe_fq(o, cfg.s_act8, enabled=qat)
-    wo = fq_weight(p["wo"], 2, qat)
-    return o.reshape(b, s, -1) @ wo.reshape(-1, d)
+    wo = fq_weight(p["wo"], 2, qat, max_over="model" if tp else None)
+    if not tp:
+        return sh.scatter_seq(o.reshape(b, s, -1) @ wo.reshape(-1, d),
+                              seq_len, partial=False)
+    out = sh.partial_matmul(o.reshape(b, s, -1), wo.reshape(-1, d))
+    return sh.scatter_seq(out, seq_len, partial=True, dtype=x.dtype)
 
 
 # ----------------------------------------------------------------- ffn ----
 
-def ffn_fwd(p, x, cfg: ArchConfig, qat=False):
+def ffn_fwd(p, x, cfg: ArchConfig, qat=False, seq_len=None, d_ff=None):
     """SwiGLU (w1, w3, w2) or GELU (exact erf) with biases b1 / b2; the
     pre-activations on the 10-bit grid and the hidden on the int8 grid
-    under QAT.  The input is not fake-quantized on one device
-    (``comm_quant_gather``)."""
+    under QAT.  The input goes through ``comm_quant_gather`` under QAT.
+    Under a mesh, ``w1`` holding fewer columns than ``d_ff`` (default
+    ``cfg.d_ff``) makes it tensor-parallel: the rank's ``d_ff`` columns
+    of w1 / w3 / b1 and rows of w2, the partial sums reduce-scattered
+    into the residual's block (``seq_len``: as ``attn_fwd``), then b2."""
+    xq = sh.comm_quant_gather(x, cfg.s_act8, True, seq_len) if qat \
+        else sh.gather_seq(x, seq_len)
+    tp = p["w1"].shape[-1] < (cfg.d_ff if d_ff is None else d_ff)
     if cfg.activation == "swiglu":
-        h1 = x @ fq_weight(p["w1"], 1, qat)
-        h3 = x @ fq_weight(p["w3"], 1, qat)
+        h1 = xq @ fq_weight(p["w1"], 1, qat)
+        h3 = xq @ fq_weight(p["w3"], 1, qat)
         h1 = maybe_fq(h1, cfg.s_act10, bits=10, enabled=qat)
         h3 = maybe_fq(h3, cfg.s_act10, bits=10, enabled=qat)
         h = F.silu(h1) * h3
     else:
-        h1 = x @ fq_weight(p["w1"], 1, qat)
+        h1 = xq @ fq_weight(p["w1"], 1, qat)
         h1 = h1 + p["b1"]
         h1 = maybe_fq(h1, cfg.s_act10, bits=10, enabled=qat)
         h = F.gelu(h1, approximate="none")
     h = maybe_fq(h, cfg.s_act8, enabled=qat)
-    out = h @ fq_weight(p["w2"], 1, qat)
+    w2 = fq_weight(p["w2"], 1, qat, max_over="model" if tp else None)
+    if tp:
+        out = sh.scatter_seq(sh.partial_matmul(h, w2), seq_len,
+                             partial=True, dtype=x.dtype)
+    else:
+        out = sh.scatter_seq(h @ w2, seq_len, partial=False)
     if cfg.activation != "swiglu":
         out = out + p["b2"]
     return out
@@ -235,7 +293,8 @@ def _one_hot(idx, n: int, dtype):
     return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
 
 
-def moe_fwd(p, x, cfg: ArchConfig, qat=False, group_size: int = 512):
+def moe_fwd(p, x, cfg: ArchConfig, qat=False, group_size: int = 512,
+            seq_len=None):
     """Capacity-based top-k routing with dispatch / combine einsums over
     groups of ``S // max(1, S // group_size)`` tokens.  Returns (out,
     aux_loss), the Switch load-balance loss ``E * sum(mean prob x
@@ -246,7 +305,14 @@ def moe_fwd(p, x, cfg: ArchConfig, qat=False, group_size: int = 512):
     takes the next free place of its expert up to the capacity
     ``max(4, int(capacity_factor * tg * k / E))`` (E padded), and is
     dropped from that slot past it; ties take the lower expert index
-    (:func:`top_k_lowest_index`)."""
+    (:func:`top_k_lowest_index`).
+
+    Under a mesh the rank's sequence block (``seq_len``: as
+    ``attn_fwd``) is gathered and the layer runs whole on every model
+    rank (whole weights), returning the rank's block; the load-balance
+    statistics are averaged over the data axes, so ``aux`` is the
+    reference's over the global batch on every rank."""
+    x = sh.gather_seq(x, seq_len)
     b, s, d = x.shape
     e = cfg.padded_experts()
     k = cfg.top_k
@@ -269,6 +335,11 @@ def moe_fwd(p, x, cfg: ArchConfig, qat=False, group_size: int = 512):
     me = torch.mean(probs, dim=(0, 1))
     ce = torch.mean(_one_hot(expert_ids[..., 0], e, torch.float32),
                     dim=(0, 1))
+    mesh = current_mesh()
+    if mesh is not None and mesh.axis_size(data_axes(mesh)) > 1:
+        n = mesh.axis_size(data_axes(mesh))
+        me = sh.all_reduce(me, data_axes(mesh)) / n
+        ce = sh.all_reduce(ce, data_axes(mesh)) / n
     aux = e * torch.sum(me * ce)
 
     # capacity assignment, slot-by-slot (k is small)
@@ -304,5 +375,6 @@ def moe_fwd(p, x, cfg: ArchConfig, qat=False, group_size: int = 512):
                        combine.to(x.dtype))
     out = out.reshape(b, s, d)
     if cfg.n_shared_experts:
-        out = out + ffn_fwd(p["shared"], x, cfg, qat=qat)
-    return out, aux
+        out = out + ffn_fwd(p["shared"], x, cfg, qat=qat,
+                            d_ff=p["shared"]["w1"].shape[-1])
+    return sh.scatter_seq(out, seq_len, partial=False), aux

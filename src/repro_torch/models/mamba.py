@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as sh
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.layers import _init, fq_weight, maybe_fq
 
@@ -126,12 +127,17 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, h0=None):
 
 
 def mamba_fwd(p, u, cfg: ArchConfig, qat=False, chunk: int = 128,
-              h0=None, conv_state=None, return_state=False):
+              h0=None, conv_state=None, return_state=False, seq_len=None):
     """Float/QAT forward. u: (B,L,D) -> (B,L,D).
 
     Under QAT the input and the output projection's input are on the int8
     activation grid, x / B / C on the +-16 int8 grid after the conv, and
-    Δt saturates at 2.0 (the integer path's grids)."""
+    Δt saturates at 2.0 (the integer path's grids).  Under a mesh the
+    rank's sequence block (``seq_len``: the whole length, where the
+    residual is sequence-sharded) is gathered, the block runs whole on
+    every model rank (the SSD recurrence needs the whole sequence) and
+    the rank's block of the output is returned."""
+    u = sh.gather_seq(u, seq_len)
     b, l, d = u.shape
     di = cfg.ssm_d_inner
     uq = maybe_fq(u, cfg.s_act8, enabled=qat)
@@ -165,7 +171,8 @@ def mamba_fwd(p, u, cfg: ArchConfig, qat=False, chunk: int = 128,
     y = (yf / torch.sqrt(torch.mean(yf * yf, -1, keepdim=True) + 1e-6)
          * p["norm_gamma"]).to(u.dtype)
     y = maybe_fq(y, cfg.s_act8, enabled=qat)
-    out = y @ fq_weight(p["out_proj"], 1, qat)
+    out = sh.scatter_seq(y @ fq_weight(p["out_proj"], 1, qat), seq_len,
+                         partial=False)
     if return_state:
         return out, (h_last, new_conv)
     return out

@@ -10,6 +10,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as sh
+from repro_torch.launch.mesh import current_mesh
 from repro_torch.models import layers as fl
 from repro_torch.models import mamba as mb
 from repro_torch.models.common import ArchConfig, sinusoidal_pos
@@ -152,9 +154,10 @@ def init_params(cfg: ArchConfig, seed: int = 0,
 # ===================================================== float forward ======
 
 def _sublayer_fwd_float(p, x, cfg: ArchConfig, kind, positions, qat,
-                        causal=True, memory=None):
+                        causal=True, memory=None, seq_len=None):
     """One sublayer, pre-norm (or post-norm for ``cfg.post_norm``);
-    returns (x, the MoE's aux loss or 0)."""
+    returns (x, the MoE's aux loss or 0).  ``seq_len``: the whole
+    sequence's length where ``x`` is the rank's sequence block."""
     mix, ff, has_cross = kind
     window = cfg.window if mix == "attn" else 0
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -164,20 +167,22 @@ def _sublayer_fwd_float(p, x, cfg: ArchConfig, kind, positions, qat,
             return fl.attn_fwd(p["attn"], h, cfg, positions, causal=causal,
                                window=window,
                                memory=memory if mix == "cross" else None,
-                               qat=qat)
-        return mb.mamba_fwd(p["ssm"], h, cfg, qat=qat)
+                               qat=qat, seq_len=seq_len)
+        return mb.mamba_fwd(p["ssm"], h, cfg, qat=qat, seq_len=seq_len)
 
     def ffn(h):
         if ff == "moe":
-            return fl.moe_fwd(p["moe"], h, cfg, qat=qat)
-        return fl.ffn_fwd(p["ffn"], h, cfg, qat=qat), None
+            return fl.moe_fwd(p["moe"], h, cfg, qat=qat, seq_len=seq_len)
+        return fl.ffn_fwd(p["ffn"], h, cfg, qat=qat, seq_len=seq_len), None
+
+    def cross(h):
+        return fl.attn_fwd(p["cross"], h, cfg, positions, causal=False,
+                           memory=memory, qat=qat, seq_len=seq_len)
 
     if cfg.post_norm:
         x = fl.norm_fwd(p["norm1"], x + mixer(x), cfg)
         if has_cross:
-            c = fl.attn_fwd(p["cross"], x, cfg, positions, causal=False,
-                            memory=memory, qat=qat)
-            x = fl.norm_fwd(p["norm_cross"], x + c, cfg)
+            x = fl.norm_fwd(p["norm_cross"], x + cross(x), cfg)
         if ff is not None:
             f, a = ffn(x)
             x = fl.norm_fwd(p["norm2"], x + f, cfg)
@@ -186,9 +191,7 @@ def _sublayer_fwd_float(p, x, cfg: ArchConfig, kind, positions, qat,
         return x, aux
     x = x + mixer(fl.norm_fwd(p["norm1"], x, cfg))
     if has_cross:
-        h = fl.norm_fwd(p["norm_cross"], x, cfg)
-        x = x + fl.attn_fwd(p["cross"], h, cfg, positions, causal=False,
-                            memory=memory, qat=qat)
+        x = x + cross(fl.norm_fwd(p["norm_cross"], x, cfg))
     if ff is not None:
         f, a = ffn(fl.norm_fwd(p["norm2"], x, cfg))
         x = x + f
@@ -204,17 +207,37 @@ def _group_params(tree, i: int):
     return tree[i]
 
 
+def _group_specs(tree):
+    """One group's specs from the stacked leaves' (the group dim must not
+    be sharded)."""
+    if isinstance(tree, dict):
+        return {k: _group_specs(v) for k, v in tree.items()}
+    if tree[0] is not None:
+        raise NotImplementedError(f"the layer-group dim is sharded ({tree})")
+    return tuple(tree[1:])
+
+
 def _run_stack_float(layer_params: List, x, cfg: ArchConfig, kinds,
-                     positions, qat, causal=True, memory=None):
+                     positions, qat, causal=True, memory=None, specs=None,
+                     seq_len=None):
     """The layer groups in order (the reference's ``lax.scan``); with
     ``cfg.remat`` each group is recomputed in the backward
     (``torch.utils.checkpoint``, as ``jax.remat`` over the scan body).
-    Returns (x, the summed aux loss)."""
+    Returns (x, the summed aux loss).
+
+    Under a mesh, ``layer_params`` are the rank's blocks of ``specs``
+    (the stacked leaves' specs): each group's are gathered inside the
+    body (``sharding.constrain_like_params``), so with remat no more than
+    one group's gathered weights live at a time; ``seq_len``: as
+    ``_sublayer_fwd_float``."""
+    gspecs = None if specs is None else [_group_specs(s) for s in specs]
 
     def body(x, aux, xs):
+        xs = sh.constrain_like_params(xs, gspecs)
         for j, kind in enumerate(kinds):
             x, a = _sublayer_fwd_float(xs[j], x, cfg, kind, positions, qat,
-                                       causal=causal, memory=memory)
+                                       causal=causal, memory=memory,
+                                       seq_len=seq_len)
             aux = aux + a
         return x, aux
 
@@ -256,28 +279,70 @@ def logits_fwd(params, x, cfg: ArchConfig, qat=False):
     return x @ fl.fq_weight(w, 1, qat)
 
 
+#: the param tree's entries outside the layer stacks
+STACKS = ("layers", "enc_layers")
+
+
+def gather_top(params, specs):
+    """Under a mesh: ``params`` with every leaf outside the layer stacks
+    (the embedding, the head, the final norms, the learned positions)
+    all-gathered whole (autograd), and ``specs`` with theirs replicated;
+    the layer stacks stay the rank's blocks.  No mesh or no specs: both
+    as they are."""
+    if specs is None or current_mesh() is None:
+        return params, specs
+    from repro_torch.core.treepath import tree_map
+    out_p, out_s = dict(params), dict(specs)
+    for key in params:
+        if key in STACKS:
+            continue
+        out_p[key] = tree_map(sh.gather_leaf, params[key], specs[key],
+                              is_leaf=lambda t: isinstance(t,
+                                                           torch.Tensor))
+        out_s[key] = tree_map(lambda s: (None,) * len(s), specs[key],
+                              is_leaf=sh._is_spec)
+    return out_p, out_s
+
+
 def forward_float(params, batch, cfg: ArchConfig, qat: bool = False,
-                  return_hidden: bool = False):
+                  return_hidden: bool = False, specs=None):
     """Returns (logits | final hidden, aux_loss) for every family.
 
     batch: tokens (B,S) [+ img_embeds (B,Ni,D) | src_embeds (B,Sf,D)],
-    tensors on the params' device."""
+    tensors on the params' device.
+
+    Under a mesh (``launch.mesh.set_mesh``): ``params`` are the rank's
+    blocks of ``specs`` and ``batch`` the rank's rows; the residual
+    stream is the rank's sequence block over ``model`` where the
+    reference's rule shards it (``sharding.residual_seq_sharded``), and
+    the logits / hidden are then those of the rank's positions."""
     _, _, kinds = layer_group_spec(cfg)
     dtype = getattr(torch, cfg.dtype)
+    params, specs = gather_top(params, specs)
     tokens = batch["tokens"]
     memory = None
     if cfg.family == "encdec":
         src = batch["src_embeds"].to(dtype)
         epos = torch.arange(src.shape[1], device=src.device)[None]
-        enc_x, _ = _run_stack_float(params["enc_layers"], src, cfg,
-                                    [ENCODER_KIND], epos, qat, causal=False)
-        memory = fl.norm_fwd(params["enc_final_norm"], enc_x, cfg)
+        enc_len = src.shape[1] if sh.residual_seq_sharded(src.shape[1]) \
+            else None
+        enc_x, _ = _run_stack_float(
+            params["enc_layers"], sh.shard_residual(src), cfg,
+            [ENCODER_KIND], epos, qat, causal=False,
+            specs=None if specs is None else specs["enc_layers"],
+            seq_len=enc_len)
+        memory = sh.gather_seq(
+            fl.norm_fwd(params["enc_final_norm"], enc_x, cfg), enc_len)
     elif cfg.family == "vlm":
         memory = batch["img_embeds"].to(dtype)
     x = embed_tokens(params, tokens, cfg)
-    positions = torch.arange(x.shape[1], device=x.device)[None]
-    x, aux = _run_stack_float(params["layers"], x, cfg, kinds, positions,
-                              qat, causal=cfg.is_causal, memory=memory)
+    s = x.shape[1]
+    positions = torch.arange(s, device=x.device)[None]
+    x, aux = _run_stack_float(
+        params["layers"], sh.shard_residual(x), cfg, kinds, positions, qat,
+        causal=cfg.is_causal, memory=memory,
+        specs=None if specs is None else specs["layers"],
+        seq_len=s if sh.residual_seq_sharded(s) else None)
     if return_hidden:
         return x, aux
     return logits_fwd(params, x, cfg, qat), aux

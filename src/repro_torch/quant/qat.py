@@ -11,9 +11,11 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import sharding as sh
+from repro_torch.launch.mesh import current_mesh
 from repro_torch.models import layers as fl
 from repro_torch.models.common import ArchConfig
-from repro_torch.models.transformer import forward_float
+from repro_torch.models.transformer import forward_float, gather_top
 
 
 def _ce_terms(logits, labels, z_loss: float):
@@ -37,12 +39,11 @@ def cross_entropy(logits, labels, vocab: int, z_loss: float = 1e-4):
     return tot / torch.clamp(cnt, min=1.0)
 
 
-def chunked_ce(x, w, labels, cfg: ArchConfig, chunk: int = 512,
-               z_loss: float = 1e-4):
-    """Sequence-chunked CE: the logits of a chunk of at most ``chunk``
-    positions (the largest divisor of S not above it) are made inside
-    ``torch.utils.checkpoint`` and recomputed in the backward, so no more
-    than one chunk's (B, chunk, V) logits exist at a time."""
+def _chunked_terms(x, w, labels, chunk: int, z_loss: float):
+    """(sum of the masked NLL and z-loss, the label count) over chunks
+    of at most ``chunk`` positions (the largest divisor of S not above
+    it), each chunk's logits made inside ``torch.utils.checkpoint`` and
+    recomputed in the backward."""
     b, s, d = x.shape
     ck = min(chunk, s)
     while s % ck:
@@ -57,17 +58,47 @@ def chunked_ce(x, w, labels, cfg: ArchConfig, chunk: int = 512,
         t, k = checkpoint(piece, x[:, i:i + ck], labels[:, i:i + ck],
                           use_reentrant=False)
         tot, cnt = tot + t, cnt + k
+    return tot, cnt
+
+
+def chunked_ce(x, w, labels, cfg: ArchConfig, chunk: int = 512,
+               z_loss: float = 1e-4):
+    """Sequence-chunked CE: the logits of a chunk of at most ``chunk``
+    positions (the largest divisor of S not above it) are made inside
+    ``torch.utils.checkpoint`` and recomputed in the backward, so no more
+    than one chunk's (B, chunk, V) logits exist at a time."""
+    tot, cnt = _chunked_terms(x, w, labels, chunk, z_loss)
     return tot / torch.clamp(cnt, min=1.0)
 
 
 def loss_fn(params, batch, cfg: ArchConfig, qat: bool = True,
-            aux_weight: float = 0.01):
+            aux_weight: float = 0.01, specs=None):
     """Returns (ce + aux_weight * aux, (ce, aux)) of ``batch``'s tokens
-    against its ``labels``."""
-    x, aux = forward_float(params, batch, cfg, qat=qat, return_hidden=True)
+    against its ``labels``.
+
+    Under a mesh (``launch.mesh.set_mesh``; ``params`` the rank's blocks
+    of ``specs``, ``batch`` the rank's rows) the first value is this
+    rank's share of that loss, the shares of the world summing to it: the
+    rank's CE terms over its own positions (with the gathered head) over
+    the world's label count, plus ``aux_weight * aux`` over the world's
+    size (every rank holds the same ``aux``).  ``ce`` and ``aux`` are the
+    world's.  Autograd of the share gives the rank's part of each
+    gradient (``launch.steps`` sums the parts)."""
+    mesh = current_mesh()
+    params, specs = gather_top(params, specs)
+    x, aux = forward_float(params, batch, cfg, qat=qat, return_hidden=True,
+                           specs=specs)
     x = fl.norm_fwd(params["final_norm"], x, cfg)
     x = fl.maybe_fq(x, cfg.s_act8, enabled=qat)
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     w = fl.fq_weight(w, 1, qat)
-    loss = chunked_ce(x, w, batch["labels"], cfg)
-    return loss + aux_weight * aux, (loss, aux)
+    labels = batch["labels"]
+    if mesh is None:
+        loss = chunked_ce(x, w, labels, cfg)
+        return loss + aux_weight * aux, (loss, aux)
+    tot, cnt = _chunked_terms(x, w, sh.shard_residual(labels), 512, 1e-4)
+    world = mesh.axis_names
+    cnt_all = torch.clamp(sh.all_reduce(cnt.detach(), world), min=1.0)
+    ce = sh.all_reduce(tot.detach(), world) / cnt_all
+    share = tot / cnt_all + aux_weight * aux / mesh.size
+    return share, (ce, aux.detach())
