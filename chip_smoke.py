@@ -44,6 +44,14 @@ non-zero before the last line):
            device, call and host ms; it calls only the wrappers, so
            the same script times another commit's tree (copy it there
            and run ``--phases build,k1-decode``) on the same operands;
+  k1-grouped  (not in the default list) the grouped K1's rows alone: the
+           MoE expert products of PERF.md's table (qwen2-moe-a2.7b w1 / w2
+           at a decode step and a 4 x 512 pass, qwen3-moe-235b-a22b w1,
+           jamba-v0.1-52b w1 / w2 at a decode step), exact against the
+           plain version, device, call and host ms, each with its launch;
+           then its yardsticks: an empty launch, the launch with no
+           expert given rows at the decode shapes, and K1's dense tile
+           on the 4 x 512 pass's rows as one product;
   k2-norm  (not in the default list) K2's rows alone: every shape a path
            runs (llama3-8b's RMSNorm at 4 and 128 rows of 4096,
            h2o-danube-3-4b's at 4 and 1024 of 3840, roberta-base's
@@ -103,8 +111,9 @@ non-zero before the last line):
            shared memory and cluster (``analysis-kernel`` rows; the
            shared memory within ``shared_memory_per_block_optin``,
            occupancy >= 1); llama3-8b's decode, chunk and verify steps (2
-           layers) and a roberta-base pass on ``cuda`` and
-           ``cuda_online`` under ``kernels.record_launches``, every
+           layers), a roberta-base pass on ``cuda`` and
+           ``cuda_online`` and the grouped K1 at qwen2-moe's decode and
+           pass shapes under ``kernels.record_launches``, every
            recorded launch equal to its ``ok`` report's route, grid,
            cluster and shared memory; and the refused shapes (D 96, K2 d
            8200, decode Sq 9, H 30 over Hkv 8) raising
@@ -173,7 +182,9 @@ non-zero before the last line):
            w2 at a decode step of 4 tokens, spread over 16 experts and
            all in 4, and at a 4 x 512 pass on its routing, beside a loop
            of torch._int_mm over the experts that got rows; qwen3-moe's
-           w1 at E 128), K1 for the raw routers and qwen2's QKV + bias,
+           w1 at E 128; jamba-v0.1-52b's w1 / w2 at a decode step, over 8
+           experts and all in 2; each with its launch and host ms), K1
+           for the raw routers and qwen2's QKV + bias,
            K3 at qwen2's MHA 16 / 16 and qwen3's GQA 64 / 4 (serve row,
            verify Sq 4);
   moe-parity     qwen2-moe-a2.7b and qwen3-moe-235b-a22b at full width cut
@@ -194,8 +205,8 @@ non-zero before the last line):
            at the state-space configs' shapes: K1 at mamba2-130m's and
            jamba-v0.1-52b's in_proj, raw Δt projection (N 24: the decode
            tile's copy route) and out_proj at M 4 and 2048, K2's RMSNorm
-           over d_inner (1536, 8192) with the Mamba plan, the grouped K1 at
-           jamba's 16 experts of 4096 x 14336;
+           over d_inner (1536, 8192) with the Mamba plan (the grouped K1
+           at jamba's experts is among ``moe-kernels``' rows);
   ssm-parity     mamba2-130m at full width cut to 4 of its 24 layers
            (attention-free): ServingEngine
            streams on ``cuda`` equal ``torch_ref``'s in both cache modes
@@ -245,12 +256,12 @@ non-zero before the last line):
            and wk's column slices and wo's row slice (raw, the partial the
            group sums; and at M 128), K3 (serve row, verify Sq 4) and K4
            at the local heads;
-  tp-parity  llama3-8b at full width cut to 2 layers: chunked, streaming,
+  tp-parity  llama3-8b at full width cut to 1 layer: chunked, streaming,
            contiguous, int4 pages and ``spec_k = 3`` at tp = 1 on ``cuda``
            here, then ``ServingEngine(tp=N)`` in gloo worlds of 2 and 4
            processes on the one card (``distributed.world.run_world``;
-           NCCL refuses two ranks on one device), and qwen2-moe-a2.7b at 2
-           layers in the 2-rank world: every rank ``sharded``, its streams
+           NCCL refuses two ranks on one device), and qwen2-moe-a2.7b at 1
+           layer in the 2-rank world: every rank ``sharded``, its streams
            equal to tp = 1's, K3 / K4 at the local heads;
   tp-serve  full llama3-8b (32 layers) at tp 2 on the ``serve`` traffic
            (run with ``serve``): every rank's streams equal ``serve``'s;
@@ -284,7 +295,7 @@ non-zero before the last line):
            launched: the ``launches_by_path`` entry ``train``);
   train-mesh  the ``train`` model (llama3-8b full width, 2 of 32
            layers, bfloat16 params, float32 moments) on a gloo world of
-           4 ranks sharing the card, mesh (2, 2), ZeRO-1: 4 QAT steps of
+           4 ranks sharing the card, mesh (2, 2), ZeRO-1: 2 QAT steps of
            ``make_train_step(param_specs=, mesh=)`` at B 4 x S 256 of the
            synthetic language (each rank its rows and sequence block;
            tensor-parallel attention / FFN behind the int8 sequence
@@ -408,7 +419,7 @@ PATH_KERNELS = {
     "ops": ("int_softmax",),
     "analysis": ("int8_matmul", "int_layernorm", "int_decode_attention",
                  "int_paged_prefill", "int_attention_fused",
-                 "int_attention_online", "int_gelu"),
+                 "int_attention_online", "int_gelu", "int8_matmul_grouped"),
     "window-serve-paged": ("int8_matmul", "int_layernorm",
                            "int_decode_attention"),
     "window-serve-contiguous": ("int8_matmul", "int_layernorm",
@@ -3294,8 +3305,9 @@ def main_path_reports(cfg, ecfg, sms: int):
     (``check_tp_launch`` for K3 / K4, K1 at the rank's slices),
     roberta-base ``encode`` / ``encode-online`` (K1 at 32 x 512 tokens
     and the tied head, K2 LayerNorm + beta, K5, K8 at 128 x 128), the
-    ``ops`` phase's K7, and qwen2-moe-a2.7b's grouped K1 at a decode step
-    and a 4 x 512 pass.  Returns ``[(label, LaunchReport)]``."""
+    ``ops`` phase's K7, and the grouped K1 at qwen2-moe-a2.7b's,
+    qwen3-moe-235b-a22b's and jamba-v0.1-52b's decode steps and qwen2's
+    4 x 512 pass.  Returns ``[(label, LaunchReport)]``."""
     from repro_torch.analysis import contracts as C
     from repro_torch.configs.registry import get_config
     from repro_torch.models.intlayers import moe_capacity
@@ -3362,13 +3374,19 @@ def main_path_reports(cfg, ecfg, sms: int):
     for vl in (-1, 300):
         add(f"ops K7 valid_len={vl}", C.check_launch(
             "int_softmax", rows=score_rows, L=ENCODE_SEQ, valid_len=vl))
-    mcfg = get_config("qwen2-moe-a2.7b")
-    e, mf = mcfg.padded_experts(), mcfg.moe_d_ff or mcfg.d_ff
-    for tag, r in (("decode", 4 * moe_capacity(mcfg, 1)),
-                   ("4x512 pass", 160)):
-        for w, k, n in (("w1", mcfg.d_model, mf), ("w2", mf, mcfg.d_model)):
-            add(f"qwen2-moe grouped {w} {tag} R={r}", C.check_launch(
-                "int8_matmul_grouped", e=e, r=r, n=n, k=k))
+    for arch in ("qwen2-moe-a2.7b", "qwen3-moe-235b-a22b",
+                 "jamba-v0.1-52b"):
+        mcfg = get_config(arch)
+        e, mf = mcfg.padded_experts(), mcfg.moe_d_ff or mcfg.d_ff
+        tags = [("decode", 4 * moe_capacity(mcfg, 1))]
+        if arch == "qwen2-moe-a2.7b":
+            tags.append(("4x512 pass", MOE_BATCH
+                         * moe_capacity(mcfg, MOE_SEQ)))
+        for tag, r in tags:
+            for w, k, n in (("w1", mcfg.d_model, mf),
+                            ("w2", mf, mcfg.d_model)):
+                add(f"{arch} grouped {w} {tag} R={r}", C.check_launch(
+                    "int8_matmul_grouped", e=e, r=r, n=n, k=k, sms=sms))
     return out
 
 
@@ -3376,9 +3394,9 @@ def _drive_recorded(cfg, ecfg):
     """Inside ``kernels.record_launches``: llama3-8b at full width cut to
     2 layers through ``ServingEngine`` on ``cuda`` (one 40-token prompt:
     two prefill chunks of 32, then decode steps), a ``spec_k = 3`` engine
-    on a repeating prompt (verify steps), and one roberta-base pass (2
-    layers, 4 x 512) on ``cuda`` and on ``cuda_online``.  Returns
-    ``(records, launches)``."""
+    on a repeating prompt (verify steps), one roberta-base pass (2
+    layers, 4 x 512) on ``cuda`` and on ``cuda_online``, and the grouped
+    K1 (:func:`_grouped_recorded`).  Returns ``(records, launches)``."""
     import dataclasses
 
     import numpy as np
@@ -3408,10 +3426,33 @@ def _drive_recorded(cfg, ecfg):
         drain_streams(eng, reqs)
         for ops in ("cuda", "cuda_online"):
             _prefill(e2, eplans, ops, eqp, toks)
+        _grouped_recorded()
         torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     del eng, qp, eqp
     return rec, launches
+
+
+def _grouped_recorded() -> None:
+    """The grouped K1 through its wrapper at qwen2-moe-a2.7b's w1 and w2
+    for a decode step (R 16, 16 experts with a row) and a 4 x 512 pass (R
+    160, 60 experts), for the ``analysis`` phase's recorded launches."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.int8_matmul import int8_matmul_grouped
+    from repro_torch.models.intlayers import moe_capacity
+    from repro_torch.ops.spec import RequantSpec
+    cfg = get_config("qwen2-moe-a2.7b")
+    e, f, d = cfg.padded_experts(), cfg.moe_d_ff, cfg.d_model
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    for r, live in ((4 * moe_capacity(cfg, 1), 16),
+                    (MOE_BATCH * moe_capacity(cfg, MOE_SEQ), 60)):
+        rows = torch.tensor([r // 2] * live + [0] * (e - live),
+                            dtype=torch.int32, device="cuda")
+        for k, n in ((d, f), (f, d)):
+            x8 = _randint(gen, -127, 128, (e, r, k), torch.int8)
+            w8 = _randint(gen, -127, 128, (e, k, n), torch.int8)
+            int8_matmul_grouped(x8, w8, rows, RequantSpec.raw())
 
 
 def _refusals():
@@ -3551,7 +3592,7 @@ def phase_analysis(cfg, ecfg) -> dict:
         seen[tag] = seen.get(tag, 0) + 1
     want = {"int8_matmul", "int_layernorm", "int_decode_attention Sq=1",
             f"int_decode_attention Sq={VERIFY_SQ}", "int_paged_prefill",
-            "int_attention", "int_attention online"}
+            "int_attention", "int_attention online", "int8_matmul_grouped"}
     if not want <= set(seen):
         raise AssertionError(f"analysis: no recorded launch of "
                              f"{sorted(want - set(seen))}")
@@ -3906,19 +3947,34 @@ def _valid_rows(out, counts):
     return torch.cat([out[e, :c] for e, c in enumerate(counts)])
 
 
+def grouped_plan_text(x8, w8, counts) -> str:
+    """The grouped K1's launch for these operands and expert counts: the
+    route, row tile, cluster, the split the card chooses and K a rank,
+    blocks, the live items and the rounds of them."""
+    from repro_torch.kernels import int8_matmul as K1
+    e, r, k = x8.shape
+    n = w8.shape[2]
+    p = K1.grouped_plan(e, r, n, k, K1.sm_count(x8.device), x8.data_ptr(),
+                        w8.data_ptr())
+    items = K1.grouped_items(n, counts)
+    split, k_per, rounds = K1.grouped_split(p, k, items)
+    return (f"{p.route} rt={p.rt} cluster={p.cluster} split={split} "
+            f"k_per_rank={k_per} blocks={p.grid[0]} items={items} "
+            f"rounds={rounds}")
+
+
 def grouped_row(gen, rows, tag, r, k, n, lp, counts, library=False,
                 rep=False):
     """K1's grouped instantiation at (E, R, K) x (E, K, N) with expert
     row counts ``counts`` (host ints), against its plain version on the
-    rows it writes.  The bound counts the packed x rows, the weights and
-    multiplier rows of the experts that got rows, ``rows`` and the
-    output rows.  ``library``: a loop of ``torch._int_mm`` (raw, cuBLAS)
-    over the experts that got rows (each at least 17 rows, its minimum),
-    a yardstick the port does not call."""
+    rows it writes, then its device, call and host ms.  The bound counts
+    the packed x rows, the weights and multiplier rows of the experts that
+    got rows, ``rows`` and the output rows.  ``library``: a loop of
+    ``torch._int_mm`` (raw, cuBLAS) over the experts that got rows (each
+    at least 17 rows, its minimum), a yardstick the port does not call.
+    It calls only the wrapper and the plain version."""
     import torch
-    from repro_torch.kernels.int8_matmul import (grouped_live_blocks,
-                                                 grouped_plan,
-                                                 int8_matmul_grouped,
+    from repro_torch.kernels.int8_matmul import (int8_matmul_grouped,
                                                  int8_matmul_grouped_plain)
     from repro_torch.ops.spec import RequantSpec
     e = len(counts)
@@ -3930,7 +3986,7 @@ def grouped_row(gen, rows, tag, r, k, n, lp, counts, library=False,
     got = int8_matmul_grouped(x8, w8, rws, spec, b_vec=b_vec)
     want = int8_matmul_grouped_plain(x8, w8, rws, spec, b_vec=b_vec)
     live = [i for i, c in enumerate(counts) if c]
-    m = sum(counts)
+    m = sum(min(c, r) for c in counts)
     out_b = 1 if spec.out_bits <= 8 else 4
     nbytes = m * k + len(live) * (k * n + 4 * n) + 4 * e + out_b * m * n
     lib = None
@@ -3941,19 +3997,138 @@ def grouped_row(gen, rows, tag, r, k, n, lp, counts, library=False,
             for xi, i in zip(xs, live):
                 torch._int_mm(xi, w8[i])
         lib = device_ms(int_mm_loop, 5) or time_ms(int_mm_loop, 5)
-    plan = grouped_plan(e, r, n)
+
+    def call():
+        return int8_matmul_grouped(x8, w8, rws, spec, b_vec=b_vec)
     record(rows, "int8_matmul_grouped",
            f"{tag} E={e} R={r} K={k} N={n} out_bits={spec.out_bits} "
            f"rows={m} experts_with_rows={len(live)}",
-           _valid_rows(got, counts), _valid_rows(want, counts),
-           lambda: int8_matmul_grouped(x8, w8, rws, spec, b_vec=b_vec),
+           _valid_rows(got, counts), _valid_rows(want, counts), call,
            lambda: int8_matmul_grouped_plain(x8, w8, rws, spec,
                                              b_vec=b_vec),
            nbytes, 2 * m * k * n, lib_ms=lib, rep=rep, iters=10,
-           plain_iters=2,
-           plan=f"bm={plan.bm} grid={list(plan.grid)} live_blocks="
-                f"{grouped_live_blocks(plan, counts)}")
+           plain_iters=2, plan=grouped_plan_text(x8, w8, counts),
+           extra={"host_ms": host_ms(call, 10)})
     del x8, w8
+
+
+def grouped_table_rows(rows, seed: int, prefix: str = "") -> None:
+    """Every grouped K1 row of PERF.md's table, each exact against its
+    plain version: qwen2-moe-a2.7b's w1 (K 2048, N 1408) and w2 (K 1408,
+    N 2048) for a decode step of 4 tokens (R = 16: 16 (token, expert)
+    pairs in 16 distinct experts, then all four tokens in the same 4
+    experts) and for a 4 x 512 pass on its routing (R = 160, beside a
+    loop of torch._int_mm over the experts that got rows), qwen3-moe-
+    235b-a22b's w1 (K 4096, N 1536, E 128; 32 pairs in 32 experts), and
+    jamba-v0.1-52b's w1 (4096 x 14336) and w2 (14336 x 4096) for a decode
+    step of 4 tokens, top-2 (8 pairs in 8 experts, then all four in the
+    same 2)."""
+    import torch
+    from repro_torch.quant import plans as qplans
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q2, q3 = moe_config("qwen2-moe-a2.7b"), moe_config("qwen3-moe-235b-a22b")
+    jb = ssm_config("jamba-v0.1-52b")
+    p2, p3, pj = (qplans.build_layer_plans(c) for c in (q2, q3, jb))
+
+    def spread(c, pairs):
+        """One row in each of ``pairs`` distinct real experts."""
+        ids = torch.randperm(c.n_experts, generator=gen,
+                             device="cuda")[:pairs].tolist()
+        return [int(i in ids) for i in range(c.padded_experts())]
+
+    e2, f2, d2 = q2.padded_experts(), q2.moe_d_ff, q2.d_model
+    dec = {"16 pairs in 16 experts": spread(q2, 16),
+           "4 tokens in the same 4 experts": [4] * 4 + [0] * (e2 - 4)}
+    r_pre, pre_counts = prefill_routing_counts(gen, q2, p2)
+    for lin, k, n, lp in (("w1", d2, f2, p2.moe.expert.up),
+                          ("w2", f2, d2, p2.moe.expert.down)):
+        for pattern, counts in dec.items():
+            grouped_row(gen, rows, f"{prefix}qwen2-moe {lin} decode B=4 "
+                        f"k=4 {pattern}", 16, k, n, lp, counts,
+                        rep=(lin == "w1" and pattern.startswith("16")))
+        grouped_row(gen, rows, f"{prefix}qwen2-moe {lin} prefill "
+                    f"{MOE_BATCH}x{MOE_SEQ} routed", r_pre, k, n, lp,
+                    pre_counts, library=True)
+    grouped_row(gen, rows, f"{prefix}qwen3-moe w1 decode B=4 k=8 32 pairs "
+                "in 32 experts", 16, q3.d_model, q3.moe_d_ff,
+                p3.moe.expert.up, spread(q3, 32))
+    ej = jb.padded_experts()
+    for lin, k, n, lp in (("w1", jb.d_model, jb.moe_d_ff, pj.moe.expert.up),
+                          ("w2", jb.moe_d_ff, jb.d_model,
+                           pj.moe.expert.down)):
+        for pattern, counts in (("8 pairs in 8 experts", spread(jb, 8)),
+                                ("4 tokens in the same 2 experts",
+                                 [4, 4] + [0] * (ej - 2))):
+            grouped_row(gen, rows, f"{prefix}jamba {lin} decode B=4 k=2 "
+                        f"{pattern}", 16, k, n, lp, counts)
+
+
+def check_k1_grouped() -> None:
+    """The ``k1-grouped`` phase: every grouped K1 row of PERF.md's table
+    alone (:func:`grouped_table_rows`), exact against its plain version,
+    device, call and host ms, each with its launch, then the yardsticks
+    the rows that miss their targets are read against
+    (:func:`grouped_yardsticks`)."""
+    grouped_table_rows({}, 9797, "k1-grouped ")
+    grouped_yardsticks(9898)
+
+
+def grouped_yardsticks(seed: int) -> None:
+    """What the grouped rows are read against: an empty launch; the
+    grouped K1 at each decode shape where no expert got rows (its fixed
+    cost: the blocks start, read ``rows``, find no item and exit; qwen2-
+    moe-a2.7b's w1 / w2 and jamba-v0.1-52b's w2, E padded, R 16); and
+    K1's dense tile on the rows of a 4 x 512 pass of qwen2-moe-a2.7b as
+    one (M, K) x (K, N) product, exact against its plain version: the
+    same mma.sync on the same work without the experts, each weight read
+    once."""
+    import torch
+    from repro_torch.kernels.int8_matmul import (int8_matmul,
+                                                 int8_matmul_grouped,
+                                                 int8_matmul_plain)
+    from repro_torch.ops.spec import RequantSpec
+    from repro_torch.quant import plans as qplans
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q2, jb = moe_config("qwen2-moe-a2.7b"), ssm_config("jamba-v0.1-52b")
+    p2 = qplans.build_layer_plans(q2)
+    empty_kernel_row()
+    raw = RequantSpec.raw()
+    for tag, e, k, n in (
+            ("qwen2-moe w1", q2.padded_experts(), q2.d_model, q2.moe_d_ff),
+            ("qwen2-moe w2", q2.padded_experts(), q2.moe_d_ff, q2.d_model),
+            ("jamba w2", jb.padded_experts(), jb.moe_d_ff, jb.d_model)):
+        x8 = _randint(gen, -127, 128, (e, 16, k), torch.int8)
+        w8 = _randint(gen, -127, 128, (e, k, n), torch.int8)
+        rws = torch.zeros(e, dtype=torch.int32, device="cuda")
+
+        def call():
+            return int8_matmul_grouped(x8, w8, rws, raw)
+        emit({"phase": "k1-grouped-floor", "name": "int8_matmul_grouped",
+              "case": f"{tag} decode E={e} R=16 K={k} N={n}, no expert "
+                      f"got rows", "ms": device_ms(call, 20),
+              "call_ms": time_ms(call, 20), "host_ms": host_ms(call, 20),
+              "plan": grouped_plan_text(x8, w8, [0] * e)})
+        del x8, w8
+    r_pre, counts = prefill_routing_counts(gen, q2, p2)
+    m = sum(min(c, r_pre) for c in counts)
+    d, f = q2.d_model, q2.moe_d_ff
+    for lin, k, n, lp in (("w1", d, f, p2.moe.expert.up),
+                          ("w2", f, d, p2.moe.expert.down)):
+        x8 = _randint(gen, -127, 128, (m, k), torch.int8)
+        w8 = _randint(gen, -127, 128, (k, n), torch.int8)
+        b_vec = _randint(gen, 256, 4096, (n,), torch.int32)
+        spec = RequantSpec.for_linear(lp)
+        out_b = 1 if spec.out_bits <= 8 else 4
+        record({}, "int8_matmul",
+               f"k1-grouped yardstick qwen2-moe {lin}: K1 dense on the "
+               f"{MOE_BATCH}x{MOE_SEQ} pass's rows M={m} K={k} N={n}",
+               int8_matmul(x8, w8, spec, b_vec=b_vec),
+               int8_matmul_plain(x8, w8, spec, b_vec=b_vec),
+               lambda: int8_matmul(x8, w8, spec, b_vec=b_vec),
+               lambda: int8_matmul_plain(x8, w8, spec, b_vec=b_vec),
+               m * k + k * n + 4 * n + out_b * m * n, 2 * m * k * n,
+               iters=10, plain_iters=2, plan=k1_plan(m, n, k, x8=x8, w=w8))
+        del x8, w8
 
 
 def prefill_routing_counts(gen, cfg, plans):
@@ -3978,48 +4153,29 @@ def prefill_routing_counts(gen, cfg, plans):
 
 def check_moe_kernels(rows) -> None:
     """The kernels at the MoE configs' shapes, each exact against its
-    plain version: the grouped K1 at qwen2-moe-a2.7b's w1 (K 2048, N
-    1408) and w2 (K 1408, N 2048) for a decode step of 4 tokens (R = 16:
-    16 (token, expert) pairs in 16 distinct experts, then all four tokens
-    in the same 4 experts) and for a 4 x 512 pass on its routing (R =
-    160, beside a loop of torch._int_mm over the experts that got rows),
-    and at qwen3-moe-235b-a22b's w1 (K 4096, N 1536, E 128; 32 pairs in
-    32 experts); K1 for the raw routers at M 4 (N 64 / 128) and qwen2's
-    QKV with its bias; K3 at qwen2's MHA 16 / 16 serve row and at qwen3's
-    GQA 64 / 4 serve row and verify step (Sq 4: 64 rows a KV head)."""
+    plain version: every grouped K1 row of PERF.md's table
+    (:func:`grouped_table_rows`: qwen2-moe-a2.7b's w1 / w2 at a decode
+    step, spread and concentrated, and on a 4 x 512 pass's routing beside
+    a loop of torch._int_mm; qwen3-moe-235b-a22b's w1; jamba-v0.1-52b's
+    w1 / w2 at a decode step); K1 for the raw routers at M 4 (N 64 / 128)
+    and qwen2's QKV with its bias; K3 at qwen2's MHA 16 / 16 serve row and
+    at qwen3's GQA 64 / 4 serve row and verify step (Sq 4: 64 rows a KV
+    head)."""
     import torch
     from repro_torch.kernels.int8_matmul import (int8_matmul,
                                                  int8_matmul_plain)
     from repro_torch.ops.spec import RequantSpec
     from repro_torch.quant import plans as qplans
+    # the seed and the order the grouped rows were drawn in when this
+    # function drew them first from its own generator: their operands
+    # stay what they were, so earlier trees' rows compare
+    grouped_table_rows(rows, 4242)
     gen = torch.Generator(device="cuda").manual_seed(4242)
     cfgs = {n: moe_config(n) for n in MOE_ARCHS}
     plans = {n: qplans.build_layer_plans(c) for n, c in cfgs.items()}
     q2, q3 = cfgs["qwen2-moe-a2.7b"], cfgs["qwen3-moe-235b-a22b"]
     p2, p3 = plans["qwen2-moe-a2.7b"], plans["qwen3-moe-235b-a22b"]
-
-    def spread(c, pairs):
-        """One row in each of ``pairs`` distinct real experts."""
-        ids = torch.randperm(c.n_experts, generator=gen,
-                             device="cuda")[:pairs].tolist()
-        return [int(i in ids) for i in range(c.padded_experts())]
-
-    e2, f2, d2 = q2.padded_experts(), q2.moe_d_ff, q2.d_model
-    dec = {"16 pairs in 16 experts": spread(q2, 16),
-           "4 tokens in the same 4 experts": [4] * 4 + [0] * (e2 - 4)}
-    r_pre, pre_counts = prefill_routing_counts(gen, q2, p2)
-    for lin, k, n, lp in (("w1", d2, f2, p2.moe.expert.up),
-                          ("w2", f2, d2, p2.moe.expert.down)):
-        for pattern, counts in dec.items():
-            grouped_row(gen, rows, f"qwen2-moe {lin} decode B=4 k=4 "
-                        f"{pattern}", 16, k, n, lp, counts,
-                        rep=(lin == "w1" and pattern.startswith("16")))
-        grouped_row(gen, rows, f"qwen2-moe {lin} prefill {MOE_BATCH}x"
-                    f"{MOE_SEQ} routed", r_pre, k, n, lp, pre_counts,
-                    library=True)
-    grouped_row(gen, rows, "qwen3-moe w1 decode B=4 k=8 32 pairs in 32 "
-                "experts", 16, q3.d_model, q3.moe_d_ff, p3.moe.expert.up,
-                spread(q3, 32))
+    d2 = q2.d_model
 
     # K1: the raw routers, qwen2's QKV with its bias
     for name, c in cfgs.items():
@@ -4324,9 +4480,8 @@ def check_ssm_kernels(rows) -> None:
     route) and out_proj (14 bits) for a decode step (M 4) and a 4 x 512
     prefill (M 2048, beside ``torch._int_mm``); K2's RMSNorm over d_inner
     with the Mamba plan (s_in 1, qmax_in 2^11, no mean) at 1536 and at
-    8192 (its longest row), 4 and 2048 rows; the grouped K1 at jamba's
-    experts (16 of 4096 x 14336 and 14336 x 4096) for a decode step of 4
-    tokens, top-2."""
+    8192 (its longest row), 4 and 2048 rows (the grouped K1 at jamba's
+    experts is among ``moe-kernels``' rows)."""
     import torch
     from repro_torch.kernels.int8_matmul import (int8_matmul,
                                                  int8_matmul_plain)
@@ -4368,20 +4523,6 @@ def check_ssm_kernels(rows) -> None:
             g = _randint(gen, -127, 128, (di,), torch.int32)
             k2_row(rows, f"{name} gated RMSNorm (s_in 1, qmax 2^11)", q, g,
                    None, mp.norm)
-    cfg = ssm_config("jamba-v0.1-52b")
-    plans = qplans.build_layer_plans(cfg)
-    e = cfg.padded_experts()
-    ids = torch.randperm(e, generator=gen, device="cuda")[:8].tolist()
-    spread = [int(i in ids) for i in range(e)]
-    for lin, k, n, lp in (("w1", cfg.d_model, cfg.moe_d_ff,
-                           plans.moe.expert.up),
-                          ("w2", cfg.moe_d_ff, cfg.d_model,
-                           plans.moe.expert.down)):
-        for pattern, counts in (("8 pairs in 8 experts", spread),
-                                ("4 tokens in the same 2 experts",
-                                 [4, 4] + [0] * (e - 2))):
-            grouped_row(gen, rows, f"jamba {lin} decode B=4 k=2 {pattern}",
-                        16, k, n, lp, counts)
 
 
 def _ssm_streams(qp, plans, cfg, prompts, backend, cache_mode):
@@ -4939,10 +5080,11 @@ def phase_cross_decode(name, model):
 
 # ------------------------------------------------- tensor parallelism ----
 
-# tp-parity: llama3-8b at full width cut to 2 layers (and qwen2-moe-a2.7b
+# tp-parity: llama3-8b at full width cut to 1 layer (and qwen2-moe-a2.7b
 # in the 2-rank world), each mode at tp = 1 in this process and sharded in
-# worlds of 2 and 4 ranks on the one card
-TP_LAYERS = 2
+# worlds of 2 and 4 ranks on the one card (1 layer holds the whole script
+# within its time; the ranks' time is mostly gloo's, a layer at a time)
+TP_LAYERS = 1
 TP_MODES = {"chunked": dict(prefill_chunk=32),
             "streaming": dict(prefill_chunk=0),
             "contiguous": dict(cache_mode="contiguous"),
@@ -5097,12 +5239,12 @@ def tp_rank_streams(cfg, prompts, max_new, geom, runs):
 
 
 def phase_tp_parity(cfg_full):
-    """llama3-8b at full width cut to 2 layers: each of ``TP_MODES`` at tp
-    = 1 on ``cuda`` here, then sharded over gloo worlds of 2 and 4 ranks
-    on the one card (and qwen2-moe-a2.7b at 2 layers in the 2-rank
-    world): every rank's streams must equal tp = 1's, with ``mode ==
-    "sharded"``, ``fold_wo`` off and the path's kernels launched.  Returns
-    the launches of the 2-rank world's rank 0 over its runs."""
+    """llama3-8b at full width cut to ``TP_LAYERS`` layers: each of
+    ``TP_MODES`` at tp = 1 on ``cuda`` here, then sharded over gloo worlds
+    of 2 and 4 ranks on the one card (and qwen2-moe-a2.7b as deep in the
+    2-rank world): every rank's streams must equal tp = 1's, with ``mode
+    == "sharded"``, ``fold_wo`` off and the path's kernels launched.
+    Returns the launches of the 2-rank world's rank 0 over its runs."""
     import dataclasses
     import gc
 
@@ -5350,8 +5492,9 @@ TRAIN_FAIL_STEP = 3
 #: checkpoint
 TRAIN_ENTRY_WORLD = 2
 #: ``train-mesh``: ``train``'s model and batches on a gloo world of 4
-#: ranks sharing the card, mesh (2, 2), ZeRO-1, 4 steps
-TRAIN_MESH_SHAPE, TRAIN_MESH_STEPS = (2, 2), 4
+#: ranks sharing the card, mesh (2, 2), ZeRO-1, 2 steps (the first
+#: before any update, the second after one)
+TRAIN_MESH_SHAPE, TRAIN_MESH_STEPS = (2, 2), 2
 TRAIN_MESH_TIMEOUT_S = 600
 
 
@@ -6322,6 +6465,8 @@ def main(argv=None) -> int:
     if "k3-decode" in phases:
         wcfg = window_config()
         check_k3_decode(cfg, wcfg, plans, qplans.build_layer_plans(wcfg))
+    if "k1-grouped" in phases:
+        check_k1_grouped()
     if "k2-norm" in phases:
         check_k2_norm(cfg, ecfg, window_config())
     if "k7-softmax" in phases:

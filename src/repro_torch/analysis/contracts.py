@@ -214,21 +214,29 @@ def msr4_report(m: int, n: int, k: int, group: int, n_out: int,
 
 
 @functools.lru_cache(maxsize=1024)
-def grouped_report(e: int, r: int, n: int, k: int) -> LaunchReport:
+def grouped_report(e: int, r: int, n: int, k: int, sms: int, x_align: int,
+                   w_align: int) -> LaunchReport:
     """K1's grouped instantiation (``int8_matmul_grouped``): ``e``
-    experts of ``r`` rows against (k, n) weights each."""
+    experts of ``r`` rows against (k, n) weights each; ``x_align`` /
+    ``w_align``: the operands' addresses mod 16.  Refused where the live
+    list of ``e`` experts does not fit a block's shared memory."""
     from repro_torch.kernels import int8_matmul as K1
     op = "int8_matmul_grouped"
     if e < 1 or r < 1 or n < 1:
         return _report(op, [], route="none")
     if k < 1:
         return _report(op, [f"{op}: empty contraction (K == 0)"])
-    p = K1.grouped_plan(e, r, n)
+    p = K1.grouped_plan(e, r, n, k, sms, x_align, w_align)
+    if p.smem > K1.MSR4_MAX_SMEM:
+        return _report(op, [f"{op}: {e} experts' live list does not fit "
+                            f"the shared memory ({p.smem} > "
+                            f"{K1.MSR4_MAX_SMEM} B)"])
     return _report(op, [], plan=p, grid=p.grid,
-                   blocks=dict(bm=p.bm, bn=K1.GROUPED_BN),
-                   threads=K1.GROUPED_THREADS, route=f"mma{p.bm}",
-                   args=(("rows", (e,)),),
-                   kernel=("int8_matmul_grouped", p.bm))
+                   blocks=dict(bm=p.rt, bn=K1.GROUPED_BN,
+                               bk=K1.GROUPED_KS),
+                   smem_bytes=p.smem, threads=p.threads, cluster=p.cluster,
+                   route=p.route, args=(("rows", (e,)),),
+                   kernel=("int8_matmul_grouped", p.rt))
 
 
 # ------------------------------------------------ norms and softmax ----
@@ -451,11 +459,12 @@ def _check_int8_matmul_msr4(m, n, k, group, n_out, sms=SMS):
 
 
 def _check_int8_matmul_grouped(e, r, n, k, out_bits=8, has_bias=False,
-                               per_channel=False):
+                               per_channel=False, sms=SMS, x_addr=0,
+                               w_addr=0):
     """Port only: the reference runs its expert products outside any
     kernel (``models/intlayers.py::int_expert_linear``), so it has no
     contract to mirror."""
-    return grouped_report(e, r, n, k)
+    return grouped_report(e, r, n, k, sms, _al(x_addr), _al(w_addr))
 
 
 def _check_int_layernorm(rows, d, aligned=True, subtract_mean=False,

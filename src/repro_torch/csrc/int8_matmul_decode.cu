@@ -91,12 +91,12 @@
 #include "int_cluster.cuh"
 #include "int_common.cuh"
 #include "int_mma.cuh"
+#include "int8_ring.cuh"
 #include "int_attrs.cuh"
 
 namespace r8 {
 namespace dec {
 
-constexpr int TR = 128;                    // weight tile rows a stage
 constexpr int XROWS = 16;                  // rows of an x box (M <= 16)
 constexpr int XBOX = XROWS * 128;          // one x box: 16 rows x 128 K
 
@@ -122,83 +122,6 @@ struct Args {
   Requant rq;
   int out_is_int8, M, N, K, k_per_split, use_tma, vec_x, vec_w;
 };
-
-__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(unsigned bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// wait for the phase of `bar` with this parity; a wait past ~10 s (2^34
-// cycles) is a fault, and traps rather than hanging the card
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  long long t0 = -1;
-  for (;;) {
-    unsigned done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    const long long now = clock64();
-    if (t0 < 0)
-      t0 = now;
-    else if (now - t0 > (1ll << 34))
-      __trap();
-  }
-}
-
-// one 2-D TMA box into this block's shared memory, completing on `bar`
-__device__ __forceinline__ void tma_load_2d(unsigned dst,
-                                            const CUtensorMap* map, int c0,
-                                            int c1, unsigned bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
-// byte offset of (row, col) in a weight tile of BN-byte rows, as the TMA
-// swizzle lays it out (128B for BN = 128, 64B for BN = 64)
-template <int BN>
-__device__ __forceinline__ int wswz(int row, int col) {
-  if (BN == 128)
-    return row * 128 + ((((col >> 4) ^ row) & 7) << 4) + (col & 15);
-  return row * 64 + ((((col >> 4) ^ (row >> 1)) & 3) << 4) + (col & 15);
-}
-
-// byte offset of (row m, K byte col) in an x box (128-byte rows, 128B)
-__device__ __forceinline__ int xswz(int m, int col) {
-  return m * 128 + ((((col >> 4) ^ m) & 7) << 4) + (col & 15);
-}
-
-// bytes p[0..3] as a little-endian word, zero from byte `lim` on
-__device__ __forceinline__ unsigned load4(const int8_t* __restrict__ p,
-                                          int lim, bool vec) {
-  if (lim <= 0) return 0u;
-  if (vec && lim >= 4) return *reinterpret_cast<const unsigned*>(p);
-  unsigned v = 0u;
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    if (j < lim) v |= (unsigned)(uint8_t)p[j] << (8 * j);
-  return v;
-}
 
 // the copy route: stage i's weight tile and x boxes by the producer warp,
 // the same bytes in the same swizzled layout as the TMA would write
@@ -538,28 +461,60 @@ EncodeTiled encode_tiled() {
 }  // namespace dec
 }  // namespace r8
 
+namespace {
+
+// an int8 tensor map of `rank` dimensions (dims innermost first, each
+// outer stride the product of the inner dims) with boxes of `box` bytes and
+// the 64- or 128-byte swizzle, into the 128 bytes at `out`; returns
+// cuTensorMapEncodeTiled's CUresult (-1: no entry point)
+int tensor_map(void* out, const void* base, int rank,
+               const unsigned long long* dims, const unsigned* box,
+               int swizzle) {
+  const r8::dec::EncodeTiled fn = r8::dec::encode_tiled();
+  if (fn == nullptr) return -1;
+  CUtensorMap map;
+  cuuint64_t d[3], strides[2];
+  cuuint32_t b[3];
+  const cuuint32_t elem[3] = {1, 1, 1};
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    b[i] = box[i];
+    if (i > 0) strides[i - 1] = (i == 1 ? 1ull : strides[i - 2]) * dims[i - 1];
+  }
+  const CUresult r = fn(
+      &map, CU_TENSOR_MAP_DATA_TYPE_UINT8, rank, const_cast<void*>(base), d,
+      strides, b, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r == CUDA_SUCCESS) std::memcpy(out, &map, sizeof map);
+  return (int)r;
+}
+
+}  // namespace
+
 // a 2-D int8 tensor map (inner x outer bytes, row stride inner) with boxes
 // of box_inner x box_outer bytes and the 64- or 128-byte swizzle, into the
-// 128 bytes at `out`; returns the driver's CUresult (-1: no entry point)
+// 128 bytes at `out`; returns cuTensorMapEncodeTiled's CUresult (-1: no
+// entry point)
 extern "C" int r8_tensor_map_2d(void* out, const void* base,
                                 unsigned long long inner,
                                 unsigned long long outer,
                                 unsigned box_inner, unsigned box_outer,
                                 int swizzle) {
-  const r8::dec::EncodeTiled fn = r8::dec::encode_tiled();
-  if (fn == nullptr) return -1;
-  CUtensorMap map;
-  const cuuint64_t dims[2] = {inner, outer};
-  const cuuint64_t strides[1] = {inner};
-  const cuuint32_t box[2] = {box_inner, box_outer};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(
-      &map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r == CUDA_SUCCESS) std::memcpy(out, &map, sizeof map);
-  return (int)r;
+  const unsigned long long dims[2] = {inner, outer};
+  const unsigned box[2] = {box_inner, box_outer};
+  return tensor_map(out, base, 2, dims, box, swizzle);
+}
+
+// the same over three dimensions (d0 innermost: a (d2, d1, d0) int8 array,
+// e.g. the experts' (E, K, N) weights), boxes of b0 x b1 x 1
+extern "C" int r8_tensor_map_3d(void* out, const void* base,
+                                unsigned long long d0, unsigned long long d1,
+                                unsigned long long d2, unsigned b0,
+                                unsigned b1, int swizzle) {
+  const unsigned long long dims[3] = {d0, d1, d2};
+  const unsigned box[3] = {b0, b1, 1u};
+  return tensor_map(out, base, 3, dims, box, swizzle);
 }
 
 // bn 128 or 64, cluster 1..8 (grid z), packed: w is (K / 2, N) nibble

@@ -1,7 +1,8 @@
 // Thread block cluster pieces shared by the kernels that split work across
 // the blocks of a cluster and reduce through distributed shared memory:
-// K1's decode tile (int8_matmul_decode.cu: split K) and K3
-// (int_decode_attention.cu: split keys).
+// K1's decode tile (int8_matmul_decode.cu: split K), K1's grouped
+// instantiation (int8_matmul_grouped.cu: split K, one barrier an item)
+// and K3 (int_decode_attention.cu: split keys).
 //
 // A block may touch another block's shared memory only once every block
 // of the cluster has started (cluster_arrive at the top of the kernel,
@@ -34,6 +35,12 @@ __device__ __forceinline__ void cluster_sync() {
 // needs no other block (the first remote access waits)
 __device__ __forceinline__ void cluster_arrive() {
   asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+// the arrive half with release semantics: this thread's earlier stores,
+// remote ones included, are visible to every block after its wait
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void cluster_wait() {

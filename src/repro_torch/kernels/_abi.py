@@ -119,7 +119,8 @@ class GroupedArgs(ctypes.Structure):
     _fields_ = ([(n, _P) for n in ("x", "w", "rows", "bias", "bvec", "out")]
                 + [("rq", Requant)]
                 + [(n, _I) for n in ("out_is_int8", "E", "R", "N", "K",
-                                     "vec_x", "vec_w")])
+                                     "cluster", "use_tma", "vec_x",
+                                     "vec_w")])
 
 
 #: the kernel files' attribute entries (``r8_attrs_<name>``,
@@ -139,7 +140,7 @@ def declare(lib: ctypes.CDLL) -> None:
         _I, _I, _P, _P, _I, _I, _I, _P]
     lib.r8_int8_matmul.restype = _I
     lib.r8_int8_matmul_grouped.argtypes = [ctypes.POINTER(GroupedArgs),
-                                           _I, _P]
+                                           _P, _P, _I, _I, _I, _P]
     lib.r8_int8_matmul_grouped.restype = _I
     lib.r8_int8_matmul_decode.argtypes = [ctypes.POINTER(DecodeArgs), _P,
                                           _P, _I, _I, _I, _P]
@@ -148,6 +149,10 @@ def declare(lib: ctypes.CDLL) -> None:
                                      ctypes.c_ulonglong, ctypes.c_uint,
                                      ctypes.c_uint, _I]
     lib.r8_tensor_map_2d.restype = _I
+    lib.r8_tensor_map_3d.argtypes = [_P, _P, ctypes.c_ulonglong,
+                                     ctypes.c_ulonglong, ctypes.c_ulonglong,
+                                     ctypes.c_uint, ctypes.c_uint, _I]
+    lib.r8_tensor_map_3d.restype = _I
     lib.r8_int8_matmul_msr4.argtypes = [ctypes.POINTER(Msr4Args), _I, _I,
                                         _I, _P]
     lib.r8_int8_matmul_msr4.restype = _I

@@ -43,8 +43,8 @@ from repro_torch.ops.spec import PER_TENSOR, RequantSpec
 #: csrc/int8_matmul_decode.cu (M <= SMALL_M_MAX, :func:`decode_plan`)
 TILES = {1: (64, 128, 64), 2: (128, 128, 64)}
 SMALL_M_MAX = 16
-#: threads a CTA of the tensor-core tiles (csrc/int8_mma_tile.cuh's
-#: ``THREADS``, also the grouped instantiation's) and of the decode tile
+#: threads a CTA of the tensor-core tiles (csrc/int8_matmul.cu's
+#: ``THREADS``) and of the decode tile
 #: (four consumer warps and a producer warp)
 MMA_THREADS = 256
 DECODE_THREADS = 160
@@ -163,6 +163,13 @@ def decode_plan(m: int, n: int, k: int, sms: int, packed: bool = False,
                       decode_smem(bn, packed))
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(dev) -> int:
+    """The SMs of device ``dev`` (a tensor's), cached per device: every
+    launch asks, and reading the properties costs the host microseconds."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 @functools.lru_cache(maxsize=4096)
 def _decode_shape(n: int, k: int, sms: int, packed: bool):
     """(BN, cluster, K a rank) of :func:`decode_plan`, cached: a decode
@@ -197,26 +204,29 @@ def launch_plan(m: int, n: int, k: int, sms: int, packed: bool = False,
     return LaunchPlan(tile, (gx, gy, splits), k_per, 16, 8, "mma", bn)
 
 
-#: tensor maps by (address, inner, outer, box inner, box outer, swizzle),
-#: at most TMAP_CACHE of them: a decode step encodes none twice
+#: tensor maps by (address, dims, box, swizzle), at most TMAP_CACHE of
+#: them: a decode step encodes none twice
 TMAP_CACHE = 4096
 _TMAPS: dict = {}
 
 
-def _tensor_map(lib, t, inner: int, outer: int, box_inner: int,
-                box_outer: int, swizzle: int):
-    """The 128-byte TMA descriptor of ``t`` as a 2-D (outer, inner) int8
-    array, from the cache or encoded (``cuTensorMapEncodeTiled``)."""
-    key = (t.data_ptr(), inner, outer, box_inner, box_outer, swizzle)
+def _tensor_map(lib, t, dims: tuple, box: tuple, swizzle: int):
+    """The 128-byte TMA descriptor of ``t`` as a 2-D or 3-D int8 array of
+    ``dims`` (innermost first) in boxes of ``box`` (the inner two; 1 along
+    a third), from the cache or encoded (``cuTensorMapEncodeTiled``)."""
+    key = (t.data_ptr(), dims, box, swizzle)
     buf = _TMAPS.get(key)
     if buf is None:
         buf = ctypes.create_string_buffer(128)
-        rc = lib.r8_tensor_map_2d(buf, t.data_ptr(), inner, outer,
-                                  box_inner, box_outer, swizzle)
+        if len(dims) == 2:
+            rc = lib.r8_tensor_map_2d(buf, t.data_ptr(), *dims, *box,
+                                      swizzle)
+        else:
+            rc = lib.r8_tensor_map_3d(buf, t.data_ptr(), *dims, *box,
+                                      swizzle)
         if rc:
             raise RuntimeError(f"cuTensorMapEncodeTiled failed ({rc}) for "
-                               f"{outer} x {inner} bytes, box {box_outer} x "
-                               f"{box_inner}")
+                               f"dims {dims}, box {box}")
         if len(_TMAPS) >= TMAP_CACHE:
             _TMAPS.pop(next(iter(_TMAPS)))
         _TMAPS[key] = buf
@@ -258,7 +268,7 @@ def _launch(what, x8, w, spec, bias32, b_vec, packed: bool):
     out = torch.empty((m, n), dtype=dt, device=x8.device)
     if m == 0 or n == 0:
         return out
-    sms = torch.cuda.get_device_properties(x8.device).multi_processor_count
+    sms = sm_count(x8.device)
     plan = require_launch(matmul_report(m, n, k, packed, sms,
                                         x8.data_ptr() % 16,
                                         w.data_ptr() % 16)).plan
@@ -304,9 +314,9 @@ def _decode_launch(what, lib, plan, x8, w, bias32, bvec, rq, out, dt,
     n = w.shape[1]
     wmap = xmap = None
     if plan.route == "tma":
-        wmap = _tensor_map(lib, w, n, w.shape[0], plan.bn, DECODE_ROWS,
+        wmap = _tensor_map(lib, w, (n, w.shape[0]), (plan.bn, DECODE_ROWS),
                            plan.bn)
-        xmap = _tensor_map(lib, x8, k, m, 128, DECODE_BM, 128)
+        xmap = _tensor_map(lib, x8, (k, m), (128, DECODE_BM), 128)
     args = _abi.DecodeArgs(
         x8.data_ptr(), w.data_ptr(), _abi.ptr(bias32), _abi.ptr(bvec),
         out.data_ptr(), rq, int(dt == torch.int8), m, n, k,
@@ -506,7 +516,7 @@ def msr4_correct(acc, x8, qw, spec):
         raise ValueError(f"msr4_correct: acc {tuple(acc.shape)}, x "
                          f"{tuple(x8.shape)} vs a 2-D msr4 weight of k="
                          f"{getattr(meta, 'k', None)}, n={n}")
-    sms = torch.cuda.get_device_properties(x8.device).multi_processor_count
+    sms = sm_count(x8.device)
     plan = require_launch(msr4_report(m, n, k, meta.group, meta.n_outliers,
                                       sms)).plan
     if RECORDERS:
@@ -603,37 +613,123 @@ def int8_matmul_packed(x8, qw, spec):
 
 # -------------------------------------------------- grouped (experts) --
 
-#: the grouped instantiation's row tiles (R <= 16: decode) and columns a
-#: block; experts a call of its plain version
-GROUPED_BM = (16, 64)
+#: the grouped instantiation (csrc/int8_matmul_grouped.cu): columns an
+#: item; K rows a ring stage and the ring's stages; rows of the decode
+#: path (R <= 16, K split across a cluster) and its cluster sizes; the row
+#: tiles of R > 16 (six consumer warps, 1, 2 or 4 m16 tiles a warp);
+#: experts a call of the plain version
 GROUPED_BN = 128
-GROUPED_THREADS = MMA_THREADS
+GROUPED_KS = 128
+GROUPED_STAGES = 5
+GROUPED_DECODE_R = 16
+GROUPED_CLUSTERS = (1, 2)
+GROUPED_ROW_TILES = (48, 96, 192)
 GROUPED_PLAIN_SLICE = 16
+#: the decode path's exchange buffers (two of 8 lane pairs x 8 rows x 8
+#: int4)
+GROUPED_XCHG = 2 * 8 * 8 * 8 * 16
 
 
 class GroupedPlan(NamedTuple):
-    """One launch of K1's grouped instantiation: the row tile ``bm`` and
-    the CUDA grid ``(N tiles, row tiles, experts)``, from the shape alone
-    (never from ``rows``: a block reads its expert's count on the card
-    and returns before any weight load where its row tile is empty)."""
-    bm: int
+    """One launch of K1's grouped instantiation, from the shape alone
+    (never from ``rows``: each block reads the counts on the card, finds
+    the live items and strides over them): the route (``"tma"``, or
+    ``"copy"`` where a tensor map cannot describe an operand), the row
+    tile ``rt`` (16: decode, else a :data:`GROUPED_ROW_TILES`), the
+    cluster, the grid ``(blocks, 1, 1)``, the threads and the dynamic
+    shared memory of a block."""
+    route: str
+    rt: int
+    cluster: int
     grid: tuple
+    threads: int
+    smem: int
 
 
-def grouped_plan(e: int, r: int, n: int) -> GroupedPlan:
+def grouped_row_tile(r: int) -> int:
+    """Rows a chunk: 16 for r <= 16, else the smallest row tile that holds
+    r rows (192 beyond: longer R loops over chunks)."""
+    if r <= GROUPED_DECODE_R:
+        return GROUPED_DECODE_R
+    return next((t for t in GROUPED_ROW_TILES if t >= r),
+                GROUPED_ROW_TILES[-1])
+
+
+def grouped_threads(rt: int) -> int:
+    """Consumer warps (1 or 3 along M x 2 along N) and the producer."""
+    return 32 * (2 * (1 if rt == GROUPED_DECODE_R else 3) + 1)
+
+
+def grouped_smem(rt: int, e: int) -> int:
+    """Dynamic shared memory: the ring (a 128 x 128 weight tile and an rt x
+    128 x box a stage), decode's exchange buffers, each consumer warp's 64
+    epilogue columns of bias and multipliers (512 bytes), two ints an
+    expert (its count and the live list), plus 1 KB to align the ring."""
+    ring = GROUPED_STAGES * (GROUPED_KS * GROUPED_BN + rt * 128)
+    consumers = grouped_threads(rt) // 32 - 1
+    return (1024 + ring + (GROUPED_XCHG if rt == GROUPED_DECODE_R else 0)
+            + 512 * consumers + 8 * e)
+
+
+def _split_ok(c: int, stages: int) -> bool:
+    """c ranks may split ``stages`` ring stages: two a rank on average,
+    none left empty."""
+    return 2 * c <= stages and (c - 1) * -(-stages // c) < stages
+
+
+def grouped_plan(e: int, r: int, n: int, k: int, sms: int,
+                 x_addr: int = 0, w_addr: int = 0) -> GroupedPlan:
     """The grouped launch of ``e`` experts of ``r`` rows each against (K,
-    ``n``) weights: 16-row tiles for r <= 16, else 64."""
-    bm = GROUPED_BM[0] if r <= GROUPED_BM[0] else GROUPED_BM[1]
-    return GroupedPlan(bm, (-(-n // GROUPED_BN), -(-r // bm), e))
+    ``n``) weights on a card of ``sms`` SMs.
+
+    The work is (live expert, 128-column tile) items, which the kernel
+    finds on the card; the grid is one wave of blocks (one an SM), no
+    more than the items there would be if every expert got rows.  R <= 16: clusters of C ranks, the largest of
+    :data:`GROUPED_CLUSTERS` that could split K (:func:`_split_ok`); the
+    card's own choice of the split (:func:`grouped_split`) spreads the
+    live items over no more than the grid's blocks.  Every qwen2-moe,
+    qwen3-moe and jamba expert product takes C 2 on 66 clusters (clusters
+    of 4 leave SMs idle: the card cannot place 33 of them one block an
+    SM).  R > 16:
+    no cluster, the row tile of :func:`grouped_row_tile`.  The route is
+    ``"tma"`` where N and K are multiples of 16 and x and w 16-byte
+    aligned, else ``"copy"``."""
+    rt = grouped_row_tile(r)
+    stages = -(-k // GROUPED_KS)
+    c = 1
+    if rt == GROUPED_DECODE_R:
+        c = max(cl for cl in GROUPED_CLUSTERS
+                if cl == 1 or _split_ok(cl, stages))
+    clusters = max(1, min(sms // c, e * -(-n // GROUPED_BN)))
+    tma = (n % 16 == 0 and k % 16 == 0 and x_addr % 16 == 0
+           and w_addr % 16 == 0)
+    return GroupedPlan("tma" if tma else "copy", rt, c,
+                       (clusters * c, 1, 1), grouped_threads(rt),
+                       grouped_smem(rt, e))
 
 
-def grouped_live_blocks(plan: GroupedPlan, rows) -> int:
-    """The blocks of ``plan`` that pass the early exit for expert counts
-    ``rows`` (host ints): ceil(rows[e] / bm) row tiles an expert, each
-    across the N tiles."""
-    gx, gy, _ = plan.grid
-    return gx * sum(min(gy, -(-min(int(r), gy * plan.bm) // plan.bm))
-                    for r in rows)
+def grouped_items(n: int, rows) -> int:
+    """The (live expert, N tile) items for expert counts ``rows`` (host
+    ints): the work the launch's blocks stride over."""
+    return -(-n // GROUPED_BN) * sum(int(c) > 0 for c in rows)
+
+
+def grouped_split(plan: GroupedPlan, k: int, items: int) -> tuple:
+    """What each block of ``plan``'s launch chooses on the card for
+    ``items`` live items (the kernel's own rule, for the tests and the
+    chip's rows): the ranks S that split an item's K, the largest power of
+    two up to the cluster with items x S no more than the grid's blocks
+    that :func:`_split_ok` allows (1 on the row tiles); each rank's K range;
+    and the rounds of items a cluster takes.  Returns (S, K a rank,
+    rounds)."""
+    stages = -(-k // GROUPED_KS)
+    split, c2 = 1, 2
+    while plan.rt == GROUPED_DECODE_R and c2 <= plan.cluster:
+        if items * c2 <= plan.grid[0] and _split_ok(c2, stages):
+            split = c2
+        c2 *= 2
+    workers = plan.grid[0] // split
+    return split, -(-stages // split) * GROUPED_KS, -(-items // workers)
 
 
 def int8_matmul_grouped_plain(x8, w8, rows, spec, bias32=None, b_vec=None):
@@ -672,10 +768,17 @@ def int8_matmul_grouped(x8, w8, rows, spec, bias32=None, b_vec=None):
     on the card, never on the host.
 
     CPU tensors take :func:`int8_matmul_grouped_plain`; CUDA tensors
-    launch ``csrc/int8_matmul_grouped.cu`` (:func:`grouped_plan`, through
-    the contract ``analysis.contracts.grouped_report``) or raise."""
+    launch ``csrc/int8_matmul_grouped.cu`` once, with no workspace
+    (:func:`grouped_plan`, through the contract
+    ``analysis.contracts.grouped_report``; the TMA route passes the cached
+    3-D tensor maps of w and x) or raise."""
     if not x8.is_cuda:
         return int8_matmul_grouped_plain(x8, w8, rows, spec, bias32, b_vec)
+    return _grouped_launch(x8, w8, rows, spec, bias32, b_vec)
+
+
+def _grouped_launch(x8, w8, rows, spec, bias32, b_vec):
+    """The checks and the one launch of :func:`int8_matmul_grouped`."""
     from repro_torch.kernels import _abi
     from repro_torch.kernels._build import library
     what = "int8_matmul_grouped"
@@ -696,19 +799,29 @@ def int8_matmul_grouped(x8, w8, rows, spec, bias32=None, b_vec=None):
     out = torch.empty((e, r, n), dtype=dt, device=x8.device)
     if e == 0 or r == 0 or n == 0:
         return out
-    plan = require_launch(grouped_report(e, r, n, k)).plan
+    sms = sm_count(x8.device)
+    plan = require_launch(grouped_report(e, r, n, k, sms,
+                                         x8.data_ptr() % 16,
+                                         w8.data_ptr() % 16)).plan
     if RECORDERS:
-        note_launch(what, dict(e=e, r=r, n=n, k=k), f"mma{plan.bm}",
-                    plan.grid, 1, 0)
+        note_launch(what, dict(e=e, r=r, n=n, k=k, sms=sms,
+                               x_addr=x8.data_ptr(), w_addr=w8.data_ptr()),
+                    plan.route, plan.grid, plan.cluster, plan.smem)
+    lib = library()
+    wmap = xmap = None
+    if plan.route == "tma":
+        wmap = _tensor_map(lib, w8, (n, k, e), (GROUPED_BN, GROUPED_KS), 128)
+        xmap = _tensor_map(lib, x8, (k, r, e), (128, plan.rt), 128)
     bvec = b_vec if spec.kind != PER_TENSOR else None
     args = _abi.GroupedArgs(
         x8.data_ptr(), w8.data_ptr(), rows.data_ptr(), _abi.ptr(bias32),
         _abi.ptr(bvec), out.data_ptr(), _abi.requant_struct(spec),
-        int(dt == torch.int8), e, r, n, k,
-        int(k % 16 == 0 and x8.data_ptr() % 16 == 0),
-        int(n % 8 == 0 and w8.data_ptr() % 8 == 0))
-    lib = library()
-    rc = lib.r8_int8_matmul_grouped(ctypes.byref(args), plan.bm,
+        int(dt == torch.int8), e, r, n, k, plan.cluster,
+        int(plan.route == "tma"),
+        int(k % 4 == 0 and x8.data_ptr() % 4 == 0),
+        int(n % 4 == 0 and w8.data_ptr() % 4 == 0))
+    rc = lib.r8_int8_matmul_grouped(ctypes.byref(args), wmap, xmap, plan.rt,
+                                    plan.grid[0], plan.smem,
                                     _abi.stream_of(x8))
     LAUNCHES[what] += 1
     _abi.check(lib, rc, what)

@@ -282,10 +282,11 @@ def test_check_launch_is_the_norm_softmax_and_grouped_plans():
         _same(check_launch("int_softmax", rows=196608, L=512, valid_len=vl),
               p.route, (p.grid,), 1, 0)
     for r in (16, 160):
-        p = K1.grouped_plan(64, r, 1408)
+        p = K1.grouped_plan(64, r, 1408, 2048, 132)
         rep = check_launch("int8_matmul_grouped", e=64, r=r, n=1408, k=2048)
-        _same(rep, f"mma{p.bm}", p.grid, 1, 0)
+        _same(rep, p.route, p.grid, p.cluster, p.smem)
         assert rep.args == (("rows", (64,)),)
+        assert rep.threads == p.threads and rep.kernel[1] == p.rt
 
 
 @pytest.mark.parametrize("op, params, match", [

@@ -1750,28 +1750,40 @@ def test_long_prefill_ref_takes_the_chunked_path_on_the_card(dev):
 def _grouped_rows(case, e, r):
     """Expert row counts: 'spread' one to a few rows an expert, 'empty' an
     expert with none, 'one' every row in expert 0, 'full' every expert
-    full."""
+    full, 'zero' every expert empty, 'over' counts past R (the kernel
+    clamps them to R) beside a few of at most R."""
     if case == "one":
         return [r] + [0] * (e - 1)
     if case == "full":
         return [r] * e
+    if case == "zero":
+        return [0] * e
+    if case == "over":
+        return [r + 1 + 7 * i if i % 2 == 0 else min(r, i)
+                for i in range(e)]
     rows = [min(r, 1 + (3 * i) % (r + 1)) for i in range(e)]
     if case == "empty":
         rows[1] = 0
     return rows
 
 
-@pytest.mark.parametrize("r", [1, 16, 17, 160])
-@pytest.mark.parametrize("k,n", [(2048, 1408), (200, 1410), (301, 96)])
-@pytest.mark.parametrize("case", ["spread", "empty", "one", "full"])
+@pytest.mark.parametrize("r", [1, 16, 17, 160, 300])
+@pytest.mark.parametrize("k,n", [(2048, 1408), (512, 2048), (200, 1410),
+                                 (301, 96)])
+@pytest.mark.parametrize("case", ["spread", "empty", "one", "full", "zero",
+                                  "over"])
 def test_int8_matmul_grouped_kernel(dev, r, k, n, case):
     """K1's grouped instantiation against its plain version on every
-    packed row: R 1, 16 (the 16-row tile), 17 and 160 (64-row tiles), N
-    1408 and one not a multiple of 8 (scalar weight loads), K not a
-    multiple of 32 (and 301: scalar x loads), an empty expert and all
-    rows in one expert; raw int32, int32 at 14 bits and int8 outputs,
-    with a bias; one launch each, and the rows past ``rows[e]`` stay
-    unwritten."""
+    packed row: R 1 and 16 (the decode path in clusters of 2 at K 2048
+    and 512, split where few items are live; none at K 200 / 301), 17 and
+    160 (48- and
+    192-row tiles) and 300 (two chunks of the largest, 192); N 1408, 2048
+    and two not multiples of 16 (the copy route, 1410 with no vector
+    stores), K not a multiple of 16 (200 is; 301: the copy route with
+    byte loads of x); an empty expert, all rows in one expert, every
+    expert empty, counts past R; raw int32, int32 at 14 bits and int8
+    outputs, with a bias; one launch each, and the rows past ``rows[e]``
+    stay unwritten."""
     from repro_torch.kernels.int8_matmul import (int8_matmul_grouped,
                                                  int8_matmul_grouped_plain)
     e = 6
@@ -1794,15 +1806,19 @@ def test_int8_matmul_grouped_kernel(dev, r, k, n, case):
             assert torch.equal(got[ex, :c], want[ex, :c]), (spec, ex)
 
 
-def test_int8_matmul_grouped_skips_empty_tiles(dev):
+@pytest.mark.parametrize("r,k,counts", [
+    (160, 256, [0, 64, 65, 3]), (16, 2048, [0, 16, 5, 1]),
+    (300, 256, [193, 0, 299, 2])])
+def test_int8_matmul_grouped_skips_empty_tiles(dev, r, k, counts):
     """Rows past ``rows[e]`` (and every row of an empty expert) keep what
-    the output buffer held: a block whose row tile is empty returns
-    before it writes or reads a weight."""
+    the output buffer held, on the row tiles (one chunk and two) and on
+    the decode path split across a cluster: no item of an empty expert,
+    no store past its count."""
     from repro_torch.kernels.int8_matmul import int8_matmul_grouped
     rng = np.random.default_rng(11)
-    e, r, k, n = 4, 160, 256, 300
+    e, n = 4, 300
     x8, w8 = _i8(rng, (e, r, k), dev), _i8(rng, (e, k, n), dev)
-    rows = torch.tensor([0, 64, 65, 3], dtype=torch.int32, device=dev)
+    rows = torch.tensor(counts, dtype=torch.int32, device=dev)
     spec = RequantSpec.raw()
     orig = torch.empty
     sentinel = []
@@ -1823,6 +1839,59 @@ def test_int8_matmul_grouped_skips_empty_tiles(dev):
         assert bool((got[ex, c:] == -7).all())
         if c:
             assert not bool((got[ex, :c] == -7).all())
+
+
+@pytest.mark.parametrize("e,r,k,n", [(64, 16, 2048, 1408),
+                                     (16, 160, 1408, 4096)])
+def test_int8_matmul_grouped_more_items_than_clusters(dev, e, r, k, n):
+    """Every expert full, so the live items (704 decode items over 132
+    blocks; 512 row-tile items over 132 blocks) outnumber the
+    grid's clusters and each cluster strides over several, its ring
+    streaming from one item into the next: equal to the plain version."""
+    from repro_torch.kernels.int8_matmul import (grouped_items,
+                                                 grouped_plan,
+                                                 int8_matmul_grouped,
+                                                 int8_matmul_grouped_plain)
+    rng = np.random.default_rng(e + r)
+    x8, w8 = _i8(rng, (e, r, k), dev), _i8(rng, (e, k, n), dev)
+    rows = torch.full((e,), r, dtype=torch.int32, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = grouped_plan(e, r, n, k, sms, x8.data_ptr(), w8.data_ptr())
+    assert grouped_items(n, [r] * e) > plan.grid[0] // plan.cluster
+    bvec = _i32(rng, 256, 4096, (e, n), dev)
+    spec = RequantSpec.per_channel(24, 10, 11)
+    got = int8_matmul_grouped(x8, w8, rows, spec, b_vec=bvec)
+    assert torch.equal(got, int8_matmul_grouped_plain(x8, w8, rows, spec,
+                                                      None, bvec))
+
+
+@pytest.mark.parametrize("r", [4, 160])
+@pytest.mark.parametrize("x_off,w_off", [(1, 0), (0, 8), (4, 4)])
+def test_int8_matmul_grouped_misaligned(dev, r, x_off, w_off):
+    """x or w a few bytes off 16-byte alignment (views into a larger
+    buffer): no tensor map, the copy route (word loads where 4-byte
+    aligned, byte loads where not), equal to the plain version."""
+    from repro_torch.kernels.int8_matmul import (grouped_plan,
+                                                 int8_matmul_grouped,
+                                                 int8_matmul_grouped_plain)
+    rng = np.random.default_rng(r + x_off + w_off)
+    e, k, n = 5, 1024, 512
+    xb = _i8(rng, (e * r * k + 16,), dev)
+    wb = _i8(rng, (e * k * n + 16,), dev)
+    x8 = xb[x_off:x_off + e * r * k].view(e, r, k)
+    w8 = wb[w_off:w_off + e * k * n].view(e, k, n)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert grouped_plan(e, r, n, k, sms, x8.data_ptr(),
+                        w8.data_ptr()).route == "copy"
+    rows = torch.tensor(_grouped_rows("spread", e, r), dtype=torch.int32,
+                        device=dev)
+    bias = _i32(rng, -5000, 5000, (e, n), dev)
+    bvec = _i32(rng, 256, 4096, (e, n), dev)
+    spec = RequantSpec.per_channel(26, 10, 8)
+    got = int8_matmul_grouped(x8, w8, rows, spec, bias32=bias, b_vec=bvec)
+    want = int8_matmul_grouped_plain(x8, w8, rows, spec, bias, bvec)
+    for ex, c in enumerate(rows.tolist()):
+        assert torch.equal(got[ex, :c], want[ex, :c]), ex
 
 
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "qwen3-moe-235b-a22b"])

@@ -13,7 +13,8 @@ bias) and qwen3-moe-235b-a22b (8 experts padded to 16, top-2, GQA).
     ``jax.lax.top_k``'s), and S = 1025, which both refuse;
   * ``int8_matmul_grouped_plain`` against JAX ``int_expert_linear`` (bias,
     out_bits 11 and 14, empty experts), and the grouped kernel's launch
-    plan and a numpy emulation of its blocks (row tiles, early exits);
+    plan and a numpy emulation of its work (live items, row chunks, K
+    ranks; ``tests/test_torch_grouped_plan.py`` models its fragments);
   * ``int_prefill`` logits under ``ref`` and ``pallas_fused`` (their twins
     and ``torch_ref``), ``int_decode_step`` and ``int_verify_step``
     equal JAX's.
@@ -41,8 +42,8 @@ from repro.quant import plans as j_plans
 from repro_torch.configs import registry as t_registry
 from repro_torch.interop import from_reference, plan_from_reference
 from repro_torch.kernels.int8_matmul import (GROUPED_BN, _epilogue_plain,
-                                             grouped_live_blocks,
-                                             grouped_plan,
+                                             grouped_items, grouped_plan,
+                                             grouped_split,
                                              int8_matmul_grouped_plain)
 from repro_torch.models import intlayers as til
 from repro_torch.models import inttransformer as tit
@@ -360,54 +361,63 @@ def test_grouped_plain_matches_int_expert_linear(out_bits, with_bias):
 
 
 def _emulate_grouped(x, w, rows, spec, bias, bmul, plan):
-    """The kernel's schedule in numpy: block (nt, rt, e) returns where
-    rt * bm >= min(rows[e], R), else computes its bm x 128 tile of expert
-    e (rows below rows[e] only) with expert e's epilogue rows.  Unwritten
-    rows keep the sentinel.  Returns (out, live blocks)."""
-    e, r, _ = x.shape
+    """The kernel's work in numpy: the live experts' (expert, 128-column
+    tile) items, split across ``grouped_split``'s S ranks, worker w taking
+    items w, w + workers, ...; each rank's K range summed (mod 2^32), row
+    chunks of ``plan.rt``, rows below rows[e] only, expert e's epilogue
+    rows.  Unwritten rows keep the sentinel.  Returns (out, items done)."""
+    e, r, k = x.shape
     n = w.shape[2]
     out = np.full((e, r, n), -99999, np.int64)
-    live = 0
-    gx, gy, gz = plan.grid
-    for ex in range(gz):
-        m = min(int(rows[ex]), r)
-        for rt in range(gy):
-            m0 = rt * plan.bm
-            if m0 >= m:
-                continue
-            for nt in range(gx):
-                live += 1
-                n0, n1 = nt * GROUPED_BN, min(n, (nt + 1) * GROUPED_BN)
-                m1 = min(m, m0 + plan.bm)
-                acc = torch.as_tensor(
-                    x[ex, m0:m1].astype(np.int64)
-                    @ w[ex, :, n0:n1].astype(np.int64)).to(torch.int32)
+    live = [i for i in range(e) if min(int(rows[i]), r) > 0]
+    ntiles = -(-n // GROUPED_BN)
+    split, kper, _ = grouped_split(plan, k, len(live) * ntiles)
+    workers = plan.grid[0] // split
+    done = 0
+    for worker in range(workers):
+        for item in range(worker, len(live) * ntiles, workers):
+            ex, nt = live[item // ntiles], item % ntiles
+            m = min(int(rows[ex]), r)
+            n0, n1 = nt * GROUPED_BN, min(n, (nt + 1) * GROUPED_BN)
+            done += 1
+            for m0 in range(0, m, plan.rt):
+                m1 = min(m, m0 + plan.rt)
+                acc = np.zeros((m1 - m0, n1 - n0), np.int64)
+                for rank in range(split):
+                    k0, k1 = rank * kper, min(k, (rank + 1) * kper)
+                    acc += (x[ex, m0:m1, k0:k1].astype(np.int64)
+                            @ w[ex, k0:k1, n0:n1].astype(np.int64))
+                acc = T(acc).to(torch.int32)
                 if bias is not None:
                     acc = acc + T(bias[ex, n0:n1])
                 out[ex, m0:m1, n0:n1] = _epilogue_plain(
                     acc, spec, T(bmul[ex, n0:n1])).numpy()
-    return out, live
+    return out, done
 
 
 @pytest.mark.parametrize("e,r,k,n,rows", [
-    (4, 16, 64, 300, [16, 0, 3, 1]),          # decode: the 16-row tile
-    (3, 17, 40, 128, [17, 16, 0]),            # one row past it: 64 rows
-    (2, 160, 96, 136, [160, 65]),             # prefill: three row tiles
+    (4, 16, 1024, 300, [16, 0, 3, 1]),        # decode: 9 items split 2 ways
+    (3, 17, 40, 128, [17, 16, 0]),            # one row past it: 48 rows
+    (2, 160, 96, 136, [160, 65]),             # prefill: a 192-row tile
     (3, 64, 32, 20, [0, 0, 0]),               # every expert empty
+    (2, 300, 64, 40, [300, 193]),             # two row chunks of 192
 ])
 def test_grouped_launch_plan_and_schedule(e, r, k, n, rows):
-    """The plan from the shape alone (16-row tiles for R <= 16, else 64;
-    grid (N tiles, row tiles, experts)); the emulated blocks give the
-    plain version's integers on every packed row, write no other row, and
-    the blocks that pass the early exit are ``grouped_live_blocks``."""
-    plan = grouped_plan(e, r, n)
-    assert plan.bm == (16 if r <= 16 else 64)
-    assert plan.grid == (-(-n // 128), -(-r // plan.bm), e)
+    """The plan from the shape alone (16-row decode tiles in clusters that
+    may split K for R <= 16, else the smallest row tile that holds R, up to
+    192; one wave of blocks, no more than the items of every expert); the
+    emulated work gives the plain version's integers on every packed row,
+    writes no other row, and does ``grouped_items`` items."""
+    plan = grouped_plan(e, r, n, k, 132)
+    assert plan.rt == (16 if r <= 16 else
+                       next(t for t in (48, 96, 192) if t >= min(r, 192)))
+    assert plan.cluster == (2 if r <= 16 and k >= 512 else 1)
+    assert plan.grid[0] % plan.cluster == 0
+    assert plan.grid[0] // plan.cluster <= e * -(-n // 128)
     x, w, bias, bmul, rows = _grouped_operands(e + r, e, r, k, n, rows)
     spec = RequantSpec.per_channel(20, 6, 14)
-    out, live = _emulate_grouped(x, w, rows, spec, bias, bmul, plan)
-    assert live == grouped_live_blocks(plan, rows)
-    assert live == plan.grid[0] * sum(-(-int(c) // plan.bm) for c in rows)
+    out, done = _emulate_grouped(x, w, rows, spec, bias, bmul, plan)
+    assert done == grouped_items(n, rows)
     want = int8_matmul_grouped_plain(T(x), T(w), T(rows), spec, T(bias),
                                      T(bmul)).numpy()
     for ex, c in enumerate(rows):
